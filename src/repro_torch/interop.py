@@ -1,0 +1,73 @@
+"""Carry weights and caches from the JAX reference into the port.
+
+The JAX package keeps params as nested dicts of arrays.  Given that tree as
+numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``),
+``params_from_jax`` returns a flat state dict whose keys are the tree paths
+joined by ``.`` (``layers.attn.wq.w``, ``embed.table``): exactly the keys of
+``models.common.ParamTree.state_dict()``.  Layouts cross unchanged: linear
+weights stay ``(in, out)`` and stacked layers keep their leading ``L`` dim.
+
+``torch.from_numpy`` rejects ``ml_dtypes.bfloat16``, so bf16 crosses as
+float32 (exact) and is cast on the torch side.  A 0-d integer array (a
+cache's ``index``) becomes a Python int, as the port keeps it on the host.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Union
+
+import numpy as np
+import torch
+
+# names of the jnp dtypes used in ModelConfig / the param trees
+_DTYPES = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+    "float64": torch.float64,
+    "int32": torch.int32,
+    "int64": torch.int64,
+    "bool": torch.bool,
+}
+
+
+def torch_dtype(dtype: Any) -> torch.dtype:
+    """Map a jnp/numpy dtype, or its name, to the torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    if name not in _DTYPES:
+        raise KeyError(f"no torch counterpart for dtype {name!r}")
+    return _DTYPES[name]
+
+
+def _to_tensor(arr: Any, dtype: torch.dtype, device: Union[str, torch.device]):
+    a = np.asarray(arr)
+    if a.ndim == 0 and np.issubdtype(a.dtype, np.integer):
+        return int(a)
+    if a.dtype.name == "bfloat16":
+        a = a.astype(np.float32)
+    # np.asarray of a jax.Array is read-only; from_numpy needs its own buffer
+    t = torch.from_numpy(np.array(a, copy=True))
+    if t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def params_from_jax(
+    np_tree: Mapping[str, Any], *, dtype: Any, device: Union[str, torch.device]
+) -> Dict[str, Any]:
+    """Flatten a JAX param (or cache) pytree of numpy arrays into a state
+    dict on ``device``; floating leaves are cast to ``dtype``."""
+    tdtype = torch_dtype(dtype)
+    out: Dict[str, Any] = {}
+
+    def walk(prefix: str, node: Any) -> None:
+        if isinstance(node, Mapping):
+            for key, child in node.items():
+                walk(f"{prefix}{key}.", child)
+        else:
+            out[prefix[:-1]] = _to_tensor(node, tdtype, device)
+
+    walk("", np_tree)
+    return out

@@ -1,0 +1,219 @@
+"""Model building blocks (counterpart of ``repro/models/common.py``).
+
+As in the reference, every module is an ``init_*(gen, ..., device)`` that
+returns a nested dict of tensors plus an apply function over that dict.
+``ParamTree`` turns the finished tree into an ``nn.Module`` whose
+``state_dict`` keys are the reference's tree paths joined by ``.``, and
+which the apply functions index like the reference's dicts (``p["wq"]``).
+
+Conventions (unchanged from the reference):
+  * weights stored (in_dim, out_dim); y = x @ w, with ``torch.matmul``
+  * attention heads: q heads H, kv heads Hk (GQA), head_dim Dh
+  * dtype policy via ``DTypes(param, compute)``
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+
+import torch
+from torch import nn
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class DTypes:
+    param: torch.dtype = torch.float32
+    compute: torch.dtype = torch.float32
+
+    def p(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.param)
+
+    def c(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.compute)
+
+
+class ParamTree(nn.Module):
+    """A param pytree as a module: dict nodes become child modules, leaves
+    become parameters (``requires_grad=False``: the port serves; the
+    training slice turns gradients on)."""
+
+    def __init__(self, tree: Mapping[str, Any]):
+        super().__init__()
+        for key, node in tree.items():
+            if isinstance(node, Mapping):
+                self.add_module(key, ParamTree(node))
+            else:
+                self.register_parameter(key, nn.Parameter(node, requires_grad=False))
+
+    @classmethod
+    def from_state_dict(cls, state: Mapping[str, torch.Tensor]) -> "ParamTree":
+        """Rebuild the tree from flat ``a.b.c`` keys (see ``interop``)."""
+        tree: Dict[str, Any] = {}
+        for path, value in state.items():
+            node = tree
+            *parents, leaf = path.split(".")
+            for name in parents:
+                node = node.setdefault(name, {})
+            node[leaf] = value
+        return cls(tree)
+
+    def __getitem__(self, key: str):
+        if key in self._parameters:
+            return self._parameters[key]
+        return self._modules[key]
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+    def keys(self):
+        return [*self._parameters, *self._modules]
+
+
+def trunc_normal(
+    gen: torch.Generator, shape: Tuple[int, ...], scale: float,
+    dtype: torch.dtype, device: torch.device,
+) -> torch.Tensor:
+    """Normal cut at ±2 standard deviations, then scaled (as the reference)."""
+    x = torch.empty(shape, dtype=torch.float32, device=device)
+    nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (x * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Linear / norm / embedding
+# ---------------------------------------------------------------------------
+
+
+def init_linear(gen, d_in: int, d_out: int, dt: DTypes, device) -> Params:
+    scale = 1.0 / math.sqrt(d_in)
+    return {"w": trunc_normal(gen, (d_in, d_out), scale, dt.param, device)}
+
+
+def linear(p: Params, x: torch.Tensor, dt: DTypes) -> torch.Tensor:
+    return torch.matmul(x, dt.c(p["w"]))
+
+
+def init_rmsnorm(d: int, dt: DTypes, device) -> Params:
+    return {"scale": torch.ones((d,), dtype=dt.param, device=device)}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x32 = x.to(torch.float32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * p["scale"].to(torch.float32)).to(dtype)
+
+
+def init_embedding(gen, vocab: int, d: int, dt: DTypes, device) -> Params:
+    return {"table": trunc_normal(gen, (vocab, d), d ** -0.5, dt.param, device)}
+
+
+def embed(p: Params, ids: torch.Tensor, dt: DTypes) -> torch.Tensor:
+    return dt.c(p["table"])[ids]
+
+
+def unembed(p: Params, x: torch.Tensor, dt: DTypes) -> torch.Tensor:
+    return torch.matmul(x, dt.c(p["table"]).T)
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings (half-split, not interleaved; f32 angles)
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """x: (B, S, H, Dh); positions: (B, S) int."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)                     # (Dh/2,)
+    ang = positions[..., None].to(torch.float32) * freqs        # (B, S, Dh/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention config / init (the apply paths live in models/transformer.py)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    heads: int
+    kv_heads: int
+    head_dim: int
+    causal: bool = True
+    window: Optional[int] = None        # sliding-window span (local layers)
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    mrope_sections: Optional[Tuple[int, int, int]] = None
+    use_bias: bool = False
+    softmax_scale: Optional[float] = None
+
+
+def init_attention(gen, cfg: AttnConfig, dt: DTypes, device) -> Params:
+    D, H, Hk, Dh = cfg.d_model, cfg.heads, cfg.kv_heads, cfg.head_dim
+    p: Params = {
+        "wq": init_linear(gen, D, H * Dh, dt, device),
+        "wk": init_linear(gen, D, Hk * Dh, dt, device),
+        "wv": init_linear(gen, D, Hk * Dh, dt, device),
+        "wo": init_linear(gen, H * Dh, D, dt, device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = init_rmsnorm(Dh, dt, device)
+        p["k_norm"] = init_rmsnorm(Dh, dt, device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def init_swiglu(gen, d: int, d_ff: int, dt: DTypes, device) -> Params:
+    return {
+        "wi": init_linear(gen, d, d_ff, dt, device),
+        "wg": init_linear(gen, d, d_ff, dt, device),
+        "wo": init_linear(gen, d_ff, d, dt, device),
+    }
+
+
+def swiglu(p: Params, x: torch.Tensor, dt: DTypes) -> torch.Tensor:
+    h = torch.nn.functional.silu(linear(p["wg"], x, dt)) * linear(p["wi"], x, dt)
+    return linear(p["wo"], h, dt)
+
+
+# ---------------------------------------------------------------------------
+# Stacked-layer utilities (the layer loop walks the leading n dim)
+# ---------------------------------------------------------------------------
+
+
+def stack_params(gen, n: int, init_fn: Callable[[Any], Params]) -> Params:
+    """init_fn(gen) -> layer params; returns the tree with a leading n dim."""
+    layers = [init_fn(gen) for _ in range(n)]
+
+    def stack(nodes):
+        if isinstance(nodes[0], Mapping):
+            return {k: stack([nd[k] for nd in nodes]) for k in nodes[0]}
+        return torch.stack(nodes)
+
+    return stack(layers)
+
+
+def layer_slice(p: Any, i: int) -> Any:
+    """Layer ``i`` of a stacked tree (the ``lax.scan`` xs slice)."""
+    if isinstance(p, (Mapping, ParamTree)):
+        return {k: layer_slice(p[k], i) for k in p.keys()}
+    return p[i]

@@ -1,0 +1,157 @@
+"""Serving steps (counterpart of ``repro/serve/serve_step.py``).
+
+``make_serve_step`` gives the two steps of the reference:
+
+* ``decode_fn(params, cache, batch) -> (logits, cache)``: ``decode_step``
+  over S new tokens, writing the cache in place;
+* ``prefill_fn(params, batch) -> logits``: the full-context ``forward``
+  (through the flash kernel when ``attn_impl="flash"``).  As in the
+  reference it returns logits only and writes no cache.
+
+``serve_waves`` answers a ``BatchScheduler``'s requests with those two
+steps: per wave, (a) ``prefill_fn`` on the prompts gives the first new
+token, (b) ``decode_fn`` on the whole prompt fills the cache, (c) one-token
+``decode_fn`` steps give the rest.  All slots share one cache ``index``, so
+the requests of a wave must have prompts of one length.  (a) and (b) both
+produce the last prompt position's logits, through the kernel and the plain
+path; each ``Wave`` keeps both so the caller can hold them against each
+other.  Serving runs under ``torch.inference_mode()``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List
+
+import torch
+
+from .. import device as _device
+from ..models.model_zoo import ModelZoo
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeArtifacts:
+    decode_fn: Callable
+    prefill_fn: Callable
+
+
+def make_serve_step(zoo: ModelZoo, device: _device.DeviceLike = None) -> ServeArtifacts:
+    dev = _device.resolve(device)
+
+    def to_dev(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+    def decode_fn(params, cache, batch):
+        with torch.inference_mode():
+            return zoo.decode_step(params, cache, to_dev(batch))
+
+    def prefill_fn(params, batch):
+        with torch.inference_mode():
+            logits, _ = zoo.forward(params, to_dev(batch))
+        return logits
+
+    return ServeArtifacts(decode_fn, prefill_fn)
+
+
+# ---------------------------------------------------------------------------
+# Minimal batched request scheduler (continuous batching flavor)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: Any                 # token array
+    max_new: int
+    generated: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class BatchScheduler:
+    """Greedy slot-based scheduler: fixed decode batch of ``slots``; new
+    requests fill free slots; finished requests free them.  Drives the
+    decode step with a stable shape (production continuous batching
+    reduced to its schedulable core)."""
+
+    def __init__(self, slots: int, eos_id: int = 0):
+        self.slots = slots
+        self.eos_id = eos_id
+        self.active: Dict[int, Request] = {}
+        self.queue: list[Request] = []
+
+    def submit(self, req: Request) -> None:
+        self.queue.append(req)
+
+    def admit(self) -> list[Request]:
+        admitted = []
+        while self.queue and len(self.active) < self.slots:
+            req = self.queue.pop(0)
+            free = next(i for i in range(self.slots) if i not in self.active)
+            self.active[free] = req
+            admitted.append(req)
+        return admitted
+
+    def step_tokens(self, sampled: Any) -> None:
+        """sampled: (slots,) int array of new tokens for each slot."""
+        for slot, req in list(self.active.items()):
+            tok = int(sampled[slot])
+            req.generated.append(tok)
+            if tok == self.eos_id or len(req.generated) >= req.max_new:
+                req.done = True
+                del self.active[slot]
+
+    @property
+    def idle(self) -> bool:
+        return not self.active and not self.queue
+
+
+# ---------------------------------------------------------------------------
+# Wave server over the two steps
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Wave:
+    requests: List[Request]
+    prompt_len: int
+    prefill_last: torch.Tensor   # (slots, vocab) last-position logits of prefill_fn
+    fill_last: torch.Tensor      # the same from the cache-filling decode_fn
+    decode_steps: int            # one-token decode_fn calls
+
+
+def serve_waves(
+    zoo: ModelZoo, arts: ServeArtifacts, params, sched: BatchScheduler,
+    cache_len: int, *, device: _device.DeviceLike = None,
+) -> List[Wave]:
+    """Serve every queued request, one wave of up to ``sched.slots``
+    equal-length prompts at a time, with greedy (argmax) sampling."""
+    dev = _device.resolve(device)
+    waves = []
+    while not sched.idle:
+        admitted = sched.admit()
+        P = len(admitted[0].prompt)
+        if any(len(r.prompt) != P for r in admitted):
+            raise ValueError("a wave needs prompts of one length: its slots share one cache index")
+        if P + max(r.max_new for r in admitted) - 1 > cache_len:
+            raise ValueError(f"cache_len {cache_len} is too short for prompts of {P} tokens")
+        tokens = torch.zeros((sched.slots, P), dtype=torch.long)
+        for slot, req in sched.active.items():
+            tokens[slot] = torch.as_tensor(req.prompt)
+        tokens = tokens.to(dev)
+
+        # clone: a view would keep the whole (slots, P, vocab) logits alive
+        prefill_last = arts.prefill_fn(params, {"tokens": tokens})[:, -1].clone()
+        cache = zoo.init_cache(sched.slots, cache_len, device=dev)
+        fill_logits, cache = arts.decode_fn(params, cache, {"tokens": tokens})
+        fill_last = fill_logits[:, -1].clone()
+        del fill_logits
+        nxt = prefill_last.argmax(-1)
+        sched.step_tokens(nxt.tolist())
+        steps = 0
+        while sched.active:
+            logits, cache = arts.decode_fn(params, cache, {"tokens": nxt[:, None]})
+            nxt = logits[:, -1].argmax(-1)
+            sched.step_tokens(nxt.tolist())
+            steps += 1
+        waves.append(Wave(admitted, P, prefill_last, fill_last, steps))
+    return waves

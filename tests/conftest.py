@@ -13,3 +13,7 @@ try:
     import hypothesis  # noqa: F401
 except ImportError:
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "_compat"))
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "cuda: needs a CUDA card; skips without one")

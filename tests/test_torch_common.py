@@ -1,0 +1,218 @@
+"""Port building blocks (repro_torch.models.common, interop, configs, device)
+against the JAX package on the same numpy inputs, plus the rule that the
+port imports neither JAX nor the JAX package."""
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.models import common as JC  # noqa: E402
+from repro_torch import device as tdevice  # noqa: E402
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
+from repro_torch.interop import params_from_jax, torch_dtype  # noqa: E402
+from repro_torch.models import common as TC  # noqa: E402
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+# f32 on both sides; only the order of sums and the libm differ
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _np(t):
+    return t.detach().to(torch.float32).numpy()
+
+
+def _tree(rng, shapes):
+    return {k: rng.randn(*s).astype(np.float32) for k, s in shapes.items()}
+
+
+def test_rmsnorm_matches_jax():
+    rng = np.random.RandomState(0)
+    x = rng.randn(2, 5, 64).astype(np.float32) * 3
+    scale = rng.randn(64).astype(np.float32)
+    want = JC.rmsnorm({"scale": jnp.asarray(scale)}, jnp.asarray(x))
+    got = TC.rmsnorm({"scale": torch.from_numpy(scale)}, torch.from_numpy(x))
+    np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("theta", [1e4, 5e5])
+def test_apply_rope_matches_jax(theta):
+    rng = np.random.RandomState(1)
+    x = rng.randn(2, 7, 3, 16).astype(np.float32)
+    pos = rng.randint(0, 300, (2, 7)).astype(np.int32)
+    want = JC.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta)
+    got = TC.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), theta)
+    # f32 angles up to ~300 rad: one ulp of the angle is ~3e-5
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-4, rtol=1e-4)
+
+
+def test_rope_is_half_split_not_interleaved():
+    x = torch.zeros(1, 1, 1, 8)
+    x[..., 0] = 1.0  # pairs with dim 4 in the half-split form
+    out = TC.apply_rope(x, torch.tensor([[1]]), 10000.0)
+    assert out[..., 4].abs().item() > 0.5 and out[..., 1].abs().item() == 0.0
+
+
+def test_swiglu_and_linear_match_jax():
+    rng = np.random.RandomState(2)
+    p = {k: {"w": w} for k, w in _tree(rng, {"wi": (32, 48), "wg": (32, 48), "wo": (48, 32)}).items()}
+    x = rng.randn(2, 3, 32).astype(np.float32)
+    jp = jax.tree_util.tree_map(jnp.asarray, p)
+    tp = jax.tree_util.tree_map(torch.from_numpy, p)
+    dtj, dtt = JC.DTypes(), TC.DTypes()
+    np.testing.assert_allclose(
+        _np(TC.swiglu(tp, torch.from_numpy(x), dtt)), np.asarray(JC.swiglu(jp, jnp.asarray(x), dtj)), **TOL)
+    np.testing.assert_allclose(
+        _np(TC.linear(tp["wi"], torch.from_numpy(x), dtt)),
+        np.asarray(JC.linear(jp["wi"], jnp.asarray(x), dtj)), **TOL)
+
+
+def test_embed_unembed_match_jax():
+    rng = np.random.RandomState(3)
+    table = rng.randn(50, 16).astype(np.float32)
+    ids = rng.randint(0, 50, (2, 9)).astype(np.int32)
+    x = rng.randn(2, 9, 16).astype(np.float32)
+    dtj, dtt = JC.DTypes(), TC.DTypes()
+    np.testing.assert_array_equal(
+        _np(TC.embed({"table": torch.from_numpy(table)}, torch.from_numpy(ids).long(), dtt)),
+        np.asarray(JC.embed({"table": jnp.asarray(table)}, jnp.asarray(ids), dtj)))
+    np.testing.assert_allclose(
+        _np(TC.unembed({"table": torch.from_numpy(table)}, torch.from_numpy(x), dtt)),
+        np.asarray(JC.unembed({"table": jnp.asarray(table)}, jnp.asarray(x), dtj)), **TOL)
+
+
+def test_bf16_dtype_policy_matches_jax():
+    rng = np.random.RandomState(4)
+    w = rng.randn(32, 24).astype(np.float32)
+    x = rng.randn(3, 32).astype(np.float32)
+    dtj = JC.DTypes(jnp.bfloat16, jnp.bfloat16)
+    dtt = TC.DTypes(torch.bfloat16, torch.bfloat16)
+    want = JC.linear({"w": jnp.asarray(w, jnp.bfloat16)}, jnp.asarray(x, jnp.bfloat16), dtj)
+    got = TC.linear({"w": torch.from_numpy(w).bfloat16()}, torch.from_numpy(x).bfloat16(), dtt)
+    assert got.dtype == torch.bfloat16
+    # both round the f32-accumulated product once to bf16: within one bf16 ulp
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), rtol=2 ** -7, atol=1e-2)
+
+
+def test_trunc_normal_is_cut_at_two_sigma_then_scaled():
+    g = torch.Generator().manual_seed(0)
+    x = TC.trunc_normal(g, (20000,), 0.5, torch.float32, "cpu")
+    assert x.abs().max().item() <= 1.0 + 1e-6
+    # std of a unit normal cut at ±2 is 0.8796
+    assert abs(x.std().item() - 0.5 * 0.8796) < 0.01
+    assert TC.trunc_normal(g, (4,), 1.0, torch.bfloat16, "cpu").dtype == torch.bfloat16
+
+
+def test_stack_params_and_param_tree():
+    g = torch.Generator().manual_seed(0)
+    stacked = TC.stack_params(g, 3, lambda g: {"a": {"w": torch.randn(2, 4, generator=g)},
+                                               "n": torch.ones(4)})
+    assert stacked["a"]["w"].shape == (3, 2, 4) and stacked["n"].shape == (3, 4)
+    tree = TC.ParamTree(stacked)
+    assert set(tree.state_dict()) == {"a.w", "n"}
+    assert "a" in tree and "n" in tree and "b" not in tree
+    back = TC.ParamTree.from_state_dict(tree.state_dict())
+    assert torch.equal(back["a"]["w"], stacked["a"]["w"])
+    layer = TC.layer_slice(tree, 1)
+    assert torch.equal(layer["a"]["w"], stacked["a"]["w"][1])
+    assert not tree["a"]["w"].requires_grad
+
+
+def test_params_from_jax_flattens_and_crosses_bf16():
+    rng = np.random.RandomState(5)
+    jtree = {
+        "embed": {"table": jnp.asarray(rng.randn(4, 3), jnp.bfloat16)},
+        "layers": {"attn": {"wq": {"w": jnp.asarray(rng.randn(2, 3, 3), jnp.float32)}}},
+    }
+    np_tree = jax.tree_util.tree_map(np.asarray, jtree)  # read-only arrays
+    sd = params_from_jax(np_tree, dtype=jnp.bfloat16, device="cpu")
+    assert set(sd) == {"embed.table", "layers.attn.wq.w"}
+    assert sd["embed.table"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(_np(sd["embed.table"]), np.asarray(jtree["embed"]["table"], np.float32))
+    sd["layers.attn.wq.w"].add_(1)  # owns its buffer
+    cache = params_from_jax(
+        {"k": np.zeros((1, 2, 4, 1, 8), np.float32), "index": np.asarray(3, np.int32)},
+        dtype="float32", device="cpu")
+    assert cache["index"] == 3 and isinstance(cache["index"], int)
+
+
+def test_torch_dtype_map():
+    assert torch_dtype(jnp.float32) is torch.float32
+    assert torch_dtype(jnp.bfloat16) is torch.bfloat16
+    assert torch_dtype("bfloat16") is torch.bfloat16
+    assert torch_dtype(torch.float16) is torch.float16
+    with pytest.raises(KeyError):
+        torch_dtype(np.complex64)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen3-8b", "granite-20b"])
+def test_configs_match_reference(arch):
+    mine, ref = get_config(arch), jax_get_config(arch)
+    for f in dataclasses.fields(ref):
+        a, b = getattr(mine, f.name), getattr(ref, f.name)
+        if f.name in ("param_dtype", "compute_dtype"):
+            assert a is torch_dtype(b), f.name
+        else:
+            assert a == b, f.name
+    assert mine.param_count() == ref.param_count()
+
+
+def test_registry_names_later_slices():
+    assert set(ARCHS) == {"llama3.2-3b", "qwen3-8b", "granite-20b"}
+    with pytest.raises(KeyError, match="MoE slice"):
+        get_config("qwen3-moe-235b-a22b")
+    with pytest.raises(KeyError, match="unknown"):
+        get_config("nope")
+
+
+def test_device_resolve_raises_without_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tdevice.resolve(None)
+    assert tdevice.resolve("cpu") == torch.device("cpu")
+
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+bad = sorted(n for n in sys.modules
+             if n == "jax" or n.startswith("jax.") or n == "repro" or n.startswith("repro."))
+n = sum(1 for n in sys.modules if n.startswith("repro_torch"))
+print(n, bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr + out.stdout
+    assert int(out.stdout.split()[0]) >= 15  # every module was imported
+
+
+def test_chip_smoke_imports_no_jax_and_no_reference_package():
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert names, "no imports found"
+    for name in names:
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), name

@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Where the serving time goes on the card: llama3.2-3b at full width in
-bf16 (the ``chip_smoke.py`` serve phase), one wave of 4 x 1024-token
-prompts, profiled phase by phase with ``torch.profiler``.
+"""Where the time goes on the card, for llama3.2-3b at full width in bf16,
+profiled phase by phase with ``torch.profiler``:
 
-    python3 chip_profile.py
+* serve (the ``chip_smoke.py`` serve phase): one wave of 4 x 1024-token
+  prompts: prefill through the flash kernel, cache fill, one-token decode
+  steps;
+* train (the ``chip_smoke.py`` train phase): one AdamW step of 4 x 1024
+  tokens with remat and the flash kernels, after one warm-up step, split
+  into forward + backward and the optimizer.
 
-For each phase (prefill through the flash kernel, cache fill, one-token
-decode steps) it prints the host time, the device time summed over kernels,
-the device busy share, and the kernels that take most device time.  Needs a
-CUDA card; imports nothing of JAX or of the JAX package.
+    python3 chip_profile.py [serve] [train]     # both when none is named
+
+For each phase it prints the host time, the device time summed over
+kernels, the device busy share, and the kernels that take most device time.
+Needs a CUDA card; imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -42,20 +47,82 @@ def _device_us(prof) -> tuple:
     return total, busy
 
 
-def main() -> None:
-    import numpy as np
+def _report(name: str, prof, host_ms: float, per: int = 1, unit: str = "call") -> None:
+    total, busy = _device_us(prof)
+    print(f"profile {name}: host {host_ms / per:.3f} ms, kernels {total / 1e3 / per:.3f} ms, "
+          f"device busy {busy / 1e3 / per:.3f} ms ({busy / 1e3 / host_ms:.1%}) per {unit}")
+    print(prof.key_averages().table(sort_by="device_time_total", row_limit=12,
+                                    max_name_column_width=70))
+
+
+def _profiled(fn):
+    """Run fn under the profiler; returns (prof, host ms to a synchronised end)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    return prof, host_ms
+
+
+def profile_train(smi: str) -> None:
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import make_train_step, to_device
+
+    cfg = dataclasses.replace(get_config("llama3.2-3b"), param_dtype=torch.bfloat16,
+                              compute_dtype=torch.bfloat16, remat=True, attn_impl="flash")
+    zoo = get_model(cfg)
+    params = zoo.init(0, device="cuda")
+    params.requires_grad_(True)
+    ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8)
+    opt = opt_lib.init(ocfg, params)
+    data = SyntheticLM(DataConfig(vocab=4096, seq_len=1024, global_batch=4))
+    step_fn = make_train_step(zoo, ocfg, device="cuda")
+    state = {"opt": opt}
+
+    def step(i):
+        _, state["opt"], m = step_fn(params, state["opt"], data.batch(i))
+        m["loss"].item()
+
+    step(0)  # warm-up of every path
+    print(f"profile: {cfg.name} bf16 train step, 4 x 1024 tokens, remat, flash [{smi}]")
+    prof, host_ms = _profiled(lambda: step(1))
+    _report("train_step", prof, host_ms, unit="step")
+
+    # the same step in two halves: forward + backward, then the optimizer
+    batch = to_device(data.batch(2), torch.device("cuda"))
+    named = dict(params.named_parameters())
+
+    def fwd_bwd():
+        for p in named.values():
+            p.grad = None
+        loss, _ = zoo.loss(params, batch)
+        loss.backward()
+
+    prof, host_ms = _profiled(fwd_bwd)
+    _report("train_fwd_bwd", prof, host_ms, unit="step")
+    grads = {n: p.grad for n, p in named.items()}
+    prof, host_ms = _profiled(lambda: opt_lib.apply(ocfg, state["opt"], params, grads))
+    _report("train_adamw", prof, host_ms, unit="step")
+
+
+def profile_serve(smi: str) -> None:
+    import numpy as np
+    import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models.model_zoo import get_model
     from repro_torch.serve.serve_step import make_serve_step
 
-    if not torch.cuda.is_available():
-        sys.exit("needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
     cfg = dataclasses.replace(get_config("llama3.2-3b"), param_dtype=torch.bfloat16,
                               compute_dtype=torch.bfloat16, attn_impl="flash")
     zoo = get_model(cfg)
@@ -86,20 +153,24 @@ def main() -> None:
     decode()
     print(f"profile: {cfg.name} bf16, 4 x 1024-token prompts, {STEPS} decode steps [{smi}]")
     for name, fn in (("prefill", prefill), ("cache_fill", fill), ("decode", decode)):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            host_ms = (time.perf_counter() - t0) * 1e3
-        total, busy = _device_us(prof)
-        per = STEPS if name == "decode" else 1
-        print(f"profile {name}: host {host_ms / per:.3f} ms, kernels {total / 1e3 / per:.3f} ms, "
-              f"device busy {busy / 1e3 / per:.3f} ms ({busy / 1e3 / host_ms:.1%}) per "
-              f"{'step' if name == 'decode' else 'call'}")
-        table = prof.key_averages().table(sort_by="device_time_total", row_limit=12,
-                                          max_name_column_width=70)
-        print(table)
+        prof, host_ms = _profiled(fn)
+        if name == "decode":
+            _report(name, prof, host_ms, per=STEPS, unit="step")
+        else:
+            _report(name, prof, host_ms)
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    phases = sys.argv[1:] or ["serve", "train"]
+    for name in phases:
+        {"serve": profile_serve, "train": profile_train}[name](smi)
 
 
 if __name__ == "__main__":

@@ -6,16 +6,24 @@
 Phases, each printed as it runs; any failure exits non-zero:
 
 1. env     torch/CUDA versions, the card, its power limit; TF32 off.
-2. build   nvcc builds every kernel source of the main path (in parallel),
+2. build   nvcc builds every kernel source of the main paths (in parallel),
            with the -Xptxas -v register / shared-memory lines.
 3. kernel  each kernel against its plain PyTorch version on the card, case
-           by case, then timed at the serving shape beside its bound and
-           the library call that computes the same function.
-4. model   a small llama-shaped model on the card (flash kernel) against the
-           same weights on the CPU (plain path).
+           by case (flash_fwd; flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv),
+           then timed at its main path's shape (serving prefill for
+           flash_fwd, the training step for the other three) beside its
+           bound and the library call that computes the same function.
+4. model   a small llama-shaped f32 model on the card (flash kernels)
+           against the same weights on the CPU (plain path): a forward, two
+           train steps (remat on the card), and a checkpoint round trip.
 5. serve   llama3.2-3b at full width in bf16, random weights from a seed:
            8 requests of 1024-token prompts, 32 new tokens each, in two
            waves of 4 slots; counts the kernel launches of that run.
+6. train   llama3.2-3b at full width and depth in bf16 (f32 moments),
+           remat, flash attention: 8 AdamW steps of 4 x 1024 tokens through
+           ``train_loop``; the loss must fall, and the launches of that run
+           must be 2L flash_fwd_lse, L flash_bwd_dq and L flash_bwd_dkv per
+           step and no flash_fwd.
 
 Then the ``kernels`` JSON line and, last, the ``ok`` JSON line.  It needs a
 CUDA device and the rest of the repository: without either it fails before
@@ -26,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -40,6 +49,13 @@ PEAK_BYTES = 3.35e12
 
 BF16_TOL = 2e-2   # abs, unit-variance inputs: bf16 probabilities and output
 F32_TOL = 1e-4    # abs: f32 throughout, only the summation order differs
+# lse is f32 from scores the kernel and the plain version both sum in f32
+LSE_TOL = {"bfloat16": 1e-3, "float32": 1e-4}
+# gradients, relative to the largest |value| of the plain version's output:
+# bf16 rounds P and dS as mma operands (2^-9 relative) and the output
+# (2^-9); dk/dv sum Sq x group such terms, so their error grows with the
+# sum and is held against the sum's scale.  f32: summation order only.
+GRAD_REL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
 
 def fail(msg: str) -> None:
@@ -71,7 +87,7 @@ def phase_build() -> None:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import flash_attention as fa
 
-    sources = [fa.SOURCE]
+    sources = [fa.SOURCE, fa.BWD_SOURCE]
     t0 = time.perf_counter()
     build.build_all(sources)
     print(f"build: {len(sources)} source(s) in {time.perf_counter() - t0:.2f} s")
@@ -130,7 +146,30 @@ def _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed):
     return randn(B, H, Sq, Dh), randn(B, Hk, Skv, Dh), randn(B, Hk, Skv, Dh)
 
 
-def phase_kernel() -> dict:
+def _bound(flops: float, nbytes: float, dtype: str):
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms) -> dict:
+    return {
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/flash_attention/csrc/{source}",
+        "replaces": f"src/repro/kernels/flash_attention/flash_attention.py:{replaces}",
+        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms,
+    }
+
+
+def phase_kernel() -> list:
+    return [_flash_fwd_kernel(), *_training_kernels()]
+
+
+def _flash_fwd_kernel() -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -172,23 +211,113 @@ def phase_kernel() -> dict:
     print(f"kernel flash_fwd timing at {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
           f"{flops:.4g} FLOP, {nbytes:.4g} B), {bound_ms / ms:.1%} of bound", flush=True)
-    return {
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
-        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:35",
-        "replaces_fn": "_flash_fwd_kernel",
-        "checked": True,
-        "launches": None,
-        "max_abs_err": worst,
-        "max_err": worst,
-        "ms": ms,
-        "kernel_ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
+    return _entry("flash_fwd", "flash_fwd.cu", 35, None, worst, ms, plain_ms,
+                  (bound_ms, bound_by), library_ms)
+
+
+def _max_err(got, want) -> tuple:
+    """(max |got - want|, max |want|) in f32."""
+    return (got.float() - want.float()).abs().max().item(), want.float().abs().max().item()
+
+
+def _training_kernels() -> list:
+    """flash_fwd_lse, flash_bwd_dq and flash_bwd_dkv against their plain
+    versions over FLASH_CASES, then timed at the training shape."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_ref, attention_fwd_lse_ref, attention_mask,
+    )
+
+    worst = {"flash_fwd_lse": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for i, (name, B, H, Hk, Sq, Skv, Dh, causal, window, q_off, dtype) in enumerate(FLASH_CASES):
+        q, k, v = _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed=100 + i)
+        do = _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed=200 + i)[0]
+        kw = dict(causal=causal, window=window, q_offset=q_off)
+        o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = attention_fwd_lse_ref(q, k, v, **kw)
+        # the backward kernels and the plain backward on the same o and lse
+        dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        grads_ref = attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        tol_o = BF16_TOL if dtype == "bfloat16" else F32_TOL
+        checks = [("flash_fwd_lse", "o", *_max_err(o, o_ref), tol_o),
+                  ("flash_fwd_lse", "lse", *_max_err(lse, lse_ref), LSE_TOL[dtype])]
+        for kname, tname, got, want in (("flash_bwd_dq", "dq", dq, grads_ref[0]),
+                                        ("flash_bwd_dkv", "dk", dk, grads_ref[1]),
+                                        ("flash_bwd_dkv", "dv", dv, grads_ref[2])):
+            err, scale = _max_err(got, want)
+            checks.append((kname, tname, err, scale, GRAD_REL_TOL[dtype] * max(scale, 1.0)))
+        finite = all(bool(torch.isfinite(t).all()) for t in (o, lse, dq, dk, dv))
+        line = ", ".join(f"{t} {e:.3e} (max|ref| {m:.3g}, tol {tol:.3g})"
+                         for _, t, e, m, tol in checks)
+        print(f"kernel train {name}: B={B} H={H} Hk={Hk} Sq={Sq} Skv={Skv} Dh={Dh} "
+              f"causal={causal} window={window} q_offset={q_off} {dtype}: {line}", flush=True)
+        for kname, tname, err, _, tol in checks:
+            if not finite or not err <= tol:
+                fail(f"{kname} {name}: {tname} disagrees with its plain version: {err} > {tol} "
+                     f"(finite={finite})")
+            if name == "serve_prefill":
+                worst[kname] = max(worst[kname], err)
+
+    # timing at the training step's shape: the serve_prefill case's shape
+    name, B, H, Hk, Sq, Skv, Dh, causal, window, q_off, dtype = FLASH_CASES[0]
+    q, k, v = _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed=0)
+    do = _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed=1)[0]
+    kw = dict(causal=True, window=None, q_offset=0)
+    scale = Dh ** -0.5
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
+    delta = (o.float() * do.float()).sum(-1).contiguous()
+    visible = int(attention_mask(Sq, Skv, causal, window, q_off, "cuda").sum()) * B * H
+    bkw = dict(kw, scale=scale)
+
+    ms = {
+        "flash_fwd_lse": _time_ms(lambda: fa.flash_attention_fwd_lse(q, k, v, **kw)),
+        "flash_bwd_dq": _time_ms(lambda: fa.bwd_dq(q, k, v, do, lse, delta, **bkw)),
+        "flash_bwd_dkv": _time_ms(lambda: fa.bwd_dkv(q, k, v, do, lse, delta, **bkw)),
     }
+    plain_fwd = _time_ms(lambda: attention_fwd_lse_ref(q, k, v, **kw), iters=5)
+    # the plain backward computes dq, dk and dv in one function
+    plain_bwd = _time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do, **kw), iters=3)
+    # library yardsticks on k/v expanded to H heads (outside the timing):
+    # aten's flash forward, which returns logsumexp too, and the backward of
+    # scaled_dot_product_attention through autograd (dq, dk and dv together)
+    ke, ve = (t.repeat_interleave(H // Hk, dim=1) for t in (k, v))
+    lib_fwd = _time_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+        q, ke, ve, 0.0, True))
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, ke, ve))
+    # pinned to PyTorch's flash backend: left to itself the choice of
+    # backend, and the time, changed between two runs (0.26 vs 0.77 ms)
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+    lib_bwd = _time_ms(lambda: torch.autograd.grad(out, (qr, kr, vr), do, retain_graph=True))
+    flops = {"flash_fwd_lse": 4.0 * Dh * visible, "flash_bwd_dq": 6.0 * Dh * visible,
+             "flash_bwd_dkv": 8.0 * Dh * visible}
+    nbytes = {"flash_fwd_lse": _nbytes(q, k, v, o, lse),
+              "flash_bwd_dq": _nbytes(q, k, v, do, lse, delta, q),
+              "flash_bwd_dkv": _nbytes(q, k, v, do, lse, delta, k, v)}
+    plain = {"flash_fwd_lse": plain_fwd, "flash_bwd_dq": plain_bwd, "flash_bwd_dkv": plain_bwd}
+    library = {"flash_fwd_lse": lib_fwd, "flash_bwd_dq": lib_bwd, "flash_bwd_dkv": lib_bwd}
+    entries = []
+    for kname, src, line in (("flash_fwd_lse", "flash_fwd.cu", 79),
+                             ("flash_bwd_dq", "flash_bwd.cu", 121),
+                             ("flash_bwd_dkv", "flash_bwd.cu", 159)):
+        bound = _bound(flops[kname], nbytes[kname], dtype)
+        print(f"kernel {kname} timing at the training shape (B={B} H={H} Hk={Hk} S={Sq} "
+              f"Dh={Dh} bf16 causal): kernel {ms[kname]:.4f} ms, plain {plain[kname]:.4f} ms, "
+              f"library {library[kname]:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}: "
+              f"{flops[kname]:.4g} FLOP, {nbytes[kname]:.4g} B), "
+              f"{bound[0] / ms[kname]:.1%} of bound", flush=True)
+        entries.append(_entry(kname, src, line, None, worst[kname], ms[kname], plain[kname],
+                              bound, library[kname]))
+    print("kernel: plain_ms of flash_bwd_dq and flash_bwd_dkv is the whole plain backward "
+          "(dq, dk, dv); their library_ms is the whole sdpa backward", flush=True)
+    return entries
 
 
 def phase_model() -> None:
@@ -218,6 +347,82 @@ def phase_model() -> None:
           f"max_abs_err {err:.3e} (tol 1e-3)", flush=True)
     if not bool(torch.isfinite(got).all()) or not err <= 1e-3:
         fail(f"small model on the card disagrees with the CPU plain path: {err}")
+    _model_train(base, params)
+
+
+# two f32 train steps, card vs CPU.  loss and grad_norm: f32 sums in another
+# order (~1e-6 relative).  params: after AdamW's first steps an element moves
+# by lr * mhat / (sqrt(vhat) + eps), about lr = 1e-3, and the two sides' grads
+# agree to ~1e-6 relative, so 99.9 % of elements agree within 1e-6 abs; an
+# element whose grad is near zero has an unstable ratio and may differ by a
+# fraction of a step, so every element stays within 1e-4 (10 % of lr).
+MODEL_LOSS_RTOL, MODEL_GNORM_RTOL = 1e-5, 1e-4
+MODEL_PARAM_TIGHT, MODEL_PARAM_SHARE, MODEL_PARAM_MAX = 1e-6, 0.999, 1e-4
+
+
+def _model_train(base, init_params) -> None:
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models.common import ParamTree
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import make_train_step
+
+    state = {k: v.detach() for k, v in init_params.state_dict().items()}
+    ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    data = SyntheticLM(DataConfig(vocab=base.vocab, seq_len=128, global_batch=4))
+    sides = {}
+    for dev, cfg in (("cuda", dataclasses.replace(base, attn_impl="flash", remat=True)),
+                     ("cpu", base)):
+        params = ParamTree.from_state_dict({k: v.to(dev).clone() for k, v in state.items()},
+                                           requires_grad=True)
+        step_fn = make_train_step(get_model(cfg), ocfg, device=dev)
+        opt = opt_lib.init(ocfg, params)
+        fa.reset_launch_counts()
+        metrics = []
+        for step in range(2):
+            params, opt, m = step_fn(params, opt, data.batch(step))
+            metrics.append({k: float(v) for k, v in m.items()})
+        sides[dev] = (params, opt, metrics, fa.launch_counts())
+    (gp, gopt, gm, counts), (cp, _, cm, _) = sides["cuda"], sides["cpu"]
+    L = base.num_layers
+    want = {"flash_fwd": 0, "flash_fwd_lse": 2 * 2 * L, "flash_bwd_dq": 2 * L,
+            "flash_bwd_dkv": 2 * L}
+    print(f"model: 2 train steps (remat) on the card launched {counts}", flush=True)
+    if counts != want:
+        fail(f"small-model train steps launched {counts}, expected {want}")
+    for step, (g, c) in enumerate(zip(gm, cm)):
+        dl = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+        dg = abs(g["grad_norm"] - c["grad_norm"]) / abs(c["grad_norm"])
+        print(f"model: train step {step} card loss {g['loss']:.7f} gnorm {g['grad_norm']:.7f}, "
+              f"cpu loss {c['loss']:.7f} gnorm {c['grad_norm']:.7f}: rel diff {dl:.2e} "
+              f"(tol {MODEL_LOSS_RTOL:g}), {dg:.2e} (tol {MODEL_GNORM_RTOL:g})", flush=True)
+        if not (dl <= MODEL_LOSS_RTOL and dg <= MODEL_GNORM_RTOL):
+            fail(f"train step {step}: card and CPU disagree on loss or grad_norm")
+    cstate = cp.state_dict()
+    diff = torch.cat([(v.cpu() - cstate[k]).abs().flatten() for k, v in gp.state_dict().items()])
+    perr, share = diff.max().item(), (diff <= MODEL_PARAM_TIGHT).float().mean().item()
+    print(f"model: params after 2 steps, card vs cpu: max_abs_err {perr:.3e} (tol "
+          f"{MODEL_PARAM_MAX:g}), share within {MODEL_PARAM_TIGHT:g}: {share:.6f} "
+          f"(need {MODEL_PARAM_SHARE})", flush=True)
+    if not (perr <= MODEL_PARAM_MAX and share >= MODEL_PARAM_SHARE):
+        fail(f"params after 2 train steps disagree: max {perr}, share {share}")
+    with tempfile.TemporaryDirectory() as d:
+        ckpt_lib.save(d, 2, {"params": gp, "opt": gopt}, extra={"step": 2})
+        tree, extra = ckpt_lib.restore(d, {"params": gp, "opt": gopt})
+    same = (extra["step"] == 2 and tree["opt"].step == gopt.step
+            and all(torch.equal(v, gp.state_dict()[k]) for k, v in tree["params"].state_dict().items())
+            and all(torch.equal(tree["opt"].mu[k], gopt.mu[k]) and torch.equal(tree["opt"].nu[k], gopt.nu[k])
+                    for k in gopt.mu))
+    print(f"model: checkpoint save/restore of params and AdamW state on the card: "
+          f"{'bit-identical' if same else 'DIFFERS'}", flush=True)
+    if not same:
+        fail("checkpoint round trip changed the training state")
 
 
 def phase_serve(smi: str) -> dict:
@@ -275,13 +480,14 @@ def phase_serve(smi: str) -> dict:
         sched.submit(r)
 
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = 0
+    fa.reset_launch_counts()
     t0 = time.perf_counter()
     waves = serve_waves(zoo, ServeArtifacts(timed_decode, timed_prefill), params, sched, CACHE,
                         device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fa.LAUNCHES
+    counts = fa.launch_counts()
+    launches = counts["flash_fwd"]
 
     for r in reqs:
         ok = len(r.generated) == r.max_new or (r.generated and r.generated[-1] == sched.eos_id)
@@ -292,6 +498,8 @@ def phase_serve(smi: str) -> dict:
           f"{[len(r.generated) for r in reqs]}", flush=True)
     if launches != cfg.num_layers * n_prefill or launches == 0:
         fail(f"flash_fwd launched {launches} times, expected {cfg.num_layers} x {n_prefill} prefills")
+    if any(n for k, n in counts.items() if k != "flash_fwd"):
+        fail(f"serving launched a training kernel: {counts}")
     print(f"serve: flash_fwd launches {launches} = {cfg.num_layers} layers x {n_prefill} prefills")
 
     # prefill (flash kernel, bf16 probabilities) vs cache fill (plain
@@ -330,12 +538,91 @@ def phase_serve(smi: str) -> dict:
     return {"flash_fwd": launches}
 
 
+TRAIN_STEPS = 8
+
+
+def phase_train(smi: str) -> dict:
+    """llama3.2-3b at full width and depth, 8 AdamW steps; returns the
+    kernel launches of the run."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.trainer import train_loop
+
+    B, S = 4, 1024
+    cfg = dataclasses.replace(
+        get_config("llama3.2-3b"), param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+        remat=True, attn_impl="flash",
+    )
+    zoo = get_model(cfg)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = zoo.init(gen, device="cuda")
+    params.requires_grad_(True)
+    ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    opt = opt_lib.init(ocfg, params)
+    # tokens from a 4096-token bigram corpus: valid ids of the 128256 vocab,
+    # where a full-vocab table would take 131 GB of host memory
+    data = SyntheticLM(DataConfig(vocab=4096, seq_len=S, global_batch=B))
+    step_fn = make_train_step(zoo, ocfg, microbatches=1, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"train: {cfg.name} L={cfg.num_layers} d_model={cfg.d_model} vocab={cfg.vocab} bf16 "
+          f"params, f32 moments, remat, flash; {n_params / 1e9:.3f} B params; batch {B} x {S} "
+          f"tokens from a 4096-token bigram corpus; set-up {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    res = train_loop(step_fn, params, opt, data.batches(0), num_steps=TRAIN_STEPS,
+                     log_every=1, log_fn=lambda line: print(f"train: {line}", flush=True))
+    torch.cuda.synchronize()
+    launches = fa.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    hist = res.history
+    losses = [h["loss"] for h in hist]
+    gnorms = [h["grad_norm"] for h in hist]
+    if len(hist) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses + gnorms):
+        fail(f"non-finite loss or grad_norm, or missing steps: {losses} {gnorms}")
+    drop = losses[0] - losses[-1]
+    print(f"train: loss {losses[0]:.4f} -> {losses[-1]:.4f}, drop {drop:.4f} nats (need >= 0.5)",
+          flush=True)
+    if not drop >= 0.5:
+        fail(f"the loss fell by {drop} nats in {TRAIN_STEPS} steps, expected >= 0.5")
+    L = cfg.num_layers
+    want = {"flash_fwd": 0, "flash_fwd_lse": 2 * L * TRAIN_STEPS,
+            "flash_bwd_dq": L * TRAIN_STEPS, "flash_bwd_dkv": L * TRAIN_STEPS}
+    print(f"train: launches {launches}; expected {want} (remat: the forward runs twice a step)",
+          flush=True)
+    if launches != want:
+        fail(f"train launches {launches} differ from {want}")
+
+    step_ms = [1e3 * h["step_time_s"] for h in hist]
+    steady = step_ms[1:]  # the first step pays one-time warm-up
+    mean_ms = sum(steady) / len(steady)
+    tokens = B * S
+    mfu = 6.0 * n_params * tokens / (mean_ms / 1e3) / PEAK_FLOPS["bfloat16"]
+    print(f"train: per-step ms {[round(t, 2) for t in step_ms]}", flush=True)
+    print(f"train: steady step {mean_ms:.2f} ms (mean of steps 1-{TRAIN_STEPS - 1}), "
+          f"{tokens / (mean_ms / 1e3):.1f} tokens/s, MFU {mfu:.2%} (6 N tokens / step time / "
+          f"989 TFLOP/s), max_memory_allocated {peak / 2**30:.2f} GiB [{smi}]", flush=True)
+    return launches
+
+
 def main() -> None:
     smi = phase_env()
     phase_build()
-    kernels = [phase_kernel()]
+    kernels = phase_kernel()
     phase_model()
     launches = phase_serve(smi)
+    launches.update({k: v for k, v in phase_train(smi).items() if k != "flash_fwd"})
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(smi)

@@ -1,4 +1,4 @@
-"""Carry weights and caches from the JAX reference into the port.
+"""Carry weights and caches between the JAX reference and the port.
 
 The JAX package keeps params as nested dicts of arrays.  Given that tree as
 numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``),
@@ -10,6 +10,10 @@ weights stay ``(in, out)`` and stacked layers keep their leading ``L`` dim.
 ``torch.from_numpy`` rejects ``ml_dtypes.bfloat16``, so bf16 crosses as
 float32 (exact) and is cast on the torch side.  A 0-d integer array (a
 cache's ``index``) becomes a Python int, as the port keeps it on the host.
+
+``params_to_jax`` goes the other way: a state dict to the nested dict of
+numpy arrays that ``jax.tree_util.tree_map(jnp.asarray, ...)`` turns into
+the reference's tree.  bf16 leaves cross as float32 (exact) again.
 """
 
 from __future__ import annotations
@@ -70,4 +74,20 @@ def params_from_jax(
             out[prefix[:-1]] = _to_tensor(node, tdtype, device)
 
     walk("", np_tree)
+    return out
+
+
+def params_to_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """Nest a flat ``a.b.c`` state dict into ``{"a": {"b": {"c": ndarray}}}``
+    on the host; bf16 becomes float32, ints stay ints."""
+    out: Dict[str, Any] = {}
+    for path, value in state.items():
+        node = out
+        *parents, leaf = path.split(".")
+        for name in parents:
+            node = node.setdefault(name, {})
+        if torch.is_tensor(value):
+            t = value.detach().cpu()
+            value = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        node[leaf] = value
     return out

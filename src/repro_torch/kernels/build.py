@@ -6,8 +6,8 @@ library under ``build/kernels/`` at the root of the checkout:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so <src>
 
-The file name carries a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is.  The sources
+The file name carries a hash of the source, the ``*.cuh`` headers beside
+it and the flags, so an edited source or header is rebuilt and an unchanged one is loaded as it is.  The sources
 have a plain C interface (pointers, ints, the stream), which keeps a build
 to seconds; nothing includes PyTorch's headers.  A failed build or load
 raises.  ``build_all`` starts one nvcc per source at once.
@@ -50,7 +50,9 @@ def _nvcc() -> str:
 
 def _target(source: str) -> Path:
     src = KERNELS_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # the headers beside a source are part of it
+    data = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
+    digest = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 

@@ -33,51 +33,47 @@
 // such a row walks every key.  Keys past Skv (a ragged edge, which the TPU
 // kernel never has) score -inf and read zero-filled v, so they never count.
 //
+// With a non-null `lse` it is also the TPU kernel `_flash_fwd_lse_kernel`
+// (flash_attention.py:79-118, via `flash_attention_fwd_lse` :200): it writes
+// lse = m + log(l) in f32 per (b, h, q row), contiguous (B, H, Sq), for the
+// backward (csrc/flash_bwd.cu).  One departure: for a row that sees no key
+// the TPU kernel stores -1e30 + log(Skv), which rounds to -1e30 in f32 and
+// makes its backward take p = 1 instead of 1/Skv.  Here such a row stores
+// the logsumexp of its uniform scores taken as 0, log(Skv), from which the
+// backward rebuilds p = 1/Skv exactly.
+//
 // C interface (bound with ctypes): pointers, element strides, ints and the
 // stream; returns the cudaError_t of the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kMasked = -1e30f;
+using namespace flash;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, H, Sq) f32, or null
   int B, H, Hk, Sq, Skv, group;
   long long sqb, sqh, sqs, skb, skh, sks, svb, svh, svs, sob, soh, sos;
   float scale;
   int causal, has_window, window, q_offset;
 };
 
-// Keys [k_lo, k_hi) that query rows [r0, r1) of one block can see.
-__device__ __forceinline__ void key_range(const Params& p, int r0, int r1, int& k_lo, int& k_hi) {
-  const int qmin = r0 + p.q_offset, qmax = r1 - 1 + p.q_offset;
-  k_lo = 0;
-  k_hi = p.Skv;
-  // the last row sees no key: walk every key, as the TPU grid does
-  if (p.has_window && qmax - p.window + 1 >= p.Skv) return;
-  if (p.has_window) k_lo = max(0, qmin - p.window + 1);
-  if (p.causal) k_hi = min(p.Skv, qmax + 1);
-}
-
-// Whether keys [n0, n0 + n) need the per-element mask for rows [r0, r1).
-__device__ __forceinline__ bool tile_needs_mask(const Params& p, int n0, int n, int r0, int r1) {
-  const int qmin = r0 + p.q_offset, qmax = r1 - 1 + p.q_offset;
-  return n0 + n > p.Skv || (p.causal && n0 + n - 1 > qmin) ||
-         (p.has_window && n0 <= qmax - p.window);
-}
-
 __device__ __forceinline__ float masked_score(const Params& p, float s, int qpos, int key) {
   if (key >= p.Skv) return -INFINITY;
   if (p.causal && key > qpos) return kMasked;
   if (p.has_window && key <= qpos - p.window) return kMasked;
   return s;
+}
+
+// logsumexp of a row from its running max and sum; m stays at kMasked only
+// for a row that sees no key, whose scores count as 0 (see the header)
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return (m == kMasked ? 0.f : m) + logf(fmaxf(l, 1e-30f));
 }
 
 // ---------------------------------------------------------------------------
@@ -87,68 +83,6 @@ __device__ __forceinline__ float masked_score(const Params& p, float s, int qpos
 constexpr int kBM = 64;        // q rows per block (4 warps x 16)
 constexpr int kBN = 64;        // keys per k step
 constexpr int kThreads = 128;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* ptr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(ptr)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* ptr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(ptr)));
-}
-
-// d (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 16-byte asynchronous copy global -> shared; src-size 0 zero-fills.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-// wait until at most N committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Start copying rows [row0, row0 + ROWS) of a (rows, D) slab with row stride
-// `stride` into shared memory with row pitch D + 8; rows at or past `limit`
-// are zero-filled.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                               long long stride, int row0, int limit) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const bool valid = row0 + r < limit;
-    // an invalid row reads nothing, but its address stays inside the slab
-    cp_async16(dst + r * LD + col, src + (long long)(valid ? row0 + r : 0) * stride + col, valid);
-  }
-}
 
 // 3 blocks per SM: at most 170 registers a thread, and the Q tile borrows
 // the second K buffer so that a block needs only 4 K/V tiles of shared memory
@@ -179,9 +113,9 @@ __global__ void __launch_bounds__(kThreads, 3) flash_fwd_bf16_kernel(const Param
   const int n_first = (k_lo / kBN) * kBN;
 
   // first copy group: the Q tile and the first K/V tile
-  load_tile_bf16<D, kBM>(sQ, qg, p.sqs, r0, p.Sq);
-  load_tile_bf16<D, kBN>(sK, kg, p.sks, n_first, p.Skv);
-  load_tile_bf16<D, kBN>(sV, vg, p.svs, n_first, p.Skv);
+  load_tile_bf16<D, kBM, kThreads>(sQ, qg, p.sqs, r0, p.Sq);
+  load_tile_bf16<D, kBN, kThreads>(sK, kg, p.sks, n_first, p.Skv);
+  load_tile_bf16<D, kBN, kThreads>(sV, vg, p.svs, n_first, p.Skv);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -202,8 +136,8 @@ __global__ void __launch_bounds__(kThreads, 3) flash_fwd_bf16_kernel(const Param
     const int buf = it & 1;
     // prefetch the next K/V tile into the other buffer while this one is used
     if (n0 + kBN < k_hi) {
-      load_tile_bf16<D, kBN>(sK + (buf ^ 1) * kTile, kg, p.sks, n0 + kBN, p.Skv);
-      load_tile_bf16<D, kBN>(sV + (buf ^ 1) * kTile, vg, p.svs, n0 + kBN, p.Skv);
+      load_tile_bf16<D, kBN, kThreads>(sK + (buf ^ 1) * kTile, kg, p.sks, n0 + kBN, p.Skv);
+      load_tile_bf16<D, kBN, kThreads>(sV + (buf ^ 1) * kTile, vg, p.svs, n0 + kBN, p.Skv);
     }
     cp_async_commit();
     cp_async_wait<1>();  // all but the prefetch have landed
@@ -302,6 +236,11 @@ __global__ void __launch_bounds__(kThreads, 3) flash_fwd_bf16_kernel(const Param
     inv[i] = 1.f / fmaxf(l_run[i], 1e-30f);
   }
   const int ra = r0 + warp * 16 + quad, rb = ra + 8;
+  if (p.lse != nullptr && tq == 0) {
+    float* lse = p.lse + (b * p.H + h) * p.Sq;
+    if (ra < p.Sq) lse[ra] = row_lse(m_run[0], l_run[0]);
+    if (rb < p.Sq) lse[rb] = row_lse(m_run[1], l_run[1]);
+  }
 #pragma unroll
   for (int d = 0; d < D / 8; ++d) {
     const int col = d * 8 + tq * 2;
@@ -410,6 +349,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(const Params
   }
 
   if (r >= p.Sq) return;
+  if (p.lse != nullptr && part == 0) p.lse[(b * p.H + h) * p.Sq + r] = row_lse(m_run, l_run);
   const float inv = 1.f / fmaxf(l_run, 1e-30f);
 #pragma unroll
   for (int c = 0; c < C; ++c)
@@ -439,7 +379,9 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the last
 // dimension of every tensor is contiguous.  window <= 0 means no window.
-extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, int dtype, int B,
+// lse: null, or a contiguous (B, H, Sq) f32 buffer to fill.
+extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                         int dtype, int B,
                          int H, int Hk, int Sq, int Skv, int D, long long sqb, long long sqh,
                          long long sqs, long long skb, long long skh, long long sks,
                          long long svb, long long svh, long long svs, long long sob,
@@ -450,6 +392,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, i
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = static_cast<float*>(lse);
   p.B = B;
   p.H = H;
   p.Hk = Hk;

@@ -1,53 +1,87 @@
-"""Flash attention forward: the hand-written CUDA kernel and its wrapper
-(counterpart of ``repro/kernels/flash_attention/flash_attention.py``).
+"""Flash attention kernels and their wrappers (counterpart of
+``repro/kernels/flash_attention/flash_attention.py``).
 
-``flash_attention_fwd`` takes kernel layout q (B, H, Sq, Dh), k/v
-(B, Hk, Skv, Dh).  On CUDA tensors it launches ``csrc/flash_fwd.cu`` (built
-on first use, see ``kernels/build.py``) on the current stream and counts the
-launch in ``LAUNCHES``; on CPU tensors it computes the plain version,
-``attention_ref``.  Unlike the TPU kernel it takes any Sq and Skv: the
-kernel masks the ragged edge itself.
+All three wrappers take kernel layout q (B, H, Sq, Dh), k/v (B, Hk, Skv, Dh):
+
+* ``flash_attention_fwd`` -> o: ``csrc/flash_fwd.cu``;
+* ``flash_attention_fwd_lse`` -> (o, lse (B, H, Sq) f32): the same kernel
+  writing the logsumexp rows too;
+* ``flash_attention_bwd`` -> (dq, dk, dv): ``csrc/flash_bwd.cu``, the dq
+  kernel and the dk/dv kernel (which sums each kv head's query group
+  itself).  delta = rowsum(o * do) is one torch reduction outside the
+  kernels, as in the reference.
+
+On CUDA tensors each launches its kernels (built on first use, see
+``kernels/build.py``) on the current stream and counts every launch, one
+counter per kernel (``LAUNCHES``, ``LSE_LAUNCHES``, ``DQ_LAUNCHES``,
+``DKV_LAUNCHES``); on CPU tensors it computes the plain version from
+``ref.py``.  Unlike the TPU kernels they take any Sq and Skv: the kernels
+mask the ragged edge themselves.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from .. import build
-from .ref import attention_ref
+from .ref import attention_bwd_ref, attention_fwd_lse_ref, attention_ref
 
 SOURCE = "flash_attention/csrc/flash_fwd.cu"
+BWD_SOURCE = "flash_attention/csrc/flash_bwd.cu"
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches since the count was last reset
-LAUNCHES = 0
+# kernel launches since the counts were last reset
+LAUNCHES = 0        # flash_fwd
+LSE_LAUNCHES = 0    # flash_fwd writing lse (flash_fwd_lse)
+DQ_LAUNCHES = 0     # flash_bwd_dq
+DKV_LAUNCHES = 0    # flash_bwd_dkv
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load(SOURCE)
-    fn = lib.flash_fwd
+def launch_counts() -> Dict[str, int]:
+    return {"flash_fwd": LAUNCHES, "flash_fwd_lse": LSE_LAUNCHES,
+            "flash_bwd_dq": DQ_LAUNCHES, "flash_bwd_dkv": DKV_LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    global LAUNCHES, LSE_LAUNCHES, DQ_LAUNCHES, DKV_LAUNCHES
+    LAUNCHES = LSE_LAUNCHES = DQ_LAUNCHES = DKV_LAUNCHES = 0
+
+
+def _fwd_fn():
+    fn = build.load(SOURCE).flash_fwd
     if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i] + [ll] * 12 + [
-            ctypes.c_float, i, i, i, p,
-        ]
-        fn.restype = ctypes.c_int
-    return lib
+        fn.argtypes = [_P] * 5 + [_I] * 7 + [_LL] * 12 + [ctypes.c_float, _I, _I, _I, _P]
+        fn.restype = _I
+    return fn
 
 
-def _check(q, k, v, window, q_offset) -> None:
+def _bwd_fn(name: str):
+    fn = getattr(build.load(BWD_SOURCE), name)
+    if fn.argtypes is None:
+        n_out = 1 if name == "flash_bwd_dq" else 2
+        fn.argtypes = [_P] * (6 + n_out) + [_I] * 7 + [ctypes.POINTER(_LL),
+                                                      ctypes.c_float, _I, _I, _I, _P]
+        fn.restype = _I
+    return fn
+
+
+def _check(q, k, v, window, q_offset, **more) -> None:
+    """Raise on what the kernels do not take.  ``more`` are extra tensors of
+    the backward: ``o``/``do`` shaped like q, ``lse`` f32 (B, H, Sq)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("q, k and v must lie on one CUDA device")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_fwd takes float32 or bfloat16 q/k/v of one dtype, got "
+        raise TypeError(f"flash attention takes float32 or bfloat16 q/k/v of one dtype, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    B, H, _, Dh = q.shape
+    B, H, Sq, Dh = q.shape
     if k.shape[0] != B or k.shape[3] != Dh or k.shape[2] == 0 or H % k.shape[1]:
         raise ValueError(f"q {tuple(q.shape)} does not fit k/v {tuple(k.shape)}")
     if Dh not in HEAD_DIMS:
@@ -56,11 +90,52 @@ def _check(q, k, v, window, q_offset) -> None:
         raise ValueError(f"window must be >= 1, got {window}")
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
-    vec = 16 // q.element_size()  # the kernel moves 16-byte vectors
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    like_q = {name: t for name, t in more.items() if name != "lse"}
+    for name, t in like_q.items():
+        if t.device != q.device or t.dtype != q.dtype or t.shape != q.shape:
+            raise ValueError(f"{name} must be a {q.dtype} tensor of shape {tuple(q.shape)} "
+                             f"on {q.device}")
+    if "lse" in more:
+        lse = more["lse"]
+        if (lse.device != q.device or lse.dtype != torch.float32
+                or lse.shape != (B, H, Sq) or not lse.is_contiguous()):
+            raise ValueError(f"lse must be a contiguous float32 tensor of shape {(B, H, Sq)}")
+    vec = 16 // q.element_size()  # the kernels move 16-byte vectors
+    for name, t in (("q", q), ("k", k), ("v", v), *like_q.items()):
         if t.stride(3) != 1 or any(s % vec for s in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(f"{name} needs a contiguous last dim, 16-byte aligned rows "
                              f"and strides that are multiples of {vec}; call .contiguous()")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _fwd(q, k, v, causal, window, scale, q_offset, with_lse: bool):
+    _check(q, k, v, window, q_offset)
+    B, H, Sq, Dh = q.shape
+    Hk, Skv = k.shape[1], k.shape[2]
+    # same strides as q: a q viewed from (B, S, H, Dh) gives an o whose
+    # transpose back is contiguous
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if with_lse else None
+    if o.numel() == 0:  # nothing to compute; an empty grid is not a valid launch
+        return o, lse
+    with torch.cuda.device(q.device):
+        err = _fwd_fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr() if with_lse else None,
+            _DTYPE_CODES[q.dtype], B, H, Hk, Sq, Skv, Dh,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+            float(scale), int(causal), int(window or 0), int(q_offset), _stream(q),
+        )
+    _raise_on(err, "flash_fwd")
+    return o, lse
 
 
 def flash_attention_fwd(
@@ -78,24 +153,96 @@ def flash_attention_fwd(
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window, scale=scale, q_offset=q_offset)
-    _check(q, k, v, window, q_offset)
+    o, _ = _fwd(q, k, v, causal, window, scale, q_offset, with_lse=False)
+    global LAUNCHES
+    LAUNCHES += o.numel() > 0
+    return o
+
+
+def flash_attention_fwd_lse(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (o like q, lse (B, H, Sq) f32); the forward the backward needs."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return attention_fwd_lse_ref(q, k, v, causal=causal, window=window, scale=scale,
+                                     q_offset=q_offset)
+    o, lse = _fwd(q, k, v, causal, window, scale, q_offset, with_lse=True)
+    global LSE_LAUNCHES
+    LSE_LAUNCHES += o.numel() > 0
+    return o, lse
+
+
+def _bwd_launch(name, q, k, v, do, lse, delta, outs, dq_dk_dv, causal, window, scale, q_offset):
+    """Launch ``name`` writing ``outs``.  ``dq_dk_dv`` give the output strides
+    the kernel takes; a slot it does not write may be any tensor of that
+    shape."""
     B, H, Sq, Dh = q.shape
     Hk, Skv = k.shape[1], k.shape[2]
-    # same strides as q: a q viewed from (B, S, H, Dh) gives an o whose
-    # transpose back is contiguous
-    o = torch.empty_like(q)
-    if o.numel() == 0:  # nothing to compute; an empty grid is not a valid launch
-        return o
+    strides = (_LL * 21)(*(s for t in (q, k, v, do, *dq_dk_dv) for s in t.stride()[:3]))
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _lib().flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            _DTYPE_CODES[q.dtype], B, H, Hk, Sq, Skv, Dh,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-            float(scale), int(causal), int(window or 0), int(q_offset), stream,
+        err = _bwd_fn(name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), *(t.data_ptr() for t in outs), _DTYPE_CODES[q.dtype],
+            B, H, Hk, Sq, Skv, Dh, strides, float(scale), int(causal), int(window or 0),
+            int(q_offset), _stream(q),
         )
-    if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed: CUDA error {err}")
-    global LAUNCHES
-    LAUNCHES += 1
-    return o
+    _raise_on(err, name)
+
+
+def bwd_dq(q, k, v, do, lse, delta, *, causal, window, scale, q_offset) -> torch.Tensor:
+    """The dq kernel alone (arguments checked by ``flash_attention_bwd``)."""
+    dq = torch.empty_like(q)
+    _bwd_launch("flash_bwd_dq", q, k, v, do, lse, delta, (dq,), (dq, k, v),
+                causal, window, scale, q_offset)
+    global DQ_LAUNCHES
+    DQ_LAUNCHES += 1
+    return dq
+
+
+def bwd_dkv(q, k, v, do, lse, delta, *, causal, window, scale, q_offset):
+    """The dk/dv kernel alone (arguments checked by ``flash_attention_bwd``)."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_launch("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), (q, dk, dv),
+                causal, window, scale, q_offset)
+    global DKV_LAUNCHES
+    DKV_LAUNCHES += 1
+    return dk, dv
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """-> (dq, dk, dv) in the dtypes of q, k, v; dk/dv (B, Hk, Skv, Dh)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window, scale=scale,
+                                 q_offset=q_offset)
+    _check(q, k, v, window, q_offset, o=o, do=do, lse=lse)
+    if q.numel() == 0:
+        return torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    # (B, H, Sq), outside the kernels; contiguous whatever the strides of o
+    delta = (o.float() * do.float()).sum(-1).contiguous()
+    kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset)
+    dq = bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = bwd_dkv(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv

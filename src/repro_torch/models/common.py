@@ -38,19 +38,22 @@ class DTypes:
 
 class ParamTree(nn.Module):
     """A param pytree as a module: dict nodes become child modules, leaves
-    become parameters (``requires_grad=False``: the port serves; the
-    training slice turns gradients on)."""
+    become parameters.  Gradients are off unless asked for: serving needs
+    none; training turns them on (``requires_grad=True``, or
+    ``requires_grad_()`` on the tree)."""
 
-    def __init__(self, tree: Mapping[str, Any]):
+    def __init__(self, tree: Mapping[str, Any], requires_grad: bool = False):
         super().__init__()
         for key, node in tree.items():
             if isinstance(node, Mapping):
-                self.add_module(key, ParamTree(node))
+                self.add_module(key, ParamTree(node, requires_grad))
             else:
-                self.register_parameter(key, nn.Parameter(node, requires_grad=False))
+                self.register_parameter(key, nn.Parameter(node, requires_grad=requires_grad))
 
     @classmethod
-    def from_state_dict(cls, state: Mapping[str, torch.Tensor]) -> "ParamTree":
+    def from_state_dict(
+        cls, state: Mapping[str, torch.Tensor], requires_grad: bool = False
+    ) -> "ParamTree":
         """Rebuild the tree from flat ``a.b.c`` keys (see ``interop``)."""
         tree: Dict[str, Any] = {}
         for path, value in state.items():
@@ -59,7 +62,7 @@ class ParamTree(nn.Module):
             for name in parents:
                 node = node.setdefault(name, {})
             node[leaf] = value
-        return cls(tree)
+        return cls(tree, requires_grad)
 
     def __getitem__(self, key: str):
         if key in self._parameters:
@@ -217,3 +220,14 @@ def layer_slice(p: Any, i: int) -> Any:
     if isinstance(p, (Mapping, ParamTree)):
         return {k: layer_slice(p[k], i) for k in p.keys()}
     return p[i]
+
+
+def layer_slices(p: Any, n: int) -> list:
+    """All ``n`` layers of a stacked tree, each leaf unbound once.  Indexing
+    a leaf that requires grad n times (``layer_slice``) gives n backward
+    nodes that each write a zero tensor as large as the whole stack;
+    ``torch.unbind`` has one backward, a ``stack``."""
+    if isinstance(p, (Mapping, ParamTree)):
+        per_key = {k: layer_slices(p[k], n) for k in p.keys()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(p, 0))

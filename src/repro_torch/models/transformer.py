@@ -3,8 +3,12 @@
 
 Covers qwen3-8b (qk-norm, untied lm_head), llama3.2-3b and granite-20b
 (MQA).  Layers are stacked with a leading ``L`` dim, as in the reference;
-a Python loop over that dim takes the place of ``lax.scan``.  MoE and
-M-RoPE configs raise: they come with later slices.
+a Python loop over that dim takes the place of ``lax.scan``.  With
+``cfg.remat`` and gradients on, each layer runs under
+``torch.utils.checkpoint`` (non-reentrant): nothing inside a layer is kept
+for the backward, which recomputes it, as ``jax.checkpoint`` with
+``nothing_saveable`` does in the reference.  MoE and M-RoPE configs raise:
+they come with later slices.
 
 API (used by serve):
     init(gen, cfg, device)                  -> params (ParamTree)
@@ -25,6 +29,7 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention
@@ -149,8 +154,8 @@ def _plain_attention(q, k, v, mask) -> torch.Tensor:
 
 def _attention_dynwin(p, acfg: C.AttnConfig, x, positions, is_global: bool, dt, impl: str):
     """Attention with the sliding window switched per layer.  ``"flash"``
-    without a window takes the CUDA kernel (on one card there is no mesh
-    condition); everything else is the plain path."""
+    without a window takes the CUDA kernels, forward and backward (on one
+    card there is no mesh condition); everything else is the plain path."""
     B, S, _ = x.shape
     H, Dh = acfg.heads, acfg.head_dim
     q, k, v = _qkv(p, acfg, x, positions, dt)
@@ -183,8 +188,13 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> Tuple[t
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    for i, is_global in enumerate(_is_global_flags(cfg)):
-        x = _layer_fwd(C.layer_slice(params["layers"], i), cfg, x, positions, is_global, dt)
+    remat = cfg.remat and torch.is_grad_enabled()
+    layers = C.layer_slices(params["layers"], cfg.num_layers)
+    for lp, is_global in zip(layers, _is_global_flags(cfg)):
+        if remat:
+            x = checkpoint(_layer_fwd, lp, cfg, x, positions, is_global, dt, use_reentrant=False)
+        else:
+            x = _layer_fwd(lp, cfg, x, positions, is_global, dt)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _unembed(params, cfg, x, dt), aux
 

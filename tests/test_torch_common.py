@@ -128,6 +128,21 @@ def test_stack_params_and_param_tree():
     assert not tree["a"]["w"].requires_grad
 
 
+def test_layer_slices_unbind_each_leaf_once():
+    g = torch.Generator().manual_seed(1)
+    tree = TC.ParamTree({"a": {"w": torch.randn(3, 2, 4, generator=g)}, "n": torch.ones(3, 4)},
+                        requires_grad=True)
+    layers = TC.layer_slices(tree, 3)
+    for i, layer in enumerate(layers):
+        assert torch.equal(layer["a"]["w"], TC.layer_slice(tree, i)["a"]["w"])
+        assert torch.equal(layer["n"], tree["n"][i])
+    # one backward node per leaf, shared by its layers
+    assert layers[0]["a"]["w"].grad_fn is layers[2]["a"]["w"].grad_fn
+    sum(l["a"]["w"].sum() * (i + 1) for i, l in enumerate(layers)).backward()
+    want = torch.arange(1.0, 4.0)[:, None, None].expand(3, 2, 4)
+    assert torch.equal(tree["a"]["w"].grad, want)
+
+
 def test_params_from_jax_flattens_and_crosses_bf16():
     rng = np.random.RandomState(5)
     jtree = {
@@ -216,3 +231,15 @@ def test_chip_smoke_imports_no_jax_and_no_reference_package():
     for name in names:
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "repro"), name
+
+
+def test_kernel_bounds_of_the_kernels_still_to_port():
+    from repro_torch.kernels import bounds
+
+    ssd, mlstm = bounds.ssd_bound(), bounds.mlstm_bound()
+    # zamba2-7b: 112 heads x 16 chunks x 4 batch, 4 products of 2 * 64^3 each
+    assert ssd["flops"] == 4 * 2 * 64 ** 3 * 112 * 16 * 4
+    # xlstm-125m: both move more bytes than the card's flop rate can hide
+    assert ssd["bound_by"] == mlstm["bound_by"] == "bytes"
+    assert ssd["bound_ms"] == ssd["bytes"] / bounds.PEAK_BYTES * 1e3
+    assert 0 < mlstm["bound_ms"] < ssd["bound_ms"]

@@ -13,15 +13,22 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import ARCHS, get_smoke_config  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_bwd_ref, attention_fwd_lse_ref, attention_ref,
+)
 from repro_torch.models.common import ParamTree  # noqa: E402
 from repro_torch.models.model_zoo import get_model  # noqa: E402
+from repro_torch.train import optimizer as opt_lib  # noqa: E402
+from repro_torch.train.train_step import make_train_step  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
 # abs tolerance on unit-variance inputs: bf16 rounds probabilities and the
 # output (one ulp is 2^-6 at |x| in [2, 4)); f32 differs in sum order only
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# gradients, relative to the largest |value| of the plain version: bf16 rounds
+# P and dS as mma operands and the output; dk/dv sum Sq x group such terms
+GRAD_REL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
 CASES = [
     # B, H, Hk, Sq, Skv, Dh, causal, window, q_offset, dtype
@@ -80,10 +87,43 @@ def test_model_layout_takes_strided_views(card):
     assert (out.float() - ref.float()).abs().max().item() <= TOL[torch.bfloat16]
 
 
-def test_forward_only_refuses_grad(card):
-    q = torch.randn(1, 64, 2, 64, device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        flash_attention(q, q.detach()[:, :, :1], q.detach()[:, :, :1])
+@pytest.mark.parametrize("case", CASES)
+def test_flash_fwd_lse_and_bwd_match_plain_versions(card, case):
+    *_, causal, window, q_offset, dtype = case
+    q, k, v = _inputs(case)
+    do = _inputs(case, seed=1)[0]
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = fa.launch_counts()
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    after = fa.launch_counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        "flash_fwd": 0, "flash_fwd_lse": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    o_ref, lse_ref = attention_fwd_lse_ref(q, k, v, **kw)
+    assert (o.float() - o_ref.float()).abs().max().item() <= TOL[dtype]
+    assert lse.dtype == torch.float32 and (lse - lse_ref).abs().max().item() <= 1e-3
+    for got, want in zip((dq, dk, dv), attention_bwd_ref(q, k, v, o, lse, do, **kw)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.isfinite(got).all()
+        scale = max(want.float().abs().max().item(), 1.0)
+        assert (got.float() - want.float()).abs().max().item() <= GRAD_REL[dtype] * scale
+
+
+def test_grad_through_the_kernels_matches_autograd_of_the_plain_version(card):
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = (torch.randn(2, 128, h, 64, generator=g, device="cuda", requires_grad=True)
+               for h in (8, 2, 2))
+    before = fa.launch_counts()
+    out = flash_attention(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+    after = fa.launch_counts()
+    assert after["flash_fwd_lse"] - before["flash_fwd_lse"] == 1
+    assert after["flash_bwd_dkv"] - before["flash_bwd_dkv"] == 1
+    ref = attention_ref(*(t.transpose(1, 2) for t in (q, k, v))).transpose(1, 2)
+    want = torch.autograd.grad(ref, (q, k, v), torch.ones_like(ref))
+    for a, b in zip(grads, want):
+        assert (a - b).abs().max().item() <= 1e-4
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(card):
@@ -110,3 +150,37 @@ def test_smoke_model_on_card_matches_cpu(card, arch):
         want, _ = cpu_zoo.forward(params, {"tokens": tokens})
         got, _ = gpu_zoo.forward(gpu_params, {"tokens": tokens.cuda()})
     assert (got.cpu() - want).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_smoke_train_step_on_card_matches_cpu(card, remat):
+    """Two f32 AdamW steps of the llama smoke config: flash kernels on the
+    card vs the plain path on the CPU, same weights and batches."""
+    cfg = get_smoke_config("llama3.2-3b")
+    ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    state = get_model(cfg).init(0, device="cpu").state_dict()
+    rng = torch.Generator().manual_seed(3)
+    batches = [{"tokens": torch.randint(0, cfg.vocab, (2, 64), generator=rng),
+                "targets": torch.randint(0, cfg.vocab, (2, 64), generator=rng)} for _ in range(2)]
+    out = {}
+    for dev, c in (("cuda", dataclasses.replace(cfg, attn_impl="flash", remat=remat)),
+                   ("cpu", cfg)):
+        params = ParamTree.from_state_dict({k: v.to(dev).clone() for k, v in state.items()},
+                                           requires_grad=True)
+        step_fn = make_train_step(get_model(c), ocfg, device=dev)
+        opt = opt_lib.init(ocfg, params)
+        before = fa.launch_counts()["flash_bwd_dq"]
+        losses = []
+        for b in batches:
+            params, opt, m = step_fn(params, opt, b)
+            losses.append(float(m["loss"]))
+        out[dev] = (params.state_dict(), losses, fa.launch_counts()["flash_bwd_dq"] - before)
+    assert out["cuda"][2] == 2 * cfg.num_layers and out["cpu"][2] == 0
+    torch.testing.assert_close(torch.tensor(out["cuda"][1]), torch.tensor(out["cpu"][1]),
+                               rtol=1e-5, atol=0)
+    # f32 grads agree to ~1e-6 relative; an element whose grad is near zero
+    # may take a fraction of a different AdamW step (lr = 1e-3)
+    diff = torch.cat([(v.cpu() - out["cpu"][0][k]).abs().flatten()
+                      for k, v in out["cuda"][0].items()])
+    assert diff.max().item() <= 1e-4
+    assert (diff <= 1e-6).float().mean().item() >= 0.999

@@ -1,19 +1,33 @@
 #!/usr/bin/env python3
-"""Where the time goes on the card, for llama3.2-3b at full width in bf16,
-profiled phase by phase with ``torch.profiler``:
+"""Where the time goes on the card, profiled phase by phase with
+``torch.profiler``:
 
-* serve (the ``chip_smoke.py`` serve phase): one wave of 4 x 1024-token
-  prompts: prefill through the flash kernel, cache fill, one-token decode
-  steps;
-* train (the ``chip_smoke.py`` train phase): one AdamW step of 4 x 1024
-  tokens with remat and the flash kernels, after one warm-up step, split
-  into forward + backward and the optimizer.
+* serve (the ``chip_smoke.py`` serve phase): llama3.2-3b at full width in
+  bf16, one wave of 4 x 1024-token prompts: prefill through the flash
+  kernel, cache fill, one-token decode steps;
+* train (the ``chip_smoke.py`` train phase): one llama3.2-3b AdamW step of
+  4 x 1024 tokens with remat and the flash kernels, after one warm-up step,
+  split into forward + backward and the optimizer;
+* serve_hybrid (the ``chip_smoke.py`` serve_hybrid phase): zamba2-7b at
+  full width and depth in bf16, one wave of 4 x 256-token prompts: prefill
+  through the SSD kernel, the token-by-token cache fill (profiled over its
+  first 32 steps), one decode step.
 
-    python3 chip_profile.py [serve] [train]     # both when none is named
+And one look at numbers rather than time:
 
-For each phase it prints the host time, the device time summed over
-kernels, the device busy share, and the kernels that take most device time.
-Needs a CUDA card; imports nothing of JAX or of the JAX package.
+* xlstm_agreement: why xlstm-125m's bf16 prefill and cache fill agree less
+  than llama's or zamba2's.  The ``chip_smoke.py`` serve_xlstm weights (seed
+  0) and prompts walked layer by layer (``chip_smoke.xlstm_layer_walk``) in
+  bf16 and, with the same weights, in f32; each as the model is (the
+  recurrent form divides by max(|q.n|, 1)) and with the recurrent form
+  dividing by max(|q.n|, exp(-m)), as the chunkwise form does (a control;
+  the model keeps the reference's normaliser).
+
+    python3 chip_profile.py [serve] [train] [serve_hybrid] [xlstm_agreement]   # serve and train when none is named
+
+For each profiled phase it prints the host time, the device time summed
+over kernels, the device busy share, and the kernels that take most device
+time.  Needs a CUDA card; imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -160,6 +174,102 @@ def profile_serve(smi: str) -> None:
             _report(name, prof, host_ms)
 
 
+FILL_STEPS = 32  # token-by-token fill steps profiled (of 256)
+
+
+def profile_serve_hybrid(smi: str) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.serve.serve_step import make_serve_step
+
+    cfg = dataclasses.replace(get_config("zamba2-7b"), param_dtype=torch.bfloat16,
+                              compute_dtype=torch.bfloat16)
+    zoo = get_model(cfg)
+    params = zoo.init(0, device="cuda")
+    arts = make_serve_step(zoo, device="cuda")
+    prompt = 256
+    tokens = torch.as_tensor(np.random.RandomState(0).randint(2, cfg.vocab, (4, prompt)),
+                             device="cuda")
+    state = {"cache": zoo.init_cache(4, prompt + 16, device="cuda")}
+
+    def prefill():
+        return arts.prefill_fn(params, {"tokens": tokens})[:, -1].argmax(-1)
+
+    def fill(lo, hi):
+        for t in range(lo, hi):
+            logits, state["cache"] = arts.decode_fn(params, state["cache"],
+                                                    {"tokens": tokens[:, t:t + 1]})
+        return logits[:, -1].argmax(-1)
+
+    def decode():
+        logits, state["cache"] = arts.decode_fn(params, state["cache"], {"tokens": state["nxt"][:, None]})
+        state["nxt"] = logits[:, -1].argmax(-1)
+        state["nxt"].tolist()  # the scheduler reads every step's tokens on the host
+
+    prefill()  # warm-up of every path
+    fill(0, 2)
+    state["cache"] = zoo.init_cache(4, prompt + 16, device="cuda")
+    print(f"profile: {cfg.name} bf16, 4 x {prompt}-token prompts [{smi}]")
+    prof, host_ms = _profiled(prefill)
+    _report("hybrid_prefill", prof, host_ms)
+    prof, host_ms = _profiled(lambda: fill(0, FILL_STEPS))
+    _report("hybrid_fill", prof, host_ms, per=FILL_STEPS, unit="fill step")
+    t0 = time.perf_counter()
+    state["nxt"] = fill(FILL_STEPS, prompt)
+    torch.cuda.synchronize()
+    print(f"profile hybrid_fill: the other {prompt - FILL_STEPS} fill steps unprofiled: "
+          f"{(time.perf_counter() - t0) * 1e3 / (prompt - FILL_STEPS):.3f} ms per step")
+    prof, host_ms = _profiled(decode)
+    _report("hybrid_decode", prof, host_ms, unit="step")
+
+
+def xlstm_agreement(smi: str) -> None:
+    import contextlib
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from chip_smoke import _rel, xlstm_layer_walk
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mlstm.ref import mlstm_step
+    from repro_torch.models import ssm
+    from repro_torch.models.common import ParamTree
+    from repro_torch.models.model_zoo import get_model
+
+    bf16 = dataclasses.replace(get_config("xlstm-125m"), param_dtype=torch.bfloat16,
+                               compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = get_model(bf16).init(gen, device="cuda")
+    rng = np.random.RandomState(0)
+    tokens = torch.as_tensor(np.stack([rng.randint(2, bf16.vocab, 1024) for _ in range(4)]),
+                             device="cuda")
+    f32 = dataclasses.replace(bf16, param_dtype=torch.float32, compute_dtype=torch.float32)
+    p32 = ParamTree.from_state_dict({k: v.float() for k, v in params.state_dict().items()})
+    floors = {
+        "max(|q.n|, 1) as the model": contextlib.nullcontext,
+        "max(|q.n|, exp(-m)) control": lambda: mock.patch.object(
+            ssm, "mlstm_step", lambda *a, floor=None: mlstm_step(*a)),
+    }
+    print(f"xlstm_agreement: {bf16.name}, seed 0, 4 x 1024-token prompts [{smi}]")
+    for dname, cfg, p in (("bf16", bf16, params), ("f32", f32, p32)):
+        for fname, patch in floors.items():
+            with patch():
+                rows, a, b = xlstm_layer_walk(get_model(cfg), p, tokens)
+            tag = f"xlstm_agreement {dname}, fill divides by {fname}"
+            for i, kind, local, stream in rows:
+                print(f"{tag}: layer {i:2d} {kind}: local rms/std {local[0]:.3e} max/std "
+                      f"{local[1]:.3e}; stream rms/std {stream[0]:.3e}")
+            rms, mx = _rel(a, b)
+            agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+            print(f"{tag}: last logits rms/std {rms:.4f} max/std {mx:.4f} argmax agreement "
+                  f"{agree:.2f}", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -170,7 +280,8 @@ def main() -> None:
                          capture_output=True, text=True, check=True).stdout.strip()
     phases = sys.argv[1:] or ["serve", "train"]
     for name in phases:
-        {"serve": profile_serve, "train": profile_train}[name](smi)
+        {"serve": profile_serve, "train": profile_train,
+         "serve_hybrid": profile_serve_hybrid, "xlstm_agreement": xlstm_agreement}[name](smi)
 
 
 if __name__ == "__main__":

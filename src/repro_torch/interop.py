@@ -8,8 +8,10 @@ joined by ``.`` (``layers.attn.wq.w``, ``embed.table``): exactly the keys of
 weights stay ``(in, out)`` and stacked layers keep their leading ``L`` dim.
 
 ``torch.from_numpy`` rejects ``ml_dtypes.bfloat16``, so bf16 crosses as
-float32 (exact) and is cast on the torch side.  A 0-d integer array (a
-cache's ``index``) becomes a Python int, as the port keeps it on the host.
+float32 (exact) and is cast on the torch side: to the ``dtype`` asked for,
+or, with ``dtype=None``, back to each leaf's own dtype (a hybrid cache holds
+a bf16 conv state beside an f32 SSM state).  A 0-d integer array (a cache's
+``index``) becomes a Python int, as the port keeps it on the host.
 
 ``params_to_jax`` goes the other way: a state dict to the nested dict of
 numpy arrays that ``jax.tree_util.tree_map(jnp.asarray, ...)`` turns into
@@ -18,7 +20,7 @@ the reference's tree.  bf16 leaves cross as float32 (exact) again.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Union
+from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -45,16 +47,17 @@ def torch_dtype(dtype: Any) -> torch.dtype:
     return _DTYPES[name]
 
 
-def _to_tensor(arr: Any, dtype: torch.dtype, device: Union[str, torch.device]):
+def _to_tensor(arr: Any, dtype: Optional[torch.dtype], device: Union[str, torch.device]):
     a = np.asarray(arr)
     if a.ndim == 0 and np.issubdtype(a.dtype, np.integer):
         return int(a)
-    if a.dtype.name == "bfloat16":
+    own = a.dtype.name
+    if own == "bfloat16":
         a = a.astype(np.float32)
     # np.asarray of a jax.Array is read-only; from_numpy needs its own buffer
     t = torch.from_numpy(np.array(a, copy=True))
     if t.is_floating_point():
-        t = t.to(dtype)
+        t = t.to(dtype or torch_dtype(own))
     return t.to(device)
 
 
@@ -62,8 +65,9 @@ def params_from_jax(
     np_tree: Mapping[str, Any], *, dtype: Any, device: Union[str, torch.device]
 ) -> Dict[str, Any]:
     """Flatten a JAX param (or cache) pytree of numpy arrays into a state
-    dict on ``device``; floating leaves are cast to ``dtype``."""
-    tdtype = torch_dtype(dtype)
+    dict on ``device``; floating leaves are cast to ``dtype``, or keep their
+    own dtype when ``dtype`` is None."""
+    tdtype = None if dtype is None else torch_dtype(dtype)
     out: Dict[str, Any] = {}
 
     def walk(prefix: str, node: Any) -> None:

@@ -21,6 +21,8 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
+from ..kernels.flash_attention.ref import NEG_INF, attention_mask
+
 Params = Dict[str, Any]
 
 
@@ -147,7 +149,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
 
 
 # ---------------------------------------------------------------------------
-# Attention config / init (the apply paths live in models/transformer.py)
+# Attention config / init (the dense family's paths live in models/transformer.py)
 # ---------------------------------------------------------------------------
 
 
@@ -178,6 +180,70 @@ def init_attention(gen, cfg: AttnConfig, dt: DTypes, device) -> Params:
         p["q_norm"] = init_rmsnorm(Dh, dt, device)
         p["k_norm"] = init_rmsnorm(Dh, dt, device)
     return p
+
+
+# ---------------------------------------------------------------------------
+# Plain attention (both families' non-kernel paths; the hybrid's shared block)
+# ---------------------------------------------------------------------------
+
+
+def masked_attention(q, k, v, mask: torch.Tensor, scale: float) -> torch.Tensor:
+    """GQA attention with f32 scores and softmax, output in q's dtype.
+    q (B, Sq, H, Dh), k/v (B, Skv, Hk, Dh); mask (Sq, Skv) is True where
+    visible.  Masked scores are -1e30, so a row that sees no key averages v."""
+    B, Sq, H, Dh = q.shape
+    Hk = k.shape[2]
+    qg = (q.to(torch.float32) * scale).reshape(B, Sq, Hk, H // Hk, Dh)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(torch.float32))
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(torch.float32))
+    return out.reshape(B, Sq, H, Dh).to(q.dtype)
+
+
+def sdpa(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    causal: bool, window: Optional[int], scale: float, q_offset: int = 0,
+) -> torch.Tensor:
+    """Scaled dot-product attention with GQA, the reference's "ref" branch;
+    with ``causal=True`` and ``q_offset`` the cache index it is also the
+    reference's ``_decode_sdpa``.  q (B, Sq, H, Dh); k/v (B, Skv, Hk, Dh)."""
+    mask = attention_mask(q.shape[1], k.shape[1], causal, window, q_offset, q.device)
+    return masked_attention(q, k, v, mask, scale)
+
+
+def attention(
+    p: Params,
+    cfg: AttnConfig,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    dt: DTypes,
+    kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    cache_index: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+    """Self-attention with rope at ``positions`` (B, S), without qk-norm
+    (the one caller, the hybrid's shared block, has none).  Returns (output,
+    kv cache).  Without a cache it attends within x;
+    with ``kv_cache=(k, v)`` (B, S_max, Hk, Dh) and ``cache_index`` (a host
+    int, the filled length) it writes this call's keys and values into the
+    cache in place and attends over it.  The write start is clamped so the
+    update fits while the mask keeps the unclamped index, as
+    ``dynamic_update_slice_in_dim`` does in the reference."""
+    B, S, _ = x.shape
+    H, Hk, Dh = cfg.heads, cfg.kv_heads, cfg.head_dim
+    q = apply_rope(linear(p["wq"], x, dt).reshape(B, S, H, Dh), positions, cfg.rope_theta)
+    k = apply_rope(linear(p["wk"], x, dt).reshape(B, S, Hk, Dh), positions, cfg.rope_theta)
+    v = linear(p["wv"], x, dt).reshape(B, S, Hk, Dh)
+    scale = cfg.softmax_scale or (1.0 / math.sqrt(Dh))
+    if kv_cache is not None:
+        ck, cv = kv_cache
+        start = min(max(cache_index, 0), ck.shape[1] - S)
+        ck[:, start:start + S] = k.to(ck.dtype)
+        cv[:, start:start + S] = v.to(cv.dtype)
+        out = sdpa(q, ck, cv, causal=True, window=cfg.window, scale=scale, q_offset=cache_index)
+        return linear(p["wo"], out.reshape(B, S, H * Dh), dt), (ck, cv)
+    out = sdpa(q, k, v, causal=cfg.causal, window=cfg.window, scale=scale)
+    return linear(p["wo"], out.reshape(B, S, H * Dh), dt), None
 
 
 # ---------------------------------------------------------------------------

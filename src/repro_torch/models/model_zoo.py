@@ -1,13 +1,15 @@
 """Model dispatch (counterpart of ``repro/models/model_zoo.py``).
 
-    zoo = get_model(cfg)                        # dense family only, so far
+    zoo = get_model(cfg)                        # dense, hybrid and xlstm families
     params = zoo.init(0)                        # seed or torch.Generator; on the card
     logits, aux = zoo.forward(params, batch)
     cache = zoo.init_cache(batch_size, cache_len)
     logits, cache = zoo.decode_step(params, cache, batch)
 
 ``init`` and ``init_cache`` take ``device=`` (default ``"cuda"``; without a
-card they raise unless given ``device="cpu"``).
+card they raise unless given ``device="cpu"``).  ``decode_tokens`` is the
+number of tokens a ``decode_step`` call must take (1 for the hybrid family,
+whose Mamba2 state step reads one position), or None for any number.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 
 from .. import device as _device
 from ..configs.base import ModelConfig
-from . import transformer
+from . import hybrid, transformer, xlstm_lm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +42,10 @@ class ModelZoo:
     def decode_step(self, params, cache, batch):
         return self._mod.decode_step(params, self.cfg, cache, batch)
 
+    @property
+    def decode_tokens(self):
+        return getattr(self._mod, "DECODE_TOKENS", None)
+
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Next-token cross entropy over batch['targets'] with optional
         batch['loss_mask']; adds the aux loss."""
@@ -57,14 +63,12 @@ class ModelZoo:
         return loss + aux, {"nll": loss, "aux": aux}
 
 
-_FAMILIES = {"dense": transformer}
+_FAMILIES = {"dense": transformer, "hybrid": hybrid, "xlstm": xlstm_lm}
 
 # families of the reference that later slices of the port add
 _LATER = {
     "moe": "the MoE slice",
     "vlm": "the M-RoPE (vlm) slice",
-    "xlstm": "the xLSTM slice",
-    "hybrid": "the hybrid (Mamba2) slice",
     "whisper": "the whisper slice",
 }
 

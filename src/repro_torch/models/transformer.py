@@ -33,7 +33,6 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention
-from ..kernels.flash_attention.ref import NEG_INF
 from . import common as C
 from .common import DTypes, Params, ParamTree
 
@@ -139,19 +138,6 @@ def _qkv(p, acfg: C.AttnConfig, x, positions, dt):
     return q, k, v
 
 
-def _plain_attention(q, k, v, mask) -> torch.Tensor:
-    """GQA attention with f32 scores; mask (Sq, Skv) is True where visible."""
-    B, S, H, Dh = q.shape
-    Hk = k.shape[2]
-    qf = q.to(torch.float32) * (1.0 / math.sqrt(Dh))
-    qg = qf.reshape(B, S, Hk, H // Hk, Dh)
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(torch.float32))
-    logits = torch.where(mask, logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(torch.float32))
-    return out.reshape(B, S, H * Dh)
-
-
 def _attention_dynwin(p, acfg: C.AttnConfig, x, positions, is_global: bool, dt, impl: str):
     """Attention with the sliding window switched per layer.  ``"flash"``
     without a window takes the CUDA kernels, forward and backward (on one
@@ -167,8 +153,8 @@ def _attention_dynwin(p, acfg: C.AttnConfig, x, positions, is_global: bool, dt, 
     mask = kpos <= qpos
     if acfg.window is not None and not is_global:
         mask = mask & (kpos > qpos - acfg.window)
-    out = _plain_attention(q, k, v, mask).to(x.dtype)
-    return C.linear(p["wo"], out, dt)
+    out = C.masked_attention(q, k, v, mask, 1.0 / math.sqrt(Dh))
+    return C.linear(p["wo"], out.reshape(B, S, H * Dh), dt)
 
 
 def _layer_fwd(lp, cfg: ModelConfig, x, positions, is_global: bool, dt: DTypes):
@@ -231,8 +217,8 @@ def _decode_attention(p, acfg: C.AttnConfig, x, positions, is_global: bool, ck, 
     mask = kpos <= qpos
     if acfg.window is not None and not is_global:
         mask = mask & (kpos > qpos - acfg.window)
-    out = _plain_attention(q, ck, cv, mask).to(x.dtype)
-    return C.linear(p["wo"], out, dt)
+    out = C.masked_attention(q, ck, cv, mask, 1.0 / math.sqrt(Dh))
+    return C.linear(p["wo"], out.reshape(B, S, H * Dh), dt)
 
 
 def decode_step(

@@ -10,8 +10,10 @@
 
 ``serve_waves`` answers a ``BatchScheduler``'s requests with those two
 steps: per wave, (a) ``prefill_fn`` on the prompts gives the first new
-token, (b) ``decode_fn`` on the whole prompt fills the cache, (c) one-token
-``decode_fn`` steps give the rest.  All slots share one cache ``index``, so
+token, (b) ``decode_fn`` fills the cache with the prompt, in one call or,
+for a family whose decode takes one token per call (``zoo.decode_tokens``,
+the hybrid family), one call per prompt token, (c) one-token ``decode_fn``
+steps give the rest.  All slots share one cache ``index``, so
 the requests of a wave must have prompts of one length.  (a) and (b) both
 produce the last prompt position's logits, through the kernel and the plain
 path; each ``Wave`` keeps both so the caller can hold them against each
@@ -115,7 +117,7 @@ class Wave:
     requests: List[Request]
     prompt_len: int
     prefill_last: torch.Tensor   # (slots, vocab) last-position logits of prefill_fn
-    fill_last: torch.Tensor      # the same from the cache-filling decode_fn
+    fill_last: torch.Tensor      # the same from the cache-filling decode_fn call(s)
     decode_steps: int            # one-token decode_fn calls
 
 
@@ -142,7 +144,9 @@ def serve_waves(
         # clone: a view would keep the whole (slots, P, vocab) logits alive
         prefill_last = arts.prefill_fn(params, {"tokens": tokens})[:, -1].clone()
         cache = zoo.init_cache(sched.slots, cache_len, device=dev)
-        fill_logits, cache = arts.decode_fn(params, cache, {"tokens": tokens})
+        step = zoo.decode_tokens or P
+        for lo in range(0, P, step):
+            fill_logits, cache = arts.decode_fn(params, cache, {"tokens": tokens[:, lo:lo + step]})
         fill_last = fill_logits[:, -1].clone()
         del fill_logits
         nxt = prefill_last.argmax(-1)

@@ -104,6 +104,46 @@ def test_bf16_dtype_policy_matches_jax():
     np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), rtol=2 ** -7, atol=1e-2)
 
 
+@pytest.mark.parametrize("causal,window,q_offset", [(True, None, 0), (False, 3, 4)])
+def test_sdpa_matches_jax(causal, window, q_offset):
+    rng = np.random.RandomState(6)
+    q = rng.randn(2, 5, 4, 8).astype(np.float32)
+    k, v = (rng.randn(2, 9, 2, 8).astype(np.float32) for _ in range(2))
+    want = JC.sdpa(*map(jnp.asarray, (q, k, v)), causal, window, 0.3, q_offset)
+    got = TC.sdpa(*map(torch.from_numpy, (q, k, v)), causal, window, 0.3, q_offset)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+
+
+def test_attention_with_cache_matches_jax():
+    """Prefill, then cache writes: a fill, a step, and a write past the end
+    that clamps its start while the mask keeps the index."""
+    rng = np.random.RandomState(7)
+    jcfg = JC.AttnConfig(d_model=16, heads=4, kv_heads=2, head_dim=4, rope_theta=500.0)
+    tcfg = TC.AttnConfig(d_model=16, heads=4, kv_heads=2, head_dim=4, rope_theta=500.0)
+    p = {k: {"w": w} for k, w in _tree(rng, {"wq": (16, 16), "wk": (16, 8), "wv": (16, 8),
+                                             "wo": (16, 16)}).items()}
+    jp, tp = jax.tree_util.tree_map(jnp.asarray, p), jax.tree_util.tree_map(torch.from_numpy, p)
+    x = rng.randn(2, 7, 16).astype(np.float32)
+    pos = np.broadcast_to(np.arange(7), (2, 7)).astype(np.int32)
+    jattn = jax.jit(JC.attention, static_argnums=(1, 4))
+    want, _ = jattn(jp, jcfg, jnp.asarray(x), jnp.asarray(pos), JC.DTypes())
+    got, kv = TC.attention(tp, tcfg, torch.from_numpy(x), torch.from_numpy(pos).long(), TC.DTypes())
+    assert kv is None
+    np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+    jkv = (jnp.zeros((2, 6, 2, 4)),) * 2
+    tkv = (torch.zeros(2, 6, 2, 4), torch.zeros(2, 6, 2, 4))
+    index = 0
+    for lo, hi in [(0, 4), (4, 5), (5, 7)]:  # the last write starts at 5 and clamps to 4
+        xs, ps = x[:, lo:hi], pos[:, lo:hi]
+        want, jkv = jattn(jp, jcfg, jnp.asarray(xs), jnp.asarray(ps), JC.DTypes(),
+                          kv_cache=jkv, cache_index=jnp.asarray(index))
+        got, tkv = TC.attention(tp, tcfg, torch.from_numpy(xs), torch.from_numpy(ps).long(),
+                                TC.DTypes(), kv_cache=tkv, cache_index=index)
+        np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+        np.testing.assert_allclose(_np(tkv[0]), np.asarray(jkv[0]), **TOL)
+        index += hi - lo
+
+
 def test_trunc_normal_is_cut_at_two_sigma_then_scaled():
     g = torch.Generator().manual_seed(0)
     x = TC.trunc_normal(g, (20000,), 0.5, torch.float32, "cpu")
@@ -170,7 +210,8 @@ def test_torch_dtype_map():
         torch_dtype(np.complex64)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen3-8b", "granite-20b"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen3-8b", "granite-20b", "zamba2-7b",
+                                  "xlstm-125m"])
 def test_configs_match_reference(arch):
     mine, ref = get_config(arch), jax_get_config(arch)
     for f in dataclasses.fields(ref):
@@ -183,7 +224,7 @@ def test_configs_match_reference(arch):
 
 
 def test_registry_names_later_slices():
-    assert set(ARCHS) == {"llama3.2-3b", "qwen3-8b", "granite-20b"}
+    assert set(ARCHS) == {"llama3.2-3b", "qwen3-8b", "granite-20b", "zamba2-7b", "xlstm-125m"}
     with pytest.raises(KeyError, match="MoE slice"):
         get_config("qwen3-moe-235b-a22b")
     with pytest.raises(KeyError, match="unknown"):
@@ -237,9 +278,15 @@ def test_kernel_bounds_of_the_kernels_still_to_port():
     from repro_torch.kernels import bounds
 
     ssd, mlstm = bounds.ssd_bound(), bounds.mlstm_bound()
-    # zamba2-7b: 112 heads x 16 chunks x 4 batch, 4 products of 2 * 64^3 each
-    assert ssd["flops"] == 4 * 2 * 64 ** 3 * 112 * 16 * 4
-    # xlstm-125m: both move more bytes than the card's flop rate can hide
-    assert ssd["bound_by"] == mlstm["bound_by"] == "bytes"
-    assert ssd["bound_ms"] == ssd["bytes"] / bounds.PEAK_BYTES * 1e3
-    assert 0 < mlstm["bound_ms"] < ssd["bound_ms"]
+    # zamba2-7b, 16 chunks x 4 batch: C B^T (2 * 64^3) once, shared by the
+    # 112 heads, and 3 products of 2 * 64^3 per head
+    assert ssd["flops"] == (1 + 3 * 112) * 2 * 64 ** 3 * 16 * 4
+    # xlstm-125m, 4 heads x 16 chunks x 4 batch: 2 products of 2 * 64^2 * 192
+    # and 2 of 2 * 64 * 192^2; q.n_t reuses w o q k^T, so no w k product
+    assert mlstm["flops"] == (2 * 2 * 64 ** 2 * 192 + 2 * 2 * 64 * 192 ** 2) * 4 * 16 * 4
+    # the path is f32: f32 bytes, and both are bound by the f32 SIMT peak
+    assert bounds.PEAK_FLOPS == 67e12 and bounds.F32 == 4
+    assert ssd["bound_by"] == mlstm["bound_by"] == "operations"
+    assert ssd["bound_ms"] == ssd["flops"] / bounds.PEAK_FLOPS * 1e3
+    assert abs(ssd["bound_ms"] - 0.1688) < 1e-4 and abs(ssd["bytes"] - 238.8e6) < 0.1e6
+    assert abs(mlstm["bound_ms"] - 0.0481) < 1e-4 and abs(mlstm["bytes"] - 50.46e6) < 0.01e6

@@ -1,5 +1,7 @@
 """Tests of the port that need a CUDA card: the hand-written kernels against
-their plain versions, on the card.  They skip elsewhere.
+their plain versions, on the card (flash attention, the SSD scan, the
+chunkwise mLSTM), and the smoke models on the card against the CPU.  They
+skip elsewhere.
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
@@ -16,6 +18,10 @@ from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E40
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_bwd_ref, attention_fwd_lse_ref, attention_ref,
 )
+from repro_torch.kernels.mlstm import mlstm as mlstm_mod  # noqa: E402
+from repro_torch.kernels.mlstm.ref import mlstm_chunked_ref, mlstm_ref  # noqa: E402
+from repro_torch.kernels.ssd import ssd as ssd_mod  # noqa: E402
+from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_ref  # noqa: E402
 from repro_torch.models.common import ParamTree  # noqa: E402
 from repro_torch.models.model_zoo import get_model  # noqa: E402
 from repro_torch.train import optimizer as opt_lib  # noqa: E402
@@ -184,3 +190,72 @@ def test_smoke_train_step_on_card_matches_cpu(card, remat):
                       for k, v in out["cuda"][0].items()])
     assert diff.max().item() <= 1e-4
     assert (diff <= 1e-6).float().mean().item() >= 0.999
+
+
+# the reference tests' shapes (tests/test_kernels.py), both chunk sizes, and
+# the model paths' shapes: zamba2 (H 112, P = N = 64), its smoke config
+# (P = N = 16), xlstm-125m (D = 192) and its smoke config (D = 32)
+SSD_CASES = [(2, 128, 3, 32, 16, 32), (1, 64, 2, 64, 64, 64), (2, 256, 1, 16, 8, 64),
+             (4, 256, 112, 64, 64, 64), (2, 128, 8, 16, 16, 64), (1, 96, 2, 64, 64, 32)]
+MLSTM_CASES = [(2, 128, 2, 32, 32), (1, 64, 3, 16, 64), (2, 256, 1, 64, 64),
+               (2, 256, 4, 192, 64), (2, 128, 2, 32, 64), (1, 96, 2, 96, 32)]
+# relative to the largest |y|: against the sequential oracle, the reference
+# tests' own bounds; against the chunked plain version, 1e-4: the same
+# chunked function in f32, summed in other orders (and the mLSTM's q.n_t
+# taken as a row sum of w o q k^T), carried over up to 8 chunks
+SSD_REL, MLSTM_REL, SAME_FORM_REL = 1e-4, 1e-3, 1e-4
+
+
+def _rel(got, want):
+    return ((got - want).abs().max() / want.abs().max().clamp(min=1e-6)).item()
+
+
+def _ssd_inputs(B, S, H, P, N, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device="cuda")  # noqa: E731
+    return r(B, S, H, P), r(B, S, H).abs() * 0.1 + 0.01, r(B, S, N), r(B, S, N), -(r(H).abs() + 0.5)
+
+
+def _mlstm_inputs(B, S, H, D, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device="cuda")  # noqa: E731
+    return (r(B, S, H, D) / D ** 0.5, r(B, S, H, D), r(B, S, H, D), r(B, S, H),
+            torch.nn.functional.logsigmoid(r(B, S, H) + 2))
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_fwd_matches_plain_versions(card, case):
+    *shape, chunk = case
+    x = _ssd_inputs(*shape)
+    before = ssd_mod.LAUNCHES
+    y = ssd_mod.ssd_fwd(*x, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_mod.LAUNCHES == before + 1
+    assert y.shape == x[0].shape and y.dtype == torch.float32 and torch.isfinite(y).all()
+    assert _rel(y, ssd_chunked_ref(*x, chunk)[0]) <= SAME_FORM_REL
+    if shape[1] <= 128:  # the sequential oracle loops over S
+        assert _rel(y, ssd_ref(*x)) <= SSD_REL
+
+
+@pytest.mark.parametrize("case", MLSTM_CASES)
+def test_mlstm_fwd_matches_plain_versions(card, case):
+    *shape, chunk = case
+    x = _mlstm_inputs(*shape)
+    before = mlstm_mod.LAUNCHES
+    y = mlstm_mod.mlstm_fwd(*x, chunk=chunk)
+    torch.cuda.synchronize()
+    assert mlstm_mod.LAUNCHES == before + 1
+    assert y.shape == x[0].shape and y.dtype == torch.float32 and torch.isfinite(y).all()
+    assert _rel(y, mlstm_chunked_ref(*x, chunk)) <= SAME_FORM_REL
+    if shape[1] <= 128:
+        assert _rel(y, mlstm_ref(*x)) <= MLSTM_REL
+
+
+def test_scan_wrappers_reject_what_the_kernels_do_not_take(card):
+    x = _ssd_inputs(1, 64, 2, 16, 16)
+    with pytest.raises(TypeError):
+        ssd_mod.ssd_fwd(*(t.bfloat16() for t in x))
+    with pytest.raises(ValueError, match="up to 64"):
+        ssd_mod.ssd_fwd(*_ssd_inputs(1, 64, 2, 128, 16))
+    with pytest.raises(ValueError, match="up to 192"):
+        mlstm_mod.mlstm_fwd(*_mlstm_inputs(1, 64, 1, 256))

@@ -235,5 +235,5 @@ def test_unported_features_raise():
     moe_cfg = dataclasses.replace(moe.cfg, moe=MoEParams(num_experts=4, top_k=2, d_ff=32))
     with pytest.raises(NotImplementedError, match="MoE"):
         get_model(moe_cfg).init(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="xLSTM"):
-        get_model(dataclasses.replace(moe.cfg, family="xlstm"))
+    with pytest.raises(NotImplementedError, match="whisper"):
+        get_model(dataclasses.replace(moe.cfg, family="whisper"))

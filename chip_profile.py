@@ -13,6 +13,23 @@
   through the SSD kernel, the token-by-token cache fill (profiled over its
   first 32 steps), one decode step.
 
+And an A/B of the flash-attention forward kernels against another checkout:
+
+* flash_ab DIR: ``flash_fwd`` and ``flash_fwd_lse`` at the serving prefill
+  shape (B=4, H=24, Hk=8, S=1024, Dh=128, bf16, causal), timed in the
+  package of the checkout at DIR (say, the parent commit unpacked with
+  ``git archive``) and in this one, in turns (DIR, this, this, DIR), each
+  run in a fresh process that builds that checkout's kernel: device time
+  (a CUDA graph of 20 launches) and 20 back-to-back wrapper calls timed
+  with events.
+
+* flash_ablate: what each part of the TMA / wgmma forward's design is
+  worth.  Variants of ``flash_fwd.cu``, each with one part taken out by a
+  text substitution, are built beside the unmodified source and timed at
+  the serving prefill shape (device time, CUDA graph), in two rounds.  The
+  variants that drop work (the softmax, the K/V loads) give wrong outputs:
+  they only measure what that work costs.
+
 And one look at numbers rather than time:
 
 * xlstm_agreement: why xlstm-125m's bf16 prefill and cache fill agree less
@@ -23,7 +40,9 @@ And one look at numbers rather than time:
   dividing by max(|q.n|, exp(-m)), as the chunkwise form does (a control;
   the model keeps the reference's normaliser).
 
-    python3 chip_profile.py [serve] [train] [serve_hybrid] [xlstm_agreement]   # serve and train when none is named
+    python3 chip_profile.py [serve] [train] [serve_hybrid] [xlstm_agreement] [flash_ab DIR]
+                            [flash_ablate]
+                                                    # serve and train when none is named
 
 For each profiled phase it prints the host time, the device time summed
 over kernels, the device busy share, and the kernels that take most device
@@ -61,10 +80,20 @@ def _device_us(prof) -> tuple:
     return total, busy
 
 
+# the port's hand-written kernels, by a part of their device names
+PORT_KERNELS = ("flash_fwd", "flash_bwd", "ssd_fwd", "mlstm_fwd")
+
+
 def _report(name: str, prof, host_ms: float, per: int = 1, unit: str = "call") -> None:
     total, busy = _device_us(prof)
     print(f"profile {name}: host {host_ms / per:.3f} ms, kernels {total / 1e3 / per:.3f} ms, "
           f"device busy {busy / 1e3 / per:.3f} ms ({busy / 1e3 / host_ms:.1%}) per {unit}")
+    for part in PORT_KERNELS:
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type.name == "CUDA" and part in e.name]
+        if spans:
+            print(f"profile {name}: port kernel {part}: {len(spans) / per:g} launches, "
+                  f"{sum(spans) / 1e3 / per:.3f} ms per {unit}")
     print(prof.key_averages().table(sort_by="device_time_total", row_limit=12,
                                     max_name_column_width=70))
 
@@ -270,6 +299,145 @@ def xlstm_agreement(smi: str) -> None:
                   f"{agree:.2f}", flush=True)
 
 
+# Times the forward kernels of the package under ``src/`` of the current
+# directory (any checkout of the port since the forward took its ``lse``
+# argument); prints one line of JSON.
+_FLASH_TIMING = r"""
+import json, sys, torch
+sys.path.insert(0, "src")
+from repro_torch.kernels.flash_attention import flash_attention as fa
+
+def graph_ms(fn, iters=20, replays=5):
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return events_ms(graph.replay, replays) / iters
+
+def events_ms(fn, n=20):
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+g = torch.Generator(device="cuda")
+g.manual_seed(0)
+q = torch.randn(4, 24, 1024, 128, generator=g, device="cuda").bfloat16()
+k, v = (torch.randn(4, 8, 1024, 128, generator=g, device="cuda").bfloat16() for _ in range(2))
+out = {}
+for name, fn in (("flash_fwd", fa.flash_attention_fwd), ("flash_fwd_lse", fa.flash_attention_fwd_lse)):
+    call = lambda: fn(q, k, v, causal=True)
+    out[name] = {"device_ms": graph_ms(call), "back_to_back_ms": events_ms(call)}
+print(json.dumps(out))
+"""
+
+
+def flash_ab(smi: str, other: str) -> None:
+    here = Path(__file__).resolve().parent
+    there = (here / other).resolve()
+    print(f"flash_ab: flash_fwd / flash_fwd_lse at B=4 H=24 Hk=8 S=1024 Dh=128 bf16 causal, "
+          f"{there} against {here} [{smi}]", flush=True)
+    for label, path in (("other", there), ("this", here), ("this", here), ("other", there)):
+        res = subprocess.run([sys.executable, "-c", _FLASH_TIMING], cwd=path,
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            sys.exit(f"flash_ab: the run in {path} failed:\n{res.stderr[-3000:]}")
+        print(f"flash_ab {label} ({path}): {res.stdout.strip().splitlines()[-1]}", flush=True)
+
+
+# variant name -> (what it takes out, [(pattern, replacement)] applied with
+# re.subn to flash_fwd.cu; each pattern must match)
+FLASH_ABLATIONS = {
+    "no_pingpong": ("the consumers' turns (named barriers) around their products", [
+        (r"named_barrier_sync\(my_turn, 256\);", ""),
+        (r"if \(c == 1\) named_barrier_arrive\(1, 256\);", ""),
+        (r"if \(c == 0 \|\| !last_item\) named_barrier_arrive\(other_turn, 256\);", ""),
+        (r"named_barrier_arrive\(other_turn, 256\);", "")]),
+    "k_released_with_v": ("K's early release: a stage's K is freed with its V", [
+        (r"mbar_arrive\(&k_empty\[st\]\);[^\n]*\n", "\n"),
+        (r"if \(lane == 0\) mbar_arrive\(&v_empty\[pst\]\);",
+         "if (lane == 0) { mbar_arrive(&v_empty[pst]); mbar_arrive(&k_empty[pst]); }")]),
+    "non_persistent": ("the persistent schedule: one block per work item", [
+        (r"<<<min\(total, sms\),", "<<<total,")]),
+    "branchy_mask": ("the branch-free mask of edge tiles", [
+        (r"const bool masked = [^;]*;\s*return [^;]*;",
+         "if (key >= p.Skv) return -INFINITY; if (p.causal && key > qpos) return kMasked; "
+         "if (p.has_window && key <= qpos - p.window) return kMasked; return s;")]),
+    "no_softmax": ("(wrong output) the softmax, P = S", [
+        (r"softmax_tile\(p, s,[^;]*;", "alpha[0] = alpha[1] = 1.f;")]),
+    "no_kv_loads": ("(wrong output) the K/V loads after the ring's first fill", [
+        (r"mbar_arrive_expect_tx\(&(k|v)_full\[st\], L::kKV\);",
+         r"mbar_arrive_expect_tx(&\1_full[st], kv < kWgStages ? L::kKV : 0);"),
+        (r"for \(int s = 0; s < L::kSlabs; \+\+s\)(\s*tma_load_4d\(s[KV])",
+         r"for (int s = 0; s < (kv < kWgStages ? L::kSlabs : 0); ++s)\1")]),
+}
+
+
+def flash_ablate(smi: str) -> None:
+    import ctypes
+    import re
+
+    import torch
+
+    from chip_smoke import _flash_inputs, _graph_ms
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    src = build.KERNELS_DIR / fa.SOURCE
+    text = src.read_text()
+    out_dir = build.BUILD_DIR.parent / "ablate"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    variants = {"unmodified": text}
+    for name, (_, subs) in FLASH_ABLATIONS.items():
+        t = text
+        for pattern, repl in subs:
+            t, n = re.subn(pattern, repl, t)
+            if n == 0:
+                sys.exit(f"flash_ablate: {name}: no match for {pattern!r}")
+        variants[name] = t
+    procs = {}
+    for name, t in variants.items():
+        (out_dir / f"{name}.cu").write_text(t)
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(src.parent), "-o",
+               str(out_dir / f"{name}.so"), str(out_dir / f"{name}.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            sys.exit(f"flash_ablate: {name} does not build:\n{log[-3000:]}")
+        libs[name] = ctypes.CDLL(str(out_dir / f"{name}.so"))
+    q, k, v = _flash_inputs(4, 24, 8, 1024, 1024, 128, "bfloat16", seed=0)
+    print(f"flash_ablate: flash_fwd at B=4 H=24 Hk=8 S=1024 Dh=128 bf16 causal, device ms "
+          f"(CUDA graph of 20 launches), two rounds [{smi}]", flush=True)
+    times = {name: [] for name in libs}
+    try:
+        for _ in range(2):
+            for name, lib in libs.items():
+                build._LIBS[fa.SOURCE] = lib  # the wrapper launches this build
+                times[name].append(_graph_ms(lambda: fa.flash_attention_fwd(q, k, v)))
+                torch.cuda.synchronize()
+    finally:
+        build._LIBS.pop(fa.SOURCE, None)
+    base = sum(times["unmodified"]) / 2
+    for name, ts in times.items():
+        what = FLASH_ABLATIONS[name][0] if name in FLASH_ABLATIONS else "the kernel as committed"
+        print(f"flash_ablate {name}: {ts[0]:.4f} / {ts[1]:.4f} ms, {sum(ts) / 2 / base:.3f}x of "
+              f"unmodified; takes out {what}", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -278,10 +446,14 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    phases = sys.argv[1:] or ["serve", "train"]
-    for name in phases:
-        {"serve": profile_serve, "train": profile_train,
-         "serve_hybrid": profile_serve_hybrid, "xlstm_agreement": xlstm_agreement}[name](smi)
+    args = sys.argv[1:] or ["serve", "train"]
+    while args:
+        name = args.pop(0)
+        if name == "flash_ab":
+            flash_ab(smi, args.pop(0))
+            continue
+        {"serve": profile_serve, "train": profile_train, "serve_hybrid": profile_serve_hybrid,
+         "xlstm_agreement": xlstm_agreement, "flash_ablate": flash_ablate}[name](smi)
 
 
 if __name__ == "__main__":

@@ -115,10 +115,24 @@ def phase_build() -> None:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"build:   {line.strip()}")
+    # the TMA / wgmma forward keeps its S, O and P fragments in registers:
+    # each instantiation (Dh 64, 128) must build without spilling
+    spills, entry = {}, None
+    for line in build.BUILD_INFO[fa.SOURCE]["log"].splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill stores" in line and entry and "flash_fwd_wgmma_kernel" in entry:
+            spills[entry] = int(line.split("bytes spill stores")[0].split(",")[-1])
+    print(f"build: flash_fwd_wgmma_kernel instantiations {len(spills)}, spill stores "
+          f"{sorted(spills.values())} bytes", flush=True)
+    if len(spills) != 2 or any(spills.values()):
+        fail(f"the wgmma forward should build twice (Dh 64, 128) without spills: {spills}")
     sys.stdout.flush()
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """CUDA events around ``iters`` back-to-back calls: the device time per
+    call where the host keeps ahead, the host's time where it does not."""
     import torch
 
     for _ in range(warmup):
@@ -133,33 +147,88 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-# name, B, H, Hk, Sq, Skv, Dh, causal, window, q_offset, dtype
+def _graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time per call: CUDA events around replays of a CUDA graph of
+    ``iters`` calls, so no host work lies between the launches.  A kernel
+    launched through ctypes on the capturing stream is captured with its
+    arguments (the tensor maps by value)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):  # builds, plans and allocations happen outside the graph
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def _host_us(fn, iters: int = 50) -> float:
+    """Host time per call, with the device left to catch up afterwards."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / iters * 1e6
+
+
+# name, B, H, Hk, Sq, Skv, Dh, causal, window, q_offset, dtype, layout.  bf16
+# at Dh 64 and 128 runs the TMA / wgmma kernel (128-row q tiles, 128-key
+# tiles), Dh 16 and 32 the mma.sync one; "model" passes q/k/v as the
+# transposed views of (B, S, H, Dh) that ops.flash_attention passes.
 FLASH_CASES = [
-    ("serve_prefill", 4, 24, 8, 1024, 1024, 128, True, None, 0, "bfloat16"),
-    ("ragged_1000", 2, 24, 8, 1000, 1000, 128, True, None, 0, "bfloat16"),
-    ("window_256", 2, 24, 8, 1024, 1024, 128, True, 256, 0, "bfloat16"),
-    ("q_offset_960", 2, 24, 8, 64, 1024, 128, True, None, 960, "bfloat16"),
-    ("mqa_hk1", 2, 48, 1, 512, 512, 128, True, None, 0, "bfloat16"),
-    ("non_causal", 2, 8, 4, 384, 320, 64, False, None, 0, "bfloat16"),
-    ("head_dim_32", 2, 4, 2, 200, 200, 32, True, None, 0, "bfloat16"),
-    ("head_dim_16", 2, 4, 2, 64, 64, 16, True, None, 0, "bfloat16"),
-    ("f32", 2, 8, 2, 1000, 1000, 128, True, None, 0, "float32"),
-    ("f32_window_d64", 2, 4, 4, 256, 256, 64, True, 48, 0, "float32"),
+    ("serve_prefill", 4, 24, 8, 1024, 1024, 128, True, None, 0, "bfloat16", "kernel"),
+    ("serve_prefill_model", 4, 24, 8, 1024, 1024, 128, True, None, 0, "bfloat16", "model"),
+    ("ragged_1000", 2, 24, 8, 1000, 1000, 128, True, None, 0, "bfloat16", "kernel"),
+    ("ragged_130", 2, 24, 8, 130, 130, 128, True, None, 0, "bfloat16", "kernel"),  # 2-row tile
+    ("ragged_333_d64", 2, 8, 4, 333, 333, 64, True, None, 0, "bfloat16", "model"),
+    ("window_256", 2, 24, 8, 1024, 1024, 128, True, 256, 0, "bfloat16", "kernel"),
+    ("window_200", 2, 24, 8, 1024, 1024, 128, True, 200, 0, "bfloat16", "model"),
+    ("q_offset_960", 2, 24, 8, 64, 1024, 128, True, None, 960, "bfloat16", "kernel"),  # Sq < 128
+    ("gqa3_d64", 2, 12, 4, 512, 512, 64, True, None, 0, "bfloat16", "kernel"),
+    ("mqa_hk1", 2, 48, 1, 512, 512, 128, True, None, 0, "bfloat16", "kernel"),
+    ("mqa_hk1_d64", 1, 16, 1, 300, 300, 64, True, None, 0, "bfloat16", "model"),
+    ("non_causal", 2, 8, 4, 384, 320, 64, False, None, 0, "bfloat16", "kernel"),
+    ("head_dim_32", 2, 4, 2, 200, 200, 32, True, None, 0, "bfloat16", "kernel"),
+    ("head_dim_16", 2, 4, 2, 64, 64, 16, True, None, 0, "bfloat16", "kernel"),
+    ("f32", 2, 8, 2, 1000, 1000, 128, True, None, 0, "float32", "kernel"),
+    ("f32_window_d64", 2, 4, 4, 256, 256, 64, True, 48, 0, "float32", "kernel"),
     # window without causal: rows at q >= 143 see no key and average v
-    ("no_visible_key", 1, 4, 2, 64, 128, 64, False, 16, 100, "bfloat16"),
-    ("no_visible_key_f32", 1, 4, 2, 64, 128, 64, False, 16, 100, "float32"),
+    ("no_visible_key", 1, 4, 2, 64, 128, 64, False, 16, 100, "bfloat16", "kernel"),
+    ("no_visible_key_d128", 1, 4, 2, 64, 128, 128, False, 16, 100, "bfloat16", "kernel"),
+    ("no_visible_key_f32", 1, 4, 2, 64, 128, 64, False, 16, 100, "float32", "kernel"),
 ]
 
 
-def _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed):
+def _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed, layout="kernel"):
     import torch
 
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     dt = getattr(torch, dtype)
 
-    def randn(*shape):
-        return torch.randn(shape, generator=g, device="cuda", dtype=torch.float32).to(dt)
+    def randn(b, h, s, d):
+        if layout == "model":
+            x = torch.randn((b, s, h, d), generator=g, device="cuda", dtype=torch.float32)
+            return x.to(dt).transpose(1, 2)
+        return torch.randn((b, h, s, d), generator=g, device="cuda", dtype=torch.float32).to(dt)
 
     return randn(B, H, Sq, Dh), randn(B, Hk, Skv, Dh), randn(B, Hk, Skv, Dh)
 
@@ -213,14 +282,14 @@ def phase_kernel() -> list:
 
 def _flash_fwd_kernel() -> dict:
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention as fa
-    from repro_torch.kernels.flash_attention.ref import attention_mask, attention_ref
+    from repro_torch.kernels.flash_attention.ref import attention_ref
 
     worst = 0.0
-    for i, (name, B, H, Hk, Sq, Skv, Dh, causal, window, q_off, dtype) in enumerate(FLASH_CASES):
-        q, k, v = _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed=i)
+    for i, (name, B, H, Hk, Sq, Skv, Dh, causal, window, q_off, dtype,
+            layout) in enumerate(FLASH_CASES):
+        q, k, v = _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed=i, layout=layout)
         kw = dict(causal=causal, window=window, q_offset=q_off)
         out = fa.flash_attention_fwd(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -230,31 +299,120 @@ def _flash_fwd_kernel() -> dict:
         tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
         finite = bool(torch.isfinite(out).all())
         print(f"kernel flash_fwd {name}: B={B} H={H} Hk={Hk} Sq={Sq} Skv={Skv} Dh={Dh} "
-              f"causal={causal} window={window} q_offset={q_off} {dtype}: "
+              f"causal={causal} window={window} q_offset={q_off} {dtype} {layout} layout: "
               f"max_abs_err {err:.3e} (tol {tol:g})", flush=True)
         if not finite or not err <= tol:
             fail(f"flash_fwd {name} disagrees with attention_ref: {err} > {tol}")
         if name == "serve_prefill":
             worst = err
 
-    # timing at the serving prefill shape
-    name, B, H, Hk, Sq, Skv, Dh, causal, window, q_off, dtype = FLASH_CASES[0]
+    timed = _time_forward("flash_fwd", fa.flash_attention_fwd, attention_ref, with_lse=False)
+    return _flash_entry("flash_fwd", "flash_fwd.cu", 35, None, worst, *timed)
+
+
+def _sdpa_backend_used(q, k, v) -> str:
+    """The device kernels of one unpinned sdpa call, by name."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events() if e.device_type.name == "CUDA"})
+    return "; ".join(n[:80] for n in names) or "no device kernel seen"
+
+
+def _runs(call) -> bool:
+    """Whether ``call`` runs here (a pinned sdpa backend may refuse a shape)."""
+    import torch
+
+    try:
+        call()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        print(f"kernel: yardstick refused: {str(e).splitlines()[0][:160]}", flush=True)
+        return False
+    return True
+
+
+def _fwd_yardsticks(q, k, v, with_lse: bool) -> dict:
+    """Library calls of PyTorch that compute the forward at the timed shape,
+    timed as the kernel is: {label: ms}.  Without lse: sdpa pinned to each
+    backend that runs here (GQA through enable_gqa where the backend takes
+    it, else k/v expanded to H heads outside the timing).  With lse: aten's
+    flash and cuDNN forwards, which return the logsumexp too (on k/v
+    expanded to H heads: they take no GQA)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    H, Hk = q.shape[1], k.shape[1]
+    ke, ve = (t.repeat_interleave(H // Hk, dim=1) for t in (k, v))
+    calls = {}
+    if with_lse:
+        for label, fn in (("aten._scaled_dot_product_flash_attention", lambda: (
+                torch.ops.aten._scaled_dot_product_flash_attention(q, ke, ve, 0.0, True))),
+                          ("aten._scaled_dot_product_cudnn_attention", lambda: (
+                torch.ops.aten._scaled_dot_product_cudnn_attention(q, ke, ve, None, True, 0.0,
+                                                                  True)))):
+            if _runs(fn):
+                calls[label] = fn
+    else:
+        for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                        SDPBackend.EFFICIENT_ATTENTION):
+            for gqa, kk, vv in ((True, k, v), (False, ke, ve)):
+                def call(backend=backend, kk=kk, vv=vv, gqa=gqa):
+                    with sdpa_kernel(backend):
+                        return F.scaled_dot_product_attention(q, kk, vv, is_causal=True,
+                                                              enable_gqa=gqa)
+                if _runs(call):
+                    calls[f"sdpa[{backend.name}{'' if gqa else ', k/v expanded'}]"] = call
+                    break
+    return {label: _graph_ms(call) for label, call in calls.items()}
+
+
+def _time_forward(kname: str, fwd, plain, with_lse: bool) -> tuple:
+    """Time ``fwd`` at the serving prefill / training shape (FLASH_CASES[0])
+    beside its plain version and PyTorch's own forwards; -> (ms, plain_ms,
+    (bound_ms, bound_by), library_ms).  ms is the kernel's device time (a
+    CUDA graph of launches); printed beside it: back-to-back wrapper calls
+    timed with events (PR 11-13's measure), the wrapper's host time per
+    call, and the device time on the model's layout (transposed views of
+    (B, S, H, Dh))."""
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+
+    name, B, H, Hk, Sq, Skv, Dh, causal, window, q_off, dtype, _ = FLASH_CASES[0]
     q, k, v = _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed=0)
-    ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True))
-    plain_ms = _time_ms(lambda: attention_ref(q, k, v, causal=True), iters=5)
-    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
+    qm, km, vm = _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed=0, layout="model")
+    kw = dict(causal=causal, window=window, q_offset=q_off)
+    ms = _graph_ms(lambda: fwd(q, k, v, **kw))
+    b2b = _time_ms(lambda: fwd(q, k, v, **kw))
+    host = _host_us(lambda: fwd(q, k, v, **kw))
+    model_ms = _graph_ms(lambda: fwd(qm, km, vm, **kw))
+    plain_ms = _time_ms(lambda: plain(q, k, v, **kw), iters=5)
+    library = _fwd_yardsticks(q, k, v, with_lse)
+    lib_name = min(library, key=library.get) if library else None
+    library_ms = library[lib_name] if library else None
     visible = int(attention_mask(Sq, Skv, causal, window, q_off, "cuda").sum())
     flops = 4.0 * Dh * visible * B * H              # QK^T and PV over visible pairs
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))  # q, k, v in; o out
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"kernel flash_fwd timing at {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-          f"{flops:.4g} FLOP, {nbytes:.4g} B), {bound_ms / ms:.1%} of bound", flush=True)
-    return _flash_entry("flash_fwd", "flash_fwd.cu", 35, None, worst, ms, plain_ms,
-                        (bound_ms, bound_by), library_ms)
+    # q, k, v in; o (like q) and, with lse, (B, H, Sq) f32 out
+    nbytes = _nbytes(q, k, v, q) + (B * H * Sq * 4 if with_lse else 0)
+    bound = _bound(flops, nbytes, dtype)
+    for label, t in library.items():
+        print(f"kernel {kname} yardstick {label}: {t:.4f} ms", flush=True)
+    if not with_lse:
+        print(f"kernel {kname} yardstick: unpinned sdpa runs {_sdpa_backend_used(q, k, v)}",
+              flush=True)
+    lib = f"{library_ms:.4f} ms, {lib_name}, kernel/library {ms / library_ms:.3f}" if library \
+        else "none"
+    print(f"kernel {kname} timing at {name} (B={B} H={H} Hk={Hk} S={Sq} Dh={Dh} {dtype} causal): "
+          f"kernel {ms:.4f} ms device (CUDA graph of 20 launches), {b2b:.4f} ms back-to-back "
+          f"wrapper calls, wrapper host {host:.1f} us/call, model layout {model_ms:.4f} ms; "
+          f"plain {plain_ms:.4f} ms; library {lib}; bound {bound[0]:.4f} ms ({bound[1]}: "
+          f"{flops:.4g} FLOP, {nbytes:.4g} B), {bound[0] / ms:.1%} of bound", flush=True)
+    return ms, plain_ms, bound, library_ms
 
 
 def _max_err(got, want) -> tuple:
@@ -275,9 +433,10 @@ def _training_kernels() -> list:
     )
 
     worst = {"flash_fwd_lse": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
-    for i, (name, B, H, Hk, Sq, Skv, Dh, causal, window, q_off, dtype) in enumerate(FLASH_CASES):
-        q, k, v = _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed=100 + i)
-        do = _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed=200 + i)[0]
+    for i, (name, B, H, Hk, Sq, Skv, Dh, causal, window, q_off, dtype,
+            layout) in enumerate(FLASH_CASES):
+        q, k, v = _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed=100 + i, layout=layout)
+        do = _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed=200 + i, layout=layout)[0]
         kw = dict(causal=causal, window=window, q_offset=q_off)
         o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -299,7 +458,8 @@ def _training_kernels() -> list:
         line = ", ".join(f"{t} {e:.3e} (max|ref| {m:.3g}, tol {tol:.3g})"
                          for _, t, e, m, tol in checks)
         print(f"kernel train {name}: B={B} H={H} Hk={Hk} Sq={Sq} Skv={Skv} Dh={Dh} "
-              f"causal={causal} window={window} q_offset={q_off} {dtype}: {line}", flush=True)
+              f"causal={causal} window={window} q_offset={q_off} {dtype} {layout} layout: "
+              f"{line}", flush=True)
         for kname, tname, err, _, tol in checks:
             if not finite or not err <= tol:
                 fail(f"{kname} {name}: {tname} disagrees with its plain version: {err} > {tol} "
@@ -308,7 +468,9 @@ def _training_kernels() -> list:
                 worst[kname] = max(worst[kname], err)
 
     # timing at the training step's shape: the serve_prefill case's shape
-    name, B, H, Hk, Sq, Skv, Dh, causal, window, q_off, dtype = FLASH_CASES[0]
+    fwd_ms, plain_fwd, fwd_bound, lib_fwd = _time_forward(
+        "flash_fwd_lse", fa.flash_attention_fwd_lse, attention_fwd_lse_ref, with_lse=True)
+    name, B, H, Hk, Sq, Skv, Dh, causal, window, q_off, dtype, _ = FLASH_CASES[0]
     q, k, v = _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed=0)
     do = _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed=1)[0]
     kw = dict(causal=True, window=None, q_offset=0)
@@ -317,46 +479,39 @@ def _training_kernels() -> list:
     delta = (o.float() * do.float()).sum(-1).contiguous()
     visible = int(attention_mask(Sq, Skv, causal, window, q_off, "cuda").sum()) * B * H
     bkw = dict(kw, scale=scale)
-
-    ms = {
-        "flash_fwd_lse": _time_ms(lambda: fa.flash_attention_fwd_lse(q, k, v, **kw)),
-        "flash_bwd_dq": _time_ms(lambda: fa.bwd_dq(q, k, v, do, lse, delta, **bkw)),
-        "flash_bwd_dkv": _time_ms(lambda: fa.bwd_dkv(q, k, v, do, lse, delta, **bkw)),
-    }
-    plain_fwd = _time_ms(lambda: attention_fwd_lse_ref(q, k, v, **kw), iters=5)
+    calls = {"flash_bwd_dq": lambda: fa.bwd_dq(q, k, v, do, lse, delta, **bkw),
+             "flash_bwd_dkv": lambda: fa.bwd_dkv(q, k, v, do, lse, delta, **bkw)}
+    ms = {kname: _graph_ms(fn) for kname, fn in calls.items()}
+    b2b = {kname: _time_ms(fn) for kname, fn in calls.items()}
     # the plain backward computes dq, dk and dv in one function
     plain_bwd = _time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do, **kw), iters=3)
-    # library yardsticks on k/v expanded to H heads (outside the timing):
-    # aten's flash forward, which returns logsumexp too, and the backward of
-    # scaled_dot_product_attention through autograd (dq, dk and dv together)
+    # library yardstick: the backward of scaled_dot_product_attention through
+    # autograd (dq, dk and dv together) on k/v expanded to H heads, pinned to
+    # PyTorch's flash backend: left to itself the choice of backend, and the
+    # time, changed between two runs (0.26 vs 0.77 ms)
     ke, ve = (t.repeat_interleave(H // Hk, dim=1) for t in (k, v))
-    lib_fwd = _time_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
-        q, ke, ve, 0.0, True))
     qr, kr, vr = (t.detach().requires_grad_() for t in (q, ke, ve))
-    # pinned to PyTorch's flash backend: left to itself the choice of
-    # backend, and the time, changed between two runs (0.26 vs 0.77 ms)
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
         out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+    # (autograd's backward does not capture into a CUDA graph here: timed
+    # back-to-back with events, as in PRs 12-13)
     lib_bwd = _time_ms(lambda: torch.autograd.grad(out, (qr, kr, vr), do, retain_graph=True))
-    flops = {"flash_fwd_lse": 4.0 * Dh * visible, "flash_bwd_dq": 6.0 * Dh * visible,
-             "flash_bwd_dkv": 8.0 * Dh * visible}
-    nbytes = {"flash_fwd_lse": _nbytes(q, k, v, o, lse),
-              "flash_bwd_dq": _nbytes(q, k, v, do, lse, delta, q),
+    flops = {"flash_bwd_dq": 6.0 * Dh * visible, "flash_bwd_dkv": 8.0 * Dh * visible}
+    nbytes = {"flash_bwd_dq": _nbytes(q, k, v, do, lse, delta, q),
               "flash_bwd_dkv": _nbytes(q, k, v, do, lse, delta, k, v)}
-    plain = {"flash_fwd_lse": plain_fwd, "flash_bwd_dq": plain_bwd, "flash_bwd_dkv": plain_bwd}
-    library = {"flash_fwd_lse": lib_fwd, "flash_bwd_dq": lib_bwd, "flash_bwd_dkv": lib_bwd}
-    entries = []
-    for kname, src, line in (("flash_fwd_lse", "flash_fwd.cu", 79),
-                             ("flash_bwd_dq", "flash_bwd.cu", 121),
+    entries = [_flash_entry("flash_fwd_lse", "flash_fwd.cu", 79, None, worst["flash_fwd_lse"],
+                            fwd_ms, plain_fwd, fwd_bound, lib_fwd)]
+    for kname, src, line in (("flash_bwd_dq", "flash_bwd.cu", 121),
                              ("flash_bwd_dkv", "flash_bwd.cu", 159)):
         bound = _bound(flops[kname], nbytes[kname], dtype)
         print(f"kernel {kname} timing at the training shape (B={B} H={H} Hk={Hk} S={Sq} "
-              f"Dh={Dh} bf16 causal): kernel {ms[kname]:.4f} ms, plain {plain[kname]:.4f} ms, "
-              f"library {library[kname]:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}: "
-              f"{flops[kname]:.4g} FLOP, {nbytes[kname]:.4g} B), "
+              f"Dh={Dh} bf16 causal): kernel {ms[kname]:.4f} ms device (CUDA graph of 20 "
+              f"launches), {b2b[kname]:.4f} ms back-to-back wrapper calls, plain "
+              f"{plain_bwd:.4f} ms, library {lib_bwd:.4f} ms, bound "
+              f"{bound[0]:.4f} ms ({bound[1]}: {flops[kname]:.4g} FLOP, {nbytes[kname]:.4g} B), "
               f"{bound[0] / ms[kname]:.1%} of bound", flush=True)
         entries.append(_flash_entry(kname, src, line, None, worst[kname], ms[kname],
-                                    plain[kname], bound, library[kname]))
+                                    plain_bwd, bound, lib_bwd))
     print("kernel: plain_ms of flash_bwd_dq and flash_bwd_dkv is the whole plain backward "
           "(dq, dk, dv); their library_ms is the whole sdpa backward", flush=True)
     return entries
@@ -455,13 +610,15 @@ def _ssd_kernel() -> dict:
             worst = err
     B, S, H, P, N, chunk = SSD_TIMED
     x = _ssd_inputs(B, S, H, P, N, seed=0)
-    ms = _time_ms(lambda: ssd.ssd_fwd(*x, chunk=chunk))
+    ms = _graph_ms(lambda: ssd.ssd_fwd(*x, chunk=chunk))
+    b2b = _time_ms(lambda: ssd.ssd_fwd(*x, chunk=chunk))
     plain_ms = _time_ms(lambda: ssd_chunked_ref(*x, chunk), iters=5)
     flops = bounds.ssd_flops(B, S, H, P, N, chunk)
     nbytes = _nbytes(*x, x[0])  # x, dt, B, C, A in; y out
     bound = _bound(flops, nbytes, "float32")
     print(f"kernel ssd_fwd timing at zamba2-7b (B={B} S={S} H={H} P={P} N={N} chunk={chunk} "
-          f"f32): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, bound "
+          f"f32): kernel {ms:.4f} ms device (CUDA graph), {b2b:.4f} ms back-to-back, plain "
+          f"{plain_ms:.4f} ms, library none, bound "
           f"{bound[0]:.4f} ms ({bound[1]}: {flops:.4g} FLOP, {nbytes:.4g} B), "
           f"{bound[0] / ms:.1%} of bound", flush=True)
     return _entry("ssd_fwd", "ssd/csrc/ssd_fwd.cu", "ssd/ssd.py:29", None, worst, ms, plain_ms,
@@ -485,13 +642,15 @@ def _mlstm_kernel() -> dict:
             worst = err
     B, S, H, D, chunk = MLSTM_TIMED
     x = _mlstm_inputs(B, S, H, D, seed=0)
-    ms = _time_ms(lambda: mlstm.mlstm_fwd(*x, chunk=chunk))
+    ms = _graph_ms(lambda: mlstm.mlstm_fwd(*x, chunk=chunk))
+    b2b = _time_ms(lambda: mlstm.mlstm_fwd(*x, chunk=chunk))
     plain_ms = _time_ms(lambda: mlstm_chunked_ref(*x, chunk), iters=5)
     flops = bounds.mlstm_flops(B, S, H, D, chunk)
     nbytes = _nbytes(*x, x[0])  # q, k, v, the gates in; h out
     bound = _bound(flops, nbytes, "float32")
     print(f"kernel mlstm_fwd timing at xlstm-125m (B={B} S={S} H={H} D={D} chunk={chunk} f32): "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, bound {bound[0]:.4f} ms "
+          f"kernel {ms:.4f} ms device (CUDA graph), {b2b:.4f} ms back-to-back, plain "
+          f"{plain_ms:.4f} ms, library none, bound {bound[0]:.4f} ms "
           f"({bound[1]}: {flops:.4g} FLOP, {nbytes:.4g} B), {bound[0] / ms:.1%} of bound",
           flush=True)
     return _entry("mlstm_fwd", "mlstm/csrc/mlstm_fwd.cu", "mlstm/mlstm.py:26", None, worst, ms,

@@ -1,31 +1,53 @@
 // Flash-attention forward for Hopper (sm_90a), written by hand.
 //
-// Replaces the TPU kernel `_flash_fwd_kernel` of
-// src/repro/kernels/flash_attention/flash_attention.py:35-76, reached there
-// through `flash_attention_fwd` (:315-360).  It computes the same function:
-// blockwise causal / sliding-window GQA attention with an online softmax
-// (running max m, running sum l, f32 accumulator), a `q_offset` that places
-// the q block in the kv timeline, scale defaulting to Dh**-0.5, output in the
-// input dtype.  Query head h reads kv head h / (H / Hk).
+// Replaces the TPU kernels `_flash_fwd_kernel` and `_flash_fwd_lse_kernel` of
+// src/repro/kernels/flash_attention/flash_attention.py:35 and :79, reached
+// there through `flash_attention_fwd` (:315) and `flash_attention_fwd_lse`
+// (:200).  It computes the same function: blockwise causal / sliding-window
+// GQA attention with an online softmax (running max m, running sum l, f32
+// accumulator), a `q_offset` that places the q block in the kv timeline,
+// scale defaulting to Dh**-0.5, output in the input dtype.  Query head h
+// reads kv head h / (H / Hk).
 //
 // What bounds it on the H100.  At the serving prefill shape (B=4, H=24, Hk=8,
-// S=1024, Dh=128, bf16, causal) the work is about 2.58e10 FLOP, 26 us at 989
-// TFLOP/s, against 67 MB of q/k/v/o, 20 us at 3.35 TB/s: the operations bound
-// it.  So the bf16 path runs both products on the tensor cores (mma.sync
-// m16n8k16, f32 accumulate), keeps scores and probabilities in registers,
-// never in device memory, and bounds each block's k loop by the causal and
-// window limits instead of visiting masked tiles as the TPU grid does.  This
-// is the simple design: one 4-warp block per (64-row q tile, head, batch),
-// 16 q rows per warp, 64-key K/V tiles in padded (bank-conflict-free for
-// ldmatrix) shared memory, double-buffered with cp.async so the next tile
-// loads while this one is used, three blocks per SM (the Q tile is held in
-// registers after a first pass through shared memory), heaviest causal
-// tiles scheduled first.  No TMA or wgmma yet.  Tried and dropped: 32 q
-// rows per warp (two m16 tiles sharing each K/V fragment) needs 255
-// registers, spills, and was slower.
+// S=1024, Dh=128, bf16, causal) the work is 2.58e10 FLOP over the visible
+// (q, key) pairs, 0.0261 ms at 989 TFLOP/s, against 67 MB of q/k/v/o, 0.020
+// ms at 3.35 TB/s: the operations bound it, and only wgmma reaches the
+// tensor cores' rate on this card.
 //
-// The f32 path, which serving does not take, is SIMT FMA (4 threads per q
-// row) so that it keeps f32 accuracy.
+// The design for bf16 at Dh in {64, 128} (every model of the repo has Dh =
+// 128): a persistent kernel, one block of three warpgroups per SM, walking
+// work items of (128-row q tile, head, batch), heaviest first, in snake
+// order over the blocks.  Warpgroup 0 is the producer: it gives back its
+// registers (setmaxnreg 24) and one thread issues every TMA load, each
+// item's Q tile and then its 128-key K and V tiles into a ring of two stages
+// that runs on across items.  K and V each have `full` mbarriers (completed
+// by the copies' bytes) and `empty` ones (released by the consumers), so K
+// is refilled as soon as Q K^T has read it.  Warpgroups 1 and 2 are the
+// consumers (setmaxnreg 240), 64 q rows each.  S = Q K^T is wgmma
+// m64n128k16 with both operands in shared memory; the online softmax runs
+// on the accumulator fragment in registers (one FFMA and one ex2 a score,
+// branch-free masks on edge tiles only); P is packed to bf16 in registers,
+// in the layout wgmma takes as its A operand, and O += P V reads V MN-major
+// (transposed) from shared memory.  Tile j's Q K^T is issued together with
+// tile j-1's P V, so the softmax of tile j runs while P V is on the tensor
+// cores, and the two consumers take turns to issue (named barriers), so one's
+// softmax runs beside the other's products.  Tiles are 64-column slabs,
+// 128-byte swizzled by TMA and read so by wgmma.  O goes through shared
+// memory and a TMA store that overlaps the next item.  The tensor maps are
+// 4-D (Dh, S, H, B) with the S extent Sq or Skv, so TMA zero-fills rows past
+// the end on load and clips them on store, for contiguous tensors and for
+// the transposed views of (B, S, H, Dh) that the model passes alike.  It
+// reaches about 0.062 ms at the serving shape, 42 % of the bound, where the
+// PR 11 design (mma.sync, cp.async, every thread loading and computing, no
+// overlap of softmax and products) took 0.167 ms: PERF.md has the steps.
+// Not done: a cluster sharing K/V tiles between blocks (TMA multicast).
+
+// bf16 at Dh in {16, 32} (card tests and small cases only) keeps the first
+// design: mma.sync m16n8k16, ldmatrix, K/V tiles double-buffered with
+// cp.async, one 4-warp block per 64 q rows.  The f32 path, which serving
+// does not take, is SIMT FMA (4 threads per q row) so that it keeps f32
+// accuracy.
 //
 // Semantics kept from the TPU kernel: masked scores are -1e30, never -inf,
 // so a query row that sees no key averages v over all keys, exactly as the
@@ -33,19 +55,20 @@
 // such a row walks every key.  Keys past Skv (a ragged edge, which the TPU
 // kernel never has) score -inf and read zero-filled v, so they never count.
 //
-// With a non-null `lse` it is also the TPU kernel `_flash_fwd_lse_kernel`
-// (flash_attention.py:79-118, via `flash_attention_fwd_lse` :200): it writes
-// lse = m + log(l) in f32 per (b, h, q row), contiguous (B, H, Sq), for the
-// backward (csrc/flash_bwd.cu).  One departure: for a row that sees no key
-// the TPU kernel stores -1e30 + log(Skv), which rounds to -1e30 in f32 and
-// makes its backward take p = 1 instead of 1/Skv.  Here such a row stores
-// the logsumexp of its uniform scores taken as 0, log(Skv), from which the
-// backward rebuilds p = 1/Skv exactly.
+// With a non-null `lse` it is also the TPU kernel `_flash_fwd_lse_kernel`:
+// it writes lse = m + log(l) in f32 per (b, h, q row), contiguous (B, H,
+// Sq), for the backward (csrc/flash_bwd.cu).  One departure: for a row that
+// sees no key the TPU kernel stores -1e30 + log(Skv), which rounds to -1e30
+// in f32 and makes its backward take p = 1 instead of 1/Skv.  Here such a
+// row stores the logsumexp of its uniform scores taken as 0, log(Skv), from
+// which the backward rebuilds p = 1/Skv exactly.
 //
-// C interface (bound with ctypes): pointers, element strides, ints and the
-// stream; returns the cudaError_t of the launch.
+// C interface (bound with ctypes): pointers, element strides, ints, the
+// stream and, for the wgmma path, the tensor maps' geometry; returns the
+// cudaError_t of the launch, or minus the CUresult of a failed map encode.
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -63,11 +86,11 @@ struct Params {
   int causal, has_window, window, q_offset;
 };
 
+// written with selects, not branches, so that a tile's scores stay one
+// block of straight-line code
 __device__ __forceinline__ float masked_score(const Params& p, float s, int qpos, int key) {
-  if (key >= p.Skv) return -INFINITY;
-  if (p.causal && key > qpos) return kMasked;
-  if (p.has_window && key <= qpos - p.window) return kMasked;
-  return s;
+  const bool masked = (p.causal & (key > qpos)) | (p.has_window & (key <= qpos - p.window));
+  return key >= p.Skv ? -INFINITY : (masked ? kMasked : s);
 }
 
 // logsumexp of a row from its running max and sum; m stays at kMasked only
@@ -76,8 +99,13 @@ __device__ __forceinline__ float row_lse(float m, float l) {
   return (m == kMasked ? 0.f : m) + logf(fmaxf(l, 1e-30f));
 }
 
+// the same from a running max of scores in the log2 domain (s * log2 e)
+__device__ __forceinline__ float row_lse_log2(float m, float l) {
+  return (m == kMasked ? 0.f : m * 0.6931471805599453f) + logf(fmaxf(l, 1e-30f));
+}
+
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync
+// bf16, Dh in {16, 32}: tensor cores through mma.sync
 // ---------------------------------------------------------------------------
 
 constexpr int kBM = 64;        // q rows per block (4 warps x 16)
@@ -254,6 +282,398 @@ __global__ void __launch_bounds__(kThreads, 3) flash_fwd_bf16_kernel(const Param
 }
 
 // ---------------------------------------------------------------------------
+// bf16, Dh in {64, 128}: TMA, wgmma and warp specialisation
+// ---------------------------------------------------------------------------
+
+constexpr int kWgBM = 128;      // q rows per work item: two consumer warpgroups of 64
+constexpr int kWgBN = 128;      // keys per k step
+constexpr int kWgORows = 64;    // rows of one consumer's O store
+constexpr int kWgStages = 2;    // K/V ring depth
+constexpr int kWgThreads = 384; // producer warpgroup, then two consumers
+
+// Shared memory, in bytes from a 1024-byte-aligned base: the Q tile, the O
+// tile, the K ring, the V ring, then the mbarriers.  A tile is D / 64 slabs
+// of 128 bytes a row: 193 KB at Dh 128.
+template <int D>
+struct WgSmem {
+  static constexpr int kSlabs = D / 64;
+  static constexpr int kQSlab = kWgBM * 128;
+  static constexpr int kKVSlab = kWgBN * 128;
+  static constexpr int kQ = kSlabs * kQSlab;    // the Q tile; the O tile alike
+  static constexpr int kKV = kSlabs * kKVSlab;  // one K or V tile
+  static constexpr int kO = kQ;
+  static constexpr int kK = kO + kQ;
+  static constexpr int kV = kK + kWgStages * kKV;
+  static constexpr int kBars = kV + kWgStages * kKV;
+  // q_full, q_empty, then per stage k_full, v_full, k_empty, v_empty
+  static constexpr int kNumBars = 2 + 4 * kWgStages;
+  // the dynamic base is only 16-byte aligned: room to align it by hand
+  static constexpr int kBytes = kBars + kNumBars * 8 + 1024;
+};
+
+// A work item: one (128-row q tile, head, batch), and the key tiles it sees.
+struct WgItem {
+  int r0, r1, h, b, hk, n_first, n_tiles;
+};
+
+// Items are numbered heaviest first across all heads: the last q tile (the
+// longest causal rows) of every (head, batch), then the one before, ...
+__device__ __forceinline__ WgItem wg_item(const Params& p, int w) {
+  const int n_qtiles = (p.Sq + kWgBM - 1) / kWgBM;
+  const int rank = w / (p.H * p.B), hb = w % (p.H * p.B);
+  WgItem t;
+  t.r0 = (n_qtiles - 1 - rank) * kWgBM;
+  t.r1 = min(p.Sq, t.r0 + kWgBM);
+  t.h = hb % p.H;
+  t.b = hb / p.H;
+  t.hk = t.h / p.group;
+  int k_lo, k_hi;
+  key_range(p, t.r0, t.r1, k_lo, k_hi);
+  t.n_first = (k_lo / kWgBN) * kWgBN;
+  t.n_tiles = (k_hi - t.n_first + kWgBN - 1) / kWgBN;
+  return t;
+}
+
+// The k-th item of this block, or -1 past the last: rounds of gridDim.x
+// items, walked in snake order (forward in even rounds, backward in odd
+// ones) so that a block's heavy and light items even out.
+__device__ __forceinline__ int wg_item_index(int k, int total) {
+  const int g = gridDim.x, blk = blockIdx.x;
+  const int w = k * g + ((k & 1) ? g - 1 - blk : blk);
+  return w < total ? w : -1;
+}
+
+// S (64 q rows x 128 keys over the warpgroup) = Q K^T: D / 16 k steps.  Q
+// and K are K-major: a step is 32 bytes along a slab's rows, a slab 4 steps.
+template <int D>
+__device__ __forceinline__ void wgmma_qk(float (&s)[kWgBN / 2], const unsigned char* sQc,
+                                         const unsigned char* tK) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off = (kk / 4) * kWgBM * 128 + (kk % 4) * 32;
+    const int koff = (kk / 4) * kWgBN * 128 + (kk % 4) * 32;
+    hopper::wgmma_ss_m64n128k16(s, hopper::desc_sw128(sQc + off, 16, 1024),
+                                hopper::desc_sw128(tK + koff, 16, 1024), kk > 0);
+  }
+}
+
+// O += P V: the probabilities of keys 16j .. 16j + 15 (registers) are the A
+// operand of k step j; V is MN-major: a step is 16 rows, slabs 64 columns
+// (a slab's rows) apart.
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&acc)[D / 2], const uint32_t (&pa)[kWgBN / 16][4],
+                                         const unsigned char* tV) {
+#pragma unroll
+  for (int j = 0; j < kWgBN / 16; ++j) {
+    const uint64_t dv = hopper::desc_sw128(tV + j * 16 * 128, kWgBN * 128, 1024);
+    if constexpr (D == 128)
+      hopper::wgmma_rs_m64n128k16(acc, pa[j], dv);
+    else
+      hopper::wgmma_rs_m64n64k16(acc, pa[j], dv);
+  }
+}
+
+// The online softmax of one tile on the S fragment, in place: s becomes
+// exp2(s * scale * log2 e - m), m the new running max in the log2 domain,
+// and alpha = exp2(m_old - m) rescales l here and O in rescale_o.  Edge
+// tiles mask in the log2 domain (scores of -1e30, or -inf past Skv); the
+// others fold the scale into one FFMA per score.  Rows row and row + 8 of
+// the accumulator layout; the 4 threads of a quad share a row.
+__device__ __forceinline__ void softmax_tile(const Params& p, float (&s)[kWgBN / 2],
+                                             float (&m_run)[2], float (&l_run)[2],
+                                             float (&alpha)[2], int n0, int r0, int r1,
+                                             int qpos0, int tq, float scale_log2) {
+  const bool edge = tile_needs_mask(p, n0, kWgBN, r0, r1);
+  float mx[2] = {-INFINITY, -INFINITY};
+  if (edge) {
+#pragma unroll
+    for (int i = 0; i < kWgBN / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = masked_score(p, s[4 * i + e] * scale_log2, qpos0 + (e >= 2 ? 8 : 0),
+                                     n0 + i * 8 + tq * 2 + (e & 1));
+        s[4 * i + e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kWgBN / 8; ++i) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[4 * i], s[4 * i + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[4 * i + 2], s[4 * i + 3]));
+    }
+    mx[0] *= scale_log2;
+    mx[1] *= scale_log2;
+  }
+  float m_new[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    m_new[r] = fmaxf(m_run[r], mx[r]);
+    alpha[r] = hopper::exp2_approx(m_run[r] - m_new[r]);
+    m_run[r] = m_new[r];
+  }
+  float sum[4] = {0.f, 0.f, 0.f, 0.f};  // two partial sums a row
+  if (edge) {
+#pragma unroll
+    for (int i = 0; i < kWgBN / 2; ++i) {
+      s[i] = hopper::exp2_approx(s[i] - m_new[(i % 4) / 2]);
+      sum[i % 4] += s[i];
+    }
+  } else {
+    // a row's max is real here: no sentinel meets the FFMA's rounding
+#pragma unroll
+    for (int i = 0; i < kWgBN / 2; ++i) {
+      s[i] = hopper::exp2_approx(fmaf(s[i], scale_log2, -m_new[(i % 4) / 2]));
+      sum[i % 4] += s[i];
+    }
+  }
+  l_run[0] = l_run[0] * alpha[0] + (sum[0] + sum[1]);
+  l_run[1] = l_run[1] * alpha[1] + (sum[2] + sum[3]);
+}
+
+template <int D>
+__device__ __forceinline__ void rescale_o(float (&acc)[D / 2], const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    acc[4 * i] *= alpha[0];
+    acc[4 * i + 1] *= alpha[0];
+    acc[4 * i + 2] *= alpha[1];
+    acc[4 * i + 3] *= alpha[1];
+  }
+}
+
+// P to bf16 in the layout of wgmma's register A operand: the accumulator
+// fragment of keys 16j .. 16j + 15 is k step j's A fragment
+__device__ __forceinline__ void pack_p(const float (&s)[kWgBN / 2],
+                                       uint32_t (&pa)[kWgBN / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < kWgBN / 16; ++j) {
+    pa[j][0] = pack_bf16(s[8 * j], s[8 * j + 1]);
+    pa[j][1] = pack_bf16(s[8 * j + 2], s[8 * j + 3]);
+    pa[j][2] = pack_bf16(s[8 * j + 4], s[8 * j + 5]);
+    pa[j][3] = pack_bf16(s[8 * j + 6], s[8 * j + 7]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v,
+                           const __grid_constant__ CUtensorMap map_o, const Params p, int total) {
+  using L = WgSmem<D>;
+  using namespace hopper;
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  unsigned char* smem = wg_smem + ((1024 - (hopper::smem_u32(wg_smem) & 1023)) & 1023);
+  unsigned char* sQ = smem;
+  unsigned char* sO = smem + L::kO;
+  unsigned char* sK = smem + L::kK;
+  unsigned char* sV = smem + L::kV;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* k_full = q_full + 2;
+  uint64_t* v_full = k_full + kWgStages;
+  uint64_t* k_empty = v_full + kWgStages;
+  uint64_t* v_empty = k_empty + kWgStages;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 8);  // lane 0 of each of the 8 consumer warps
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 8);
+      mbar_init(&v_empty[s], 8);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: one thread issues every copy, item after item; the K/V ring
+    // runs on across items, so the next item's tiles load while the
+    // consumers finish this one
+    reg_dealloc<24>();
+    if (threadIdx.x == 0) {
+      int kv = 0;  // K/V tiles issued so far
+      for (int k = 0;; ++k) {
+        const int w = wg_item_index(k, total);
+        if (w < 0) break;
+        const WgItem t = wg_item(p, w);
+        // the consumers' last Q K^T of the previous item has retired
+        if (k > 0) mbar_wait(q_empty, (k - 1) & 1);
+        mbar_arrive_expect_tx(q_full, L::kQ);
+#pragma unroll
+        for (int s = 0; s < L::kSlabs; ++s)
+          tma_load_4d(sQ + s * L::kQSlab, &map_q, q_full, s * 64, t.r0, t.h, t.b);
+        for (int j = 0; j < t.n_tiles; ++j, ++kv) {
+          const int st = kv % kWgStages, n0 = t.n_first + j * kWgBN;
+          // the stage's previous K, then V, has been released by both consumers
+          const uint32_t released = (kv / kWgStages - 1) & 1;
+          if (kv >= kWgStages) mbar_wait(&k_empty[st], released);
+          mbar_arrive_expect_tx(&k_full[st], L::kKV);
+#pragma unroll
+          for (int s = 0; s < L::kSlabs; ++s)
+            tma_load_4d(sK + st * L::kKV + s * L::kKVSlab, &map_k, &k_full[st], s * 64, n0,
+                        t.hk, t.b);
+          if (kv >= kWgStages) mbar_wait(&v_empty[st], released);
+          mbar_arrive_expect_tx(&v_full[st], L::kKV);
+#pragma unroll
+          for (int s = 0; s < L::kSlabs; ++s)
+            tma_load_4d(sV + st * L::kKV + s * L::kKVSlab, &map_v, &v_full[st], s * 64, n0,
+                        t.hk, t.b);
+        }
+      }
+    }
+  } else {
+    // consumers: 64 q rows of each item each
+    reg_alloc<240>();
+    const int c = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int quad = lane / 4, tq = lane % 4;     // accumulator row / column pair
+    const int row = c * 64 + warp * 16 + quad;    // this thread's rows: row, row + 8
+    const float scale_log2 = p.scale * 1.4426950408889634f;
+    const unsigned char* sQc = sQ + c * 64 * 128;  // this consumer's 64 rows of Q
+    unsigned char* sOc = sO + c * 64 * 128;        // and of O
+    // Tile j's S = Q K^T goes to the tensor cores with tile j - 1's O += P V,
+    // in that order, so that the softmax of tile j runs while P V is still on
+    // them.  The two consumers take turns to issue their products (named
+    // barriers 1 and 2 over both warpgroups), so that one's softmax runs
+    // beside the other's products; consumer 0 goes first.  The first and
+    // last tiles of an item are peeled off so that every batch in the loop
+    // commits the same two groups.
+    const int my_turn = 1 + c, other_turn = 2 - c;
+    if (c == 1) named_barrier_arrive(1, 256);
+
+    int kv = 0;  // K/V tiles consumed so far
+    for (int k = 0;; ++k) {
+      const int w = wg_item_index(k, total);
+      if (w < 0) break;
+      const WgItem t = wg_item(p, w);
+      const bool last_item = wg_item_index(k + 1, total) < 0;
+      const int qpos0 = t.r0 + row + p.q_offset;
+      float acc[D / 2];  // O, 64 x D over the warpgroup
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      float m_run[2] = {kMasked, kMasked};  // rows row and row + 8, log2 domain
+      float l_run[2] = {0.f, 0.f};          // partial over this thread's columns
+      uint32_t pa[kWgBN / 16][4];  // P of the previous tile, bf16, as wgmma's A operand
+      float alpha[2];
+
+      mbar_wait(q_full, k & 1);
+      {
+        const int st = kv % kWgStages;
+        float s[kWgBN / 2];
+        mbar_wait(&k_full[st], (kv / kWgStages) & 1);
+        named_barrier_sync(my_turn, 256);
+        wgmma_fence();
+        wgmma_qk<D>(s, sQc, sK + st * L::kKV);
+        wgmma_commit();
+        named_barrier_arrive(other_turn, 256);
+        wgmma_wait<0>();
+        fence_operand(s);
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(&k_empty[st]);  // this warp is done with K
+          if (t.n_tiles == 1) mbar_arrive(q_empty);  // and with Q
+        }
+        softmax_tile(p, s, m_run, l_run, alpha, t.n_first, t.r0, t.r1, qpos0, tq, scale_log2);
+        pack_p(s, pa);  // O is still 0: nothing to rescale
+      }
+      for (int j = 1; j < t.n_tiles; ++j) {
+        const int g = kv + j, st = g % kWgStages, pst = (g - 1) % kWgStages;
+        float s[kWgBN / 2];
+        mbar_wait(&k_full[st], (g / kWgStages) & 1);
+        mbar_wait(&v_full[pst], ((g - 1) / kWgStages) & 1);
+        named_barrier_sync(my_turn, 256);
+        fence_operand(acc);
+        wgmma_fence();
+        wgmma_qk<D>(s, sQc, sK + st * L::kKV);
+        wgmma_commit();
+        wgmma_fence();
+        wgmma_pv<D>(acc, pa, sV + pst * L::kKV);
+        wgmma_commit();
+        named_barrier_arrive(other_turn, 256);
+        wgmma_wait<1>();  // S is done; P V may still run
+        fence_operand(s);
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(&k_empty[st]);
+          if (j == t.n_tiles - 1) mbar_arrive(q_empty);
+        }
+        softmax_tile(p, s, m_run, l_run, alpha, t.n_first + j * kWgBN, t.r0, t.r1, qpos0, tq,
+                     scale_log2);
+        wgmma_wait<0>();
+        fence_operand(acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&v_empty[pst]);
+        rescale_o<D>(acc, alpha);
+        pack_p(s, pa);
+      }
+      {
+        const int g = kv + t.n_tiles - 1, pst = g % kWgStages;
+        mbar_wait(&v_full[pst], (g / kWgStages) & 1);
+        named_barrier_sync(my_turn, 256);
+        fence_operand(acc);
+        wgmma_fence();
+        wgmma_pv<D>(acc, pa, sV + pst * L::kKV);
+        wgmma_commit();
+        // consumer 1's last turn of the block is the last one
+        if (c == 0 || !last_item) named_barrier_arrive(other_turn, 256);
+        wgmma_wait<0>();
+        fence_operand(acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&v_empty[pst]);
+      }
+      kv += t.n_tiles;
+
+      float inv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+        l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+        inv[r] = 1.f / fmaxf(l_run[r], 1e-30f);
+      }
+      if (p.lse != nullptr && tq == 0) {
+        float* lse = p.lse + ((long long)t.b * p.H + t.h) * p.Sq;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          if (t.r0 + row + 8 * r < p.Sq)
+            lse[t.r0 + row + 8 * r] = row_lse_log2(m_run[r], l_run[r]);
+        }
+      }
+      // O through shared memory, 128-byte swizzled as the O map's box
+      // expects, then one TMA store a slab.  This consumer's previous store
+      // has to have read its rows first.
+      if (tid == 0) tma_store_wait_read();
+      named_barrier_sync(3 + c, 128);
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int orow = warp * 16 + quad + 8 * r;
+          const int chunk = (i % 8) ^ (orow % 8);
+          *reinterpret_cast<uint32_t*>(sOc + (i / 8) * L::kQSlab + orow * 128 + chunk * 16 +
+                                       tq * 4) =
+              pack_bf16(acc[4 * i + 2 * r] * inv[r], acc[4 * i + 2 * r + 1] * inv[r]);
+        }
+      }
+      fence_proxy_async();
+      named_barrier_sync(3 + c, 128);  // this consumer's rows are all written
+      if (tid == 0) {
+#pragma unroll
+        for (int s = 0; s < L::kSlabs; ++s)
+          tma_store_4d(&map_o, sOc + s * L::kQSlab, s * 64, t.r0 + c * 64, t.h, t.b);
+        tma_store_commit();
+      }
+    }
+    if (tid == 0) tma_store_wait_read();  // before the block's shared memory goes
+  }
+}
+
+// ---------------------------------------------------------------------------
 // f32: SIMT FMA, 4 threads per q row
 // ---------------------------------------------------------------------------
 
@@ -368,6 +788,40 @@ cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// maps: the geometry of the q, k, v and o maps (hopper::kMapFields each).
+// Returns a cudaError_t, or minus the CUresult of a failed encode.
+template <int D>
+int launch_wgmma(const Params& p, const long long* maps, cudaStream_t stream) {
+  using L = WgSmem<D>;
+  const void* base[4] = {p.q, p.k, p.v, p.o};
+  // the boxes must be the tiles whose bytes the kernel's barriers count
+  const long long rows[4] = {kWgBM, kWgBN, kWgBN, kWgORows};
+  const long long seq[4] = {p.Sq, p.Skv, p.Skv, p.Sq};
+  const long long heads[4] = {p.H, p.Hk, p.Hk, p.H};
+  CUtensorMap m[4];
+  if (maps == nullptr) return cudaErrorInvalidValue;
+  for (int i = 0; i < 4; ++i) {
+    const long long* g = maps + hopper::kMapFields * i;
+    if (g[0] != D || g[1] != seq[i] || g[2] != heads[i] || g[3] != p.B || g[7] != 64 ||
+        g[8] != rows[i] || g[9] != 1 || g[10] != 1)
+      return cudaErrorInvalidValue;
+    const int r = hopper::encode_map(&m[i], base[i], g);
+    if (r != 0) return -r;
+  }
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err != cudaSuccess) return err;
+  // persistent: at most one block per SM, each walking its share of items
+  int dev, sms;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  const int total = (p.Sq + kWgBM - 1) / kWgBM * p.H * p.B;
+  flash_fwd_wgmma_kernel<D><<<min(total, sms), kWgThreads, L::kBytes, stream>>>(
+      m[0], m[1], m[2], m[3], p, total);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   const dim3 grid((p.Sq + kF32Rows - 1) / kF32Rows, p.H, p.B);
@@ -379,14 +833,16 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the last
 // dimension of every tensor is contiguous.  window <= 0 means no window.
-// lse: null, or a contiguous (B, H, Sq) f32 buffer to fill.
+// lse: null, or a contiguous (B, H, Sq) f32 buffer to fill.  maps: for bf16
+// at Dh in {64, 128}, which take the wgmma kernel, the geometry of the q, k,
+// v and o tensor maps (4 x 11 integers, see hopper::encode_map); else null.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                          int dtype, int B,
                          int H, int Hk, int Sq, int Skv, int D, long long sqb, long long sqh,
                          long long sqs, long long skb, long long skh, long long sks,
                          long long svb, long long svh, long long svs, long long sob,
                          long long soh, long long sos, float scale, int causal, int window,
-                         int q_offset, void* stream) {
+                         int q_offset, void* stream, const long long* maps) {
   Params p;
   p.q = q;
   p.k = k;
@@ -419,10 +875,11 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     switch (D) {
+      // no model of the repo has Dh < 64: those stay on mma.sync
       case 16: return launch_bf16<16>(p, st);
       case 32: return launch_bf16<32>(p, st);
-      case 64: return launch_bf16<64>(p, st);
-      case 128: return launch_bf16<128>(p, st);
+      case 64: return launch_wgmma<64>(p, maps, st);
+      case 128: return launch_wgmma<128>(p, maps, st);
     }
   } else if (dtype == 0) {
     switch (D) {

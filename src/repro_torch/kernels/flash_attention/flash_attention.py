@@ -17,6 +17,10 @@ counter per kernel (``LAUNCHES``, ``LSE_LAUNCHES``, ``DQ_LAUNCHES``,
 ``DKV_LAUNCHES``); on CPU tensors it computes the plain version from
 ``ref.py``.  Unlike the TPU kernels they take any Sq and Skv: the kernels
 mask the ragged edge themselves.
+
+The forward at bf16 and Dh in ``TMA_HEAD_DIMS`` reads q/k/v and writes o
+through TMA tensor maps; ``tma_map_geometry`` computes each map's geometry
+here, and the C side encodes what it is given.
 """
 
 from __future__ import annotations
@@ -33,6 +37,11 @@ SOURCE = "flash_attention/csrc/flash_fwd.cu"
 BWD_SOURCE = "flash_attention/csrc/flash_bwd.cu"
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# head dims whose bf16 forward is the TMA / wgmma kernel, and its tiles: the
+# map boxes are 64 columns (128 bytes, the swizzle's width) by these rows
+TMA_HEAD_DIMS = (64, 128)
+TMA_SLAB = 64
+TMA_Q_ROWS, TMA_KV_ROWS, TMA_O_ROWS = 128, 128, 64
 
 # kernel launches since the counts were last reset
 LAUNCHES = 0        # flash_fwd
@@ -56,7 +65,8 @@ def reset_launch_counts() -> None:
 def _fwd_fn():
     fn = build.load(SOURCE).flash_fwd
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 5 + [_I] * 7 + [_LL] * 12 + [ctypes.c_float, _I, _I, _I, _P]
+        fn.argtypes = [_P] * 5 + [_I] * 7 + [_LL] * 12 + [ctypes.c_float, _I, _I, _I, _P,
+                                                          ctypes.POINTER(_LL)]
         fn.restype = _I
     return fn
 
@@ -100,11 +110,42 @@ def _check(q, k, v, window, q_offset, **more) -> None:
         if (lse.device != q.device or lse.dtype != torch.float32
                 or lse.shape != (B, H, Sq) or not lse.is_contiguous()):
             raise ValueError(f"lse must be a contiguous float32 tensor of shape {(B, H, Sq)}")
-    vec = 16 // q.element_size()  # the kernels move 16-byte vectors
     for name, t in (("q", q), ("k", k), ("v", v), *like_q.items()):
-        if t.stride(3) != 1 or any(s % vec for s in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"{name} needs a contiguous last dim, 16-byte aligned rows "
-                             f"and strides that are multiples of {vec}; call .contiguous()")
+        _check_layout(name, t)
+
+
+def _check_layout(name: str, t: torch.Tensor) -> None:
+    """The kernels move 16-byte vectors, and TMA takes 16-byte aligned bases
+    and strides: raise unless ``t`` has them and a contiguous last dim."""
+    vec = 16 // t.element_size()
+    if t.stride(3) != 1 or any(s % vec for s in t.stride()[:3]) or t.data_ptr() % 16:
+        raise ValueError(f"{name} needs a contiguous last dim, 16-byte aligned rows "
+                         f"and strides that are multiples of {vec}; call .contiguous()")
+
+
+def tma_map_geometry(name: str, t: torch.Tensor, rows: int) -> Tuple[int, ...]:
+    """The 4-D TMA map of ``t`` (B, H, S, Dh), any strides ``_check_layout``
+    takes, as the 11 integers the C side encodes (hopper.cuh, encode_map):
+    dims (Dh, S, H, B) innermost first, byte strides (rows, heads, batches),
+    box (64 columns, ``rows``, 1, 1); a tile is Dh / 64 such boxes.  The S
+    extent is S itself, never S x H, so that TMA zero-fills rows past S on
+    load and clips them on store even where the heads lie between the rows
+    (a view of (B, S, H, Dh))."""
+    _check_layout(name, t)
+    B, H, S, Dh = t.shape
+    sb, sh, ss, _ = t.stride()
+    n = t.element_size()
+    return (Dh, S, H, B, ss * n, sh * n, sb * n, TMA_SLAB, rows, 1, 1)
+
+
+def _fwd_maps(q, k, v, o):
+    """The q, k, v and o maps' geometry as the C entry point takes it, or
+    None where the forward takes no tensor map."""
+    if q.dtype != torch.bfloat16 or q.shape[3] not in TMA_HEAD_DIMS:
+        return None
+    fields = (*tma_map_geometry("q", q, TMA_Q_ROWS), *tma_map_geometry("k", k, TMA_KV_ROWS),
+              *tma_map_geometry("v", v, TMA_KV_ROWS), *tma_map_geometry("o", o, TMA_O_ROWS))
+    return (_LL * len(fields))(*fields)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -112,6 +153,8 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _raise_on(err: int, name: str) -> None:
+    if err < 0:
+        raise RuntimeError(f"{name}: encoding a TMA tensor map failed: CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
@@ -133,6 +176,7 @@ def _fwd(q, k, v, causal, window, scale, q_offset, with_lse: bool):
             _DTYPE_CODES[q.dtype], B, H, Hk, Sq, Skv, Dh,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
             float(scale), int(causal), int(window or 0), int(q_offset), _stream(q),
+            _fwd_maps(q, k, v, o),
         )
     _raise_on(err, "flash_fwd")
     return o, lse

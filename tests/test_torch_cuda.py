@@ -49,6 +49,20 @@ CASES = [
     (1, 4, 2, 256, 256, 64, True, 40, 0, torch.float32),
     (1, 4, 2, 64, 128, 64, False, 16, 100, torch.bfloat16),          # rows that see no key
     (1, 4, 2, 64, 128, 32, False, 16, 100, torch.float32),
+    # bf16 at Dh 64 and 128 runs the TMA / wgmma kernel: 128-row q tiles
+    (2, 4, 2, 130, 130, 128, True, None, 0, torch.bfloat16),         # a last tile of 2 rows
+    (2, 4, 2, 333, 333, 64, True, None, 0, torch.bfloat16),          # ragged at Dh 64
+    (1, 6, 2, 1024, 1024, 128, True, 200, 0, torch.bfloat16),        # window of 200
+    (1, 6, 2, 256, 256, 128, True, None, 0, torch.bfloat16),         # GQA group 3
+    (1, 8, 1, 200, 200, 64, True, None, 0, torch.bfloat16),          # MQA at Dh 64
+    (1, 4, 2, 64, 128, 128, False, 16, 100, torch.bfloat16),         # no key at Dh 128
+]
+# q/k/v as the transposed views of (B, S, H, Dh) that ops.flash_attention
+# passes (rows H * Dh apart): the serving prefill shape, a ragged one
+MODEL_LAYOUT_CASES = [
+    (4, 24, 8, 1024, 1024, 128, True, None, 0, torch.bfloat16),
+    (2, 8, 4, 1000, 1000, 128, True, None, 0, torch.bfloat16),
+    (2, 8, 2, 333, 333, 64, True, 100, 0, torch.bfloat16),
 ]
 
 
@@ -61,9 +75,12 @@ def card():
     return torch.device("cuda")
 
 
-def _inputs(case, seed=0):
+def _inputs(case, seed=0, layout="kernel"):
     B, H, Hk, Sq, Skv, Dh, *_, dtype = case
     g = torch.Generator(device="cuda").manual_seed(seed)
+    if layout == "model":
+        return [torch.randn(s, generator=g, device="cuda").to(dtype).transpose(1, 2)
+                for s in ((B, Sq, H, Dh), (B, Skv, Hk, Dh), (B, Skv, Hk, Dh))]
     return [torch.randn(s, generator=g, device="cuda").to(dtype)
             for s in ((B, H, Sq, Dh), (B, Hk, Skv, Dh), (B, Hk, Skv, Dh))]
 
@@ -80,6 +97,22 @@ def test_flash_fwd_matches_plain_version(card, case):
     assert out.dtype == dtype and out.shape == q.shape and torch.isfinite(out).all()
     ref = attention_ref(q, k, v, **kw)
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("case", MODEL_LAYOUT_CASES)
+def test_flash_fwd_and_fwd_lse_take_model_layout_views(card, case):
+    *_, causal, window, q_offset, dtype = case
+    q, k, v = _inputs(case, layout="model")
+    assert q.stride(2) == q.shape[1] * q.shape[3]  # rows H * Dh apart
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out = fa.flash_attention_fwd(q, k, v, **kw)
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ref, lse_ref = attention_fwd_lse_ref(q, k, v, **kw)
+    for got in (out, o):
+        assert got.stride() == q.stride() and torch.isfinite(got).all()
+        assert (got.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
 
 
 def test_model_layout_takes_strided_views(card):

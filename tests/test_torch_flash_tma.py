@@ -1,0 +1,119 @@
+"""The host side of the TMA flash-attention forward, on the CPU: the tensor
+maps' geometry that the wrapper computes and the C side encodes
+(``flash_attention.tma_map_geometry``), for the layouts the kernel takes."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
+
+
+def _kernel_layout(B, H, S, Dh, layout):
+    """A bf16 (B, H, S, Dh) tensor: contiguous, or the transposed view of a
+    (B, S, H, Dh) tensor that ``ops.flash_attention`` passes."""
+    if layout == "model":
+        return torch.zeros(B, S, H, Dh, dtype=torch.bfloat16).transpose(1, 2)
+    return torch.zeros(B, H, S, Dh, dtype=torch.bfloat16)
+
+
+SHAPES = [
+    # B, H, Hk, Sq, Skv, Dh
+    (4, 24, 8, 1024, 1024, 128),   # llama3.2-3b serving prefill
+    (2, 4, 2, 1000, 1000, 128),    # ragged last tile
+    (2, 4, 2, 130, 130, 128),      # a last tile of 2 rows
+    (2, 4, 2, 333, 333, 64),
+    (2, 24, 8, 64, 1024, 128),     # Sq < the 128-row q box
+    (1, 48, 1, 512, 512, 64),      # MQA
+]
+
+
+@pytest.mark.parametrize("layout", ["kernel", "model"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_map_extents_are_the_sequence_lengths(shape, layout):
+    B, H, Hk, Sq, Skv, Dh = shape
+    q = _kernel_layout(B, H, Sq, Dh, layout)
+    k = _kernel_layout(B, Hk, Skv, Dh, layout)
+    gq = fa.tma_map_geometry("q", q, fa.TMA_Q_ROWS)
+    gk = fa.tma_map_geometry("k", k, fa.TMA_KV_ROWS)
+    # dims innermost first; S is its own dimension, so that a ragged tile
+    # reads zeros past Sq, not the next head's rows
+    assert gq[:4] == (Dh, Sq, H, B)
+    assert gk[:4] == (Dh, Skv, Hk, B)
+    assert gq[7:] == (fa.TMA_SLAB, fa.TMA_Q_ROWS, 1, 1)
+    assert gk[7:] == (fa.TMA_SLAB, fa.TMA_KV_ROWS, 1, 1)
+
+
+@pytest.mark.parametrize("layout", ["kernel", "model"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_map_strides_are_the_byte_strides(shape, layout):
+    B, H, _, Sq, _, Dh = shape
+    q = _kernel_layout(B, H, Sq, Dh, layout)
+    strides = fa.tma_map_geometry("q", q, fa.TMA_Q_ROWS)[4:7]
+    assert strides == (q.stride(2) * 2, q.stride(1) * 2, q.stride(0) * 2)
+    if layout == "model":  # rows H * Dh apart, heads Dh apart
+        assert strides == (2 * H * Dh, 2 * Dh, 2 * Sq * H * Dh)
+    assert all(s % 16 == 0 for s in strides)
+
+
+@pytest.mark.parametrize("Dh, slabs", [(64, 1), (128, 2)])
+def test_a_slab_is_64_columns(Dh, slabs):
+    g = fa.tma_map_geometry("o", torch.zeros(1, 2, 100, Dh, dtype=torch.bfloat16), fa.TMA_O_ROWS)
+    assert g[0] // g[7] == slabs  # boxes across Dh
+    assert g[7] * 2 == 128  # bytes of one swizzled row
+    assert g[8] == fa.TMA_O_ROWS
+
+
+def test_maps_of_the_forward():
+    q, o = (torch.zeros(2, 24, 200, 128, dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.zeros(2, 8, 300, 128, dtype=torch.bfloat16) for _ in range(2))
+    maps = fa._fwd_maps(q, k, v, o)
+    fields = list(maps)
+    assert len(fields) == 4 * 11
+    rows = (fa.TMA_Q_ROWS, fa.TMA_KV_ROWS, fa.TMA_KV_ROWS, fa.TMA_O_ROWS)
+    extents = (200, 300, 300, 200)
+    for i, (r, s) in enumerate(zip(rows, extents)):
+        g = fields[11 * i:11 * i + 11]
+        assert g[1] == s and g[8] == r
+
+
+@pytest.mark.parametrize("dtype, Dh", [(torch.float32, 128), (torch.float32, 64),
+                                       (torch.bfloat16, 32), (torch.bfloat16, 16)])
+def test_no_maps_where_the_forward_takes_none(dtype, Dh):
+    q = torch.zeros(1, 2, 64, Dh, dtype=dtype)
+    assert fa._fwd_maps(q, q, q, q) is None
+
+
+def test_a_stride_of_no_whole_16_bytes_is_refused():
+    # rows 72 elements (144 bytes) apart, then a view of 64 of them: rows
+    # are 16-byte aligned; 68 elements (136 bytes) are not
+    ok = torch.zeros(1, 2, 100, 72, dtype=torch.bfloat16)[..., :64]
+    assert fa.tma_map_geometry("q", ok, fa.TMA_Q_ROWS)[4] == 144
+    bad = torch.zeros(1, 2, 100, 68, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        fa.tma_map_geometry("q", bad, fa.TMA_Q_ROWS)
+
+
+def test_a_misaligned_base_is_refused():
+    flat = torch.zeros(2 * 100 * 64 + 8, dtype=torch.bfloat16)
+    t = flat[1:1 + 2 * 100 * 64].view(1, 2, 100, 64)  # 2 bytes past an aligned base
+    assert t.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        fa.tma_map_geometry("k", t, fa.TMA_KV_ROWS)
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        fa._fwd_maps(t, t, t, t)
+
+
+def test_a_last_dim_that_is_not_contiguous_is_refused():
+    t = torch.zeros(1, 2, 100, 128, dtype=torch.bfloat16)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous last dim"):
+        fa.tma_map_geometry("v", t, fa.TMA_KV_ROWS)
+
+
+@pytest.mark.parametrize("err, match", [(-500, "encoding a TMA tensor map failed: CUresult 500"),
+                                        (1, "launch failed: CUDA error 1")])
+def test_a_failed_encode_or_launch_raises(err, match):
+    # the C entry point returns minus the CUresult of a failed encode, else
+    # the cudaError_t of the launch
+    with pytest.raises(RuntimeError, match=match):
+        fa._raise_on(err, "flash_fwd")

@@ -13,22 +13,24 @@
   through the SSD kernel, the token-by-token cache fill (profiled over its
   first 32 steps), one decode step.
 
-And an A/B of the flash-attention forward kernels against another checkout:
+And an A/B of the flash-attention kernels against another checkout:
 
 * flash_ab DIR: ``flash_fwd`` and ``flash_fwd_lse`` at the serving prefill
-  shape (B=4, H=24, Hk=8, S=1024, Dh=128, bf16, causal), timed in the
-  package of the checkout at DIR (say, the parent commit unpacked with
-  ``git archive``) and in this one, in turns (DIR, this, this, DIR), each
-  run in a fresh process that builds that checkout's kernel: device time
-  (a CUDA graph of 20 launches) and 20 back-to-back wrapper calls timed
-  with events.
+  shape (B=4, H=24, Hk=8, S=1024, Dh=128, bf16, causal), and the backward
+  kernels ``flash_bwd_dq`` and ``flash_bwd_dkv`` at the same (training)
+  shape, timed in the package of the checkout at DIR (say, the parent
+  commit unpacked with ``git archive``) and in this one, in turns (DIR,
+  this, this, DIR), each run in a fresh process that builds that
+  checkout's kernels: device time (a CUDA graph of 20 launches) and 20
+  back-to-back wrapper calls timed with events.
 
-* flash_ablate: what each part of the TMA / wgmma forward's design is
-  worth.  Variants of ``flash_fwd.cu``, each with one part taken out by a
-  text substitution, are built beside the unmodified source and timed at
-  the serving prefill shape (device time, CUDA graph), in two rounds.  The
-  variants that drop work (the softmax, the K/V loads) give wrong outputs:
-  they only measure what that work costs.
+* flash_ablate: what each part of the TMA / wgmma kernels' design is worth.
+  Variants of ``flash_fwd.cu`` and of ``flash_bwd.cu``, each with one part
+  taken out (or, marked so, added) by a text substitution, are built beside
+  the unmodified sources and timed at the serving prefill / training shape
+  (device time, CUDA graph), in two rounds.  The forward variants that drop
+  work (the softmax, the K/V loads) give wrong outputs: they only measure
+  what that work costs.
 
 And one look at numbers rather than time:
 
@@ -299,9 +301,9 @@ def xlstm_agreement(smi: str) -> None:
                   f"{agree:.2f}", flush=True)
 
 
-# Times the forward kernels of the package under ``src/`` of the current
-# directory (any checkout of the port since the forward took its ``lse``
-# argument); prints one line of JSON.
+# Times the flash kernels of the package under ``src/`` of the current
+# directory (any checkout of the port that has the backward kernels);
+# prints one line of JSON.
 _FLASH_TIMING = r"""
 import json, sys, torch
 sys.path.insert(0, "src")
@@ -333,12 +335,17 @@ def events_ms(fn, n=20):
 
 g = torch.Generator(device="cuda")
 g.manual_seed(0)
-q = torch.randn(4, 24, 1024, 128, generator=g, device="cuda").bfloat16()
+q, do = (torch.randn(4, 24, 1024, 128, generator=g, device="cuda").bfloat16() for _ in range(2))
 k, v = (torch.randn(4, 8, 1024, 128, generator=g, device="cuda").bfloat16() for _ in range(2))
-out = {}
-for name, fn in (("flash_fwd", fa.flash_attention_fwd), ("flash_fwd_lse", fa.flash_attention_fwd_lse)):
-    call = lambda: fn(q, k, v, causal=True)
-    out[name] = {"device_ms": graph_ms(call), "back_to_back_ms": events_ms(call)}
+o, lse = fa.flash_attention_fwd_lse(q, k, v, causal=True)
+delta = (o.float() * do.float()).sum(-1).contiguous()
+bkw = dict(causal=True, window=None, scale=128 ** -0.5, q_offset=0)
+calls = {"flash_fwd": lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+         "flash_fwd_lse": lambda: fa.flash_attention_fwd_lse(q, k, v, causal=True),
+         "flash_bwd_dq": lambda: fa.bwd_dq(q, k, v, do, lse, delta, **bkw),
+         "flash_bwd_dkv": lambda: fa.bwd_dkv(q, k, v, do, lse, delta, **bkw)}
+out = {name: {"device_ms": graph_ms(call), "back_to_back_ms": events_ms(call)}
+       for name, call in calls.items()}
 print(json.dumps(out))
 """
 
@@ -346,8 +353,8 @@ print(json.dumps(out))
 def flash_ab(smi: str, other: str) -> None:
     here = Path(__file__).resolve().parent
     there = (here / other).resolve()
-    print(f"flash_ab: flash_fwd / flash_fwd_lse at B=4 H=24 Hk=8 S=1024 Dh=128 bf16 causal, "
-          f"{there} against {here} [{smi}]", flush=True)
+    print(f"flash_ab: flash_fwd / flash_fwd_lse / flash_bwd_dq / flash_bwd_dkv at B=4 H=24 Hk=8 "
+          f"S=1024 Dh=128 bf16 causal, {there} against {here} [{smi}]", flush=True)
     for label, path in (("other", there), ("this", here), ("this", here), ("other", there)):
         res = subprocess.run([sys.executable, "-c", _FLASH_TIMING], cwd=path,
                              capture_output=True, text=True)
@@ -384,22 +391,39 @@ FLASH_ABLATIONS = {
 }
 
 
-def flash_ablate(smi: str) -> None:
+# the same for flash_bwd.cu (both kernels live in it)
+FLASH_BWD_ABLATIONS = {
+    "non_persistent": ("the persistent schedule: one block per work item, in both kernels", [
+        (r"<<<min\(total, sms\),", "<<<total,")]),
+    "kv_released_together": ("dq's early release of V: a stage's V is freed with its K", [
+        (r"mbar_arrive\(&v_empty\[st\]\);[^\n]*\n", "\n"),
+        (r"if \(lane == 0\) mbar_arrive\(&k_empty\[st\]\);",
+         "if (lane == 0) { mbar_arrive(&v_empty[st]); mbar_arrive(&k_empty[st]); }")]),
+    "single_stage": ("every stage of the rings but one (dq's K/V ring, dk/dv's Q/dO ring)", [
+        (r"(constexpr int kD(?:q|kv)Stages) = \d;", r"\1 = 1;")]),
+    "dkv_two_stages": ("the third stage of dk/dv's ring (dq's ring has two: a third "
+                       "would not fit in shared memory)", [
+        (r"(constexpr int kDkvStages) = 3;", r"\1 = 2;")]),
+}
+
+
+def _ablate(smi: str, source: str, ablations: dict, calls: dict, what: str) -> None:
+    """Build ``source`` unmodified and with each of ``ablations``, then time
+    each of ``calls`` ({name: fn}) with each build installed, two rounds."""
     import ctypes
     import re
 
     import torch
 
-    from chip_smoke import _flash_inputs, _graph_ms
+    from chip_smoke import _graph_ms
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import flash_attention as fa
 
-    src = build.KERNELS_DIR / fa.SOURCE
+    src = build.KERNELS_DIR / source
     text = src.read_text()
     out_dir = build.BUILD_DIR.parent / "ablate"
     out_dir.mkdir(parents=True, exist_ok=True)
     variants = {"unmodified": text}
-    for name, (_, subs) in FLASH_ABLATIONS.items():
+    for name, (_, subs) in ablations.items():
         t = text
         for pattern, repl in subs:
             t, n = re.subn(pattern, repl, t)
@@ -408,9 +432,10 @@ def flash_ablate(smi: str) -> None:
         variants[name] = t
     procs = {}
     for name, t in variants.items():
-        (out_dir / f"{name}.cu").write_text(t)
+        stem = f"{src.stem}_{name}"
+        (out_dir / f"{stem}.cu").write_text(t)
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(src.parent), "-o",
-               str(out_dir / f"{name}.so"), str(out_dir / f"{name}.cu")]
+               str(out_dir / f"{stem}.so"), str(out_dir / f"{stem}.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)
     libs = {}
@@ -418,24 +443,42 @@ def flash_ablate(smi: str) -> None:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             sys.exit(f"flash_ablate: {name} does not build:\n{log[-3000:]}")
-        libs[name] = ctypes.CDLL(str(out_dir / f"{name}.so"))
-    q, k, v = _flash_inputs(4, 24, 8, 1024, 1024, 128, "bfloat16", seed=0)
-    print(f"flash_ablate: flash_fwd at B=4 H=24 Hk=8 S=1024 Dh=128 bf16 causal, device ms "
-          f"(CUDA graph of 20 launches), two rounds [{smi}]", flush=True)
-    times = {name: [] for name in libs}
+        libs[name] = ctypes.CDLL(str(out_dir / f"{src.stem}_{name}.so"))
+    print(f"flash_ablate: {what}, device ms (CUDA graph of 20 launches), two rounds [{smi}]",
+          flush=True)
+    times = {(name, c): [] for name in libs for c in calls}
     try:
         for _ in range(2):
             for name, lib in libs.items():
-                build._LIBS[fa.SOURCE] = lib  # the wrapper launches this build
-                times[name].append(_graph_ms(lambda: fa.flash_attention_fwd(q, k, v)))
+                build._LIBS[source] = lib  # the wrappers launch this build
+                for c, fn in calls.items():
+                    times[name, c].append(_graph_ms(fn))
                 torch.cuda.synchronize()
     finally:
-        build._LIBS.pop(fa.SOURCE, None)
-    base = sum(times["unmodified"]) / 2
-    for name, ts in times.items():
-        what = FLASH_ABLATIONS[name][0] if name in FLASH_ABLATIONS else "the kernel as committed"
-        print(f"flash_ablate {name}: {ts[0]:.4f} / {ts[1]:.4f} ms, {sum(ts) / 2 / base:.3f}x of "
-              f"unmodified; takes out {what}", flush=True)
+        build._LIBS.pop(source, None)
+    for (name, c), ts in times.items():
+        base = sum(times["unmodified", c]) / 2
+        what_ = ablations[name][0] if name in ablations else "the kernel as committed"
+        print(f"flash_ablate {c} {name}: {ts[0]:.4f} / {ts[1]:.4f} ms, {sum(ts) / 2 / base:.3f}x "
+              f"of unmodified; takes out {what_}", flush=True)
+
+
+def flash_ablate(smi: str) -> None:
+    from chip_smoke import _flash_inputs
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    q, k, v = _flash_inputs(4, 24, 8, 1024, 1024, 128, "bfloat16", seed=0)
+    do = _flash_inputs(4, 24, 8, 1024, 1024, 128, "bfloat16", seed=1)[0]
+    shape = "B=4 H=24 Hk=8 S=1024 Dh=128 bf16 causal"
+    _ablate(smi, fa.SOURCE, FLASH_ABLATIONS,
+            {"flash_fwd": lambda: fa.flash_attention_fwd(q, k, v)}, f"flash_fwd at {shape}")
+    o, lse = fa.flash_attention_fwd_lse(q, k, v)
+    delta = (o.float() * do.float()).sum(-1).contiguous()
+    bkw = dict(causal=True, window=None, scale=128 ** -0.5, q_offset=0)
+    _ablate(smi, fa.BWD_SOURCE, FLASH_BWD_ABLATIONS,
+            {"flash_bwd_dq": lambda: fa.bwd_dq(q, k, v, do, lse, delta, **bkw),
+             "flash_bwd_dkv": lambda: fa.bwd_dkv(q, k, v, do, lse, delta, **bkw)},
+            f"flash_bwd_dq and flash_bwd_dkv at {shape}")
 
 
 def main() -> None:

@@ -115,19 +115,29 @@ def phase_build() -> None:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"build:   {line.strip()}")
-    # the TMA / wgmma forward keeps its S, O and P fragments in registers:
+    # the TMA / wgmma kernels keep their products' fragments in registers:
     # each instantiation (Dh 64, 128) must build without spilling
+    for src, kernel in ((fa.SOURCE, "flash_fwd_wgmma_kernel"),
+                        (fa.BWD_SOURCE, "flash_bwd_dq_wgmma_kernel"),
+                        (fa.BWD_SOURCE, "flash_bwd_dkv_wgmma_kernel")):
+        spills = _spill_stores(build.BUILD_INFO[src]["log"], kernel)
+        print(f"build: {kernel} instantiations {len(spills)}, spill stores "
+              f"{sorted(spills.values())} bytes", flush=True)
+        if len(spills) != 2 or any(spills.values()):
+            fail(f"{kernel} should build twice (Dh 64, 128) without spills: {spills}")
+    sys.stdout.flush()
+
+
+def _spill_stores(log: str, kernel: str) -> dict:
+    """{entry: bytes of spill stores} of each entry function of ``kernel``
+    in nvcc's -Xptxas -v output."""
     spills, entry = {}, None
-    for line in build.BUILD_INFO[fa.SOURCE]["log"].splitlines():
+    for line in log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
-        elif "spill stores" in line and entry and "flash_fwd_wgmma_kernel" in entry:
+        elif "spill stores" in line and entry and kernel in entry:
             spills[entry] = int(line.split("bytes spill stores")[0].split(",")[-1])
-    print(f"build: flash_fwd_wgmma_kernel instantiations {len(spills)}, spill stores "
-          f"{sorted(spills.values())} bytes", flush=True)
-    if len(spills) != 2 or any(spills.values()):
-        fail(f"the wgmma forward should build twice (Dh 64, 128) without spills: {spills}")
-    sys.stdout.flush()
+    return spills
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -424,8 +434,6 @@ def _training_kernels() -> list:
     """flash_fwd_lse, flash_bwd_dq and flash_bwd_dkv against their plain
     versions over FLASH_CASES, then timed at the training shape."""
     import torch
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention.ref import (
@@ -441,9 +449,13 @@ def _training_kernels() -> list:
         o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
         torch.cuda.synchronize()
         o_ref, lse_ref = attention_fwd_lse_ref(q, k, v, **kw)
-        # the backward kernels and the plain backward on the same o and lse
+        # the backward kernels and the plain backward on the same o and lse;
+        # a second call must give the same bits (no atomics, fixed sum order)
         dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
         grads_ref = attention_bwd_ref(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
         tol_o = BF16_TOL if dtype == "bfloat16" else F32_TOL
@@ -459,7 +471,9 @@ def _training_kernels() -> list:
                          for _, t, e, m, tol in checks)
         print(f"kernel train {name}: B={B} H={H} Hk={Hk} Sq={Sq} Skv={Skv} Dh={Dh} "
               f"causal={causal} window={window} q_offset={q_off} {dtype} {layout} layout: "
-              f"{line}", flush=True)
+              f"{line}; two backward calls {'bit-identical' if same else 'DIFFER'}", flush=True)
+        if not same:
+            fail(f"flash_attention_bwd {name}: two calls on the same inputs differ")
         for kname, tname, err, _, tol in checks:
             if not finite or not err <= tol:
                 fail(f"{kname} {name}: {tname} disagrees with its plain version: {err} > {tol} "
@@ -471,50 +485,123 @@ def _training_kernels() -> list:
     fwd_ms, plain_fwd, fwd_bound, lib_fwd = _time_forward(
         "flash_fwd_lse", fa.flash_attention_fwd_lse, attention_fwd_lse_ref, with_lse=True)
     name, B, H, Hk, Sq, Skv, Dh, causal, window, q_off, dtype, _ = FLASH_CASES[0]
-    q, k, v = _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed=0)
-    do = _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed=1)[0]
     kw = dict(causal=True, window=None, q_offset=0)
-    scale = Dh ** -0.5
-    o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
-    delta = (o.float() * do.float()).sum(-1).contiguous()
-    visible = int(attention_mask(Sq, Skv, causal, window, q_off, "cuda").sum()) * B * H
-    bkw = dict(kw, scale=scale)
-    calls = {"flash_bwd_dq": lambda: fa.bwd_dq(q, k, v, do, lse, delta, **bkw),
-             "flash_bwd_dkv": lambda: fa.bwd_dkv(q, k, v, do, lse, delta, **bkw)}
-    ms = {kname: _graph_ms(fn) for kname, fn in calls.items()}
-    b2b = {kname: _time_ms(fn) for kname, fn in calls.items()}
+    bkw = dict(kw, scale=Dh ** -0.5)
+    inputs = {}
+    for layout in ("kernel", "model"):
+        q, k, v = _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed=0, layout=layout)
+        do = _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed=1, layout=layout)[0]
+        o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
+        inputs[layout] = (q, k, v, do, o, lse, (o.float() * do.float()).sum(-1).contiguous())
+
+    def call(kname, layout):
+        q, k, v, do, _, lse, delta = inputs[layout]
+        fn = fa.bwd_dq if kname == "flash_bwd_dq" else fa.bwd_dkv
+        return lambda: fn(q, k, v, do, lse, delta, **bkw)
+
+    knames = ("flash_bwd_dq", "flash_bwd_dkv")
+    ms = {n: _graph_ms(call(n, "kernel")) for n in knames}
+    b2b = {n: _time_ms(call(n, "kernel")) for n in knames}
+    host = {n: _host_us(call(n, "kernel")) for n in knames}
+    model_ms = {n: _graph_ms(call(n, "model")) for n in knames}
+    q, k, v, do, o, lse, delta = inputs["kernel"]
+    # delta = rowsum(o * do), the torch reduction flash_attention_bwd runs
+    # before the two kernels: what folding it into a kernel would save
+    delta_ms = _graph_ms(lambda: (o.float() * do.float()).sum(-1).contiguous())
     # the plain backward computes dq, dk and dv in one function
     plain_bwd = _time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do, **kw), iters=3)
-    # library yardstick: the backward of scaled_dot_product_attention through
-    # autograd (dq, dk and dv together) on k/v expanded to H heads, pinned to
-    # PyTorch's flash backend: left to itself the choice of backend, and the
-    # time, changed between two runs (0.26 vs 0.77 ms)
-    ke, ve = (t.repeat_interleave(H // Hk, dim=1) for t in (k, v))
-    qr, kr, vr = (t.detach().requires_grad_() for t in (q, ke, ve))
-    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-        out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
-    # (autograd's backward does not capture into a CUDA graph here: timed
-    # back-to-back with events, as in PRs 12-13)
-    lib_bwd = _time_ms(lambda: torch.autograd.grad(out, (qr, kr, vr), do, retain_graph=True))
+    library, group_ms = _bwd_yardsticks(q, k, v, do)
+    for label, (t, how) in library.items():
+        print(f"kernel flash_attention_bwd yardstick {label}: {t:.4f} ms ({how}; dq, dk, dv "
+              f"on k/v expanded to {H} heads)", flush=True)
+    print(f"kernel flash_attention_bwd yardstick: the sum of expanded dk and dv back to {Hk} "
+          f"heads (two torch sums) {group_ms:.4f} ms (CUDA graph); delta = rowsum(o * do) "
+          f"{delta_ms:.4f} ms per call (CUDA graph)", flush=True)
+    lib_name = min(library, key=lambda n: library[n][0]) if library else None
+    lib_bwd = library[lib_name][0] if library else None
+    visible = int(attention_mask(Sq, Skv, causal, window, q_off, "cuda").sum()) * B * H
     flops = {"flash_bwd_dq": 6.0 * Dh * visible, "flash_bwd_dkv": 8.0 * Dh * visible}
     nbytes = {"flash_bwd_dq": _nbytes(q, k, v, do, lse, delta, q),
               "flash_bwd_dkv": _nbytes(q, k, v, do, lse, delta, k, v)}
     entries = [_flash_entry("flash_fwd_lse", "flash_fwd.cu", 79, None, worst["flash_fwd_lse"],
                             fwd_ms, plain_fwd, fwd_bound, lib_fwd)]
+    lib = f"{lib_bwd:.4f} ms ({lib_name})" if library else "none"
     for kname, src, line in (("flash_bwd_dq", "flash_bwd.cu", 121),
                              ("flash_bwd_dkv", "flash_bwd.cu", 159)):
         bound = _bound(flops[kname], nbytes[kname], dtype)
         print(f"kernel {kname} timing at the training shape (B={B} H={H} Hk={Hk} S={Sq} "
               f"Dh={Dh} bf16 causal): kernel {ms[kname]:.4f} ms device (CUDA graph of 20 "
-              f"launches), {b2b[kname]:.4f} ms back-to-back wrapper calls, plain "
-              f"{plain_bwd:.4f} ms, library {lib_bwd:.4f} ms, bound "
-              f"{bound[0]:.4f} ms ({bound[1]}: {flops[kname]:.4g} FLOP, {nbytes[kname]:.4g} B), "
-              f"{bound[0] / ms[kname]:.1%} of bound", flush=True)
+              f"launches), {b2b[kname]:.4f} ms back-to-back wrapper calls, wrapper host "
+              f"{host[kname]:.1f} us/call, model layout {model_ms[kname]:.4f} ms; plain "
+              f"{plain_bwd:.4f} ms; library {lib}; bound {bound[0]:.4f} ms ({bound[1]}: "
+              f"{flops[kname]:.4g} FLOP, {nbytes[kname]:.4g} B), {bound[0] / ms[kname]:.1%} "
+              f"of bound", flush=True)
         entries.append(_flash_entry(kname, src, line, None, worst[kname], ms[kname],
                                     plain_bwd, bound, lib_bwd))
+    pair = ms["flash_bwd_dq"] + ms["flash_bwd_dkv"]
+    if library:
+        print(f"kernel flash_attention_bwd: dq + dk/dv kernels {pair:.4f} ms device "
+              f"({pair + delta_ms:.4f} with delta), fastest library backward {lib_bwd:.4f} ms "
+              f"({lib_bwd + group_ms:.4f} with the group sum): kernels/library "
+              f"{pair / lib_bwd:.3f}", flush=True)
     print("kernel: plain_ms of flash_bwd_dq and flash_bwd_dkv is the whole plain backward "
-          "(dq, dk, dv); their library_ms is the whole sdpa backward", flush=True)
+          "(dq, dk, dv); their library_ms is the fastest whole PyTorch backward", flush=True)
     return entries
+
+
+def _bwd_yardsticks(q, k, v, do) -> tuple:
+    """PyTorch's own attention backwards at the timed shape, called as aten
+    ops (so that they capture into a CUDA graph), each fed by its own aten
+    forward, on k/v expanded to H heads (they take no GQA).  Returns
+    ({label: (ms, how it was timed)}, ms of summing the expanded dk or dv
+    back to Hk heads, twice): an op that will not capture is timed
+    back-to-back, and says so."""
+    import torch
+
+    aten = torch.ops.aten
+    B, H, S, Dh = q.shape
+    Hk = k.shape[1]
+    ke, ve = (t.repeat_interleave(H // Hk, dim=1) for t in (k, v))
+
+    def flash():
+        out, lse, cq, ck, mq, mk, seed, off, _ = aten._scaled_dot_product_flash_attention(
+            q, ke, ve, 0.0, True)
+        return lambda: aten._scaled_dot_product_flash_attention_backward(
+            do, q, ke, ve, out, lse, cq, ck, mq, mk, 0.0, True, seed, off)
+
+    def cudnn():
+        out, lse, cq, ck, mq, mk, seed, off, _ = aten._scaled_dot_product_cudnn_attention(
+            q, ke, ve, None, True, 0.0, True)
+        return lambda: aten._scaled_dot_product_cudnn_attention_backward(
+            do, q, ke, ve, out, lse, seed, off, None, cq, ck, mq, mk, 0.0, True)
+
+    def efficient():
+        out, lse, seed, off = aten._scaled_dot_product_efficient_attention(
+            q, ke, ve, None, True, 0.0, True)
+        return lambda: aten._scaled_dot_product_efficient_attention_backward(
+            do, q, ke, ve, None, out, lse, seed, off, 0.0, [True, True, True, False], True)
+
+    times = {}
+    for label, make in (("aten._scaled_dot_product_flash_attention_backward", flash),
+                        ("aten._scaled_dot_product_cudnn_attention_backward", cudnn),
+                        ("aten._scaled_dot_product_efficient_attention_backward", efficient)):
+        try:
+            call = make()
+            call()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            print(f"kernel: yardstick {label} refused: {str(e).splitlines()[0][:160]}",
+                  flush=True)
+            continue
+        try:
+            times[label] = (_graph_ms(call), "device time, CUDA graph")
+        except RuntimeError as e:
+            torch.cuda.synchronize()
+            times[label] = (_time_ms(call), "back-to-back: it does not capture into a CUDA "
+                            f"graph ({str(e).splitlines()[0][:80]})")
+    dke = torch.randn((B, H, S, Dh), device=q.device).to(q.dtype)
+    group_ms = 2 * _graph_ms(lambda: dke.view(B, Hk, H // Hk, S, Dh).sum(2))
+    return times, group_ms
 
 
 # The scans take f32 (the model path casts to f32).  Tolerances relative to

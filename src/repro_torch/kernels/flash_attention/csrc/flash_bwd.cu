@@ -2,42 +2,70 @@
 //
 // Replaces the TPU kernels of src/repro/kernels/flash_attention/
 // flash_attention.py reached through `flash_attention_bwd` (:242-312):
-//   * flash_bwd_dq  <- `_flash_bwd_dq_kernel` (:121-156):
+//   * flash_bwd_dq  <- `_flash_bwd_dq_kernel` (:121-156, called at :261):
 //       dq = scale * sum_k dS K,   dS = P o (dO V^T - delta)
-//   * flash_bwd_dkv <- `_flash_bwd_dkv_kernel` (:159-197):
+//   * flash_bwd_dkv <- `_flash_bwd_dkv_kernel` (:159-197, called at :281):
 //       dV = P^T dO,   dK = scale * dS^T Q
 // with P = exp(scale * Q K^T - lse) rebuilt from the forward's lse
 // (csrc/flash_fwd.cu) and delta = rowsum(O o dO), which the wrapper computes
 // outside the kernels as the reference does (:257-259).  Masking, GQA (query
 // head h reads kv head h / (H / Hk)), q_offset, ragged Sq / Skv and the
-// strides are those of flash_fwd.cu.
+// strides are those of flash_fwd.cu.  Both kernels recompute S = Q K^T, the
+// reference's split; no atomics, so every sum has one fixed order and two
+// calls on the same inputs give the same bits.
 //
-// Design.  The TPU grid carries dq (or dk/dv) in scratch across the
-// sequential k (or q) grid axis; on Hopper blocks run in parallel, so a loop
-// inside the block takes that axis' place and no state crosses blocks:
-//   * dq: one block per (64-row q tile, head, batch), looping over the k
-//     tiles that the causal / window limits allow;
-//   * dk/dv: one block per (64-key tile, kv head, batch), looping over the
-//     group's query heads and, for each, over the q tiles that can see the
-//     keys.  The GQA sum into Hk heads thus happens in the block's
-//     registers: no (B, H, Skv, Dh) intermediates (the reference's dk_h,
-//     dv_h) and no atomics.
 // What bounds it on the H100: at the training shape (B=4, H=24, Hk=8,
 // S=1024, Dh=128, bf16, causal) dq does 6 Dh and dk/dv 8 Dh FLOP per visible
-// (q, k) pair, 3.9e10 and 5.2e10 FLOP, 39 and 52 us at 989 TFLOP/s, against
-// ~0.1 GB of operands (30 us at 3.35 TB/s): the operations bound both.  So
-// the bf16 path runs every product on the tensor cores (mma.sync m16n8k16,
-// f32 accumulate; P and dS are rounded to bf16 as operands, as in the
-// forward's P V) and keeps S, P, dP and dS in registers.  dk/dv computes
-// S^T = K Q^T and dP^T = V dO^T directly, so P^T and dS^T come out of the
-// accumulators already in the A-operand layout of P^T dO and dS^T Q, and
-// only plain (`ldmatrix`) and transposed (`ldmatrix .trans`) loads of Q,
-// dO, K and V from shared memory are needed.  Each warp owns 16 rows (dq:
-// q rows; dk/dv: keys) and its f32 accumulators (dk/dv: two 16 x Dh).
-// Tiles are double-buffered with cp.async.  This is the simple design; no
-// TMA or wgmma yet.  The f32 path (not on the training path; it lets a
-// small f32 model be checked tightly on the card) is SIMT FMA with 4
-// threads per row.
+// (q, k) pair, 3.9e10 and 5.2e10 FLOP, 0.0391 and 0.0522 ms at 989 TFLOP/s,
+// against ~0.1 GB of operands (30 us at 3.35 TB/s): the operations bound
+// both, and only wgmma reaches the tensor cores' rate on this card.
+//
+// The design for bf16 at Dh in {64, 128} (every model of the repo has Dh =
+// 128) is the forward's: persistent kernels, one block of three warpgroups
+// per SM, walking work items heaviest first in snake order over the blocks.
+// Warpgroup 0 is the producer (setmaxnreg 24; 40 in dk/dv, whose producer
+// warp also stages lse and delta) issuing TMA loads through 4-D tensor
+// maps (Dh, S, H, B) of strided views, so the kernel-layout tensors
+// and the transposed views of (B, S, H, Dh) that the model passes both load
+// as 128-byte-swizzled 64-column slabs, zero-filled past Sq or Skv.
+// Warpgroups 1 and 2 are the consumers (setmaxnreg 240; 232 in dk/dv),
+// running every product on wgmma with f32 accumulators in registers; P and
+// dS are rounded to bf16 as operands, as the forward's P V does.
+//   * dq: an item is (128-row q tile, head, batch), 64 rows a consumer.  Its
+//     Q and dO tiles load once; 128-key K and V tiles stream through a
+//     two-stage ring.  A step is S = Q K^T and dP = dO V^T (wgmma m64n128,
+//     both operands K-major in shared memory), dS = P o (dP - delta) on the
+//     fragments (one FFMA, one ex2 and two more a score; branch-free masks
+//     on edge tiles only), then dQ += dS K with dS packed to bf16 in
+//     registers as the A operand and K read MN-major.  V is released as soon
+//     as dP has read it, K after dS K (each has its own `empty` barrier).
+//     lse and delta of the item's rows stay in registers.
+//   * dk/dv: an item is (128-key tile, kv head, batch), 64 keys a consumer,
+//     whose K and V stay in shared memory for the whole item.  The producer
+//     streams (query head of the group, 64-row q tile) steps through a
+//     three-stage ring: Q and dO by TMA, the rows' lse (times log2 e) and
+//     delta stored by the producer warp's lanes, all behind one `full`
+//     barrier.  A step is S^T = K Q^T and dP^T = V dO^T (wgmma m64n64), P^T
+//     and dS^T on the fragments with lse / delta indexed by column, then
+//     dV += P^T dO and dK += dS^T Q (wgmma m64n128 from registers, Q and dO
+//     read MN-major).  The GQA sum over the group's query heads happens in
+//     those accumulators: no (B, H, Skv, Dh) intermediates.
+// Each consumer waits for its products before it goes on (wgmma_wait<0>), so
+// the number of committed groups never varies inside a loop and the
+// compiler keeps the products asynchronous; the overlap comes from the
+// other consumer, whose products run while this one's elementwise work
+// does (named barriers making the two take turns, as the forward's do,
+// changed nothing here).  dQ, dK and dV are stored from registers.  Not done: dQ
+// fused into the dk/dv pass (atomics), delta folded into a kernel, K/V
+// shared by a cluster (TMA multicast), a second K/V buffer for dk/dv.
+//
+// bf16 at Dh in {16, 32} (card tests and small cases only) keeps the first
+// design: mma.sync m16n8k16 from ldmatrix fragments, tiles
+// double-buffered with cp.async, one 4-warp block per 64-row (dq) or 64-key
+// (dk/dv) tile; dk/dv computes S^T and dP^T directly so that the
+// accumulators feed the next products.  The f32 path (not on the training
+// path; it lets a small f32 model be checked tightly on the card) is SIMT
+// FMA with 4 threads per row.
 //
 // A query row that sees no key (a window past the end of the keys): the
 // reference's softmax over all -1e30 scores gives p = 1/Skv on every key,
@@ -46,10 +74,13 @@
 // flash_fwd.cu is log(Skv), so p = exp(0 - lse) = 1/Skv exactly.  (The TPU
 // backward takes p = 1 there; see flash_fwd.cu.)
 //
-// C interface (bound with ctypes): pointers, element strides, ints and the
-// stream; each entry point returns the cudaError_t of its launch.
+// C interface (bound with ctypes): pointers, element strides, ints, the
+// stream and, for the wgmma kernels, the tensor maps' geometry; each entry
+// point returns the cudaError_t of its launch, or minus the CUresult of a
+// failed map encode.
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -96,7 +127,7 @@ __device__ __forceinline__ void query_range(const Params& p, int n0, int n1, int
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync
+// bf16, Dh in {16, 32}: tensor cores through mma.sync
 // ---------------------------------------------------------------------------
 
 constexpr int kThreads = 128;  // 4 warps x 16 rows
@@ -378,6 +409,547 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_bf16_kernel(const Para
 }
 
 // ---------------------------------------------------------------------------
+// bf16, Dh in {64, 128}: TMA, wgmma and warp specialisation
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 384;  // producer warpgroup, then two consumers
+constexpr float kLog2e = 1.4426950408889634f;
+
+constexpr int kDqRows = 128;  // q rows of a dq item: two consumers of 64
+constexpr int kDqKeys = 128;  // keys per dq step
+constexpr int kDqStages = 2;  // K/V ring depth
+
+constexpr int kDkvKeys = 128;  // keys of a dk/dv item: two consumers of 64
+constexpr int kDkvRows = 64;   // q rows per dk/dv step
+constexpr int kDkvStages = 3;  // Q/dO ring depth
+
+// Shared memory of the dq kernel, in bytes from a 1024-byte-aligned base:
+// the Q tile, the dO tile, the K ring, the V ring, then the mbarriers.  A
+// tile is D / 64 slabs of 128 bytes a row: 193 KB at Dh 128.
+template <int D>
+struct DqSmem {
+  static constexpr int kSlabs = D / 64;
+  static constexpr int kQSlab = kDqRows * 128;
+  static constexpr int kKVSlab = kDqKeys * 128;
+  static constexpr int kQ = kSlabs * kQSlab;    // the Q tile; the dO tile alike
+  static constexpr int kKV = kSlabs * kKVSlab;  // one K or V tile
+  static constexpr int kDO = kQ;
+  static constexpr int kK = kDO + kQ;
+  static constexpr int kV = kK + kDqStages * kKV;
+  static constexpr int kBars = kV + kDqStages * kKV;
+  // q_full, q_empty, then per stage k_full, v_full, k_empty, v_empty
+  static constexpr int kNumBars = 2 + 4 * kDqStages;
+  // the dynamic base is only 16-byte aligned: room to align it by hand
+  static constexpr int kBytes = kBars + kNumBars * 8 + 1024;
+};
+
+// Shared memory of the dk/dv kernel: the K tile, the V tile, the ring of
+// (Q, dO) stages, each stage's 64 rows of lse * log2 e then delta (f32),
+// then the mbarriers: 162 KB at Dh 128.
+template <int D>
+struct DkvSmem {
+  static constexpr int kSlabs = D / 64;
+  static constexpr int kKVSlab = kDkvKeys * 128;
+  static constexpr int kQSlab = kDkvRows * 128;
+  static constexpr int kKV = kSlabs * kKVSlab;  // the K tile; the V tile alike
+  static constexpr int kQ = kSlabs * kQSlab;    // a stage's Q tile; its dO tile alike
+  static constexpr int kStage = 2 * kQ;
+  static constexpr int kV = kKV;
+  static constexpr int kRing = 2 * kKV;
+  static constexpr int kStats = kRing + kDkvStages * kStage;
+  static constexpr int kStatsStage = 2 * kDkvRows * 4;
+  static constexpr int kBars = kStats + kDkvStages * kStatsStage;
+  // kv_full, kv_empty, then per stage full, empty
+  static constexpr int kNumBars = 2 + 2 * kDkvStages;
+  static constexpr int kBytes = kBars + kNumBars * 8 + 1024;
+};
+
+// The k-th item of this block, or -1 past the last: rounds of gridDim.x
+// items, walked in snake order (forward in even rounds, backward in odd
+// ones) so that a block's heavy and light items even out.
+__device__ __forceinline__ int item_index(int k, int total) {
+  const int g = gridDim.x, blk = blockIdx.x;
+  const int w = k * g + ((k & 1) ? g - 1 - blk : blk);
+  return w < total ? w : -1;
+}
+
+// A dq item: one (128-row q tile, head, batch) and the key tiles it sees,
+// numbered heaviest first across all heads (the last q tile, whose causal
+// rows see the most keys, of every (head, batch), then the one before, ...).
+struct DqItem {
+  int r0, r1, h, b, hk, n_first, n_tiles;
+};
+
+__device__ __forceinline__ DqItem dq_item(const Params& p, int w) {
+  const int n_qtiles = (p.Sq + kDqRows - 1) / kDqRows;
+  const int rank = w / (p.H * p.B), hb = w % (p.H * p.B);
+  DqItem t;
+  t.r0 = (n_qtiles - 1 - rank) * kDqRows;
+  t.r1 = min(p.Sq, t.r0 + kDqRows);
+  t.h = hb % p.H;
+  t.b = hb / p.H;
+  t.hk = t.h / p.group;
+  int k_lo, k_hi;
+  key_range(p, t.r0, t.r1, k_lo, k_hi);
+  t.n_first = (k_lo / kDqKeys) * kDqKeys;
+  t.n_tiles = (k_hi - t.n_first + kDqKeys - 1) / kDqKeys;
+  return t;
+}
+
+// A dk/dv item: one (128-key tile, kv head, batch) and its steps, the
+// (query head of the group, 64-row q tile) pairs whose rows can see the
+// keys; key tile 0 first, which sees the most rows under a causal mask.
+struct DkvItem {
+  int n0, hk, b, q_first, n_chunks, n_steps;
+};
+
+__device__ __forceinline__ DkvItem dkv_item(const Params& p, int w) {
+  const int rank = w / (p.Hk * p.B), hb = w % (p.Hk * p.B);
+  DkvItem t;
+  t.n0 = rank * kDkvKeys;
+  t.hk = hb % p.Hk;
+  t.b = hb / p.Hk;
+  int q_lo, q_hi;
+  query_range(p, t.n0, min(p.Skv, t.n0 + kDkvKeys), q_lo, q_hi);
+  t.q_first = (q_lo / kDkvRows) * kDkvRows;
+  t.n_chunks = q_hi > t.q_first ? (q_hi - t.q_first + kDkvRows - 1) / kDkvRows : 0;
+  t.n_steps = t.n_chunks * p.group;
+  return t;
+}
+
+// d (64 x N over the warpgroup) = A B^T: A (64 rows) and B (N rows) are
+// K-major tiles of D columns in shared memory, their slabs AROWS and BROWS
+// rows long; D / 16 k steps of 32 bytes along a slab's rows, 4 a slab.
+template <int D, int N, int AROWS, int BROWS>
+__device__ __forceinline__ void wgmma_abt(float (&d)[N / 2], const unsigned char* a,
+                                          const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t da = hopper::desc_sw128(a + (kk / 4) * AROWS * 128 + (kk % 4) * 32, 16, 1024);
+    const uint64_t db = hopper::desc_sw128(b + (kk / 4) * BROWS * 128 + (kk % 4) * 32, 16, 1024);
+    if constexpr (N == 128)
+      hopper::wgmma_ss_m64n128k16(d, da, db, kk > 0);
+    else
+      hopper::wgmma_ss_m64n64k16(d, da, db, kk > 0);
+  }
+}
+
+// acc (64 x D) += A B: A (64 x K) bf16 in registers, k step j holding
+// columns 16j .. 16j + 15; B (K x D) is a tile in shared memory read
+// MN-major (transposed): a k step is 16 rows, slabs BROWS rows long.
+template <int D, int K, int BROWS>
+__device__ __forceinline__ void wgmma_ab(float (&acc)[D / 2], const uint32_t (&a)[K / 16][4],
+                                         const unsigned char* b) {
+#pragma unroll
+  for (int j = 0; j < K / 16; ++j) {
+    const uint64_t db = hopper::desc_sw128(b + j * 16 * 128, BROWS * 128, 1024);
+    if constexpr (D == 128)
+      hopper::wgmma_rs_m64n128k16(acc, a[j], db);
+    else
+      hopper::wgmma_rs_m64n64k16(acc, a[j], db);
+  }
+}
+
+// An accumulator fragment (64 x N) to bf16 in the layout of wgmma's register
+// A operand: columns 16j .. 16j + 15 are k step j's A fragment.
+template <int N>
+__device__ __forceinline__ void pack_a(const float (&s)[N / 2], uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < N / 16; ++j) {
+    a[j][0] = pack_bf16(s[8 * j], s[8 * j + 1]);
+    a[j][1] = pack_bf16(s[8 * j + 2], s[8 * j + 3]);
+    a[j][2] = pack_bf16(s[8 * j + 4], s[8 * j + 5]);
+    a[j][3] = pack_bf16(s[8 * j + 6], s[8 * j + 7]);
+  }
+}
+
+// dS = P o (dP - delta) of one dq step, in place in s: rows qrow and qrow +
+// 8 (absolute), keys n0 + 8i + 2tq + (0, 1).  A tile that needs no mask
+// takes one FFMA and one ex2 a score; an edge tile masks with selects, so
+// its scores stay one block of straight-line code.  Rows past Sq load zero
+// Q and dO and lse = delta = 0, so they give dS = 0 on either path.
+__device__ __forceinline__ void dq_ds(const Params& p, float (&s)[kDqKeys / 2],
+                                      const float (&dp)[kDqKeys / 2], const float (&lse2)[2],
+                                      const float (&dlt)[2], int qrow, int n0, int r0, int r1,
+                                      int tq, float sl2) {
+  if (tile_needs_mask(p, n0, kDqKeys, r0, r1)) {
+#pragma unroll
+    for (int i = 0; i < kDqKeys / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e / 2, row = qrow + 8 * r, key = n0 + 8 * i + 2 * tq + (e & 1);
+        const int qpos = row + p.q_offset;
+        const bool vis = (row < p.Sq) & (key < p.Skv) & (!p.causal | (key <= qpos)) &
+                         (!p.has_window | (key > qpos - p.window));
+        const float pr = hopper::exp2_approx(fmaf(s[4 * i + e], sl2, -lse2[r]));
+        s[4 * i + e] = vis ? pr * (dp[4 * i + e] - dlt[r]) : 0.f;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kDqKeys / 2; ++i) {
+      const int r = (i % 4) / 2;
+      s[i] = hopper::exp2_approx(fmaf(s[i], sl2, -lse2[r])) * (dp[i] - dlt[r]);
+    }
+  }
+}
+
+// P^T and dS^T of one dk/dv step, in place (s becomes P^T, dp dS^T): keys
+// key and key + 8 (absolute, the fragment's rows), q rows r0 + 8i + 2tq +
+// (0, 1) (its columns), whose lse * log2 e and delta are in shared memory
+// (sl, sd).  Masks as in dq_ds; a row that sees no key takes p = exp(-lse)
+// = 1/Skv on every key below Skv and dS = 0.  The mask test is on this
+// consumer's 64 keys from kn0 and the step's rows [r0, r1).
+__device__ __forceinline__ void dkv_p_ds(const Params& p, float (&s)[kDkvRows / 2],
+                                         float (&dp)[kDkvRows / 2], const float* sl,
+                                         const float* sd, int key, int kn0, int r0, int r1,
+                                         int tq, float sl2) {
+  if (tile_needs_mask(p, kn0, 64, r0, r1)) {
+#pragma unroll
+    for (int i = 0; i < kDkvRows / 8; ++i) {
+      const float2 l = *reinterpret_cast<const float2*>(sl + 8 * i + 2 * tq);
+      const float2 dl = *reinterpret_cast<const float2*>(sd + 8 * i + 2 * tq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = key + 8 * (e / 2), row = r0 + 8 * i + 2 * tq + (e & 1);
+        const float lse2 = (e & 1) ? l.y : l.x, delta = (e & 1) ? dl.y : dl.x;
+        const int qpos = row + p.q_offset;
+        const bool in = (row < p.Sq) & (k < p.Skv);
+        const bool vis = in & (!p.causal | (k <= qpos)) & (!p.has_window | (k > qpos - p.window));
+        const bool no_key = in & (p.has_window != 0) & (qpos - p.window + 1 >= p.Skv);
+        const float x = vis ? fmaf(s[4 * i + e], sl2, -lse2) : (no_key ? -lse2 : -INFINITY);
+        const float pr = hopper::exp2_approx(x);
+        s[4 * i + e] = pr;
+        dp[4 * i + e] = vis ? pr * (dp[4 * i + e] - delta) : 0.f;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kDkvRows / 8; ++i) {
+      const float2 l = *reinterpret_cast<const float2*>(sl + 8 * i + 2 * tq);
+      const float2 dl = *reinterpret_cast<const float2*>(sd + 8 * i + 2 * tq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pr = hopper::exp2_approx(fmaf(s[4 * i + e], sl2, (e & 1) ? -l.y : -l.x));
+        s[4 * i + e] = pr;
+        dp[4 * i + e] = pr * (dp[4 * i + e] - ((e & 1) ? dl.y : dl.x));
+      }
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                              const __grid_constant__ CUtensorMap map_k,
+                              const __grid_constant__ CUtensorMap map_v,
+                              const __grid_constant__ CUtensorMap map_do, const Params p,
+                              int total) {
+  using L = DqSmem<D>;
+  using namespace hopper;
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  unsigned char* smem = wg_smem + ((1024 - (hopper::smem_u32(wg_smem) & 1023)) & 1023);
+  unsigned char* sQ = smem;
+  unsigned char* sdO = smem + L::kDO;
+  unsigned char* sK = smem + L::kK;
+  unsigned char* sV = smem + L::kV;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* k_full = q_full + 2;
+  uint64_t* v_full = k_full + kDqStages;
+  uint64_t* k_empty = v_full + kDqStages;
+  uint64_t* v_empty = k_empty + kDqStages;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 8);  // lane 0 of each of the 8 consumer warps
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 8);
+      mbar_init(&v_empty[s], 8);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: one thread issues every copy, item after item; the K/V ring
+    // runs on across items
+    reg_dealloc<24>();
+    if (threadIdx.x == 0) {
+      int kv = 0;  // K/V tiles issued so far
+      for (int k = 0;; ++k) {
+        const int w = item_index(k, total);
+        if (w < 0) break;
+        const DqItem t = dq_item(p, w);
+        // the consumers' last Q K^T and dO V^T of the previous item have retired
+        if (k > 0) mbar_wait(q_empty, (k - 1) & 1);
+        mbar_arrive_expect_tx(q_full, 2 * L::kQ);
+#pragma unroll
+        for (int s = 0; s < L::kSlabs; ++s) {
+          tma_load_4d(sQ + s * L::kQSlab, &map_q, q_full, s * 64, t.r0, t.h, t.b);
+          tma_load_4d(sdO + s * L::kQSlab, &map_do, q_full, s * 64, t.r0, t.h, t.b);
+        }
+        for (int j = 0; j < t.n_tiles; ++j, ++kv) {
+          const int st = kv % kDqStages, n0 = t.n_first + j * kDqKeys;
+          // the stage's previous V, then K, has been released by both consumers
+          const uint32_t released = (kv / kDqStages - 1) & 1;
+          if (kv >= kDqStages) mbar_wait(&v_empty[st], released);
+          mbar_arrive_expect_tx(&v_full[st], L::kKV);
+#pragma unroll
+          for (int s = 0; s < L::kSlabs; ++s)
+            tma_load_4d(sV + st * L::kKV + s * L::kKVSlab, &map_v, &v_full[st], s * 64, n0,
+                        t.hk, t.b);
+          if (kv >= kDqStages) mbar_wait(&k_empty[st], released);
+          mbar_arrive_expect_tx(&k_full[st], L::kKV);
+#pragma unroll
+          for (int s = 0; s < L::kSlabs; ++s)
+            tma_load_4d(sK + st * L::kKV + s * L::kKVSlab, &map_k, &k_full[st], s * 64, n0,
+                        t.hk, t.b);
+        }
+      }
+    }
+  } else {
+    // consumers: 64 q rows of each item each
+    reg_alloc<240>();
+    const int c = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int quad = lane / 4, tq = lane % 4;    // accumulator row / column pair
+    const int row = c * 64 + warp * 16 + quad;   // this thread's rows: row, row + 8
+    const float sl2 = p.scale * kLog2e;
+    const unsigned char* sQc = sQ + c * 64 * 128;  // this consumer's 64 rows of Q
+    const unsigned char* sdOc = sdO + c * 64 * 128;  // and of dO
+    int kv = 0;
+    for (int k = 0;; ++k) {
+      const int w = item_index(k, total);
+      if (w < 0) break;
+      const DqItem t = dq_item(p, w);
+      const int cr0 = t.r0 + c * 64, cr1 = min(p.Sq, cr0 + 64);
+      // lse (in the log2 domain) and delta of rows row and row + 8
+      const long long stat = ((long long)t.b * p.H + t.h) * p.Sq;
+      float lse2[2], dlt[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int gr = t.r0 + row + 8 * r;
+        lse2[r] = gr < p.Sq ? p.lse[stat + gr] * kLog2e : 0.f;
+        dlt[r] = gr < p.Sq ? p.delta[stat + gr] : 0.f;
+      }
+      float acc[D / 2];  // dQ, 64 x D over the warpgroup
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+      mbar_wait(q_full, k & 1);
+      for (int j = 0; j < t.n_tiles; ++j) {
+        const int g = kv + j, st = g % kDqStages;
+        const uint32_t phase = (g / kDqStages) & 1;
+        float s[kDqKeys / 2], dp[kDqKeys / 2];
+        mbar_wait(&k_full[st], phase);
+        mbar_wait(&v_full[st], phase);
+        wgmma_fence();
+        wgmma_abt<D, kDqKeys, kDqRows, kDqKeys>(s, sQc, sK + st * L::kKV);
+        wgmma_abt<D, kDqKeys, kDqRows, kDqKeys>(dp, sdOc, sV + st * L::kKV);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operand(s);
+        fence_operand(dp);
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(&v_empty[st]);  // V is free: only dO V^T reads it
+          if (j == t.n_tiles - 1) mbar_arrive(q_empty);  // and so are Q and dO
+        }
+        dq_ds(p, s, dp, lse2, dlt, t.r0 + row, t.n_first + j * kDqKeys, cr0, cr1, tq, sl2);
+        uint32_t da[kDqKeys / 16][4];
+        pack_a<kDqKeys>(s, da);
+        fence_operand(acc);
+        wgmma_fence();
+        wgmma_ab<D, kDqKeys, kDqKeys>(acc, da, sK + st * L::kKV);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operand(acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&k_empty[st]);  // K is free after dS K
+      }
+      kv += t.n_tiles;
+
+      __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(p.dq) + (long long)t.b * p.sdqb +
+                           (long long)t.h * p.sdqh;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int gr = t.r0 + row + 8 * r;
+          if (gr < p.Sq)
+            *reinterpret_cast<__nv_bfloat162*>(dqg + (long long)gr * p.sdqs + 8 * i + 2 * tq) =
+                __floats2bfloat162_rn(acc[4 * i + 2 * r] * p.scale,
+                                      acc[4 * i + 2 * r + 1] * p.scale);
+        }
+      }
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                               const __grid_constant__ CUtensorMap map_k,
+                               const __grid_constant__ CUtensorMap map_v,
+                               const __grid_constant__ CUtensorMap map_do, const Params p,
+                               int total) {
+  using L = DkvSmem<D>;
+  using namespace hopper;
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  unsigned char* smem = wg_smem + ((1024 - (hopper::smem_u32(wg_smem) & 1023)) & 1023);
+  unsigned char* sK = smem;
+  unsigned char* sV = smem + L::kV;
+  unsigned char* sRing = smem + L::kRing;
+  float* sStats = reinterpret_cast<float*>(smem + L::kStats);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* kv_empty = kv_full + 1;
+  uint64_t* full = kv_full + 2;
+  uint64_t* empty = full + kDkvStages;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, 8);  // lane 0 of each of the 8 consumer warps
+    for (int s = 0; s < kDkvStages; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes (lane 0 with the copies' bytes)
+      mbar_init(&empty[s], 8);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: warp 0.  Lane 0 issues every TMA copy; all 32 lanes write
+    // the steps' lse and delta into the ring.  The ring runs on across items.
+    // The staging's addresses do not fit 24 registers a thread: 40, and the
+    // consumers 232, which the 40 give back exactly.
+    reg_dealloc<40>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      int it = 0, kvi = 0;  // steps issued, items with steps issued
+      for (int k = 0;; ++k) {
+        const int w = item_index(k, total);
+        if (w < 0) break;
+        const DkvItem t = dkv_item(p, w);
+        if (t.n_steps == 0) continue;
+        if (lane == 0) {
+          // the consumers' last K Q^T and V dO^T of the previous item have retired
+          if (kvi > 0) mbar_wait(kv_empty, (kvi - 1) & 1);
+          mbar_arrive_expect_tx(kv_full, 2 * L::kKV);
+#pragma unroll
+          for (int s = 0; s < L::kSlabs; ++s) {
+            tma_load_4d(sK + s * L::kKVSlab, &map_k, kv_full, s * 64, t.n0, t.hk, t.b);
+            tma_load_4d(sV + s * L::kKVSlab, &map_v, kv_full, s * 64, t.n0, t.hk, t.b);
+          }
+        }
+        ++kvi;
+        for (int c = 0; c < t.n_steps; ++c, ++it) {
+          const int st = it % kDkvStages;
+          if (it >= kDkvStages) mbar_wait(&empty[st], (it / kDkvStages - 1) & 1);
+          const int h = t.hk * p.group + c / t.n_chunks;
+          const int r0 = t.q_first + (c % t.n_chunks) * kDkvRows;
+          const long long stat = ((long long)t.b * p.H + h) * p.Sq;
+          float* sl = sStats + st * 2 * kDkvRows;
+          for (int i = lane; i < kDkvRows; i += 32) {
+            const bool ok = r0 + i < p.Sq;
+            sl[i] = ok ? p.lse[stat + r0 + i] * kLog2e : 0.f;
+            sl[kDkvRows + i] = ok ? p.delta[stat + r0 + i] : 0.f;
+          }
+          if (lane == 0) {
+            unsigned char* tQ = sRing + st * L::kStage;
+            mbar_arrive_expect_tx(&full[st], L::kStage);
+#pragma unroll
+            for (int s = 0; s < L::kSlabs; ++s) {
+              tma_load_4d(tQ + s * L::kQSlab, &map_q, &full[st], s * 64, r0, h, t.b);
+              tma_load_4d(tQ + L::kQ + s * L::kQSlab, &map_do, &full[st], s * 64, r0, h, t.b);
+            }
+          } else {
+            mbar_arrive(&full[st]);
+          }
+        }
+      }
+    }
+  } else {
+    // consumers: 64 keys of each item each
+    reg_alloc<232>();
+    const int c = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int quad = lane / 4, tq = lane % 4;
+    const int krow = c * 64 + warp * 16 + quad;  // this thread's keys in the item: krow, krow + 8
+    const float sl2 = p.scale * kLog2e;
+    const unsigned char* sKc = sK + c * 64 * 128;  // this consumer's 64 keys of K
+    const unsigned char* sVc = sV + c * 64 * 128;  // and of V
+    int it = 0, kvi = 0;
+    for (int k = 0;; ++k) {
+      const int w = item_index(k, total);
+      if (w < 0) break;
+      const DkvItem t = dkv_item(p, w);
+      const int kn0 = t.n0 + c * 64;
+      float dk[D / 2], dv[D / 2];  // 64 keys x D each over the warpgroup
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+      if (t.n_steps > 0) mbar_wait(kv_full, kvi & 1);
+      for (int cs = 0; cs < t.n_steps; ++cs, ++it) {
+        const int st = it % kDkvStages;
+        const int r0 = t.q_first + (cs % t.n_chunks) * kDkvRows;
+        const unsigned char* tQ = sRing + st * L::kStage;
+        const unsigned char* tdO = tQ + L::kQ;
+        const float* sl = sStats + st * 2 * kDkvRows;
+        float s[kDkvRows / 2], dp[kDkvRows / 2];
+        mbar_wait(&full[st], (it / kDkvStages) & 1);
+        wgmma_fence();
+        wgmma_abt<D, kDkvRows, kDkvKeys, kDkvRows>(s, sKc, tQ);
+        wgmma_abt<D, kDkvRows, kDkvKeys, kDkvRows>(dp, sVc, tdO);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operand(s);
+        fence_operand(dp);
+        __syncwarp();
+        if (lane == 0 && cs == t.n_steps - 1) mbar_arrive(kv_empty);  // K and V are free
+        dkv_p_ds(p, s, dp, sl, sl + kDkvRows, t.n0 + krow, kn0, r0, min(p.Sq, r0 + kDkvRows),
+                 tq, sl2);
+        uint32_t pa[kDkvRows / 16][4], da[kDkvRows / 16][4];
+        pack_a<kDkvRows>(s, pa);
+        pack_a<kDkvRows>(dp, da);
+        fence_operand(dv);
+        fence_operand(dk);
+        wgmma_fence();
+        wgmma_ab<D, kDkvRows, kDkvRows>(dv, pa, tdO);
+        wgmma_ab<D, kDkvRows, kDkvRows>(dk, da, tQ);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operand(dv);
+        fence_operand(dk);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[st]);  // the stage is free
+      }
+      if (t.n_steps > 0) ++kvi;
+
+      __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(p.dk) + (long long)t.b * p.sdkb +
+                           (long long)t.hk * p.sdkh;
+      __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(p.dv) + (long long)t.b * p.sdvb +
+                           (long long)t.hk * p.sdvh;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int key = t.n0 + krow + 8 * r;
+          if (key < p.Skv) {
+            *reinterpret_cast<__nv_bfloat162*>(dkg + (long long)key * p.sdks + 8 * i + 2 * tq) =
+                __floats2bfloat162_rn(dk[4 * i + 2 * r] * p.scale,
+                                      dk[4 * i + 2 * r + 1] * p.scale);
+            *reinterpret_cast<__nv_bfloat162*>(dvg + (long long)key * p.sdvs + 8 * i + 2 * tq) =
+                __floats2bfloat162_rn(dv[4 * i + 2 * r], dv[4 * i + 2 * r + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // f32: SIMT FMA, 4 threads per row (each holds D / 4 of it as float4s)
 // ---------------------------------------------------------------------------
 
@@ -562,36 +1134,106 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_dkv_f32_kernel(const Pa
 // ---------------------------------------------------------------------------
 
 template <int D>
-cudaError_t launch_dq(const Params& p, int dtype, cudaStream_t stream) {
-  const int rows = dtype == 1 ? kRows : kF32Rows;
-  const dim3 grid((p.Sq + rows - 1) / rows, p.H, p.B);
-  if (dtype == 0) {
+cudaError_t launch_f32(const Params& p, bool dq, cudaStream_t stream) {
+  if (dq) {
+    const dim3 grid((p.Sq + kF32Rows - 1) / kF32Rows, p.H, p.B);
     flash_bwd_dq_f32_kernel<D><<<grid, kF32Threads, 0, stream>>>(p);
-    return cudaGetLastError();
+  } else {
+    const dim3 grid((p.Skv + kF32Rows - 1) / kF32Rows, p.Hk, p.B);
+    flash_bwd_dkv_f32_kernel<D><<<grid, kF32Threads, 0, stream>>>(p);
   }
-  const int smem = (2 * kRows + 4 * kBN) * (D + 8) * (int)sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_dkv(const Params& p, int dtype, cudaStream_t stream) {
-  const int rows = dtype == 1 ? kRows : kF32Rows;
-  const dim3 grid((p.Skv + rows - 1) / rows, p.Hk, p.B);
-  if (dtype == 0) {
-    flash_bwd_dkv_f32_kernel<D><<<grid, kF32Threads, 0, stream>>>(p);
-    return cudaGetLastError();
+cudaError_t launch_mma(const Params& p, bool dq, cudaStream_t stream) {
+  if (dq) {
+    const int smem = (2 * kRows + 4 * kBN) * (D + 8) * (int)sizeof(__nv_bfloat16);
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.Sq + kRows - 1) / kRows, p.H, p.B);
+    flash_bwd_dq_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+  } else {
+    const int smem = (2 * kRows + 4 * kBQ) * (D + 8) * (int)sizeof(__nv_bfloat16) +
+                     4 * kBQ * (int)sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_bf16_kernel<D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.Skv + kRows - 1) / kRows, p.Hk, p.B);
+    flash_bwd_dkv_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(p);
   }
-  const int smem = (2 * kRows + 4 * kBQ) * (D + 8) * (int)sizeof(__nv_bfloat16) +
-                   4 * kBQ * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_bf16_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dkv_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// maps: the geometry of the q, k, v and dout maps (hopper::kMapFields
+// each).  The boxes must be the tiles whose bytes the kernels' barriers
+// count: dq loads 128-row Q and dO tiles, dk/dv 64-row ones; both 128-key
+// K and V tiles.  Returns a cudaError_t, or minus the CUresult of a failed
+// encode.
+template <int D>
+int launch_wgmma(const Params& p, bool dq, const long long* maps, cudaStream_t stream) {
+  const void* base[4] = {p.q, p.k, p.v, p.dout};
+  const long long q_rows = dq ? kDqRows : kDkvRows, kv_rows = dq ? kDqKeys : kDkvKeys;
+  const long long rows[4] = {q_rows, kv_rows, kv_rows, q_rows};
+  const long long seq[4] = {p.Sq, p.Skv, p.Skv, p.Sq};
+  const long long heads[4] = {p.H, p.Hk, p.Hk, p.H};
+  CUtensorMap m[4];
+  if (maps == nullptr) return cudaErrorInvalidValue;
+  for (int i = 0; i < 4; ++i) {
+    const long long* g = maps + hopper::kMapFields * i;
+    if (g[0] != D || g[1] != seq[i] || g[2] != heads[i] || g[3] != p.B || g[7] != 64 ||
+        g[8] != rows[i] || g[9] != 1 || g[10] != 1)
+      return cudaErrorInvalidValue;
+    const int r = hopper::encode_map(&m[i], base[i], g);
+    if (r != 0) return -r;
+  }
+  // persistent: at most one block per SM, each walking its share of items
+  int dev, sms;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if (dq) {
+    const int smem = DqSmem<D>::kBytes;
+    err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const int total = (p.Sq + kDqRows - 1) / kDqRows * p.H * p.B;
+    flash_bwd_dq_wgmma_kernel<D><<<min(total, sms), kWgThreads, smem, stream>>>(
+        m[0], m[1], m[2], m[3], p, total);
+  } else {
+    const int smem = DkvSmem<D>::kBytes;
+    err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const int total = (p.Skv + kDkvKeys - 1) / kDkvKeys * p.Hk * p.B;
+    flash_bwd_dkv_wgmma_kernel<D><<<min(total, sms), kWgThreads, smem, stream>>>(
+        m[0], m[1], m[2], m[3], p, total);
+  }
+  return cudaGetLastError();
+}
+
+// dtype 1 at Dh 64 / 128 takes the TMA / wgmma kernels, Dh 16 / 32 the
+// mma.sync ones (no model of the repo has Dh < 64); dtype 0 the f32 ones
+int launch(const Params& p, bool dq, int dtype, int D, const long long* maps,
+           cudaStream_t stream) {
+  if (dtype == 1) {
+    switch (D) {
+      case 16: return launch_mma<16>(p, dq, stream);
+      case 32: return launch_mma<32>(p, dq, stream);
+      case 64: return launch_wgmma<64>(p, dq, maps, stream);
+      case 128: return launch_wgmma<128>(p, dq, maps, stream);
+    }
+  } else if (dtype == 0) {
+    switch (D) {
+      case 16: return launch_f32<16>(p, dq, stream);
+      case 32: return launch_f32<32>(p, dq, stream);
+      case 64: return launch_f32<64>(p, dq, stream);
+      case 128: return launch_f32<128>(p, dq, stream);
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 Params make_params(const void* q, const void* k, const void* v, const void* dout,
@@ -631,39 +1273,27 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
 // dtype: 0 = float32, 1 = bfloat16.  `strides` holds 21 element strides,
 // (batch, head, row) of q, k, v, dout, dq, dk, dv in that order; the last
 // dimension of every tensor is contiguous.  lse and delta are contiguous
-// (B, H, Sq) f32.  window <= 0 means no window.  flash_bwd_dq writes dq;
-// flash_bwd_dkv writes dk and dv, summed over each kv head's query group.
+// (B, H, Sq) f32.  window <= 0 means no window.  maps: for bf16 at Dh in
+// {64, 128}, which take the wgmma kernels, the geometry of the q, k, v and
+// dout tensor maps (4 x 11 integers, see hopper::encode_map); else null.
+// flash_bwd_dq writes dq; flash_bwd_dkv writes dk and dv, summed over each
+// kv head's query group.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dq, int dtype, int B, int H,
                             int Hk, int Sq, int Skv, int D, const long long* strides, float scale,
-                            int causal, int window, int q_offset, void* stream) {
+                            int causal, int window, int q_offset, void* stream,
+                            const long long* maps) {
   const Params p = make_params(q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, H, Hk, Sq, Skv,
                                strides, scale, causal, window, q_offset);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
-  switch (D) {
-    case 16: return launch_dq<16>(p, dtype, st);
-    case 32: return launch_dq<32>(p, dtype, st);
-    case 64: return launch_dq<64>(p, dtype, st);
-    case 128: return launch_dq<128>(p, dtype, st);
-  }
-  return cudaErrorInvalidValue;
+  return launch(p, true, dtype, D, maps, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dk, void* dv, int dtype,
                              int B, int H, int Hk, int Sq, int Skv, int D,
                              const long long* strides, float scale, int causal, int window,
-                             int q_offset, void* stream) {
+                             int q_offset, void* stream, const long long* maps) {
   const Params p = make_params(q, k, v, dout, lse, delta, nullptr, dk, dv, B, H, Hk, Sq, Skv,
                                strides, scale, causal, window, q_offset);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
-  switch (D) {
-    case 16: return launch_dkv<16>(p, dtype, st);
-    case 32: return launch_dkv<32>(p, dtype, st);
-    case 64: return launch_dkv<64>(p, dtype, st);
-    case 128: return launch_dkv<128>(p, dtype, st);
-  }
-  return cudaErrorInvalidValue;
+  return launch(p, false, dtype, D, maps, static_cast<cudaStream_t>(stream));
 }

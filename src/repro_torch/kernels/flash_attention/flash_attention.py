@@ -18,9 +18,10 @@ counter per kernel (``LAUNCHES``, ``LSE_LAUNCHES``, ``DQ_LAUNCHES``,
 ``ref.py``.  Unlike the TPU kernels they take any Sq and Skv: the kernels
 mask the ragged edge themselves.
 
-The forward at bf16 and Dh in ``TMA_HEAD_DIMS`` reads q/k/v and writes o
-through TMA tensor maps; ``tma_map_geometry`` computes each map's geometry
-here, and the C side encodes what it is given.
+At bf16 and Dh in ``TMA_HEAD_DIMS`` the kernels read their inputs through
+TMA tensor maps (the forward writes o through one too);
+``tma_map_geometry`` computes each map's geometry here, and the C side
+encodes what it is given.
 """
 
 from __future__ import annotations
@@ -42,6 +43,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 TMA_HEAD_DIMS = (64, 128)
 TMA_SLAB = 64
 TMA_Q_ROWS, TMA_KV_ROWS, TMA_O_ROWS = 128, 128, 64
+# the backward's maps of (q, k, v, do): dq loads 128-row q / do tiles, dk/dv
+# 64-row ones (a step of its q loop); both 128-key k / v tiles
+TMA_BWD_ROWS = {"flash_bwd_dq": (128, 128, 128, 128), "flash_bwd_dkv": (64, 128, 128, 64)}
 
 # kernel launches since the counts were last reset
 LAUNCHES = 0        # flash_fwd
@@ -76,7 +80,8 @@ def _bwd_fn(name: str):
     if fn.argtypes is None:
         n_out = 1 if name == "flash_bwd_dq" else 2
         fn.argtypes = [_P] * (6 + n_out) + [_I] * 7 + [ctypes.POINTER(_LL),
-                                                      ctypes.c_float, _I, _I, _I, _P]
+                                                      ctypes.c_float, _I, _I, _I, _P,
+                                                      ctypes.POINTER(_LL)]
         fn.restype = _I
     return fn
 
@@ -145,6 +150,17 @@ def _fwd_maps(q, k, v, o):
         return None
     fields = (*tma_map_geometry("q", q, TMA_Q_ROWS), *tma_map_geometry("k", k, TMA_KV_ROWS),
               *tma_map_geometry("v", v, TMA_KV_ROWS), *tma_map_geometry("o", o, TMA_O_ROWS))
+    return (_LL * len(fields))(*fields)
+
+
+def _bwd_maps(name, q, k, v, do):
+    """The q, k, v and do maps' geometry for the backward kernel ``name``,
+    or None where it takes no tensor map."""
+    if q.dtype != torch.bfloat16 or q.shape[3] not in TMA_HEAD_DIMS:
+        return None
+    fields = [f for t_name, t, rows in zip(("q", "k", "v", "do"), (q, k, v, do),
+                                           TMA_BWD_ROWS[name])
+              for f in tma_map_geometry(t_name, t, rows)]
     return (_LL * len(fields))(*fields)
 
 
@@ -237,7 +253,7 @@ def _bwd_launch(name, q, k, v, do, lse, delta, outs, dq_dk_dv, causal, window, s
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), *(t.data_ptr() for t in outs), _DTYPE_CODES[q.dtype],
             B, H, Hk, Sq, Skv, Dh, strides, float(scale), int(causal), int(window or 0),
-            int(q_offset), _stream(q),
+            int(q_offset), _stream(q), _bwd_maps(name, q, k, v, do),
         )
     _raise_on(err, name)
 

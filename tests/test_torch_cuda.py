@@ -56,6 +56,12 @@ CASES = [
     (1, 6, 2, 256, 256, 128, True, None, 0, torch.bfloat16),         # GQA group 3
     (1, 8, 1, 200, 200, 64, True, None, 0, torch.bfloat16),          # MQA at Dh 64
     (1, 4, 2, 64, 128, 128, False, 16, 100, torch.bfloat16),         # no key at Dh 128
+    # edges of the TMA / wgmma backward's tiles (128-row dq items, 128-key
+    # dk/dv items walking 64-row q steps)
+    (2, 4, 2, 256, 256, 128, False, None, 0, torch.bfloat16),        # non-causal at Dh 128
+    (1, 4, 2, 200, 333, 64, False, None, 0, torch.bfloat16),         # non-causal, Sq != Skv
+    (1, 4, 2, 64, 320, 64, True, None, 256, torch.bfloat16),         # Sq < one tile, q_offset
+    (1, 12, 2, 256, 256, 128, True, None, 0, torch.bfloat16),        # GQA group 6
 ]
 # q/k/v as the transposed views of (B, S, H, Dh) that ops.flash_attention
 # passes (rows H * Dh apart): the serving prefill shape, a ragged one
@@ -147,6 +153,36 @@ def test_flash_fwd_lse_and_bwd_match_plain_versions(card, case):
         assert torch.isfinite(got).all()
         scale = max(want.float().abs().max().item(), 1.0)
         assert (got.float() - want.float()).abs().max().item() <= GRAD_REL[dtype] * scale
+
+
+@pytest.mark.parametrize("case", MODEL_LAYOUT_CASES)
+def test_flash_bwd_takes_model_layout_views(card, case):
+    """q, k, v and do all transposed views of (B, S, H, Dh), as the model's
+    backward passes them."""
+    *_, causal, window, q_offset, dtype = case
+    q, k, v = _inputs(case, layout="model")
+    do = _inputs(case, seed=1, layout="model")[0]
+    assert do.stride(2) == do.shape[1] * do.shape[3]  # rows H * Dh apart
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for g, want in zip(got, attention_bwd_ref(q, k, v, o, lse, do, **kw)):
+        assert g.shape == want.shape and torch.isfinite(g).all()
+        scale = max(want.float().abs().max().item(), 1.0)
+        assert (g.float() - want.float()).abs().max().item() <= GRAD_REL[dtype] * scale
+
+
+def test_flash_bwd_gives_the_same_bits_twice(card):
+    """No atomics: every sum of the backward kernels has one order."""
+    case = (2, 24, 8, 512, 512, 128, True, None, 0, torch.bfloat16)
+    q, k, v = _inputs(case)
+    do = _inputs(case, seed=1)[0]
+    o, lse = fa.flash_attention_fwd_lse(q, k, v)
+    first = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    second = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_grad_through_the_kernels_matches_autograd_of_the_plain_version(card):

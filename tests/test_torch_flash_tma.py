@@ -1,6 +1,7 @@
-"""The host side of the TMA flash-attention forward, on the CPU: the tensor
-maps' geometry that the wrapper computes and the C side encodes
-(``flash_attention.tma_map_geometry``), for the layouts the kernel takes."""
+"""The host side of the TMA flash-attention kernels, on the CPU: the tensor
+maps' geometry that the wrappers compute and the C side encodes
+(``flash_attention.tma_map_geometry``), for the layouts the kernels take,
+and what they refuse."""
 
 import pytest
 
@@ -117,3 +118,66 @@ def test_a_failed_encode_or_launch_raises(err, match):
     # the cudaError_t of the launch
     with pytest.raises(RuntimeError, match=match):
         fa._raise_on(err, "flash_fwd")
+
+
+BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
+
+
+@pytest.mark.parametrize("layout", ["kernel", "model"])
+@pytest.mark.parametrize("name", BWD_KERNELS)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_maps_of_the_backward(shape, name, layout):
+    # q, k, v and do all in one layout: the model's backward passes do as a
+    # transposed view of (B, S, H, Dh) like q
+    B, H, Hk, Sq, Skv, Dh = shape
+    q, do = (_kernel_layout(B, H, Sq, Dh, layout) for _ in range(2))
+    k, v = (_kernel_layout(B, Hk, Skv, Dh, layout) for _ in range(2))
+    fields = list(fa._bwd_maps(name, q, k, v, do))
+    assert len(fields) == 4 * 11
+    dims = ((Dh, Sq, H, B), (Dh, Skv, Hk, B), (Dh, Skv, Hk, B), (Dh, Sq, H, B))
+    for i, (t, want, rows) in enumerate(zip((q, k, v, do), dims, fa.TMA_BWD_ROWS[name])):
+        g = fields[11 * i:11 * i + 11]
+        assert tuple(g[:4]) == want
+        assert tuple(g[4:7]) == (t.stride(2) * 2, t.stride(1) * 2, t.stride(0) * 2)
+        assert tuple(g[7:]) == (fa.TMA_SLAB, rows, 1, 1)
+
+
+@pytest.mark.parametrize("name, q_rows", [("flash_bwd_dq", 128), ("flash_bwd_dkv", 64)])
+def test_backward_boxes_are_the_kernels_tiles(name, q_rows):
+    # dq walks 128-row items, dk/dv 64-row q steps; both read 128-key k / v tiles
+    assert fa.TMA_BWD_ROWS[name] == (q_rows, fa.TMA_KV_ROWS, fa.TMA_KV_ROWS, q_rows)
+
+
+@pytest.mark.parametrize("name", BWD_KERNELS)
+@pytest.mark.parametrize("dtype, Dh", [(torch.float32, 128), (torch.float32, 64),
+                                       (torch.bfloat16, 32), (torch.bfloat16, 16)])
+def test_no_maps_where_the_backward_takes_none(dtype, Dh, name):
+    q = torch.zeros(1, 2, 64, Dh, dtype=dtype)
+    assert fa._bwd_maps(name, q, q, q, q) is None
+
+
+def _bad_layout(kind, shape):
+    """A bf16 tensor of ``shape`` that TMA cannot take."""
+    B, H, S, Dh = shape
+    if kind == "misaligned base":  # 2 bytes past an aligned one
+        n = B * H * S * Dh
+        t = torch.zeros(n + 8, dtype=torch.bfloat16)[1:1 + n].view(shape)
+        assert t.data_ptr() % 16 == 2
+        return t
+    if kind == "rows 136 bytes apart":
+        return torch.zeros(B, H, S, Dh + 4, dtype=torch.bfloat16)[..., :Dh]
+    return torch.zeros(B, H, S, 2 * Dh, dtype=torch.bfloat16)[..., ::2]  # strided last dim
+
+
+@pytest.mark.parametrize("bad", ["q", "k", "v", "do"])
+@pytest.mark.parametrize("kind, match", [("misaligned base", "16-byte aligned rows"),
+                                         ("rows 136 bytes apart", "16-byte aligned rows"),
+                                         ("strided last dim", "contiguous last dim")])
+@pytest.mark.parametrize("name", BWD_KERNELS)
+def test_the_backward_refuses_a_layout_tma_cannot_take(name, kind, match, bad):
+    shapes = {"q": (1, 4, 100, 64), "k": (1, 2, 100, 64), "v": (1, 2, 100, 64),
+              "do": (1, 4, 100, 64)}
+    tensors = {n: torch.zeros(s, dtype=torch.bfloat16) for n, s in shapes.items()}
+    tensors[bad] = _bad_layout(kind, shapes[bad])
+    with pytest.raises(ValueError, match=f"^{bad} needs .*{match}"):
+        fa._bwd_maps(name, **tensors)

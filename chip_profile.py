@@ -32,6 +32,21 @@ And an A/B of the flash-attention kernels against another checkout:
   work (the softmax, the K/V loads) give wrong outputs: they only measure
   what that work costs.
 
+The same for the scans:
+
+* scan_ab DIR: ``ssd_fwd`` at zamba2-7b and ``mlstm_fwd`` at xlstm-125m
+  (4 x 1024 tokens, f32), in the checkout at DIR and in this one, in turns
+  (DIR, this, this, DIR), as flash_ab: device time of the whole call (all
+  its kernels, a CUDA graph of 20 calls) and 20 back-to-back calls; then
+  this checkout's calls under the profiler, time by CUDA kernel.
+
+* scan_ablate: each part of the scans' design taken out in turn by a text
+  substitution of ``ssd_fwd.cu`` and ``mlstm_fwd.cu`` (3xTF32 against one
+  TF32 pass, the C B^T pre-pass, the split of P across blocks, the load
+  ring's prefetch; and, marked "added", other tile sizes), built beside the
+  unmodified sources and timed at the same shapes, two rounds, with each
+  build's error against the chunked plain version.
+
 And one look at numbers rather than time:
 
 * xlstm_agreement: why xlstm-125m's bf16 prefill and cache fill agree less
@@ -43,7 +58,7 @@ And one look at numbers rather than time:
   the model keeps the reference's normaliser).
 
     python3 chip_profile.py [serve] [train] [serve_hybrid] [xlstm_agreement] [flash_ab DIR]
-                            [flash_ablate]
+                            [flash_ablate] [scan_ab DIR] [scan_ablate]
                                                     # serve and train when none is named
 
 For each profiled phase it prints the host time, the device time summed
@@ -82,8 +97,10 @@ def _device_us(prof) -> tuple:
     return total, busy
 
 
-# the port's hand-written kernels, by a part of their device names
-PORT_KERNELS = ("flash_fwd", "flash_bwd", "ssd_fwd", "mlstm_fwd")
+# the port's hand-written kernels, by a part of their device names: ssd_fwd
+# runs ssd_prep_kernel and ssd_scan_kernel, mlstm_fwd the three mlstm_ ones
+PORT_KERNELS = ("flash_fwd", "flash_bwd", "ssd_prep_kernel", "ssd_scan_kernel",
+                "mlstm_state_kernel", "mlstm_combine_kernel", "mlstm_out_kernel")
 
 
 def _report(name: str, prof, host_ms: float, per: int = 1, unit: str = "call") -> None:
@@ -350,17 +367,72 @@ print(json.dumps(out))
 """
 
 
-def flash_ab(smi: str, other: str) -> None:
+# Times the scans of the package under ``src/`` of the current directory at
+# their main paths' shapes (zamba2-7b and xlstm-125m, 4 x 1024 tokens, f32);
+# prints one line of JSON.  Uses only the wrappers' public calls.
+_SCAN_TIMING = _FLASH_TIMING[:_FLASH_TIMING.index("g = torch.Generator")].replace(
+    "from repro_torch.kernels.flash_attention import flash_attention as fa",
+    "from repro_torch.kernels.mlstm.mlstm import mlstm_fwd\n"
+    "from repro_torch.kernels.ssd.ssd import ssd_fwd") + r"""
+g = torch.Generator(device="cuda")
+g.manual_seed(0)
+r = lambda *s: torch.randn(s, generator=g, device="cuda")
+B, S = 4, 1024
+ssd_x = (r(B, S, 112, 64), r(B, S, 112).abs() * 0.1 + 0.01, r(B, S, 64), r(B, S, 64),
+         -(r(112).abs() + 0.5))
+ml_x = (r(B, S, 4, 192) / 192 ** 0.5, r(B, S, 4, 192), r(B, S, 4, 192), r(B, S, 4),
+        torch.nn.functional.logsigmoid(r(B, S, 4) + 2))
+calls = {"ssd_fwd": lambda: ssd_fwd(*ssd_x, chunk=64), "mlstm_fwd": lambda: mlstm_fwd(*ml_x, chunk=64)}
+out = {name: {"device_ms": graph_ms(call), "back_to_back_ms": events_ms(call)}
+       for name, call in calls.items()}
+print(json.dumps(out))
+"""
+
+
+def _ab(smi: str, other: str, tag: str, what: str, script: str) -> None:
     here = Path(__file__).resolve().parent
     there = (here / other).resolve()
-    print(f"flash_ab: flash_fwd / flash_fwd_lse / flash_bwd_dq / flash_bwd_dkv at B=4 H=24 Hk=8 "
-          f"S=1024 Dh=128 bf16 causal, {there} against {here} [{smi}]", flush=True)
+    print(f"{tag}: {what}, {there} against {here} [{smi}]", flush=True)
     for label, path in (("other", there), ("this", here), ("this", here), ("other", there)):
-        res = subprocess.run([sys.executable, "-c", _FLASH_TIMING], cwd=path,
+        res = subprocess.run([sys.executable, "-c", script], cwd=path,
                              capture_output=True, text=True)
         if res.returncode != 0:
-            sys.exit(f"flash_ab: the run in {path} failed:\n{res.stderr[-3000:]}")
-        print(f"flash_ab {label} ({path}): {res.stdout.strip().splitlines()[-1]}", flush=True)
+            sys.exit(f"{tag}: the run in {path} failed:\n{res.stderr[-3000:]}")
+        print(f"{tag} {label} ({path}): {res.stdout.strip().splitlines()[-1]}", flush=True)
+
+
+def scan_ab(smi: str, other: str) -> None:
+    """The A/B, then this checkout's calls split into their CUDA kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import _mlstm_inputs, _ssd_inputs
+    from repro_torch.kernels.mlstm import mlstm
+    from repro_torch.kernels.ssd import ssd
+
+    _ab(smi, other, "scan_ab", "ssd_fwd at zamba2-7b (B=4 S=1024 H=112 P=N=64 chunk 64) and "
+        "mlstm_fwd at xlstm-125m (B=4 S=1024 H=4 D=192 chunk 64), f32", _SCAN_TIMING)
+    xs, xm = _ssd_inputs(4, 1024, 112, 64, 64, seed=0), _mlstm_inputs(4, 1024, 4, 192, seed=0)
+    for name, fn in (("ssd_fwd", lambda: ssd.ssd_fwd(*xs, chunk=64)),
+                     ("mlstm_fwd", lambda: mlstm.mlstm_fwd(*xm, chunk=64))):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        for part in PORT_KERNELS:
+            spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                     if e.device_type.name == "CUDA" and part in e.name]
+            if spans:
+                print(f"scan_ab this: {name} kernel {part}: {sum(spans) / len(spans):.2f} us a "
+                      f"launch (profiler), {len(spans) / 10:g} launches a call", flush=True)
+
+
+def flash_ab(smi: str, other: str) -> None:
+    _ab(smi, other, "flash_ab", "flash_fwd / flash_fwd_lse / flash_bwd_dq / flash_bwd_dkv at "
+        "B=4 H=24 Hk=8 S=1024 Dh=128 bf16 causal", _FLASH_TIMING)
 
 
 # variant name -> (what it takes out, [(pattern, replacement)] applied with
@@ -407,9 +479,40 @@ FLASH_BWD_ABLATIONS = {
 }
 
 
-def _ablate(smi: str, source: str, ablations: dict, calls: dict, what: str) -> None:
+# the same for the scans: ssd_fwd.cu, then mlstm_fwd.cu
+_ONE_PASS = ("(output past the tolerance) 3xTF32: one TF32 pass per product instead of three",
+             [(r"\A", "#define TF32_PASSES 1\n")])
+_RNA_SPLIT = ("(added) both halves of each operand rounded to nearest (cvt.rna.tf32.f32) "
+              "instead of truncated", [(r"\A", "#define TF32_RNA_SPLIT 1\n")])
+SSD_ABLATIONS = {
+    "one_tf32_pass": _ONE_PASS,
+    "rna_split": _RNA_SPLIT,
+    "no_g_prepass": ("the C B^T pre-pass: each block forms G itself, once per tile", [
+        (r"constexpr bool kGPre = true;", "constexpr bool kGPre = false;")]),
+    "p_split_blocks": ("64 columns of P a block (a warp each 16): 32 a block, 896 blocks", [
+        (r"constexpr int kWarps = 4;", "constexpr int kWarps = 2;")]),
+    "no_prefetch": ("the ring's second stage: tile c + 1's C and B load after tile c", [
+        (r"constexpr int kStages = 2;", "constexpr int kStages = 1;")]),
+}
+MLSTM_ABLATIONS = {
+    "one_tf32_pass": _ONE_PASS,
+    "rna_split": _RNA_SPLIT,
+    "fused_state": ("(added) the chunk states in one serial walk per (64 x 64) slice of the "
+                    "state instead of in parallel and then combined", [
+        (r"constexpr bool kFuseState = false;", "constexpr bool kFuseState = true;")]),
+    "two_stages": ("(added) a second ring stage in the output kernel (each step's loads in "
+                   "flight during the one before), at two blocks an SM instead of three", [
+        (r"constexpr int kStages = 1;", "constexpr int kStages = 2;")]),
+    "dk_64": ("(added) head-dimension steps of 64 instead of 32 in the output kernel", [
+        (r"constexpr int kDK = 32;", "constexpr int kDK = 64;")]),
+}
+
+
+def _ablate(smi: str, source: str, ablations: dict, calls: dict, what: str,
+            checks: dict = None) -> None:
     """Build ``source`` unmodified and with each of ``ablations``, then time
-    each of ``calls`` ({name: fn}) with each build installed, two rounds."""
+    each of ``calls`` ({name: fn}) with each build installed, two rounds.
+    ``checks`` ({name: fn giving an error}) are read once per build."""
     import ctypes
     import re
 
@@ -418,6 +521,7 @@ def _ablate(smi: str, source: str, ablations: dict, calls: dict, what: str) -> N
     from chip_smoke import _graph_ms
     from repro_torch.kernels import build
 
+    tag = "flash_ablate" if "flash" in source else "scan_ablate"
     src = build.KERNELS_DIR / source
     text = src.read_text()
     out_dir = build.BUILD_DIR.parent / "ablate"
@@ -428,13 +532,14 @@ def _ablate(smi: str, source: str, ablations: dict, calls: dict, what: str) -> N
         for pattern, repl in subs:
             t, n = re.subn(pattern, repl, t)
             if n == 0:
-                sys.exit(f"flash_ablate: {name}: no match for {pattern!r}")
+                sys.exit(f"{tag}: {name}: no match for {pattern!r}")
         variants[name] = t
     procs = {}
     for name, t in variants.items():
         stem = f"{src.stem}_{name}"
         (out_dir / f"{stem}.cu").write_text(t)
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(src.parent), "-o",
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(src.parent), "-I",
+               str(build.COMMON_DIR), "-o",
                str(out_dir / f"{stem}.so"), str(out_dir / f"{stem}.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)
@@ -442,12 +547,17 @@ def _ablate(smi: str, source: str, ablations: dict, calls: dict, what: str) -> N
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            sys.exit(f"flash_ablate: {name} does not build:\n{log[-3000:]}")
+            sys.exit(f"{tag}: {name} does not build:\n{log[-3000:]}")
         libs[name] = ctypes.CDLL(str(out_dir / f"{src.stem}_{name}.so"))
-    print(f"flash_ablate: {what}, device ms (CUDA graph of 20 launches), two rounds [{smi}]",
+    print(f"{tag}: {what}, device ms (CUDA graph of 20 launches), two rounds [{smi}]",
           flush=True)
     times = {(name, c): [] for name in libs for c in calls}
+    errs = {}
     try:
+        for name, lib in libs.items():
+            build._LIBS[source] = lib
+            for c, fn in (checks or {}).items():
+                errs[name, c] = fn()
         for _ in range(2):
             for name, lib in libs.items():
                 build._LIBS[source] = lib  # the wrappers launch this build
@@ -459,8 +569,9 @@ def _ablate(smi: str, source: str, ablations: dict, calls: dict, what: str) -> N
     for (name, c), ts in times.items():
         base = sum(times["unmodified", c]) / 2
         what_ = ablations[name][0] if name in ablations else "the kernel as committed"
-        print(f"flash_ablate {c} {name}: {ts[0]:.4f} / {ts[1]:.4f} ms, {sum(ts) / 2 / base:.3f}x "
-              f"of unmodified; takes out {what_}", flush=True)
+        err = f", rel err {errs[name, c]:.2e}" if (name, c) in errs else ""
+        print(f"{tag} {c} {name}: {ts[0]:.4f} / {ts[1]:.4f} ms, {sum(ts) / 2 / base:.3f}x "
+              f"of unmodified{err}; takes out {what_}", flush=True)
 
 
 def flash_ablate(smi: str) -> None:
@@ -481,6 +592,33 @@ def flash_ablate(smi: str) -> None:
             f"flash_bwd_dq and flash_bwd_dkv at {shape}")
 
 
+def scan_ablate(smi: str) -> None:
+    import torch
+
+    from chip_smoke import _mlstm_inputs, _ssd_inputs
+    from repro_torch.kernels.mlstm import mlstm
+    from repro_torch.kernels.mlstm.ref import mlstm_chunked_ref
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+
+    def rel(got, want):
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    x = _ssd_inputs(4, 1024, 112, 64, 64, seed=0)
+    want = ssd_chunked_ref(*x, 64)[0]
+    torch.cuda.synchronize()
+    _ablate(smi, ssd.SOURCE, SSD_ABLATIONS, {"ssd_fwd": lambda: ssd.ssd_fwd(*x, chunk=64)},
+            "ssd_fwd at zamba2-7b (B=4 S=1024 H=112 P=N=64 chunk 64, f32)",
+            {"ssd_fwd": lambda: rel(ssd.ssd_fwd(*x, chunk=64), want)})
+    del want
+    x = _mlstm_inputs(4, 1024, 4, 192, seed=0)
+    want = mlstm_chunked_ref(*x, 64)
+    _ablate(smi, mlstm.SOURCE, MLSTM_ABLATIONS,
+            {"mlstm_fwd": lambda: mlstm.mlstm_fwd(*x, chunk=64)},
+            "mlstm_fwd at xlstm-125m (B=4 S=1024 H=4 D=192 chunk 64, f32)",
+            {"mlstm_fwd": lambda: rel(mlstm.mlstm_fwd(*x, chunk=64), want)})
+
+
 def main() -> None:
     import torch
 
@@ -492,11 +630,12 @@ def main() -> None:
     args = sys.argv[1:] or ["serve", "train"]
     while args:
         name = args.pop(0)
-        if name == "flash_ab":
-            flash_ab(smi, args.pop(0))
+        if name in ("flash_ab", "scan_ab"):
+            {"flash_ab": flash_ab, "scan_ab": scan_ab}[name](smi, args.pop(0))
             continue
         {"serve": profile_serve, "train": profile_train, "serve_hybrid": profile_serve_hybrid,
-         "xlstm_agreement": xlstm_agreement, "flash_ablate": flash_ablate}[name](smi)
+         "xlstm_agreement": xlstm_agreement, "flash_ablate": flash_ablate,
+         "scan_ablate": scan_ablate}[name](smi)
 
 
 if __name__ == "__main__":

@@ -619,9 +619,17 @@ SSD_CASES = [
     ("zamba2_smoke", 2, 128, 8, 16, 16, 64),
     ("zamba2_chunk32", 2, 256, 112, 64, 64, 32),
     ("zamba2_prefill", 4, 256, 112, 64, 64, 64),  # serve_hybrid's prefill shape
+    # the Pallas kernel's documented range: chunks up to 256, P and N up to 128
+    ("p128_n128_chunk128", 2, 512, 8, 128, 128, 128),
+    ("chunk256", 2, 512, 16, 64, 64, 256),
+    ("p128_n128_chunk256", 1, 512, 4, 128, 128, 256),
+    ("p96_n80_chunk128", 1, 256, 3, 96, 80, 128),  # N past 64: the N <= 128 build
+    ("odd_p6_n5", 1, 40, 2, 6, 5, 40),    # rows not 16-byte aligned: 4-byte loads
 ]
 SSD_TIMED = (4, 1024, 112, 64, 64, 64)             # zamba2-7b, 4 x 1024 tokens
-# name, B, S, H, D, chunk
+# name, B, S, H, D, chunk[, input gate of -1e30 on: "first_tile" rows 0-63, a
+# whole tile of padding before any real row; "tail" the last 40 rows, as the
+# model pads; "scattered" every 7th row]
 MLSTM_CASES = [
     ("ref_a", 2, 128, 2, 32, 32),          # tests/test_kernels.py::test_mlstm_sweep
     ("ref_b", 1, 64, 3, 16, 64),
@@ -630,6 +638,13 @@ MLSTM_CASES = [
     ("d96_chunk32", 1, 96, 2, 96, 32),
     ("d192_chunk32", 2, 256, 4, 192, 32),
     ("xlstm_prefill", 4, 1024, 4, 192, 64),        # serve_xlstm's prefill shape
+    # the widened range: D up to 256, chunks up to 256
+    ("d256_chunk128", 2, 256, 2, 256, 128),
+    ("d192_chunk256", 2, 512, 4, 192, 256),
+    ("odd_d10", 1, 40, 2, 10, 40),        # rows not 16-byte aligned: 4-byte loads
+    ("pad_first_tile", 1, 192, 2, 32, 64, "first_tile"),
+    ("pad_tail", 2, 128, 2, 64, 32, "tail"),
+    ("pad_scattered", 1, 256, 2, 192, 64, "scattered"),
 ]
 MLSTM_TIMED = (4, 1024, 4, 192, 64)                # xlstm-125m, 4 x 1024 tokens
 
@@ -647,7 +662,7 @@ def _ssd_inputs(B, S, H, P, N, seed):
             -(randn(H).abs() + 0.5))
 
 
-def _mlstm_inputs(B, S, H, D, seed):
+def _mlstm_inputs(B, S, H, D, seed, pad=None):
     import torch
 
     g = torch.Generator(device="cuda")
@@ -656,7 +671,11 @@ def _mlstm_inputs(B, S, H, D, seed):
     def randn(*shape):
         return torch.randn(shape, generator=g, device="cuda")
 
-    return (randn(B, S, H, D) / D ** 0.5, randn(B, S, H, D), randn(B, S, H, D), randn(B, S, H),
+    ig = randn(B, S, H)
+    rows = {None: slice(0, 0), "first_tile": slice(0, 64), "tail": slice(S - 40, S),
+            "scattered": slice(3, S, 7)}[pad]
+    ig[:, rows] = -1e30
+    return (randn(B, S, H, D) / D ** 0.5, randn(B, S, H, D), randn(B, S, H, D), ig,
             torch.nn.functional.logsigmoid(randn(B, S, H) + 2))
 
 
@@ -678,6 +697,22 @@ def _check_scan(kname, name, shape, y, chunked, oracle, oracle_rel) -> float:
     if not ok:
         fail(f"{kname} {name} disagrees with its plain versions")
     return err
+
+
+def _scan_bound(kname, where, ms, b2b, plain_ms, flops, nbytes) -> tuple:
+    """Print a scan's timing beside both bounds (``kernels/bounds.py``): the
+    f32-accurate one (3xTF32 on the tensor cores, 165 TFLOP/s, or the bytes)
+    and the f32 SIMT one (67 TFLOP/s); returns the first as (ms, bound_by)."""
+    from repro_torch.kernels import bounds
+
+    b = bounds._bound(flops, nbytes)
+    print(f"kernel {kname} timing at {where}: kernel {ms:.4f} ms device (CUDA graph, all its "
+          f"kernels), {b2b:.4f} ms back-to-back, plain {plain_ms:.4f} ms, library none; "
+          f"{flops:.4g} FLOP, {nbytes:.4g} B; bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+          f"f32-accurate 3xTF32), {b['bound_ms'] / ms:.1%} of it; f32 SIMT bound "
+          f"{b['simt_bound_ms']:.4f} ms ({b['simt_bound_by']}), {b['simt_bound_ms'] / ms:.1%} "
+          f"of it", flush=True)
+    return b["bound_ms"], b["bound_by"]
 
 
 def _ssd_kernel() -> dict:
@@ -702,12 +737,8 @@ def _ssd_kernel() -> dict:
     plain_ms = _time_ms(lambda: ssd_chunked_ref(*x, chunk), iters=5)
     flops = bounds.ssd_flops(B, S, H, P, N, chunk)
     nbytes = _nbytes(*x, x[0])  # x, dt, B, C, A in; y out
-    bound = _bound(flops, nbytes, "float32")
-    print(f"kernel ssd_fwd timing at zamba2-7b (B={B} S={S} H={H} P={P} N={N} chunk={chunk} "
-          f"f32): kernel {ms:.4f} ms device (CUDA graph), {b2b:.4f} ms back-to-back, plain "
-          f"{plain_ms:.4f} ms, library none, bound "
-          f"{bound[0]:.4f} ms ({bound[1]}: {flops:.4g} FLOP, {nbytes:.4g} B), "
-          f"{bound[0] / ms:.1%} of bound", flush=True)
+    bound = _scan_bound("ssd_fwd", f"zamba2-7b (B={B} S={S} H={H} P={P} N={N} chunk={chunk} "
+                        "f32)", ms, b2b, plain_ms, flops, nbytes)
     return _entry("ssd_fwd", "ssd/csrc/ssd_fwd.cu", "ssd/ssd.py:29", None, worst, ms, plain_ms,
                   bound, None)
 
@@ -719,8 +750,8 @@ def _mlstm_kernel() -> dict:
     from repro_torch.kernels.mlstm import mlstm
     from repro_torch.kernels.mlstm.ref import mlstm_chunked_ref, mlstm_ref
 
-    for i, (name, B, S, H, D, chunk) in enumerate(MLSTM_CASES):
-        x = _mlstm_inputs(B, S, H, D, seed=400 + i)
+    for i, (name, B, S, H, D, chunk, *pad) in enumerate(MLSTM_CASES):
+        x = _mlstm_inputs(B, S, H, D, seed=400 + i, pad=pad[0] if pad else None)
         y = mlstm.mlstm_fwd(*x, chunk=chunk)
         torch.cuda.synchronize()
         err = _check_scan("mlstm_fwd", name, f"B={B} S={S} H={H} D={D} chunk={chunk}", y,
@@ -734,12 +765,8 @@ def _mlstm_kernel() -> dict:
     plain_ms = _time_ms(lambda: mlstm_chunked_ref(*x, chunk), iters=5)
     flops = bounds.mlstm_flops(B, S, H, D, chunk)
     nbytes = _nbytes(*x, x[0])  # q, k, v, the gates in; h out
-    bound = _bound(flops, nbytes, "float32")
-    print(f"kernel mlstm_fwd timing at xlstm-125m (B={B} S={S} H={H} D={D} chunk={chunk} f32): "
-          f"kernel {ms:.4f} ms device (CUDA graph), {b2b:.4f} ms back-to-back, plain "
-          f"{plain_ms:.4f} ms, library none, bound {bound[0]:.4f} ms "
-          f"({bound[1]}: {flops:.4g} FLOP, {nbytes:.4g} B), {bound[0] / ms:.1%} of bound",
-          flush=True)
+    bound = _scan_bound("mlstm_fwd", f"xlstm-125m (B={B} S={S} H={H} D={D} chunk={chunk} f32)",
+                        ms, b2b, plain_ms, flops, nbytes)
     return _entry("mlstm_fwd", "mlstm/csrc/mlstm_fwd.cu", "mlstm/mlstm.py:26", None, worst, ms,
                   plain_ms, bound, None)
 

@@ -4,10 +4,14 @@ shapes (nothing runs; no card needed):
     PYTHONPATH=src python -m repro_torch.kernels.bounds
 
 The model path runs both kernels in f32 (the reference casts their inputs
-to f32), so each bound is the larger of the operations over the f32 SIMT
-peak (67 TFLOP/s) and the bytes (each input read once, each output written
-once, in f32) over the HBM rate (3.35 TB/s), NVIDIA's H100 SXM data-sheet
-numbers.  The shapes are those the reference's models give the kernels at
+to f32), so the work must keep f32 accuracy.  The fastest f32-accurate route
+on the card is 3xTF32 on the tensor cores (three TF32 products per f32
+product: 495 / 3 = 165 TFLOP/s), faster than f32 outside them (67 TFLOP/s).
+Each bound is the larger of the operations over that rate and the bytes
+(each input read once, each output written once, in f32; the kernels'
+scratch is not counted) over the HBM rate (3.35 TB/s), NVIDIA's H100 SXM
+data-sheet numbers.  The bound over the f32 SIMT peak, which the kernels'
+first port (f32 FMA) was held to, is kept beside it as ``simt_bound_ms``.  The shapes are those the reference's models give the kernels at
 batch 4 x 1024 tokens:
 
 * ``ssd_fwd`` (src/repro/kernels/ssd/ssd.py:68) at zamba2-7b: Mamba2 with
@@ -28,15 +32,22 @@ from __future__ import annotations
 
 from typing import Dict
 
-PEAK_FLOPS = 67e12    # f32, outside the tensor cores
+PEAK_SIMT = 67e12    # f32, outside the tensor cores
+PEAK_TF32 = 495e12   # TF32 tensor cores, dense
+TF32_PASSES = 3      # hi hi + hi lo + lo hi: f32-accurate
+PEAK_FLOPS = max(PEAK_SIMT, PEAK_TF32 / TF32_PASSES)  # the f32-accurate rate: 165e12
 PEAK_BYTES = 3.35e12  # HBM3
 F32 = 4
 
 
 def _bound(flops: float, nbytes: float) -> Dict[str, float]:
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    out = {"flops": flops, "bytes": nbytes}
+    for key, peak in (("", PEAK_FLOPS), ("simt_", PEAK_SIMT)):
+        t_ops = flops / peak * 1e3
+        out[f"{key}bound_ms"] = max(t_ops, t_bytes)
+        out[f"{key}bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    return out
 
 
 def ssd_flops(B: int, S: int, H: int, P: int, N: int, chunk: int) -> float:
@@ -67,7 +78,8 @@ def mlstm_bound(B=4, S=1024, d_model=768, heads=4, chunk=64) -> Dict[str, float]
 def main() -> None:
     for name, b in (("ssd_fwd at zamba2-7b", ssd_bound()), ("mlstm_fwd at xlstm-125m", mlstm_bound())):
         print(f"{name}, batch 4 x 1024 tokens, f32: {b['flops']:.4g} FLOP, {b['bytes']:.4g} B, "
-              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; f32 SIMT "
+              f"{b['simt_bound_ms']:.4f} ms, {b['simt_bound_by']})")
 
 
 if __name__ == "__main__":

@@ -4,12 +4,15 @@ Each ``csrc/*.cu`` file is compiled on first use into its own shared
 library under ``build/kernels/`` at the root of the checkout:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so <src>
+         -Xcompiler -fPIC -Xptxas -v -I kernels/common \
+         -o build/kernels/<name>-<hash>.so <src>
 
-The file name carries a hash of the source, the ``*.cuh`` headers beside
-it and the flags, so an edited source or header is rebuilt and an unchanged one is loaded as it is.  The sources
-have a plain C interface (pointers, ints, the stream), which keeps a build
-to seconds; nothing includes PyTorch's headers.  A failed build or load
+``kernels/common/`` holds the headers the kernel families share.  The file
+name carries a hash of the source, the ``*.cuh`` headers beside it and in
+``common/``, and the flags, so an edited source or header is rebuilt and an
+unchanged one is loaded as it is.  The sources have a plain C interface
+(pointers, ints, the stream), which keeps a build to seconds; nothing
+includes PyTorch's headers.  A failed build or load
 raises.  ``build_all`` starts one nvcc per source at once.
 """
 
@@ -25,6 +28,7 @@ from pathlib import Path
 from typing import Dict, Iterable, List
 
 KERNELS_DIR = Path(__file__).resolve().parent
+COMMON_DIR = KERNELS_DIR / "common"
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -50,8 +54,9 @@ def _nvcc() -> str:
 
 def _target(source: str) -> Path:
     src = KERNELS_DIR / source
-    # the headers beside a source are part of it
-    data = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
+    # the headers beside a source and the shared ones are part of it
+    headers = sorted(src.parent.glob("*.cuh")) + sorted(COMMON_DIR.glob("*.cuh"))
+    data = src.read_bytes() + b"".join(h.read_bytes() for h in headers)
     digest = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
@@ -62,7 +67,7 @@ def _start(source: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(KERNELS_DIR / source)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(COMMON_DIR), "-o", str(tmp), str(KERNELS_DIR / source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out, time.perf_counter()
 

@@ -7,9 +7,12 @@ gates (B, S, H); S a multiple of ``chunk`` (the model pads, with an input
 gate of -1e30), as the TPU kernel asserts.
 
 On CUDA tensors it launches ``csrc/mlstm_fwd.cu`` (built on first use, see
-``kernels/build.py``) on the current stream and counts the launch in
-``LAUNCHES``.  The kernel takes float32 only (the model casts to f32, as the
-reference does), D up to 192 and chunk up to 64; the wrapper makes each
+``kernels/build.py``) on the current stream and counts the call in
+``LAUNCHES``: one count per call, which runs three CUDA kernels (each
+tile's own contribution to the state, the serial combine into each tile's
+incoming state, the outputs) through a scratch buffer the wrapper
+allocates.  The kernel takes float32 only (the model casts to f32, as the
+reference does), D up to 256 and chunk up to 256; the wrapper makes each
 input contiguous (the model's already are).  On CPU tensors it computes the
 plain version, ``ref.mlstm_chunked_ref``.
 """
@@ -25,8 +28,8 @@ from .. import build
 from .ref import mlstm_chunked_ref
 
 SOURCE = "mlstm/csrc/mlstm_fwd.cu"
-MAX_D = 192      # the state slice and the q / k tiles must fit one block
-MAX_CHUNK = 64
+MAX_D = 256      # (D x 64) slices of the state; the key tile fits one block
+MAX_CHUNK = 256  # the kernels tile the rows their own way, whatever the chunk
 
 # kernel launches since the count was last reset
 LAUNCHES = 0
@@ -46,9 +49,15 @@ def reset_launch_counts() -> None:
 def _fn():
     fn = build.load(SOURCE).mlstm_fwd
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 6 + [_I] * 5 + [_P]
+        fn.argtypes = [_P] * 7 + [_I] * 6 + [_P]
         fn.restype = _I
     return fn
+
+
+def _scratch_floats(B: int, S: int, H: int, D: int) -> int:
+    fn = build.load(SOURCE).mlstm_fwd_scratch
+    fn.argtypes, fn.restype = [_I] * 4, ctypes.c_longlong
+    return fn(B, S, H, D)
 
 
 def _check(q, k, v, i_gate, logf, chunk) -> None:
@@ -90,9 +99,12 @@ def mlstm_fwd(
     if y.numel() == 0:  # an empty grid is not a valid launch
         return y
     B, S, H, D = q.shape
+    # 16-byte loads where every row starts on 16 bytes
+    vec = int(D % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (q, k, v, y)))
     with torch.cuda.device(q.device):
+        scratch = torch.empty(_scratch_floats(B, S, H, D), dtype=torch.float32, device=q.device)
         err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), i_gate.data_ptr(),
-                    logf.data_ptr(), y.data_ptr(), B, S, H, D, chunk,
+                    logf.data_ptr(), y.data_ptr(), scratch.data_ptr(), B, S, H, D, chunk, vec,
                     torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mlstm_fwd launch failed: CUDA error {err}")

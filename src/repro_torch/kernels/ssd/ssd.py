@@ -6,12 +6,15 @@
 S a multiple of ``chunk`` (the model pads), as the TPU kernel asserts.
 
 On CUDA tensors it launches ``csrc/ssd_fwd.cu`` (built on first use, see
-``kernels/build.py``) on the current stream and counts the launch in
-``LAUNCHES``.  The kernel takes float32 only (the model casts to f32, as the
-reference does) with chunk, P and N up to 64.  The wrapper makes each input
-contiguous (a no-op for what the model passes, except the strided views of
-x, B and C split from the conv output, which it copies once).  On CPU
-tensors it computes the plain version, ``ref.ssd_chunked_ref``.
+``kernels/build.py``) on the current stream and counts the call in
+``LAUNCHES``: one count per call, which runs two CUDA kernels (a pre-pass
+that forms C B^T and splits C and B into TF32 pairs once per (batch,
+tile), into a scratch buffer the wrapper allocates, then the scan).  The kernel takes float32 only (the model casts to f32, as the
+reference does) with chunk up to 256 and P and N up to 128, the Pallas
+kernel's documented range.  The wrapper makes each input contiguous (a
+no-op for what the model passes, except the strided views of x, B and C
+split from the conv output, which it copies once).  On CPU tensors it
+computes the plain version, ``ref.ssd_chunked_ref``.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from .. import build
 from .ref import ssd_chunked_ref
 
 SOURCE = "ssd/csrc/ssd_fwd.cu"
-MAX_DIM = 64  # chunk, P and N: one 64 x 64 tile of each in shared memory
+MAX_CHUNK, MAX_DIM = 256, 128  # chunk; P and N
 
 # kernel launches since the count was last reset
 LAUNCHES = 0
@@ -45,9 +48,15 @@ def reset_launch_counts() -> None:
 def _fn():
     fn = build.load(SOURCE).ssd_fwd
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 6 + [_I] * 6 + [_P]
+        fn.argtypes = [_P] * 7 + [_I] * 7 + [_P]
         fn.restype = _I
     return fn
+
+
+def _scratch_floats(B: int, S: int, N: int) -> int:
+    fn = build.load(SOURCE).ssd_fwd_scratch
+    fn.argtypes, fn.restype = [_I, _I, _I], ctypes.c_longlong
+    return fn(B, S, N)
 
 
 def _check(x, dt, Bm, Cm, A, chunk) -> None:
@@ -64,9 +73,9 @@ def _check(x, dt, Bm, Cm, A, chunk) -> None:
             or A.shape != (H,)):
         raise ValueError(f"bad shapes x {tuple(x.shape)} dt {tuple(dt.shape)} "
                          f"Bm {tuple(Bm.shape)} Cm {tuple(Cm.shape)} A {tuple(A.shape)}")
-    if not (0 < chunk <= MAX_DIM and P <= MAX_DIM and N <= MAX_DIM):
-        raise ValueError(f"the kernel takes chunk, P and N up to {MAX_DIM}, got "
-                         f"chunk={chunk} P={P} N={N}")
+    if not (0 < chunk <= MAX_CHUNK and P <= MAX_DIM and N <= MAX_DIM):
+        raise ValueError(f"the kernel takes chunk up to {MAX_CHUNK} and P and N up to "
+                         f"{MAX_DIM}, got chunk={chunk} P={P} N={N}")
 
 
 def ssd_fwd(
@@ -91,9 +100,13 @@ def ssd_fwd(
     if y.numel() == 0:  # an empty grid is not a valid launch
         return y
     B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    # 16-byte loads of B and C where their rows start on 16 bytes
+    vec = int(N % 4 == 0 and Bm.data_ptr() % 16 == 0 and Cm.data_ptr() % 16 == 0)
     with torch.cuda.device(x.device):
+        scratch = torch.empty(_scratch_floats(B, S, N), dtype=torch.float32, device=x.device)
         err = _fn()(x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), A.data_ptr(),
-                    y.data_ptr(), B, S, H, P, Bm.shape[-1], chunk,
+                    y.data_ptr(), scratch.data_ptr(), B, S, H, P, N, chunk, vec,
                     torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_fwd launch failed: CUDA error {err}")

@@ -284,9 +284,16 @@ def test_kernel_bounds_of_the_kernels_still_to_port():
     # xlstm-125m, 4 heads x 16 chunks x 4 batch: 2 products of 2 * 64^2 * 192
     # and 2 of 2 * 64 * 192^2; q.n_t reuses w o q k^T, so no w k product
     assert mlstm["flops"] == (2 * 2 * 64 ** 2 * 192 + 2 * 2 * 64 * 192 ** 2) * 4 * 16 * 4
-    # the path is f32: f32 bytes, and both are bound by the f32 SIMT peak
-    assert bounds.PEAK_FLOPS == 67e12 and bounds.F32 == 4
-    assert ssd["bound_by"] == mlstm["bound_by"] == "operations"
-    assert ssd["bound_ms"] == ssd["flops"] / bounds.PEAK_FLOPS * 1e3
-    assert abs(ssd["bound_ms"] - 0.1688) < 1e-4 and abs(ssd["bytes"] - 238.8e6) < 0.1e6
-    assert abs(mlstm["bound_ms"] - 0.0481) < 1e-4 and abs(mlstm["bytes"] - 50.46e6) < 0.01e6
+    # the path is f32: f32 bytes; the f32-accurate rate is 3xTF32 on the
+    # tensor cores, 495 / 3 = 165 TFLOP/s, above the f32 SIMT peak of 67
+    assert bounds.PEAK_FLOPS == 165e12 and bounds.PEAK_SIMT == 67e12 and bounds.F32 == 4
+    assert ssd["bound_by"] == "bytes" and mlstm["bound_by"] == "operations"
+    assert ssd["bound_ms"] == ssd["bytes"] / bounds.PEAK_BYTES * 1e3
+    assert mlstm["bound_ms"] == mlstm["flops"] / bounds.PEAK_FLOPS * 1e3
+    assert abs(ssd["bound_ms"] - 0.0713) < 1e-4 and abs(ssd["bytes"] - 238.8e6) < 0.1e6
+    assert abs(mlstm["bound_ms"] - 0.0195) < 1e-4 and abs(mlstm["bytes"] - 50.46e6) < 0.01e6
+    # the f32 SIMT bounds the first ports were held to, kept beside them
+    assert ssd["simt_bound_by"] == mlstm["simt_bound_by"] == "operations"
+    assert ssd["simt_bound_ms"] == ssd["flops"] / bounds.PEAK_SIMT * 1e3
+    assert abs(ssd["simt_bound_ms"] - 0.1688) < 1e-4
+    assert abs(mlstm["simt_bound_ms"] - 0.0481) < 1e-4

@@ -263,11 +263,17 @@ def test_smoke_train_step_on_card_matches_cpu(card, remat):
 
 # the reference tests' shapes (tests/test_kernels.py), both chunk sizes, and
 # the model paths' shapes: zamba2 (H 112, P = N = 64), its smoke config
-# (P = N = 16), xlstm-125m (D = 192) and its smoke config (D = 32)
+# (P = N = 16), xlstm-125m (D = 192) and its smoke config (D = 32); then the
+# widened ranges (SSD: chunk up to 256, P and N up to 128, the Pallas
+# kernel's documented range; mLSTM: D up to 256, chunk up to 256) and rows
+# that are not 16-byte aligned (P, N or D not a multiple of 4)
 SSD_CASES = [(2, 128, 3, 32, 16, 32), (1, 64, 2, 64, 64, 64), (2, 256, 1, 16, 8, 64),
-             (4, 256, 112, 64, 64, 64), (2, 128, 8, 16, 16, 64), (1, 96, 2, 64, 64, 32)]
+             (4, 256, 112, 64, 64, 64), (2, 128, 8, 16, 16, 64), (1, 96, 2, 64, 64, 32),
+             (2, 512, 8, 128, 128, 128), (2, 512, 16, 64, 64, 256), (1, 512, 2, 128, 128, 256),
+             (1, 256, 3, 96, 80, 128), (1, 40, 2, 6, 5, 40)]
 MLSTM_CASES = [(2, 128, 2, 32, 32), (1, 64, 3, 16, 64), (2, 256, 1, 64, 64),
-               (2, 256, 4, 192, 64), (2, 128, 2, 32, 64), (1, 96, 2, 96, 32)]
+               (2, 256, 4, 192, 64), (2, 128, 2, 32, 64), (1, 96, 2, 96, 32),
+               (2, 256, 2, 256, 128), (2, 512, 2, 192, 256), (1, 40, 2, 10, 40)]
 # relative to the largest |y|: against the sequential oracle, the reference
 # tests' own bounds; against the chunked plain version, 1e-4: the same
 # chunked function in f32, summed in other orders (and the mLSTM's q.n_t
@@ -320,11 +326,40 @@ def test_mlstm_fwd_matches_plain_versions(card, case):
         assert _rel(y, mlstm_ref(*x)) <= MLSTM_REL
 
 
+# an input gate of -1e30 on some rows (B, S, H, D, chunk, rows): a whole tile
+# of padding before any real row, the model's padding at the end, scattered
+# rows, and a sequence that is all padding
+MLSTM_PAD_CASES = [(1, 192, 2, 32, 64, slice(0, 64)), (2, 128, 2, 64, 32, slice(88, 128)),
+                   (1, 256, 2, 192, 64, slice(3, 256, 7)), (1, 128, 1, 32, 64, slice(0, 128))]
+
+
+@pytest.mark.parametrize("case", MLSTM_PAD_CASES)
+def test_mlstm_fwd_keeps_the_padding_sentinel(card, case):
+    *shape, chunk, rows = case
+    q, k, v, ig, lf = _mlstm_inputs(*shape)
+    ig[:, rows] = -1e30
+    y = mlstm_mod.mlstm_fwd(q, k, v, ig, lf, chunk=chunk)
+    torch.cuda.synchronize()
+    want = mlstm_chunked_ref(q, k, v, ig, lf, chunk)
+    assert torch.isfinite(y).all() and torch.isfinite(want).all()
+    assert _rel(y, want) <= SAME_FORM_REL
+    assert _rel(y, mlstm_ref(q, k, v, ig, lf)) <= MLSTM_REL
+
+
 def test_scan_wrappers_reject_what_the_kernels_do_not_take(card):
     x = _ssd_inputs(1, 64, 2, 16, 16)
     with pytest.raises(TypeError):
         ssd_mod.ssd_fwd(*(t.bfloat16() for t in x))
-    with pytest.raises(ValueError, match="up to 64"):
-        ssd_mod.ssd_fwd(*_ssd_inputs(1, 64, 2, 128, 16))
-    with pytest.raises(ValueError, match="up to 192"):
-        mlstm_mod.mlstm_fwd(*_mlstm_inputs(1, 64, 1, 256))
+    # chunk up to 256, P and N up to 128 are taken (SSD_CASES); past them not
+    with pytest.raises(ValueError, match="P and N up to 128"):
+        ssd_mod.ssd_fwd(*_ssd_inputs(1, 64, 2, 256, 16))
+    with pytest.raises(ValueError, match="P and N up to 128"):
+        ssd_mod.ssd_fwd(*_ssd_inputs(1, 64, 2, 16, 256))
+    with pytest.raises(ValueError, match="chunk up to 256"):
+        ssd_mod.ssd_fwd(*_ssd_inputs(1, 512, 2, 16, 16), chunk=512)
+    with pytest.raises(TypeError):
+        mlstm_mod.mlstm_fwd(*(t.bfloat16() for t in _mlstm_inputs(1, 64, 1, 32)))
+    with pytest.raises(ValueError, match="D up to 256"):
+        mlstm_mod.mlstm_fwd(*_mlstm_inputs(1, 64, 1, 320))
+    with pytest.raises(ValueError, match="chunk up to 256"):
+        mlstm_mod.mlstm_fwd(*_mlstm_inputs(1, 512, 1, 32), chunk=512)

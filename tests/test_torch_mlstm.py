@@ -1,8 +1,9 @@
 """The port's chunkwise mLSTM (repro_torch.kernels.mlstm) against the JAX
 package on the CPU: the plain versions against the sequential oracle, the
 chunked jnp form (with its -1e30 input-gate padding) and the Pallas kernel
-(interpret mode), and the op's backward against jax.vjp of the sequential
-oracle.  The CUDA kernel itself is held against the plain version on the
+(interpret mode), the plain version of the CUDA kernels' order of sums
+(chunk states in parallel, a serial combine, the outputs) likewise, and the
+op's backward against jax.vjp of the sequential oracle.  The CUDA kernel itself is held against the plain version on the
 card (tests/test_torch_cuda.py)."""
 
 import pytest
@@ -18,7 +19,9 @@ from repro.kernels.mlstm.ref import mlstm_ref as jax_mlstm_ref  # noqa: E402
 from repro.models.ssm import _mlstm_chunked  # noqa: E402
 from repro_torch.kernels.mlstm import mlstm as mlstm_mod  # noqa: E402
 from repro_torch.kernels.mlstm.ops import mlstm  # noqa: E402
-from repro_torch.kernels.mlstm.ref import mlstm_chunked_ref, mlstm_ref  # noqa: E402
+from repro_torch.kernels.mlstm.ref import (  # noqa: E402
+    mlstm_chunked_ref, mlstm_chunkstate_ref, mlstm_ref,
+)
 
 # jitted: compiled once per shape instead of run op by op (the Pallas kernel
 # still runs in interpret mode)
@@ -97,3 +100,51 @@ def test_wrapper_chunk_rules():
     short = [a[:, :20] for a in arrs]  # chunk is cut to S, as in the reference
     np.testing.assert_allclose(mlstm_mod.mlstm_fwd(*short, chunk=64).numpy(),
                                mlstm_ref(*short).numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,S,H,D,ch", SHAPES)
+def test_chunkstate_ref_matches_jax_oracle_and_pallas(B, S, H, D, ch):
+    arrs = _inputs(B, S, H, D, seed=5)
+    t = [torch.from_numpy(a) for a in arrs]
+    j = [jnp.asarray(a) for a in arrs]
+    got = mlstm_chunkstate_ref(*t, ch)
+    assert got.shape == (B, S, H, D) and got.dtype == torch.float32
+    assert _rel(got.numpy(), jax_mlstm_ref(*j)) < REL
+    assert _rel(got.numpy(), jax_mlstm(*j, ch)) < REL      # interpret mode on the CPU
+    assert _rel(got.numpy(), mlstm_chunked_ref(*t, ch).numpy()) < SAME_FORM
+
+
+# an input gate of -1e30, the sentinel the model pads with, on: a whole
+# chunk before any real row (where the plain form weighs the padding
+# exp(-1e30 - (-1e30)) = 1), a chunk between real ones, scattered rows, every
+# row; and S not a multiple of the chunk, padded inside
+PAD_CASES = [("first_chunk", 128, 32, slice(0, 32)), ("middle_chunk", 128, 32, slice(64, 96)),
+             ("scattered", 128, 32, slice(3, 128, 7)), ("every_row", 64, 32, slice(0, 64)),
+             ("ragged", 100, 32, slice(0, 0)), ("ragged_tail", 37, 16, slice(30, 37))]
+
+
+@pytest.mark.parametrize("name,S,ch,rows", PAD_CASES)
+def test_chunkstate_ref_keeps_the_padding_sentinel(name, S, ch, rows):
+    arrs = list(_inputs(2, S, 2, 16, seed=6))
+    arrs[3][:, rows] = -1e30
+    t = [torch.from_numpy(a) for a in arrs]
+    j = [jnp.asarray(a) for a in arrs]
+    got = mlstm_chunkstate_ref(*t, ch)
+    assert got.shape == (2, S, 2, 16) and torch.isfinite(got).all()
+    assert _rel(got.numpy(), _mlstm_chunked(*j, ch)) < SAME_FORM  # pads S itself
+    assert _rel(got.numpy(), mlstm_chunked_ref(*t, ch).numpy()) < SAME_FORM
+    assert _rel(got.numpy(), jax_mlstm_ref(*j)) < REL
+    if S % ch == 0:  # the Pallas kernel takes whole chunks
+        assert _rel(got.numpy(), jax_mlstm(*j, ch)) < REL
+
+
+@pytest.mark.parametrize("ch", [128, 256])
+def test_kernel_tiles_are_another_chunking(ch):
+    """The CUDA kernels tile the rows by 64 whatever the caller's chunk: the
+    chunked form at 64 is the Pallas kernel's function at chunks of 128 and
+    256 (the range the wrapper takes), up to the order of the sums."""
+    arrs = list(_inputs(1, 256, 2, 32, seed=7))
+    arrs[3][:, 5::11] = -1e30
+    t = [torch.from_numpy(a) for a in arrs]
+    pallas = jax_mlstm(*[jnp.asarray(a) for a in arrs], ch)
+    assert _rel(mlstm_chunkstate_ref(*t, 64).numpy(), pallas) < SAME_FORM

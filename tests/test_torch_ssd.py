@@ -1,7 +1,8 @@
 """The port's SSD scan (repro_torch.kernels.ssd) against the JAX package on
 the CPU: the plain versions against the sequential oracle, the chunked jnp
-form and the Pallas kernel (interpret mode), and the op's backward against
-jax.vjp of the sequential oracle.  The CUDA kernel itself is held against
+form and the Pallas kernel (interpret mode), also across the Pallas
+kernel's documented range and at the CUDA kernel's own tiling, and the op's
+backward against jax.vjp of the sequential oracle.  The CUDA kernel itself is held against
 the plain version on the card (tests/test_torch_cuda.py)."""
 
 import pytest
@@ -96,3 +97,30 @@ def test_wrapper_chunk_rules():
     short = [a[:, :20] if a.dim() > 1 else a for a in arrs]
     np.testing.assert_allclose(ssd_mod.ssd_fwd(*short, chunk=64).numpy(),
                                ssd_ref(*short).numpy(), atol=1e-5, rtol=1e-5)
+
+
+# the Pallas kernel's documented range (chunks of 64-256 rows, P and N up to
+# 128), which the CUDA kernel takes too, at a small B H S
+WIDE = [(1, 256, 2, 128, 128, 128), (1, 512, 1, 32, 16, 256), (1, 512, 1, 128, 128, 256)]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,ch", WIDE)
+def test_widened_shapes_match_pallas_and_the_oracle(B, S, H, P, N, ch):
+    arrs = _inputs(B, S, H, P, N, seed=5)
+    t = [torch.from_numpy(a) for a in arrs]
+    j = [jnp.asarray(a) for a in arrs]
+    got = ssd_mod.ssd_fwd(*t, chunk=ch)                     # CPU: the chunked plain version
+    assert got.shape == (B, S, H, P)
+    assert _rel(got.numpy(), jax_ssd(*j, ch)) < REL         # interpret mode on the CPU
+    assert _rel(got.numpy(), jax_ssd_ref(*j)) < REL
+
+
+@pytest.mark.parametrize("ch", [64, 128, 256])
+def test_kernel_tiles_are_another_chunking(ch):
+    """The CUDA kernel walks tiles of 32 rows whatever the caller's chunk:
+    the chunked form at 32 is the Pallas kernel's function at chunks of 64
+    to 256, up to the order of the sums."""
+    arrs = _inputs(1, 256, 2, 32, 16, seed=6)
+    pallas = jax_ssd(*[jnp.asarray(a) for a in arrs], ch)
+    got = ssd_chunked_ref(*[torch.from_numpy(a) for a in arrs], 32)[0]
+    assert _rel(got.numpy(), pallas) < REL

@@ -13,6 +13,22 @@
   through the SSD kernel, the token-by-token cache fill (profiled over its
   first 32 steps), one decode step.
 
+* train_dist (the ``chip_smoke.py`` train_dist phase): the ``manual_hier``
+  gradient reduction on a world of one (NCCL, mesh (1, 1, 1)), on
+  llama3.2-3b-shaped bf16 gradients: device time per schedule (events, and
+  the profiler's kernels) beside the bytes it moves; then the one-process
+  step and the distributed steps in turns, 4 rounds of each.
+
+* dist_cards (needs 4 cards, one rank each, NCCL; ``--chips 4``): the
+  collectives on a (2, 2) ("pod", "data") mesh, every rank against the sums,
+  shards and gathers computed from all ranks' inputs (the compressed
+  schedule within its int8 rounding bound); the ``manual_hier`` gradient
+  reduction of llama3.2-3b-shaped bf16 grads per schedule (device time,
+  the byte ledger); then llama3.2-3b at full width trained 3 steps on one
+  card with the global batch of 4 x 1024 tokens and 3 steps of each of
+  ``hierarchical`` and ``flat`` on the (2, 2, 1) ("pod", "data", "model")
+  world, one sequence a rank, against it.
+
 And an A/B of the flash-attention kernels against another checkout:
 
 * flash_ab DIR: ``flash_fwd`` and ``flash_fwd_lse`` at the serving prefill
@@ -57,8 +73,9 @@ And one look at numbers rather than time:
   dividing by max(|q.n|, exp(-m)), as the chunkwise form does (a control;
   the model keeps the reference's normaliser).
 
-    python3 chip_profile.py [serve] [train] [serve_hybrid] [xlstm_agreement] [flash_ab DIR]
-                            [flash_ablate] [scan_ab DIR] [scan_ablate]
+    python3 chip_profile.py [serve] [train] [serve_hybrid] [train_dist] [dist_cards]
+                            [xlstm_agreement] [flash_ab DIR] [flash_ablate] [scan_ab DIR]
+                            [scan_ablate]
                                                     # serve and train when none is named
 
 For each profiled phase it prints the host time, the device time summed
@@ -175,6 +192,222 @@ def profile_train(smi: str) -> None:
     grads = {n: p.grad for n, p in named.items()}
     prof, host_ms = _profiled(lambda: opt_lib.apply(ocfg, state["opt"], params, grads))
     _report("train_adamw", prof, host_ms, unit="step")
+
+
+def profile_train_dist(smi: str) -> None:
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from chip_smoke import _time_ms, _train_init, _train_setup
+    from repro_torch.launch.mesh import free_port, make_mesh
+    from repro_torch.train.train_step import _ManualHier, make_train_step
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1, 1), ("pod", "data", "model"), device="cuda")
+        cfg, zoo, ocfg, data = _train_setup()
+        params, opt = _train_init(zoo, ocfg)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1)
+        grads = {n: torch.randn(p.shape, generator=gen, device="cuda").to(p.dtype)
+                 for n, p in params.named_parameters()}
+        v = sum(g.numel() * g.element_size() for g in grads.values())
+        print(f"profile: {cfg.name} manual_hier gradient reduction on a world of one (NCCL), "
+              f"{len(grads)} bf16 leaves, V = {v / 1e9:.3f} GB [{smi}]")
+        # read + write passes over V: hierarchical copies into the reduce-scatter's and the
+        # all-gather's buffers and divides by the DP size; flat clones and divides
+        passes = {"flat": 2, "hierarchical": 3}
+        for sched in ("flat", "hierarchical"):
+            red = _ManualHier(mesh, sched).reduce_grads
+            ms = _time_ms(lambda: red(grads), iters=5, warmup=1)
+            bound = 2 * passes[sched] * v / 3.35e12 * 1e3
+            print(f"profile reduce_{sched}: {ms:.3f} ms device a step (events, 5 calls); "
+                  f"{passes[sched]} read + write passes over V would take {bound:.3f} ms at "
+                  f"3.35 TB/s ({bound / ms:.1%})")
+            prof, host_ms = _profiled(lambda: red(grads))
+            _report(f"reduce_{sched}", prof, host_ms, unit="step")
+        del grads
+
+        fns = {"one process": make_train_step(zoo, ocfg, device="cuda")}
+        for sched in ("hierarchical", "flat"):
+            fns[sched] = make_train_step(zoo, ocfg, device="cuda", mesh=mesh, schedule=sched)
+        state = {"opt": opt, "i": 0}
+
+        def step(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, state["opt"], m = fn(params, state["opt"], data.batch(state["i"]))
+            m["loss"].item()
+            state["i"] += 1
+            return (time.perf_counter() - t0) * 1e3
+
+        for fn in fns.values():
+            step(fn)  # warm-up
+        times = {k: [] for k in fns}
+        names = list(fns)
+        for r in range(4):
+            for k in (names if r % 2 == 0 else names[::-1]):
+                times[k].append(step(fns[k]))
+        base = statistics.median(times["one process"])
+        for k, ts in times.items():
+            med = statistics.median(ts)
+            print(f"profile train_dist {k}: step ms {[round(t, 2) for t in ts]}, median "
+                  f"{med:.2f} ({med - base:+.2f} against one process) [{smi}]")
+    finally:
+        dist.destroy_process_group()
+
+
+# bf16 gradients summed across 4 ranks in bf16 against one f32-accumulated
+# product over the whole batch, then three AdamW steps: relative, on the loss
+CARDS_LOSS_REL = 1e-2
+CARDS_STEPS = 3
+
+
+def cards_collectives(rank: int, world: int, device: str) -> None:
+    """Each schedule on a (2, world / 2) ("pod", "data") mesh against what
+    every rank can compute from all ranks' inputs."""
+    import torch
+
+    from repro_torch.collectives import compression as C
+    from repro_torch.collectives import schedules as S
+    from repro_torch.launch.mesh import make_mesh
+
+    P, D = 2, world // 2
+    mesh = make_mesh((P, D), ("pod", "data"), device)
+    X = torch.randn(world, 2 * world * 5000, generator=torch.Generator().manual_seed(0))
+    x, total = X[rank].to(device), X.sum(0)
+    p, d = divmod(rank, D)
+    got = {
+        "flat": (S.flat_all_reduce(x, mesh, ("pod", "data")), total),
+        "hierarchical": (S.hierarchical_all_reduce(x, mesh, "data", "pod"), total),
+        "ring2d": (S.ring_all_reduce_2d(x, mesh, ("data", "pod")), total),
+        "reduce_scatter": (S.reduce_scatter_axis(x, mesh, ("pod", "data")),
+                           total.chunk(world)[rank]),
+        "all_gather": (S.all_gather_axis(x, mesh, ("pod", "data")), X.reshape(-1)),
+        "all_to_all": (S.all_to_all_axis(x, mesh, "data", 0, 0),
+                       torch.cat([X[p * D + e].chunk(D)[d] for e in range(D)])),
+    }
+    errs = {k: (a.cpu() - b).abs().max().item() for k, (a, b) in got.items()}
+    # compressed: each pod's data-reduced shard in int8; every element within
+    # half a quantum of each pod's chunk scale of the f32 sum
+    comp = C.compressed_hierarchical_all_reduce(x, mesh, "data", "pod").cpu()
+    bound = []
+    for e in range(D):
+        for part in (X[q * D:(q + 1) * D].sum(0).chunk(D)[e] for q in range(P)):
+            c = C.int8_compress(part)
+            bound.append(c.scale.expand(c.values.shape).reshape(-1)[: part.numel()] / 2)
+    bound = torch.stack(bound).reshape(D, P, -1).sum(1).reshape(-1)
+    over = ((comp - total).abs() - bound).max().item()
+    errs["compressed (max |err| - int8 bound)"] = over
+    exact = ("all_gather", "all_to_all")
+    bad = {k: v for k, v in errs.items()
+           if (v != 0 if k in exact else v > (1e-5 if k.startswith("compressed") else 1e-4))}
+    if rank == 0 or bad:
+        print(f"cards collectives rank {rank} on {device}, mesh (pod {P}, data {D}), "
+              f"{x.numel()} f32 a rank: max |err| {errs}", flush=True)
+    if bad:
+        raise RuntimeError(f"rank {rank}: collectives off: {bad}")
+
+
+def cards_train(rank: int, world: int, device: str, smi: str) -> None:
+    """The manual_hier reduce and step across the cards, against one card."""
+    import torch
+    import torch.distributed as dist
+
+    from chip_smoke import _largest_gap, _time_ms, _train_init, _train_launches, _train_run
+    from chip_smoke import _train_setup
+    from repro_torch.collectives import byte_ledger
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.train_step import _ManualHier, make_train_step
+
+    cfg, zoo, ocfg, data = _train_setup()
+    one = None
+    if rank == 0:
+        params, opt = _train_init(zoo, ocfg)
+        one = _train_run("cards one card", make_train_step(zoo, ocfg, device=device), params,
+                         opt, data, CARDS_STEPS)
+        del params, opt
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = make_mesh((2, world // 2, 1), ("pod", "data", "model"), device)
+    params, opt = _train_init(zoo, ocfg)
+    gen = torch.Generator(device=device).manual_seed(1 + rank)
+    grads = {n: torch.randn(p.shape, generator=gen, device=device).to(p.dtype)
+             for n, p in params.named_parameters()}
+    v = sum(g.numel() * g.element_size() for g in grads.values())
+    for sched in ("flat", "hierarchical", "compressed"):
+        red = _ManualHier(mesh, sched).reduce_grads
+        dist.barrier()
+        ms = _time_ms(lambda: red(grads), iters=3, warmup=1)
+        with byte_ledger() as ledger:
+            red(grads)
+        if rank == 0:
+            by = {}
+            for r in ledger.records:
+                key = f"{r.op}({','.join(r.axes)})"
+                by[key] = by.get(key, 0) + r.nbytes
+            print(f"cards reduce {sched}: {ms:.3f} ms a step on rank 0 (events, 3 calls), "
+                  f"V = {v / 1e9:.3f} GB of bf16 grads in {len(grads)} leaves; result GB a "
+                  f"rank {({k: round(b / 1e9, 3) for k, b in by.items()})} [{smi}]", flush=True)
+    del grads, params, opt
+    torch.cuda.empty_cache()
+    runs = {}
+    for sched in ("hierarchical", "flat"):
+        params, opt = _train_init(zoo, ocfg)
+        step_fn = make_train_step(zoo, ocfg, device=device, mesh=mesh, schedule=sched)
+        runs[sched] = _train_run(f"cards rank {rank} {sched}", step_fn, params, opt, data,
+                                 CARDS_STEPS)
+        del params, opt, step_fn
+        torch.cuda.empty_cache()
+        want = _train_launches(cfg.num_layers, CARDS_STEPS)
+        if runs[sched]["launches"] != want:
+            raise RuntimeError(f"rank {rank} {sched}: launches {runs[sched]['launches']} "
+                               f"differ from {want}")
+    if rank == 0:
+        for sched, run in runs.items():
+            gap = _largest_gap(run["loss"], one["loss"])
+            print(f"cards train {sched}: losses {run['loss']} against one card's "
+                  f"{one['loss']}, largest relative gap {gap:.3e} (tol {CARDS_LOSS_REL:g}); "
+                  f"per-step ms {[round(t, 2) for t in run['step_ms']]} against one card's "
+                  f"{[round(t, 2) for t in one['step_ms']]}; max_memory_allocated "
+                  f"{run['peak'] / 2**30:.2f} GiB (one card {one['peak'] / 2**30:.2f}) [{smi}]",
+                  flush=True)
+            if not gap <= CARDS_LOSS_REL:
+                raise RuntimeError(f"cards train {sched}: loss gap {gap:.3e}")
+
+
+def _cards_rank(rank: int, world: int, port: int, smi: str) -> None:
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    try:
+        cards_collectives(rank, world, "cuda")
+        cards_train(rank, world, "cuda", smi)
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_cards(smi: str) -> None:
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch.mesh import free_port
+
+    world = torch.cuda.device_count()
+    if world < 4 or world % 2:
+        sys.exit(f"dist_cards needs an even number of cards >= 4, found {world}")
+    print(f"dist_cards: {world} ranks, one a card, NCCL [{smi}]", flush=True)
+    mp.start_processes(_cards_rank, args=(world, free_port(), smi), nprocs=world, join=True,
+                       start_method="spawn")
 
 
 def profile_serve(smi: str) -> None:
@@ -627,6 +860,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
+    smi = "; ".join(smi.splitlines())  # one line a card
     args = sys.argv[1:] or ["serve", "train"]
     while args:
         name = args.pop(0)
@@ -634,6 +868,7 @@ def main() -> None:
             {"flash_ab": flash_ab, "scan_ab": scan_ab}[name](smi, args.pop(0))
             continue
         {"serve": profile_serve, "train": profile_train, "serve_hybrid": profile_serve_hybrid,
+         "train_dist": profile_train_dist, "dist_cards": dist_cards,
          "xlstm_agreement": xlstm_agreement, "flash_ablate": flash_ablate,
          "scan_ablate": scan_ablate}[name](smi)
 

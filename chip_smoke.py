@@ -36,6 +36,14 @@ Phases, each printed as it runs; any failure exits non-zero:
            ``train_loop``; the loss must fall, and the launches of that run
            must be 2L flash_fwd_lse, L flash_bwd_dq and L flash_bwd_dkv per
            step and no flash_fwd.
+9. train_dist  the same model, seed and data through the distributed
+           ``manual_hier`` step on a world of one (NCCL, mesh (1, 1, 1)
+           ("pod", "data", "model")): 8 steps of the ``hierarchical``
+           schedule, whose per-step loss and grad_norm must equal phase 8's
+           within rel 1e-5 and whose launches must equal phase 8's, then 3
+           steps of ``flat`` against them; the ``compressed`` schedule is
+           refused there (no pod axis of size > 1).  Prints each schedule's
+           steady step time beside phase 8's.
 
 Every serve and train phase sets all launch counts to 0 before it runs and
 reads them after; the ``kernels`` line reports each kernel's launches from
@@ -1255,81 +1263,192 @@ def phase_serve_xlstm(smi: str) -> dict:
 
 
 TRAIN_STEPS = 8
+TRAIN_B, TRAIN_S = 4, 1024
+# the distributed step on a world of one against the one-process step: the
+# same kernels on the same inputs; the reduce is a copy and a division by 1
+DIST_REL_TOL = 1e-5
+DIST_FLAT_STEPS = 3
 
 
-def phase_train(smi: str) -> dict:
-    """llama3.2-3b at full width and depth, 8 AdamW steps; returns the
-    kernel launches of the run."""
+def _train_setup():
+    """llama3.2-3b at full width and depth in bf16 with remat and flash, its
+    AdamW config and its data."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models.model_zoo import get_model
     from repro_torch.train import optimizer as opt_lib
-    from repro_torch.train.train_step import make_train_step
-    from repro_torch.train.trainer import train_loop
 
-    B, S = 4, 1024
     cfg = dataclasses.replace(
         get_config("llama3.2-3b"), param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
         remat=True, attn_impl="flash",
     )
-    zoo = get_model(cfg)
-    t0 = time.perf_counter()
+    ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    # tokens from a 4096-token bigram corpus: valid ids of the 128256 vocab,
+    # where a full-vocab table would take 131 GB of host memory
+    data = SyntheticLM(DataConfig(vocab=4096, seq_len=TRAIN_S, global_batch=TRAIN_B))
+    return cfg, get_model(cfg), ocfg, data
+
+
+def _train_init(zoo, ocfg):
+    """Weights from seed 0 on the card, and fresh AdamW state."""
+    import torch
+
+    from repro_torch.train import optimizer as opt_lib
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     params = zoo.init(gen, device="cuda")
     params.requires_grad_(True)
-    ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
-    opt = opt_lib.init(ocfg, params)
-    # tokens from a 4096-token bigram corpus: valid ids of the 128256 vocab,
-    # where a full-vocab table would take 131 GB of host memory
-    data = SyntheticLM(DataConfig(vocab=4096, seq_len=S, global_batch=B))
+    return params, opt_lib.init(ocfg, params)
+
+
+def _train_run(tag: str, step_fn, params, opt, data, steps: int) -> dict:
+    """``steps`` steps through ``train_loop`` with the launch counts set to 0
+    before and read after; per-step loss, grad_norm and ms, and the peak
+    memory of the run."""
+    import torch
+
+    from repro_torch.train.trainer import train_loop
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    res = train_loop(step_fn, params, opt, data.batches(0), num_steps=steps,
+                     log_every=1, log_fn=lambda line: print(f"{tag}: {line}", flush=True))
+    torch.cuda.synchronize()
+    hist = res.history
+    run = {"launches": launch_counts(), "peak": torch.cuda.max_memory_allocated(),
+           "loss": [h["loss"] for h in hist], "grad_norm": [h["grad_norm"] for h in hist],
+           "step_ms": [1e3 * h["step_time_s"] for h in hist]}
+    if len(hist) != steps or not all(math.isfinite(x) for x in run["loss"] + run["grad_norm"]):
+        fail(f"{tag}: non-finite loss or grad_norm, or missing steps: {run['loss']} "
+             f"{run['grad_norm']}")
+    steady = run["step_ms"][1:]  # the first step pays one-time warm-up
+    run["mean_ms"] = sum(steady) / len(steady)
+    return run
+
+
+def _train_launches(L: int, steps: int) -> dict:
+    return {"flash_fwd": 0, "flash_fwd_lse": 2 * L * steps, "flash_bwd_dq": L * steps,
+            "flash_bwd_dkv": L * steps, "ssd_fwd": 0, "mlstm_fwd": 0}
+
+
+def phase_train(smi: str) -> dict:
+    """llama3.2-3b at full width and depth, 8 AdamW steps in one process;
+    returns the run (launches, per-step loss, grad_norm and ms)."""
+    import torch
+
+    from repro_torch.train.train_step import make_train_step
+
+    t0 = time.perf_counter()
+    cfg, zoo, ocfg, data = _train_setup()
+    params, opt = _train_init(zoo, ocfg)
     step_fn = make_train_step(zoo, ocfg, microbatches=1, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
     print(f"train: {cfg.name} L={cfg.num_layers} d_model={cfg.d_model} vocab={cfg.vocab} bf16 "
-          f"params, f32 moments, remat, flash; {n_params / 1e9:.3f} B params; batch {B} x {S} "
-          f"tokens from a 4096-token bigram corpus; set-up {time.perf_counter() - t0:.2f} s",
-          flush=True)
+          f"params, f32 moments, remat, flash; {n_params / 1e9:.3f} B params; batch {TRAIN_B} x "
+          f"{TRAIN_S} tokens from a 4096-token bigram corpus; set-up "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    res = train_loop(step_fn, params, opt, data.batches(0), num_steps=TRAIN_STEPS,
-                     log_every=1, log_fn=lambda line: print(f"train: {line}", flush=True))
-    torch.cuda.synchronize()
-    launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-
-    hist = res.history
-    losses = [h["loss"] for h in hist]
-    gnorms = [h["grad_norm"] for h in hist]
-    if len(hist) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses + gnorms):
-        fail(f"non-finite loss or grad_norm, or missing steps: {losses} {gnorms}")
+    run = _train_run("train", step_fn, params, opt, data, TRAIN_STEPS)
+    losses = run["loss"]
     drop = losses[0] - losses[-1]
     print(f"train: loss {losses[0]:.4f} -> {losses[-1]:.4f}, drop {drop:.4f} nats (need >= 0.5)",
           flush=True)
     if not drop >= 0.5:
         fail(f"the loss fell by {drop} nats in {TRAIN_STEPS} steps, expected >= 0.5")
-    L = cfg.num_layers
-    want = {"flash_fwd": 0, "flash_fwd_lse": 2 * L * TRAIN_STEPS,
-            "flash_bwd_dq": L * TRAIN_STEPS, "flash_bwd_dkv": L * TRAIN_STEPS,
-            "ssd_fwd": 0, "mlstm_fwd": 0}
+    want = _train_launches(cfg.num_layers, TRAIN_STEPS)
+    launches = run["launches"]
     print(f"train: launches {launches}; expected {want} (remat: the forward runs twice a step)",
           flush=True)
     if launches != want:
         fail(f"train launches {launches} differ from {want}")
 
-    step_ms = [1e3 * h["step_time_s"] for h in hist]
-    steady = step_ms[1:]  # the first step pays one-time warm-up
-    mean_ms = sum(steady) / len(steady)
-    tokens = B * S
+    mean_ms = run["mean_ms"]
+    tokens = TRAIN_B * TRAIN_S
     mfu = 6.0 * n_params * tokens / (mean_ms / 1e3) / PEAK_FLOPS["bfloat16"]
-    print(f"train: per-step ms {[round(t, 2) for t in step_ms]}", flush=True)
+    print(f"train: per-step ms {[round(t, 2) for t in run['step_ms']]}", flush=True)
     print(f"train: steady step {mean_ms:.2f} ms (mean of steps 1-{TRAIN_STEPS - 1}), "
           f"{tokens / (mean_ms / 1e3):.1f} tokens/s, MFU {mfu:.2%} (6 N tokens / step time / "
-          f"989 TFLOP/s), max_memory_allocated {peak / 2**30:.2f} GiB [{smi}]", flush=True)
-    return launches
+          f"989 TFLOP/s), max_memory_allocated {run['peak'] / 2**30:.2f} GiB [{smi}]", flush=True)
+    return run
+
+
+def _largest_gap(got: list, want: list) -> float:
+    return max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got, want))
+
+
+def phase_train_dist(smi: str, train: dict) -> None:
+    """The ``manual_hier`` step on a (1, 1, 1) ("pod", "data", "model") mesh
+    of one rank through NCCL: the same model, seed, data and kernels as
+    ``phase_train``, whose losses, grad_norms and launches it must match."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.collectives import byte_ledger
+    from repro_torch.launch.mesh import free_port, make_mesh
+    from repro_torch.train.train_step import make_train_step
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1, 1), ("pod", "data", "model"), device="cuda")
+        print(f"train_dist: backend {dist.get_backend()}, world {dist.get_world_size()}, mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} on {torch.cuda.get_device_name(0)}",
+              flush=True)
+        if dist.get_backend() != "nccl":
+            fail(f"train_dist runs on {dist.get_backend()}, not NCCL")
+        cfg, zoo, ocfg, data = _train_setup()
+        runs = {}
+        for schedule, steps in (("hierarchical", TRAIN_STEPS), ("flat", DIST_FLAT_STEPS)):
+            params, opt = _train_init(zoo, ocfg)
+            step_fn = make_train_step(zoo, ocfg, microbatches=1, device="cuda", mesh=mesh,
+                                      dp_mode="manual_hier", schedule=schedule)
+            with byte_ledger() as ledger:
+                run = _train_run(f"train_dist {schedule}", step_fn, params, opt, data, steps)
+            del params, opt, step_fn
+            torch.cuda.empty_cache()
+            run["ledger"] = ledger
+            runs[schedule] = run
+            want = _train_launches(cfg.num_layers, steps)
+            if run["launches"] != want:
+                fail(f"train_dist {schedule}: launches {run['launches']} differ from {want}")
+        hier, flat = runs["hierarchical"], runs["flat"]
+        gaps = {"loss": _largest_gap(hier["loss"], train["loss"]),
+                "grad_norm": _largest_gap(hier["grad_norm"], train["grad_norm"]),
+                "flat loss": _largest_gap(flat["loss"], hier["loss"][:DIST_FLAT_STEPS])}
+        print(f"train_dist: largest relative gap to phase train: loss {gaps['loss']:.3e}, "
+              f"grad_norm {gaps['grad_norm']:.3e}; flat's loss to hierarchical's "
+              f"{gaps['flat loss']:.3e} (tol {DIST_REL_TOL:g})", flush=True)
+        for what, gap in gaps.items():
+            if not gap <= DIST_REL_TOL:
+                fail(f"train_dist: {what} differs by {gap:.3e} relative (tol {DIST_REL_TOL:g})")
+        print(f"train_dist: launches {hier['launches']} in {TRAIN_STEPS} hierarchical steps, "
+              f"the same as phase train's", flush=True)
+        try:
+            make_train_step(zoo, ocfg, device="cuda", mesh=mesh, schedule="compressed")
+        except ValueError as e:
+            print(f"train_dist: compressed refused on this mesh (a world of one has no 'pod' "
+                  f"axis of size > 1; its int8 path is held against JAX on the CPU gloo "
+                  f"worlds): {e}", flush=True)
+        else:
+            fail("train_dist: the compressed schedule ran on a mesh whose pod axis is 1")
+        for schedule, run in runs.items():
+            steps = len(run["loss"])
+            ar = run["ledger"].bytes("all_reduce") // steps
+            moved = run["ledger"].bytes() // steps
+            print(f"train_dist: {schedule}: per-step ms {[round(t, 2) for t in run['step_ms']]}; "
+                  f"steady step {run['mean_ms']:.2f} ms (mean of steps 1-{steps - 1}) against "
+                  f"phase train's {train['mean_ms']:.2f} ms: overhead "
+                  f"{run['mean_ms'] - train['mean_ms']:+.2f} ms a step for the flatten, pad, "
+                  f"collectives and unpad; collective results {moved / 1e9:.3f} GB a step "
+                  f"({ar / 1e9:.3f} GB all-reduce); max_memory_allocated "
+                  f"{run['peak'] / 2**30:.2f} GiB (train {train['peak'] / 2**30:.2f}) [{smi}]",
+                  flush=True)
+    finally:
+        dist.destroy_process_group()
 
 
 def main() -> None:
@@ -1347,7 +1466,10 @@ def main() -> None:
     launches.update(phase_serve_xlstm(smi))
     torch.cuda.empty_cache()
     train = phase_train(smi)
-    launches.update({k: train[k] for k in ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")})
+    torch.cuda.empty_cache()
+    phase_train_dist(smi, train)
+    launches.update({k: train["launches"][k]
+                     for k in ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")})
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(smi)

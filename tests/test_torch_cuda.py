@@ -1,7 +1,7 @@
 """Tests of the port that need a CUDA card: the hand-written kernels against
 their plain versions, on the card (flash attention, the SSD scan, the
-chunkwise mLSTM), and the smoke models on the card against the CPU.  They
-skip elsewhere.
+chunkwise mLSTM), the smoke models on the card against the CPU, and the
+collectives on a world of one through NCCL.  They skip elsewhere.
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
@@ -363,3 +363,31 @@ def test_scan_wrappers_reject_what_the_kernels_do_not_take(card):
         mlstm_mod.mlstm_fwd(*_mlstm_inputs(1, 64, 1, 320))
     with pytest.raises(ValueError, match="chunk up to 256"):
         mlstm_mod.mlstm_fwd(*_mlstm_inputs(1, 512, 1, 32), chunk=512)
+
+
+def test_hierarchical_all_reduce_on_a_world_of_one_nccl_mesh(card):
+    """The Eq. 8 schedule and the byte ledger through NCCL on the card: one
+    rank, so each collective returns its input, and the ledger holds V for
+    each phase (the reduce-scatter over one rank keeps all of V)."""
+    import torch.distributed as dist
+
+    from repro_torch.collectives import byte_ledger, flat_all_reduce, hierarchical_all_reduce
+    from repro_torch.launch.mesh import free_port, make_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1, 1), ("pod", "data", "model"), "cuda")
+        assert dist.get_backend() == "nccl"
+        x = torch.randn(4096, 3, device="cuda").to(torch.bfloat16)
+        with byte_ledger() as ledger:
+            hier = hierarchical_all_reduce(x, mesh, "data", "pod")
+            flat = flat_all_reduce(x, mesh, ("pod", "data"))
+        assert hier.is_cuda and hier.dtype == torch.bfloat16
+        assert torch.equal(hier, x) and torch.equal(flat, x)
+        v = x.numel() * x.element_size()
+        assert [(r.op, r.axes, r.nbytes) for r in ledger.records] == [
+            ("reduce_scatter", ("data",), v), ("all_reduce", ("pod",), v),
+            ("all_gather", ("data",), v), ("all_reduce", ("pod", "data"), v)]
+    finally:
+        dist.destroy_process_group()

@@ -13,11 +13,12 @@
   through the SSD kernel, the token-by-token cache fill (profiled over its
   first 32 steps), one decode step.
 
-* train_dist (the ``chip_smoke.py`` train_dist phase): the ``manual_hier``
-  gradient reduction on a world of one (NCCL, mesh (1, 1, 1)), on
-  llama3.2-3b-shaped bf16 gradients: device time per schedule (events, and
-  the profiler's kernels) beside the bytes it moves; then the one-process
-  step and the distributed steps in turns, 4 rounds of each.
+* train_dist (the ``chip_smoke.py`` train_dist and train_fsdp phases): the
+  ``manual_hier`` gradient reduction on a world of one (NCCL, mesh
+  (1, 1, 1)), on llama3.2-3b-shaped bf16 gradients: device time per schedule
+  (events, and the profiler's kernels) beside the bytes it moves; then the
+  one-process step, the ``gspmd_fsdp`` step and the ``manual_hier`` steps in
+  turns, 4 rounds of each.
 
 * dist_cards (needs 4 cards, one rank each, NCCL; ``--chips 4``): the
   collectives on a (2, 2) ("pod", "data") mesh, every rank against the sums,
@@ -27,7 +28,13 @@
   the byte ledger); then llama3.2-3b at full width trained 3 steps on one
   card with the global batch of 4 x 1024 tokens and 3 steps of each of
   ``hierarchical`` and ``flat`` on the (2, 2, 1) ("pod", "data", "model")
-  world, one sequence a rank, against it.
+  world, one sequence a rank, against it; then 3 ``gspmd_fsdp`` steps on
+  (1, 2, 2): params and moments sharded, FSDP over "data" and tensor
+  parallelism over "model", two sequences a data rank (losses against one
+  card's, peak memory a card, step time, collective bytes by op and axes),
+  one more step under the profiler on rank 0, and then the ``gspmd_fsdp``
+  and ``manual_hier`` (``hierarchical``, (2, 2, 1)) steps in turns, 4
+  rounds.
 
 And an A/B of the flash-attention kernels against another checkout:
 
@@ -231,9 +238,12 @@ def profile_train_dist(smi: str) -> None:
             _report(f"reduce_{sched}", prof, host_ms, unit="step")
         del grads
 
-        fns = {"one process": make_train_step(zoo, ocfg, device="cuda")}
+        # on one rank the gspmd_fsdp blocks are the whole leaves: the same params serve
+        fns = {"one process": make_train_step(zoo, ocfg, device="cuda"),
+               "gspmd_fsdp": make_train_step(zoo, ocfg, device="cuda", mesh=mesh)}
         for sched in ("hierarchical", "flat"):
-            fns[sched] = make_train_step(zoo, ocfg, device="cuda", mesh=mesh, schedule=sched)
+            fns[sched] = make_train_step(zoo, ocfg, device="cuda", mesh=mesh,
+                                         dp_mode="manual_hier", schedule=sched)
         state = {"opt": opt, "i": 0}
 
         def step(fn):
@@ -357,7 +367,8 @@ def cards_train(rank: int, world: int, device: str, smi: str) -> None:
     runs = {}
     for sched in ("hierarchical", "flat"):
         params, opt = _train_init(zoo, ocfg)
-        step_fn = make_train_step(zoo, ocfg, device=device, mesh=mesh, schedule=sched)
+        step_fn = make_train_step(zoo, ocfg, device=device, mesh=mesh, dp_mode="manual_hier",
+                                  schedule=sched)
         runs[sched] = _train_run(f"cards rank {rank} {sched}", step_fn, params, opt, data,
                                  CARDS_STEPS)
         del params, opt, step_fn
@@ -377,6 +388,106 @@ def cards_train(rank: int, world: int, device: str, smi: str) -> None:
                   flush=True)
             if not gap <= CARDS_LOSS_REL:
                 raise RuntimeError(f"cards train {sched}: loss gap {gap:.3e}")
+    cards_fsdp(rank, world, device, smi, one)
+
+
+def cards_fsdp(rank: int, world: int, device: str, smi: str, one) -> None:
+    """The gspmd_fsdp step on (1, 2, world / 2) ("pod", "data", "model"):
+    params and moments sharded (FSDP over "data", TP over "model"), two
+    sequences a data rank; against one card's run with the global batch."""
+    import torch
+
+    from chip_smoke import _largest_gap, _train_init, _train_launches, _train_run
+    from chip_smoke import _train_setup
+    from repro_torch.collectives import byte_ledger
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import param_layout
+    from repro_torch.train.train_step import make_train_step
+
+    cfg, zoo, ocfg, data = _train_setup()
+    mesh = make_mesh((1, 2, world // 2), ("pod", "data", "model"), device)
+    layout = param_layout(zoo, mesh)
+    params, opt = _train_init(zoo, ocfg, layout)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    step_fn = make_train_step(zoo, ocfg, device=device, mesh=mesh)
+    with byte_ledger() as ledger:
+        run = _train_run(f"cards rank {rank} gspmd_fsdp", step_fn, params, opt, data,
+                         CARDS_STEPS)
+    want = _train_launches(cfg.num_layers, CARDS_STEPS)
+    if run["launches"] != want:
+        raise RuntimeError(f"rank {rank} gspmd_fsdp: launches {run['launches']} differ from "
+                           f"{want}")
+    # one more step on every rank, under the profiler on rank 0
+    batch = data.batch(CARDS_STEPS)
+    if rank == 0:
+        prof, host_ms = _profiled(lambda: step_fn(params, opt, batch)[2]["loss"].item())
+        _report("cards gspmd_fsdp step (rank 0)", prof, host_ms, unit="step")
+    else:
+        step_fn(params, opt, batch)[2]["loss"].item()
+    if rank == 0:
+        by = {}
+        for r in ledger.records:
+            key = f"{r.op}({','.join(r.axes)})"
+            by[key] = by.get(key, 0) + r.nbytes
+        gap = _largest_gap(run["loss"], one["loss"])
+        print(f"cards train gspmd_fsdp on {dict(zip(mesh.mesh_dim_names, mesh.shape))}: losses "
+              f"{run['loss']} against one card's {one['loss']}, largest relative gap "
+              f"{gap:.3e} (tol {CARDS_LOSS_REL:g}); grad_norms {run['grad_norm']} against "
+              f"{one['grad_norm']}; per-step ms {[round(t, 2) for t in run['step_ms']]} "
+              f"against one card's {[round(t, 2) for t in one['step_ms']]}; params + moments "
+              f"held {held / 2**30:.2f} GiB a card; max_memory_allocated "
+              f"{run['peak'] / 2**30:.2f} GiB (one card {one['peak'] / 2**30:.2f}); collective "
+              f"results GB a rank a step "
+              f"{({k: round(b / CARDS_STEPS / 1e9, 4) for k, b in by.items()})} [{smi}]",
+              flush=True)
+        if not gap <= CARDS_LOSS_REL:
+            raise RuntimeError(f"cards train gspmd_fsdp: loss gap {gap:.3e}")
+    cards_in_turns(rank, world, smi, step_fn, params, opt)
+
+
+def cards_in_turns(rank: int, world: int, smi: str, fsdp_step, params, opt) -> None:
+    """The gspmd_fsdp step on (1, 2, world / 2) and the manual_hier
+    ``hierarchical`` step on (2, world / 2, 1), the same global batch, in
+    turns: 4 rounds, each step started together on every rank."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from chip_smoke import _train_init, _train_setup
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.train_step import make_train_step
+
+    cfg, zoo, ocfg, data = _train_setup()
+    mesh = make_mesh((2, world // 2, 1), ("pod", "data", "model"), "cuda")
+    mh_params, mh_opt = _train_init(zoo, ocfg)
+    steps = {"gspmd_fsdp": [fsdp_step, params, opt],
+             "manual_hier": [make_train_step(zoo, ocfg, device="cuda", mesh=mesh,
+                                             dp_mode="manual_hier"), mh_params, mh_opt]}
+    state = {"i": 0}
+
+    def timed(name):
+        fn, p, o = steps[name]
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, steps[name][2], m = fn(p, o, data.batch(state["i"]))
+        m["loss"].item()
+        state["i"] += 1
+        return (time.perf_counter() - t0) * 1e3
+
+    for name in steps:
+        timed(name)  # warm-up
+    times = {k: [] for k in steps}
+    names = list(steps)
+    for r in range(4):
+        for k in (names if r % 2 == 0 else names[::-1]):
+            times[k].append(timed(k))
+    if rank == 0:
+        for k, ts in times.items():
+            print(f"cards in turns {k}: step ms {[round(t, 2) for t in ts]}, median "
+                  f"{statistics.median(ts):.2f} [{smi}]", flush=True)
 
 
 def _cards_rank(rank: int, world: int, port: int, smi: str) -> None:

@@ -44,6 +44,15 @@ Phases, each printed as it runs; any failure exits non-zero:
            steps of ``flat`` against them; the ``compressed`` schedule is
            refused there (no pod axis of size > 1).  Prints each schedule's
            steady step time beside phase 8's.
+10. train_fsdp  the same model, seed and data through the sharded
+           ``gspmd_fsdp`` step (the default dp_mode with a mesh) on the same
+           world of one: params and AdamW moments stored as the rank's blocks
+           of the reference's layout (``param_layout``; on one rank the
+           blocks are the whole leaves), each layer's leaves gathered inside
+           its rematerialised function, the global loss and grad norm.  8
+           steps whose losses and grad_norms must equal phase 8's within rel
+           1e-5 and whose launches must equal phase 8's; prints its steady
+           step time and peak memory beside phase 8's.
 
 Every serve and train phase sets all launch counts to 0 before it runs and
 reads them after; the ``kernels`` line reports each kernel's launches from
@@ -56,6 +65,7 @@ printing any result.  It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1291,8 +1301,9 @@ def _train_setup():
     return cfg, get_model(cfg), ocfg, data
 
 
-def _train_init(zoo, ocfg):
-    """Weights from seed 0 on the card, and fresh AdamW state."""
+def _train_init(zoo, ocfg, layout=None):
+    """Weights from seed 0 on the card (with ``layout``, this rank's blocks
+    of them), and fresh AdamW state."""
     import torch
 
     from repro_torch.train import optimizer as opt_lib
@@ -1300,6 +1311,8 @@ def _train_init(zoo, ocfg):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     params = zoo.init(gen, device="cuda")
+    if layout is not None:
+        params = layout.shard(params)
     params.requires_grad_(True)
     return params, opt_lib.init(ocfg, params)
 
@@ -1380,75 +1393,125 @@ def _largest_gap(got: list, want: list) -> float:
     return max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got, want))
 
 
-def phase_train_dist(smi: str, train: dict) -> None:
-    """The ``manual_hier`` step on a (1, 1, 1) ("pod", "data", "model") mesh
-    of one rank through NCCL: the same model, seed, data and kernels as
-    ``phase_train``, whose losses, grad_norms and launches it must match."""
+@contextlib.contextmanager
+def _world_of_one():
+    """A (1, 1, 1) ("pod", "data", "model") mesh of one rank through NCCL."""
     import torch
     import torch.distributed as dist
 
-    from repro_torch.collectives import byte_ledger
     from repro_torch.launch.mesh import free_port, make_mesh
-    from repro_torch.train.train_step import make_train_step
 
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
                             world_size=1)
     try:
         mesh = make_mesh((1, 1, 1), ("pod", "data", "model"), device="cuda")
-        print(f"train_dist: backend {dist.get_backend()}, world {dist.get_world_size()}, mesh "
+        print(f"world of one: backend {dist.get_backend()}, world {dist.get_world_size()}, mesh "
               f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} on {torch.cuda.get_device_name(0)}",
               flush=True)
         if dist.get_backend() != "nccl":
-            fail(f"train_dist runs on {dist.get_backend()}, not NCCL")
-        cfg, zoo, ocfg, data = _train_setup()
-        runs = {}
-        for schedule, steps in (("hierarchical", TRAIN_STEPS), ("flat", DIST_FLAT_STEPS)):
-            params, opt = _train_init(zoo, ocfg)
-            step_fn = make_train_step(zoo, ocfg, microbatches=1, device="cuda", mesh=mesh,
-                                      dp_mode="manual_hier", schedule=schedule)
-            with byte_ledger() as ledger:
-                run = _train_run(f"train_dist {schedule}", step_fn, params, opt, data, steps)
-            del params, opt, step_fn
-            torch.cuda.empty_cache()
-            run["ledger"] = ledger
-            runs[schedule] = run
-            want = _train_launches(cfg.num_layers, steps)
-            if run["launches"] != want:
-                fail(f"train_dist {schedule}: launches {run['launches']} differ from {want}")
-        hier, flat = runs["hierarchical"], runs["flat"]
-        gaps = {"loss": _largest_gap(hier["loss"], train["loss"]),
-                "grad_norm": _largest_gap(hier["grad_norm"], train["grad_norm"]),
-                "flat loss": _largest_gap(flat["loss"], hier["loss"][:DIST_FLAT_STEPS])}
-        print(f"train_dist: largest relative gap to phase train: loss {gaps['loss']:.3e}, "
-              f"grad_norm {gaps['grad_norm']:.3e}; flat's loss to hierarchical's "
-              f"{gaps['flat loss']:.3e} (tol {DIST_REL_TOL:g})", flush=True)
-        for what, gap in gaps.items():
-            if not gap <= DIST_REL_TOL:
-                fail(f"train_dist: {what} differs by {gap:.3e} relative (tol {DIST_REL_TOL:g})")
-        print(f"train_dist: launches {hier['launches']} in {TRAIN_STEPS} hierarchical steps, "
-              f"the same as phase train's", flush=True)
-        try:
-            make_train_step(zoo, ocfg, device="cuda", mesh=mesh, schedule="compressed")
-        except ValueError as e:
-            print(f"train_dist: compressed refused on this mesh (a world of one has no 'pod' "
-                  f"axis of size > 1; its int8 path is held against JAX on the CPU gloo "
-                  f"worlds): {e}", flush=True)
-        else:
-            fail("train_dist: the compressed schedule ran on a mesh whose pod axis is 1")
-        for schedule, run in runs.items():
-            steps = len(run["loss"])
-            ar = run["ledger"].bytes("all_reduce") // steps
-            moved = run["ledger"].bytes() // steps
-            print(f"train_dist: {schedule}: per-step ms {[round(t, 2) for t in run['step_ms']]}; "
-                  f"steady step {run['mean_ms']:.2f} ms (mean of steps 1-{steps - 1}) against "
-                  f"phase train's {train['mean_ms']:.2f} ms: overhead "
-                  f"{run['mean_ms'] - train['mean_ms']:+.2f} ms a step for the flatten, pad, "
-                  f"collectives and unpad; collective results {moved / 1e9:.3f} GB a step "
-                  f"({ar / 1e9:.3f} GB all-reduce); max_memory_allocated "
-                  f"{run['peak'] / 2**30:.2f} GiB (train {train['peak'] / 2**30:.2f}) [{smi}]",
-                  flush=True)
+            fail(f"the world of one runs on {dist.get_backend()}, not NCCL")
+        yield mesh
     finally:
         dist.destroy_process_group()
+
+
+def _check_gaps(tag: str, gaps: dict) -> None:
+    for what, gap in gaps.items():
+        if not gap <= DIST_REL_TOL:
+            fail(f"{tag}: {what} differs by {gap:.3e} relative (tol {DIST_REL_TOL:g})")
+
+
+def phase_train_dist(smi: str, train: dict, mesh) -> None:
+    """The ``manual_hier`` step on the world of one: the same model, seed,
+    data and kernels as ``phase_train``, whose losses, grad_norms and
+    launches it must match."""
+    import torch
+
+    from repro_torch.collectives import byte_ledger
+    from repro_torch.train.train_step import make_train_step
+
+    cfg, zoo, ocfg, data = _train_setup()
+    runs = {}
+    for schedule, steps in (("hierarchical", TRAIN_STEPS), ("flat", DIST_FLAT_STEPS)):
+        params, opt = _train_init(zoo, ocfg)
+        step_fn = make_train_step(zoo, ocfg, microbatches=1, device="cuda", mesh=mesh,
+                                  dp_mode="manual_hier", schedule=schedule)
+        with byte_ledger() as ledger:
+            run = _train_run(f"train_dist {schedule}", step_fn, params, opt, data, steps)
+        del params, opt, step_fn
+        torch.cuda.empty_cache()
+        run["ledger"] = ledger
+        runs[schedule] = run
+        want = _train_launches(cfg.num_layers, steps)
+        if run["launches"] != want:
+            fail(f"train_dist {schedule}: launches {run['launches']} differ from {want}")
+    hier, flat = runs["hierarchical"], runs["flat"]
+    gaps = {"loss": _largest_gap(hier["loss"], train["loss"]),
+            "grad_norm": _largest_gap(hier["grad_norm"], train["grad_norm"]),
+            "flat loss": _largest_gap(flat["loss"], hier["loss"][:DIST_FLAT_STEPS])}
+    print(f"train_dist: largest relative gap to phase train: loss {gaps['loss']:.3e}, "
+          f"grad_norm {gaps['grad_norm']:.3e}; flat's loss to hierarchical's "
+          f"{gaps['flat loss']:.3e} (tol {DIST_REL_TOL:g})", flush=True)
+    _check_gaps("train_dist", gaps)
+    print(f"train_dist: launches {hier['launches']} in {TRAIN_STEPS} hierarchical steps, "
+          f"the same as phase train's", flush=True)
+    try:
+        make_train_step(zoo, ocfg, device="cuda", mesh=mesh, dp_mode="manual_hier",
+                        schedule="compressed")
+    except ValueError as e:
+        print(f"train_dist: compressed refused on this mesh (a world of one has no 'pod' "
+              f"axis of size > 1; its int8 path is held against JAX on the CPU gloo "
+              f"worlds): {e}", flush=True)
+    else:
+        fail("train_dist: the compressed schedule ran on a mesh whose pod axis is 1")
+    for schedule, run in runs.items():
+        steps = len(run["loss"])
+        ar = run["ledger"].bytes("all_reduce") // steps
+        moved = run["ledger"].bytes() // steps
+        print(f"train_dist: {schedule}: per-step ms {[round(t, 2) for t in run['step_ms']]}; "
+              f"steady step {run['mean_ms']:.2f} ms (mean of steps 1-{steps - 1}) against "
+              f"phase train's {train['mean_ms']:.2f} ms: overhead "
+              f"{run['mean_ms'] - train['mean_ms']:+.2f} ms a step for the flatten, pad, "
+              f"collectives and unpad; collective results {moved / 1e9:.3f} GB a step "
+              f"({ar / 1e9:.3f} GB all-reduce); max_memory_allocated "
+              f"{run['peak'] / 2**30:.2f} GiB (train {train['peak'] / 2**30:.2f}) [{smi}]",
+              flush=True)
+
+
+def phase_train_fsdp(smi: str, train: dict, mesh) -> None:
+    """The ``gspmd_fsdp`` step (the default with a mesh) on the world of
+    one: params and moments as the rank's blocks of ``param_layout``; the
+    same model, seed, data and kernels as ``phase_train``, whose losses,
+    grad_norms and launches it must match."""
+    import torch
+
+    from repro_torch.collectives import byte_ledger
+    from repro_torch.parallel.sharding import param_layout
+    from repro_torch.train.train_step import make_train_step
+
+    cfg, zoo, ocfg, data = _train_setup()
+    layout = param_layout(zoo, mesh)
+    params, opt = _train_init(zoo, ocfg, layout)
+    step_fn = make_train_step(zoo, ocfg, microbatches=1, device="cuda", mesh=mesh)
+    with byte_ledger() as ledger:
+        run = _train_run("train_fsdp", step_fn, params, opt, data, TRAIN_STEPS)
+    del params, opt, step_fn
+    torch.cuda.empty_cache()
+    want = _train_launches(cfg.num_layers, TRAIN_STEPS)
+    if run["launches"] != want:
+        fail(f"train_fsdp: launches {run['launches']} differ from {want}")
+    gaps = {"loss": _largest_gap(run["loss"], train["loss"]),
+            "grad_norm": _largest_gap(run["grad_norm"], train["grad_norm"])}
+    print(f"train_fsdp: largest relative gap to phase train: loss {gaps['loss']:.3e}, grad_norm "
+          f"{gaps['grad_norm']:.3e} (tol {DIST_REL_TOL:g}); launches {run['launches']}, the "
+          f"same as phase train's", flush=True)
+    _check_gaps("train_fsdp", gaps)
+    print(f"train_fsdp: per-step ms {[round(t, 2) for t in run['step_ms']]}; steady step "
+          f"{run['mean_ms']:.2f} ms (mean of steps 1-{TRAIN_STEPS - 1}) against phase train's "
+          f"{train['mean_ms']:.2f} ms: {run['mean_ms'] - train['mean_ms']:+.2f} ms a step; "
+          f"collective results {ledger.bytes() / TRAIN_STEPS / 1e9:.3f} GB a step (a world of "
+          f"one issues none); max_memory_allocated {run['peak'] / 2**30:.2f} GiB (train "
+          f"{train['peak'] / 2**30:.2f}) [{smi}]", flush=True)
 
 
 def main() -> None:
@@ -1467,7 +1530,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     train = phase_train(smi)
     torch.cuda.empty_cache()
-    phase_train_dist(smi, train)
+    with _world_of_one() as mesh:
+        phase_train_dist(smi, train, mesh)
+        torch.cuda.empty_cache()
+        phase_train_fsdp(smi, train, mesh)
     launches.update({k: train["launches"][k]
                      for k in ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")})
     for k in kernels:

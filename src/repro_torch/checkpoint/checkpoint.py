@@ -21,6 +21,13 @@ writes as raw 2-byte records (header descr ``<V2``) with the manifest dtype
 ``|V2``, so it writes that header itself) and reads such a leaf back as
 bf16.  (The reference's own ``restore`` cannot read it back: ``jnp.asarray``
 refuses the ``V2`` records.)
+
+A sharded run (``gspmd_fsdp``) saves and restores with ``layout=`` (the
+params' ``parallel.sharding.Layout``; the AdamW moments share it): ``save``
+gathers every leaf whole, leaf by leaf, on every rank (a collective: every
+rank calls it), rank 0 writes, and all ranks wait for the write; the files
+are the one-process layout, so either package restores them onto any mesh.
+``restore`` reads whole leaves and keeps this rank's block of each.
 """
 
 from __future__ import annotations
@@ -34,8 +41,10 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.common import ParamTree
+from ..parallel.sharding import Layout
 from ..train.optimizer import AdamWState
 
 try:
@@ -82,14 +91,28 @@ def _from_numpy(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
-def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[Dict[str, Any]] = None) -> str:
-    """Atomic: write into a temp dir, rename it, then update LATEST."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+def is_writer(layout: Optional[Layout]) -> bool:
+    """Whether this process writes a checkpoint: always without a layout,
+    rank 0 with one."""
+    return layout is None or dist.get_rank() == 0
+
+
+def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[Dict[str, Any]] = None,
+         layout: Optional[Layout] = None) -> str:
+    """Atomic: write into a temp dir, rename it, then update LATEST.  With
+    ``layout``, every rank calls it (see the module docstring)."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
-    tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
+    writer = is_writer(layout)
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
     manifest: Dict[str, Any] = {"step": step, "leaves": {}, "extra": extra or {}}
     comp = zstd.ZstdCompressor(level=3) if zstd else None
     for key, leaf in _leaf_paths(tree).items():
+        if layout is not None and torch.is_tensor(leaf) and layout.key_of(key):
+            leaf = layout.whole(layout.key_of(key), leaf)
+        if not writer:
+            continue
         data, shape, dtype_name = _npy_bytes(leaf)
         fname = key.replace("/", "__") + ".npy" + (".zst" if comp else "")
         if comp:
@@ -97,14 +120,17 @@ def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[Dict[str, Any]] = 
         with open(os.path.join(tmp, fname), "wb") as f:
             f.write(data)
         manifest["leaves"][key] = {"file": fname, "shape": shape, "dtype": dtype_name}
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)
-    with open(os.path.join(ckpt_dir, ".LATEST.tmp"), "w") as f:
-        f.write(os.path.basename(final))
-    os.replace(os.path.join(ckpt_dir, ".LATEST.tmp"), os.path.join(ckpt_dir, "LATEST"))
+    if writer:
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+        with open(os.path.join(ckpt_dir, ".LATEST.tmp"), "w") as f:
+            f.write(os.path.basename(final))
+        os.replace(os.path.join(ckpt_dir, ".LATEST.tmp"), os.path.join(ckpt_dir, "LATEST"))
+    if layout is not None:
+        dist.barrier()
     return final
 
 
@@ -117,18 +143,20 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return int(name.split("_")[-1])
 
 
-def _rebuild(like: Any, leaves: Dict[str, Any], prefix: str = "") -> Any:
-    """``like`` with every leaf replaced by the loaded one of its path."""
+def _rebuild(like: Any, leaves: Dict[str, Any], layout: Optional[Layout],
+             prefix: str = "") -> Any:
+    """``like`` with every leaf replaced by the loaded one of its path (with
+    ``layout``, this rank's block of it)."""
     if isinstance(like, ParamTree):
-        state = {k: _rebuild(v, leaves, f"{prefix}{k.replace('.', '/')}/")
+        state = {k: _rebuild(v, leaves, layout, f"{prefix}{k.replace('.', '/')}/")
                  for k, v in like.state_dict().items()}
         requires_grad = any(p.requires_grad for p in like.parameters())
         return ParamTree.from_state_dict(state, requires_grad)
     if isinstance(like, AdamWState):
-        return AdamWState(**{k: _rebuild(getattr(like, k), leaves, f"{prefix}{k}/")
+        return AdamWState(**{k: _rebuild(getattr(like, k), leaves, layout, f"{prefix}{k}/")
                              for k in like._fields})
     if isinstance(like, Mapping):
-        return {k: _rebuild(v, leaves, f"{prefix}{str(k).replace('.', '/')}/")
+        return {k: _rebuild(v, leaves, layout, f"{prefix}{str(k).replace('.', '/')}/")
                 for k, v in like.items()}
     key = prefix[:-1]
     if key not in leaves:
@@ -138,14 +166,20 @@ def _rebuild(like: Any, leaves: Dict[str, Any], prefix: str = "") -> Any:
         if arr.shape != ():
             raise ValueError(f"{key}: shape {arr.shape} != expected ()")
         return int(arr)
-    if list(arr.shape) != list(like.shape):
-        raise ValueError(f"{key}: shape {arr.shape} != expected {tuple(like.shape)}")
-    return _from_numpy(arr, dtype_name).to(dtype=like.dtype, device=like.device)
+    t = _from_numpy(arr, dtype_name)
+    if layout is not None and layout.key_of(key):
+        t = layout.block(layout.key_of(key), t)
+    if list(t.shape) != list(like.shape):
+        raise ValueError(f"{key}: shape {tuple(t.shape)} != expected {tuple(like.shape)}")
+    return t.to(dtype=like.dtype, device=like.device)
 
 
-def restore(ckpt_dir: str, tree_like: Any, step: Optional[int] = None) -> Tuple[Any, Dict[str, Any]]:
+def restore(ckpt_dir: str, tree_like: Any, step: Optional[int] = None,
+            layout: Optional[Layout] = None) -> Tuple[Any, Dict[str, Any]]:
     """Load into the structure of ``tree_like`` (tensors give shape, dtype
-    and device; an int leaf stays an int).  Returns (tree, extra)."""
+    and device; an int leaf stays an int).  With ``layout``, ``tree_like``
+    holds this rank's blocks and each gets its block of the whole leaf.
+    Returns (tree, extra)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -163,4 +197,4 @@ def restore(ckpt_dir: str, tree_like: Any, step: Optional[int] = None) -> Tuple[
                 raise RuntimeError(f"{meta['file']} is zstd-compressed and zstandard is missing")
             data = dec.decompress(data)
         leaves[key] = (np.load(io.BytesIO(data), allow_pickle=False), meta["dtype"])
-    return _rebuild(tree_like, leaves), manifest["extra"]
+    return _rebuild(tree_like, leaves, layout), manifest["extra"]

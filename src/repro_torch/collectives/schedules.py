@@ -22,9 +22,9 @@ all-gather in reverse).  A reduction runs in the tensor's own dtype, as
 ``psum`` does.
 
 ``byte_ledger()`` is the counterpart of the reference's HLO byte count
-(``tests/test_distributed.py``): inside it, every collective records its
-op, its mesh axes and the bytes of its result on this rank (the shapes that
-the HLO count reads).
+(``tests/test_distributed.py``): inside it, every collective of the process
+records its op, its mesh axes and the bytes of its result on this rank (the
+shapes that the HLO count reads).
 
 An all-reduce over several axes at once needs one process group over their
 joint ranks.  ``attach_joint_groups`` creates every such group with
@@ -36,7 +36,6 @@ used.
 from __future__ import annotations
 
 import contextlib
-import contextvars
 import dataclasses
 import itertools
 from typing import Callable, Dict, Iterator, List, Mapping, Optional, Tuple, Union
@@ -89,26 +88,27 @@ class ByteLedger:
                    if (op is None or r.op == op) and (spanning is None or spanning in r.axes))
 
 
-_LEDGER: contextvars.ContextVar[Optional[ByteLedger]] = contextvars.ContextVar(
-    "railx_byte_ledger", default=None)
+# open ledgers, innermost last.  Process-wide, not per thread: on the card
+# the autograd engine runs a backward (and the collectives in it) on a
+# thread of its own.
+_LEDGERS: List[ByteLedger] = []
 
 
 @contextlib.contextmanager
 def byte_ledger() -> Iterator[ByteLedger]:
-    """Record every collective issued inside the block (the innermost
-    ledger records)."""
+    """Record every collective that this process issues inside the block,
+    in a backward too (the innermost ledger records)."""
     ledger = ByteLedger()
-    token = _LEDGER.set(ledger)
+    _LEDGERS.append(ledger)
     try:
         yield ledger
     finally:
-        _LEDGER.reset(token)
+        _LEDGERS.remove(ledger)
 
 
 def _record(op: str, axes: Tuple[str, ...], out: torch.Tensor) -> None:
-    ledger = _LEDGER.get()
-    if ledger is not None:
-        ledger.records.append(Transfer(op, axes, out.numel() * out.element_size()))
+    if _LEDGERS:
+        _LEDGERS[-1].records.append(Transfer(op, axes, out.numel() * out.element_size()))
 
 
 # ---------------------------------------------------------------------------
@@ -172,10 +172,11 @@ def _all_gather_one(x: torch.Tensor, mesh: DeviceMesh, axis: str, dim: int) -> t
     return out.movedim(0, dim)
 
 
-def _all_reduce_(buf: torch.Tensor, mesh: DeviceMesh, axes: Tuple[str, ...]) -> torch.Tensor:
+def _all_reduce_(buf: torch.Tensor, mesh: DeviceMesh, axes: Tuple[str, ...],
+                 op: dist.ReduceOp = dist.ReduceOp.SUM) -> torch.Tensor:
     """All-reduce a contiguous buffer of this rank's in place."""
     if axes:
-        dist.all_reduce(buf, group=_group(mesh, axes))
+        dist.all_reduce(buf, op=op, group=_group(mesh, axes))
         _record("all_reduce", axes, buf)
     return buf
 
@@ -195,10 +196,12 @@ def all_gather_axis(x: torch.Tensor, mesh: DeviceMesh, axes: AxisNames,
     return x
 
 
-def all_reduce_axis(x: torch.Tensor, mesh: DeviceMesh, axes: AxisNames) -> torch.Tensor:
-    """Sum over the joint ranks of ``axes`` (one collective); ``x`` itself
-    is left as it was."""
-    return _all_reduce_(x.clone(memory_format=torch.contiguous_format), mesh, _axes_tuple(axes))
+def all_reduce_axis(x: torch.Tensor, mesh: DeviceMesh, axes: AxisNames,
+                    op: dist.ReduceOp = dist.ReduceOp.SUM) -> torch.Tensor:
+    """Sum (or ``op``) over the joint ranks of ``axes`` (one collective);
+    ``x`` itself is left as it was."""
+    return _all_reduce_(x.clone(memory_format=torch.contiguous_format), mesh, _axes_tuple(axes),
+                        op)
 
 
 def all_to_all_axis(x: torch.Tensor, mesh: DeviceMesh, axis: str, split_dim: int,

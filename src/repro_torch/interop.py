@@ -16,6 +16,10 @@ a bf16 conv state beside an f32 SSM state).  A 0-d integer array (a cache's
 ``params_to_jax`` goes the other way: a state dict to the nested dict of
 numpy arrays that ``jax.tree_util.tree_map(jnp.asarray, ...)`` turns into
 the reference's tree.  bf16 leaves cross as float32 (exact) again.
+
+On a mesh, ``layout=`` (``parallel.sharding.Layout``) gives each rank its
+block of every leaf (``params_from_jax``) or gathers the blocks back into
+whole leaves first (``params_to_jax``; every rank must call it).
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
+
+from .parallel.sharding import Layout
 
 # names of the jnp dtypes used in ModelConfig / the param trees
 _DTYPES = {
@@ -62,11 +68,12 @@ def _to_tensor(arr: Any, dtype: Optional[torch.dtype], device: Union[str, torch.
 
 
 def params_from_jax(
-    np_tree: Mapping[str, Any], *, dtype: Any, device: Union[str, torch.device]
+    np_tree: Mapping[str, Any], *, dtype: Any, device: Union[str, torch.device],
+    layout: Optional[Layout] = None,
 ) -> Dict[str, Any]:
     """Flatten a JAX param (or cache) pytree of numpy arrays into a state
     dict on ``device``; floating leaves are cast to ``dtype``, or keep their
-    own dtype when ``dtype`` is None."""
+    own dtype when ``dtype`` is None.  With ``layout``, this rank's blocks."""
     tdtype = None if dtype is None else torch_dtype(dtype)
     out: Dict[str, Any] = {}
 
@@ -78,12 +85,15 @@ def params_from_jax(
             out[prefix[:-1]] = _to_tensor(node, tdtype, device)
 
     walk("", np_tree)
-    return out
+    return out if layout is None else layout.shard(out)
 
 
-def params_to_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
+def params_to_jax(state: Mapping[str, Any], layout: Optional[Layout] = None) -> Dict[str, Any]:
     """Nest a flat ``a.b.c`` state dict into ``{"a": {"b": {"c": ndarray}}}``
-    on the host; bf16 becomes float32, ints stay ints."""
+    on the host; bf16 becomes float32, ints stay ints.  With ``layout``, the
+    state is a rank's blocks, gathered first."""
+    if layout is not None:
+        state = layout.gather(dict(state))
     out: Dict[str, Any] = {}
     for path, value in state.items():
         node = out

@@ -5,24 +5,31 @@ One process on one device:
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b --smoke \\
         --steps 20 --device cpu
 
-A data-parallel world on a mesh, the ``manual_hier`` step with an explicit
-RailX schedule: under ``torchrun`` (one rank per card, NCCL; it reads
-``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``)
+A world on a mesh runs ``--dp-mode`` ``gspmd_fsdp`` (the default, as in
+the reference: params and AdamW state sharded, FSDP over "data", tensor
+parallelism over "model") or ``manual_hier`` (replicated params, an
+explicit RailX ``--schedule``).  Under ``torchrun`` (one rank per card,
+NCCL; it reads ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``)
 
     torchrun --nproc-per-node 8 -m repro_torch.launch.train --mesh 2,2,2 \\
-        --axes pod,data,model --schedule hierarchical
+        --axes pod,data,model
 
 or, on the CPU, ``--devices N`` spawns N local gloo ranks (the counterpart
 of the reference's forced host device count):
 
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+        --devices 8 --mesh 2,2,2 --axes pod,data,model
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
         --devices 8 --mesh 2,2,2 --axes pod,data,model --dp-mode manual_hier \\
         --schedule hierarchical
 
 Every rank takes the global batch's step and its own slice of it; rank 0
-prints and writes the checkpoints (params are replicated), every rank
-resumes from them.  Without ``--mesh`` a world is one ``("data",)`` axis
-over all its ranks.  ``--device`` defaults to ``cuda``.  As in the
+prints.  Under ``gspmd_fsdp`` every rank inits the whole params from the
+seed and keeps its block; each checkpoint gathers whole leaves on every
+rank and rank 0 writes them, and every rank resumes its blocks from them.
+Under ``manual_hier`` rank 0 writes the checkpoints (params are
+replicated) and every rank resumes from them.  Without ``--mesh`` a world
+is one ``("data",)`` axis over all its ranks.  ``--device`` defaults to ``cuda``.  As in the
 reference, the data's vocabulary is the model's, and its bigram table is
 ``vocab x vocab`` float64, so a full-vocab config needs that much host
 memory.
@@ -46,7 +53,7 @@ def _parser() -> argparse.ArgumentParser:
                     help="spawn this many local gloo ranks on the CPU (needs --device cpu)")
     ap.add_argument("--mesh", default="", help="e.g. 2,2,2")
     ap.add_argument("--axes", default="", help="e.g. pod,data,model")
-    ap.add_argument("--dp-mode", default="manual_hier")
+    ap.add_argument("--dp-mode", default="gspmd_fsdp", choices=("gspmd_fsdp", "manual_hier"))
     ap.add_argument("--schedule", default="hierarchical")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--lr", type=float, default=3e-4)
@@ -90,6 +97,7 @@ def _train(args: argparse.Namespace) -> None:
     from ..configs import get_config, get_smoke_config
     from ..data.pipeline import DataConfig, SyntheticLM
     from ..models.model_zoo import get_model
+    from ..parallel.sharding import param_layout
     from ..train import optimizer as opt_lib
     from ..train.train_step import make_train_step
     from ..train.trainer import CheckpointPolicy, StragglerMonitor, resume, train_loop
@@ -125,15 +133,19 @@ def _train(args: argparse.Namespace) -> None:
     step_fn = make_train_step(zoo, ocfg, microbatches=args.microbatches, device=dev,
                               mesh=mesh, dp_mode=args.dp_mode, schedule=args.schedule)
     params = zoo.init(0, device=dev)
+    layout = None
+    if mesh is not None and args.dp_mode == "gspmd_fsdp":
+        layout = param_layout(zoo, mesh)
+        params = layout.shard(params)
     params.requires_grad_(True)
     opt = opt_lib.init(ocfg, params)
     start = 0
     ckpt = None
     if args.ckpt_dir:
-        if rank == 0:
-            ckpt = CheckpointPolicy(args.ckpt_dir, every_steps=args.ckpt_every)
+        if rank == 0 or layout is not None:
+            ckpt = CheckpointPolicy(args.ckpt_dir, every_steps=args.ckpt_every, layout=layout)
         if args.resume:
-            params, opt, start = resume(args.ckpt_dir, params, opt)
+            params, opt, start = resume(args.ckpt_dir, params, opt, layout)
             log(f"resumed at step {start}")
 
     res = train_loop(

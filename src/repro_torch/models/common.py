@@ -1,7 +1,9 @@
 """Model building blocks (counterpart of ``repro/models/common.py``).
 
 As in the reference, every module is an ``init_*(gen, ..., device)`` that
-returns a nested dict of tensors plus an apply function over that dict.
+returns a nested dict of tensors plus an apply function over that dict, and
+a ``*_specs`` function that returns the same tree filled with *logical axis
+name tuples* for ``parallel.sharding``.
 ``ParamTree`` turns the finished tree into an ``nn.Module`` whose
 ``state_dict`` keys are the reference's tree paths joined by ``.``, and
 which the apply functions index like the reference's dicts (``p["wq"]``).
@@ -21,6 +23,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
+from ..collectives.autograd import copy_to, reduce_from
 from ..kernels.flash_attention.ref import NEG_INF, attention_mask
 
 Params = Dict[str, Any]
@@ -98,12 +101,20 @@ def init_linear(gen, d_in: int, d_out: int, dt: DTypes, device) -> Params:
     return {"w": trunc_normal(gen, (d_in, d_out), scale, dt.param, device)}
 
 
+def linear_specs(axes: Tuple[Optional[str], Optional[str]]) -> Params:
+    return {"w": axes}
+
+
 def linear(p: Params, x: torch.Tensor, dt: DTypes) -> torch.Tensor:
     return torch.matmul(x, dt.c(p["w"]))
 
 
 def init_rmsnorm(d: int, dt: DTypes, device) -> Params:
     return {"scale": torch.ones((d,), dtype=dt.param, device=device)}
+
+
+def rmsnorm_specs() -> Params:
+    return {"scale": (None,)}
 
 
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -118,12 +129,64 @@ def init_embedding(gen, vocab: int, d: int, dt: DTypes, device) -> Params:
     return {"table": trunc_normal(gen, (vocab, d), d ** -0.5, dt.param, device)}
 
 
+def embedding_specs() -> Params:
+    return {"table": ("vocab", "embed")}
+
+
 def embed(p: Params, ids: torch.Tensor, dt: DTypes) -> torch.Tensor:
     return dt.c(p["table"])[ids]
 
 
 def unembed(p: Params, x: torch.Tensor, dt: DTypes) -> torch.Tensor:
     return torch.matmul(x, dt.c(p["table"]).T)
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel forms on a rank's local shards (the "model" mesh axis)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TP:
+    """The tensor-parallel axis of a mesh: rank ``rank`` of ``size``."""
+    mesh: Any
+    axis: str = "model"
+
+    @property
+    def size(self) -> int:
+        return self.mesh.shape[self.mesh.mesh_dim_names.index(self.axis)]
+
+    @property
+    def rank(self) -> int:
+        return self.mesh.get_local_rank(self.axis)
+
+
+def column_linear(p: Params, x: torch.Tensor, dt: DTypes, tp: TP) -> torch.Tensor:
+    """x (replicated over ``tp``) @ w[:, local columns]: the local slice of
+    the output; x's gradient is summed over ``tp``."""
+    return linear(p, copy_to(x, tp.mesh, tp.axis), dt)
+
+
+def row_linear(p: Params, x: torch.Tensor, dt: DTypes, tp: TP) -> torch.Tensor:
+    """x[..., local rows] @ w[local rows]: partial sums, all-reduced over
+    ``tp`` into the whole output."""
+    return reduce_from(linear(p, x, dt), tp.mesh, tp.axis)
+
+
+def vocab_embed(p: Params, ids: torch.Tensor, dt: DTypes, tp: TP) -> torch.Tensor:
+    """Lookup in a vocab-parallel table (V/tp rows a rank): the rows this
+    rank holds, zeros for the others, all-reduced over ``tp``."""
+    table = dt.c(p["table"])
+    n = table.shape[0]
+    local = ids - tp.rank * n
+    mine = (local >= 0) & (local < n)
+    out = torch.where(mine[..., None], table[local.clamp(0, n - 1)], 0)
+    return reduce_from(out, tp.mesh, tp.axis)
+
+
+def vocab_unembed(p: Params, x: torch.Tensor, dt: DTypes, tp: TP) -> torch.Tensor:
+    """Logits of this rank's V/tp vocab rows (tied embedding)."""
+    return unembed(p, copy_to(x, tp.mesh, tp.axis), dt)
 
 
 # ---------------------------------------------------------------------------
@@ -166,6 +229,19 @@ class AttnConfig:
     mrope_sections: Optional[Tuple[int, int, int]] = None
     use_bias: bool = False
     softmax_scale: Optional[float] = None
+
+
+def attention_specs(cfg: AttnConfig) -> Params:
+    p: Params = {
+        "wq": linear_specs(("fsdp", "heads")),
+        "wk": linear_specs(("fsdp", "heads")),
+        "wv": linear_specs(("fsdp", "heads")),
+        "wo": linear_specs(("heads", "fsdp")),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_specs()
+        p["k_norm"] = rmsnorm_specs()
+    return p
 
 
 def init_attention(gen, cfg: AttnConfig, dt: DTypes, device) -> Params:
@@ -259,9 +335,23 @@ def init_swiglu(gen, d: int, d_ff: int, dt: DTypes, device) -> Params:
     }
 
 
-def swiglu(p: Params, x: torch.Tensor, dt: DTypes) -> torch.Tensor:
+def swiglu_specs() -> Params:
+    return {
+        "wi": linear_specs(("fsdp", "mlp")),
+        "wg": linear_specs(("fsdp", "mlp")),
+        "wo": linear_specs(("mlp", "fsdp")),
+    }
+
+
+def swiglu(p: Params, x: torch.Tensor, dt: DTypes, tp: Optional[TP] = None) -> torch.Tensor:
+    """With ``tp`` the hidden dim is split over it: wi / wg column-parallel,
+    wo row-parallel."""
+    if tp is None:
+        h = torch.nn.functional.silu(linear(p["wg"], x, dt)) * linear(p["wi"], x, dt)
+        return linear(p["wo"], h, dt)
+    x = copy_to(x, tp.mesh, tp.axis)
     h = torch.nn.functional.silu(linear(p["wg"], x, dt)) * linear(p["wi"], x, dt)
-    return linear(p["wo"], h, dt)
+    return row_linear(p["wo"], h, dt, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -279,6 +369,13 @@ def stack_params(gen, n: int, init_fn: Callable[[Any], Params]) -> Params:
         return torch.stack(nodes)
 
     return stack(layers)
+
+
+def stacked_specs(layer_specs: Params) -> Params:
+    """Prefix every leaf's logical axes with the 'stack' (layer) axis."""
+    if isinstance(layer_specs, tuple):
+        return ("stack",) + layer_specs
+    return {k: stacked_specs(v) for k, v in layer_specs.items()}
 
 
 def layer_slice(p: Any, i: int) -> Any:

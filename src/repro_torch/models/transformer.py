@@ -10,11 +10,28 @@ for the backward, which recomputes it, as ``jax.checkpoint`` with
 ``nothing_saveable`` does in the reference.  MoE and M-RoPE configs raise:
 they come with later slices.
 
-API (used by serve):
+API (used by serve and train):
     init(gen, cfg, device)                  -> params (ParamTree)
-    forward(params, cfg, batch)             -> (logits, aux_loss)
+    param_specs(cfg) / cache_specs(cfg)     -> logical-axis spec trees
+    forward(params, cfg, batch, plan=None)  -> (logits, aux_loss)
     init_cache(cfg, batch, cache_len, dev)  -> cache
-    decode_step(params, cfg, cache, batch)  -> (logits, cache)
+    decode_step(params, cfg, cache, batch, plan=None) -> (logits, cache)
+
+With a ``ShardPlan`` (``shard_plan(cfg, layout)``) the same functions run
+on a rank's blocks of a sharded ``Layout`` (``parallel.sharding``), as the
+reference's GSPMD step computes them: each layer's leaves are all-gathered
+over their FSDP ("data") dims inside the layer's function (so under remat
+the gather runs again in the backward, and only one layer is whole at a
+time), and their gradients reduce-scattered.  On the "model" axis,
+attention keeps the rank's heads (wq / wk / wv column-parallel, wo
+row-parallel) when the heads divide it, else runs whole on every rank; KV
+heads that do not divide it (granite's one) are computed whole from wk / wv
+gathered over "model", and each rank attends with the KV heads its query
+heads use.  The MLP splits its hidden dim when it divides; the embedding
+and the logits split the vocab (``common.vocab_embed``); the logits stay
+split (the loss reduces over "model", ``ModelZoo.loss``).  Batch rows are
+the caller's: the step passes each rank its rows, and the cache its rows
+and KV heads.
 
 The cache is ``{"k", "v": (L, B, cache_len, Hk, Dh), "index": int}``.
 ``index`` is a host int (the reference keeps a device scalar) so a decode
@@ -25,14 +42,18 @@ counterpart, so the cache passed in must not be used again.
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..collectives.autograd import copy_to, gather, gather_whole
+from ..collectives.schedules import all_gather_axis
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention
+from ..parallel.sharding import Layout, dp_axes, entry_axes
 from . import common as C
 from .common import DTypes, Params, ParamTree
 
@@ -81,6 +102,27 @@ def _init_layer(gen, cfg: ModelConfig, device) -> Params:
     }
 
 
+def _layer_specs(cfg: ModelConfig) -> Params:
+    return {
+        "ln1": C.rmsnorm_specs(),
+        "attn": C.attention_specs(_attn_cfg(cfg)),
+        "ln2": C.rmsnorm_specs(),
+        "ffn": C.swiglu_specs(),
+    }
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    check_supported(cfg)
+    p: Params = {
+        "embed": C.embedding_specs(),
+        "layers": C.stacked_specs(_layer_specs(cfg)),
+        "final_norm": C.rmsnorm_specs(),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = C.linear_specs(("embed", "vocab"))
+    return p
+
+
 def init(gen: torch.Generator, cfg: ModelConfig, device) -> ParamTree:
     check_supported(cfg)
     dt = _dt(cfg)
@@ -105,23 +147,160 @@ def _is_global_flags(cfg: ModelConfig) -> list:
 
 
 # ---------------------------------------------------------------------------
+# sharded runs: how a rank computes from its blocks
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardPlan:
+    """What a rank of ``layout.mesh`` keeps split over the model axis."""
+    layout: Layout
+    tp: Optional[C.TP]   # None without a "model" axis of size > 1
+    heads: bool          # attention heads split: wq / wo stay local
+    kv: bool             # KV heads split too: wk / wv stay local
+    mlp: bool            # the SwiGLU hidden dim split
+    embed_vocab: bool    # the embedding table's vocab split
+    head_vocab: bool     # the logits' vocab split
+    dp: Tuple[str, ...]  # the batch axes of size > 1
+
+    def gather_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """Whole-vocab logits (no gradient)."""
+        if not self.head_vocab:
+            return logits
+        return all_gather_axis(logits, self.tp.mesh, self.tp.axis, logits.dim() - 1)
+
+
+def shard_plan(cfg: ModelConfig, layout: Layout) -> ShardPlan:
+    check_supported(cfg)
+    tp = C.TP(layout.mesh) if layout.sizes.get("model", 1) > 1 else None
+
+    def on_model(key: str, dim: int) -> bool:
+        return tp is not None and tp.axis in entry_axes(layout.specs[key][dim])
+
+    heads = (on_model("layers.attn.wq.w", 2) and on_model("layers.attn.wo.w", 1)
+             and cfg.heads % tp.size == 0)
+    kv = (heads and on_model("layers.attn.wk.w", 2) and on_model("layers.attn.wv.w", 2)
+          and cfg.kv_heads % tp.size == 0)
+    mlp = (on_model("layers.ffn.wi.w", 2) and on_model("layers.ffn.wg.w", 2)
+           and on_model("layers.ffn.wo.w", 1))
+    embed_vocab = on_model("embed.table", 0)
+    head_vocab = embed_vocab if cfg.tie_embeddings else on_model("lm_head.w", 1)
+    dp = tuple(a for a in dp_axes(layout.sizes) if layout.sizes[a] > 1)
+    return ShardPlan(layout, tp, heads, kv, mlp, embed_vocab, head_vocab, dp)
+
+
+def _weight(w: torch.Tensor, spec, plan: ShardPlan, keep_model: bool, partial: bool):
+    """The weight a rank computes with: its block all-gathered over every
+    axis of ``spec`` (FSDP: the gradient reduce-scattered), except the
+    model axis when ``keep_model``; a model gather is ``partial`` (the
+    gathered weight feeds this rank's share of a split block) or whole."""
+    mesh = plan.layout.mesh
+    for dim, entry in enumerate(spec):
+        for a in reversed(entry_axes(entry)):
+            if plan.tp is not None and a == plan.tp.axis:
+                if not keep_model:
+                    w = (gather if partial else gather_whole)(w, mesh, a, dim)
+            else:
+                w = gather(w, mesh, a, dim)
+    return w
+
+
+def _layer_weights(lp, plan: ShardPlan, prefix: str = "layers."):
+    """``_weight`` over every leaf of a layer slice.  A leaf of a block that
+    runs split over the model axis (attention with ``plan.heads``, the MLP
+    with ``plan.mlp``) but is not split itself is gathered ``partial`` or,
+    when whole, passes ``copy_to``: its gradient is summed over the model
+    axis."""
+    out = {}
+    for k in lp.keys():
+        v, key = lp[k], f"{prefix}{k}"
+        if not torch.is_tensor(v):
+            out[k] = _layer_weights(v, plan, key + ".")
+            continue
+        spec = plan.layout.specs[key][1:]  # the layer dim is gone
+        block = key.split(".")[1]
+        in_split = {"attn": plan.heads, "ffn": plan.mlp}.get(block, False)
+        keep = in_split and _keeps_model(plan, key)
+        w = _weight(v, spec, plan, keep, in_split)
+        if in_split and not keep and not any(plan.tp.axis in entry_axes(e) for e in spec):
+            w = copy_to(w, plan.tp.mesh, plan.tp.axis)
+        out[k] = w
+    return out
+
+
+def _keeps_model(plan: ShardPlan, key: str) -> bool:
+    if ".wq." in key or ".attn.wo." in key:
+        return plan.heads
+    if ".wk." in key or ".wv." in key:
+        return plan.kv
+    if ".ffn." in key:
+        return plan.mlp
+    return False
+
+
+def _local_attn(acfg: C.AttnConfig, plan: Optional[ShardPlan]) -> C.AttnConfig:
+    """The head counts of the projections a rank computes."""
+    if plan is None or not plan.heads:
+        return acfg
+    tp = plan.tp.size
+    return dataclasses.replace(acfg, heads=acfg.heads // tp,
+                               kv_heads=acfg.kv_heads // tp if plan.kv else acfg.kv_heads)
+
+
+def _kv_for_heads(k, v, acfg: C.AttnConfig, plan: Optional[ShardPlan]):
+    """The KV heads that this rank's query heads attend with, from whole
+    KV heads (the heads split, the KV heads not)."""
+    if plan is None or not plan.heads or plan.kv:
+        return k, v
+    hl = acfg.heads // plan.tp.size
+    first = plan.tp.rank * hl
+    g = acfg.heads // acfg.kv_heads
+    if hl % g == 0 or g % hl == 0:
+        n = max(hl // g, 1)
+        return k.narrow(2, first // g, n), v.narrow(2, first // g, n)
+    idx = torch.arange(first, first + hl, device=k.device) // g
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+# ---------------------------------------------------------------------------
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
 
 
-def _embed(params, cfg: ModelConfig, batch, dt: DTypes) -> torch.Tensor:
+def _outer(params, key: str, plan: Optional[ShardPlan], keep_model: bool) -> torch.Tensor:
+    """A leaf outside the layers: as stored, or as a rank computes with it."""
+    node = params
+    for k in key.split("."):
+        node = node[k]
+    if plan is None:
+        return node
+    return _weight(node, plan.layout.specs[key], plan, keep_model, False)
+
+
+def _embed(params, cfg: ModelConfig, batch, dt: DTypes,
+           plan: Optional[ShardPlan] = None) -> torch.Tensor:
     if "embeds" in batch:
         return batch["embeds"].to(cfg.compute_dtype)
-    x = C.embed(params["embed"], batch["tokens"], dt)
+    vocab = plan is not None and plan.embed_vocab
+    table = {"table": _outer(params, "embed.table", plan, vocab)}
+    if vocab:
+        x = C.vocab_embed(table, batch["tokens"], dt, plan.tp)
+    else:
+        x = C.embed(table, batch["tokens"], dt)
     # sqrt(d_model) rounded to the compute dtype first, as the reference
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.compute_dtype, device=x.device)
 
 
-def _unembed(params, cfg: ModelConfig, x, dt: DTypes) -> torch.Tensor:
-    x = C.rmsnorm(params["final_norm"], x)
+def _unembed(params, cfg: ModelConfig, x, dt: DTypes,
+             plan: Optional[ShardPlan] = None) -> torch.Tensor:
+    """Logits; with ``plan.head_vocab`` this rank's vocab slice only."""
+    x = C.rmsnorm({"scale": _outer(params, "final_norm.scale", plan, False)}, x)
+    split = plan is not None and plan.head_vocab
     if cfg.tie_embeddings:
-        return C.unembed(params["embed"], x, dt)
-    return C.linear(params["lm_head"], x, dt)
+        table = {"table": _outer(params, "embed.table", plan, split)}
+        return C.vocab_unembed(table, x, dt, plan.tp) if split else C.unembed(table, x, dt)
+    head = {"w": _outer(params, "lm_head.w", plan, split)}
+    return C.column_linear(head, x, dt, plan.tp) if split else C.linear(head, x, dt)
 
 
 def _qkv(p, acfg: C.AttnConfig, x, positions, dt):
@@ -138,38 +317,59 @@ def _qkv(p, acfg: C.AttnConfig, x, positions, dt):
     return q, k, v
 
 
-def _attention_dynwin(p, acfg: C.AttnConfig, x, positions, is_global: bool, dt, impl: str):
+def _attn_out(p, out, dt, plan: Optional[ShardPlan]):
+    """wo: row-parallel when the heads are split."""
+    if plan is not None and plan.heads:
+        return C.row_linear(p["wo"], out, dt, plan.tp)
+    return C.linear(p["wo"], out, dt)
+
+
+def _attention_dynwin(p, acfg: C.AttnConfig, x, positions, is_global: bool, dt, impl: str,
+                      plan: Optional[ShardPlan] = None):
     """Attention with the sliding window switched per layer.  ``"flash"``
-    without a window takes the CUDA kernels, forward and backward (on one
-    card there is no mesh condition); everything else is the plain path."""
+    without a window takes the CUDA kernels, forward and backward, on the
+    rank's heads; everything else is the plain path."""
     B, S, _ = x.shape
-    H, Dh = acfg.heads, acfg.head_dim
-    q, k, v = _qkv(p, acfg, x, positions, dt)
+    local = _local_attn(acfg, plan)
+    H, Dh = local.heads, acfg.head_dim
+    if plan is not None and plan.heads:
+        x = copy_to(x, plan.tp.mesh, plan.tp.axis)
+    q, k, v = _qkv(p, local, x, positions, dt)
+    k, v = _kv_for_heads(k, v, acfg, plan)
     if impl == "flash" and acfg.window is None:
         out = flash_attention(q, k, v, causal=acfg.causal, scale=1.0 / math.sqrt(Dh))
-        return C.linear(p["wo"], out.reshape(B, S, H * Dh), dt)
+        return _attn_out(p, out.reshape(B, S, H * Dh), dt, plan)
     qpos = torch.arange(S, device=x.device)[:, None]
     kpos = torch.arange(S, device=x.device)[None, :]
     mask = kpos <= qpos
     if acfg.window is not None and not is_global:
         mask = mask & (kpos > qpos - acfg.window)
     out = C.masked_attention(q, k, v, mask, 1.0 / math.sqrt(Dh))
-    return C.linear(p["wo"], out.reshape(B, S, H * Dh), dt)
+    return _attn_out(p, out.reshape(B, S, H * Dh), dt, plan)
 
 
-def _layer_fwd(lp, cfg: ModelConfig, x, positions, is_global: bool, dt: DTypes):
+def _ffn(lp, h, dt, plan: Optional[ShardPlan]):
+    return C.swiglu(lp["ffn"], h, dt, plan.tp if plan is not None and plan.mlp else None)
+
+
+def _layer_fwd(lp, cfg: ModelConfig, x, positions, is_global: bool, dt: DTypes,
+               plan: Optional[ShardPlan] = None):
+    if plan is not None:
+        lp = _layer_weights(lp, plan)
     h = C.rmsnorm(lp["ln1"], x)
-    x = x + _attention_dynwin(lp["attn"], _attn_cfg(cfg), h, positions, is_global, dt, cfg.attn_impl)
+    x = x + _attention_dynwin(lp["attn"], _attn_cfg(cfg), h, positions, is_global, dt,
+                              cfg.attn_impl, plan)
     h = C.rmsnorm(lp["ln2"], x)
-    return x + C.swiglu(lp["ffn"], h, dt)
+    return x + _ffn(lp, h, dt, plan)
 
 
-def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            plan: Optional[ShardPlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch: tokens (B, S) int [or embeds (B, S, D)], positions (B, S)
     optional.  Returns (logits, aux); aux is 0 for the dense family."""
     check_supported(cfg)
     dt = _dt(cfg)
-    x = _embed(params, cfg, batch, dt)
+    x = _embed(params, cfg, batch, dt, plan)
     B, S, _ = x.shape
     positions = batch.get("positions")
     if positions is None:
@@ -178,11 +378,12 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> Tuple[t
     layers = C.layer_slices(params["layers"], cfg.num_layers)
     for lp, is_global in zip(layers, _is_global_flags(cfg)):
         if remat:
-            x = checkpoint(_layer_fwd, lp, cfg, x, positions, is_global, dt, use_reentrant=False)
+            x = checkpoint(_layer_fwd, lp, cfg, x, positions, is_global, dt, plan,
+                           use_reentrant=False)
         else:
-            x = _layer_fwd(lp, cfg, x, positions, is_global, dt)
+            x = _layer_fwd(lp, cfg, x, positions, is_global, dt, plan)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _unembed(params, cfg, x, dt), aux
+    return _unembed(params, cfg, x, dt, plan), aux
 
 
 # ---------------------------------------------------------------------------
@@ -200,12 +401,29 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device) -> Dict[str
     }
 
 
-def _decode_attention(p, acfg: C.AttnConfig, x, positions, is_global: bool, ck, cv, index: int, dt):
+def cache_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    return {
+        "k": ("stack", "batch", "kv_seq", "kv_heads", "head_dim"),
+        "v": ("stack", "batch", "kv_seq", "kv_heads", "head_dim"),
+        "index": (),
+    }
+
+
+def _decode_attention(p, acfg: C.AttnConfig, x, positions, is_global: bool, ck, cv, index: int,
+                      dt, plan: Optional[ShardPlan] = None):
     """Attention of S new tokens over the cache of one layer; ck/cv
-    (B, cache_len, Hk, Dh) are written in place at ``index``."""
+    (B, cache_len, Hk, Dh), this rank's rows and KV heads, are written in
+    place at ``index``."""
     B, S, _ = x.shape
-    H, Dh = acfg.heads, acfg.head_dim
-    q, k, v = _qkv(p, acfg, x, positions, dt)
+    local = _local_attn(acfg, plan)
+    H, Dh = local.heads, acfg.head_dim
+    if plan is not None and plan.heads:
+        x = copy_to(x, plan.tp.mesh, plan.tp.axis)
+    q, k, v = _qkv(p, local, x, positions, dt)
+    if ck.shape[0] != B or ck.shape[2] != k.shape[2]:
+        raise ValueError(f"a cache of {ck.shape[0]} rows and {ck.shape[2]} KV heads for "
+                         f"{B} rows and {k.shape[2]} KV heads: the cache is sharded unlike "
+                         "the step")
     Skv = ck.shape[1]
     # dynamic_update_slice clamps the start so the update fits; the mask
     # below still uses the unclamped index (a reference quirk, kept)
@@ -217,18 +435,20 @@ def _decode_attention(p, acfg: C.AttnConfig, x, positions, is_global: bool, ck, 
     mask = kpos <= qpos
     if acfg.window is not None and not is_global:
         mask = mask & (kpos > qpos - acfg.window)
+    ck, cv = _kv_for_heads(ck, cv, acfg, plan)
     out = C.masked_attention(q, ck, cv, mask, 1.0 / math.sqrt(Dh))
-    return C.linear(p["wo"], out.reshape(B, S, H * Dh), dt)
+    return _attn_out(p, out.reshape(B, S, H * Dh), dt, plan)
 
 
 def decode_step(
     params, cfg: ModelConfig, cache: Dict[str, Any], batch: Dict[str, torch.Tensor],
+    plan: Optional[ShardPlan] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """S new tokens: batch has tokens (B, S) [or embeds (B, S, D)].  Writes
     the cache in place and returns it with ``index`` advanced by S."""
     check_supported(cfg)
     dt = _dt(cfg)
-    x = _embed(params, cfg, batch, dt)
+    x = _embed(params, cfg, batch, dt, plan)
     B, S, _ = x.shape
     index = cache["index"]
     if S > cache["k"].shape[2]:
@@ -237,11 +457,13 @@ def decode_step(
     acfg = _attn_cfg(cfg)
     for i, is_global in enumerate(_is_global_flags(cfg)):
         lp = C.layer_slice(params["layers"], i)
+        if plan is not None:
+            lp = _layer_weights(lp, plan)
         h = C.rmsnorm(lp["ln1"], x)
         x = x + _decode_attention(
-            lp["attn"], acfg, h, positions, is_global, cache["k"][i], cache["v"][i], index, dt
-        )
+            lp["attn"], acfg, h, positions, is_global, cache["k"][i], cache["v"][i], index, dt,
+            plan)
         h = C.rmsnorm(lp["ln2"], x)
-        x = x + C.swiglu(lp["ffn"], h, dt)
-    logits = _unembed(params, cfg, x, dt)
+        x = x + _ffn(lp, h, dt, plan)
+    logits = _unembed(params, cfg, x, dt, plan)
     return logits, {"k": cache["k"], "v": cache["v"], "index": index + S}

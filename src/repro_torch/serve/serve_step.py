@@ -23,36 +23,78 @@ other.  Serving runs under ``torch.inference_mode()``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
 from .. import device as _device
+from ..collectives.schedules import all_gather_axis
 from ..models.model_zoo import ModelZoo
+from ..parallel.sharding import (
+    Layout, batch_specs_tree, block_slices, cache_layout, entry_axes, param_layout,
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class ServeArtifacts:
     decode_fn: Callable
     prefill_fn: Callable
+    param_layout: Optional[Layout] = None
+    cache_layout: Optional[Layout] = None
 
 
-def make_serve_step(zoo: ModelZoo, device: _device.DeviceLike = None) -> ServeArtifacts:
+def make_serve_step(zoo: ModelZoo, device: _device.DeviceLike = None, mesh=None,
+                    batch_example: Optional[Dict[str, Any]] = None,
+                    cache_example: Optional[Dict[str, Any]] = None) -> ServeArtifacts:
     dev = _device.resolve(device)
 
     def to_dev(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
 
+    if mesh is None:
+        def decode_fn(params, cache, batch):
+            with torch.inference_mode():
+                return zoo.decode_step(params, cache, to_dev(batch))
+
+        def prefill_fn(params, batch):
+            with torch.inference_mode():
+                logits, _ = zoo.forward(params, to_dev(batch))
+            return logits
+
+        return ServeArtifacts(decode_fn, prefill_fn)
+
+    params_lay = param_layout(zoo, mesh)
+    cache_lay = cache_layout(zoo, mesh, cache_example)
+    plan = zoo.shard_plan(params_lay)
+    sizes, coord = params_lay.sizes, params_lay.coord
+    fixed = batch_specs_tree(mesh, batch_example) if batch_example is not None else None
+
+    def local(batch: Dict[str, Any]):
+        """This rank's rows, and the DP axes they were cut over."""
+        batch = to_dev(batch)
+        specs = fixed or batch_specs_tree(mesh, batch)
+        rows_spec = specs["tokens" if "tokens" in specs else "embeds"]
+        rows = tuple(a for a in entry_axes(rows_spec[0]) if sizes[a] > 1)
+        return {k: v[block_slices(v.shape, specs[k], sizes, coord)]
+                for k, v in batch.items()}, rows
+
+    def whole(logits: torch.Tensor, rows) -> torch.Tensor:
+        logits = plan.gather_logits(logits)
+        return all_gather_axis(logits, mesh, rows, 0) if rows else logits
+
     def decode_fn(params, cache, batch):
+        mine, rows = local(batch)
         with torch.inference_mode():
-            return zoo.decode_step(params, cache, to_dev(batch))
+            logits, cache = zoo.decode_step(params, cache, mine, plan)
+            return whole(logits, rows), cache
 
     def prefill_fn(params, batch):
+        mine, rows = local(batch)
         with torch.inference_mode():
-            logits, _ = zoo.forward(params, to_dev(batch))
-        return logits
+            logits, _ = zoo.forward(params, mine, plan)
+            return whole(logits, rows)
 
-    return ServeArtifacts(decode_fn, prefill_fn)
+    return ServeArtifacts(decode_fn, prefill_fn, params_lay, cache_lay)
 
 
 # ---------------------------------------------------------------------------

@@ -15,13 +15,18 @@ temporaries of a step stay a few hundred MB instead of the size of the
 largest leaf (28 x 3072 x 8192 at llama3.2-3b: 2.8 GB per f32 copy).
 ``step`` is a host int, so the learning rate is known on the host and a step
 needs no device sync.
+
+Sharded (``gspmd_fsdp``): params, grads and moments are a rank's blocks,
+the moments laid out as their params (``state_specs``); the update is
+elementwise, so it runs on the blocks as is, and ``sharded_global_norm``
+gives the norm of the whole gradient.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Iterable, List, NamedTuple, Tuple
+from typing import Any, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,23 +82,56 @@ def _chunks(t: torch.Tensor) -> List[torch.Tensor]:
     return list(t.split(rows, 0))
 
 
-def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares, in f32 (0-d tensor on the grads' device)."""
+def _sum_sq(grads: Iterable[torch.Tensor]) -> torch.Tensor:
     total = None
     for g in grads:
         for c in _chunks(g):
             sq = torch.sum(torch.square(c.to(torch.float32)))
             total = sq if total is None else total + sq
+    return total
+
+
+def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares, in f32 (0-d tensor on the grads' device)."""
+    return torch.sqrt(_sum_sq(grads))
+
+
+def state_specs(param_specs: Dict[str, Any]) -> AdamWState:
+    """The moments' specs: their params' (the step is a host int)."""
+    return AdamWState(step=(), mu=dict(param_specs), nu=dict(param_specs))
+
+
+def sharded_global_norm(grads: Dict[str, torch.Tensor], layout) -> torch.Tensor:
+    """The global norm of a gradient held as blocks of ``layout``: each
+    leaf's local sum of squares, summed over the mesh axes that split it (a
+    leaf whole on some axes counts once, not once a rank); one all-reduce
+    per set of axes."""
+    from ..collectives.schedules import all_reduce_axis
+    from ..parallel.sharding import entry_axes
+
+    sizes, names = layout.sizes, layout.mesh.mesh_dim_names
+    groups: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
+    for key, g in grads.items():
+        axes = {a for e in layout.specs[key] for a in entry_axes(e) if sizes[a] > 1}
+        groups.setdefault(tuple(a for a in names if a in axes), []).append(g)
+    total = None
+    for axes, leaves in groups.items():
+        sq = _sum_sq(leaves)
+        if axes:
+            sq = all_reduce_axis(sq, layout.mesh, axes)
+        total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
 def apply(
-    cfg: AdamWConfig, state: AdamWState, params: torch.nn.Module, grads: Dict[str, torch.Tensor]
+    cfg: AdamWConfig, state: AdamWState, params: torch.nn.Module, grads: Dict[str, torch.Tensor],
+    grad_norm: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.nn.Module, AdamWState, Dict[str, Any]]:
     """One step.  Returns (params, state, {"grad_norm": tensor, "lr": float});
-    params and the moments are updated in place."""
+    params and the moments are updated in place.  ``grad_norm`` is the
+    gradient's global norm when the caller has it (a sharded gradient)."""
     named = dict(params.named_parameters())
-    gnorm = global_norm(grads[n] for n in named)
+    gnorm = global_norm(grads[n] for n in named) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     step = state.step + 1
     lr = lr_schedule(cfg, step)

@@ -12,13 +12,29 @@ returns them.  Metric keys: ``loss``, ``nll``, ``aux``, ``grad_norm``
 (0-d tensors on the device) and ``lr`` (a float).
 
 With ``mesh=None`` the step runs in one process.  With a ``DeviceMesh``
-(``launch.mesh.make_mesh``) it is the reference's ``manual_hier`` step:
-params and AdamW state replicated on every rank; each rank takes its slice
-of the global batch over the ("pod", "data") axes, pod-major
+(``launch.mesh.make_mesh``) it runs one of the reference's two modes;
+``dp_mode`` defaults to ``gspmd_fsdp``, as there.  Each rank takes the
+global batch and its slice of it over the ("pod", "data") axes, pod-major
 (``positions3`` on dim 1; a batch dim that does not divide the DP size
-stays whole); ranks along ``model`` compute the same thing (tensor
-parallelism comes with ``gspmd_fsdp``); the gradients go through
-``schedule`` and are divided by the DP size:
+stays whole; ``parallel.sharding.batch_specs_tree``).
+
+* ``gspmd_fsdp`` (dense family): params and AdamW moments are stored as
+  each rank's block of the reference's layout (``param_layout(zoo, mesh)``:
+  fsdp -> "data", heads / kv_heads / mlp / vocab -> "model"; build them with
+  ``layout.shard`` or ``interop.params_from_jax(..., layout=)``).  Each layer
+  gathers its leaves over "data" inside its (rematerialised) function and
+  reduce-scatters their gradients; "model" runs tensor parallelism
+  (``models/transformer.py``).  The loss is the global one (the masked sum
+  over the global mask sum), a rank's gradient its share, so the batch axes
+  only sum: a leaf split over "data" then all-reduces its 1/|data| block over
+  "pod"; a leaf whole over "data" goes through Eq. (8), RS(data) ->
+  AR(pod) -> AG(data), so that only 1/|data| of any gradient crosses "pod".
+  ``grad_norm`` is the whole gradient's norm (``sharded_global_norm``).
+  Microbatches are slices of the global batch, as in the one-process step,
+  each cut over the ranks.  Other families raise ``NotImplementedError``.
+* ``manual_hier``: params and AdamW state replicated on every rank;
+  ranks along "model" compute the same thing; the gradients go through
+  ``schedule`` and are divided by the DP size:
 
   * ``flat`` (or a mesh without "data"): one all-reduce over the DP axes;
   * ``hierarchical``: Eq. (8) leaf by leaf, RS(data) -> AR(pod) -> AG(data);
@@ -27,7 +43,8 @@ parallelism comes with ``gspmd_fsdp``); the gradients go through
     It needs a "pod" axis of size > 1: the reference, without one, passes
     the data axis as both intra and inter axes and returns a wrong sum.
 
-Loss, ``nll`` and ``aux`` are averaged over the DP axes, then AdamW runs.
+  Loss, ``nll`` and ``aux`` are averaged over the DP axes, then AdamW runs.
+
 Params are updated in place, the counterpart of the reference's donated
 buffers.
 """
@@ -46,6 +63,9 @@ from ..collectives.schedules import (
     _pad_to_multiple, all_reduce_axis, axis_size, tree_hierarchical_all_reduce,
 )
 from ..models.model_zoo import ModelZoo
+from ..parallel.sharding import (
+    Layout, batch_specs_tree, block_slices, entry_axes, param_layout,
+)
 from . import optimizer as opt_lib
 
 StepFn = Callable[[torch.nn.Module, opt_lib.AdamWState, Mapping[str, Any]],
@@ -56,6 +76,58 @@ def to_device(batch: Mapping[str, Any], dev: torch.device) -> Dict[str, torch.Te
     """numpy arrays or tensors -> tensors on ``dev``."""
     return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v, device=dev)
             for k, v in batch.items()}
+
+
+def _split(batch: Dict[str, torch.Tensor], n: int) -> list:
+    """``n`` equal slices of a batch along its first dim."""
+    if n == 1:
+        return [batch]
+    rows = next(iter(batch.values())).shape[0]
+    if rows % n:
+        raise ValueError(f"batch of {rows} does not split into {n} microbatches")
+    return [dict(zip(batch, vals)) for vals in zip(*(v.chunk(n, 0) for v in batch.values()))]
+
+
+class _GspmdFsdp:
+    """The ``gspmd_fsdp`` step's layout and its collectives on ``mesh``."""
+
+    def __init__(self, zoo: ModelZoo, mesh: DeviceMesh):
+        self.mesh = mesh
+        # another family's param_specs raises, naming the ROADMAP item
+        self.layout: Layout = param_layout(zoo, mesh)
+        self.plan = zoo.shard_plan(self.layout)
+        sizes = self.layout.sizes
+        self.intra = "data" if sizes.get("data", 1) > 1 else None
+        self.inter = "pod" if sizes.get("pod", 1) > 1 else None
+
+    def microbatches(self, batch: Dict[str, torch.Tensor], n: int) -> list:
+        """Slices of the global batch, then each rank's rows of each."""
+        out = []
+        for mb in _split(batch, n):
+            specs, coord, sizes = batch_specs_tree(self.mesh, mb), self.layout.coord, \
+                self.layout.sizes
+            out.append({k: v[block_slices(v.shape, specs[k], sizes, coord)]
+                        for k, v in mb.items()})
+        return out
+
+    def reduce_grads(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Sum each leaf's gradient over the batch axes that do not split it
+        (the reduce-scatter over "data" of the split ones ran in the
+        backward)."""
+        out = dict(grads)
+        whole = {}
+        for key, g in grads.items():
+            split = {a for e in self.layout.specs[key] for a in entry_axes(e)}
+            if self.intra and self.intra not in split:
+                whole[key] = g
+            elif self.inter:
+                out[key] = all_reduce_axis(g, self.mesh, self.inter)
+        if whole and self.inter:
+            out.update(tree_hierarchical_all_reduce(whole, self.mesh, (self.intra,),
+                                                    (self.inter,)))
+        elif whole:
+            out.update({k: all_reduce_axis(g, self.mesh, self.intra) for k, g in whole.items()})
+        return out
 
 
 class _ManualHier:
@@ -83,16 +155,17 @@ class _ManualHier:
                 "gather-then-sum returns a wrong sum")
         self.schedule = "flat" if not self.intra else schedule
 
-    def local_batch(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """This rank's slice of the global batch (``batch_specs_tree``)."""
+    def microbatches(self, batch: Dict[str, torch.Tensor], n: int) -> list:
+        """This rank's slice of the global batch (``batch_specs_tree``), cut
+        into ``n`` microbatches."""
         out = {}
         for key, v in batch.items():
             bdim = 1 if key == "positions3" else 0
             if v.shape[bdim] % self.dp_size == 0:
-                n = v.shape[bdim] // self.dp_size
-                v = v.narrow(bdim, self.dp_rank * n, n)
+                rows = v.shape[bdim] // self.dp_size
+                v = v.narrow(bdim, self.dp_rank * rows, rows)
             out[key] = v
-        return out
+        return _split(out, n)
 
     def reduce_grads(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         mesh, dp = self.mesh, self.dp_size
@@ -125,43 +198,44 @@ def make_train_step(
     device: _device.DeviceLike = None,
     *,
     mesh: Optional[DeviceMesh] = None,
-    dp_mode: str = "manual_hier",
+    dp_mode: Optional[str] = None,
     schedule: str = "hierarchical",
 ) -> StepFn:
+    """``dp_mode`` (with a mesh): ``gspmd_fsdp`` (the default) or
+    ``manual_hier``; ``schedule`` is ``manual_hier``'s."""
     dev = _device.resolve(device)
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
-    dp = None
+    dp = fsdp = None
     if mesh is not None:
+        dp_mode = dp_mode or "gspmd_fsdp"
         if dp_mode == "gspmd_fsdp":
-            raise NotImplementedError(
-                "dp_mode 'gspmd_fsdp' (FSDP2 over pod/data with TP on model) is ROADMAP "
-                "Queue 1 item 2, not ported yet; use dp_mode='manual_hier'")
-        if dp_mode != "manual_hier":
+            fsdp = _GspmdFsdp(zoo, mesh)
+        elif dp_mode == "manual_hier":
+            dp = _ManualHier(mesh, schedule)
+        else:
             raise ValueError(f"unknown dp_mode {dp_mode!r}")
-        dp = _ManualHier(mesh, schedule)
 
     def step_fn(params, opt_state, batch):
         batch = to_device(batch, dev)
-        if dp is not None:
-            batch = dp.local_batch(batch)
+        if fsdp is not None:
+            slices = fsdp.microbatches(batch, microbatches)
+        elif dp is not None:
+            slices = dp.microbatches(batch, microbatches)
+        else:
+            slices = _split(batch, microbatches)
         params.requires_grad_(True)
         named = dict(params.named_parameters())
         for p in named.values():
             p.grad = None
-        if microbatches == 1:
-            slices = [batch]
-        else:
-            n = next(iter(batch.values())).shape[0]
-            if n % microbatches:
-                raise ValueError(f"batch of {n} does not split into {microbatches} microbatches")
-            slices = [dict(zip(batch, vals))
-                      for vals in zip(*(v.chunk(microbatches, 0) for v in batch.values()))]
         acc = None if microbatches == 1 else {
             n: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for n, p in named.items()}
         losses = []
         for mb in slices:
-            loss, metrics = zoo.loss(params, mb)
+            if fsdp is not None:
+                loss, metrics = zoo.loss(params, mb, fsdp.plan)
+            else:
+                loss, metrics = zoo.loss(params, mb)
             loss.backward()
             losses.append(loss.detach())
             if acc is not None:
@@ -174,9 +248,13 @@ def make_train_step(
                      for n, p in named.items()}
         else:
             grads = {n: g / microbatches for n, g in acc.items()}
+        gnorm = None
         if dp is not None:
             grads = dp.reduce_grads(grads)
-        params, opt_state, opt_metrics = opt_lib.apply(opt_cfg, opt_state, params, grads)
+        if fsdp is not None:
+            grads = fsdp.reduce_grads(grads)
+            gnorm = opt_lib.sharded_global_norm(grads, fsdp.layout)
+        params, opt_state, opt_metrics = opt_lib.apply(opt_cfg, opt_state, params, grads, gnorm)
         for p in named.values():
             p.grad = None
         out = {"nll": metrics["nll"].detach(), "aux": metrics["aux"].detach(),

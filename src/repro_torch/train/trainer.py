@@ -6,7 +6,9 @@ data position is the step counter (the pipeline is counter-based), so
 recovery is "restore the latest checkpoint, continue from its step".
 
   * CheckpointPolicy: every ``every_steps`` steps, keep the last
-    ``keep_last``, atomic writes (``checkpoint.save``).
+    ``keep_last``, atomic writes (``checkpoint.save``).  With ``layout``
+    (a sharded run) every rank takes the policy: each save gathers whole
+    leaves on every rank and rank 0 writes them.
   * StragglerMonitor: EWMA of step time; a step slower than ``threshold``
     times the EWMA for ``patience`` consecutive steps raises StragglerAlert.
   * resume(): restores params and optimizer state; the caller restarts the
@@ -25,6 +27,7 @@ import time
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 from ..checkpoint import checkpoint as ckpt_lib
+from ..parallel.sharding import Layout
 
 
 class StragglerAlert(RuntimeError):
@@ -60,6 +63,7 @@ class CheckpointPolicy:
     directory: str
     every_steps: int = 100
     keep_last: int = 3
+    layout: Optional[Layout] = None
 
 
 @dataclasses.dataclass
@@ -104,16 +108,20 @@ def train_loop(
             ckpt_lib.save(
                 ckpt.directory, step + 1,
                 {"params": params, "opt": opt_state},
-                extra={"step": step + 1},
+                extra={"step": step + 1}, layout=ckpt.layout,
             )
-            _gc_checkpoints(ckpt)
+            if ckpt_lib.is_writer(ckpt.layout):
+                _gc_checkpoints(ckpt)
     return TrainResult(step + 1 - start_step, metrics_host, history)
 
 
-def resume(ckpt_dir: str, params_like: Any, opt_like: Any) -> Tuple[Any, Any, int]:
+def resume(ckpt_dir: str, params_like: Any, opt_like: Any,
+           layout: Optional[Layout] = None) -> Tuple[Any, Any, int]:
     """Restore {params, opt} from the latest checkpoint onto the devices and
-    dtypes of the ``*_like`` trees; returns (params, opt_state, start_step)."""
-    tree, extra = ckpt_lib.restore(ckpt_dir, {"params": params_like, "opt": opt_like})
+    dtypes of the ``*_like`` trees (with ``layout``, this rank's blocks);
+    returns (params, opt_state, start_step)."""
+    tree, extra = ckpt_lib.restore(ckpt_dir, {"params": params_like, "opt": opt_like},
+                                   layout=layout)
     return tree["params"], tree["opt"], int(extra["step"])
 
 

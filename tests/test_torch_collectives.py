@@ -4,12 +4,11 @@ package, rank by rank.
 The port runs in a gloo world of 8 local ranks (``torch_dist_worlds.py``),
 JAX in its own process on 8 forced host devices; both take the same numpy
 inputs, block r of each to rank r at mesh coordinate ``unravel(r, shape)``,
-and write every rank's result to an ``.npz``.  The two processes run at the
-same time, each with a time limit, so a hung collective fails the tests
-instead of stalling the run."""
+and write every rank's result to an ``.npz``.  The two processes run one
+after the other, each with a time limit, so a hung collective fails the
+tests instead of stalling the run (``torch_dist_worlds.run_in_turn``)."""
 
 import os
-import subprocess
 import sys
 import textwrap
 
@@ -31,7 +30,9 @@ RANKS = 8
 ATOL = 1e-4
 # int8 values equal, so the dequantised sums differ by f32 rounding only
 COMPRESSED_ATOL = 1e-5
-TIMEOUT = 180
+
+sys.path.insert(0, HERE)
+import torch_dist_worlds as worlds  # noqa: E402
 
 JAX_SIDE = """
 import sys
@@ -115,27 +116,16 @@ def _inputs():
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Run the JAX process and the port's world side by side; return
-    (inputs, jax results, [port results by rank])."""
+    """Run the JAX process and the port's world one after the other;
+    return (inputs, jax results, [port results by rank])."""
     work = tmp_path_factory.mktemp("collectives")
     inputs = _inputs()
     np.savez(work / "inputs.npz", **inputs)
-    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
-               XLA_FLAGS=f"--xla_force_host_platform_device_count={RANKS}")
-    procs = [
-        subprocess.Popen([sys.executable, "-c", textwrap.dedent(JAX_SIDE), str(work)], env=env,
-                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
-        subprocess.Popen([sys.executable, os.path.join(HERE, "torch_dist_worlds.py"),
-                          "collectives", str(RANKS), str(work)], env=env,
-                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
-    ]
-    try:
-        outs = [p.communicate(timeout=TIMEOUT) for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    for p, (_, err) in zip(procs, outs):
-        assert p.returncode == 0, err[-4000:]
+    worlds.run_in_turn(tmp_path_factory, {
+        "jax": [sys.executable, "-c", textwrap.dedent(JAX_SIDE), str(work)],
+        "port": [sys.executable, os.path.join(HERE, "torch_dist_worlds.py"), "collectives",
+                 str(RANKS), str(work)],
+    }, worlds.jax_env(SRC, RANKS))
     port = [dict(np.load(work / f"collectives_{r}.npz")) for r in range(RANKS)]
     return inputs, dict(np.load(work / "jax.npz")), port
 

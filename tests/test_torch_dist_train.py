@@ -5,11 +5,11 @@ launcher's spawned CPU world.
 The smoke llama3.2-3b config on a (2, 2, 2) ("pod", "data", "model") world
 of 8 gloo ranks (``torch_dist_worlds.py``) starts from the JAX init at
 ``PRNGKey(0)`` carried over by ``interop.params_from_jax``; JAX runs the
-reference's step in its own process on 8 forced host devices.  Every
-process runs at the same time, each with a time limit."""
+reference's step in its own process on 8 forced host devices.  The
+processes run one after another, each with a time limit
+(``torch_dist_worlds.run_in_turn``)."""
 
 import os
-import subprocess
 import sys
 import textwrap
 
@@ -47,7 +47,6 @@ RANKS = 8
 SCHEDULES = ("flat", "hierarchical", "compressed")
 # the reference's own bound on its two train modes (tests/test_distributed.py)
 JAX_LOSS_ATOL = 1e-3
-TIMEOUT = 180
 
 JAX_SIDE = """
 import sys
@@ -94,7 +93,7 @@ def _init_state():
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The JAX process, the (2, 2, 2) world, the world of one and the
-    launcher's spawned world, side by side."""
+    launcher's spawned world, one after another."""
     work = tmp_path_factory.mktemp("dist_train")
     cfg = get_smoke_config(ARCH)
     batches = _batches(cfg, worlds.TRAIN_STEPS)
@@ -102,8 +101,6 @@ def runs(tmp_path_factory):
                                      for k, v in b.items()})
     state = _init_state()
     np.savez(work / "params.npz", **{k: v.numpy() for k, v in state.items()})
-    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
-               XLA_FLAGS=f"--xla_force_host_platform_device_count={RANKS}")
     script = os.path.join(HERE, "torch_dist_worlds.py")
     cmds = {
         "jax": [sys.executable, "-c", textwrap.dedent(JAX_SIDE), str(work),
@@ -115,22 +112,14 @@ def runs(tmp_path_factory):
                    "pod,data,model", "--dp-mode", "manual_hier", "--schedule",
                    "hierarchical", "--steps", "3", "--seq-len", "16", "--global-batch", "8"],
     }
-    procs = {k: subprocess.Popen(c, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                 text=True) for k, c in cmds.items()}
-    try:
-        outs = {k: p.communicate(timeout=TIMEOUT) for k, p in procs.items()}
-    finally:
-        for p in procs.values():
-            p.kill()
-    for k, p in procs.items():
-        assert p.returncode == 0, (k, outs[k][1][-4000:])
+    outs = worlds.run_in_turn(tmp_path_factory, cmds, worlds.jax_env(SRC, RANKS))
     return {
         "state": state,
         "batches": batches,
         "jax": dict(np.load(work / "jax.npz")),
         "train": [dict(np.load(work / f"train_{r}.npz")) for r in range(RANKS)],
         "one": dict(np.load(work / "one_0.npz")),
-        "launch": outs["launch"][0],
+        "launch": outs["launch"],
     }
 
 
@@ -190,16 +179,31 @@ def test_world_of_one_is_the_one_process_step_bit_for_bit(runs, schedule):
         assert torch.equal(got[k], want[k]), k
 
 
+def test_world_of_one_gspmd_fsdp_is_the_one_process_step(runs):
+    """``make_train_step(mesh=)`` with no dp_mode runs gspmd_fsdp; over one
+    rank its blocks are the whole leaves and it must give the one-process
+    step's losses, grad norms and params."""
+    one = runs["one"]
+    for what in ("loss", "grad_norm"):
+        np.testing.assert_allclose(one[f"gspmd.{what}"], one[f"none.{what}"], rtol=1e-6, atol=0)
+    want = _params(one, "none.param.")
+    got = _params(one, "gspmd.param.")
+    assert set(got) == set(want)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], atol=1e-6, rtol=0)
+
+
 @pytest.mark.parametrize("tag,error,words", [
     ("pod1", "ValueError", ("'pod'", "wrong sum")),
     ("nopod", "ValueError", ("'pod'", "wrong sum")),
-    ("fsdp", "NotImplementedError", ("gspmd_fsdp", "Queue 1 item 2")),
+    ("fsdp", "NotImplementedError", ("'hybrid'", "Queue 1 item 10")),
     ("sched", "ValueError", ("ring",)),
     ("mode", "ValueError", ("auto",)),
 ])
 def test_make_train_step_refuses(runs, tag, error, words):
     """compressed without a pod axis of size > 1 (the reference's wrong sum),
-    gspmd_fsdp (not ported), and unknown names."""
+    gspmd_fsdp for a family without a sharded form (the hybrid), and
+    unknown names."""
     msg = str(runs["one"][f"refuse.{tag}"])
     assert msg.startswith(error + ":"), msg
     for w in words:

@@ -36,6 +36,22 @@
   and ``manual_hier`` (``hierarchical``, (2, 2, 1)) steps in turns, 4
   rounds.
 
+* serve_moe (the ``chip_smoke.py`` serve_moe phase): moonshot-v1-16b-a3b
+  at full width and depth in bf16, 4 x 1024-token prompts: prefill, cache
+  fill and decode steps, with the device time of each MoE part (routing,
+  dispatch, the expert products, combine; labelled by wrapping
+  ``models/moe.py``'s functions here).
+
+* moe_cards (needs 4 cards, one NCCL rank each; ``--chips 4``):
+  ``gspmd_fsdp`` with expert parallelism of moonshot-v1-16b-a3b on
+  (1, 4, 1) and (1, 2, 2) ("pod", "data", "model"), global batch 4 x 1024
+  tokens, depth cut to 16 layers: 8 steps each under the byte ledger
+  (all-to-all bytes a rank a step beside E x C x D x 2 B x 6 a layer, held
+  and peak memory, step time, losses) and one profiled step on rank 0;
+  then sharded serving at full depth on (1, 4, 1): prefill, fill and 16
+  decode steps; last, at 4 layers, 8 EP steps on each shape against one
+  card's with as many microbatches as "data" ranks (losses within 1e-2).
+
 And an A/B of the flash-attention kernels against another checkout:
 
 * flash_ab DIR: ``flash_fwd`` and ``flash_fwd_lse`` at the serving prefill
@@ -81,8 +97,8 @@ And one look at numbers rather than time:
   the model keeps the reference's normaliser).
 
     python3 chip_profile.py [serve] [train] [serve_hybrid] [train_dist] [dist_cards]
-                            [xlstm_agreement] [flash_ab DIR] [flash_ablate] [scan_ab DIR]
-                            [scan_ablate]
+                            [serve_moe] [moe_cards] [xlstm_agreement] [flash_ab DIR]
+                            [flash_ablate] [scan_ab DIR] [scan_ablate]
                                                     # serve and train when none is named
 
 For each profiled phase it prints the host time, the device time summed
@@ -92,6 +108,7 @@ time.  Needs a CUDA card; imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import subprocess
 import sys
@@ -102,11 +119,18 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 STEPS = 8  # one-token decode steps profiled
 
+# the MoE layer's parts, each under a ``record_function`` label while
+# ``_moe_labels`` is open (a patch of ``models/moe.py``'s functions here;
+# the package itself carries no labels)
+MOE_PARTS = {"_route": "moe.route", "_dispatch": "moe.dispatch", "_expert_ffn": "moe.experts",
+             "_combine": "moe.combine", "all_to_all": "moe.all_to_all"}
+
 
 def _device_us(prof) -> tuple:
-    """(sum of kernel time, busy time of the union of kernel intervals) in us."""
+    """(sum of kernel time, busy time of the union of kernel intervals) in us;
+    the device-side spans of ``record_function`` labels are not kernels."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type.name == "CUDA")
+                   if e.device_type.name == "CUDA" and e.name not in MOE_PARTS.values())
     total = sum(e - s for s, e in spans)
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
@@ -518,6 +542,353 @@ def dist_cards(smi: str) -> None:
         sys.exit(f"dist_cards needs an even number of cards >= 4, found {world}")
     print(f"dist_cards: {world} ranks, one a card, NCCL [{smi}]", flush=True)
     mp.start_processes(_cards_rank, args=(world, free_port(), smi), nprocs=world, join=True,
+                       start_method="spawn")
+
+
+@contextlib.contextmanager
+def _moe_labels():
+    from torch.profiler import record_function
+
+    from repro_torch.models import moe
+
+    saved = {k: getattr(moe, k) for k in MOE_PARTS}
+
+    def labelled(fn, label):
+        def call(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return call
+
+    for k, label in MOE_PARTS.items():
+        setattr(moe, k, labelled(saved[k], label))
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(moe, k, fn)
+
+
+def _moe_report(name: str, prof, host_ms: float, per: int = 1, unit: str = "call") -> None:
+    """``_report``, then the device time of each MoE part (the kernels its
+    forward launched; a backward's are not labelled) and of NCCL's
+    kernels, each with its share of all kernel time."""
+    _report(name, prof, host_ms, per, unit)
+    total, _ = _device_us(prof)
+    for label in (*MOE_PARTS.values(), "nccl"):
+        if label == "nccl":
+            evs = [e for e in prof.events() if e.device_type.name == "CUDA" and "nccl" in e.name]
+            us = sum(e.time_range.end - e.time_range.start for e in evs)
+        else:
+            evs = [e for e in prof.events() if e.name == label and e.device_type.name == "CPU"]
+            us = sum(e.device_time_total for e in evs)
+        print(f"profile {name}: {label}: {len(evs) / per:g} calls, {us / 1e3 / per:.3f} ms "
+              f"device per {unit} ({us / max(total, 1e-9):.1%} of kernel time)", flush=True)
+
+
+def _moonshot(layers=None):
+    """moonshot-v1-16b-a3b at full width in bf16 with flash (its depth cut
+    to ``layers``; remat when cut, for training)."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), param_dtype=torch.bfloat16,
+                              compute_dtype=torch.bfloat16, attn_impl="flash")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers, remat=True)
+    return cfg
+
+
+def profile_serve_moe(smi: str) -> None:
+    """The ``chip_smoke.py`` serve_moe phase: moonshot-v1-16b-a3b at full
+    width and depth, one wave of 4 x 1024-token prompts: prefill, cache
+    fill and decode steps, with the MoE parts' device time."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.serve.serve_step import make_serve_step
+
+    cfg = _moonshot()
+    zoo = get_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = zoo.init(gen, device="cuda")
+    arts = make_serve_step(zoo, device="cuda")
+    tokens = torch.as_tensor(np.random.RandomState(0).randint(2, cfg.vocab, (4, 1024)),
+                             device="cuda")
+    state = {}
+
+    def prefill():
+        return arts.prefill_fn(params, {"tokens": tokens})[:, -1].argmax(-1)
+
+    def fill():
+        state["cache"] = zoo.init_cache(4, 1024 + STEPS + 1, device="cuda")
+        logits, state["cache"] = arts.decode_fn(params, state["cache"], {"tokens": tokens})
+        return logits[:, -1].argmax(-1)
+
+    def decode():
+        nxt = state["nxt"]
+        for _ in range(STEPS):
+            logits, state["cache"] = arts.decode_fn(params, state["cache"],
+                                                    {"tokens": nxt[:, None]})
+            nxt = logits[:, -1].argmax(-1)
+            nxt.tolist()
+        return nxt
+
+    state["nxt"] = prefill()
+    fill()  # warm-up of every path
+    decode()
+    print(f"profile: {cfg.name} bf16, 4 x 1024-token prompts, {STEPS} decode steps [{smi}]",
+          flush=True)
+    with _moe_labels():
+        for name, fn in (("moe prefill", prefill), ("moe cache_fill", fill),
+                         ("moe decode", decode)):
+            prof, host_ms = _profiled(fn)
+            if name == "moe decode":
+                _moe_report(name, prof, host_ms, per=STEPS, unit="step")
+            else:
+                _moe_report(name, prof, host_ms)
+
+
+# expert-parallel training on four cards: moonshot's depth cut to 16 layers
+# (bf16 params and grads, f32 moments: ~150 GB in all, ~38 GB a card)
+MOE_CARDS_LAYERS = 16
+# and at train_moe's 4 layers, which one card trains too: the EP steps
+# against one card's with as many microbatches as "data" ranks, each
+# microbatch a data rank's rows, routed at that rank's capacity (120 on
+# (1, 4, 1), 240 on (1, 2, 2), already a multiple of |model|), so the two
+# compute the same function; held to CARDS_LOSS_REL
+MOE_CHECK_LAYERS = 4
+
+
+def _a2a_reckoning(cfg, shape, tokens: int) -> tuple:
+    """(capacity, bytes of one dispatch result a rank) on ``shape``
+    (pod, data, model): a data rank's tokens, capacity rounded up to
+    |model|."""
+    from repro_torch.models.moe import capacity
+    from repro_torch.models.transformer import _moe_cfg
+
+    tp = shape[2]
+    cap = capacity(_moe_cfg(cfg), tokens // (shape[0] * shape[1]))
+    cap = -(-cap // tp) * tp
+    return cap, cfg.moe.num_experts * cap * cfg.d_model * 2
+
+
+def _moe_cards_check(rank: int, world: int, device: str, smi: str) -> None:
+    """MOE_CHECK_LAYERS-layer EP steps on (1, world, 1) and (1, 2,
+    world / 2) against one card's microbatched steps: the losses within
+    CARDS_LOSS_REL, and falling."""
+    import torch
+
+    from chip_smoke import TRAIN_B, TRAIN_S, TRAIN_STEPS, _largest_gap, _train_init, _train_run
+    from chip_smoke import _train_launches
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.parallel.sharding import param_layout
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = _moonshot(MOE_CHECK_LAYERS)
+    zoo = get_model(cfg)
+    ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    data = SyntheticLM(DataConfig(vocab=4096, seq_len=TRAIN_S, global_batch=TRAIN_B))
+    for shape in ((1, world, 1), (1, 2, world // 2)):
+        one = None
+        if rank == 0:
+            params, opt = _train_init(zoo, ocfg)
+            step_fn = make_train_step(zoo, ocfg, microbatches=shape[1], device=device)
+            one = _train_run(f"moe_cards check one card, {shape[1]} microbatches", step_fn,
+                             params, opt, data, TRAIN_STEPS)
+            del params, opt, step_fn
+            torch.cuda.empty_cache()
+        mesh = make_mesh(shape, ("pod", "data", "model"), device)
+        params, opt = _train_init(zoo, ocfg, param_layout(zoo, mesh))
+        step_fn = make_train_step(zoo, ocfg, device=device, mesh=mesh)
+        run = _train_run(f"moe_cards check {shape} rank {rank}", step_fn, params, opt, data,
+                         TRAIN_STEPS)
+        del params, opt, step_fn
+        torch.cuda.empty_cache()
+        want = _train_launches(cfg.num_layers, TRAIN_STEPS)
+        if run["launches"] != want:
+            raise RuntimeError(f"moe_cards check {shape}: launches {run['launches']} differ "
+                               f"from {want}")
+        if rank == 0:
+            gap = _largest_gap(run["loss"], one["loss"])
+            print(f"moe_cards check {dict(zip(mesh.mesh_dim_names, mesh.shape))}, "
+                  f"{cfg.num_layers} layers: losses {run['loss']} against one card's with "
+                  f"{shape[1]} microbatches {one['loss']}, largest relative gap {gap:.3e} (tol "
+                  f"{CARDS_LOSS_REL:g}); grad_norms {run['grad_norm']} against "
+                  f"{one['grad_norm']}; aux {run['aux']} [{smi}]", flush=True)
+            if not (gap <= CARDS_LOSS_REL and run["loss"][-1] < run["loss"][0]):
+                raise RuntimeError(f"moe_cards check {shape}: loss gap {gap:.3e} or the loss "
+                                   f"did not fall: {run['loss']}")
+
+
+def moe_cards_train(rank: int, world: int, device: str, smi: str) -> None:
+    """gspmd_fsdp with EP of moonshot-v1-16b-a3b (16 layers) on
+    (1, world, 1) (64 / world experts a card) and on (1, 2, world / 2)
+    (F split over "model" too), the global batch of 4 x 1024 tokens:
+    8 steps each under the byte ledger (all-to-all bytes a rank a step
+    beside the reckoning, peak memory, step time, losses), then one more
+    step profiled on rank 0."""
+    import torch
+
+    from chip_smoke import TRAIN_B, TRAIN_S, TRAIN_STEPS, _train_init, _train_launches
+    from chip_smoke import _train_run
+    from repro_torch.collectives import byte_ledger
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.parallel.sharding import param_layout
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = _moonshot(MOE_CARDS_LAYERS)
+    zoo = get_model(cfg)
+    ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    data = SyntheticLM(DataConfig(vocab=4096, seq_len=TRAIN_S, global_batch=TRAIN_B))
+    for shape in ((1, world, 1), (1, 2, world // 2)):
+        mesh = make_mesh(shape, ("pod", "data", "model"), device)
+        layout = param_layout(zoo, mesh)
+        torch.cuda.reset_peak_memory_stats()
+        params, opt = _train_init(zoo, ocfg, layout)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        step_fn = make_train_step(zoo, ocfg, device=device, mesh=mesh)
+        tag = f"moe_cards train {shape} rank {rank}"
+        with byte_ledger() as ledger:
+            run = _train_run(tag, step_fn, params, opt, data, TRAIN_STEPS)
+        want = _train_launches(cfg.num_layers, TRAIN_STEPS)
+        if run["launches"] != want:
+            raise RuntimeError(f"{tag}: launches {run['launches']} differ from {want}")
+        batch = data.batch(TRAIN_STEPS)
+        if rank == 0:
+            with _moe_labels():
+                prof, host_ms = _profiled(lambda: step_fn(params, opt, batch)[2]["loss"].item())
+            _moe_report(f"moe_cards train {shape} step (rank 0)", prof, host_ms, unit="step")
+        else:
+            step_fn(params, opt, batch)[2]["loss"].item()
+        if rank == 0:
+            by = {}
+            for r in ledger.records:
+                key = f"{r.op}({','.join(r.axes)})"
+                by[key] = by.get(key, 0) + r.nbytes
+            cap, one = _a2a_reckoning(cfg, shape, TRAIN_B * TRAIN_S)
+            a2a = ledger.bytes("all_to_all") / TRAIN_STEPS
+            reckoned = 6 * cfg.num_layers * one
+            print(f"moe_cards train {dict(zip(mesh.mesh_dim_names, mesh.shape))}: losses "
+                  f"{run['loss']}, aux {run['aux']}, grad_norms {run['grad_norm']}; per-step ms "
+                  f"{[round(t, 2) for t in run['step_ms']]}, steady {run['mean_ms']:.2f} ms; "
+                  f"all_to_all {a2a / 1e9:.4f} GB a rank a step against the reckoning "
+                  f"{reckoned / 1e9:.4f} (6 a layer x {cfg.num_layers} layers x "
+                  f"{cfg.moe.num_experts} x {cap} x {cfg.d_model} x 2 B = {one / 1e6:.2f} MB); "
+                  f"params + moments held {held / 2**30:.2f} GiB a card; max_memory_allocated "
+                  f"{run['peak'] / 2**30:.2f} GiB; collective results GB a rank a step "
+                  f"{({k: round(b / TRAIN_STEPS / 1e9, 4) for k, b in by.items()})} [{smi}]",
+                  flush=True)
+        del params, opt, step_fn, run
+        torch.cuda.empty_cache()
+
+
+def moe_cards_serve(rank: int, world: int, device: str, smi: str) -> None:
+    """Sharded serving of moonshot-v1-16b-a3b at full depth on
+    (1, world, 1): EP over "data" (one slot a card), a 1024-token prompt
+    each, prefill, the one-call cache fill, then 16 decode steps: step
+    latency and memory a card."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.serve.serve_step import make_serve_step
+
+    slots, prompt, steps = 4, 1024, 16
+    cfg = _moonshot()
+    zoo = get_model(cfg)
+    mesh = make_mesh((1, world, 1), ("pod", "data", "model"), device)
+    L, Hk, Dh = cfg.num_layers, cfg.kv_heads, cfg.resolved_head_dim
+    cache_shape = (L, slots, prompt + steps, Hk, Dh)
+    arts = make_serve_step(zoo, device, mesh=mesh,
+                           batch_example={"tokens": np.zeros((slots, 1), np.int64)},
+                           cache_example={"k": cache_shape, "v": cache_shape, "index": 0})
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    params = arts.param_layout.shard(zoo.init(gen, device=device))
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    cache = arts.cache_layout.shard(zoo.init_cache(slots, prompt + steps, device=device))
+    tokens = torch.as_tensor(np.random.RandomState(0).randint(2, cfg.vocab, (slots, prompt)),
+                             device=device)
+
+    def timed(fn):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    pre, pre_ms = timed(lambda: arts.prefill_fn(params, {"tokens": tokens}))
+    (fill, cache), fill_ms = timed(lambda: arts.decode_fn(params, cache, {"tokens": tokens}))
+    agree = (pre.argmax(-1) == fill.argmax(-1)).float().mean().item()
+    nxt = pre[:, -1].argmax(-1)
+    del pre, fill
+    step_ms = []
+    for _ in range(steps):
+        (logits, cache), ms = timed(lambda: arts.decode_fn(params, cache,
+                                                           {"tokens": nxt[:, None]}))
+        nxt = logits[:, -1].argmax(-1)
+        nxt.tolist()
+        step_ms.append(ms)
+    if rank == 0:
+        steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+        print(f"moe_cards serve {dict(zip(mesh.mesh_dim_names, mesh.shape))}: {cfg.name} full "
+              f"depth, {slots} slots (one a card), {prompt}-token prompts: prefill "
+              f"{pre_ms:.2f} ms, cache fill {fill_ms:.2f} ms, prefill-vs-fill argmax agreement "
+              f"{agree:.4f}; decode step ms {[round(t, 2) for t in step_ms]}, median of 2-"
+              f"{steps} {steady:.2f} ms ({slots * 1e3 / steady:.1f} tokens/s); params held "
+              f"{held / 2**30:.2f} GiB a card, max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the whole init included) "
+              f"[{smi}]", flush=True)
+    if not agree > 0.7:
+        raise RuntimeError(f"moe_cards serve rank {rank}: prefill and fill agree on {agree}")
+
+
+def _moe_cards_rank(rank: int, world: int, port: int, smi: str) -> None:
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=300))
+    try:
+        moe_cards_train(rank, world, "cuda", smi)
+        torch.cuda.empty_cache()
+        moe_cards_serve(rank, world, "cuda", smi)
+        torch.cuda.empty_cache()
+        _moe_cards_check(rank, world, "cuda", smi)
+    finally:
+        dist.destroy_process_group()
+
+
+def moe_cards(smi: str) -> None:
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch.mesh import free_port
+
+    world = torch.cuda.device_count()
+    if world != 4:
+        sys.exit(f"moe_cards needs 4 cards, found {world}")
+    print(f"moe_cards: {world} ranks, one a card, NCCL [{smi}]", flush=True)
+    mp.start_processes(_moe_cards_rank, args=(world, free_port(), smi), nprocs=world, join=True,
                        start_method="spawn")
 
 
@@ -980,6 +1351,7 @@ def main() -> None:
             continue
         {"serve": profile_serve, "train": profile_train, "serve_hybrid": profile_serve_hybrid,
          "train_dist": profile_train_dist, "dist_cards": dist_cards,
+         "serve_moe": profile_serve_moe, "moe_cards": moe_cards,
          "xlstm_agreement": xlstm_agreement, "flash_ablate": flash_ablate,
          "scan_ablate": scan_ablate}[name](smi)
 

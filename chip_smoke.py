@@ -19,7 +19,11 @@ Phases, each printed as it runs; any failure exits non-zero:
            against the same weights on the CPU (plain path): a forward, two
            train steps (remat on the card), and a checkpoint round trip;
            then the zamba2 and xlstm smoke models the same way (SSD and
-           mLSTM kernels): a forward and 3 decode steps.
+           mLSTM kernels): a forward and 3 decode steps; then moonshot-smoke
+           (MoE, 4 experts top-2): a forward (logits, aux), two train steps
+           (loss, aux, grad_norm) and 3 decode steps, with the share of
+           token -> expert choices that agree between card and CPU (all
+           must agree).
 5. serve   llama3.2-3b at full width in bf16, random weights from a seed:
            8 requests of 1024-token prompts, 32 new tokens each, in two
            waves of 4 slots; counts the kernel launches of that run.
@@ -31,28 +35,42 @@ Phases, each printed as it runs; any failure exits non-zero:
            prompts, 32 new tokens each, one wave; 9 mlstm_fwd launches per
            prefill; then each mLSTM layer's kernel form against its
            recurrent form on the prompts, and the same weights in f32.
-8. train   llama3.2-3b at full width and depth in bf16 (f32 moments),
+8. serve_moe  moonshot-v1-16b-a3b at full width and depth in bf16 (48
+           layers, 64 experts top-6, 28.06 B params): the init's peak
+           memory (< 60 GiB), then 4 requests of 1024-token prompts, 32 new
+           tokens each, one wave; 48 flash_fwd launches per prefill; the
+           prefill against the one-call cache fill over every prompt
+           position, argmax agreement above the reference's MoE bound (0.7)
+           and the rms of the difference within 0.1 of the logits' std.
+9. train   llama3.2-3b at full width and depth in bf16 (f32 moments),
            remat, flash attention: 8 AdamW steps of 4 x 1024 tokens through
            ``train_loop``; the loss must fall, and the launches of that run
            must be 2L flash_fwd_lse, L flash_bwd_dq and L flash_bwd_dkv per
            step and no flash_fwd.
-9. train_dist  the same model, seed and data through the distributed
+10. train_moe  moonshot-v1-16b-a3b at full width, depth cut to 4 layers,
+           the same way: the loss must fall, aux be > 0 every step, and the
+           launches be the train phase's per layer.
+11. train_dist  the same model, seed and data through the distributed
            ``manual_hier`` step on a world of one (NCCL, mesh (1, 1, 1)
            ("pod", "data", "model")): 8 steps of the ``hierarchical``
-           schedule, whose per-step loss and grad_norm must equal phase 8's
-           within rel 1e-5 and whose launches must equal phase 8's, then 3
+           schedule, whose per-step loss and grad_norm must equal phase 9's
+           within rel 1e-5 and whose launches must equal phase 9's, then 3
            steps of ``flat`` against them; the ``compressed`` schedule is
            refused there (no pod axis of size > 1).  Prints each schedule's
-           steady step time beside phase 8's.
-10. train_fsdp  the same model, seed and data through the sharded
+           steady step time beside phase 9's.
+12. train_fsdp  the same model, seed and data through the sharded
            ``gspmd_fsdp`` step (the default dp_mode with a mesh) on the same
            world of one: params and AdamW moments stored as the rank's blocks
            of the reference's layout (``param_layout``; on one rank the
            blocks are the whole leaves), each layer's leaves gathered inside
            its rematerialised function, the global loss and grad norm.  8
-           steps whose losses and grad_norms must equal phase 8's within rel
-           1e-5 and whose launches must equal phase 8's; prints its steady
-           step time and peak memory beside phase 8's.
+           steps whose losses and grad_norms must equal phase 9's within rel
+           1e-5 and whose launches must equal phase 9's; prints its steady
+           step time and peak memory beside phase 9's.
+13. train_moe_fsdp  phase 10's model, seed and data through ``gspmd_fsdp``
+           on that world of one: the MoE layers expert-parallel (an
+           all-to-all over a "data" axis of one); losses, aux and grad_norms
+           within rel 1e-5 of phase 10's, the same launches.
 
 Every serve and train phase sets all launch counts to 0 before it runs and
 reads them after; the ``kernels`` line reports each kernel's launches from
@@ -242,6 +260,8 @@ FLASH_CASES = [
     ("no_visible_key", 1, 4, 2, 64, 128, 64, False, 16, 100, "bfloat16", "kernel"),
     ("no_visible_key_d128", 1, 4, 2, 64, 128, 128, False, 16, 100, "bfloat16", "kernel"),
     ("no_visible_key_f32", 1, 4, 2, 64, 128, 64, False, 16, 100, "float32", "kernel"),
+    # moonshot-v1-16b-a3b's prefill and training shape: MHA (a group of 1)
+    ("moonshot_prefill", 4, 16, 16, 1024, 1024, 128, True, None, 0, "bfloat16", "model"),
 ]
 
 
@@ -818,6 +838,7 @@ def phase_model() -> None:
         fail(f"small model on the card disagrees with the CPU plain path: {err}")
     _model_train(base, params)
     _model_recurrent()
+    _model_moe()
 
 
 # smoke recurrent models, f32, card (kernels, cuBLAS) vs CPU (chunked plain
@@ -935,6 +956,145 @@ def _model_train(base, init_params) -> None:
           f"{'bit-identical' if same else 'DIFFERS'}", flush=True)
     if not same:
         fail("checkpoint round trip changed the training state")
+
+
+# moonshot-smoke in f32, card (flash, cuBLAS) vs CPU: routed alike, the two
+# differ by f32 sums in another order (dispatch and combine are a scatter
+# into slots and a per-token gather: no accumulating scatter).  A near-tie in
+# the router can flip an expert on one side and move a token's output by
+# O(1): the share of token -> expert choices that agree is printed, and a
+# flip is reported with its size and fails the run (it is not hidden by a
+# wider tolerance).
+MOE_MODEL_TOL = 1e-3     # abs, logits (the small llama's bound)
+MOE_AUX_RTOL = 1e-5
+
+
+@contextlib.contextmanager
+def routing_choices():
+    """Record each MoE routing call's (T, K) expert choices, in call order,
+    by wrapping ``models.moe._route`` while the block runs."""
+    from repro_torch.models import moe
+
+    route, calls = moe._route, []
+
+    def recorded(router_w, cfg, xt, dt, cap):
+        r = route(router_w, cfg, xt, dt, cap)
+        calls.append(r.experts)
+        return r
+
+    moe._route = recorded
+    try:
+        yield calls
+    finally:
+        moe._route = route
+
+
+def _routing_agreement(tag: str, what: str, got: list, want: list) -> float:
+    """The share of (token, k) expert choices equal between two traces of
+    the same routing calls; prints each flip."""
+    import torch
+
+    if len(got) != len(want):
+        fail(f"{tag}: {what}: {len(got)} routing calls against {len(want)}")
+    same = total = 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        eq = a.cpu() == b
+        same, total = same + int(eq.sum()), total + eq.numel()
+        rows = (~eq).any(-1).nonzero().flatten().tolist()
+        if rows:
+            print(f"{tag}: {what}: routing call {i}: {len(rows)} of {eq.shape[0]} tokens chose "
+                  f"other experts (tokens {rows[:8]})", flush=True)
+    return same / max(total, 1)
+
+
+def _model_moe() -> None:
+    """moonshot-smoke (64 experts cut to 4, top-2) in f32: flash kernels and
+    remat on the card against the plain path on the CPU with the same
+    weights: a forward (logits, aux), two train steps (loss, aux,
+    grad_norm) and 3 decode steps, with the share of expert choices that
+    agree."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models.common import ParamTree
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import make_train_step
+
+    tag = "model: moonshot-smoke"
+    base = get_smoke_config("moonshot-v1-16b-a3b")
+    gpu_zoo, cpu_zoo = get_model(dataclasses.replace(base, attn_impl="flash")), get_model(base)
+    cpu_params = cpu_zoo.init(0, device="cpu")
+    state = {k: v.detach() for k, v in cpu_params.state_dict().items()}
+    params = ParamTree.from_state_dict({k: v.cuda() for k, v in state.items()})
+    g = torch.Generator().manual_seed(4)
+    tokens = torch.randint(0, base.vocab, (2, 100), generator=g)
+    with torch.inference_mode():
+        with routing_choices() as tg:
+            got, aux_g = gpu_zoo.forward(params, {"tokens": tokens.cuda()})
+        with routing_choices() as tc:
+            want, aux_c = cpu_zoo.forward(cpu_params, {"tokens": tokens})
+        share = _routing_agreement(tag, "forward", tg, tc)
+        err = (got.cpu() - want).abs().max().item()
+        daux = abs(aux_g.item() - aux_c.item()) / abs(aux_c.item())
+        caches = [gpu_zoo.init_cache(2, 8, device="cuda"), cpu_zoo.init_cache(2, 8, device="cpu")]
+        derrs = []
+        with routing_choices() as dg:
+            outs_g = []
+            for t in range(3):
+                a, caches[0] = gpu_zoo.decode_step(params, caches[0],
+                                                   {"tokens": tokens[:, t:t + 1].cuda()})
+                outs_g.append(a.cpu())
+        with routing_choices() as dc:
+            for t in range(3):
+                b, caches[1] = cpu_zoo.decode_step(cpu_params, caches[1],
+                                                   {"tokens": tokens[:, t:t + 1]})
+                derrs.append((outs_g[t] - b).abs().max().item())
+        dshare = _routing_agreement(tag, "decode", dg, dc)
+    print(f"{tag} f32, card+flash vs cpu+plain: forward logits {tuple(got.shape)} max_abs_err "
+          f"{err:.3e} (tol {MOE_MODEL_TOL:g}), aux {aux_g.item():.6f} vs {aux_c.item():.6f} rel "
+          f"{daux:.2e} (tol {MOE_AUX_RTOL:g}); decode steps max_abs_err "
+          f"{[f'{e:.3e}' for e in derrs]}; expert choices agreeing: forward {share:.6f}, "
+          f"decode {dshare:.6f}", flush=True)
+    if not (bool(torch.isfinite(got).all()) and err <= MOE_MODEL_TOL and daux <= MOE_AUX_RTOL
+            and max(derrs) <= MOE_MODEL_TOL and aux_g.item() > 0
+            and share == 1 and dshare == 1):
+        fail(f"{tag} on the card disagrees with the CPU (expert choices agreeing {share}, "
+             f"decode {dshare})")
+
+    ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    data = SyntheticLM(DataConfig(vocab=base.vocab, seq_len=128, global_batch=4))
+    sides = {}
+    for dev, cfg in (("cuda", dataclasses.replace(base, attn_impl="flash", remat=True)),
+                     ("cpu", base)):
+        p = ParamTree.from_state_dict({k: v.to(dev).clone() for k, v in state.items()},
+                                      requires_grad=True)
+        step_fn = make_train_step(get_model(cfg), ocfg, device=dev)
+        opt = opt_lib.init(ocfg, p)
+        fa.reset_launch_counts()
+        metrics = []
+        for step in range(2):
+            p, opt, m = step_fn(p, opt, data.batch(step))
+            metrics.append({k: float(v) for k, v in m.items()})
+        sides[dev] = (metrics, fa.launch_counts())
+    (gm, counts), (cm, _) = sides["cuda"], sides["cpu"]
+    L = base.num_layers
+    want_counts = {"flash_fwd": 0, "flash_fwd_lse": 2 * 2 * L, "flash_bwd_dq": 2 * L,
+                   "flash_bwd_dkv": 2 * L}
+    if counts != want_counts:
+        fail(f"{tag}: 2 train steps launched {counts}, expected {want_counts}")
+    for step, (a, b) in enumerate(zip(gm, cm)):
+        gaps = {k: abs(a[k] - b[k]) / abs(b[k]) for k in ("loss", "aux", "grad_norm")}
+        print(f"{tag}: train step {step} card loss {a['loss']:.7f} aux {a['aux']:.7f} gnorm "
+              f"{a['grad_norm']:.7f}, cpu loss {b['loss']:.7f} aux {b['aux']:.7f} gnorm "
+              f"{b['grad_norm']:.7f}: rel diff {gaps['loss']:.2e} / {gaps['aux']:.2e} / "
+              f"{gaps['grad_norm']:.2e} (tol {MODEL_LOSS_RTOL:g} / {MOE_AUX_RTOL:g} / "
+              f"{MODEL_GNORM_RTOL:g}); launches {counts}", flush=True)
+        if not (gaps["loss"] <= MODEL_LOSS_RTOL and gaps["aux"] <= MOE_AUX_RTOL
+                and gaps["grad_norm"] <= MODEL_GNORM_RTOL):
+            fail(f"{tag}: train step {step}: card and CPU disagree")
 
 
 def phase_serve(smi: str) -> dict:
@@ -1272,6 +1432,133 @@ def phase_serve_xlstm(smi: str) -> dict:
                             f32_tol=XLSTM_F32_TOL, layer_tol=XLSTM_LAYER_TOL)
 
 
+# moonshot-v1-16b-a3b's init must fit one card with room for serving
+MOE_INIT_PEAK_GIB = 60.0
+# the reference's own bound on MoE prefill against decode (argmax agreement,
+# tests/test_models_smoke.py), and the rms of prefill (flash) minus fill
+# (plain attention) over the logits' std: both route all 4096 tokens in one
+# call at capacity 480, so they differ by bf16 roundings that move a few
+# near-tie routings; sound runs read 0.0531 and 0.0538, a wrong kernel O(1)
+MOE_ARGMAX_AGREE = 0.7
+MOE_PREFILL_RMS = 0.1
+
+
+def phase_serve_moe(smi: str) -> None:
+    """moonshot-v1-16b-a3b at full width and depth in bf16 (48 layers, 64
+    experts top-6, 28.06 B params), random weights from seed 0: 4 requests
+    of 1024-token prompts, 32 new tokens each, one wave of 4 slots; 48
+    flash_fwd launches per prefill; prefill against the one-call cache fill
+    over every prompt position, at the reference's MoE bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.serve.serve_step import (
+        BatchScheduler, Request, ServeArtifacts, make_serve_step, serve_waves,
+    )
+
+    tag, slots, prompt, max_new = "serve_moe", 4, 1024, 32
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), param_dtype=torch.bfloat16,
+                              compute_dtype=torch.bfloat16, attn_impl="flash")
+    zoo = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = zoo.init(gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s, init_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(p.numel() for p in params.parameters())
+    held = torch.cuda.memory_allocated() / 2**30
+    print(f"{tag}: {cfg.name} L={cfg.num_layers} d_model={cfg.d_model} H={cfg.heads} "
+          f"experts={cfg.moe.num_experts} top-{cfg.moe.top_k} d_ff={cfg.moe.d_ff} "
+          f"vocab={cfg.vocab} bf16, {n_params / 1e9:.3f} B params ({held:.2f} GiB held), init "
+          f"{init_s:.2f} s, init peak {init_peak:.2f} GiB (limit {MOE_INIT_PEAK_GIB}) [{smi}]",
+          flush=True)
+    if not init_peak < MOE_INIT_PEAK_GIB:
+        fail(f"{tag}: the init peaked at {init_peak:.2f} GiB")
+
+    arts = make_serve_step(zoo, device="cuda")
+    times = {"prefill": [], "fill": [], "decode": []}
+    held_logits, agreement = {}, []
+
+    def timed_prefill(p, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = arts.prefill_fn(p, batch)
+        torch.cuda.synchronize()
+        times["prefill"].append(time.perf_counter() - t)
+        held_logits["prefill"] = out
+        return out
+
+    def timed_decode(p, cache, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = arts.decode_fn(p, cache, batch)
+        torch.cuda.synchronize()
+        fill = batch["tokens"].shape[1] > 1
+        times["fill" if fill else "decode"].append(time.perf_counter() - t)
+        if fill:  # every prompt position of the prefill against the fill, a row at a time
+            a, b = held_logits.pop("prefill"), out[0]
+            same, sq, s1, s2 = 0, 0.0, 0.0, 0.0
+            for i in range(a.shape[0]):
+                ai, bi = a[i].float(), b[i].float()
+                if not bool(torch.isfinite(ai).all() and torch.isfinite(bi).all()):
+                    fail(f"{tag}: non-finite logits")
+                same += int((ai.argmax(-1) == bi.argmax(-1)).sum())
+                sq += float((ai - bi).pow(2).sum())
+                s1, s2 = s1 + float(ai.sum()), s2 + float(ai.pow(2).sum())
+            n = a.numel()
+            agreement.append((same / (n // a.shape[-1]),
+                              math.sqrt(sq / n) / math.sqrt(s2 / n - (s1 / n) ** 2)))
+        return out
+
+    sched = BatchScheduler(slots=slots, eos_id=0)
+    rng = np.random.RandomState(0)
+    reqs = [Request(rid=i, prompt=rng.randint(2, cfg.vocab, prompt), max_new=max_new)
+            for i in range(slots)]
+    for r in reqs:
+        sched.submit(r)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    waves = serve_waves(zoo, ServeArtifacts(timed_decode, timed_prefill), params, sched,
+                        prompt + max_new, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    for r in reqs:
+        ok = len(r.generated) == r.max_new or (r.generated and r.generated[-1] == sched.eos_id)
+        if not (r.done and ok):
+            fail(f"{tag}: request {r.rid} unanswered: {len(r.generated)} tokens, done={r.done}")
+    n_prefill = len(times["prefill"])
+    print(f"{tag}: {len(reqs)} requests answered in {len(waves)} wave(s); tokens per request "
+          f"{[len(r.generated) for r in reqs]}; launches {counts}", flush=True)
+    if counts["flash_fwd"] != cfg.num_layers * n_prefill or \
+            any(n for k, n in counts.items() if k != "flash_fwd"):
+        fail(f"{tag} launched {counts}, expected {cfg.num_layers} x {n_prefill} flash_fwd only")
+    for agree, rms in agreement:
+        print(f"{tag}: prefill (flash) vs cache fill (plain attention), each one routing call "
+              f"of {slots * prompt} tokens a layer, over all {slots}x{prompt} positions: argmax "
+              f"agreement {agree:.4f} (need > "
+              f"{MOE_ARGMAX_AGREE}), rms diff / std {rms:.4f} (tol {MOE_PREFILL_RMS})",
+              flush=True)
+        if not (agree > MOE_ARGMAX_AGREE and rms <= MOE_PREFILL_RMS):
+            fail(f"{tag}: prefill and fill agree on {agree:.4f} of argmaxes, rms diff / std "
+                 f"{rms:.4f}")
+    gen_tokens = sum(len(r.generated) for r in reqs)
+    prefill_ms = 1e3 * sum(times["prefill"]) / n_prefill
+    fill_ms = 1e3 * sum(times["fill"]) / len(times["fill"])
+    step_ms = 1e3 * sum(times["decode"]) / len(times["decode"])
+    print(f"{tag}: prefill {prefill_ms:.2f} ms per wave ({slots}x{prompt} tokens, "
+          f"{slots * prompt / prefill_ms * 1e3:.0f} tokens/s), cache fill {fill_ms:.2f} ms, "
+          f"decode {step_ms:.3f} ms/step ({slots} slots, capacity 1 a step), decode "
+          f"{slots * 1e3 / step_ms:.1f} tokens/s, end to end {gen_tokens / wall:.1f} generated "
+          f"tokens/s over {wall:.2f} s, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]", flush=True)
+
+
 TRAIN_STEPS = 8
 TRAIN_B, TRAIN_S = 4, 1024
 # the distributed step on a world of one against the one-process step: the
@@ -1333,7 +1620,7 @@ def _train_run(tag: str, step_fn, params, opt, data, steps: int) -> dict:
     hist = res.history
     run = {"launches": launch_counts(), "peak": torch.cuda.max_memory_allocated(),
            "loss": [h["loss"] for h in hist], "grad_norm": [h["grad_norm"] for h in hist],
-           "step_ms": [1e3 * h["step_time_s"] for h in hist]}
+           "aux": [h["aux"] for h in hist], "step_ms": [1e3 * h["step_time_s"] for h in hist]}
     if len(hist) != steps or not all(math.isfinite(x) for x in run["loss"] + run["grad_norm"]):
         fail(f"{tag}: non-finite loss or grad_norm, or missing steps: {run['loss']} "
              f"{run['grad_norm']}")
@@ -1514,6 +1801,106 @@ def phase_train_fsdp(smi: str, train: dict, mesh) -> None:
           f"{train['peak'] / 2**30:.2f}) [{smi}]", flush=True)
 
 
+# moonshot-v1-16b-a3b trains at full width with its depth cut: 48 layers
+# need ~337 GB (bf16 params and grads, f32 moments); 4 take ~35 GB
+MOE_TRAIN_LAYERS = 4
+
+
+def _train_moe_setup():
+    """moonshot-v1-16b-a3b at full width, 4 layers, in bf16 with remat and
+    flash; the train phase's AdamW config and data."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.train import optimizer as opt_lib
+
+    cfg = dataclasses.replace(
+        get_config("moonshot-v1-16b-a3b"), num_layers=MOE_TRAIN_LAYERS,
+        param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, remat=True, attn_impl="flash",
+    )
+    ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    data = SyntheticLM(DataConfig(vocab=4096, seq_len=TRAIN_S, global_batch=TRAIN_B))
+    return cfg, get_model(cfg), ocfg, data
+
+
+def phase_train_moe(smi: str) -> dict:
+    """8 AdamW steps of moonshot-v1-16b-a3b (4 layers) in one process: the
+    loss must fall, aux be > 0 every step, and the launches be 2L
+    flash_fwd_lse, L flash_bwd_dq and L flash_bwd_dkv a step."""
+    import torch
+
+    from repro_torch.train.train_step import make_train_step
+
+    t0 = time.perf_counter()
+    cfg, zoo, ocfg, data = _train_moe_setup()
+    params, opt = _train_init(zoo, ocfg)
+    step_fn = make_train_step(zoo, ocfg, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"train_moe: {cfg.name} L={cfg.num_layers} (cut from 48) d_model={cfg.d_model} "
+          f"experts={cfg.moe.num_experts} top-{cfg.moe.top_k} vocab={cfg.vocab} bf16 params, f32 "
+          f"moments, remat, flash; {n_params / 1e9:.3f} B params "
+          f"({cfg.active_param_count() / 1e9:.3f} B active); batch {TRAIN_B} x {TRAIN_S} tokens "
+          f"from a 4096-token bigram corpus; set-up {time.perf_counter() - t0:.2f} s", flush=True)
+    run = _train_run("train_moe", step_fn, params, opt, data, TRAIN_STEPS)
+    del params, opt, step_fn
+    torch.cuda.empty_cache()
+    losses, aux = run["loss"], run["aux"]
+    print(f"train_moe: loss {losses[0]:.4f} -> {losses[-1]:.4f}; aux per step "
+          f"{[round(a, 5) for a in aux]}", flush=True)
+    if not (losses[-1] < losses[0] and min(aux) > 0):
+        fail(f"train_moe: the loss did not fall or an aux was not > 0: {losses} {aux}")
+    want = _train_launches(cfg.num_layers, TRAIN_STEPS)
+    print(f"train_moe: launches {run['launches']}; expected {want}", flush=True)
+    if run["launches"] != want:
+        fail(f"train_moe launches {run['launches']} differ from {want}")
+    tokens = TRAIN_B * TRAIN_S
+    mfu = 6.0 * cfg.active_param_count() * tokens / (run["mean_ms"] / 1e3) / PEAK_FLOPS["bfloat16"]
+    print(f"train_moe: per-step ms {[round(t, 2) for t in run['step_ms']]}; steady step "
+          f"{run['mean_ms']:.2f} ms, {tokens / (run['mean_ms'] / 1e3):.1f} tokens/s, MFU {mfu:.2%} "
+          f"(6 N_active tokens / step time / 989 TFLOP/s), max_memory_allocated "
+          f"{run['peak'] / 2**30:.2f} GiB [{smi}]", flush=True)
+    return run
+
+
+def phase_train_moe_fsdp(smi: str, train_moe: dict, mesh) -> None:
+    """The same MoE steps through ``gspmd_fsdp`` on the world of one: the
+    expert-parallel layers (all-to-all over a "data" axis of one), whose
+    losses, aux and grad_norms must equal ``phase_train_moe``'s within rel
+    1e-5, with its launches."""
+    import torch
+
+    from repro_torch.collectives import byte_ledger
+    from repro_torch.parallel.sharding import param_layout
+    from repro_torch.train.train_step import make_train_step
+
+    cfg, zoo, ocfg, data = _train_moe_setup()
+    layout = param_layout(zoo, mesh)
+    params, opt = _train_init(zoo, ocfg, layout)
+    step_fn = make_train_step(zoo, ocfg, device="cuda", mesh=mesh)
+    if zoo.shard_plan(layout).ep is None:
+        fail("train_moe_fsdp: the MoE layers do not run expert-parallel under the mesh")
+    with byte_ledger() as ledger:
+        run = _train_run("train_moe_fsdp", step_fn, params, opt, data, TRAIN_STEPS)
+    del params, opt, step_fn
+    torch.cuda.empty_cache()
+    want = _train_launches(cfg.num_layers, TRAIN_STEPS)
+    if run["launches"] != want:
+        fail(f"train_moe_fsdp: launches {run['launches']} differ from {want}")
+    gaps = {k: _largest_gap(run[k], train_moe[k]) for k in ("loss", "aux", "grad_norm")}
+    print(f"train_moe_fsdp: largest relative gap to train_moe: loss {gaps['loss']:.3e}, aux "
+          f"{gaps['aux']:.3e}, grad_norm {gaps['grad_norm']:.3e} (tol {DIST_REL_TOL:g}); "
+          f"launches {run['launches']}, the same", flush=True)
+    _check_gaps("train_moe_fsdp", gaps)
+    print(f"train_moe_fsdp: steady step {run['mean_ms']:.2f} ms against train_moe's "
+          f"{train_moe['mean_ms']:.2f}; collective results {ledger.bytes() / TRAIN_STEPS / 1e9:.3f} "
+          f"GB a step (a world of one issues none); max_memory_allocated "
+          f"{run['peak'] / 2**30:.2f} GiB (train_moe {train_moe['peak'] / 2**30:.2f}) [{smi}]",
+          flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -1528,12 +1915,18 @@ def main() -> None:
     torch.cuda.empty_cache()
     launches.update(phase_serve_xlstm(smi))
     torch.cuda.empty_cache()
+    phase_serve_moe(smi)
+    torch.cuda.empty_cache()
     train = phase_train(smi)
+    torch.cuda.empty_cache()
+    train_moe = phase_train_moe(smi)
     torch.cuda.empty_cache()
     with _world_of_one() as mesh:
         phase_train_dist(smi, train, mesh)
         torch.cuda.empty_cache()
         phase_train_fsdp(smi, train, mesh)
+        torch.cuda.empty_cache()
+        phase_train_moe_fsdp(smi, train_moe, mesh)
     launches.update({k: train["launches"][k]
                      for k in ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")})
     for k in kernels:

@@ -12,7 +12,13 @@ for the reference's GSPMD step):
   * ``copy_to``: identity / all-reduce the gradient (Megatron's f): a
     replicated tensor entering a tensor-parallel region;
   * ``reduce_from``: all-reduce / identity (Megatron's g): partial sums
-    leaving a tensor-parallel region.
+    leaving a tensor-parallel region;
+  * ``reduce_scatter``: reduce-scatter along ``dim`` / all-gather the
+    gradient (``psum_scatter``; an MoE layer's partial expert outputs under
+    ``token_scatter``);
+  * ``all_to_all``: block i of ``split_dim`` to coordinate i, the blocks
+    received concatenated on ``concat_dim`` / the reverse all-to-all (the
+    expert-parallel dispatch and combine).
 
 Over an axis of size 1 each is the identity and issues nothing.  Every
 collective goes through ``schedules``, so the byte ledger records it.
@@ -23,7 +29,9 @@ from __future__ import annotations
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-from .schedules import _all_gather_one, _all_reduce_, _reduce_scatter_one, axis_size
+from .schedules import (
+    _all_gather_one, _all_reduce_, _reduce_scatter_one, all_to_all_axis, axis_size,
+)
 
 
 class _Gather(torch.autograd.Function):
@@ -64,6 +72,30 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None, None
 
 
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return _reduce_scatter_one(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.args
+        return _all_gather_one(g, mesh, axis, dim), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_dim, concat_dim):
+        ctx.args = (mesh, axis, split_dim, concat_dim)
+        return all_to_all_axis(x, mesh, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, split_dim, concat_dim = ctx.args
+        return all_to_all_axis(g, mesh, axis, concat_dim, split_dim), None, None, None, None
+
+
 def gather(x: torch.Tensor, mesh: DeviceMesh, axis: str, dim: int) -> torch.Tensor:
     if axis_size(mesh, axis) == 1:
         return x
@@ -86,3 +118,16 @@ def reduce_from(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
     if axis_size(mesh, axis) == 1:
         return x
     return _ReduceFrom.apply(x, mesh, axis)
+
+
+def reduce_scatter(x: torch.Tensor, mesh: DeviceMesh, axis: str, dim: int) -> torch.Tensor:
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _ReduceScatter.apply(x, mesh, axis, dim)
+
+
+def all_to_all(x: torch.Tensor, mesh: DeviceMesh, axis: str, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _AllToAll.apply(x, mesh, axis, split_dim, concat_dim)

@@ -1,6 +1,6 @@
 """Architecture registry of the port: full configs + reduced smoke configs.
 
-The dense, hybrid (zamba2) and xLSTM families are ported; asking for another
+The dense, MoE, hybrid (zamba2) and xLSTM families are ported; asking for another
 architecture of the reference's registry raises ``KeyError`` naming the
 slice that brings it.
 """
@@ -8,7 +8,10 @@ slice that brings it.
 from __future__ import annotations
 
 from .base import ModelConfig
-from . import granite_20b, llama3_2_3b, qwen3_8b, xlstm_125m, zamba2_7b
+from . import (
+    granite_20b, llama3_2_3b, moonshot_v1_16b_a3b, paper_llama3_moe, qwen3_8b,
+    qwen3_moe_235b_a22b, xlstm_125m, zamba2_7b,
+)
 
 _MODULES = {
     "qwen3-8b": qwen3_8b,
@@ -16,13 +19,13 @@ _MODULES = {
     "granite-20b": granite_20b,
     "zamba2-7b": zamba2_7b,
     "xlstm-125m": xlstm_125m,
+    "qwen3-moe-235b-a22b": qwen3_moe_235b_a22b,
+    "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b,
+    "paper-llama3-moe": paper_llama3_moe,
 }
 
 # architectures of the reference registry that later slices of the port add
 _LATER = {
-    "qwen3-moe-235b-a22b": "the MoE slice",
-    "moonshot-v1-16b-a3b": "the MoE slice",
-    "paper-llama3-moe": "the MoE slice",
     "qwen2-vl-2b": "the M-RoPE (vlm) slice",
     "gemma3-4b": "the local:global attention slice",
     "whisper-large-v3": "the whisper slice",

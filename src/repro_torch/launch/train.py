@@ -19,6 +19,8 @@ of the reference's forced host device count):
 
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
         --devices 8 --mesh 2,2,2 --axes pod,data,model
+    PYTHONPATH=src python -m repro_torch.launch.train --arch moonshot-v1-16b-a3b \\
+        --smoke --device cpu --devices 8 --mesh 2,2,2 --axes pod,data,model
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
         --devices 8 --mesh 2,2,2 --axes pod,data,model --dp-mode manual_hier \\
         --schedule hierarchical
@@ -28,7 +30,8 @@ prints.  Under ``gspmd_fsdp`` every rank inits the whole params from the
 seed and keeps its block; each checkpoint gathers whole leaves on every
 rank and rank 0 writes them, and every rank resumes its blocks from them.
 Under ``manual_hier`` rank 0 writes the checkpoints (params are
-replicated) and every rank resumes from them.  Without ``--mesh`` a world
+replicated) and every rank resumes from them; an MoE ``--arch`` (expert
+parallelism over "data") runs ``gspmd_fsdp`` only, as in the reference.  Without ``--mesh`` a world
 is one ``("data",)`` axis over all its ranks.  ``--device`` defaults to ``cuda``.  As in the
 reference, the data's vocabulary is the model's, and its bigram table is
 ``vocab x vocab`` float64, so a full-vocab config needs that much host
@@ -66,6 +69,12 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = _parser().parse_args(argv)
+    from ..configs import get_config, get_smoke_config
+    from ..train.train_step import check_dp_mode
+
+    if args.devices or "RANK" in os.environ:
+        cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+        check_dp_mode(cfg, args.dp_mode)  # before any rank starts
     if args.devices:
         if args.device != "cpu":
             raise SystemExit("--devices spawns gloo ranks on the CPU: pass --device cpu, "

@@ -360,15 +360,30 @@ def swiglu(p: Params, x: torch.Tensor, dt: DTypes, tp: Optional[TP] = None) -> t
 
 
 def stack_params(gen, n: int, init_fn: Callable[[Any], Params]) -> Params:
-    """init_fn(gen) -> layer params; returns the tree with a leading n dim."""
-    layers = [init_fn(gen) for _ in range(n)]
+    """init_fn(gen) -> layer params; returns the tree with a leading n dim.
+    Each stacked leaf is allocated once and filled layer by layer, in the
+    order the layers draw, so the init holds the stack and one layer at its
+    peak (stacking a list of layers would hold every layer twice)."""
+    first = init_fn(gen)
 
-    def stack(nodes):
-        if isinstance(nodes[0], Mapping):
-            return {k: stack([nd[k] for nd in nodes]) for k in nodes[0]}
-        return torch.stack(nodes)
+    def alloc(node):
+        if isinstance(node, Mapping):
+            return {k: alloc(v) for k, v in node.items()}
+        return node.new_empty((n, *node.shape))
 
-    return stack(layers)
+    def fill(dst, src, i: int) -> None:
+        for k, v in src.items():
+            if isinstance(v, Mapping):
+                fill(dst[k], v, i)
+            else:
+                dst[k][i].copy_(v)
+
+    out = alloc(first)
+    fill(out, first, 0)
+    del first
+    for i in range(1, n):
+        fill(out, init_fn(gen), i)
+    return out
 
 
 def stacked_specs(layer_specs: Params) -> Params:

@@ -1,6 +1,6 @@
 """Model dispatch (counterpart of ``repro/models/model_zoo.py``).
 
-    zoo = get_model(cfg)                        # dense, hybrid and xlstm families
+    zoo = get_model(cfg)                        # dense, moe, hybrid and xlstm families
     params = zoo.init(0)                        # seed or torch.Generator; on the card
     logits, aux = zoo.forward(params, batch)
     cache = zoo.init_cache(batch_size, cache_len)
@@ -135,11 +135,10 @@ def _vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor, tp) -> torc
     return logz - reduce_from(torch.where(mine, gold, 0.0), tp.mesh, tp.axis)
 
 
-_FAMILIES = {"dense": transformer, "hybrid": hybrid, "xlstm": xlstm_lm}
+_FAMILIES = {"dense": transformer, "moe": transformer, "hybrid": hybrid, "xlstm": xlstm_lm}
 
 # families of the reference that later slices of the port add
 _LATER = {
-    "moe": "the MoE slice",
     "vlm": "the M-RoPE (vlm) slice",
     "whisper": "the whisper slice",
 }

@@ -1,14 +1,18 @@
-"""Decoder-only transformer LM, dense family (counterpart of
+"""Decoder-only transformer LM, dense and MoE families (counterpart of
 ``repro/models/transformer.py``).
 
 Covers qwen3-8b (qk-norm, untied lm_head), llama3.2-3b and granite-20b
-(MQA).  Layers are stacked with a leading ``L`` dim, as in the reference;
-a Python loop over that dim takes the place of ``lax.scan``.  With
-``cfg.remat`` and gradients on, each layer runs under
+(MQA), and, with a ``"moe"`` block in place of the ``"ffn"`` one,
+moonshot-v1-16b-a3b, qwen3-moe-235b-a22b and paper-llama3-moe
+(``models/moe.py``).  Layers are stacked with a leading ``L`` dim, as in
+the reference; a Python loop over that dim takes the place of
+``lax.scan``.  With ``cfg.remat`` and gradients on, each layer runs under
 ``torch.utils.checkpoint`` (non-reentrant): nothing inside a layer is kept
 for the backward, which recomputes it, as ``jax.checkpoint`` with
-``nothing_saveable`` does in the reference.  MoE and M-RoPE configs raise:
-they come with later slices.
+``nothing_saveable`` does in the reference.  Each layer returns its MoE
+aux loss, summed over the layers as the reference's scan carry does (0
+for the dense family).  M-RoPE configs raise: they come with a later
+slice.
 
 API (used by serve and train):
     init(gen, cfg, device)                  -> params (ParamTree)
@@ -29,7 +33,12 @@ heads that do not divide it (granite's one) are computed whole from wk / wv
 gathered over "model", and each rank attends with the KV heads its query
 heads use.  The MLP splits its hidden dim when it divides; the embedding
 and the logits split the vocab (``common.vocab_embed``); the logits stay
-split (the loss reduces over "model", ``ModelZoo.loss``).  Batch rows are
+split (the loss reduces over "model", ``ModelZoo.loss``).  An MoE layer
+runs expert-parallel (``moe.moe_ffn_ep``): its expert leaves keep their
+"data" block (E/|data| experts a rank, never gathered) and, with TP, their
+"model" block (F/|model| columns); the tokens go to their experts by an
+all-to-all over "data".  The router passes whole.  The layers' aux sum is
+averaged over the batch axes once (``moe.aux_mean``).  Batch rows are
 the caller's: the step passes each rank its rows, and the cache its rows
 and KV heads.
 
@@ -56,6 +65,7 @@ from ..kernels.flash_attention.ops import flash_attention
 from ..parallel.sharding import Layout, dp_axes, entry_axes
 from . import common as C
 from .common import DTypes, Params, ParamTree
+from .moe import EPGroup, MoEConfig, aux_mean, init_moe, moe_ffn, moe_specs
 
 ATTN_IMPLS = ("ref", "flash")
 
@@ -78,9 +88,23 @@ def _attn_cfg(cfg: ModelConfig) -> C.AttnConfig:
     )
 
 
+def _moe_cfg(cfg: ModelConfig) -> Optional[MoEConfig]:
+    if cfg.moe is None:
+        return None
+    return MoEConfig(
+        d_model=cfg.d_model,
+        d_ff=cfg.moe.d_ff,
+        num_experts=cfg.moe.num_experts,
+        top_k=cfg.moe.top_k,
+        capacity_factor=cfg.moe.capacity_factor,
+        aux_loss_coeff=cfg.moe.aux_loss_coeff,
+        num_shared_experts=cfg.moe.num_shared_experts,
+        ep_axis=cfg.moe_ep_axis,
+        token_scatter=cfg.moe_token_scatter,
+    )
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE layers come with the MoE slice")
     if cfg.mrope_sections is not None:
         raise NotImplementedError(f"{cfg.name}: M-RoPE comes with the vlm slice")
     if cfg.attn_impl not in ATTN_IMPLS:
@@ -94,21 +118,31 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def _init_layer(gen, cfg: ModelConfig, device) -> Params:
     dt = _dt(cfg)
-    return {
+    p: Params = {
         "ln1": C.init_rmsnorm(cfg.d_model, dt, device),
         "attn": C.init_attention(gen, _attn_cfg(cfg), dt, device),
         "ln2": C.init_rmsnorm(cfg.d_model, dt, device),
-        "ffn": C.init_swiglu(gen, cfg.d_model, cfg.d_ff, dt, device),
     }
+    mcfg = _moe_cfg(cfg)
+    if mcfg is not None:
+        p["moe"] = init_moe(gen, mcfg, dt, device)
+    else:
+        p["ffn"] = C.init_swiglu(gen, cfg.d_model, cfg.d_ff, dt, device)
+    return p
 
 
 def _layer_specs(cfg: ModelConfig) -> Params:
-    return {
+    p: Params = {
         "ln1": C.rmsnorm_specs(),
         "attn": C.attention_specs(_attn_cfg(cfg)),
         "ln2": C.rmsnorm_specs(),
-        "ffn": C.swiglu_specs(),
     }
+    mcfg = _moe_cfg(cfg)
+    if mcfg is not None:
+        p["moe"] = moe_specs(mcfg)
+    else:
+        p["ffn"] = C.swiglu_specs()
+    return p
 
 
 def param_specs(cfg: ModelConfig) -> Params:
@@ -162,6 +196,7 @@ class ShardPlan:
     embed_vocab: bool    # the embedding table's vocab split
     head_vocab: bool     # the logits' vocab split
     dp: Tuple[str, ...]  # the batch axes of size > 1
+    ep: Optional[EPGroup] = None  # MoE layers: expert-parallel over "data"
 
     def gather_logits(self, logits: torch.Tensor) -> torch.Tensor:
         """Whole-vocab logits (no gradient)."""
@@ -181,12 +216,36 @@ def shard_plan(cfg: ModelConfig, layout: Layout) -> ShardPlan:
              and cfg.heads % tp.size == 0)
     kv = (heads and on_model("layers.attn.wk.w", 2) and on_model("layers.attn.wv.w", 2)
           and cfg.kv_heads % tp.size == 0)
-    mlp = (on_model("layers.ffn.wi.w", 2) and on_model("layers.ffn.wg.w", 2)
-           and on_model("layers.ffn.wo.w", 1))
+    mlp = cfg.moe is None and (on_model("layers.ffn.wi.w", 2) and on_model("layers.ffn.wg.w", 2)
+                               and on_model("layers.ffn.wo.w", 1))
     embed_vocab = on_model("embed.table", 0)
     head_vocab = embed_vocab if cfg.tie_embeddings else on_model("lm_head.w", 1)
     dp = tuple(a for a in dp_axes(layout.sizes) if layout.sizes[a] > 1)
-    return ShardPlan(layout, tp, heads, kv, mlp, embed_vocab, head_vocab, dp)
+    ep = _ep_group(cfg, layout, tp, dp) if cfg.moe is not None else None
+    return ShardPlan(layout, tp, heads, kv, mlp, embed_vocab, head_vocab, dp, ep)
+
+
+def _ep_group(cfg: ModelConfig, layout: Layout, tp: Optional[C.TP],
+              dp: Tuple[str, ...]) -> EPGroup:
+    """The MoE layers' expert parallelism on ``layout``: the experts split
+    over the EP axis ("data"), and their F dim over "model" when the config
+    splits it (``moe_tp``), as the reference's ``moe_ffn_ep`` takes them."""
+    axis = cfg.moe_ep_axis
+    if axis != "data" or axis not in layout.sizes:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE layers run expert-parallel over the mesh's 'data' axis; "
+            f"mesh axes {tuple(layout.sizes)}, EP axis {axis!r}")
+    moe_tp = tp if cfg.moe_tp else None
+    for key, f_dim in (("layers.moe.wi", 3), ("layers.moe.wg", 3), ("layers.moe.wo", 2)):
+        spec = layout.specs[key]
+        if axis not in entry_axes(spec[1]):
+            raise ValueError(f"{key} {spec}: {cfg.moe.num_experts} experts do not split over "
+                             f"{axis!r} ({layout.sizes[axis]}); the reference's moe_ffn_ep "
+                             "asserts E % ep == 0")
+        if moe_tp is not None and moe_tp.axis not in entry_axes(spec[f_dim]):
+            raise ValueError(f"{key} {spec}: d_ff {cfg.moe.d_ff} does not split over "
+                             f"'model' ({moe_tp.size}), which the reference's moe_ffn_ep needs")
+    return EPGroup(layout.mesh, dp, moe_tp)
 
 
 def _weight(w: torch.Tensor, spec, plan: ShardPlan, keep_model: bool, partial: bool):
@@ -205,12 +264,26 @@ def _weight(w: torch.Tensor, spec, plan: ShardPlan, keep_model: bool, partial: b
     return w
 
 
+_EXPERT_LEAVES = ("layers.moe.wi", "layers.moe.wg", "layers.moe.wo")
+
+
+def _expert_weight(w: torch.Tensor, spec, plan: ShardPlan) -> torch.Tensor:
+    """An expert leaf as ``moe_ffn_ep`` takes it: the rank's block over
+    "data" (EP), and over "model" when the experts run F-split; gathered
+    whole over "model" when they do not."""
+    for dim, entry in enumerate(spec):
+        for a in entry_axes(entry):
+            if a == "model" and plan.ep.tp is None:
+                w = gather_whole(w, plan.layout.mesh, a, dim)
+    return w
+
+
 def _layer_weights(lp, plan: ShardPlan, prefix: str = "layers."):
     """``_weight`` over every leaf of a layer slice.  A leaf of a block that
     runs split over the model axis (attention with ``plan.heads``, the MLP
     with ``plan.mlp``) but is not split itself is gathered ``partial`` or,
     when whole, passes ``copy_to``: its gradient is summed over the model
-    axis."""
+    axis.  The MoE expert leaves keep their blocks (``_expert_weight``)."""
     out = {}
     for k in lp.keys():
         v, key = lp[k], f"{prefix}{k}"
@@ -218,6 +291,9 @@ def _layer_weights(lp, plan: ShardPlan, prefix: str = "layers."):
             out[k] = _layer_weights(v, plan, key + ".")
             continue
         spec = plan.layout.specs[key][1:]  # the layer dim is gone
+        if key in _EXPERT_LEAVES:
+            out[k] = _expert_weight(v, spec, plan)
+            continue
         block = key.split(".")[1]
         in_split = {"attn": plan.heads, "ffn": plan.mlp}.get(block, False)
         keep = in_split and _keeps_model(plan, key)
@@ -348,8 +424,11 @@ def _attention_dynwin(p, acfg: C.AttnConfig, x, positions, is_global: bool, dt, 
     return _attn_out(p, out.reshape(B, S, H * Dh), dt, plan)
 
 
-def _ffn(lp, h, dt, plan: Optional[ShardPlan]):
-    return C.swiglu(lp["ffn"], h, dt, plan.tp if plan is not None and plan.mlp else None)
+def _ffn(lp, cfg: ModelConfig, h, dt, plan: Optional[ShardPlan]):
+    """The MLP or MoE block: (output, aux loss or None)."""
+    if "moe" in lp:
+        return moe_ffn(lp["moe"], _moe_cfg(cfg), h, dt, plan.ep if plan is not None else None)
+    return C.swiglu(lp["ffn"], h, dt, plan.tp if plan is not None and plan.mlp else None), None
 
 
 def _layer_fwd(lp, cfg: ModelConfig, x, positions, is_global: bool, dt: DTypes,
@@ -360,13 +439,16 @@ def _layer_fwd(lp, cfg: ModelConfig, x, positions, is_global: bool, dt: DTypes,
     x = x + _attention_dynwin(lp["attn"], _attn_cfg(cfg), h, positions, is_global, dt,
                               cfg.attn_impl, plan)
     h = C.rmsnorm(lp["ln2"], x)
-    return x + _ffn(lp, h, dt, plan)
+    out, aux = _ffn(lp, cfg, h, dt, plan)
+    return x + out, aux
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             plan: Optional[ShardPlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch: tokens (B, S) int [or embeds (B, S, D)], positions (B, S)
-    optional.  Returns (logits, aux); aux is 0 for the dense family."""
+    optional.  Returns (logits, aux): aux is the MoE layers' aux loss summed
+    over the layers (under EP, its mean over the batch axes), 0 for the
+    dense family."""
     check_supported(cfg)
     dt = _dt(cfg)
     x = _embed(params, cfg, batch, dt, plan)
@@ -376,13 +458,17 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
     remat = cfg.remat and torch.is_grad_enabled()
     layers = C.layer_slices(params["layers"], cfg.num_layers)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, is_global in zip(layers, _is_global_flags(cfg)):
         if remat:
-            x = checkpoint(_layer_fwd, lp, cfg, x, positions, is_global, dt, plan,
-                           use_reentrant=False)
+            x, aux_l = checkpoint(_layer_fwd, lp, cfg, x, positions, is_global, dt, plan,
+                                  use_reentrant=False)
         else:
-            x = _layer_fwd(lp, cfg, x, positions, is_global, dt, plan)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, aux_l = _layer_fwd(lp, cfg, x, positions, is_global, dt, plan)
+        if aux_l is not None:
+            aux = aux + aux_l
+    if plan is not None and plan.ep is not None:
+        aux = aux_mean(aux, plan.ep)  # once for all layers, where the reference pmeans each
     return _unembed(params, cfg, x, dt, plan), aux
 
 
@@ -464,6 +550,6 @@ def decode_step(
             lp["attn"], acfg, h, positions, is_global, cache["k"][i], cache["v"][i], index, dt,
             plan)
         h = C.rmsnorm(lp["ln2"], x)
-        x = x + _ffn(lp, h, dt, plan)
+        x = x + _ffn(lp, cfg, h, dt, plan)[0]  # the reference drops aux in decode
     logits = _unembed(params, cfg, x, dt, plan)
     return logits, {"k": cache["k"], "v": cache["v"], "index": index + S}

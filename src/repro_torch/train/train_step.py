@@ -18,7 +18,7 @@ global batch and its slice of it over the ("pod", "data") axes, pod-major
 (``positions3`` on dim 1; a batch dim that does not divide the DP size
 stays whole; ``parallel.sharding.batch_specs_tree``).
 
-* ``gspmd_fsdp`` (dense family): params and AdamW moments are stored as
+* ``gspmd_fsdp`` (dense and MoE families): params and AdamW moments are stored as
   each rank's block of the reference's layout (``param_layout(zoo, mesh)``:
   fsdp -> "data", heads / kv_heads / mlp / vocab -> "model"; build them with
   ``layout.shard`` or ``interop.params_from_jax(..., layout=)``).  Each layer
@@ -30,6 +30,11 @@ stays whole; ``parallel.sharding.batch_specs_tree``).
   "pod"; a leaf whole over "data" goes through Eq. (8), RS(data) ->
   AR(pod) -> AG(data), so that only 1/|data| of any gradient crosses "pod".
   ``grad_norm`` is the whole gradient's norm (``sharded_global_norm``).
+  An MoE layer runs expert-parallel (``models/moe.py``): its expert leaves
+  keep their "data" block, are fed by an all-to-all over "data", and their
+  gradients are already the rank's own, so they are summed over "pod"
+  only; the router, whole, is summed over the batch axes; ``aux`` is the
+  layers' sum of each layer's aux averaged over the batch axes.
   Microbatches are slices of the global batch, as in the one-process step,
   each cut over the ranks.  Other families raise ``NotImplementedError``.
 * ``manual_hier``: params and AdamW state replicated on every rank;
@@ -44,6 +49,9 @@ stays whole; ``parallel.sharding.batch_specs_tree``).
     the data axis as both intra and inter axes and returns a wrong sum.
 
   Loss, ``nll`` and ``aux`` are averaged over the DP axes, then AdamW runs.
+  The MoE family is refused (``check_dp_mode``), as the reference cannot
+  run it: its expert-parallel ``shard_map`` cannot nest in the manual
+  region.
 
 Params are updated in place, the counterpart of the reference's donated
 buffers.
@@ -191,6 +199,16 @@ class _ManualHier:
         return dict(zip(keys, total.unbind(0)))
 
 
+def check_dp_mode(cfg, dp_mode: str) -> None:
+    """Refuse what the reference cannot run: ``manual_hier`` with MoE layers
+    (their expert-parallel ``shard_map`` cannot nest inside the step's
+    manual region; the reference raises a mesh mismatch)."""
+    if dp_mode == "manual_hier" and cfg.moe is not None:
+        raise ValueError(
+            f"{cfg.name}: dp_mode 'manual_hier' cannot run the MoE family (the reference's "
+            "expert-parallel shard_map cannot nest in its manual region); use 'gspmd_fsdp'")
+
+
 def make_train_step(
     zoo: ModelZoo,
     opt_cfg: opt_lib.AdamWConfig,
@@ -212,6 +230,7 @@ def make_train_step(
         if dp_mode == "gspmd_fsdp":
             fsdp = _GspmdFsdp(zoo, mesh)
         elif dp_mode == "manual_hier":
+            check_dp_mode(zoo.cfg, dp_mode)
             dp = _ManualHier(mesh, schedule)
         else:
             raise ValueError(f"unknown dp_mode {dp_mode!r}")

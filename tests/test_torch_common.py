@@ -211,22 +211,26 @@ def test_torch_dtype_map():
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen3-8b", "granite-20b", "zamba2-7b",
-                                  "xlstm-125m"])
+                                  "xlstm-125m", "moonshot-v1-16b-a3b", "qwen3-moe-235b-a22b",
+                                  "paper-llama3-moe"])
 def test_configs_match_reference(arch):
     mine, ref = get_config(arch), jax_get_config(arch)
     for f in dataclasses.fields(ref):
         a, b = getattr(mine, f.name), getattr(ref, f.name)
         if f.name in ("param_dtype", "compute_dtype"):
             assert a is torch_dtype(b), f.name
+        elif f.name == "moe" and b is not None:  # the port's own MoEParams
+            assert dataclasses.asdict(a) == dataclasses.asdict(b)
         else:
             assert a == b, f.name
     assert mine.param_count() == ref.param_count()
 
 
 def test_registry_names_later_slices():
-    assert set(ARCHS) == {"llama3.2-3b", "qwen3-8b", "granite-20b", "zamba2-7b", "xlstm-125m"}
-    with pytest.raises(KeyError, match="MoE slice"):
-        get_config("qwen3-moe-235b-a22b")
+    assert set(ARCHS) == {"llama3.2-3b", "qwen3-8b", "granite-20b", "zamba2-7b", "xlstm-125m",
+                          "moonshot-v1-16b-a3b", "qwen3-moe-235b-a22b", "paper-llama3-moe"}
+    with pytest.raises(KeyError, match="vlm"):
+        get_config("qwen2-vl-2b")
     with pytest.raises(KeyError, match="unknown"):
         get_config("nope")
 

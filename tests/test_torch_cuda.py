@@ -64,9 +64,11 @@ CASES = [
     (1, 12, 2, 256, 256, 128, True, None, 0, torch.bfloat16),        # GQA group 6
 ]
 # q/k/v as the transposed views of (B, S, H, Dh) that ops.flash_attention
-# passes (rows H * Dh apart): the serving prefill shape, a ragged one
+# passes (rows H * Dh apart): the serving prefill shape, moonshot's MHA
+# prefill and training shape, a ragged one
 MODEL_LAYOUT_CASES = [
     (4, 24, 8, 1024, 1024, 128, True, None, 0, torch.bfloat16),
+    (4, 16, 16, 1024, 1024, 128, True, None, 0, torch.bfloat16),
     (2, 8, 4, 1000, 1000, 128, True, None, 0, torch.bfloat16),
     (2, 8, 2, 333, 333, 64, True, 100, 0, torch.bfloat16),
 ]
@@ -225,6 +227,60 @@ def test_smoke_model_on_card_matches_cpu(card, arch):
         want, _ = cpu_zoo.forward(params, {"tokens": tokens})
         got, _ = gpu_zoo.forward(gpu_params, {"tokens": tokens.cuda()})
     assert (got.cpu() - want).abs().max().item() <= 1e-3
+
+
+def test_moe_smoke_on_card_matches_cpu(card):
+    """moonshot-smoke in f32 (chip_smoke.py's model phase): the card (flash,
+    remat) against the CPU with the same weights: the same expert choices
+    (recorded by chip_smoke.routing_choices), logits and aux of a forward and
+    of 3 decode steps, then two train steps' loss, aux and grad_norm."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg = get_smoke_config("moonshot-v1-16b-a3b")
+    cpu_zoo = get_model(cfg)
+    gpu_zoo = get_model(dataclasses.replace(cfg, attn_impl="flash", remat=True))
+    params = cpu_zoo.init(0, device="cpu")
+    state = params.state_dict()
+    gpu_params = ParamTree.from_state_dict({k: v.cuda() for k, v in state.items()})
+    tokens = torch.randint(0, cfg.vocab, (2, 70), generator=torch.Generator().manual_seed(0))
+    def run(zoo, p, dev):
+        logits, aux = zoo.forward(p, {"tokens": tokens.to(dev)})
+        cache, steps = zoo.init_cache(2, 8, device=dev), []
+        for t in range(3):
+            step, cache = zoo.decode_step(p, cache, {"tokens": tokens[:, t:t + 1].to(dev)})
+            steps.append(step.cpu())
+        return logits.cpu(), aux.item(), steps
+
+    with torch.inference_mode(), smoke.routing_choices() as choices:
+        want, want_aux, want_dec = run(cpu_zoo, params, "cpu")
+        got, got_aux, got_dec = run(gpu_zoo, gpu_params, "cuda")
+    calls = cfg.num_layers * 4  # a forward and 3 decode steps a side
+    assert len(choices) == 2 * calls
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(choices[:calls], choices[calls:]))
+    assert (got - want).abs().max().item() <= 1e-3
+    assert abs(got_aux - want_aux) <= 1e-5 * want_aux
+    assert max((a - b).abs().max().item() for a, b in zip(got_dec, want_dec)) <= 1e-3
+    ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    rng = torch.Generator().manual_seed(3)
+    batches = [{"tokens": torch.randint(0, cfg.vocab, (2, 64), generator=rng),
+                "targets": torch.randint(0, cfg.vocab, (2, 64), generator=rng)} for _ in range(2)]
+    out = {}
+    for dev, zoo in (("cuda", gpu_zoo), ("cpu", cpu_zoo)):
+        p = ParamTree.from_state_dict({k: v.to(dev).clone() for k, v in state.items()},
+                                      requires_grad=True)
+        step_fn = make_train_step(zoo, ocfg, device=dev)
+        opt = opt_lib.init(ocfg, p)
+        out[dev] = []
+        for b in batches:
+            p, opt, m = step_fn(p, opt, b)
+            out[dev].append([float(m[k]) for k in ("loss", "aux", "grad_norm")])
+    torch.testing.assert_close(torch.tensor(out["cuda"]), torch.tensor(out["cpu"]),
+                               rtol=1e-4, atol=0)
 
 
 @pytest.mark.parametrize("remat", [False, True])

@@ -232,8 +232,10 @@ def test_unported_features_raise():
     from repro_torch.configs import MoEParams
 
     _, moe = _pair("llama3.2-3b")
+    # MoE layers are ported (tests/test_torch_moe.py): a config with ``moe``
+    # builds its "moe" block in place of the "ffn" one
     moe_cfg = dataclasses.replace(moe.cfg, moe=MoEParams(num_experts=4, top_k=2, d_ff=32))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        get_model(moe_cfg).init(0, device="cpu")
+    keys = get_model(moe_cfg).init(0, device="cpu").state_dict()
+    assert "layers.moe.wi" in keys and not any(".ffn." in k for k in keys)
     with pytest.raises(NotImplementedError, match="whisper"):
         get_model(dataclasses.replace(moe.cfg, family="whisper"))

@@ -1,5 +1,6 @@
 """Rank bodies of the port's gloo worlds for ``tests/test_torch_collectives.py``,
-``tests/test_torch_dist_train.py`` and ``tests/test_torch_fsdp.py``; imports
+``tests/test_torch_dist_train.py``, ``tests/test_torch_fsdp.py`` and
+``tests/test_torch_moe_ep.py``; imports
 neither JAX nor ``repro``.
 
     python tests/torch_dist_worlds.py NAME WORLD WORKDIR
@@ -366,6 +367,134 @@ def fsdp(rank, world, workdir):
             out[f"serve.{arch}.decode{i}"] = logits
         out[f"serve.{arch}.index"] = cache["index"]
     _save(workdir, "fsdp", rank, out)
+
+
+# moe_ffn_ep cases: (mesh shape, axes, token_scatter, capacity factor).  A
+# leading "rep" axis of 2 fills the world of 8: its two halves compute the
+# same thing, and the EP and TP axes are the JAX mesh's
+MOE_EP_CASES = {
+    "data4": ((2, 4), ("rep", "data"), False, 1.25),
+    "dm22": ((2, 2, 2), ("rep", "data", "model"), False, 1.25),
+    "dm22_scatter": ((2, 2, 2), ("rep", "data", "model"), True, 1.25),
+    "data4_loose": ((2, 4), ("rep", "data"), False, 8.0),
+}
+MOE_ARCH = "moonshot-v1-16b-a3b"
+
+
+def moe_layer_config(token_scatter=False, capacity_factor=1.25):
+    from repro_torch.models.moe import MoEConfig
+
+    return MoEConfig(d_model=32, d_ff=16, num_experts=8, top_k=2,
+                     capacity_factor=capacity_factor, token_scatter=token_scatter)
+
+
+def _moe_ep_cases(rank, inp, out):
+    """moe_ffn_ep on each case's mesh from the whole layer in inputs.npz:
+    the rank's rows and blocks in, its output, aux (averaged over "data"
+    by ``aux_mean``) and gradients out
+    (loss sum(out * ct) + aux), the router's summed over the batch axes;
+    each case's byte ledger."""
+    from repro_torch.collectives import byte_ledger
+    from repro_torch.models.common import DTypes, TP
+    from repro_torch.models.moe import EPGroup, aux_mean, moe_ffn_ep
+
+    for name, (shape, axes, scatter, cf) in MOE_EP_CASES.items():
+        mesh = make_mesh(shape, axes, "cpu")
+        coord = dict(zip(axes, mesh.get_coordinate()))
+        n_data, d = shape[axes.index("data")], coord["data"]
+        tp = TP(mesh) if "model" in axes else None
+        m = coord.get("model", 0)
+        n_tp = tp.size if tp is not None else 1
+        rows = inp["moe.x"].shape[0] // n_data
+        E, F = inp["moe.wi"].shape[0], inp["moe.wi"].shape[2]
+        e0, f0 = d * E // n_data, m * F // n_tp
+        es, fs = slice(e0, e0 + E // n_data), slice(f0, f0 + F // n_tp)
+
+        def leaf(a):
+            return torch.from_numpy(a.copy()).requires_grad_(True)
+
+        p = {"router": {"w": leaf(inp["moe.router"])}, "wi": leaf(inp["moe.wi"][es, :, fs]),
+             "wg": leaf(inp["moe.wg"][es, :, fs]), "wo": leaf(inp["moe.wo"][es, fs, :])}
+        x = leaf(inp["moe.x"][d * rows:(d + 1) * rows])
+        ct = torch.from_numpy(inp["moe.ct"][d * rows:(d + 1) * rows])
+        ep = EPGroup(mesh, ("data",), tp)
+        with byte_ledger() as ledger:
+            y, aux = moe_ffn_ep(p, moe_layer_config(scatter, cf), x, DTypes(), ep)
+            aux = aux_mean(aux, ep)  # the reference's pmean inside its moe_ffn_ep
+            (torch.sum(y * ct) + aux).backward()
+        out[f"{name}.y"], out[f"{name}.aux"] = y, aux
+        out[f"{name}.g.x"] = x.grad
+        out[f"{name}.g.router"] = S.all_reduce_axis(p["router"]["w"].grad, mesh, "data")
+        for k in ("wi", "wg", "wo"):
+            out[f"{name}.g.{k}"] = p[k].grad
+        out[f"{name}.ledger.op"] = [r.op for r in ledger.records]
+        out[f"{name}.ledger.axes"] = [",".join(r.axes) for r in ledger.records]
+        out[f"{name}.ledger.bytes"] = [r.nbytes for r in ledger.records]
+
+
+def moe_ep(rank, world, workdir):
+    """The MoE family's sharded forms: ``moe_ffn_ep`` on each of
+    ``MOE_EP_CASES``; ``gspmd_fsdp`` (EP over "data", TP over "model") for
+    moonshot-smoke on (2, 2, 2) from the JAX init in params.npz, 3 steps,
+    then one under the byte ledger; the ``manual_hier`` refusal; the
+    sharded serving steps on (4, 2) ("data", "model")."""
+    from repro_torch.collectives import byte_ledger
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.common import ParamTree
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.parallel.sharding import param_layout
+    from repro_torch.serve.serve_step import make_serve_step
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import make_train_step
+
+    inp = np.load(os.path.join(workdir, "inputs.npz"))
+    out = {}
+    _moe_ep_cases(rank, inp, out)
+
+    zoo = get_model(get_smoke_config(MOE_ARCH))
+    whole = _whole_params(workdir, MOE_ARCH)
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), "cpu")
+    lay = param_layout(zoo, mesh)
+    ocfg = opt_lib.AdamWConfig(**OCFG)
+    params = lay.shard(ParamTree.from_state_dict({k: v.clone() for k, v in whole.items()},
+                                                 requires_grad=True))
+    step_fn = make_train_step(zoo, ocfg, device="cpu", mesh=mesh)
+    opt = opt_lib.init(ocfg, params)
+    batches = [{"tokens": inp[f"tokens{i}"], "targets": inp[f"targets{i}"]}
+               for i in range(TRAIN_STEPS)]
+    hist = {"loss": [], "aux": [], "grad_norm": []}
+    for b in batches:
+        params, opt, m = step_fn(params, opt, b)
+        for k in hist:
+            hist[k].append(float(m[k]))
+    out.update({f"fsdp.{k}": v for k, v in hist.items()})
+    for k, v in params.state_dict().items():
+        out[f"fsdp.local.{k}"] = v.clone()
+    out.update({f"fsdp.param.{k}": v for k, v in lay.gather(params).state_dict().items()})
+    with byte_ledger() as ledger:
+        step_fn(params, opt, batches[0])
+    out["fsdp.ledger.op"] = [r.op for r in ledger.records]
+    out["fsdp.ledger.axes"] = [",".join(r.axes) for r in ledger.records]
+    out["fsdp.ledger.bytes"] = [r.nbytes for r in ledger.records]
+    try:
+        make_train_step(zoo, ocfg, device="cpu", mesh=mesh, dp_mode="manual_hier")
+        out["refuse.manual_hier"] = ""
+    except ValueError as e:
+        out["refuse.manual_hier"] = str(e)
+
+    mesh = make_mesh((4, 2), ("data", "model"), "cpu")
+    prompt = torch.from_numpy(inp["prompt"])
+    arts = make_serve_step(zoo, "cpu", mesh=mesh,
+                           batch_example={"tokens": np.zeros((SERVE_SLOTS, 1), np.int64)},
+                           cache_example=zoo.init_cache(SERVE_SLOTS, SERVE_CACHE, device="cpu"))
+    params = arts.param_layout.shard(ParamTree.from_state_dict(whole))
+    cache = arts.cache_layout.shard(zoo.init_cache(SERVE_SLOTS, SERVE_CACHE, device="cpu"))
+    out["serve.local.wi"] = params["layers"]["moe"]["wi"]
+    out["serve.prefill"] = arts.prefill_fn(params, {"tokens": prompt})
+    for i in range(prompt.shape[1]):
+        logits, cache = arts.decode_fn(params, cache, {"tokens": prompt[:, i:i + 1]})
+        out[f"serve.decode{i}"] = logits
+    _save(workdir, "moe_ep", rank, out)
 
 
 if __name__ == "__main__":

@@ -42,6 +42,12 @@
   dispatch, the expert products, combine; labelled by wrapping
   ``models/moe.py``'s functions here).
 
+* serve_gemma3, serve_vlm, serve_whisper (the ``chip_smoke.py`` phases of
+  the same names): gemma3-4b (4 x 2048 tokens, Dh 320), qwen2-vl-2b (4 x
+  1024 embeddings at grid positions3) and whisper-large-v3 (4 x 1500
+  frames, 4 x 224 tokens) at full size in bf16: prefill, whisper's encode,
+  the one-call cache fill and decode steps.
+
 * moe_cards (needs 4 cards, one NCCL rank each; ``--chips 4``):
   ``gspmd_fsdp`` with expert parallelism of moonshot-v1-16b-a3b on
   (1, 4, 1) and (1, 2, 2) ("pod", "data", "model"), global batch 4 x 1024
@@ -97,7 +103,8 @@ And one look at numbers rather than time:
   the model keeps the reference's normaliser).
 
     python3 chip_profile.py [serve] [train] [serve_hybrid] [train_dist] [dist_cards]
-                            [serve_moe] [moe_cards] [xlstm_agreement] [flash_ab DIR]
+                            [serve_moe] [moe_cards] [serve_gemma3] [serve_vlm]
+                            [serve_whisper] [xlstm_agreement] [flash_ab DIR]
                             [flash_ablate] [scan_ab DIR] [scan_ablate]
                                                     # serve and train when none is named
 
@@ -937,6 +944,86 @@ def profile_serve(smi: str) -> None:
             _report(name, prof, host_ms)
 
 
+# gemma3-4b, qwen2-vl-2b and whisper-large-v3 at chip_smoke.py's serve
+# shapes: prompt length, and whisper's encoder frames
+FAMILY_PROMPTS = {"gemma3-4b": 2048, "qwen2-vl-2b": 1024, "whisper-large-v3": 224}
+WHISPER_FRAMES = 1500
+
+
+def profile_serve_family(smi: str, arch: str) -> None:
+    """Where the time of one wave of 4 goes for gemma3-4b, qwen2-vl-2b or
+    whisper-large-v3 at full size, bf16, flash: the prefill, whisper's
+    encode, the one-call cache fill and STEPS decode steps, each profiled
+    after a warm-up of every path.  vlm prompts are embeddings at a 32 x 32
+    patch grid's positions3, decoded tokens at 32 + step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.serve.serve_step import make_serve_step
+
+    cfg = dataclasses.replace(get_config(arch), param_dtype=torch.bfloat16,
+                              compute_dtype=torch.bfloat16, attn_impl="flash")
+    zoo = get_model(cfg)
+    params = zoo.init(0, device="cuda")
+    arts = make_serve_step(zoo, device="cuda")
+    P, B = FAMILY_PROMPTS[arch], 4
+    rng = np.random.RandomState(0)
+    prompt = {"tokens": torch.as_tensor(rng.randint(2, cfg.vocab, (B, P)), device="cuda")}
+    extra = {}
+    if cfg.family == "vlm":
+        i = torch.arange(P, device="cuda")
+        grid = torch.stack([torch.zeros_like(i), i // 32, i % 32])
+        prompt = {"embeds": torch.randn((B, P, cfg.d_model), device="cuda"),
+                  "positions3": grid[:, None].expand(3, B, P).contiguous()}
+    if cfg.family == "whisper":
+        extra = {"enc_embeds": torch.randn((B, WHISPER_FRAMES, cfg.d_model), device="cuda")}
+    state = {}
+
+    def step_inputs(s: int) -> dict:
+        if cfg.family != "vlm":
+            return {}
+        return {"positions3": torch.full((3, B, 1), 32 + s, dtype=torch.long, device="cuda")}
+
+    def prefill():
+        return arts.prefill_fn(params, {**prompt, **extra})[:, -1].argmax(-1)
+
+    def encode():
+        state["enc_out"] = arts.encode_fn(params, extra["enc_embeds"])
+
+    def fill():
+        state["cache"] = zoo.init_cache(B, P + STEPS + 1, device="cuda")
+        if "enc_out" in state:
+            state["cache"]["enc_out"] = state["enc_out"]
+        logits, state["cache"] = arts.decode_fn(params, state["cache"], prompt)
+        return logits[:, -1].argmax(-1)
+
+    def decode():
+        nxt = state["nxt"]
+        for s in range(STEPS):
+            logits, state["cache"] = arts.decode_fn(
+                params, state["cache"], {"tokens": nxt[:, None], **step_inputs(s)})
+            nxt = logits[:, -1].argmax(-1)
+            nxt.tolist()  # the scheduler reads every step's tokens on the host
+        return nxt
+
+    parts = [("prefill", prefill)] + ([("encode", encode)] if extra else []) + [
+        ("cache_fill", fill), ("decode", decode)]
+    state["nxt"] = prefill()
+    for _, fn in parts[1:]:  # warm-up of every path
+        fn()
+    print(f"profile: {cfg.name} bf16, 4 x {P}-position prompts"
+          f"{f', {WHISPER_FRAMES} encoder frames' if extra else ''}, {STEPS} decode steps "
+          f"[{smi}]")
+    for name, fn in parts:
+        prof, host_ms = _profiled(fn)
+        if name == "decode":
+            _report(f"{arch} {name}", prof, host_ms, per=STEPS, unit="step")
+        else:
+            _report(f"{arch} {name}", prof, host_ms)
+
+
 FILL_STEPS = 32  # token-by-token fill steps profiled (of 256)
 
 
@@ -1353,7 +1440,10 @@ def main() -> None:
          "train_dist": profile_train_dist, "dist_cards": dist_cards,
          "serve_moe": profile_serve_moe, "moe_cards": moe_cards,
          "xlstm_agreement": xlstm_agreement, "flash_ablate": flash_ablate,
-         "scan_ablate": scan_ablate}[name](smi)
+         "scan_ablate": scan_ablate,
+         "serve_gemma3": lambda smi: profile_serve_family(smi, "gemma3-4b"),
+         "serve_vlm": lambda smi: profile_serve_family(smi, "qwen2-vl-2b"),
+         "serve_whisper": lambda smi: profile_serve_family(smi, "whisper-large-v3")}[name](smi)
 
 
 if __name__ == "__main__":

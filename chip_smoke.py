@@ -14,7 +14,12 @@ Phases, each printed as it runs; any failure exits non-zero:
            (serving prefill for flash_fwd, the training step for the other
            flash kernels, zamba2-7b and xlstm-125m at 4 x 1024 tokens for
            the scans) beside its bound and, where one exists, the library
-           call that computes the same function.
+           call that computes the same function.  flash_fwd is also timed
+           at gemma3-4b's prefill (Dh 320, local and global layers),
+           whisper-large-v3's encoder and cross-attention and qwen2-vl-2b's
+           prefill (FAMILY_TIMED); at Dh 320 a gradient must raise
+           ValueError before any launch, both through flash_attention_bwd
+           and through ops.flash_attention.
 4. model   a small llama-shaped f32 model on the card (flash kernels)
            against the same weights on the CPU (plain path): a forward, two
            train steps (remat on the card), and a checkpoint round trip;
@@ -23,7 +28,10 @@ Phases, each printed as it runs; any failure exits non-zero:
            (MoE, 4 experts top-2): a forward (logits, aux), two train steps
            (loss, aux, grad_norm) and 3 decode steps, with the share of
            token -> expert choices that agree between card and CPU (all
-           must agree).
+           must agree); then gemma3-smoke (2 x 100 tokens, past its window
+           of 8), qwen2-vl-smoke (embeddings at patch-grid positions3) and
+           whisper-smoke (40 encoder frames): a forward, a one-call fill and
+           3 decode steps, within 1e-3 (``family_agreement``).
 5. serve   llama3.2-3b at full width in bf16, random weights from a seed:
            8 requests of 1024-token prompts, 32 new tokens each, in two
            waves of 4 slots; counts the kernel launches of that run.
@@ -42,6 +50,17 @@ Phases, each printed as it runs; any failure exits non-zero:
            prefill against the one-call cache fill over every prompt
            position, argmax agreement above the reference's MoE bound (0.7)
            and the rms of the difference within 0.1 of the logits' std.
+   serve_gemma3, serve_vlm, serve_whisper  gemma3-4b (4.01 B params,
+           Dh 320, 4 x 2048-token prompts: the window of 1024 binds on its
+           29 local layers), qwen2-vl-2b (4 x 1024 positions as embeddings
+           at a 32 x 32 patch grid's positions3, the decoded tokens at 32 +
+           step) and whisper-large-v3 (4 x 1500 encoder frames, 4 x
+           224-token prompts) at full size in bf16, 32 new tokens, one wave
+           of 4: all answered, one flash_fwd an attention layer of the
+           prefill (gemma3: 34, 29 of them windowed, recorded by
+           ``flash_windows``; vlm: 28; whisper: 96, plus 32 in the encode
+           that fills the cache's enc_out), prefill against the one-call
+           fill within the dense bounds.
 9. train   llama3.2-3b at full width and depth in bf16 (f32 moments),
            remat, flash attention: 8 AdamW steps of 4 x 1024 tokens through
            ``train_loop``; the loss must fall, and the launches of that run
@@ -262,7 +281,24 @@ FLASH_CASES = [
     ("no_visible_key_f32", 1, 4, 2, 64, 128, 64, False, 16, 100, "float32", "kernel"),
     # moonshot-v1-16b-a3b's prefill and training shape: MHA (a group of 1)
     ("moonshot_prefill", 4, 16, 16, 1024, 1024, 128, True, None, 0, "bfloat16", "model"),
+    # gemma3-4b's prefill at Dh 320 (the mma.sync kernel with Q in shared
+    # memory): its local layers' window of 1024 binds on half the rows
+    ("gemma3_local", 4, 8, 4, 2048, 2048, 320, True, 1024, 0, "bfloat16", "model"),
+    ("gemma3_global", 4, 8, 4, 2048, 2048, 320, True, None, 0, "bfloat16", "model"),
+    ("d320_ragged_f32", 1, 4, 2, 333, 333, 320, True, None, 0, "float32", "kernel"),
+    ("d320_ragged_q_offset", 2, 4, 2, 200, 1100, 320, True, 700, 900, "bfloat16", "kernel"),
+    ("no_visible_key_d320", 1, 4, 2, 64, 128, 320, False, 16, 100, "bfloat16", "kernel"),
+    # whisper-large-v3: the encoder (1500 frames, not a multiple of the
+    # 128-key tile) and the decoder's cross-attention, MHA at Dh 64, not causal
+    ("whisper_enc", 4, 20, 20, 1500, 1500, 64, False, None, 0, "bfloat16", "model"),
+    ("whisper_cross", 4, 20, 20, 224, 1500, 64, False, None, 0, "bfloat16", "model"),
+    # qwen2-vl-2b's prefill: a GQA group of 6
+    ("qwen2vl_prefill", 4, 12, 2, 1024, 1024, 128, True, None, 0, "bfloat16", "model"),
 ]
+# the cases of the gemma3, whisper and vlm serving paths, timed beside their
+# bounds in the kernel phase
+FAMILY_TIMED = ("gemma3_local", "gemma3_global", "d320_ragged_f32", "whisper_enc",
+                 "whisper_cross", "qwen2vl_prefill")
 
 
 def _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed, layout="kernel"):
@@ -355,7 +391,38 @@ def _flash_fwd_kernel() -> dict:
             worst = err
 
     timed = _time_forward("flash_fwd", fa.flash_attention_fwd, attention_ref, with_lse=False)
+    for case in FLASH_CASES:
+        if case[0] in FAMILY_TIMED:
+            _time_flash_case(case)
     return _flash_entry("flash_fwd", "flash_fwd.cu", 35, None, worst, *timed)
+
+
+def _time_flash_case(case) -> None:
+    """Time ``flash_fwd`` at one FLASH_CASES shape of the gemma3, whisper and
+    vlm paths (its own layout) beside its bound, its plain version and the
+    fastest sdpa backend that computes the same function, on one line."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import attention_mask, attention_ref
+
+    name, B, H, Hk, Sq, Skv, Dh, causal, window, q_off, dtype, layout = case
+    q, k, v = _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed=7, layout=layout)
+    kw = dict(causal=causal, window=window, q_offset=q_off)
+    ms = _graph_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw))
+    plain_ms = _time_ms(lambda: attention_ref(q, k, v, **kw), iters=3, warmup=1)
+    mask = attention_mask(Sq, Skv, causal, window, q_off, "cuda")
+    library = _fwd_yardsticks(q, k, v, False, causal=causal, mask=mask)
+    lib_name = min(library, key=library.get) if library else None
+    visible = int(mask.sum())
+    flops = 4.0 * Dh * visible * B * H
+    nbytes = _nbytes(q, k, v, q)
+    bound = _bound(flops, nbytes, dtype)
+    lib = (f"{library[lib_name]:.4f} ms, {lib_name}, kernel/library "
+           f"{ms / library[lib_name]:.3f}") if library else "none takes this shape"
+    print(f"kernel flash_fwd timing at {name} (B={B} H={H} Hk={Hk} Sq={Sq} Skv={Skv} Dh={Dh} "
+          f"{dtype} causal={causal} window={window} {layout} layout): kernel {ms:.4f} ms device "
+          f"(CUDA graph of 20 launches); plain {plain_ms:.4f} ms; library {lib}; bound "
+          f"{bound[0]:.4f} ms ({bound[1]}: {flops:.4g} FLOP, {nbytes:.4g} B), "
+          f"{bound[0] / ms:.1%} of bound", flush=True)
 
 
 def _sdpa_backend_used(q, k, v) -> str:
@@ -373,11 +440,16 @@ def _sdpa_backend_used(q, k, v) -> str:
 
 
 def _runs(call) -> bool:
-    """Whether ``call`` runs here (a pinned sdpa backend may refuse a shape)."""
+    """Whether ``call`` runs here (a pinned sdpa backend may refuse a shape;
+    the reasons it warns of are dropped, the refusal is printed)."""
+    import warnings
+
     import torch
 
     try:
-        call()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            call()
         torch.cuda.synchronize()
     except RuntimeError as e:
         print(f"kernel: yardstick refused: {str(e).splitlines()[0][:160]}", flush=True)
@@ -385,13 +457,16 @@ def _runs(call) -> bool:
     return True
 
 
-def _fwd_yardsticks(q, k, v, with_lse: bool) -> dict:
+def _fwd_yardsticks(q, k, v, with_lse: bool, causal: bool = True, mask=None) -> dict:
     """Library calls of PyTorch that compute the forward at the timed shape,
     timed as the kernel is: {label: ms}.  Without lse: sdpa pinned to each
     backend that runs here (GQA through enable_gqa where the backend takes
-    it, else k/v expanded to H heads outside the timing).  With lse: aten's
-    flash and cuDNN forwards, which return the logsumexp too (on k/v
-    expanded to H heads: they take no GQA)."""
+    it, else k/v expanded to H heads outside the timing); with ``mask``
+    (the visible keys, (Sq, Skv)) where a window or a q offset makes the
+    mask other than plain causal; the MATH backend only where no fused one
+    takes the shape.  With lse: aten's flash and cuDNN forwards, which
+    return the logsumexp too (on k/v expanded to H heads: they take no
+    GQA)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -408,15 +483,24 @@ def _fwd_yardsticks(q, k, v, with_lse: bool) -> dict:
             if _runs(fn):
                 calls[label] = fn
     else:
+        # sdpa's own causal mask is the top-left triangle: anything else
+        # (a window, a q offset) goes in as a bool mask
+        if mask is None or bool(mask.equal(torch.ones_like(mask).tril() if causal else
+                                           torch.ones_like(mask))):
+            attn = dict(is_causal=causal)
+        else:
+            attn = dict(attn_mask=mask)
         for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
-                        SDPBackend.EFFICIENT_ATTENTION):
+                        SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+            if backend == SDPBackend.MATH and calls:
+                break
             for gqa, kk, vv in ((True, k, v), (False, ke, ve)):
                 def call(backend=backend, kk=kk, vv=vv, gqa=gqa):
                     with sdpa_kernel(backend):
-                        return F.scaled_dot_product_attention(q, kk, vv, is_causal=True,
-                                                              enable_gqa=gqa)
+                        return F.scaled_dot_product_attention(q, kk, vv, enable_gqa=gqa, **attn)
                 if _runs(call):
-                    calls[f"sdpa[{backend.name}{'' if gqa else ', k/v expanded'}]"] = call
+                    calls[f"sdpa[{backend.name}{'' if gqa else ', k/v expanded'}"
+                          f"{', bool mask' if 'attn_mask' in attn else ''}]"] = call
                     break
     return {label: _graph_ms(call) for label, call in calls.items()}
 
@@ -487,6 +571,10 @@ def _training_kernels() -> list:
         o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
         torch.cuda.synchronize()
         o_ref, lse_ref = attention_fwd_lse_ref(q, k, v, **kw)
+        if Dh not in fa.BWD_HEAD_DIMS:
+            _check_no_backward(name, case=(B, H, Hk, Sq, Skv, Dh, dtype, layout), kw=kw,
+                               errs=(_max_err(o, o_ref), _max_err(lse, lse_ref)), do=do)
+            continue
         # the backward kernels and the plain backward on the same o and lse;
         # a second call must give the same bits (no atomics, fixed sum order)
         dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
@@ -585,6 +673,44 @@ def _training_kernels() -> list:
     print("kernel: plain_ms of flash_bwd_dq and flash_bwd_dkv is the whole plain backward "
           "(dq, dk, dv); their library_ms is the fastest whole PyTorch backward", flush=True)
     return entries
+
+
+def _check_no_backward(name, case, kw, errs, do) -> None:
+    """A head_dim outside the backward's range (320): the forward with lse
+    within its tolerances, and every way to a gradient raises ValueError
+    naming the range before any kernel launches (no fall-back to the plain
+    backward)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    B, H, Hk, Sq, Skv, Dh, dtype, layout = case
+    (o_err, _), (lse_err, _) = errs
+    tol_o = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    q, k, v = _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed=3, layout=layout)
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
+    refused = []
+    before = launch_counts()
+    for what, call in (
+            ("flash_attention_bwd", lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)),
+            ("flash_attention with grad", lambda: flash_attention(
+                *(t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)), **kw))):
+        try:
+            call()
+        except ValueError as e:
+            refused.append(f"{what}: {e}")
+    torch.cuda.synchronize()
+    after = launch_counts()
+    print(f"kernel train {name}: B={B} H={H} Hk={Hk} Sq={Sq} Skv={Skv} Dh={Dh} {dtype}: "
+          f"o {o_err:.3e} (tol {tol_o:g}), lse {lse_err:.3e} (tol {LSE_TOL[dtype]:g}); "
+          f"backward refused {len(refused)} of 2 ways: {refused}", flush=True)
+    if not (o_err <= tol_o and lse_err <= LSE_TOL[dtype]):
+        fail(f"flash_fwd_lse {name} disagrees with its plain version")
+    if len(refused) != 2 or after != before or not all(str(fa.BWD_HEAD_DIMS) in r
+                                                        for r in refused):
+        fail(f"{name}: a gradient at head_dim {Dh} must raise ValueError naming "
+             f"{fa.BWD_HEAD_DIMS} before any launch: {refused}, launches {before} -> {after}")
 
 
 def _bwd_yardsticks(q, k, v, do) -> tuple:
@@ -839,6 +965,8 @@ def phase_model() -> None:
     _model_train(base, params)
     _model_recurrent()
     _model_moe()
+    for arch in FAMILY_ARCHS:
+        family_agreement(arch)
 
 
 # smoke recurrent models, f32, card (kernels, cuBLAS) vs CPU (chunked plain
@@ -881,6 +1009,90 @@ def _model_recurrent() -> None:
             fail(f"{zoo.cfg.name} on the card disagrees with the CPU plain path: {errs}")
         if counts[kname] != n_scans or sum(counts.values()) != n_scans:
             fail(f"{zoo.cfg.name} forward launched {counts}, expected {n_scans} {kname}")
+
+
+FAMILY_ARCHS = ("gemma3-4b", "qwen2-vl-2b", "whisper-large-v3")
+
+
+def _grid_positions3(B: int, S: int, side: int):
+    """positions3 (3, B, S) of a prompt that is a side x side patch grid,
+    (0, row, col) (Qwen2-VL's image positions), and the position at which
+    text after it continues in all three streams (side)."""
+    import torch
+
+    i = torch.arange(S)
+    grid = torch.stack([torch.zeros_like(i), i // side, i % side])
+    return grid[:, None].expand(3, B, S).contiguous(), side
+
+
+def _family_inputs(cfg, B: int, S: int, gen) -> tuple:
+    """The first prompt and the decode inputs of a family, drawn from
+    ``gen``: (prefill batch, [decode batch of one token per step] x 3).
+    vlm: the prompt as embeddings at a patch-grid positions3, the steps
+    continuing after the grid; whisper: 40 encoder frames, enc_embeds."""
+    import torch
+
+    tokens = torch.randint(0, cfg.vocab, (B, S + 3), generator=gen)
+    steps = [{"tokens": tokens[:, S + t:S + t + 1]} for t in range(3)]
+    batch = {"tokens": tokens[:, :S]}
+    if cfg.family == "vlm":
+        pos3, nxt = _grid_positions3(B, S, math.isqrt(S))
+        batch = {"embeds": torch.randn((B, S, cfg.d_model), generator=gen), "positions3": pos3}
+        for t, st in enumerate(steps):
+            st["positions3"] = torch.full((3, B, 1), nxt + t, dtype=torch.long)
+    if cfg.family == "whisper":
+        batch["enc_embeds"] = torch.randn((B, 40, cfg.d_model), generator=gen)
+    return batch, steps
+
+
+def family_agreement(arch: str) -> tuple:
+    """``arch``'s smoke config in f32, flash on the card against the plain
+    path on the CPU with the same weights: a forward of 2 x 100 positions
+    (gemma3-smoke's window of 8 binds) and 3 one-token decode steps after a
+    one-call fill of the prompt.  Fails beyond MOE_MODEL_TOL or on other
+    launches than one flash_fwd an attention of the forward; returns
+    (errors, forward launches)."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.common import ParamTree
+    from repro_torch.models.model_zoo import get_model
+
+    base = get_smoke_config(arch)
+    gpu_zoo, cpu_zoo = get_model(dataclasses.replace(base, attn_impl="flash")), get_model(base)
+    cpu_params = cpu_zoo.init(0, device="cpu")
+    params = ParamTree.from_state_dict({k: v.cuda() for k, v in cpu_params.state_dict().items()})
+    batch, steps = _family_inputs(base, 2, 100, torch.Generator().manual_seed(5))
+    want_launches = base.num_layers * (2 if base.family == "whisper" else 1) + base.enc_layers
+    outs = {}
+    with torch.inference_mode():
+        for side, dev, zoo, p in (("card", "cuda", gpu_zoo, params),
+                                  ("host", "cpu", cpu_zoo, cpu_params)):
+            reset_launch_counts()
+            logits, _ = zoo.forward(p, {k: v.to(dev) for k, v in batch.items()})
+            counts = launch_counts()
+            cache = zoo.init_cache(2, 103, device=dev)
+            if "enc_embeds" in batch:
+                cache["enc_out"] = zoo.encode(p, batch["enc_embeds"].to(dev))
+            prompt = {k: v.to(dev) for k, v in batch.items() if k != "enc_embeds"}
+            fill, cache = zoo.decode_step(p, cache, prompt)
+            dec = [fill[:, -1:].cpu()]
+            for st in steps:
+                lg, cache = zoo.decode_step(p, cache, {k: v.to(dev) for k, v in st.items()})
+                dec.append(lg.cpu())
+            outs[side] = (logits.cpu(), dec, counts)
+    (got, gdec, counts), (want, wdec, _) = outs["card"], outs["host"]
+    errs = [(got - want).abs().max().item()] + [(a - b).abs().max().item()
+                                                for a, b in zip(gdec, wdec)]
+    print(f"model: {base.name} f32, card+flash vs cpu+plain: forward logits {tuple(got.shape)} "
+          f"max_abs_err {errs[0]:.3e}, fill and decode steps {[f'{e:.3e}' for e in errs[1:]]} "
+          f"(tol {MOE_MODEL_TOL:g}); forward launched flash_fwd {counts['flash_fwd']} times "
+          f"(want {want_launches})", flush=True)
+    if not bool(torch.isfinite(got).all()) or max(errs) > MOE_MODEL_TOL:
+        fail(f"{base.name} on the card disagrees with the CPU plain path: {errs}")
+    if counts["flash_fwd"] != want_launches or sum(counts.values()) != want_launches:
+        fail(f"{base.name} forward launched {counts}, expected {want_launches} flash_fwd")
+    return errs, counts["flash_fwd"]
 
 
 # two f32 train steps, card vs CPU.  loss and grad_norm: f32 sums in another
@@ -1559,6 +1771,204 @@ def phase_serve_moe(smi: str) -> None:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]", flush=True)
 
 
+@contextlib.contextmanager
+def flash_windows():
+    """Record the ``window`` of every flash_fwd call the models make through
+    ``ops.flash_attention``, in call order (the kernel's counter counts the
+    launches; this tells a windowed launch from another)."""
+    from repro_torch.kernels.flash_attention import ops
+
+    seen, real = [], ops.flash_attention_fwd
+
+    def recording(q, k, v, **kw):
+        seen.append(kw.get("window"))
+        return real(q, k, v, **kw)
+
+    ops.flash_attention_fwd = recording
+    try:
+        yield seen
+    finally:
+        ops.flash_attention_fwd = real
+
+
+def _serve_family(smi: str, tag: str, arch: str, prompt: int, max_new: int, requests) -> dict:
+    """Serve 8 requests in two waves of 4 slots with ``arch`` at full size in
+    bf16 with flash attention, random weights from seed 0; ``requests(cfg,
+    rng, n)`` gives the n requests (their prompts, positions3, enc_embeds).
+    All answered, one flash_fwd per attention layer of the prefill's forward
+    (whisper: encoder, decoder and cross-attention) and of the encode that
+    fills whisper's enc_out, per wave, and no other kernel; the prefill
+    against the one-call fill within SERVE_TOL.  Prints each wave's prefill,
+    fill (and encode) and decode latency (the first wave pays the first
+    calls' set-up: the second is the steady figure), tokens/s and peak
+    memory; returns the launches and the windows the flash calls took."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.serve.serve_step import (
+        BatchScheduler, ServeArtifacts, make_serve_step, serve_waves,
+    )
+
+    slots, n_req = 4, 8
+    cfg = dataclasses.replace(get_config(arch), param_dtype=torch.bfloat16,
+                              compute_dtype=torch.bfloat16, attn_impl="flash")
+    zoo = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = zoo.init(gen, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"{tag}: {cfg.name} L={cfg.num_layers} enc_layers={cfg.enc_layers} "
+          f"d_model={cfg.d_model} H={cfg.heads} Hk={cfg.kv_heads} Dh={cfg.resolved_head_dim} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab} window={cfg.sliding_window} bf16, "
+          f"{n_params / 1e9:.3f} B params ({torch.cuda.memory_allocated() / 2**30:.2f} GiB held), "
+          f"init {time.perf_counter() - t0:.2f} s", flush=True)
+
+    arts = make_serve_step(zoo, device="cuda")
+    want_launches = cfg.num_layers + (cfg.num_layers + 2 * cfg.enc_layers if zoo.has_encoder
+                                      else 0)
+    times = {"prefill": [], "encode": [], "fill": [], "decode": []}
+    since_prefill = [0]
+
+    def timed(kind, fn):
+        def call(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            times[kind(args) if callable(kind) else kind].append(time.perf_counter() - t)
+            return out
+        return call
+
+    def decode_kind(args):
+        since_prefill[0] += 1
+        return "fill" if since_prefill[0] == 1 else "decode"
+
+    def prefill(*args):
+        since_prefill[0] = 0
+        return arts.prefill_fn(*args)
+
+    encode = arts.encode_fn and timed("encode", arts.encode_fn)
+    served = ServeArtifacts(timed(decode_kind, arts.decode_fn), timed("prefill", prefill),
+                            encode_fn=encode)
+    sched = BatchScheduler(slots=slots, eos_id=0)
+    reqs = requests(cfg, np.random.RandomState(0), n_req)
+    for r in reqs:
+        sched.submit(r)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with flash_windows() as windows:
+        waves = serve_waves(zoo, served, params, sched, prompt + max_new, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    for r in reqs:
+        ok = len(r.generated) == r.max_new or (r.generated and r.generated[-1] == sched.eos_id)
+        if not (r.done and ok):
+            fail(f"{tag}: request {r.rid} unanswered: {len(r.generated)} tokens, done={r.done}")
+    n_wave = len(waves)
+    print(f"{tag}: {len(reqs)} requests answered in {n_wave} wave(s); tokens per request "
+          f"{[len(r.generated) for r in reqs]}; launches {counts}", flush=True)
+    if counts["flash_fwd"] != want_launches * n_wave or \
+            any(n for k, n in counts.items() if k != "flash_fwd"):
+        fail(f"{tag} launched {counts}, expected {want_launches} x {n_wave} flash_fwd only")
+    print(f"{tag}: flash_fwd launches {counts['flash_fwd']} = {want_launches} per wave x "
+          f"{n_wave} wave(s)", flush=True)
+    for w in waves:
+        _agreement(tag, "bf16 prefill (flash) vs one-call fill (plain attention)",
+                   w.prefill_last, w.fill_last, SERVE_TOL)
+    gen_tokens = sum(len(r.generated) for r in reqs)
+    ms = {k: [round(1e3 * t, 2) for t in v] for k, v in times.items() if v and k != "decode"}
+    ends = np.cumsum([0] + [w.decode_steps for w in waves]).tolist()
+    step_ms = [1e3 * sum(times["decode"][a:b]) / (b - a) for a, b in zip(ends, ends[1:])]
+    print(f"{tag}: per-wave ms: {ms}, decode ms/step {[round(t, 3) for t in step_ms]}",
+          flush=True)
+    last = {k: v[-1] for k, v in ms.items()}
+    enc = f", encode {last['encode']:.2f} ms" if "encode" in last else ""
+    print(f"{tag}: second wave: prefill {last['prefill']:.2f} ms ({slots}x{prompt} tokens, "
+          f"{slots * prompt / last['prefill'] * 1e3:.0f} tokens/s){enc}, cache fill "
+          f"{last['fill']:.2f} ms, decode {step_ms[-1]:.3f} ms/step ({slots} slots), decode "
+          f"{slots * 1e3 / step_ms[-1]:.1f} tokens/s; end to end {gen_tokens / wall:.1f} "
+          f"generated tokens/s over {wall:.2f} s, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]", flush=True)
+    return {"flash_fwd": counts["flash_fwd"], "windows": windows}
+
+
+def phase_serve_gemma3(smi: str) -> dict:
+    """gemma3-4b at full size (34 layers, Dh 320, window 1024 on 29 local
+    layers): 4 x 2048-token prompts, so the window binds on half the
+    positions, 32 new tokens; 34 flash_fwd a prefill, 29 with the window."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serve.serve_step import Request
+
+    prompt = 2048
+
+    def requests(cfg, rng, n):
+        return [Request(rid=i, prompt=rng.randint(2, cfg.vocab, prompt), max_new=32)
+                for i in range(n)]
+
+    cfg = get_config("gemma3-4b")
+    flags = transformer._is_global_flags(cfg)
+    out = _serve_family(smi, "serve_gemma3", "gemma3-4b", prompt, 32, requests)
+    want = [None if g else cfg.sliding_window for g in flags]
+    w = cfg.sliding_window
+    n = len(out["windows"]) // len(flags)  # prefills
+    print(f"serve_gemma3: flash_fwd windows per prefill: {out['windows'].count(w) // n} with "
+          f"window {w}, {out['windows'].count(None) // n} without (want "
+          f"{len(flags) - sum(flags)} and {sum(flags)}: global layers "
+          f"{[i for i, g in enumerate(flags) if g]})", flush=True)
+    if out["windows"] != want * n:
+        fail(f"serve_gemma3: the flash calls took windows {out['windows']}, want {want}")
+    return out
+
+
+def phase_serve_vlm(smi: str) -> dict:
+    """qwen2-vl-2b at full size: 4 prompts of 1024 positions given as
+    embeddings from the seed (the vision frontend is a stub) at a 32 x 32
+    patch grid's positions3 (0, row, col); the decoded tokens continue at 32
+    + step in all three streams; 28 flash_fwd a prefill."""
+    import torch
+
+    from repro_torch.serve.serve_step import Request
+
+    prompt, side = 1024, 32
+
+    def requests(cfg, rng, n):
+        pos3 = _grid_positions3(1, prompt, side)[0][:, 0].numpy()
+        g = torch.Generator().manual_seed(0)
+        return [Request(rid=i, prompt=torch.randn((prompt, cfg.d_model), generator=g).numpy(),
+                        max_new=32, positions3=pos3) for i in range(n)]
+
+    return _serve_family(smi, "serve_vlm", "qwen2-vl-2b", prompt, 32, requests)
+
+
+def phase_serve_whisper(smi: str) -> dict:
+    """whisper-large-v3 at full size: enc_embeds of 4 x 1500 frames from the
+    seed, 4 x 224 decoder tokens (half of Whisper's 448-token context), 32
+    new tokens.  A wave launches flash_fwd 32 (encoder) + 32 (decoder self)
+    + 32 (cross) times in the prefill's forward and 32 more in the encode
+    that fills the cache's enc_out: 128."""
+    import torch
+
+    from repro_torch.serve.serve_step import Request
+
+    prompt = 224
+
+    def requests(cfg, rng, n):
+        g = torch.Generator().manual_seed(0)
+        return [Request(rid=i, prompt=rng.randint(2, cfg.vocab, prompt), max_new=32,
+                        enc_embeds=torch.randn((1500, cfg.d_model), generator=g).numpy())
+                for i in range(n)]
+
+    return _serve_family(smi, "serve_whisper", "whisper-large-v3", prompt, 32, requests)
+
+
 TRAIN_STEPS = 8
 TRAIN_B, TRAIN_S = 4, 1024
 # the distributed step on a world of one against the one-process step: the
@@ -1917,6 +2327,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_serve_moe(smi)
     torch.cuda.empty_cache()
+    for phase in (phase_serve_gemma3, phase_serve_vlm, phase_serve_whisper):
+        phase(smi)
+        torch.cuda.empty_cache()
     train = phase_train(smi)
     torch.cuda.empty_cache()
     train_moe = phase_train_moe(smi)

@@ -15,8 +15,8 @@
 // ms at 3.35 TB/s: the operations bound it, and only wgmma reaches the
 // tensor cores' rate on this card.
 //
-// The design for bf16 at Dh in {64, 128} (every model of the repo has Dh =
-// 128): a persistent kernel, one block of three warpgroups per SM, walking
+// The design for bf16 at Dh in {64, 128} (the dense, MoE and vlm models have
+// Dh 128, whisper 64): a persistent kernel, one block of three warpgroups per SM, walking
 // work items of (128-row q tile, head, batch), heaviest first, in snake
 // order over the blocks.  Warpgroup 0 is the producer: it gives back its
 // registers (setmaxnreg 24) and one thread issues every TMA load, each
@@ -45,9 +45,16 @@
 
 // bf16 at Dh in {16, 32} (card tests and small cases only) keeps the first
 // design: mma.sync m16n8k16, ldmatrix, K/V tiles double-buffered with
-// cp.async, one 4-warp block per 64 q rows.  The f32 path, which serving
-// does not take, is SIMT FMA (4 threads per q row) so that it keeps f32
-// accuracy.
+// cp.async, one 4-warp block per 64 q rows.  bf16 at Dh 320 (gemma3-4b,
+// 2560 / 8 heads) is that design reshaped for a wide head: at 64 q rows a
+// warpgroup the O accumulator alone would be 160 registers a thread on the
+// wgmma path, so each warp keeps its 16 rows of O (160 registers) and reads
+// Q from shared memory for every 32-key tile, 8 warps a block sharing the
+// K/V tiles.  At gemma3's prefill (B 4, H 8, Hk 4, S 2048, causal) it does
+// 8.59e10 FLOP against 126 MB, 0.087 ms at 989 TFLOP/s: bound by the
+// operations, which mma.sync reaches only in part; its Hopper redesign is
+// later work.  The f32 path, which serving does not take, is SIMT FMA (4
+// threads per q row) so that it keeps f32 accuracy.
 //
 // Semantics kept from the TPU kernel: masked scores are -1e30, never -inf,
 // so a query row that sees no key averages v over all keys, exactly as the
@@ -248,6 +255,186 @@ __global__ void __launch_bounds__(kThreads, 3) flash_fwd_bf16_kernel(const Param
         uint32_t vb[4];
         ldmatrix_x4_trans(vb, tV + (j * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD + d * 16 +
                                   (lane / 16) * 8);
+        mma_bf16(acc[2 * d], pa, vb[0], vb[1]);
+        mma_bf16(acc[2 * d + 1], pa, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer before it is refilled
+  }
+  cp_async_wait<0>();
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
+    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
+    inv[i] = 1.f / fmaxf(l_run[i], 1e-30f);
+  }
+  const int ra = r0 + warp * 16 + quad, rb = ra + 8;
+  if (p.lse != nullptr && tq == 0) {
+    float* lse = p.lse + (b * p.H + h) * p.Sq;
+    if (ra < p.Sq) lse[ra] = row_lse(m_run[0], l_run[0]);
+    if (rb < p.Sq) lse[rb] = row_lse(m_run[1], l_run[1]);
+  }
+#pragma unroll
+  for (int d = 0; d < D / 8; ++d) {
+    const int col = d * 8 + tq * 2;
+    if (ra < p.Sq)
+      *reinterpret_cast<__nv_bfloat162*>(og + ra * p.sos + col) =
+          __floats2bfloat162_rn(acc[d][0] * inv[0], acc[d][1] * inv[0]);
+    if (rb < p.Sq)
+      *reinterpret_cast<__nv_bfloat162*>(og + rb * p.sos + col) =
+          __floats2bfloat162_rn(acc[d][2] * inv[1], acc[d][3] * inv[1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16, Dh 320 (gemma3-4b): mma.sync with the Q tile kept in shared memory
+// ---------------------------------------------------------------------------
+
+// A warp's O accumulator of 16 rows x 320 columns is 160 f32 registers a
+// thread, so nothing else of that size can stay in registers: the Q tile
+// stays in shared memory and is read again, one 16 x 16 fragment at a time,
+// for every key tile, and the key tiles are 32 keys, so that the S fragment
+// is 16 registers.  8 warps share each K/V tile (128 q rows a block), which
+// halves the K/V traffic per row against 4 warps; K and V are double-buffered
+// with cp.async.  One block per SM: 164 KB of shared memory at Dh 320.
+constexpr int kWideBM = 128;       // q rows per block (8 warps x 16)
+constexpr int kWideBN = 32;        // keys per k step
+constexpr int kWideThreads = 256;
+
+template <int D>
+constexpr int wide_smem_bytes() {
+  return (kWideBM + 4 * kWideBN) * (D + 8) * (int)sizeof(__nv_bfloat16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWideThreads, 1) flash_fwd_bf16_wide_kernel(const Params p) {
+  constexpr int LD = D + 8;
+  constexpr int kTile = kWideBN * LD;  // elements of one K or V tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sK = sQ + kWideBM * LD;  // two K tiles, then two V tiles
+  __nv_bfloat16* sV = sK + 2 * kTile;
+
+  const int n_qtiles = (p.Sq + kWideBM - 1) / kWideBM;
+  const int r0 = (n_qtiles - 1 - (int)blockIdx.x) * kWideBM;  // longest causal rows first
+  const int r1 = min(p.Sq, r0 + kWideBM);
+  const long long b = blockIdx.z, h = blockIdx.y, hk = h / p.group;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int quad = lane / 4, tq = lane % 4;
+
+  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + b * p.sqb + h * p.sqh;
+  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.skb + hk * p.skh;
+  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.svb + hk * p.svh;
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.sob + h * p.soh;
+
+  int k_lo, k_hi;
+  key_range(p, r0, r1, k_lo, k_hi);
+  const int n_first = (k_lo / kWideBN) * kWideBN;
+
+  // first copy group: the Q tile and the first K/V tile
+  load_tile_bf16<D, kWideBM, kWideThreads>(sQ, qg, p.sqs, r0, p.Sq);
+  load_tile_bf16<D, kWideBN, kWideThreads>(sK, kg, p.sks, n_first, p.Skv);
+  load_tile_bf16<D, kWideBN, kWideThreads>(sV, vg, p.svs, n_first, p.Skv);
+  cp_async_commit();
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int d = 0; d < D / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  float m_run[2] = {kMasked, kMasked};  // rows quad and quad + 8 of the warp
+  float l_run[2] = {0.f, 0.f};          // partial over this thread's columns
+  const int qpos0 = r0 + warp * 16 + quad + p.q_offset;
+
+  for (int n0 = n_first, it = 0; n0 < k_hi; n0 += kWideBN, ++it) {
+    const int buf = it & 1;
+    if (n0 + kWideBN < k_hi) {
+      load_tile_bf16<D, kWideBN, kWideThreads>(sK + (buf ^ 1) * kTile, kg, p.sks, n0 + kWideBN,
+                                               p.Skv);
+      load_tile_bf16<D, kWideBN, kWideThreads>(sV + (buf ^ 1) * kTile, vg, p.svs, n0 + kWideBN,
+                                               p.Skv);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the prefetch have landed
+    __syncthreads();
+    const __nv_bfloat16* tK = sK + buf * kTile;
+    const __nv_bfloat16* tV = sV + buf * kTile;
+
+    // S = Q K^T for 16 rows x 32 keys: 4 n-tiles of 8 keys
+    float s[kWideBN / 8][4];
+#pragma unroll
+    for (int t = 0; t < kWideBN / 8; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4];
+      load_a<LD>(qa, sQ, warp * 16, kk * 16, lane);
+#pragma unroll
+      for (int j = 0; j < kWideBN / 16; ++j) {
+        uint32_t kb[4];
+        load_b_nk<LD>(kb, tK, j * 16, kk * 16, lane);
+        mma_bf16(s[2 * j], qa, kb[0], kb[1]);
+        mma_bf16(s[2 * j + 1], qa, kb[2], kb[3]);
+      }
+    }
+
+    const bool edge = tile_needs_mask(p, n0, kWideBN, r0, r1);
+#pragma unroll
+    for (int t = 0; t < kWideBN / 8; ++t) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[t][e] * p.scale;
+        if (edge) x = masked_score(p, x, qpos0 + (e >= 2 ? 8 : 0), n0 + t * 8 + tq * 2 + (e & 1));
+        s[t][e] = x;
+      }
+    }
+
+    // online softmax: the 4 threads of a quad share a row
+    float m_new[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int t = 0; t < kWideBN / 8; ++t) {
+      m_new[0] = fmaxf(m_new[0], fmaxf(s[t][0], s[t][1]));
+      m_new[1] = fmaxf(m_new[1], fmaxf(s[t][2], s[t][3]));
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m_new[i] = fmaxf(m_new[i], __shfl_xor_sync(0xffffffffu, m_new[i], 1));
+      m_new[i] = fmaxf(m_new[i], __shfl_xor_sync(0xffffffffu, m_new[i], 2));
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      alpha[i] = __expf(m_run[i] - m_new[i]);
+      m_run[i] = m_new[i];
+      l_run[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int t = 0; t < kWideBN / 8; ++t) {
+      s[t][0] = __expf(s[t][0] - m_new[0]);
+      s[t][1] = __expf(s[t][1] - m_new[0]);
+      s[t][2] = __expf(s[t][2] - m_new[1]);
+      s[t][3] = __expf(s[t][3] - m_new[1]);
+      l_run[0] += s[t][0] + s[t][1];
+      l_run[1] += s[t][2] + s[t][3];
+    }
+#pragma unroll
+    for (int d = 0; d < D / 8; ++d) {
+      acc[d][0] *= alpha[0];
+      acc[d][1] *= alpha[0];
+      acc[d][2] *= alpha[1];
+      acc[d][3] *= alpha[1];
+    }
+
+    // O += P V: the S accumulators of two n-tiles are one A fragment
+#pragma unroll
+    for (int j = 0; j < kWideBN / 16; ++j) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
+                              pack_bf16(s[2 * j][2], s[2 * j][3]),
+                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+#pragma unroll
+      for (int d = 0; d < D / 16; ++d) {
+        uint32_t vb[4];
+        load_b_kn<LD>(vb, tV, j * 16, d * 16, lane);
         mma_bf16(acc[2 * d], pa, vb[0], vb[1]);
         mma_bf16(acc[2 * d + 1], pa, vb[2], vb[3]);
       }
@@ -684,8 +871,11 @@ constexpr int kF32Threads = 4 * kF32Rows;
 template <int D>
 __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(const Params p) {
   constexpr int C = D / 16;  // float4 chunks per thread: chunk c * 4 + part
-  __shared__ __align__(16) float sK[kF32Keys][D];
-  __shared__ __align__(16) float sV[kF32Keys][D];
+  // keys a step: at Dh 320 sixteen, so that sK and sV (40 KB) fit the 48 KB
+  // of static shared memory
+  constexpr int KEYS = D > 128 ? 16 : kF32Keys;
+  __shared__ __align__(16) float sK[KEYS][D];
+  __shared__ __align__(16) float sV[KEYS][D];
 
   const int n_qtiles = (p.Sq + kF32Rows - 1) / kF32Rows;
   const int r0 = (n_qtiles - 1 - (int)blockIdx.x) * kF32Rows;
@@ -712,9 +902,9 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(const Params
 
   int k_lo, k_hi;
   key_range(p, r0, r1, k_lo, k_hi);
-  for (int n0 = (k_lo / kF32Keys) * kF32Keys; n0 < k_hi; n0 += kF32Keys) {
+  for (int n0 = (k_lo / KEYS) * KEYS; n0 < k_hi; n0 += KEYS) {
     __syncthreads();
-    for (int c = threadIdx.x; c < kF32Keys * (D / 4); c += kF32Threads) {
+    for (int c = threadIdx.x; c < KEYS * (D / 4); c += kF32Threads) {
       const int rr = c / (D / 4), col = (c % (D / 4)) * 4;
       float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
       if (n0 + rr < p.Skv) {
@@ -726,10 +916,10 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(const Params
     }
     __syncthreads();
 
-    float s[kF32Keys];
+    float s[KEYS];
     float m_new = m_run;
 #pragma unroll
-    for (int j = 0; j < kF32Keys; ++j) {
+    for (int j = 0; j < KEYS; ++j) {
       const float4* kr = reinterpret_cast<const float4*>(sK[j]);
       float dot = 0.f;
 #pragma unroll
@@ -753,7 +943,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(const Params
       acc[c].w *= alpha;
     }
 #pragma unroll
-    for (int j = 0; j < kF32Keys; ++j) {
+    for (int j = 0; j < KEYS; ++j) {
       const float pj = expf(s[j] - m_new);
       l_run += pj;
       const float4* vr = reinterpret_cast<const float4*>(sV[j]);
@@ -775,6 +965,17 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(const Params
   for (int c = 0; c < C; ++c)
     *reinterpret_cast<float4*>(og + r * p.sos + (c * 4 + part) * 4) =
         make_float4(acc[c].x * inv, acc[c].y * inv, acc[c].z * inv, acc[c].w * inv);
+}
+
+template <int D>
+cudaError_t launch_bf16_wide(const Params& p, cudaStream_t stream) {
+  const int smem = wide_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_wide_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Sq + kWideBM - 1) / kWideBM, p.H, p.B);
+  flash_fwd_bf16_wide_kernel<D><<<grid, kWideThreads, smem, stream>>>(p);
+  return cudaGetLastError();
 }
 
 template <int D>
@@ -875,11 +1076,13 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     switch (D) {
-      // no model of the repo has Dh < 64: those stay on mma.sync
+      // no model of the repo has Dh < 64: those stay on mma.sync; Dh 320
+      // (gemma3-4b) takes the mma.sync kernel with Q in shared memory
       case 16: return launch_bf16<16>(p, st);
       case 32: return launch_bf16<32>(p, st);
       case 64: return launch_wgmma<64>(p, maps, st);
       case 128: return launch_wgmma<128>(p, maps, st);
+      case 320: return launch_bf16_wide<320>(p, st);
     }
   } else if (dtype == 0) {
     switch (D) {
@@ -887,6 +1090,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
       case 32: return launch_f32<32>(p, st);
       case 64: return launch_f32<64>(p, st);
       case 128: return launch_f32<128>(p, st);
+      case 320: return launch_f32<320>(p, st);
     }
   }
   return cudaErrorInvalidValue;

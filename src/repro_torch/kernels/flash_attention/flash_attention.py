@@ -16,7 +16,9 @@ On CUDA tensors each launches its kernels (built on first use, see
 counter per kernel (``LAUNCHES``, ``LSE_LAUNCHES``, ``DQ_LAUNCHES``,
 ``DKV_LAUNCHES``); on CPU tensors it computes the plain version from
 ``ref.py``.  Unlike the TPU kernels they take any Sq and Skv: the kernels
-mask the ragged edge themselves.
+mask the ragged edge themselves.  The forward takes Dh in ``HEAD_DIMS``, the
+backward in ``BWD_HEAD_DIMS``: a gradient at Dh 320 (gemma3-4b) raises
+``ValueError`` on the card.
 
 At bf16 and Dh in ``TMA_HEAD_DIMS`` the kernels read their inputs through
 TMA tensor maps (the forward writes o through one too);
@@ -36,7 +38,8 @@ from .ref import attention_bwd_ref, attention_fwd_lse_ref, attention_ref
 
 SOURCE = "flash_attention/csrc/flash_fwd.cu"
 BWD_SOURCE = "flash_attention/csrc/flash_bwd.cu"
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 320)
+BWD_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # head dims whose bf16 forward is the TMA / wgmma kernel, and its tiles: the
 # map boxes are 64 columns (128 bytes, the swizzle's width) by these rows
@@ -86,7 +89,13 @@ def _bwd_fn(name: str):
     return fn
 
 
-def _check(q, k, v, window, q_offset, **more) -> None:
+def check_head_dim(Dh: int, head_dims: Tuple[int, ...] = HEAD_DIMS) -> None:
+    if Dh not in head_dims:
+        which = "backward" if head_dims == BWD_HEAD_DIMS else "forward"
+        raise ValueError(f"head_dim {Dh} is not one of {head_dims}, the {which} kernel's range")
+
+
+def _check(q, k, v, window, q_offset, head_dims=HEAD_DIMS, **more) -> None:
     """Raise on what the kernels do not take.  ``more`` are extra tensors of
     the backward: ``o``/``do`` shaped like q, ``lse`` f32 (B, H, Sq)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
@@ -99,8 +108,7 @@ def _check(q, k, v, window, q_offset, **more) -> None:
     B, H, Sq, Dh = q.shape
     if k.shape[0] != B or k.shape[3] != Dh or k.shape[2] == 0 or H % k.shape[1]:
         raise ValueError(f"q {tuple(q.shape)} does not fit k/v {tuple(k.shape)}")
-    if Dh not in HEAD_DIMS:
-        raise ValueError(f"head_dim {Dh} is not one of {HEAD_DIMS}")
+    check_head_dim(Dh, head_dims)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if q_offset < 0:
@@ -297,7 +305,7 @@ def flash_attention_bwd(
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window, scale=scale,
                                  q_offset=q_offset)
-    _check(q, k, v, window, q_offset, o=o, do=do, lse=lse)
+    _check(q, k, v, window, q_offset, BWD_HEAD_DIMS, o=o, do=do, lse=lse)
     if q.numel() == 0:
         return torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
     # (B, H, Sq), outside the kernels; contiguous whatever the strides of o

@@ -6,7 +6,9 @@ in kernel layout (no copy: the kernels take strides).  Without gradients it
 runs the forward kernel.  When an input requires grad it runs ``_Flash``,
 the counterpart of the reference's ``custom_vjp``: the forward that also
 writes lse, and a backward through the dq and dk/dv kernels.  On CPU tensors
-the same paths run the plain versions.
+the same paths run the plain versions.  On the card a head_dim outside the
+backward kernels' range (320) raises ``ValueError`` before the forward runs
+when a gradient is asked for.
 """
 
 from __future__ import annotations
@@ -15,7 +17,10 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import flash_attention_bwd, flash_attention_fwd, flash_attention_fwd_lse
+from .flash_attention import (
+    BWD_HEAD_DIMS, check_head_dim, flash_attention_bwd, flash_attention_fwd,
+    flash_attention_fwd_lse,
+)
 
 
 class _Flash(torch.autograd.Function):
@@ -51,6 +56,8 @@ def flash_attention(
     """Model layout: q (B, S, H, Dh), k/v (B, S, Hk, Dh) -> (B, S, H, Dh)."""
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if q.is_cuda:
+            check_head_dim(q.shape[-1], BWD_HEAD_DIMS)
         out = _Flash.apply(qt, kt, vt, causal, window, scale, q_offset)
     else:
         out = flash_attention_fwd(qt, kt, vt, causal=causal, window=window, scale=scale,

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from ..collectives.autograd import copy_to, reduce_from
+from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import NEG_INF, attention_mask
 
 Params = Dict[str, Any]
@@ -125,6 +126,25 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (out * p["scale"].to(torch.float32)).to(dtype)
 
 
+def init_layernorm(d: int, dt: DTypes, device) -> Params:
+    return {"scale": torch.ones((d,), dtype=dt.param, device=device),
+            "bias": torch.zeros((d,), dtype=dt.param, device=device)}
+
+
+def layernorm_specs() -> Params:
+    return {"scale": (None,), "bias": (None,)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """f32 statistics, population variance, as the reference."""
+    dtype = x.dtype
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)).to(dtype)
+
+
 def init_embedding(gen, vocab: int, d: int, dt: DTypes, device) -> Params:
     return {"table": trunc_normal(gen, (vocab, d), d ** -0.5, dt.param, device)}
 
@@ -199,16 +219,37 @@ def rope_freqs(head_dim: int, theta: float = 10000.0, device=None) -> torch.Tens
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
-    """x: (B, S, H, Dh); positions: (B, S) int."""
-    dh = x.shape[-1]
-    freqs = rope_freqs(dh, theta, x.device)                     # (Dh/2,)
-    ang = positions[..., None].to(torch.float32) * freqs        # (B, S, Dh/2)
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """Rotate the halves of x (B, S, H, Dh) by the angles (B, S, Dh/2)."""
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """x: (B, S, H, Dh); positions: (B, S) int."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)            # (Dh/2,)
+    return _rotate(x, positions[..., None].to(torch.float32) * freqs)
+
+
+def apply_mrope(
+    x: torch.Tensor, positions3: torch.Tensor, sections: Tuple[int, int, int],
+    theta: float = 1000000.0,
+) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: positions3 (3, B, S) = (temporal, height, width);
+    the Dh/2 frequency slots are split into 3 sections, each rotated by its
+    own position stream.  With the three streams equal it is ``apply_rope``."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to head_dim / 2 = {half}")
+    freqs = rope_freqs(x.shape[-1], theta, x.device)            # (half,)
+    sec_ids = torch.repeat_interleave(torch.arange(3, device=x.device),
+                                      torch.tensor(sections, device=x.device))
+    # for each frequency slot the matching position stream: (B, S, half)
+    pos_slot = positions3.movedim(0, -1)[..., sec_ids]
+    return _rotate(x, pos_slot.to(torch.float32) * freqs)
 
 
 # ---------------------------------------------------------------------------
@@ -259,7 +300,7 @@ def init_attention(gen, cfg: AttnConfig, dt: DTypes, device) -> Params:
 
 
 # ---------------------------------------------------------------------------
-# Plain attention (both families' non-kernel paths; the hybrid's shared block)
+# Attention: the plain paths of every family, the hybrid's shared block, whisper
 # ---------------------------------------------------------------------------
 
 
@@ -292,24 +333,34 @@ def attention(
     p: Params,
     cfg: AttnConfig,
     x: torch.Tensor,
-    positions: torch.Tensor,
+    positions: Optional[torch.Tensor],
     dt: DTypes,
     kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     cache_index: Optional[int] = None,
+    xattn_kv: Optional[torch.Tensor] = None,
+    impl: str = "ref",
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
-    """Self-attention with rope at ``positions`` (B, S), without qk-norm
-    (the one caller, the hybrid's shared block, has none).  Returns (output,
-    kv cache).  Without a cache it attends within x;
-    with ``kv_cache=(k, v)`` (B, S_max, Hk, Dh) and ``cache_index`` (a host
-    int, the filled length) it writes this call's keys and values into the
-    cache in place and attends over it.  The write start is clamped so the
-    update fits while the mask keeps the unclamped index, as
-    ``dynamic_update_slice_in_dim`` does in the reference."""
+    """Attention without qk-norm (its callers, the hybrid's shared block and
+    whisper, have none).  Returns (output, kv cache).  Self-attention takes
+    rope at ``positions`` (B, S) unless they are None; cross-attention
+    (``xattn_kv``, the encoder states (B, S_enc, D)) takes its keys and
+    values from there, with no rope and no causal mask.  Without a cache it
+    attends within x (or over ``xattn_kv``), through the flash kernel with
+    ``impl="flash"``; with ``kv_cache=(k, v)`` (B, S_max, Hk, Dh) and
+    ``cache_index`` (a host int, the filled length) it writes this call's
+    keys and values into the cache in place and attends over it on the plain
+    path.  The write start is clamped so the update fits while the mask
+    keeps the unclamped index, as ``dynamic_update_slice_in_dim`` does in
+    the reference."""
     B, S, _ = x.shape
     H, Hk, Dh = cfg.heads, cfg.kv_heads, cfg.head_dim
-    q = apply_rope(linear(p["wq"], x, dt).reshape(B, S, H, Dh), positions, cfg.rope_theta)
-    k = apply_rope(linear(p["wk"], x, dt).reshape(B, S, Hk, Dh), positions, cfg.rope_theta)
-    v = linear(p["wv"], x, dt).reshape(B, S, Hk, Dh)
+    src = x if xattn_kv is None else xattn_kv
+    q = linear(p["wq"], x, dt).reshape(B, S, H, Dh)
+    k = linear(p["wk"], src, dt).reshape(B, src.shape[1], Hk, Dh)
+    v = linear(p["wv"], src, dt).reshape(B, src.shape[1], Hk, Dh)
+    if xattn_kv is None and positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     scale = cfg.softmax_scale or (1.0 / math.sqrt(Dh))
     if kv_cache is not None:
         ck, cv = kv_cache
@@ -318,12 +369,16 @@ def attention(
         cv[:, start:start + S] = v.to(cv.dtype)
         out = sdpa(q, ck, cv, causal=True, window=cfg.window, scale=scale, q_offset=cache_index)
         return linear(p["wo"], out.reshape(B, S, H * Dh), dt), (ck, cv)
-    out = sdpa(q, k, v, causal=cfg.causal, window=cfg.window, scale=scale)
+    causal = cfg.causal and xattn_kv is None
+    if impl == "flash":
+        out = flash_attention(q, k, v, causal=causal, window=cfg.window, scale=scale)
+    else:
+        out = sdpa(q, k, v, causal=causal, window=cfg.window, scale=scale)
     return linear(p["wo"], out.reshape(B, S, H * Dh), dt), None
 
 
 # ---------------------------------------------------------------------------
-# MLP
+# MLPs
 # ---------------------------------------------------------------------------
 
 
@@ -352,6 +407,26 @@ def swiglu(p: Params, x: torch.Tensor, dt: DTypes, tp: Optional[TP] = None) -> t
     x = copy_to(x, tp.mesh, tp.axis)
     h = torch.nn.functional.silu(linear(p["wg"], x, dt)) * linear(p["wi"], x, dt)
     return row_linear(p["wo"], h, dt, tp)
+
+
+def init_gelu_mlp(gen, d: int, d_ff: int, dt: DTypes, device) -> Params:
+    return {
+        "wi": init_linear(gen, d, d_ff, dt, device),
+        "wo": init_linear(gen, d_ff, d, dt, device),
+    }
+
+
+def gelu_mlp_specs() -> Params:
+    return {
+        "wi": linear_specs(("fsdp", "mlp")),
+        "wo": linear_specs(("mlp", "fsdp")),
+    }
+
+
+def gelu_mlp(p: Params, x: torch.Tensor, dt: DTypes) -> torch.Tensor:
+    """``jax.nn.gelu``'s default is the tanh approximation: so is this one."""
+    h = torch.nn.functional.gelu(linear(p["wi"], x, dt), approximate="tanh")
+    return linear(p["wo"], h, dt)
 
 
 # ---------------------------------------------------------------------------

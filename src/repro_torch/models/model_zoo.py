@@ -1,6 +1,6 @@
 """Model dispatch (counterpart of ``repro/models/model_zoo.py``).
 
-    zoo = get_model(cfg)                        # dense, moe, hybrid and xlstm families
+    zoo = get_model(cfg)                        # dense, moe, vlm, hybrid, xlstm, whisper
     params = zoo.init(0)                        # seed or torch.Generator; on the card
     logits, aux = zoo.forward(params, batch)
     cache = zoo.init_cache(batch_size, cache_len)
@@ -14,6 +14,8 @@
 card they raise unless given ``device="cpu"``).  ``decode_tokens`` is the
 number of tokens a ``decode_step`` call must take (1 for the hybrid family,
 whose Mamba2 state step reads one position), or None for any number.
+An encoder-decoder family (whisper) also has ``encode(params, enc_embeds)``,
+whose output the caller puts in the cache's ``enc_out``.
 """
 
 from __future__ import annotations
@@ -28,11 +30,15 @@ from .. import device as _device
 from ..collectives.autograd import reduce_from
 from ..collectives.schedules import all_reduce_axis
 from ..configs.base import ModelConfig
-from . import hybrid, transformer, xlstm_lm
+from . import hybrid, transformer, whisper, xlstm_lm
 from .common import ParamTree
 
 # where sharding of a family that has none yet is queued
-_SHARDING_LATER = "ROADMAP Queue 1 item 10 (sharding for the hybrid and xLSTM families)"
+_SHARDING_LATER = {
+    "hybrid": "ROADMAP Queue 1 item 10 (sharding for the hybrid and xLSTM families)",
+    "xlstm": "ROADMAP Queue 1 item 10 (sharding for the hybrid and xLSTM families)",
+    "whisper": "ROADMAP Queue 1 item 14 (sharding for whisper and vlm's positions3)",
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,10 +63,17 @@ class ModelZoo:
             return self._mod.decode_step(params, self.cfg, cache, batch)
         return self._mod.decode_step(params, self.cfg, cache, batch, plan)
 
+    @property
+    def has_encoder(self) -> bool:
+        return hasattr(self._mod, "encode")
+
+    def encode(self, params, enc_embeds):
+        return self._mod.encode(params, self.cfg, enc_embeds)
+
     def _sharded(self, name: str):
-        if not hasattr(self._mod, name):
-            raise NotImplementedError(
-                f"family {self.cfg.family!r} has no sharded form yet: {_SHARDING_LATER}")
+        if not hasattr(self._mod, "shard_plan"):
+            raise NotImplementedError(f"family {self.cfg.family!r} has no sharded form yet: "
+                                      f"{_SHARDING_LATER[self.cfg.family]}")
         return getattr(self._mod, name)
 
     def param_specs(self):
@@ -135,18 +148,11 @@ def _vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor, tp) -> torc
     return logz - reduce_from(torch.where(mine, gold, 0.0), tp.mesh, tp.axis)
 
 
-_FAMILIES = {"dense": transformer, "moe": transformer, "hybrid": hybrid, "xlstm": xlstm_lm}
-
-# families of the reference that later slices of the port add
-_LATER = {
-    "vlm": "the M-RoPE (vlm) slice",
-    "whisper": "the whisper slice",
-}
+_FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer, "hybrid": hybrid,
+             "xlstm": xlstm_lm, "whisper": whisper}
 
 
 def get_model(cfg: ModelConfig) -> ModelZoo:
-    if cfg.family in _LATER:
-        raise NotImplementedError(f"family {cfg.family!r} comes with {_LATER[cfg.family]}")
     if cfg.family not in _FAMILIES:
         raise KeyError(f"unknown model family {cfg.family!r}")
     return ModelZoo(cfg, _FAMILIES[cfg.family])

@@ -1,8 +1,10 @@
-"""Decoder-only transformer LM, dense and MoE families (counterpart of
+"""Decoder-only transformer LM, dense, MoE and vlm families (counterpart of
 ``repro/models/transformer.py``).
 
 Covers qwen3-8b (qk-norm, untied lm_head), llama3.2-3b and granite-20b
-(MQA), and, with a ``"moe"`` block in place of the ``"ffn"`` one,
+(MQA), gemma3-4b (local:global sliding windows, switched per layer), the
+vlm family's qwen2-vl-2b (M-RoPE over ``positions3``, prompts given as
+``embeds``), and, with a ``"moe"`` block in place of the ``"ffn"`` one,
 moonshot-v1-16b-a3b, qwen3-moe-235b-a22b and paper-llama3-moe
 (``models/moe.py``).  Layers are stacked with a leading ``L`` dim, as in
 the reference; a Python loop over that dim takes the place of
@@ -11,8 +13,7 @@ the reference; a Python loop over that dim takes the place of
 for the backward, which recomputes it, as ``jax.checkpoint`` with
 ``nothing_saveable`` does in the reference.  Each layer returns its MoE
 aux loss, summed over the layers as the reference's scan carry does (0
-for the dense family).  M-RoPE configs raise: they come with a later
-slice.
+for the dense family).
 
 API (used by serve and train):
     init(gen, cfg, device)                  -> params (ParamTree)
@@ -104,9 +105,11 @@ def _moe_cfg(cfg: ModelConfig) -> Optional[MoEConfig]:
     )
 
 
+# where a sharded run of M-RoPE positions is queued
+_MROPE_SHARDING_LATER = "ROADMAP Queue 1 item 14 (sharding for whisper and vlm's positions3)"
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError(f"{cfg.name}: M-RoPE comes with the vlm slice")
     if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {cfg.attn_impl!r} is not one of {ATTN_IMPLS}")
 
@@ -379,7 +382,9 @@ def _unembed(params, cfg: ModelConfig, x, dt: DTypes,
     return C.column_linear(head, x, dt, plan.tp) if split else C.linear(head, x, dt)
 
 
-def _qkv(p, acfg: C.AttnConfig, x, positions, dt):
+def _qkv(p, acfg: C.AttnConfig, x, positions, positions3, dt):
+    """q, k, v with rope: M-RoPE at ``positions3`` (3, B, S) when the config
+    has sections and they are given, else 1-D rope at ``positions``."""
     B, S, _ = x.shape
     H, Hk, Dh = acfg.heads, acfg.kv_heads, acfg.head_dim
     q = C.linear(p["wq"], x, dt).reshape(B, S, H, Dh)
@@ -388,8 +393,12 @@ def _qkv(p, acfg: C.AttnConfig, x, positions, dt):
     if acfg.qk_norm:
         q = C.rmsnorm(p["q_norm"], q)
         k = C.rmsnorm(p["k_norm"], k)
-    q = C.apply_rope(q, positions, acfg.rope_theta)
-    k = C.apply_rope(k, positions, acfg.rope_theta)
+    if acfg.mrope_sections is not None and positions3 is not None:
+        q = C.apply_mrope(q, positions3, acfg.mrope_sections, acfg.rope_theta)
+        k = C.apply_mrope(k, positions3, acfg.mrope_sections, acfg.rope_theta)
+    else:
+        q = C.apply_rope(q, positions, acfg.rope_theta)
+        k = C.apply_rope(k, positions, acfg.rope_theta)
     return q, k, v
 
 
@@ -400,26 +409,31 @@ def _attn_out(p, out, dt, plan: Optional[ShardPlan]):
     return C.linear(p["wo"], out, dt)
 
 
-def _attention_dynwin(p, acfg: C.AttnConfig, x, positions, is_global: bool, dt, impl: str,
-                      plan: Optional[ShardPlan] = None):
-    """Attention with the sliding window switched per layer.  ``"flash"``
-    without a window takes the CUDA kernels, forward and backward, on the
-    rank's heads; everything else is the plain path."""
+def _attention_dynwin(p, acfg: C.AttnConfig, x, positions, positions3, is_global: bool, dt,
+                      impl: str, plan: Optional[ShardPlan] = None):
+    """Attention with the sliding window switched per layer: a local layer
+    keeps keys with kpos > qpos - window, a global one all of them.
+    ``"flash"`` takes the CUDA kernels, forward and backward, on the rank's
+    heads, with the layer's window or none; ``"ref"`` is the plain path.
+    (The reference reaches its flash path only without a window; both
+    compute the same function.)"""
     B, S, _ = x.shape
     local = _local_attn(acfg, plan)
     H, Dh = local.heads, acfg.head_dim
     if plan is not None and plan.heads:
         x = copy_to(x, plan.tp.mesh, plan.tp.axis)
-    q, k, v = _qkv(p, local, x, positions, dt)
+    q, k, v = _qkv(p, local, x, positions, positions3, dt)
     k, v = _kv_for_heads(k, v, acfg, plan)
-    if impl == "flash" and acfg.window is None:
-        out = flash_attention(q, k, v, causal=acfg.causal, scale=1.0 / math.sqrt(Dh))
+    window = None if is_global else acfg.window
+    if impl == "flash":
+        out = flash_attention(q, k, v, causal=acfg.causal, window=window,
+                              scale=1.0 / math.sqrt(Dh))
         return _attn_out(p, out.reshape(B, S, H * Dh), dt, plan)
     qpos = torch.arange(S, device=x.device)[:, None]
     kpos = torch.arange(S, device=x.device)[None, :]
     mask = kpos <= qpos
-    if acfg.window is not None and not is_global:
-        mask = mask & (kpos > qpos - acfg.window)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
     out = C.masked_attention(q, k, v, mask, 1.0 / math.sqrt(Dh))
     return _attn_out(p, out.reshape(B, S, H * Dh), dt, plan)
 
@@ -431,24 +445,31 @@ def _ffn(lp, cfg: ModelConfig, h, dt, plan: Optional[ShardPlan]):
     return C.swiglu(lp["ffn"], h, dt, plan.tp if plan is not None and plan.mlp else None), None
 
 
-def _layer_fwd(lp, cfg: ModelConfig, x, positions, is_global: bool, dt: DTypes,
+def _layer_fwd(lp, cfg: ModelConfig, x, positions, positions3, is_global: bool, dt: DTypes,
                plan: Optional[ShardPlan] = None):
     if plan is not None:
         lp = _layer_weights(lp, plan)
     h = C.rmsnorm(lp["ln1"], x)
-    x = x + _attention_dynwin(lp["attn"], _attn_cfg(cfg), h, positions, is_global, dt,
-                              cfg.attn_impl, plan)
+    x = x + _attention_dynwin(lp["attn"], _attn_cfg(cfg), h, positions, positions3, is_global,
+                              dt, cfg.attn_impl, plan)
     h = C.rmsnorm(lp["ln2"], x)
     out, aux = _ffn(lp, cfg, h, dt, plan)
     return x + out, aux
 
 
+def _positions3(batch, plan: Optional[ShardPlan]) -> Optional[torch.Tensor]:
+    positions3 = batch.get("positions3")
+    if positions3 is not None and plan is not None:
+        raise NotImplementedError(f"M-RoPE positions3 on a mesh: {_MROPE_SHARDING_LATER}")
+    return positions3
+
+
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             plan: Optional[ShardPlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch: tokens (B, S) int [or embeds (B, S, D)], positions (B, S)
-    optional.  Returns (logits, aux): aux is the MoE layers' aux loss summed
-    over the layers (under EP, its mean over the batch axes), 0 for the
-    dense family."""
+    optional, positions3 (3, B, S) for M-RoPE.  Returns (logits, aux): aux
+    is the MoE layers' aux loss summed over the layers (under EP, its mean
+    over the batch axes), 0 for the dense family."""
     check_supported(cfg)
     dt = _dt(cfg)
     x = _embed(params, cfg, batch, dt, plan)
@@ -456,15 +477,16 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    positions3 = _positions3(batch, plan)
     remat = cfg.remat and torch.is_grad_enabled()
     layers = C.layer_slices(params["layers"], cfg.num_layers)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, is_global in zip(layers, _is_global_flags(cfg)):
         if remat:
-            x, aux_l = checkpoint(_layer_fwd, lp, cfg, x, positions, is_global, dt, plan,
-                                  use_reentrant=False)
+            x, aux_l = checkpoint(_layer_fwd, lp, cfg, x, positions, positions3, is_global, dt,
+                                  plan, use_reentrant=False)
         else:
-            x, aux_l = _layer_fwd(lp, cfg, x, positions, is_global, dt, plan)
+            x, aux_l = _layer_fwd(lp, cfg, x, positions, positions3, is_global, dt, plan)
         if aux_l is not None:
             aux = aux + aux_l
     if plan is not None and plan.ep is not None:
@@ -495,8 +517,8 @@ def cache_specs(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
-def _decode_attention(p, acfg: C.AttnConfig, x, positions, is_global: bool, ck, cv, index: int,
-                      dt, plan: Optional[ShardPlan] = None):
+def _decode_attention(p, acfg: C.AttnConfig, x, positions, positions3, is_global: bool, ck, cv,
+                      index: int, dt, plan: Optional[ShardPlan] = None):
     """Attention of S new tokens over the cache of one layer; ck/cv
     (B, cache_len, Hk, Dh), this rank's rows and KV heads, are written in
     place at ``index``."""
@@ -505,7 +527,7 @@ def _decode_attention(p, acfg: C.AttnConfig, x, positions, is_global: bool, ck, 
     H, Dh = local.heads, acfg.head_dim
     if plan is not None and plan.heads:
         x = copy_to(x, plan.tp.mesh, plan.tp.axis)
-    q, k, v = _qkv(p, local, x, positions, dt)
+    q, k, v = _qkv(p, local, x, positions, positions3, dt)
     if ck.shape[0] != B or ck.shape[2] != k.shape[2]:
         raise ValueError(f"a cache of {ck.shape[0]} rows and {ck.shape[2]} KV heads for "
                          f"{B} rows and {k.shape[2]} KV heads: the cache is sharded unlike "
@@ -530,8 +552,9 @@ def decode_step(
     params, cfg: ModelConfig, cache: Dict[str, Any], batch: Dict[str, torch.Tensor],
     plan: Optional[ShardPlan] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """S new tokens: batch has tokens (B, S) [or embeds (B, S, D)].  Writes
-    the cache in place and returns it with ``index`` advanced by S."""
+    """S new tokens: batch has tokens (B, S) [or embeds (B, S, D)] and, for
+    M-RoPE, optionally positions3 (3, B, S).  Writes the cache in place and
+    returns it with ``index`` advanced by S."""
     check_supported(cfg)
     dt = _dt(cfg)
     x = _embed(params, cfg, batch, dt, plan)
@@ -540,6 +563,7 @@ def decode_step(
     if S > cache["k"].shape[2]:
         raise ValueError(f"{S} tokens do not fit a cache of length {cache['k'].shape[2]}")
     positions = (index + torch.arange(S, device=x.device))[None].expand(B, S)
+    positions3 = _positions3(batch, plan)
     acfg = _attn_cfg(cfg)
     for i, is_global in enumerate(_is_global_flags(cfg)):
         lp = C.layer_slice(params["layers"], i)
@@ -547,8 +571,8 @@ def decode_step(
             lp = _layer_weights(lp, plan)
         h = C.rmsnorm(lp["ln1"], x)
         x = x + _decode_attention(
-            lp["attn"], acfg, h, positions, is_global, cache["k"][i], cache["v"][i], index, dt,
-            plan)
+            lp["attn"], acfg, h, positions, positions3, is_global, cache["k"][i], cache["v"][i],
+            index, dt, plan)
         h = C.rmsnorm(lp["ln2"], x)
         x = x + _ffn(lp, cfg, h, dt, plan)[0]  # the reference drops aux in decode
     logits = _unembed(params, cfg, x, dt, plan)

@@ -6,7 +6,9 @@
   over S new tokens, writing the cache in place;
 * ``prefill_fn(params, batch) -> logits``: the full-context ``forward``
   (through the flash kernel when ``attn_impl="flash"``).  As in the
-  reference it returns logits only and writes no cache.
+  reference it returns logits only and writes no cache;
+* ``encode_fn(params, enc_embeds) -> enc_out`` for an encoder-decoder
+  family (whisper), else None: the encoder, whose output the cache holds.
 
 ``serve_waves`` answers a ``BatchScheduler``'s requests with those two
 steps: per wave, (a) ``prefill_fn`` on the prompts gives the first new
@@ -14,7 +16,14 @@ token, (b) ``decode_fn`` fills the cache with the prompt, in one call or,
 for a family whose decode takes one token per call (``zoo.decode_tokens``,
 the hybrid family), one call per prompt token, (c) one-token ``decode_fn``
 steps give the rest.  All slots share one cache ``index``, so
-the requests of a wave must have prompts of one length.  (a) and (b) both
+the requests of a wave must have prompts of one length.  A request carries
+the reference's extra inputs where its model takes them: a prompt of
+embeddings (P, D) in place of tokens and M-RoPE ``positions3`` (3, P) (the
+vlm family; the decoded tokens continue at the prompt's largest position
++ 1 + step in all three streams, as Qwen2-VL's text after an image), or
+the encoder's ``enc_embeds`` (S_enc, D) (whisper: the prefill is
+``forward`` on them and the tokens, and ``encode_fn``'s output fills the
+cache's ``enc_out`` before (b)).  (a) and (b) both
 produce the last prompt position's logits, through the kernel and the plain
 path; each ``Wave`` keeps both so the caller can hold them against each
 other.  Serving runs under ``torch.inference_mode()``.
@@ -41,6 +50,7 @@ class ServeArtifacts:
     prefill_fn: Callable
     param_layout: Optional[Layout] = None
     cache_layout: Optional[Layout] = None
+    encode_fn: Optional[Callable] = None
 
 
 def make_serve_step(zoo: ModelZoo, device: _device.DeviceLike = None, mesh=None,
@@ -61,7 +71,13 @@ def make_serve_step(zoo: ModelZoo, device: _device.DeviceLike = None, mesh=None,
                 logits, _ = zoo.forward(params, to_dev(batch))
             return logits
 
-        return ServeArtifacts(decode_fn, prefill_fn)
+        encode_fn = None
+        if zoo.has_encoder:
+            def encode_fn(params, enc_embeds):
+                with torch.inference_mode():
+                    return zoo.encode(params, torch.as_tensor(enc_embeds).to(dev))
+
+        return ServeArtifacts(decode_fn, prefill_fn, encode_fn=encode_fn)
 
     params_lay = param_layout(zoo, mesh)
     cache_lay = cache_layout(zoo, mesh, cache_example)
@@ -105,10 +121,12 @@ def make_serve_step(zoo: ModelZoo, device: _device.DeviceLike = None, mesh=None,
 @dataclasses.dataclass
 class Request:
     rid: int
-    prompt: Any                 # token array
+    prompt: Any                 # token array (P,), or embeddings (P, D) (vlm)
     max_new: int
     generated: list = dataclasses.field(default_factory=list)
     done: bool = False
+    positions3: Any = None      # M-RoPE positions (3, P) (vlm)
+    enc_embeds: Any = None      # encoder frame embeddings (S_enc, D) (whisper)
 
 
 class BatchScheduler:
@@ -178,26 +196,59 @@ def serve_waves(
             raise ValueError("a wave needs prompts of one length: its slots share one cache index")
         if P + max(r.max_new for r in admitted) - 1 > cache_len:
             raise ValueError(f"cache_len {cache_len} is too short for prompts of {P} tokens")
-        tokens = torch.zeros((sched.slots, P), dtype=torch.long)
-        for slot, req in sched.active.items():
-            tokens[slot] = torch.as_tensor(req.prompt)
-        tokens = tokens.to(dev)
+        prompt = _slots(sched, "prompt", dev)
+        batch = {"embeds": prompt} if prompt.is_floating_point() else {"tokens": prompt.long()}
+        positions3 = _slots(sched, "positions3", dev)
+        if positions3 is not None:
+            batch["positions3"] = positions3.movedim(1, 0)  # (3, slots, P)
+        enc_embeds = _slots(sched, "enc_embeds", dev)
 
         # clone: a view would keep the whole (slots, P, vocab) logits alive
-        prefill_last = arts.prefill_fn(params, {"tokens": tokens})[:, -1].clone()
+        prefill_batch = batch if enc_embeds is None else {**batch, "enc_embeds": enc_embeds}
+        prefill_last = arts.prefill_fn(params, prefill_batch)[:, -1].clone()
         cache = zoo.init_cache(sched.slots, cache_len, device=dev)
+        if enc_embeds is not None:
+            cache["enc_out"] = arts.encode_fn(params, enc_embeds)
         step = zoo.decode_tokens or P
         for lo in range(0, P, step):
-            fill_logits, cache = arts.decode_fn(params, cache, {"tokens": tokens[:, lo:lo + step]})
+            fill_logits, cache = arts.decode_fn(params, cache, _positions(batch, lo, lo + step))
         fill_last = fill_logits[:, -1].clone()
         del fill_logits
         nxt = prefill_last.argmax(-1)
         sched.step_tokens(nxt.tolist())
         steps = 0
         while sched.active:
-            logits, cache = arts.decode_fn(params, cache, {"tokens": nxt[:, None]})
+            step_batch = {"tokens": nxt[:, None]}
+            if positions3 is not None:  # after the prompt's largest position, in all streams
+                pos = positions3.amax(dim=(1, 2)) + 1 + steps
+                step_batch["positions3"] = pos[None, :, None].expand(3, -1, 1)
+            logits, cache = arts.decode_fn(params, cache, step_batch)
             nxt = logits[:, -1].argmax(-1)
             sched.step_tokens(nxt.tolist())
             steps += 1
         waves.append(Wave(admitted, P, prefill_last, fill_last, steps))
     return waves
+
+
+def _positions(batch: Dict[str, torch.Tensor], lo: int, hi: int) -> Dict[str, torch.Tensor]:
+    """Prompt positions [lo, hi) of a wave's batch: dim 1 of tokens and
+    embeds, dim 2 of positions3."""
+    return {k: v[:, :, lo:hi] if k == "positions3" else v[:, lo:hi] for k, v in batch.items()}
+
+
+def _slots(sched: BatchScheduler, field: str, dev) -> Optional[torch.Tensor]:
+    """One wave's ``field`` of every request, stacked by slot (zeros for a
+    free slot), or None when its requests have none."""
+    given = {slot: getattr(req, field) for slot, req in sched.active.items()}
+    if all(v is None for v in given.values()):
+        return None
+    if any(v is None for v in given.values()):
+        raise ValueError(f"a wave's requests must all give {field} or none")
+    rows = {slot: torch.as_tensor(v) for slot, v in given.items()}
+    first = next(iter(rows.values()))
+    if any(r.shape != first.shape for r in rows.values()):
+        raise ValueError(f"a wave's {field} must have one shape: its slots share one cache index")
+    out = torch.zeros((sched.slots, *first.shape), dtype=first.dtype)
+    for slot, r in rows.items():
+        out[slot] = r
+    return out.to(dev)

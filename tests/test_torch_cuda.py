@@ -62,6 +62,21 @@ CASES = [
     (1, 4, 2, 200, 333, 64, False, None, 0, torch.bfloat16),         # non-causal, Sq != Skv
     (1, 4, 2, 64, 320, 64, True, None, 256, torch.bfloat16),         # Sq < one tile, q_offset
     (1, 12, 2, 256, 256, 128, True, None, 0, torch.bfloat16),        # GQA group 6
+    # whisper-large-v3: the encoder's 1500 frames (not a multiple of the
+    # 128-key tile) and the cross-attention, MHA at Dh 64, not causal
+    (1, 20, 20, 1500, 1500, 64, False, None, 0, torch.bfloat16),
+    (2, 20, 20, 224, 1500, 64, False, None, 0, torch.bfloat16),
+    (1, 12, 2, 1024, 1024, 128, True, None, 0, torch.bfloat16),      # qwen2-vl-2b, group 6
+]
+# head_dim 320 (gemma3-4b): the forward only; a gradient raises
+D320_CASES = [
+    (1, 8, 4, 2048, 2048, 320, True, 1024, 0, torch.bfloat16),       # gemma3 local layer
+    (1, 8, 4, 2048, 2048, 320, True, None, 0, torch.bfloat16),       # gemma3 global layer
+    (2, 4, 2, 333, 333, 320, True, None, 0, torch.bfloat16),         # ragged
+    (1, 4, 2, 200, 1100, 320, True, 700, 900, torch.bfloat16),       # q_offset, window
+    (1, 4, 2, 64, 128, 320, False, 16, 100, torch.bfloat16),         # rows that see no key
+    (1, 4, 2, 333, 333, 320, True, None, 0, torch.float32),
+    (1, 4, 2, 200, 300, 320, False, 64, 50, torch.float32),
 ]
 # q/k/v as the transposed views of (B, S, H, Dh) that ops.flash_attention
 # passes (rows H * Dh apart): the serving prefill shape, moonshot's MHA
@@ -105,6 +120,43 @@ def test_flash_fwd_matches_plain_version(card, case):
     assert out.dtype == dtype and out.shape == q.shape and torch.isfinite(out).all()
     ref = attention_ref(q, k, v, **kw)
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("case", D320_CASES)
+@pytest.mark.parametrize("layout", ["kernel", "model"])
+def test_flash_fwd_and_fwd_lse_at_head_dim_320(card, case, layout):
+    *_, causal, window, q_offset, dtype = case
+    q, k, v = _inputs(case, layout=layout)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = fa.launch_counts()
+    out = fa.flash_attention_fwd(q, k, v, **kw)
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
+    torch.cuda.synchronize()
+    after = fa.launch_counts()
+    assert after["flash_fwd"] - before["flash_fwd"] == 1
+    assert after["flash_fwd_lse"] - before["flash_fwd_lse"] == 1
+    ref, lse_ref = attention_fwd_lse_ref(q, k, v, **kw)
+    for got in (out, o):
+        assert got.dtype == dtype and got.stride() == q.stride() and torch.isfinite(got).all()
+        assert (got.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
+def test_gradient_at_head_dim_320_raises_and_never_falls_back(card):
+    case = D320_CASES[2]
+    q, k, v = _inputs(case)
+    do = _inputs(case, seed=1)[0]
+    o, lse = fa.flash_attention_fwd_lse(q, k, v)
+    before = fa.launch_counts()
+    with pytest.raises(ValueError, match=r"\(16, 32, 64, 128\)"):
+        fa.flash_attention_bwd(q, k, v, o, lse, do)
+    qm, km, vm = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    with pytest.raises(ValueError, match="backward"):
+        flash_attention(qm, km, vm)
+    assert fa.launch_counts() == before
+    with torch.no_grad():  # without a gradient the forward kernel runs
+        flash_attention(qm, km, vm)
+    assert fa.launch_counts()["flash_fwd"] == before["flash_fwd"] + 1
 
 
 @pytest.mark.parametrize("case", MODEL_LAYOUT_CASES)
@@ -215,7 +267,31 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
         fa.flash_attention_fwd(t, t, t)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "qwen2-vl-2b", "whisper-large-v3"])
+def test_gemma3_vlm_whisper_smoke_on_card_match_cpu(card, arch):
+    """chip_smoke.py's model phase for the three families: f32, flash on the
+    card against the plain path on the CPU, a forward of 2 x 100 positions
+    (gemma3-smoke's window of 8 binds; vlm: embeddings at grid positions3;
+    whisper: 40 frames) and a fill plus 3 decode steps, within 1e-3; one
+    flash_fwd an attention of the forward.  The function fails the process
+    (SystemExit) where they disagree."""
+    errs, launches = _chip_smoke().family_agreement(arch)
+    assert max(errs) <= 1e-3 and launches > 0
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCHS
+                                  if get_smoke_config(a).family not in ("vlm", "whisper")])
 def test_smoke_model_on_card_matches_cpu(card, arch):
     """Flash kernel on the card vs the plain path on the CPU, same weights."""
     cpu_zoo = get_model(get_smoke_config(arch))
@@ -234,13 +310,7 @@ def test_moe_smoke_on_card_matches_cpu(card):
     remat) against the CPU with the same weights: the same expert choices
     (recorded by chip_smoke.routing_choices), logits and aux of a forward and
     of 3 decode steps, then two train steps' loss, aux and grad_norm."""
-    import importlib.util
-    from pathlib import Path
-
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _chip_smoke()
     cfg = get_smoke_config("moonshot-v1-16b-a3b")
     cpu_zoo = get_model(cfg)
     gpu_zoo = get_model(dataclasses.replace(cfg, attn_impl="flash", remat=True))

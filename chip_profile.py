@@ -48,6 +48,11 @@
   frames, 4 x 224 tokens) at full size in bf16: prefill, whisper's encode,
   the one-call cache fill and decode steps.
 
+* train_gemma3 (the ``chip_smoke.py`` train_gemma3 phase): one gemma3-4b
+  AdamW step of 2 x 2048 tokens with remat and the flash kernels at Dh 320
+  (the backward's mma.sync kernels), after one warm-up step, split as the
+  train target's is.
+
 * moe_cards (needs 4 cards, one NCCL rank each; ``--chips 4``):
   ``gspmd_fsdp`` with expert parallelism of moonshot-v1-16b-a3b on
   (1, 4, 1) and (1, 2, 2) ("pod", "data", "model"), global batch 4 x 1024
@@ -193,7 +198,6 @@ def profile_train(smi: str) -> None:
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models.model_zoo import get_model
     from repro_torch.train import optimizer as opt_lib
-    from repro_torch.train.train_step import make_train_step, to_device
 
     cfg = dataclasses.replace(get_config("llama3.2-3b"), param_dtype=torch.bfloat16,
                               compute_dtype=torch.bfloat16, remat=True, attn_impl="flash")
@@ -201,22 +205,43 @@ def profile_train(smi: str) -> None:
     params = zoo.init(0, device="cuda")
     params.requires_grad_(True)
     ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8)
-    opt = opt_lib.init(ocfg, params)
     data = SyntheticLM(DataConfig(vocab=4096, seq_len=1024, global_batch=4))
-    step_fn = make_train_step(zoo, ocfg, device="cuda")
+    print(f"profile: {cfg.name} bf16 train step, 4 x 1024 tokens, remat, flash [{smi}]")
+    _profile_train_step(zoo, ocfg, params, opt_lib.init(ocfg, params), data.batches(0))
+
+
+def profile_train_gemma3(smi: str) -> None:
+    """The ``chip_smoke.py`` train_gemma3 step: gemma3-4b at full size, 2 x
+    2048 tokens, remat, the flash kernels at Dh 320."""
+    from chip_smoke import _train_init, family_train_setup
+
+    cfg, zoo, ocfg, data, micro = family_train_setup("gemma3-4b")
+    params, opt = _train_init(zoo, ocfg)
+    print(f"profile: {cfg.name} bf16 train step, {data.B} x {data.S} tokens, remat, flash "
+          f"[{smi}]")
+    _profile_train_step(zoo, ocfg, params, opt, data.batches(0), micro)
+
+
+def _profile_train_step(zoo, ocfg, params, opt, batches, microbatches: int = 1) -> None:
+    """One AdamW step after one warm-up step, then the same step in two
+    halves: forward + backward, then the optimizer."""
+    import torch
+
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import make_train_step, to_device
+
+    step_fn = make_train_step(zoo, ocfg, microbatches=microbatches, device="cuda")
     state = {"opt": opt}
 
-    def step(i):
-        _, state["opt"], m = step_fn(params, state["opt"], data.batch(i))
+    def step():
+        _, state["opt"], m = step_fn(params, state["opt"], next(batches))
         m["loss"].item()
 
-    step(0)  # warm-up of every path
-    print(f"profile: {cfg.name} bf16 train step, 4 x 1024 tokens, remat, flash [{smi}]")
-    prof, host_ms = _profiled(lambda: step(1))
+    step()  # warm-up of every path
+    prof, host_ms = _profiled(step)
     _report("train_step", prof, host_ms, unit="step")
 
-    # the same step in two halves: forward + backward, then the optimizer
-    batch = to_device(data.batch(2), torch.device("cuda"))
+    batch = to_device(next(batches), torch.device("cuda"))
     named = dict(params.named_parameters())
 
     def fwd_bwd():
@@ -1443,7 +1468,8 @@ def main() -> None:
          "scan_ablate": scan_ablate,
          "serve_gemma3": lambda smi: profile_serve_family(smi, "gemma3-4b"),
          "serve_vlm": lambda smi: profile_serve_family(smi, "qwen2-vl-2b"),
-         "serve_whisper": lambda smi: profile_serve_family(smi, "whisper-large-v3")}[name](smi)
+         "serve_whisper": lambda smi: profile_serve_family(smi, "whisper-large-v3"),
+         "train_gemma3": profile_train_gemma3}[name](smi)
 
 
 if __name__ == "__main__":

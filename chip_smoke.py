@@ -17,9 +17,10 @@ Phases, each printed as it runs; any failure exits non-zero:
            call that computes the same function.  flash_fwd is also timed
            at gemma3-4b's prefill (Dh 320, local and global layers),
            whisper-large-v3's encoder and cross-attention and qwen2-vl-2b's
-           prefill (FAMILY_TIMED); at Dh 320 a gradient must raise
-           ValueError before any launch, both through flash_attention_bwd
-           and through ops.flash_attention.
+           prefill (FAMILY_TIMED); flash_fwd_lse, flash_bwd_dq and
+           flash_bwd_dkv at gemma3-4b's training shape (Dh 320, 2 x 2048
+           tokens, local and global layers: BWD_TIMED).  Every case's
+           backward runs twice and must give the same bits.
 4. model   a small llama-shaped f32 model on the card (flash kernels)
            against the same weights on the CPU (plain path): a forward, two
            train steps (remat on the card), and a checkpoint round trip;
@@ -31,7 +32,10 @@ Phases, each printed as it runs; any failure exits non-zero:
            must agree); then gemma3-smoke (2 x 100 tokens, past its window
            of 8), qwen2-vl-smoke (embeddings at patch-grid positions3) and
            whisper-smoke (40 encoder frames): a forward, a one-call fill and
-           3 decode steps, within 1e-3 (``family_agreement``).
+           3 decode steps, within 1e-3 (``family_agreement``); then the
+           same three and gemma3-smoke widened to Dh 320: two train steps
+           (remat, flash kernels) against the CPU at the small llama's
+           tolerances (``family_train_agreement``).
 5. serve   llama3.2-3b at full width in bf16, random weights from a seed:
            8 requests of 1024-token prompts, 32 new tokens each, in two
            waves of 4 slots; counts the kernel launches of that run.
@@ -90,10 +94,20 @@ Phases, each printed as it runs; any failure exits non-zero:
            on that world of one: the MoE layers expert-parallel (an
            all-to-all over a "data" axis of one); losses, aux and grad_norms
            within rel 1e-5 of phase 10's, the same launches.
+14. train_gemma3, train_vlm, train_whisper  gemma3-4b (2 x 2048 tokens a
+           step, the backward at Dh 320; 29 of each 34 flash calls with the
+           window of 1024, recorded by ``flash_windows``), qwen2-vl-2b (4 x
+           1024 tokens at a 32 x 32 patch grid's positions3, 2 microbatches)
+           and whisper-large-v3 (4 x 1500 encoder frames, 4 x 448 decoder
+           tokens) at full width and depth in bf16 (f32 moments), remat,
+           flash: 8 AdamW steps each; the loss must fall by 0.5 nats and the
+           launches be 2 flash_fwd_lse and one each of flash_bwd_dq and
+           flash_bwd_dkv an attention a microbatch a step.
 
 Every serve and train phase sets all launch counts to 0 before it runs and
 reads them after; the ``kernels`` line reports each kernel's launches from
-the phase whose path it serves.
+the phase whose path it serves, the Dh-320 kernels (``*_d320``) from
+serve_gemma3 and train_gemma3.
 
 Then the ``kernels`` JSON line and, last, the ``ok`` JSON line.  It needs a
 CUDA device and the rest of the repository: without either it fails before
@@ -170,16 +184,20 @@ def phase_build() -> None:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"build:   {line.strip()}")
-    # the TMA / wgmma kernels keep their products' fragments in registers:
-    # each instantiation (Dh 64, 128) must build without spilling
-    for src, kernel in ((fa.SOURCE, "flash_fwd_wgmma_kernel"),
-                        (fa.BWD_SOURCE, "flash_bwd_dq_wgmma_kernel"),
-                        (fa.BWD_SOURCE, "flash_bwd_dkv_wgmma_kernel")):
+    # the TMA / wgmma kernels keep their products' fragments in registers,
+    # and the Dh-320 mma.sync kernels 160 accumulator registers a thread:
+    # each instantiation must build without spilling
+    for src, kernel, want in ((fa.SOURCE, "flash_fwd_wgmma_kernel", "Dh 64, 128"),
+                              (fa.BWD_SOURCE, "flash_bwd_dq_wgmma_kernel", "Dh 64, 128"),
+                              (fa.BWD_SOURCE, "flash_bwd_dkv_wgmma_kernel", "Dh 64, 128"),
+                              (fa.SOURCE, "flash_fwd_bf16_wide_kernelILi320E", "Dh 320"),
+                              (fa.BWD_SOURCE, "flash_bwd_dq_bf16_kernelILi320E", "Dh 320"),
+                              (fa.BWD_SOURCE, "flash_bwd_dkv_bf16_kernelILi320E", "Dh 320")):
         spills = _spill_stores(build.BUILD_INFO[src]["log"], kernel)
         print(f"build: {kernel} instantiations {len(spills)}, spill stores "
               f"{sorted(spills.values())} bytes", flush=True)
-        if len(spills) != 2 or any(spills.values()):
-            fail(f"{kernel} should build twice (Dh 64, 128) without spills: {spills}")
+        if len(spills) != len(want.split(",")) or any(spills.values()):
+            fail(f"{kernel} should build once for each of {want} without spills: {spills}")
     sys.stdout.flush()
 
 
@@ -294,11 +312,18 @@ FLASH_CASES = [
     ("whisper_cross", 4, 20, 20, 224, 1500, 64, False, None, 0, "bfloat16", "model"),
     # qwen2-vl-2b's prefill: a GQA group of 6
     ("qwen2vl_prefill", 4, 12, 2, 1024, 1024, 128, True, None, 0, "bfloat16", "model"),
+    # gemma3-4b's training shape (2 x 2048 tokens, Dh 320): the forward with
+    # lse and the mma.sync backward, local and global layers
+    ("gemma3_train_local", 2, 8, 4, 2048, 2048, 320, True, 1024, 0, "bfloat16", "model"),
+    ("gemma3_train_global", 2, 8, 4, 2048, 2048, 320, True, None, 0, "bfloat16", "model"),
 ]
 # the cases of the gemma3, whisper and vlm serving paths, timed beside their
 # bounds in the kernel phase
 FAMILY_TIMED = ("gemma3_local", "gemma3_global", "d320_ragged_f32", "whisper_enc",
                  "whisper_cross", "qwen2vl_prefill")
+# the cases of the gemma3 training path, whose forward with lse and backward
+# are timed beside their bounds; the last one's times go into the kernels line
+BWD_TIMED = ("gemma3_train_local", "gemma3_train_global")
 
 
 def _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed, layout="kernel"):
@@ -361,16 +386,16 @@ def launch_counts() -> dict:
 
 
 def phase_kernel() -> list:
-    return [_flash_fwd_kernel(), *_training_kernels(), _ssd_kernel(), _mlstm_kernel()]
+    return [*_flash_fwd_kernel(), *_training_kernels(), _ssd_kernel(), _mlstm_kernel()]
 
 
-def _flash_fwd_kernel() -> dict:
+def _flash_fwd_kernel() -> list:
     import torch
 
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    worst = 0.0
+    worst = worst_d320 = 0.0
     for i, (name, B, H, Hk, Sq, Skv, Dh, causal, window, q_off, dtype,
             layout) in enumerate(FLASH_CASES):
         q, k, v = _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed=i, layout=layout)
@@ -389,18 +414,22 @@ def _flash_fwd_kernel() -> dict:
             fail(f"flash_fwd {name} disagrees with attention_ref: {err} > {tol}")
         if name == "serve_prefill":
             worst = err
+        if Dh == 320 and dtype == "bfloat16":
+            worst_d320 = max(worst_d320, err)
 
     timed = _time_forward("flash_fwd", fa.flash_attention_fwd, attention_ref, with_lse=False)
-    for case in FLASH_CASES:
-        if case[0] in FAMILY_TIMED:
-            _time_flash_case(case)
-    return _flash_entry("flash_fwd", "flash_fwd.cu", 35, None, worst, *timed)
+    family = {case[0]: _time_flash_case(case) for case in FLASH_CASES if case[0] in FAMILY_TIMED}
+    # the Dh-320 kernel (flash_fwd_bf16_wide_kernel) at gemma3-4b's global layer
+    return [_flash_entry("flash_fwd", "flash_fwd.cu", 35, None, worst, *timed),
+            _flash_entry("flash_fwd_d320", "flash_fwd.cu", 35, None, worst_d320,
+                         *family["gemma3_global"])]
 
 
-def _time_flash_case(case) -> None:
+def _time_flash_case(case) -> tuple:
     """Time ``flash_fwd`` at one FLASH_CASES shape of the gemma3, whisper and
     vlm paths (its own layout) beside its bound, its plain version and the
-    fastest sdpa backend that computes the same function, on one line."""
+    fastest sdpa backend that computes the same function, on one line;
+    -> (ms, plain_ms, (bound_ms, bound_by), library_ms)."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention.ref import attention_mask, attention_ref
 
@@ -423,6 +452,7 @@ def _time_flash_case(case) -> None:
           f"(CUDA graph of 20 launches); plain {plain_ms:.4f} ms; library {lib}; bound "
           f"{bound[0]:.4f} ms ({bound[1]}: {flops:.4g} FLOP, {nbytes:.4g} B), "
           f"{bound[0] / ms:.1%} of bound", flush=True)
+    return ms, plain_ms, bound, library[lib_name] if library else None
 
 
 def _sdpa_backend_used(q, k, v) -> str:
@@ -562,7 +592,8 @@ def _training_kernels() -> list:
         attention_bwd_ref, attention_fwd_lse_ref, attention_mask,
     )
 
-    worst = {"flash_fwd_lse": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    worst = {f"{n}{d}": 0.0 for n in ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
+             for d in ("", "_d320")}
     for i, (name, B, H, Hk, Sq, Skv, Dh, causal, window, q_off, dtype,
             layout) in enumerate(FLASH_CASES):
         q, k, v = _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed=100 + i, layout=layout)
@@ -571,10 +602,6 @@ def _training_kernels() -> list:
         o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
         torch.cuda.synchronize()
         o_ref, lse_ref = attention_fwd_lse_ref(q, k, v, **kw)
-        if Dh not in fa.BWD_HEAD_DIMS:
-            _check_no_backward(name, case=(B, H, Hk, Sq, Skv, Dh, dtype, layout), kw=kw,
-                               errs=(_max_err(o, o_ref), _max_err(lse, lse_ref)), do=do)
-            continue
         # the backward kernels and the plain backward on the same o and lse;
         # a second call must give the same bits (no atomics, fixed sum order)
         dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
@@ -606,6 +633,8 @@ def _training_kernels() -> list:
                      f"(finite={finite})")
             if name == "serve_prefill":
                 worst[kname] = max(worst[kname], err)
+            if Dh == 320 and dtype == "bfloat16":
+                worst[f"{kname}_d320"] = max(worst[f"{kname}_d320"], err)
 
     # timing at the training step's shape: the serve_prefill case's shape
     fwd_ms, plain_fwd, fwd_bound, lib_fwd = _time_forward(
@@ -672,53 +701,25 @@ def _training_kernels() -> list:
               f"{pair / lib_bwd:.3f}", flush=True)
     print("kernel: plain_ms of flash_bwd_dq and flash_bwd_dkv is the whole plain backward "
           "(dq, dk, dv); their library_ms is the fastest whole PyTorch backward", flush=True)
+    # the Dh-320 kernels at gemma3-4b's training shape
+    for case in FLASH_CASES:
+        if case[0] in BWD_TIMED:
+            d320 = _time_bwd_case(case)
+    for kname, line in (("flash_fwd_lse", 79), ("flash_bwd_dq", 121), ("flash_bwd_dkv", 159)):
+        src = "flash_fwd.cu" if kname == "flash_fwd_lse" else "flash_bwd.cu"
+        entries.append(_flash_entry(f"{kname}_d320", src, line, None, worst[f"{kname}_d320"],
+                                    *d320[kname]))
     return entries
 
 
-def _check_no_backward(name, case, kw, errs, do) -> None:
-    """A head_dim outside the backward's range (320): the forward with lse
-    within its tolerances, and every way to a gradient raises ValueError
-    naming the range before any kernel launches (no fall-back to the plain
-    backward)."""
-    import torch
-
-    from repro_torch.kernels.flash_attention import flash_attention as fa
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-
-    B, H, Hk, Sq, Skv, Dh, dtype, layout = case
-    (o_err, _), (lse_err, _) = errs
-    tol_o = BF16_TOL if dtype == "bfloat16" else F32_TOL
-    q, k, v = _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed=3, layout=layout)
-    o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
-    refused = []
-    before = launch_counts()
-    for what, call in (
-            ("flash_attention_bwd", lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)),
-            ("flash_attention with grad", lambda: flash_attention(
-                *(t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)), **kw))):
-        try:
-            call()
-        except ValueError as e:
-            refused.append(f"{what}: {e}")
-    torch.cuda.synchronize()
-    after = launch_counts()
-    print(f"kernel train {name}: B={B} H={H} Hk={Hk} Sq={Sq} Skv={Skv} Dh={Dh} {dtype}: "
-          f"o {o_err:.3e} (tol {tol_o:g}), lse {lse_err:.3e} (tol {LSE_TOL[dtype]:g}); "
-          f"backward refused {len(refused)} of 2 ways: {refused}", flush=True)
-    if not (o_err <= tol_o and lse_err <= LSE_TOL[dtype]):
-        fail(f"flash_fwd_lse {name} disagrees with its plain version")
-    if len(refused) != 2 or after != before or not all(str(fa.BWD_HEAD_DIMS) in r
-                                                        for r in refused):
-        fail(f"{name}: a gradient at head_dim {Dh} must raise ValueError naming "
-             f"{fa.BWD_HEAD_DIMS} before any launch: {refused}, launches {before} -> {after}")
-
-
-def _bwd_yardsticks(q, k, v, do) -> tuple:
+def _bwd_yardsticks(q, k, v, do, mask=None) -> tuple:
     """PyTorch's own attention backwards at the timed shape, called as aten
     ops (so that they capture into a CUDA graph), each fed by its own aten
-    forward, on k/v expanded to H heads (they take no GQA).  Returns
-    ({label: (ms, how it was timed)}, ms of summing the expanded dk or dv
-    back to Hk heads, twice): an op that will not capture is timed
+    forward, on k/v expanded to H heads (they take no GQA).  Causal, or,
+    with ``mask`` (the visible keys, (Sq, Skv)), not causal with the mask as
+    an additive bias (FlashAttention's op takes no bias and is not run).
+    Returns ({label: (ms, how it was timed)}, ms of summing the expanded dk
+    or dv back to Hk heads, twice): an op that will not capture is timed
     back-to-back, and says so."""
     import torch
 
@@ -726,6 +727,9 @@ def _bwd_yardsticks(q, k, v, do) -> tuple:
     B, H, S, Dh = q.shape
     Hk = k.shape[1]
     ke, ve = (t.repeat_interleave(H // Hk, dim=1) for t in (k, v))
+    causal = mask is None
+    bias = None if causal else torch.zeros(mask.shape, dtype=q.dtype, device=q.device).masked_fill(
+        ~mask, float("-inf")).expand(B, H, *mask.shape).contiguous()
 
     def flash():
         out, lse, cq, ck, mq, mk, seed, off, _ = aten._scaled_dot_product_flash_attention(
@@ -735,20 +739,22 @@ def _bwd_yardsticks(q, k, v, do) -> tuple:
 
     def cudnn():
         out, lse, cq, ck, mq, mk, seed, off, _ = aten._scaled_dot_product_cudnn_attention(
-            q, ke, ve, None, True, 0.0, True)
+            q, ke, ve, bias, True, 0.0, causal)
         return lambda: aten._scaled_dot_product_cudnn_attention_backward(
-            do, q, ke, ve, out, lse, seed, off, None, cq, ck, mq, mk, 0.0, True)
+            do, q, ke, ve, out, lse, seed, off, bias, cq, ck, mq, mk, 0.0, causal)
 
     def efficient():
         out, lse, seed, off = aten._scaled_dot_product_efficient_attention(
-            q, ke, ve, None, True, 0.0, True)
+            q, ke, ve, bias, True, 0.0, causal)
         return lambda: aten._scaled_dot_product_efficient_attention_backward(
-            do, q, ke, ve, None, out, lse, seed, off, 0.0, [True, True, True, False], True)
+            do, q, ke, ve, bias, out, lse, seed, off, 0.0, [True, True, True, False], causal)
 
     times = {}
-    for label, make in (("aten._scaled_dot_product_flash_attention_backward", flash),
-                        ("aten._scaled_dot_product_cudnn_attention_backward", cudnn),
-                        ("aten._scaled_dot_product_efficient_attention_backward", efficient)):
+    makers = [("aten._scaled_dot_product_flash_attention_backward", flash)] if causal else []
+    for label, make in makers + [
+            ("aten._scaled_dot_product_cudnn_attention_backward", cudnn),
+            ("aten._scaled_dot_product_efficient_attention_backward", efficient)]:
+        label = label if causal else f"{label} (bias)"
         try:
             call = make()
             call()
@@ -766,6 +772,65 @@ def _bwd_yardsticks(q, k, v, do) -> tuple:
     dke = torch.randn((B, H, S, Dh), device=q.device).to(q.dtype)
     group_ms = 2 * _graph_ms(lambda: dke.view(B, Hk, H // Hk, S, Dh).sum(2))
     return times, group_ms
+
+
+def _time_bwd_case(case) -> dict:
+    """Time flash_fwd_lse, flash_bwd_dq and flash_bwd_dkv at one FLASH_CASES
+    shape of the gemma3-4b training path (its own layout) beside their
+    bounds, their plain versions and PyTorch's own calls (contiguous copies:
+    the fastest sdpa forward; the fastest aten backward, or "refused"), a
+    line each; -> {kernel: (ms, plain_ms, (bound_ms, bound_by), library_ms)}."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_ref, attention_fwd_lse_ref, attention_mask,
+    )
+
+    name, B, H, Hk, Sq, Skv, Dh, causal, window, q_off, dtype, layout = case
+    q, k, v = _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed=7, layout=layout)
+    do = _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed=8, layout=layout)[0]
+    kw = dict(causal=causal, window=window, q_offset=q_off)
+    bkw = dict(kw, scale=Dh ** -0.5)
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
+    delta = (o.float() * do.float()).sum(-1).contiguous()
+    ms = {"flash_fwd_lse": _graph_ms(lambda: fa.flash_attention_fwd_lse(q, k, v, **kw)),
+          "flash_bwd_dq": _graph_ms(lambda: fa.bwd_dq(q, k, v, do, lse, delta, **bkw)),
+          "flash_bwd_dkv": _graph_ms(lambda: fa.bwd_dkv(q, k, v, do, lse, delta, **bkw))}
+    plain_bwd = _time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do, **kw), iters=3, warmup=1)
+    plain = {"flash_fwd_lse": _time_ms(lambda: attention_fwd_lse_ref(q, k, v, **kw), iters=3,
+                                       warmup=1),
+             "flash_bwd_dq": plain_bwd, "flash_bwd_dkv": plain_bwd}
+    mask = attention_mask(Sq, Skv, causal, window, q_off, "cuda")
+    plain_causal = causal and window is None and q_off == 0
+    qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
+    fwd_lib = _fwd_yardsticks(qc, kc, vc, False, causal=causal, mask=mask)
+    bwd_lib, _ = _bwd_yardsticks(qc, kc, vc, doc, mask=None if plain_causal else mask)
+    fwd_name = min(fwd_lib, key=fwd_lib.get) if fwd_lib else None
+    bwd_name = min(bwd_lib, key=lambda n: bwd_lib[n][0]) if bwd_lib else None
+    library = {"flash_fwd_lse": (fwd_lib[fwd_name], fwd_name) if fwd_lib else None}
+    library["flash_bwd_dq"] = library["flash_bwd_dkv"] = \
+        (bwd_lib[bwd_name][0], bwd_name) if bwd_lib else None
+    visible = int(mask.sum()) * B * H
+    flops = {"flash_fwd_lse": 4.0 * Dh * visible, "flash_bwd_dq": 6.0 * Dh * visible,
+             "flash_bwd_dkv": 8.0 * Dh * visible}
+    nbytes = {"flash_fwd_lse": _nbytes(q, k, v, q, lse),
+              "flash_bwd_dq": _nbytes(q, k, v, do, lse, delta, q),
+              "flash_bwd_dkv": _nbytes(q, k, v, do, lse, delta, k, v)}
+    out = {}
+    for kname in ms:
+        bound = _bound(flops[kname], nbytes[kname], dtype)
+        lib = library[kname]
+        note = "; forward without lse" if kname == "flash_fwd_lse" else ""
+        lib_txt = (f"{lib[0]:.4f} ms ({lib[1]}{note})" if lib
+                   else "refused (no PyTorch call takes this shape)")
+        print(f"kernel {kname} timing at {name} (B={B} H={H} Hk={Hk} S={Sq} Dh={Dh} {dtype} "
+              f"causal={causal} window={window} {layout} layout): kernel {ms[kname]:.4f} ms "
+              f"device (CUDA graph of 20 launches); plain {plain[kname]:.4f} ms; library "
+              f"{lib_txt}; bound {bound[0]:.4f} ms ({bound[1]}: {flops[kname]:.4g} FLOP, "
+              f"{nbytes[kname]:.4g} B), {bound[0] / ms[kname]:.1%} of bound", flush=True)
+        out[kname] = (ms[kname], plain[kname], bound, lib[0] if lib else None)
+    return out
 
 
 # The scans take f32 (the model path casts to f32).  Tolerances relative to
@@ -937,10 +1002,12 @@ def _mlstm_kernel() -> dict:
 
 def phase_model() -> None:
     """Small llama-shaped model: flash kernel on the card vs plain path on
-    the CPU with the same weights, in f32."""
+    the CPU with the same weights, in f32; then the recurrent, MoE and
+    gemma3 / vlm / whisper smoke models the same way (the last three also
+    trained, with gemma3 at Dh 320)."""
     import torch
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models.common import ParamTree
     from repro_torch.models.model_zoo import get_model
 
@@ -967,6 +1034,8 @@ def phase_model() -> None:
     _model_moe()
     for arch in FAMILY_ARCHS:
         family_agreement(arch)
+    for base in (*map(get_smoke_config, FAMILY_ARCHS), gemma3_d320_smoke()):
+        family_train_agreement(base)
 
 
 # smoke recurrent models, f32, card (kernels, cuBLAS) vs CPU (chunked plain
@@ -1063,7 +1132,7 @@ def family_agreement(arch: str) -> tuple:
     cpu_params = cpu_zoo.init(0, device="cpu")
     params = ParamTree.from_state_dict({k: v.cuda() for k, v in cpu_params.state_dict().items()})
     batch, steps = _family_inputs(base, 2, 100, torch.Generator().manual_seed(5))
-    want_launches = base.num_layers * (2 if base.family == "whisper" else 1) + base.enc_layers
+    want_launches = n_attentions(base)
     outs = {}
     with torch.inference_mode():
         for side, dev, zoo, p in (("card", "cuda", gpu_zoo, params),
@@ -1105,22 +1174,22 @@ MODEL_LOSS_RTOL, MODEL_GNORM_RTOL = 1e-5, 1e-4
 MODEL_PARAM_TIGHT, MODEL_PARAM_SHARE, MODEL_PARAM_MAX = 1e-6, 0.999, 1e-4
 
 
-def _model_train(base, init_params) -> None:
-    import tempfile
-
+def _train_card_vs_cpu(tag: str, base, state: dict, batches: list, n_attn: int) -> tuple:
+    """AdamW steps of ``base`` in f32 from the weights ``state``, one a
+    batch: the flash kernels with remat on the card against the plain path
+    on the CPU.  Fails unless the card launched 2 flash_fwd_lse and one each
+    of flash_bwd_dq and flash_bwd_dkv per attention (``n_attn`` a forward)
+    a step, and nothing else, and the two sides agree on loss, grad_norm and
+    params within the MODEL_* bounds; -> the card's (params, AdamW state)."""
     import torch
 
-    from repro_torch.checkpoint import checkpoint as ckpt_lib
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.models.common import ParamTree
     from repro_torch.models.model_zoo import get_model
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train.train_step import make_train_step
 
-    state = {k: v.detach() for k, v in init_params.state_dict().items()}
     ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
-    data = SyntheticLM(DataConfig(vocab=base.vocab, seq_len=128, global_batch=4))
     sides = {}
     for dev, cfg in (("cuda", dataclasses.replace(base, attn_impl="flash", remat=True)),
                      ("cpu", base)):
@@ -1130,33 +1199,48 @@ def _model_train(base, init_params) -> None:
         opt = opt_lib.init(ocfg, params)
         fa.reset_launch_counts()
         metrics = []
-        for step in range(2):
-            params, opt, m = step_fn(params, opt, data.batch(step))
+        for batch in batches:
+            params, opt, m = step_fn(params, opt, batch)
             metrics.append({k: float(v) for k, v in m.items()})
         sides[dev] = (params, opt, metrics, fa.launch_counts())
     (gp, gopt, gm, counts), (cp, _, cm, _) = sides["cuda"], sides["cpu"]
-    L = base.num_layers
-    want = {"flash_fwd": 0, "flash_fwd_lse": 2 * 2 * L, "flash_bwd_dq": 2 * L,
-            "flash_bwd_dkv": 2 * L}
-    print(f"model: 2 train steps (remat) on the card launched {counts}", flush=True)
+    n = n_attn * len(batches)
+    want = {"flash_fwd": 0, "flash_fwd_lse": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    print(f"{tag}: {len(batches)} train steps (remat) on the card launched {counts}", flush=True)
     if counts != want:
-        fail(f"small-model train steps launched {counts}, expected {want}")
+        fail(f"{tag}: {len(batches)} train steps launched {counts}, expected {want}")
     for step, (g, c) in enumerate(zip(gm, cm)):
         dl = abs(g["loss"] - c["loss"]) / abs(c["loss"])
         dg = abs(g["grad_norm"] - c["grad_norm"]) / abs(c["grad_norm"])
-        print(f"model: train step {step} card loss {g['loss']:.7f} gnorm {g['grad_norm']:.7f}, "
+        print(f"{tag}: train step {step} card loss {g['loss']:.7f} gnorm {g['grad_norm']:.7f}, "
               f"cpu loss {c['loss']:.7f} gnorm {c['grad_norm']:.7f}: rel diff {dl:.2e} "
               f"(tol {MODEL_LOSS_RTOL:g}), {dg:.2e} (tol {MODEL_GNORM_RTOL:g})", flush=True)
         if not (dl <= MODEL_LOSS_RTOL and dg <= MODEL_GNORM_RTOL):
-            fail(f"train step {step}: card and CPU disagree on loss or grad_norm")
+            fail(f"{tag}: train step {step}: card and CPU disagree on loss or grad_norm")
     cstate = cp.state_dict()
     diff = torch.cat([(v.cpu() - cstate[k]).abs().flatten() for k, v in gp.state_dict().items()])
     perr, share = diff.max().item(), (diff <= MODEL_PARAM_TIGHT).float().mean().item()
-    print(f"model: params after 2 steps, card vs cpu: max_abs_err {perr:.3e} (tol "
+    print(f"{tag}: params after {len(batches)} steps, card vs cpu: max_abs_err {perr:.3e} (tol "
           f"{MODEL_PARAM_MAX:g}), share within {MODEL_PARAM_TIGHT:g}: {share:.6f} "
           f"(need {MODEL_PARAM_SHARE})", flush=True)
     if not (perr <= MODEL_PARAM_MAX and share >= MODEL_PARAM_SHARE):
-        fail(f"params after 2 train steps disagree: max {perr}, share {share}")
+        fail(f"{tag}: params after {len(batches)} train steps disagree: max {perr}, "
+             f"share {share}")
+    return gp, gopt
+
+
+def _model_train(base, init_params) -> None:
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+    state = {k: v.detach() for k, v in init_params.state_dict().items()}
+    data = SyntheticLM(DataConfig(vocab=base.vocab, seq_len=128, global_batch=4))
+    gp, gopt = _train_card_vs_cpu("model", base, state, [data.batch(s) for s in range(2)],
+                                  base.num_layers)
     with tempfile.TemporaryDirectory() as d:
         ckpt_lib.save(d, 2, {"params": gp, "opt": gopt}, extra={"step": 2})
         tree, extra = ckpt_lib.restore(d, {"params": gp, "opt": gopt})
@@ -1168,6 +1252,46 @@ def _model_train(base, init_params) -> None:
           f"{'bit-identical' if same else 'DIFFERS'}", flush=True)
     if not same:
         fail("checkpoint round trip changed the training state")
+
+
+def n_attentions(cfg) -> int:
+    """Attention calls of one forward: one a layer, whisper's decoder two
+    (self and cross) and its encoder one."""
+    return cfg.num_layers * (2 if cfg.family == "whisper" else 1) + cfg.enc_layers
+
+
+def gemma3_d320_smoke():
+    """gemma3-smoke widened to gemma3-4b's head dim: d_model 640 over 2
+    heads (1 kv head) is Dh 320; its window of 8 binds."""
+    from repro_torch.configs import get_smoke_config
+
+    return dataclasses.replace(get_smoke_config("gemma3-4b"), name="gemma3-4b-smoke-d320",
+                               d_model=640, heads=2, kv_heads=1)
+
+
+def family_train_agreement(base) -> None:
+    """Two f32 AdamW steps of ``base`` (a smoke config of the gemma3, vlm or
+    whisper family, or ``gemma3_d320_smoke``) on the card against the CPU
+    (``_train_card_vs_cpu``): 4 x 128 tokens from the bigram corpus; vlm at
+    an 11-wide patch grid's positions3, whisper with 40 encoder frames."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model_zoo import get_model
+
+    state = {k: v.detach() for k, v in get_model(base).init(0, device="cpu").state_dict().items()}
+    data = SyntheticLM(DataConfig(vocab=base.vocab, seq_len=128, global_batch=4))
+    gen = torch.Generator().manual_seed(6)
+    batches = []
+    for step in range(2):
+        batch = data.batch(step)
+        if base.family == "vlm":
+            batch["positions3"] = _grid_positions3(4, 128, 11)[0]
+        if base.family == "whisper":
+            batch["enc_embeds"] = torch.randn((4, 40, base.d_model), generator=gen)
+        batches.append(batch)
+    _train_card_vs_cpu(f"model: {base.name} Dh={base.resolved_head_dim}", base, state, batches,
+                       n_attentions(base))
 
 
 # moonshot-smoke in f32, card (flash, cuBLAS) vs CPU: routed alike, the two
@@ -1772,23 +1896,25 @@ def phase_serve_moe(smi: str) -> None:
 
 
 @contextlib.contextmanager
-def flash_windows():
-    """Record the ``window`` of every flash_fwd call the models make through
-    ``ops.flash_attention``, in call order (the kernel's counter counts the
-    launches; this tells a windowed launch from another)."""
+def flash_windows(name: str = "flash_attention_fwd"):
+    """Record the ``window`` of every call the models make through
+    ``ops.<name>`` (``flash_attention_fwd`` when serving;
+    ``flash_attention_fwd_lse`` and ``flash_attention_bwd`` when training),
+    in call order (the kernels' counters count the launches; this tells a
+    windowed launch from another)."""
     from repro_torch.kernels.flash_attention import ops
 
-    seen, real = [], ops.flash_attention_fwd
+    seen, real = [], getattr(ops, name)
 
-    def recording(q, k, v, **kw):
+    def recording(*args, **kw):
         seen.append(kw.get("window"))
-        return real(q, k, v, **kw)
+        return real(*args, **kw)
 
-    ops.flash_attention_fwd = recording
+    setattr(ops, name, recording)
     try:
         yield seen
     finally:
-        ops.flash_attention_fwd = real
+        setattr(ops, name, real)
 
 
 def _serve_family(smi: str, tag: str, arch: str, prompt: int, max_new: int, requests) -> dict:
@@ -2311,6 +2437,149 @@ def phase_train_moe_fsdp(smi: str, train_moe: dict, mesh) -> None:
           flush=True)
 
 
+# gemma3-4b, qwen2-vl-2b and whisper-large-v3 trained at full width and
+# depth: arch -> (global batch, positions a row, microbatches).  gemma3-4b
+# 2 x 2048 tokens, so that the local layers' window of 1024 binds on half
+# the positions (4 x 2048 would not fit 80 GB beside the 262144-wide logits
+# and their f32 gradient); qwen2-vl-2b 4 x 1024 at a 32 x 32 patch grid's
+# positions3 in 2 microbatches (positions3 cut on its dim 1);
+# whisper-large-v3 4 x 448 decoder tokens (Whisper's context) over 1500
+# encoder frames
+FAMILY_TRAIN = {"gemma3-4b": (2, 2048, 1), "qwen2-vl-2b": (4, 1024, 2),
+                "whisper-large-v3": (4, 448, 1)}
+WHISPER_FRAMES = 1500
+
+
+class FamilyBatches:
+    """The 4096-token bigram corpus's batches with a family's other inputs:
+    vlm the positions3 of a 32 x 32 patch grid, whisper enc_embeds drawn on
+    the card from a generator seeded with the first step."""
+
+    def __init__(self, cfg, B: int, S: int):
+        from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+        self.cfg, self.B, self.S = cfg, B, S
+        self.data = SyntheticLM(DataConfig(vocab=4096, seq_len=S, global_batch=B))
+
+    def batches(self, start: int = 0):
+        import torch
+
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(start)
+        for batch in self.data.batches(start):
+            if self.cfg.family == "vlm":
+                batch["positions3"] = _grid_positions3(self.B, self.S, 32)[0]
+            if self.cfg.family == "whisper":
+                batch["enc_embeds"] = torch.randn((self.B, WHISPER_FRAMES, self.cfg.d_model),
+                                                  generator=gen, device="cuda")
+            yield batch
+
+
+def family_train_setup(arch: str):
+    """``arch`` at full size in bf16 with remat and flash, the train phase's
+    AdamW config, its batches and its microbatch count."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.train import optimizer as opt_lib
+
+    cfg = dataclasses.replace(get_config(arch), param_dtype=torch.bfloat16,
+                              compute_dtype=torch.bfloat16, remat=True, attn_impl="flash")
+    B, S, micro = FAMILY_TRAIN[arch]
+    ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    return cfg, get_model(cfg), ocfg, FamilyBatches(cfg, B, S), micro
+
+
+def _phase_train_family(smi: str, tag: str, arch: str) -> dict:
+    """8 AdamW steps of ``arch`` at full size through ``train_loop``: the
+    loss must fall by 0.5 nats, every loss and grad_norm be finite, and the
+    launches be 2 flash_fwd_lse and one each of flash_bwd_dq and
+    flash_bwd_dkv an attention a microbatch; prints peak memory, steady step
+    time, tokens/s and MFU.  Returns the run with the windows of the
+    training flash calls (forward, backward)."""
+    import torch
+
+    from repro_torch.train.train_step import make_train_step
+
+    t0 = time.perf_counter()
+    cfg, zoo, ocfg, data, micro = family_train_setup(arch)
+    params, opt = _train_init(zoo, ocfg)
+    step_fn = make_train_step(zoo, ocfg, microbatches=micro, device="cuda")
+    torch.cuda.synchronize()
+    named = dict(params.named_parameters())
+    n_params = sum(p.numel() for p in named.values())
+    n_enc = sum(p.numel() for k, p in named.items() if k.startswith("enc_"))
+    B, S = data.B, data.S
+    print(f"{tag}: {cfg.name} L={cfg.num_layers} enc_layers={cfg.enc_layers} d_model={cfg.d_model} "
+          f"H={cfg.heads} Hk={cfg.kv_heads} Dh={cfg.resolved_head_dim} vocab={cfg.vocab} "
+          f"window={cfg.sliding_window} bf16 params, f32 moments, remat, flash; "
+          f"{n_params / 1e9:.3f} B params; batch {B} x {S} tokens from a 4096-token bigram "
+          f"corpus in {micro} microbatch(es)"
+          f"{f', {WHISPER_FRAMES} encoder frames a row' if n_enc else ''}; set-up "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    with flash_windows("flash_attention_fwd_lse") as fwd_w, \
+            flash_windows("flash_attention_bwd") as bwd_w:
+        run = _train_run(tag, step_fn, params, opt, data, TRAIN_STEPS)
+    del params, opt, step_fn, named
+    torch.cuda.empty_cache()
+    losses = run["loss"]
+    drop = losses[0] - losses[-1]
+    print(f"{tag}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, drop {drop:.4f} nats (need >= 0.5)",
+          flush=True)
+    if not drop >= 0.5:
+        fail(f"{tag}: the loss fell by {drop} nats in {TRAIN_STEPS} steps, expected >= 0.5")
+    want = _train_launches(n_attentions(cfg) * micro, TRAIN_STEPS)
+    print(f"{tag}: launches {run['launches']}; expected {want} ({n_attentions(cfg)} attentions "
+          f"a forward, {micro} microbatch(es) a step, remat)", flush=True)
+    if run["launches"] != want:
+        fail(f"{tag} launches {run['launches']} differ from {want}")
+    # 6 N tokens, whisper's encoder parameters at its frames
+    flop = 6.0 * B * ((n_params - n_enc) * S + n_enc * WHISPER_FRAMES)
+    mean_s = run["mean_ms"] / 1e3
+    print(f"{tag}: per-step ms {[round(t, 2) for t in run['step_ms']]}", flush=True)
+    print(f"{tag}: steady step {run['mean_ms']:.2f} ms (mean of steps 1-{TRAIN_STEPS - 1}), "
+          f"{B * S / mean_s:.1f} tokens/s, MFU {flop / mean_s / PEAK_FLOPS['bfloat16']:.2%} "
+          f"(6 N tokens{' (encoder N x frames)' if n_enc else ''} / step time / 989 TFLOP/s), "
+          f"max_memory_allocated {run['peak'] / 2**30:.2f} GiB [{smi}]", flush=True)
+    run["windows"], run["cfg"] = (fwd_w, bwd_w), cfg
+    return run
+
+
+def phase_train_gemma3(smi: str) -> dict:
+    """gemma3-4b at full size (34 layers, Dh 320): 2 x 2048 tokens a step;
+    68 flash_fwd_lse, 34 flash_bwd_dq and 34 flash_bwd_dkv a step, the
+    local layers' 29 of each 34 with the window of 1024."""
+    from repro_torch.models import transformer
+
+    run = _phase_train_family(smi, "train_gemma3", "gemma3-4b")
+    cfg = run["cfg"]
+    flags = transformer._is_global_flags(cfg)
+    w, n_local, n_global = cfg.sliding_window, flags.count(False), flags.count(True)
+    for what, seen, per in (("forward", run["windows"][0], 2), ("backward", run["windows"][1], 1)):
+        got = (seen.count(w), seen.count(None))
+        want = (per * n_local * TRAIN_STEPS, per * n_global * TRAIN_STEPS)
+        print(f"train_gemma3: {what} flash calls in {TRAIN_STEPS} steps: {got[0]} with window {w}, "
+              f"{got[1]} without (want {want[0]} and {want[1]})", flush=True)
+        if got != want or len(seen) != sum(want):
+            fail(f"train_gemma3: the {what} flash calls took windows {got}, want {want}")
+    return run
+
+
+def phase_train_vlm(smi: str) -> dict:
+    """qwen2-vl-2b at full size: 4 x 1024 tokens at a 32 x 32 patch grid's
+    positions3, 2 microbatches a step; 2 x (56, 28, 28) launches a step."""
+    return _phase_train_family(smi, "train_vlm", "qwen2-vl-2b")
+
+
+def phase_train_whisper(smi: str) -> dict:
+    """whisper-large-v3 at full size: 4 x 1500 encoder frames and 4 x 448
+    decoder tokens a step; 192 flash_fwd_lse, 96 flash_bwd_dq and 96
+    flash_bwd_dkv a step (32 encoder, 32 self and 32 cross attentions, each
+    run twice under remat)."""
+    return _phase_train_family(smi, "train_whisper", "whisper-large-v3")
+
+
 def main() -> None:
     import torch
 
@@ -2327,8 +2596,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_serve_moe(smi)
     torch.cuda.empty_cache()
+    served = {}
     for phase in (phase_serve_gemma3, phase_serve_vlm, phase_serve_whisper):
-        phase(smi)
+        served[phase.__name__] = phase(smi)
         torch.cuda.empty_cache()
     train = phase_train(smi)
     torch.cuda.empty_cache()
@@ -2340,7 +2610,15 @@ def main() -> None:
         phase_train_fsdp(smi, train, mesh)
         torch.cuda.empty_cache()
         phase_train_moe_fsdp(smi, train_moe, mesh)
+    torch.cuda.empty_cache()
+    train_gemma3 = phase_train_gemma3(smi)
+    for phase in (phase_train_vlm, phase_train_whisper):
+        phase(smi)
     launches.update({k: train["launches"][k]
+                     for k in ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")})
+    # the Dh-320 kernels' launches from gemma3-4b's serving and training paths
+    launches["flash_fwd_d320"] = served["phase_serve_gemma3"]["flash_fwd"]
+    launches.update({f"{k}_d320": train_gemma3["launches"][k]
                      for k in ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")})
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -63,9 +63,18 @@
 // design: mma.sync m16n8k16 from ldmatrix fragments, tiles
 // double-buffered with cp.async, one 4-warp block per 64-row (dq) or 64-key
 // (dk/dv) tile; dk/dv computes S^T and dP^T directly so that the
-// accumulators feed the next products.  The f32 path (not on the training
-// path; it lets a small f32 model be checked tightly on the card) is SIMT
-// FMA with 4 threads per row.
+// accumulators feed the next products.  bf16 at Dh 320 (gemma3-4b, 2560 /
+// 8 heads) is that design widened, as the forward's Dh-320 kernel is: 8
+// warps a block, dq with Q and dO kept in shared memory and 16-key K/V
+// tiles, dk/dv with each warp owning half the columns of its 16 keys' dK
+// and dV and computing S^T and dP^T whole (MmaTiles says why).  At
+// gemma3-4b's training shape (B 2, H 8, Hk 4, S 2048, causal) dq does
+// 6.445e10 FLOP (0.0652 ms at 989 TFLOP/s) and dk/dv 8.594e10 (0.0869 ms;
+// 0.0489 and 0.0652 with the local layers' window of 1024) against ~84 MB
+// (0.025 ms): bound by the operations, which mma.sync reaches only in
+// part; its Hopper redesign is later work.  The f32 path (not on the
+// training path; it lets a small f32 model be checked tightly on the card)
+// is SIMT FMA with 4 threads per row, 8 at Dh 320.
 //
 // A query row that sees no key (a window past the end of the keys): the
 // reference's softmax over all -1e30 scores gives p = 1/Skv on every key,
@@ -127,27 +136,70 @@ __device__ __forceinline__ void query_range(const Params& p, int n0, int n1, int
 }
 
 // ---------------------------------------------------------------------------
-// bf16, Dh in {16, 32}: tensor cores through mma.sync
+// bf16, Dh in {16, 32, 320}: tensor cores through mma.sync
 // ---------------------------------------------------------------------------
 
-constexpr int kThreads = 128;  // 4 warps x 16 rows
-constexpr int kRows = 64;      // q rows of a dq block, keys of a dk/dv block
-constexpr int kBN = 64;        // keys per k step of dq
-constexpr int kBQ = 32;        // q rows per q step of dk/dv
+constexpr int kRows = 64;  // keys of a dk/dv block: 4 rows of warps x 16 keys
+
+// The tiles of the mma.sync kernels.  Dh 16 / 32: 4 warps, a dq block of 64
+// q rows stepping 64 keys, a dk/dv block of 64 keys stepping 32 q rows.
+//
+// Dh 320 (gemma3-4b, 2560 / 8 heads), the forward's wide design
+// (flash_fwd.cu, flash_fwd_bf16_wide_kernel) carried over.  A warp's 16 rows
+// x 320 columns of f32 accumulator are 160 registers a thread, so:
+//   * dq: a warp owns 16 q rows and their dQ (160 registers); Q and dO stay
+//     in shared memory and are read again for every key tile; 8 warps (128
+//     q rows) share each K/V tile.  Q and dO of 128 rows take 164 KB, which
+//     leaves room for K and V double-buffered only at 16 keys a tile (the
+//     forward, with no dO, takes 32): 205 KB in all.  S and dP of a 16-key
+//     tile are 8 registers each.
+//   * dk/dv: dK and dV of 16 keys x 320 columns would be 2 x 160 registers
+//     a thread, more than the 255 a thread can have.  Of the three ways out
+//     (columns split over two warps, dV parked in shared memory between q
+//     steps, dV and dK in two passes) this takes the first: two warps own
+//     the same 16 keys, each 160 of the columns of their dK and dV (2 x 80
+//     registers), and both compute S^T and dP^T over the whole Dh.  That
+//     doubles the S / dP products (12 Dh FLOP a visible pair where 8 Dh
+//     would do), but keeps every sum in registers, in one fixed order, with
+//     no shared-memory round trips of the accumulators and no second pass
+//     over Q and dO.  8 warps: 64 keys x 2 column halves; K and V of the 64
+//     keys stay in shared memory, Q and dO stream in 16-row steps
+//     double-buffered, 123 KB.
+// Both are simple first: mma.sync, which reaches only part of the tensor
+// cores' rate, and one block an SM; the Hopper redesign is later work.
+template <int D>
+struct MmaTiles {
+  static constexpr bool kWide = D > 128;
+  static constexpr int kDqWarps = kWide ? 8 : 4;  // 16 q rows a warp
+  static constexpr int kDqRows = 16 * kDqWarps;   // q rows of a dq block
+  static constexpr int kBN = kWide ? 16 : 64;     // keys per k step of dq
+  static constexpr int kParts = kWide ? 2 : 1;    // column parts of dk / dv
+  static constexpr int kDkvWarps = 4 * kParts;    // 16 keys x D / kParts columns a warp
+  static constexpr int kBQ = kWide ? 16 : 32;     // q rows per q step of dk/dv
+  static constexpr int kDqThreads = 32 * kDqWarps;
+  static constexpr int kDkvThreads = 32 * kDkvWarps;
+  static constexpr int kLD = D + 8;  // row pitch in shared memory (bank-conflict-free)
+  // Q, dO, two K tiles, two V tiles
+  static constexpr int kDqSmem = (2 * kDqRows + 4 * kBN) * kLD * 2;
+  // K, V, two Q tiles, two dO tiles, two lse chunks, two delta chunks
+  static constexpr int kDkvSmem = (2 * kRows + 4 * kBQ) * kLD * 2 + 4 * kBQ * 4;
+};
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16_kernel(const Params p) {
-  constexpr int LD = D + 8;
-  constexpr int kTile = kBN * LD;
+__global__ void __launch_bounds__(MmaTiles<D>::kDqThreads)
+    flash_bwd_dq_bf16_kernel(const Params p) {
+  using T = MmaTiles<D>;
+  constexpr int LD = T::kLD, BN = T::kBN, ROWS = T::kDqRows, THREADS = T::kDqThreads;
+  constexpr int kTile = BN * LD;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sO = sQ + kRows * LD;  // dO
-  __nv_bfloat16* sK = sO + kRows * LD;  // two K tiles, then two V tiles
+  __nv_bfloat16* sO = sQ + ROWS * LD;  // dO
+  __nv_bfloat16* sK = sO + ROWS * LD;  // two K tiles, then two V tiles
   __nv_bfloat16* sV = sK + 2 * kTile;
 
-  const int n_qtiles = (p.Sq + kRows - 1) / kRows;
-  const int r0 = (n_qtiles - 1 - (int)blockIdx.x) * kRows;  // longest causal rows first
-  const int r1 = min(p.Sq, r0 + kRows);
+  const int n_qtiles = (p.Sq + ROWS - 1) / ROWS;
+  const int r0 = (n_qtiles - 1 - (int)blockIdx.x) * ROWS;  // longest causal rows first
+  const int r1 = min(p.Sq, r0 + ROWS);
   const long long b = blockIdx.z, h = blockIdx.y, hk = h / p.group;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int quad = lane / 4, tq = lane % 4;
@@ -160,12 +212,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16_kernel(const Param
 
   int k_lo, k_hi;
   key_range(p, r0, r1, k_lo, k_hi);
-  const int n_first = (k_lo / kBN) * kBN;
+  const int n_first = (k_lo / BN) * BN;
 
-  load_tile_bf16<D, kRows, kThreads>(sQ, qg, p.sqs, r0, p.Sq);
-  load_tile_bf16<D, kRows, kThreads>(sO, og, p.sdos, r0, p.Sq);
-  load_tile_bf16<D, kBN, kThreads>(sK, kg, p.sks, n_first, p.Skv);
-  load_tile_bf16<D, kBN, kThreads>(sV, vg, p.svs, n_first, p.Skv);
+  load_tile_bf16<D, ROWS, THREADS>(sQ, qg, p.sqs, r0, p.Sq);
+  load_tile_bf16<D, ROWS, THREADS>(sO, og, p.sdos, r0, p.Sq);
+  load_tile_bf16<D, BN, THREADS>(sK, kg, p.sks, n_first, p.Skv);
+  load_tile_bf16<D, BN, THREADS>(sV, vg, p.svs, n_first, p.Skv);
   cp_async_commit();
 
   // this thread's rows: quad and quad + 8 of the warp's 16
@@ -181,11 +233,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16_kernel(const Param
 #pragma unroll
   for (int d = 0; d < D / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
 
-  for (int n0 = n_first, it = 0; n0 < k_hi; n0 += kBN, ++it) {
+  for (int n0 = n_first, it = 0; n0 < k_hi; n0 += BN, ++it) {
     const int buf = it & 1;
-    if (n0 + kBN < k_hi) {
-      load_tile_bf16<D, kBN, kThreads>(sK + (buf ^ 1) * kTile, kg, p.sks, n0 + kBN, p.Skv);
-      load_tile_bf16<D, kBN, kThreads>(sV + (buf ^ 1) * kTile, vg, p.svs, n0 + kBN, p.Skv);
+    if (n0 + BN < k_hi) {
+      load_tile_bf16<D, BN, THREADS>(sK + (buf ^ 1) * kTile, kg, p.sks, n0 + BN, p.Skv);
+      load_tile_bf16<D, BN, THREADS>(sV + (buf ^ 1) * kTile, vg, p.svs, n0 + BN, p.Skv);
     }
     cp_async_commit();
     cp_async_wait<1>();  // all but the prefetch have landed
@@ -193,10 +245,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16_kernel(const Param
     const __nv_bfloat16* tK = sK + buf * kTile;
     const __nv_bfloat16* tV = sV + buf * kTile;
 
-    // S = Q K^T and dP = dO V^T for 16 rows x 64 keys
-    float s[kBN / 8][4], dp[kBN / 8][4];
+    // S = Q K^T and dP = dO V^T for 16 rows x BN keys
+    float s[BN / 8][4], dp[BN / 8][4];
 #pragma unroll
-    for (int t = 0; t < kBN / 8; ++t)
+    for (int t = 0; t < BN / 8; ++t)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
 #pragma unroll
@@ -205,7 +257,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16_kernel(const Param
       load_a<LD>(qa, sQ, warp * 16, kk * 16, lane);
       load_a<LD>(oa, sO, warp * 16, kk * 16, lane);
 #pragma unroll
-      for (int j = 0; j < kBN / 16; ++j) {
+      for (int j = 0; j < BN / 16; ++j) {
         uint32_t kb[4], vb[4];
         load_b_nk<LD>(kb, tK, j * 16, kk * 16, lane);
         mma_bf16(s[2 * j], qa, kb[0], kb[1]);
@@ -218,7 +270,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16_kernel(const Param
 
     // dS = P o (dP - delta) on visible pairs, into s
 #pragma unroll
-    for (int t = 0; t < kBN / 8; ++t) {
+    for (int t = 0; t < BN / 8; ++t) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = e >> 1;
@@ -231,7 +283,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16_kernel(const Param
 
     // dq += dS K: the accumulators of two n-tiles are one A fragment
 #pragma unroll
-    for (int j = 0; j < kBN / 16; ++j) {
+    for (int j = 0; j < BN / 16; ++j) {
       const uint32_t da[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
                               pack_bf16(s[2 * j][2], s[2 * j][3]),
                               pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
@@ -260,22 +312,27 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16_kernel(const Param
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_bf16_kernel(const Params p) {
-  constexpr int LD = D + 8;
-  constexpr int kQTile = kBQ * LD;
+__global__ void __launch_bounds__(MmaTiles<D>::kDkvThreads)
+    flash_bwd_dkv_bf16_kernel(const Params p) {
+  using T = MmaTiles<D>;
+  constexpr int LD = T::kLD, BQ = T::kBQ, THREADS = T::kDkvThreads;
+  constexpr int DC = D / T::kParts;  // columns of dK and dV a warp owns
+  constexpr int kQTile = BQ * LD;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sV = sK + kRows * LD;
   __nv_bfloat16* sQ = sV + kRows * LD;  // two Q tiles, then two dO tiles
   __nv_bfloat16* sO = sQ + 2 * kQTile;
   float* sL = reinterpret_cast<float*>(sO + 2 * kQTile);  // two lse chunks, then two delta chunks
-  float* sD = sL + 2 * kBQ;
+  float* sD = sL + 2 * BQ;
 
   const int n0 = blockIdx.x * kRows;
   const int n1 = min(p.Skv, n0 + kRows);
   const long long b = blockIdx.z, hk = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int quad = lane / 4, tq = lane % 4;
+  const int kw = warp % 4;          // the warp's 16 keys: kw * 16 on
+  const int col0 = warp / 4 * DC;   // and its columns of dK and dV: col0 on
 
   const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.skb + hk * p.skh;
   const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.svb + hk * p.svh;
@@ -284,40 +341,40 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_bf16_kernel(const Para
 
   int q_lo, q_hi;
   query_range(p, n0, n1, q_lo, q_hi);
-  const int q_first = (q_lo / kBQ) * kBQ;
-  const int n_chunks = q_hi > q_first ? (q_hi - q_first + kBQ - 1) / kBQ : 0;
+  const int q_first = (q_lo / BQ) * BQ;
+  const int n_chunks = q_hi > q_first ? (q_hi - q_first + BQ - 1) / BQ : 0;
   const int n_steps = n_chunks * p.group;  // (query head of the group, q tile) pairs
 
-  // step c: query head hk * group + c / n_chunks, rows from q_first + (c % n_chunks) * kBQ
+  // step c: query head hk * group + c / n_chunks, rows from q_first + (c % n_chunks) * BQ
   auto load_step = [&](int c, int buf) {
     const long long h = hk * p.group + c / n_chunks;
-    const int r0 = q_first + (c % n_chunks) * kBQ;
-    load_tile_bf16<D, kBQ, kThreads>(sQ + buf * kQTile,
-                                     static_cast<const __nv_bfloat16*>(p.q) + b * p.sqb + h * p.sqh,
-                                     p.sqs, r0, p.Sq);
-    load_tile_bf16<D, kBQ, kThreads>(
+    const int r0 = q_first + (c % n_chunks) * BQ;
+    load_tile_bf16<D, BQ, THREADS>(sQ + buf * kQTile,
+                                   static_cast<const __nv_bfloat16*>(p.q) + b * p.sqb + h * p.sqh,
+                                   p.sqs, r0, p.Sq);
+    load_tile_bf16<D, BQ, THREADS>(
         sO + buf * kQTile, static_cast<const __nv_bfloat16*>(p.dout) + b * p.sdob + h * p.sdoh,
         p.sdos, r0, p.Sq);
     const long long stat = (b * p.H + h) * p.Sq;
-    for (int i = threadIdx.x; i < kBQ; i += kThreads) {
+    for (int i = threadIdx.x; i < BQ; i += THREADS) {
       const bool valid = r0 + i < p.Sq;
-      sL[buf * kBQ + i] = valid ? p.lse[stat + r0 + i] : 0.f;
-      sD[buf * kBQ + i] = valid ? p.delta[stat + r0 + i] : 0.f;
+      sL[buf * BQ + i] = valid ? p.lse[stat + r0 + i] : 0.f;
+      sD[buf * BQ + i] = valid ? p.delta[stat + r0 + i] : 0.f;
     }
   };
 
-  load_tile_bf16<D, kRows, kThreads>(sK, kg, p.sks, n0, p.Skv);
-  load_tile_bf16<D, kRows, kThreads>(sV, vg, p.svs, n0, p.Skv);
+  load_tile_bf16<D, kRows, THREADS>(sK, kg, p.sks, n0, p.Skv);
+  load_tile_bf16<D, kRows, THREADS>(sV, vg, p.svs, n0, p.Skv);
   if (n_steps > 0) load_step(0, 0);
   cp_async_commit();
 
-  float dk[D / 8][4], dv[D / 8][4];
+  float dk[DC / 8][4], dv[DC / 8][4];
 #pragma unroll
-  for (int d = 0; d < D / 8; ++d)
+  for (int d = 0; d < DC / 8; ++d)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.f;
   // this thread's keys: quad and quad + 8 of the warp's 16
-  const int key[2] = {n0 + warp * 16 + quad, n0 + warp * 16 + quad + 8};
+  const int key[2] = {n0 + kw * 16 + quad, n0 + kw * 16 + quad + 8};
 
   for (int c = 0; c < n_steps; ++c) {
     const int buf = c & 1;
@@ -327,23 +384,23 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_bf16_kernel(const Para
     __syncthreads();
     const __nv_bfloat16* tQ = sQ + buf * kQTile;
     const __nv_bfloat16* tO = sO + buf * kQTile;
-    const float* tL = sL + buf * kBQ;
-    const float* tD = sD + buf * kBQ;
-    const int r0 = q_first + (c % n_chunks) * kBQ;
+    const float* tL = sL + buf * BQ;
+    const float* tD = sD + buf * BQ;
+    const int r0 = q_first + (c % n_chunks) * BQ;
 
-    // S^T = K Q^T and dP^T = V dO^T for 16 keys x 32 rows
-    float st[kBQ / 8][4], dpt[kBQ / 8][4];
+    // S^T = K Q^T and dP^T = V dO^T for 16 keys x BQ rows, over all of Dh
+    float st[BQ / 8][4], dpt[BQ / 8][4];
 #pragma unroll
-    for (int t = 0; t < kBQ / 8; ++t)
+    for (int t = 0; t < BQ / 8; ++t)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[t][e] = dpt[t][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       uint32_t ka[4], va[4];
-      load_a<LD>(ka, sK, warp * 16, kk * 16, lane);
-      load_a<LD>(va, sV, warp * 16, kk * 16, lane);
+      load_a<LD>(ka, sK, kw * 16, kk * 16, lane);
+      load_a<LD>(va, sV, kw * 16, kk * 16, lane);
 #pragma unroll
-      for (int j = 0; j < kBQ / 16; ++j) {
+      for (int j = 0; j < BQ / 16; ++j) {
         uint32_t qb[4], ob[4];
         load_b_nk<LD>(qb, tQ, j * 16, kk * 16, lane);
         mma_bf16(st[2 * j], ka, qb[0], qb[1]);
@@ -356,7 +413,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_bf16_kernel(const Para
 
     // P^T into st, dS^T = P^T o (dP^T - delta) into dpt
 #pragma unroll
-    for (int t = 0; t < kBQ / 8; ++t) {
+    for (int t = 0; t < BQ / 8; ++t) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = t * 8 + tq * 2 + (e & 1);
@@ -367,9 +424,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_bf16_kernel(const Para
       }
     }
 
-    // dV += P^T dO and dK += dS^T Q
+    // dV += P^T dO and dK += dS^T Q on this warp's columns
 #pragma unroll
-    for (int j = 0; j < kBQ / 16; ++j) {
+    for (int j = 0; j < BQ / 16; ++j) {
       const uint32_t pa[4] = {pack_bf16(st[2 * j][0], st[2 * j][1]),
                               pack_bf16(st[2 * j][2], st[2 * j][3]),
                               pack_bf16(st[2 * j + 1][0], st[2 * j + 1][1]),
@@ -379,12 +436,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_bf16_kernel(const Para
                               pack_bf16(dpt[2 * j + 1][0], dpt[2 * j + 1][1]),
                               pack_bf16(dpt[2 * j + 1][2], dpt[2 * j + 1][3])};
 #pragma unroll
-      for (int d = 0; d < D / 16; ++d) {
+      for (int d = 0; d < DC / 16; ++d) {
         uint32_t ob[4], qb[4];
-        load_b_kn<LD>(ob, tO, j * 16, d * 16, lane);
+        load_b_kn<LD>(ob, tO, j * 16, col0 + d * 16, lane);
         mma_bf16(dv[2 * d], pa, ob[0], ob[1]);
         mma_bf16(dv[2 * d + 1], pa, ob[2], ob[3]);
-        load_b_kn<LD>(qb, tQ, j * 16, d * 16, lane);
+        load_b_kn<LD>(qb, tQ, j * 16, col0 + d * 16, lane);
         mma_bf16(dk[2 * d], da, qb[0], qb[1]);
         mma_bf16(dk[2 * d + 1], da, qb[2], qb[3]);
       }
@@ -394,8 +451,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_bf16_kernel(const Para
   cp_async_wait<0>();
 
 #pragma unroll
-  for (int d = 0; d < D / 8; ++d) {
-    const int col = d * 8 + tq * 2;
+  for (int d = 0; d < DC / 8; ++d) {
+    const int col = col0 + d * 8 + tq * 2;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       if (key[i] < p.Skv) {
@@ -950,12 +1007,23 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// f32: SIMT FMA, 4 threads per row (each holds D / 4 of it as float4s)
+// f32: SIMT FMA, TPR threads per row (each holds D / TPR of it as float4s)
 // ---------------------------------------------------------------------------
 
-constexpr int kF32Rows = 64;  // q rows of a dq block, keys of a dk/dv block
-constexpr int kF32Step = 32;  // keys (dq) or q rows (dk/dv) per step
-constexpr int kF32Threads = 4 * kF32Rows;
+constexpr int kF32Threads = 256;
+
+// Up to Dh 128: 4 threads a row, 64 rows (keys) a block, 32 keys (rows) a
+// step.  Dh 320: 8 threads a row, so that a thread's share of q, dO and dQ
+// (dq) or of k, v, dK and dV (dk/dv) stays within 160 registers, and 16 a
+// step, so that the two tiles of a step (40 KB) fit the 48 KB of static
+// shared memory, as the forward's f32 kernel does.
+template <int D>
+struct F32Tiles {
+  static constexpr int kTPR = D > 128 ? 8 : 4;
+  static constexpr int kRows = kF32Threads / kTPR;  // q rows of a dq block, keys of a dk/dv block
+  static constexpr int kStep = D > 128 ? 16 : 32;   // keys (dq) or q rows (dk/dv) per step
+  static constexpr int kChunks = D / (4 * kTPR);    // float4s of a row a thread holds
+};
 
 __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
@@ -968,17 +1036,19 @@ __device__ __forceinline__ void fma4(float4& acc, float s, float4 x) {
   acc.w += s * x.w;
 }
 
-// sum over the 4 threads of a row
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+// sum over the TPR threads of a row
+template <int TPR>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int m = 1; m < TPR; m *= 2) x += __shfl_xor_sync(0xffffffffu, x, m);
+  return x;
 }
 
-// rows [row0, row0 + kF32Step) of a (rows, D) f32 slab into shared memory; zero past `limit`
-template <int D>
+// rows [row0, row0 + STEP) of a (rows, D) f32 slab into shared memory; zero past `limit`
+template <int D, int STEP>
 __device__ __forceinline__ void load_tile_f32(float (*dst)[D], const float* src, long long stride,
                                               int row0, int limit) {
-  for (int c = threadIdx.x; c < kF32Step * (D / 4); c += kF32Threads) {
+  for (int c = threadIdx.x; c < STEP * (D / 4); c += kF32Threads) {
     const int r = c / (D / 4), col = (c % (D / 4)) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row0 + r < limit) x = *reinterpret_cast<const float4*>(src + (row0 + r) * stride + col);
@@ -988,16 +1058,17 @@ __device__ __forceinline__ void load_tile_f32(float (*dst)[D], const float* src,
 
 template <int D>
 __global__ void __launch_bounds__(kF32Threads) flash_bwd_dq_f32_kernel(const Params p) {
-  constexpr int C = D / 16;  // float4 chunks per thread: chunk c * 4 + part
-  __shared__ __align__(16) float sK[kF32Step][D];
-  __shared__ __align__(16) float sV[kF32Step][D];
+  using T = F32Tiles<D>;
+  constexpr int C = T::kChunks, TPR = T::kTPR, ROWS = T::kRows, STEP = T::kStep;
+  __shared__ __align__(16) float sK[STEP][D];
+  __shared__ __align__(16) float sV[STEP][D];
 
-  const int n_qtiles = (p.Sq + kF32Rows - 1) / kF32Rows;
-  const int r0 = (n_qtiles - 1 - (int)blockIdx.x) * kF32Rows;
-  const int r1 = min(p.Sq, r0 + kF32Rows);
+  const int n_qtiles = (p.Sq + ROWS - 1) / ROWS;
+  const int r0 = (n_qtiles - 1 - (int)blockIdx.x) * ROWS;
+  const int r1 = min(p.Sq, r0 + ROWS);
   const long long b = blockIdx.z, h = blockIdx.y, hk = h / p.group;
-  const int part = threadIdx.x % 4;
-  const int r = r0 + threadIdx.x / 4;
+  const int part = threadIdx.x % TPR;
+  const int r = r0 + threadIdx.x / TPR;
 
   const float* qg = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
   const float* og = static_cast<const float*>(p.dout) + b * p.sdob + h * p.sdoh;
@@ -1005,13 +1076,14 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_dq_f32_kernel(const Par
   const float* vg = static_cast<const float*>(p.v) + b * p.svb + hk * p.svh;
   float* dqg = static_cast<float*>(p.dq) + b * p.sdqb + h * p.sdqh;
 
+  // chunk c of this thread is float4 c * TPR + part of the row
   float4 q[C], o[C], acc[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     q[c] = o[c] = acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r < p.Sq) {
-      q[c] = *reinterpret_cast<const float4*>(qg + r * p.sqs + (c * 4 + part) * 4);
-      o[c] = *reinterpret_cast<const float4*>(og + r * p.sdos + (c * 4 + part) * 4);
+      q[c] = *reinterpret_cast<const float4*>(qg + r * p.sqs + (c * TPR + part) * 4);
+      o[c] = *reinterpret_cast<const float4*>(og + r * p.sdos + (c * TPR + part) * 4);
     }
   }
   const long long stat = (b * p.H + h) * p.Sq;
@@ -1020,51 +1092,52 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_dq_f32_kernel(const Par
 
   int k_lo, k_hi;
   key_range(p, r0, r1, k_lo, k_hi);
-  for (int n0 = (k_lo / kF32Step) * kF32Step; n0 < k_hi; n0 += kF32Step) {
+  for (int n0 = (k_lo / STEP) * STEP; n0 < k_hi; n0 += STEP) {
     __syncthreads();
-    load_tile_f32<D>(sK, kg, p.sks, n0, p.Skv);
-    load_tile_f32<D>(sV, vg, p.svs, n0, p.Skv);
+    load_tile_f32<D, STEP>(sK, kg, p.sks, n0, p.Skv);
+    load_tile_f32<D, STEP>(sV, vg, p.svs, n0, p.Skv);
     __syncthreads();
-    for (int j = 0; j < kF32Step; ++j) {
+    for (int j = 0; j < STEP; ++j) {
       const float4* kr = reinterpret_cast<const float4*>(sK[j]);
       const float4* vr = reinterpret_cast<const float4*>(sV[j]);
       float s = 0.f, dp = 0.f;
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        s += dot4(q[c], kr[c * 4 + part]);
-        dp += dot4(o[c], vr[c * 4 + part]);
+        s += dot4(q[c], kr[c * TPR + part]);
+        dp += dot4(o[c], vr[c * TPR + part]);
       }
-      s = quad_sum(s);
-      dp = quad_sum(dp);
+      s = row_sum<TPR>(s);
+      dp = row_sum<TPR>(dp);
       bool vis;
       const float pr = prob<false>(p, s * p.scale, lse, r, n0 + j, vis);
       if (!vis) continue;
       const float ds = pr * (dp - delta);
 #pragma unroll
-      for (int c = 0; c < C; ++c) fma4(acc[c], ds, kr[c * 4 + part]);
+      for (int c = 0; c < C; ++c) fma4(acc[c], ds, kr[c * TPR + part]);
     }
   }
 
   if (r >= p.Sq) return;
 #pragma unroll
   for (int c = 0; c < C; ++c)
-    *reinterpret_cast<float4*>(dqg + r * p.sdqs + (c * 4 + part) * 4) =
+    *reinterpret_cast<float4*>(dqg + r * p.sdqs + (c * TPR + part) * 4) =
         make_float4(acc[c].x * p.scale, acc[c].y * p.scale, acc[c].z * p.scale,
                     acc[c].w * p.scale);
 }
 
 template <int D>
 __global__ void __launch_bounds__(kF32Threads) flash_bwd_dkv_f32_kernel(const Params p) {
-  constexpr int C = D / 16;
-  __shared__ __align__(16) float sQ[kF32Step][D];
-  __shared__ __align__(16) float sO[kF32Step][D];
-  __shared__ float sL[kF32Step], sD[kF32Step];
+  using T = F32Tiles<D>;
+  constexpr int C = T::kChunks, TPR = T::kTPR, ROWS = T::kRows, STEP = T::kStep;
+  __shared__ __align__(16) float sQ[STEP][D];
+  __shared__ __align__(16) float sO[STEP][D];
+  __shared__ float sL[STEP], sD[STEP];
 
-  const int n0 = blockIdx.x * kF32Rows;
-  const int n1 = min(p.Skv, n0 + kF32Rows);
+  const int n0 = blockIdx.x * ROWS;
+  const int n1 = min(p.Skv, n0 + ROWS);
   const long long b = blockIdx.z, hk = blockIdx.y;
-  const int part = threadIdx.x % 4;
-  const int key = n0 + threadIdx.x / 4;
+  const int part = threadIdx.x % TPR;
+  const int key = n0 + threadIdx.x / TPR;
 
   const float* kg = static_cast<const float*>(p.k) + b * p.skb + hk * p.skh;
   const float* vg = static_cast<const float*>(p.v) + b * p.svb + hk * p.svh;
@@ -1076,8 +1149,8 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_dkv_f32_kernel(const Pa
   for (int c = 0; c < C; ++c) {
     k[c] = v[c] = dk[c] = dv[c] = make_float4(0.f, 0.f, 0.f, 0.f);
     if (key < p.Skv) {
-      k[c] = *reinterpret_cast<const float4*>(kg + key * p.sks + (c * 4 + part) * 4);
-      v[c] = *reinterpret_cast<const float4*>(vg + key * p.svs + (c * 4 + part) * 4);
+      k[c] = *reinterpret_cast<const float4*>(kg + key * p.sks + (c * TPR + part) * 4);
+      v[c] = *reinterpret_cast<const float4*>(vg + key * p.svs + (c * TPR + part) * 4);
     }
   }
 
@@ -1088,33 +1161,33 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_dkv_f32_kernel(const Pa
     const float* qg = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
     const float* og = static_cast<const float*>(p.dout) + b * p.sdob + h * p.sdoh;
     const long long stat = (b * p.H + h) * p.Sq;
-    for (int r0 = (q_lo / kF32Step) * kF32Step; r0 < q_hi; r0 += kF32Step) {
+    for (int r0 = (q_lo / STEP) * STEP; r0 < q_hi; r0 += STEP) {
       __syncthreads();
-      load_tile_f32<D>(sQ, qg, p.sqs, r0, p.Sq);
-      load_tile_f32<D>(sO, og, p.sdos, r0, p.Sq);
-      for (int i = threadIdx.x; i < kF32Step; i += kF32Threads) {
+      load_tile_f32<D, STEP>(sQ, qg, p.sqs, r0, p.Sq);
+      load_tile_f32<D, STEP>(sO, og, p.sdos, r0, p.Sq);
+      for (int i = threadIdx.x; i < STEP; i += kF32Threads) {
         sL[i] = r0 + i < p.Sq ? p.lse[stat + r0 + i] : 0.f;
         sD[i] = r0 + i < p.Sq ? p.delta[stat + r0 + i] : 0.f;
       }
       __syncthreads();
-      for (int i = 0; i < kF32Step; ++i) {
+      for (int i = 0; i < STEP; ++i) {
         const float4* qr = reinterpret_cast<const float4*>(sQ[i]);
         const float4* orow = reinterpret_cast<const float4*>(sO[i]);
         float s = 0.f, dp = 0.f;
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-          s += dot4(k[c], qr[c * 4 + part]);
-          dp += dot4(v[c], orow[c * 4 + part]);
+          s += dot4(k[c], qr[c * TPR + part]);
+          dp += dot4(v[c], orow[c * TPR + part]);
         }
-        s = quad_sum(s);
-        dp = quad_sum(dp);
+        s = row_sum<TPR>(s);
+        dp = row_sum<TPR>(dp);
         bool vis;
         const float pr = prob<false>(p, s * p.scale, sL[i], r0 + i, key, vis);
         const float ds = vis ? pr * (dp - sD[i]) : 0.f;
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-          fma4(dv[c], pr, orow[c * 4 + part]);
-          fma4(dk[c], ds, qr[c * 4 + part]);
+          fma4(dv[c], pr, orow[c * TPR + part]);
+          fma4(dk[c], ds, qr[c * TPR + part]);
         }
       }
     }
@@ -1123,9 +1196,9 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_dkv_f32_kernel(const Pa
   if (key >= p.Skv) return;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    *reinterpret_cast<float4*>(dkg + key * p.sdks + (c * 4 + part) * 4) =
+    *reinterpret_cast<float4*>(dkg + key * p.sdks + (c * TPR + part) * 4) =
         make_float4(dk[c].x * p.scale, dk[c].y * p.scale, dk[c].z * p.scale, dk[c].w * p.scale);
-    *reinterpret_cast<float4*>(dvg + key * p.sdvs + (c * 4 + part) * 4) = dv[c];
+    *reinterpret_cast<float4*>(dvg + key * p.sdvs + (c * TPR + part) * 4) = dv[c];
   }
 }
 
@@ -1135,11 +1208,12 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_dkv_f32_kernel(const Pa
 
 template <int D>
 cudaError_t launch_f32(const Params& p, bool dq, cudaStream_t stream) {
+  constexpr int ROWS = F32Tiles<D>::kRows;
   if (dq) {
-    const dim3 grid((p.Sq + kF32Rows - 1) / kF32Rows, p.H, p.B);
+    const dim3 grid((p.Sq + ROWS - 1) / ROWS, p.H, p.B);
     flash_bwd_dq_f32_kernel<D><<<grid, kF32Threads, 0, stream>>>(p);
   } else {
-    const dim3 grid((p.Skv + kF32Rows - 1) / kF32Rows, p.Hk, p.B);
+    const dim3 grid((p.Skv + ROWS - 1) / ROWS, p.Hk, p.B);
     flash_bwd_dkv_f32_kernel<D><<<grid, kF32Threads, 0, stream>>>(p);
   }
   return cudaGetLastError();
@@ -1147,21 +1221,21 @@ cudaError_t launch_f32(const Params& p, bool dq, cudaStream_t stream) {
 
 template <int D>
 cudaError_t launch_mma(const Params& p, bool dq, cudaStream_t stream) {
+  using T = MmaTiles<D>;
   if (dq) {
-    const int smem = (2 * kRows + 4 * kBN) * (D + 8) * (int)sizeof(__nv_bfloat16);
     cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           T::kDqSmem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((p.Sq + kRows - 1) / kRows, p.H, p.B);
-    flash_bwd_dq_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+    const dim3 grid((p.Sq + T::kDqRows - 1) / T::kDqRows, p.H, p.B);
+    flash_bwd_dq_bf16_kernel<D><<<grid, T::kDqThreads, T::kDqSmem, stream>>>(p);
   } else {
-    const int smem = (2 * kRows + 4 * kBQ) * (D + 8) * (int)sizeof(__nv_bfloat16) +
-                     4 * kBQ * (int)sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_bf16_kernel<D>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           T::kDkvSmem);
     if (err != cudaSuccess) return err;
     const dim3 grid((p.Skv + kRows - 1) / kRows, p.Hk, p.B);
-    flash_bwd_dkv_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+    flash_bwd_dkv_bf16_kernel<D><<<grid, T::kDkvThreads, T::kDkvSmem, stream>>>(p);
   }
   return cudaGetLastError();
 }
@@ -1215,7 +1289,8 @@ int launch_wgmma(const Params& p, bool dq, const long long* maps, cudaStream_t s
 }
 
 // dtype 1 at Dh 64 / 128 takes the TMA / wgmma kernels, Dh 16 / 32 the
-// mma.sync ones (no model of the repo has Dh < 64); dtype 0 the f32 ones
+// mma.sync ones (no model of the repo has Dh < 64) and Dh 320 (gemma3-4b)
+// their wide form; dtype 0 the f32 ones
 int launch(const Params& p, bool dq, int dtype, int D, const long long* maps,
            cudaStream_t stream) {
   if (dtype == 1) {
@@ -1224,6 +1299,7 @@ int launch(const Params& p, bool dq, int dtype, int D, const long long* maps,
       case 32: return launch_mma<32>(p, dq, stream);
       case 64: return launch_wgmma<64>(p, dq, maps, stream);
       case 128: return launch_wgmma<128>(p, dq, maps, stream);
+      case 320: return launch_mma<320>(p, dq, stream);
     }
   } else if (dtype == 0) {
     switch (D) {
@@ -1231,6 +1307,7 @@ int launch(const Params& p, bool dq, int dtype, int D, const long long* maps,
       case 32: return launch_f32<32>(p, dq, stream);
       case 64: return launch_f32<64>(p, dq, stream);
       case 128: return launch_f32<128>(p, dq, stream);
+      case 320: return launch_f32<320>(p, dq, stream);
     }
   }
   return cudaErrorInvalidValue;

@@ -17,8 +17,8 @@ counter per kernel (``LAUNCHES``, ``LSE_LAUNCHES``, ``DQ_LAUNCHES``,
 ``DKV_LAUNCHES``); on CPU tensors it computes the plain version from
 ``ref.py``.  Unlike the TPU kernels they take any Sq and Skv: the kernels
 mask the ragged edge themselves.  The forward takes Dh in ``HEAD_DIMS``, the
-backward in ``BWD_HEAD_DIMS``: a gradient at Dh 320 (gemma3-4b) raises
-``ValueError`` on the card.
+backward in ``BWD_HEAD_DIMS`` (both include gemma3-4b's 320); any other Dh
+raises ``ValueError`` on the card before a launch.
 
 At bf16 and Dh in ``TMA_HEAD_DIMS`` the kernels read their inputs through
 TMA tensor maps (the forward writes o through one too);
@@ -39,7 +39,7 @@ from .ref import attention_bwd_ref, attention_fwd_lse_ref, attention_ref
 SOURCE = "flash_attention/csrc/flash_fwd.cu"
 BWD_SOURCE = "flash_attention/csrc/flash_bwd.cu"
 HEAD_DIMS = (16, 32, 64, 128, 320)
-BWD_HEAD_DIMS = (16, 32, 64, 128)
+BWD_HEAD_DIMS = (16, 32, 64, 128, 320)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # head dims whose bf16 forward is the TMA / wgmma kernel, and its tiles: the
 # map boxes are 64 columns (128 bytes, the swizzle's width) by these rows

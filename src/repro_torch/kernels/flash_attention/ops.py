@@ -7,8 +7,8 @@ runs the forward kernel.  When an input requires grad it runs ``_Flash``,
 the counterpart of the reference's ``custom_vjp``: the forward that also
 writes lse, and a backward through the dq and dk/dv kernels.  On CPU tensors
 the same paths run the plain versions.  On the card a head_dim outside the
-backward kernels' range (320) raises ``ValueError`` before the forward runs
-when a gradient is asked for.
+backward kernels' range (``BWD_HEAD_DIMS``) raises ``ValueError`` before the
+forward runs when a gradient is asked for.
 """
 
 from __future__ import annotations

@@ -4,12 +4,13 @@
 ``step_fn(params, opt_state, batch) -> (params, opt_state, metrics)``:
 value-and-grad of ``ModelZoo.loss`` through autograd, then
 ``optimizer.apply``.  With ``microbatches > 1`` the batch is cut into that
-many equal slices along its first dim; their gradients are summed in f32
-and divided by the count, the loss is the mean of theirs, and ``nll`` /
-``aux`` are the last slice's, as in the reference's scan.  With one
-microbatch the gradients stay in the param dtype, as ``jax.value_and_grad``
-returns them.  Metric keys: ``loss``, ``nll``, ``aux``, ``grad_norm``
-(0-d tensors on the device) and ``lr`` (a float).
+many equal slices along the batch dim (dim 1 of ``positions3``, dim 0 of the
+rest); their gradients are summed in f32 and divided by the count, the loss
+is the mean of theirs, and ``nll`` / ``aux`` are the last slice's, as in
+the reference's scan.  With one microbatch the gradients stay in the param
+dtype, as ``jax.value_and_grad`` returns them.  Metric keys: ``loss``,
+``nll``, ``aux``, ``grad_norm`` (0-d tensors on the device) and ``lr`` (a
+float).
 
 With ``mesh=None`` the step runs in one process.  With a ``DeviceMesh``
 (``launch.mesh.make_mesh``) it runs one of the reference's two modes;
@@ -86,14 +87,22 @@ def to_device(batch: Mapping[str, Any], dev: torch.device) -> Dict[str, torch.Te
             for k, v in batch.items()}
 
 
+def _batch_dim(key: str) -> int:
+    """The batch dim of a batch entry: 1 for ``positions3`` (3, B, S), else 0."""
+    return 1 if key == "positions3" else 0
+
+
 def _split(batch: Dict[str, torch.Tensor], n: int) -> list:
-    """``n`` equal slices of a batch along its first dim."""
+    """``n`` equal slices of a batch along each entry's batch dim, as the
+    reference's ``split_micro``."""
     if n == 1:
         return [batch]
-    rows = next(iter(batch.values())).shape[0]
-    if rows % n:
-        raise ValueError(f"batch of {rows} does not split into {n} microbatches")
-    return [dict(zip(batch, vals)) for vals in zip(*(v.chunk(n, 0) for v in batch.values()))]
+    for key, v in batch.items():
+        rows = v.shape[_batch_dim(key)]
+        if rows % n:
+            raise ValueError(f"batch of {rows} ({key}) does not split into {n} microbatches")
+    return [dict(zip(batch, vals))
+            for vals in zip(*(v.chunk(n, _batch_dim(k)) for k, v in batch.items()))]
 
 
 class _GspmdFsdp:
@@ -168,7 +177,7 @@ class _ManualHier:
         into ``n`` microbatches."""
         out = {}
         for key, v in batch.items():
-            bdim = 1 if key == "positions3" else 0
+            bdim = _batch_dim(key)
             if v.shape[bdim] % self.dp_size == 0:
                 rows = v.shape[bdim] // self.dp_size
                 v = v.narrow(bdim, self.dp_rank * rows, rows)

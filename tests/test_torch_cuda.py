@@ -68,7 +68,8 @@ CASES = [
     (2, 20, 20, 224, 1500, 64, False, None, 0, torch.bfloat16),
     (1, 12, 2, 1024, 1024, 128, True, None, 0, torch.bfloat16),      # qwen2-vl-2b, group 6
 ]
-# head_dim 320 (gemma3-4b): the forward only; a gradient raises
+# head_dim 320 (gemma3-4b): the forward's wide kernel and the backward's
+# wide mma.sync kernels (f32: the SIMT kernels at 8 threads a row)
 D320_CASES = [
     (1, 8, 4, 2048, 2048, 320, True, 1024, 0, torch.bfloat16),       # gemma3 local layer
     (1, 8, 4, 2048, 2048, 320, True, None, 0, torch.bfloat16),       # gemma3 global layer
@@ -142,21 +143,53 @@ def test_flash_fwd_and_fwd_lse_at_head_dim_320(card, case, layout):
     assert (lse - lse_ref).abs().max().item() <= 1e-3
 
 
-def test_gradient_at_head_dim_320_raises_and_never_falls_back(card):
-    case = D320_CASES[2]
-    q, k, v = _inputs(case)
-    do = _inputs(case, seed=1)[0]
-    o, lse = fa.flash_attention_fwd_lse(q, k, v)
+@pytest.mark.parametrize("case", D320_CASES)
+@pytest.mark.parametrize("layout", ["kernel", "model"])
+def test_flash_bwd_at_head_dim_320(card, case, layout):
+    """The Dh-320 backward kernels against the plain backward; each call
+    launches both kernels (no fall-back to the plain version) and two calls
+    give the same bits (no atomics)."""
+    *_, causal, window, q_offset, dtype = case
+    q, k, v = _inputs(case, layout=layout)
+    do = _inputs(case, seed=1, layout=layout)[0]
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
     before = fa.launch_counts()
-    with pytest.raises(ValueError, match=r"\(16, 32, 64, 128\)"):
-        fa.flash_attention_bwd(q, k, v, o, lse, do)
-    qm, km, vm = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    first = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    second = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    after = fa.launch_counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        "flash_fwd": 0, "flash_fwd_lse": 0, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for got, want in zip(first, attention_bwd_ref(q, k, v, o, lse, do, **kw)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.isfinite(got).all()
+        scale = max(want.float().abs().max().item(), 1.0)
+        assert (got.float() - want.float()).abs().max().item() <= GRAD_REL[dtype] * scale
+
+
+def test_grad_at_head_dim_320_goes_through_the_kernels(card):
+    """ops.flash_attention with a gradient at Dh 320 runs the forward with
+    lse and the two backward kernels, and matches autograd of the plain
+    version; Dh 48 still raises before any launch."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = (torch.randn(1, 200, h, 320, generator=g, device="cuda", requires_grad=True)
+               for h in (4, 2, 2))
+    before = fa.launch_counts()
+    out = flash_attention(q, k, v, window=64)
+    grads = torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+    after = fa.launch_counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        "flash_fwd": 0, "flash_fwd_lse": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    ref = attention_ref(*(t.transpose(1, 2) for t in (q, k, v)), window=64).transpose(1, 2)
+    want = torch.autograd.grad(ref, (q, k, v), torch.ones_like(ref))
+    for a, b in zip(grads, want):
+        assert (a - b).abs().max().item() <= 1e-4
+    narrow = [t[..., :48].detach().requires_grad_() for t in (q, k, v)]
     with pytest.raises(ValueError, match="backward"):
-        flash_attention(qm, km, vm)
-    assert fa.launch_counts() == before
-    with torch.no_grad():  # without a gradient the forward kernel runs
-        flash_attention(qm, km, vm)
-    assert fa.launch_counts()["flash_fwd"] == before["flash_fwd"] + 1
+        flash_attention(*narrow)
+    assert fa.launch_counts() == after
 
 
 @pytest.mark.parametrize("case", MODEL_LAYOUT_CASES)
@@ -288,6 +321,18 @@ def test_gemma3_vlm_whisper_smoke_on_card_match_cpu(card, arch):
     (SystemExit) where they disagree."""
     errs, launches = _chip_smoke().family_agreement(arch)
     assert max(errs) <= 1e-3 and launches > 0
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "qwen2-vl-2b", "whisper-large-v3", "gemma3-d320"])
+def test_gemma3_vlm_whisper_train_steps_on_card_match_cpu(card, arch):
+    """chip_smoke.py's model phase: two f32 train steps (remat, the flash
+    kernels; gemma3-d320 is gemma3-smoke widened to Dh 320, so the Dh-320
+    backward kernels) against the plain path on the CPU, same weights and
+    batches; the function fails the process (SystemExit) where the
+    launches, losses, grad norms or params disagree."""
+    smoke = _chip_smoke()
+    base = smoke.gemma3_d320_smoke() if arch == "gemma3-d320" else get_smoke_config(arch)
+    smoke.family_train_agreement(base)
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCHS

@@ -28,6 +28,11 @@ CASES = [
     (2, 2, 2, 128, 128, 32, False, None, 0, "float32"),        # non-causal
     (1, 4, 4, 128, 128, 128, True, None, 0, "float32"),
     (1, 4, 2, 128, 128, 64, True, None, 0, "bfloat16"),
+    # head_dim 320 (gemma3-4b's 2560 / 8), windowed and not
+    (1, 2, 1, 256, 256, 320, True, None, 0, "float32"),
+    (1, 2, 1, 256, 256, 320, True, 64, 0, "float32"),
+    (1, 4, 2, 128, 128, 320, True, None, 0, "bfloat16"),
+    (1, 4, 2, 128, 128, 320, True, 64, 0, "bfloat16"),
 ]
 # f32: both sides f32, sums in another order (dk/dv sum up to Sq x group
 # terms); bf16: both round the outputs to bf16, one ulp at |x| in [2, 4) is

@@ -167,12 +167,14 @@ def test_flash_plain_path_at_head_dim_320_matches_jax_pallas(case):
 
 
 def test_head_dim_ranges():
-    """The forward takes 320, the backward does not (it raises on the card)."""
+    """The forward and the backward take 320; both refuse 48 (on the card,
+    before any launch)."""
     fa.check_head_dim(320)
-    with pytest.raises(ValueError, match=r"head_dim 320 .*backward"):
-        fa.check_head_dim(320, fa.BWD_HEAD_DIMS)
+    fa.check_head_dim(320, fa.BWD_HEAD_DIMS)
     with pytest.raises(ValueError, match="head_dim 48"):
         fa.check_head_dim(48)
+    with pytest.raises(ValueError, match=r"head_dim 48 .*backward"):
+        fa.check_head_dim(48, fa.BWD_HEAD_DIMS)
 
 
 @pytest.mark.parametrize("arch", ALL_CONFIGS)

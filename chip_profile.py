@@ -68,17 +68,22 @@ And an A/B of the flash-attention kernels against another checkout:
 * flash_ab DIR: ``flash_fwd`` and ``flash_fwd_lse`` at the serving prefill
   shape (B=4, H=24, Hk=8, S=1024, Dh=128, bf16, causal), and the backward
   kernels ``flash_bwd_dq`` and ``flash_bwd_dkv`` at the same (training)
-  shape, timed in the package of the checkout at DIR (say, the parent
-  commit unpacked with ``git archive``) and in this one, in turns (DIR,
-  this, this, DIR), each run in a fresh process that builds that
-  checkout's kernels: device time (a CUDA graph of 20 launches) and 20
-  back-to-back wrapper calls timed with events.
+  shape; then gemma3-4b's Dh-320 shapes in the model's layout (H=8, Hk=4,
+  S=2048, global and local layers): ``flash_fwd`` at the prefill's B=4,
+  ``flash_fwd_lse`` and the backward kernels at the training shape's B=2,
+  and the f32 Dh-320 forward at a small shape.  Timed in the package of
+  the checkout at DIR (say, the parent commit unpacked with ``git
+  archive``) and in this one, in turns (DIR, this, this, DIR), each run in
+  a fresh process that builds that checkout's kernels: device time (a CUDA
+  graph of 20 launches) and 20 back-to-back wrapper calls timed with
+  events; last, each call's two device times on each side and DIR / this.
 
 * flash_ablate: what each part of the TMA / wgmma kernels' design is worth.
   Variants of ``flash_fwd.cu`` and of ``flash_bwd.cu``, each with one part
   taken out (or, marked so, added) by a text substitution, are built beside
   the unmodified sources and timed at the serving prefill / training shape
-  (device time, CUDA graph), in two rounds.  The forward variants that drop
+  and at gemma3-4b's Dh-320 ones (device time, CUDA graph), in two rounds,
+  each build's error at a ragged Dh-320 case printed beside.  The forward variants that drop
   work (the softmax, the K/V loads) give wrong outputs: they only measure
   what that work costs.
 
@@ -1177,17 +1182,35 @@ def events_ms(fn, n=20):
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
 
-g = torch.Generator(device="cuda")
-g.manual_seed(0)
-q, do = (torch.randn(4, 24, 1024, 128, generator=g, device="cuda").bfloat16() for _ in range(2))
-k, v = (torch.randn(4, 8, 1024, 128, generator=g, device="cuda").bfloat16() for _ in range(2))
-o, lse = fa.flash_attention_fwd_lse(q, k, v, causal=True)
-delta = (o.float() * do.float()).sum(-1).contiguous()
-bkw = dict(causal=True, window=None, scale=128 ** -0.5, q_offset=0)
-calls = {"flash_fwd": lambda: fa.flash_attention_fwd(q, k, v, causal=True),
-         "flash_fwd_lse": lambda: fa.flash_attention_fwd_lse(q, k, v, causal=True),
-         "flash_bwd_dq": lambda: fa.bwd_dq(q, k, v, do, lse, delta, **bkw),
-         "flash_bwd_dkv": lambda: fa.bwd_dkv(q, k, v, do, lse, delta, **bkw)}
+def inputs(B, H, Hk, S, Dh, dtype=torch.bfloat16, layout="kernel", seed=0):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    def randn(h):
+        if layout == "model":  # transposed views of (B, S, H, Dh)
+            return torch.randn(B, S, h, Dh, generator=g, device="cuda").to(dtype).transpose(1, 2)
+        return torch.randn(B, h, S, Dh, generator=g, device="cuda").to(dtype)
+    return randn(H), randn(Hk), randn(Hk), randn(H)
+
+calls = {}
+def add(tag, B, H, Hk, S, Dh, window, names, dtype=torch.bfloat16, layout="kernel"):
+    q, k, v, do = inputs(B, H, Hk, S, Dh, dtype, layout)
+    kw = dict(causal=True, window=window)
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
+    delta = (o.float() * do.float()).sum(-1).contiguous()
+    bkw = dict(causal=True, window=window, scale=Dh ** -0.5, q_offset=0)
+    fns = {"flash_fwd": lambda: fa.flash_attention_fwd(q, k, v, **kw),
+           "flash_fwd_lse": lambda: fa.flash_attention_fwd_lse(q, k, v, **kw),
+           "flash_bwd_dq": lambda: fa.bwd_dq(q, k, v, do, lse, delta, **bkw),
+           "flash_bwd_dkv": lambda: fa.bwd_dkv(q, k, v, do, lse, delta, **bkw)}
+    for name in names:
+        calls[name + tag] = fns[name]
+
+ALL = ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
+add("", 4, 24, 8, 1024, 128, None, ALL)
+for tag, window in (("global", None), ("local", 1024)):
+    add("_d320_prefill_" + tag, 4, 8, 4, 2048, 320, window, ALL[:1], layout="model")
+    add("_d320_train_" + tag, 2, 8, 4, 2048, 320, window, ALL[1:], layout="model")
+add("_d320_f32", 1, 4, 2, 333, 320, None, ALL[:1], dtype=torch.float32)
 out = {name: {"device_ms": graph_ms(call), "back_to_back_ms": events_ms(call)}
        for name, call in calls.items()}
 print(json.dumps(out))
@@ -1197,7 +1220,7 @@ print(json.dumps(out))
 # Times the scans of the package under ``src/`` of the current directory at
 # their main paths' shapes (zamba2-7b and xlstm-125m, 4 x 1024 tokens, f32);
 # prints one line of JSON.  Uses only the wrappers' public calls.
-_SCAN_TIMING = _FLASH_TIMING[:_FLASH_TIMING.index("g = torch.Generator")].replace(
+_SCAN_TIMING = _FLASH_TIMING[:_FLASH_TIMING.index("def inputs(")].replace(
     "from repro_torch.kernels.flash_attention import flash_attention as fa",
     "from repro_torch.kernels.mlstm.mlstm import mlstm_fwd\n"
     "from repro_torch.kernels.ssd.ssd import ssd_fwd") + r"""
@@ -1217,15 +1240,27 @@ print(json.dumps(out))
 
 
 def _ab(smi: str, other: str, tag: str, what: str, script: str) -> None:
+    """Run ``script`` in the checkout at ``other`` and in this one in turns
+    (other, this, this, other), then print each call's device times and
+    other / this, the speedup of this checkout."""
+    import json
+
     here = Path(__file__).resolve().parent
     there = (here / other).resolve()
     print(f"{tag}: {what}, {there} against {here} [{smi}]", flush=True)
+    runs = {"other": [], "this": []}
     for label, path in (("other", there), ("this", here), ("this", here), ("other", there)):
         res = subprocess.run([sys.executable, "-c", script], cwd=path,
                              capture_output=True, text=True)
         if res.returncode != 0:
             sys.exit(f"{tag}: the run in {path} failed:\n{res.stderr[-3000:]}")
-        print(f"{tag} {label} ({path}): {res.stdout.strip().splitlines()[-1]}", flush=True)
+        line = res.stdout.strip().splitlines()[-1]
+        print(f"{tag} {label} ({path}): {line}", flush=True)
+        runs[label].append(json.loads(line))
+    for name in runs["this"][0]:
+        o, t = ([r[name]["device_ms"] for r in runs[k]] for k in ("other", "this"))
+        print(f"{tag} {name}: other {o[0]:.4f} / {o[1]:.4f} ms, this {t[0]:.4f} / {t[1]:.4f} ms "
+              f"device, other/this {sum(o) / sum(t):.3f}", flush=True)
 
 
 def scan_ab(smi: str, other: str) -> None:
@@ -1259,7 +1294,11 @@ def scan_ab(smi: str, other: str) -> None:
 
 def flash_ab(smi: str, other: str) -> None:
     _ab(smi, other, "flash_ab", "flash_fwd / flash_fwd_lse / flash_bwd_dq / flash_bwd_dkv at "
-        "B=4 H=24 Hk=8 S=1024 Dh=128 bf16 causal", _FLASH_TIMING)
+        "B=4 H=24 Hk=8 S=1024 Dh=128 bf16 causal; gemma3-4b at Dh 320 (H=8 Hk=4 S=2048 bf16 "
+        "causal, model layout, global and local = window 1024): flash_fwd at the prefill's "
+        "B=4 (_d320_prefill_*), flash_fwd_lse, flash_bwd_dq and flash_bwd_dkv at the training "
+        "shape's B=2 (_d320_train_*); flash_fwd f32 at B=1 H=4 Hk=2 S=333 Dh=320 (_d320_f32)",
+        _FLASH_TIMING)
 
 
 # variant name -> (what it takes out, [(pattern, replacement)] applied with
@@ -1281,12 +1320,18 @@ FLASH_ABLATIONS = {
          "if (key >= p.Skv) return -INFINITY; if (p.causal && key > qpos) return kMasked; "
          "if (p.has_window && key <= qpos - p.window) return kMasked; return s;")]),
     "no_softmax": ("(wrong output) the softmax, P = S", [
-        (r"softmax_tile\(p, s,[^;]*;", "alpha[0] = alpha[1] = 1.f;")]),
+        (r"softmax_tile<BN>\(p, s,[^;]*;", "alpha[0] = alpha[1] = 1.f;")]),
     "no_kv_loads": ("(wrong output) the K/V loads after the ring's first fill", [
         (r"mbar_arrive_expect_tx\(&(k|v)_full\[st\], L::kKV\);",
          r"mbar_arrive_expect_tx(&\1_full[st], kv < kWgStages ? L::kKV : 0);"),
         (r"for \(int s = 0; s < L::kSlabs; \+\+s\)(\s*tma_load_4d\(s[KV])",
          r"for (int s = 0; s < (kv < kWgStages ? L::kSlabs : 0); ++s)\1")]),
+    # Dh 320 only (the Dh-64/128 instantiations are unchanged by it)
+    "d320_rescale_skip": ("(added) at Dh 320, O's rescale skipped by a warp whose rows' "
+                          "maxima all stayed put", [
+        (r"(void rescale_o\(float \(&acc\)\[D / 2\], const float \(&alpha\)\[2\]\) \{)",
+         r"\1\n  if (D > 128 && !__any_sync(0xffffffffu, (alpha[0] != 1.f) | (alpha[1] != 1.f))) "
+         r"return;")]),
 }
 
 
@@ -1399,24 +1444,61 @@ def _ablate(smi: str, source: str, ablations: dict, calls: dict, what: str,
         err = f", rel err {errs[name, c]:.2e}" if (name, c) in errs else ""
         print(f"{tag} {c} {name}: {ts[0]:.4f} / {ts[1]:.4f} ms, {sum(ts) / 2 / base:.3f}x "
               f"of unmodified{err}; takes out {what_}", flush=True)
+    for (name, c), err in errs.items():
+        if c not in calls:  # a check of a case that is not timed
+            print(f"{tag} {c} {name}: rel err {err:.2e}", flush=True)
 
 
 def flash_ablate(smi: str) -> None:
+    """The ablations at the serving prefill / training shape (Dh 128) and at
+    gemma3-4b's Dh-320 prefill (B 4) and training (B 2) shapes, global and
+    local layers, with each build's error against the plain version at a
+    ragged Dh-320 case (the variants marked "wrong output" aside)."""
     from chip_smoke import _flash_inputs
     from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
+
+    def rel(got, want):
+        return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+    def bwd_inputs(B, H, Hk, S, Dh, window, layout):
+        q, k, v = _flash_inputs(B, H, Hk, S, S, Dh, "bfloat16", seed=0, layout=layout)
+        do = _flash_inputs(B, H, Hk, S, S, Dh, "bfloat16", seed=1, layout=layout)[0]
+        o, lse = fa.flash_attention_fwd_lse(q, k, v, window=window)
+        return q, k, v, do, o, lse, (o.float() * do.float()).sum(-1).contiguous()
 
     q, k, v = _flash_inputs(4, 24, 8, 1024, 1024, 128, "bfloat16", seed=0)
-    do = _flash_inputs(4, 24, 8, 1024, 1024, 128, "bfloat16", seed=1)[0]
-    shape = "B=4 H=24 Hk=8 S=1024 Dh=128 bf16 causal"
+    pre = {w: _flash_inputs(4, 8, 4, 2048, 2048, 320, "bfloat16", seed=0, layout="model")
+           for w in ("global", "local")}
+    win = {"global": None, "local": 1024}
+    qr, kr, vr = _flash_inputs(2, 4, 2, 333, 333, 320, "bfloat16", seed=2)
+    shape = "B=4 H=24 Hk=8 S=1024 Dh=128 bf16 causal; gemma3-4b Dh 320 (model layout)"
     _ablate(smi, fa.SOURCE, FLASH_ABLATIONS,
-            {"flash_fwd": lambda: fa.flash_attention_fwd(q, k, v)}, f"flash_fwd at {shape}")
-    o, lse = fa.flash_attention_fwd_lse(q, k, v)
-    delta = (o.float() * do.float()).sum(-1).contiguous()
-    bkw = dict(causal=True, window=None, scale=128 ** -0.5, q_offset=0)
-    _ablate(smi, fa.BWD_SOURCE, FLASH_BWD_ABLATIONS,
-            {"flash_bwd_dq": lambda: fa.bwd_dq(q, k, v, do, lse, delta, **bkw),
-             "flash_bwd_dkv": lambda: fa.bwd_dkv(q, k, v, do, lse, delta, **bkw)},
-            f"flash_bwd_dq and flash_bwd_dkv at {shape}")
+            {"flash_fwd": lambda: fa.flash_attention_fwd(q, k, v),
+             **{f"flash_fwd_d320_prefill_{w}": (lambda w=w: fa.flash_attention_fwd(
+                 *pre[w], window=win[w])) for w in pre}},
+            f"flash_fwd at {shape} B=4 S=2048",
+            {"d320_ragged": lambda: rel(fa.flash_attention_fwd(qr, kr, vr),
+                                        attention_ref(qr, kr, vr))})
+    calls = {}
+    for tag, B, H, Hk, S, Dh, window, layout in (
+            ("", 4, 24, 8, 1024, 128, None, "kernel"),
+            ("_d320_train_global", 2, 8, 4, 2048, 320, None, "model"),
+            ("_d320_train_local", 2, 8, 4, 2048, 320, 1024, "model")):
+        q_, k_, v_, do, _, lse, delta = bwd_inputs(B, H, Hk, S, Dh, window, layout)
+        a = (q_, k_, v_, do, lse, delta)
+        bkw = dict(causal=True, window=window, scale=Dh ** -0.5, q_offset=0)
+        if Dh == 128:
+            calls["flash_bwd_dq"] = lambda a=a, kw=bkw: fa.bwd_dq(*a, **kw)
+        calls[f"flash_bwd_dkv{tag}"] = lambda a=a, kw=bkw: fa.bwd_dkv(*a, **kw)
+    rq, rk, rv, rdo, ro, rlse, rdelta = bwd_inputs(2, 4, 2, 333, 320, None, "kernel")
+    want = attention_bwd_ref(rq, rk, rv, ro, rlse, rdo)
+    _ablate(smi, fa.BWD_SOURCE, FLASH_BWD_ABLATIONS, calls,
+            f"flash_bwd_dq and flash_bwd_dkv at {shape} B=2 S=2048",
+            {"d320_ragged_dk_dv": lambda: max(
+                rel(g, w) for g, w in zip(fa.bwd_dkv(rq, rk, rv, rdo, rlse, rdelta, causal=True,
+                                                     window=None, scale=320 ** -0.5, q_offset=0),
+                                          want[1:]))})
 
 
 def scan_ablate(smi: str) -> None:

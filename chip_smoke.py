@@ -184,15 +184,14 @@ def phase_build() -> None:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"build:   {line.strip()}")
-    # the TMA / wgmma kernels keep their products' fragments in registers,
-    # and the Dh-320 mma.sync kernels 160 accumulator registers a thread:
-    # each instantiation must build without spilling
-    for src, kernel, want in ((fa.SOURCE, "flash_fwd_wgmma_kernel", "Dh 64, 128"),
+    # the TMA / wgmma kernels keep their products' fragments in registers
+    # (at Dh 320 a 160-register accumulator a thread beside them), and dq's
+    # Dh-320 mma.sync kernel 160 accumulator registers a thread: each
+    # instantiation must build without spilling
+    for src, kernel, want in ((fa.SOURCE, "flash_fwd_wgmma_kernel", "Dh 64, 128, 320"),
                               (fa.BWD_SOURCE, "flash_bwd_dq_wgmma_kernel", "Dh 64, 128"),
-                              (fa.BWD_SOURCE, "flash_bwd_dkv_wgmma_kernel", "Dh 64, 128"),
-                              (fa.SOURCE, "flash_fwd_bf16_wide_kernelILi320E", "Dh 320"),
-                              (fa.BWD_SOURCE, "flash_bwd_dq_bf16_kernelILi320E", "Dh 320"),
-                              (fa.BWD_SOURCE, "flash_bwd_dkv_bf16_kernelILi320E", "Dh 320")):
+                              (fa.BWD_SOURCE, "flash_bwd_dkv_wgmma_kernel", "Dh 64, 128, 320"),
+                              (fa.BWD_SOURCE, "flash_bwd_dq_bf16_kernelILi320E", "Dh 320")):
         spills = _spill_stores(build.BUILD_INFO[src]["log"], kernel)
         print(f"build: {kernel} instantiations {len(spills)}, spill stores "
               f"{sorted(spills.values())} bytes", flush=True)
@@ -273,9 +272,10 @@ def _host_us(fn, iters: int = 50) -> float:
 
 
 # name, B, H, Hk, Sq, Skv, Dh, causal, window, q_offset, dtype, layout.  bf16
-# at Dh 64 and 128 runs the TMA / wgmma kernel (128-row q tiles, 128-key
-# tiles), Dh 16 and 32 the mma.sync one; "model" passes q/k/v as the
-# transposed views of (B, S, H, Dh) that ops.flash_attention passes.
+# at Dh 64, 128 and 320 runs the TMA / wgmma kernel (128-row q tiles over
+# 128-key tiles, 48-key at Dh 320), Dh 16 and 32 the mma.sync one; "model"
+# passes q/k/v as the transposed views of (B, S, H, Dh) that
+# ops.flash_attention passes.
 FLASH_CASES = [
     ("serve_prefill", 4, 24, 8, 1024, 1024, 128, True, None, 0, "bfloat16", "kernel"),
     ("serve_prefill_model", 4, 24, 8, 1024, 1024, 128, True, None, 0, "bfloat16", "model"),
@@ -299,8 +299,8 @@ FLASH_CASES = [
     ("no_visible_key_f32", 1, 4, 2, 64, 128, 64, False, 16, 100, "float32", "kernel"),
     # moonshot-v1-16b-a3b's prefill and training shape: MHA (a group of 1)
     ("moonshot_prefill", 4, 16, 16, 1024, 1024, 128, True, None, 0, "bfloat16", "model"),
-    # gemma3-4b's prefill at Dh 320 (the mma.sync kernel with Q in shared
-    # memory): its local layers' window of 1024 binds on half the rows
+    # gemma3-4b's prefill at Dh 320 (the wgmma kernel at 48-key tiles): its
+    # local layers' window of 1024 binds on half the rows
     ("gemma3_local", 4, 8, 4, 2048, 2048, 320, True, 1024, 0, "bfloat16", "model"),
     ("gemma3_global", 4, 8, 4, 2048, 2048, 320, True, None, 0, "bfloat16", "model"),
     ("d320_ragged_f32", 1, 4, 2, 333, 333, 320, True, None, 0, "float32", "kernel"),
@@ -313,7 +313,7 @@ FLASH_CASES = [
     # qwen2-vl-2b's prefill: a GQA group of 6
     ("qwen2vl_prefill", 4, 12, 2, 1024, 1024, 128, True, None, 0, "bfloat16", "model"),
     # gemma3-4b's training shape (2 x 2048 tokens, Dh 320): the forward with
-    # lse and the mma.sync backward, local and global layers
+    # lse, dq (mma.sync) and dk/dv (wgmma), local and global layers
     ("gemma3_train_local", 2, 8, 4, 2048, 2048, 320, True, 1024, 0, "bfloat16", "model"),
     ("gemma3_train_global", 2, 8, 4, 2048, 2048, 320, True, None, 0, "bfloat16", "model"),
 ]
@@ -419,7 +419,7 @@ def _flash_fwd_kernel() -> list:
 
     timed = _time_forward("flash_fwd", fa.flash_attention_fwd, attention_ref, with_lse=False)
     family = {case[0]: _time_flash_case(case) for case in FLASH_CASES if case[0] in FAMILY_TIMED}
-    # the Dh-320 kernel (flash_fwd_bf16_wide_kernel) at gemma3-4b's global layer
+    # the Dh-320 instantiation of flash_fwd_wgmma_kernel at gemma3-4b's global layer
     return [_flash_entry("flash_fwd", "flash_fwd.cu", 35, None, worst, *timed),
             _flash_entry("flash_fwd_d320", "flash_fwd.cu", 35, None, worst_d320,
                          *family["gemma3_global"])]

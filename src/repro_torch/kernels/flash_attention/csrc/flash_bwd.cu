@@ -18,19 +18,23 @@
 // S=1024, Dh=128, bf16, causal) dq does 6 Dh and dk/dv 8 Dh FLOP per visible
 // (q, k) pair, 3.9e10 and 5.2e10 FLOP, 0.0391 and 0.0522 ms at 989 TFLOP/s,
 // against ~0.1 GB of operands (30 us at 3.35 TB/s): the operations bound
-// both, and only wgmma reaches the tensor cores' rate on this card.
+// both, and only wgmma reaches the tensor cores' rate on this card.  At
+// gemma3-4b's training shape (B 2, H 8, Hk 4, S 2048, Dh 320, causal) dq
+// does 6.445e10 FLOP (0.0652 ms) and dk/dv 8.594e10 (0.0869 ms; 0.0489 and
+// 0.0652 with the local layers' window of 1024) against ~84 MB (0.025 ms):
+// the operations again.
 //
-// The design for bf16 at Dh in {64, 128} (every model of the repo has Dh =
-// 128) is the forward's: persistent kernels, one block of three warpgroups
-// per SM, walking work items heaviest first in snake order over the blocks.
-// Warpgroup 0 is the producer (setmaxnreg 24; 40 in dk/dv, whose producer
-// warp also stages lse and delta) issuing TMA loads through 4-D tensor
-// maps (Dh, S, H, B) of strided views, so the kernel-layout tensors
-// and the transposed views of (B, S, H, Dh) that the model passes both load
-// as 128-byte-swizzled 64-column slabs, zero-filled past Sq or Skv.
-// Warpgroups 1 and 2 are the consumers (setmaxnreg 240; 232 in dk/dv),
-// running every product on wgmma with f32 accumulators in registers; P and
-// dS are rounded to bf16 as operands, as the forward's P V does.
+// The design for bf16 at Dh in {64, 128} (dk/dv also 320) is the forward's:
+// persistent kernels, one block of three warpgroups per SM, walking work
+// items heaviest first in snake order over the blocks.  Warpgroup 0 is the
+// producer (setmaxnreg 24; 40 in dk/dv, whose producer warp also stages lse
+// and delta) issuing TMA loads through 4-D tensor maps (Dh, S, H, B) of
+// strided views, so the kernel-layout tensors and the transposed views of
+// (B, S, H, Dh) that the model passes both load as 128-byte-swizzled
+// 64-column slabs, zero-filled past Sq or Skv.  Warpgroups 1 and 2 are the
+// consumers (setmaxnreg 240; 232 in dk/dv), running every product on wgmma
+// with f32 accumulators in registers; P and dS are rounded to bf16 as
+// operands, as the forward's P V does.
 //   * dq: an item is (128-row q tile, head, batch), 64 rows a consumer.  Its
 //     Q and dO tiles load once; 128-key K and V tiles stream through a
 //     two-stage ring.  A step is S = Q K^T and dP = dO V^T (wgmma m64n128,
@@ -40,16 +44,31 @@
 //     registers as the A operand and K read MN-major.  V is released as soon
 //     as dP has read it, K after dS K (each has its own `empty` barrier).
 //     lse and delta of the item's rows stay in registers.
-//   * dk/dv: an item is (128-key tile, kv head, batch), 64 keys a consumer,
-//     whose K and V stay in shared memory for the whole item.  The producer
-//     streams (query head of the group, 64-row q tile) steps through a
-//     three-stage ring: Q and dO by TMA, the rows' lse (times log2 e) and
-//     delta stored by the producer warp's lanes, all behind one `full`
-//     barrier.  A step is S^T = K Q^T and dP^T = V dO^T (wgmma m64n64), P^T
-//     and dS^T on the fragments with lse / delta indexed by column, then
-//     dV += P^T dO and dK += dS^T Q (wgmma m64n128 from registers, Q and dO
-//     read MN-major).  The GQA sum over the group's query heads happens in
-//     those accumulators: no (B, H, Skv, Dh) intermediates.
+//   * dk/dv: an item is a key tile of one (kv head, batch), whose K and V
+//     stay in shared memory for the whole item.  The producer streams
+//     (query head of the group, q tile) steps through a ring (DkvTiles): Q
+//     and dO by TMA, the rows' lse (times log2 e) and delta stored by the
+//     producer warp's lanes, all behind one `full` barrier.  P^T and dS^T
+//     are formed on the fragments with lse / delta indexed by column, and
+//     dV += P^T dO and dK += dS^T Q run from registers with Q and dO read
+//     MN-major.  The GQA sum over the group's query heads happens in those
+//     accumulators: no (B, H, Skv, Dh) intermediates.
+//     - Dh 64 / 128: 128-key items, 64 keys a consumer, 64-row steps in a
+//       ring of three; each consumer runs S^T = K Q^T and dP^T = V dO^T
+//       (m64n64) and both accumulations for its keys.
+//     - Dh 320: dK and dV of 64 keys x 320 would be 320 f32 registers a
+//       thread, and 160 columns a consumer would make the products' B
+//       operand start halfway through a 64-column swizzled slab.  So the
+//       consumers share an item of 64 keys and split the work by output:
+//       consumer 0 runs S^T (m64n48 over the step's 48 rows), forms P^T,
+//       passes it in f32 to consumer 1 through shared memory and runs dV +=
+//       P^T dO; consumer 1 runs dP^T, forms dS^T from the P^T it receives
+//       and runs dK += dS^T Q.  Each holds one 160-register accumulator and
+//       executes half of the 8 Dh FLOP a visible pair, on whole slabs (n128
+//       + n128 + n64 a k step).  K, V and a ring of two stages of 48-row Q
+//       and dO take 200 KB.  The mma.sync design it replaces (two warps a
+//       16-key row, each computing S^T and dP^T whole, 12 Dh FLOP a pair)
+//       reached 6.5 % of the bound.
 // Each consumer waits for its products before it goes on (wgmma_wait<0>), so
 // the number of committed groups never varies inside a loop and the
 // compiler keeps the products asynchronous; the overlap comes from the
@@ -63,16 +82,10 @@
 // design: mma.sync m16n8k16 from ldmatrix fragments, tiles
 // double-buffered with cp.async, one 4-warp block per 64-row (dq) or 64-key
 // (dk/dv) tile; dk/dv computes S^T and dP^T directly so that the
-// accumulators feed the next products.  bf16 at Dh 320 (gemma3-4b, 2560 /
-// 8 heads) is that design widened, as the forward's Dh-320 kernel is: 8
-// warps a block, dq with Q and dO kept in shared memory and 16-key K/V
-// tiles, dk/dv with each warp owning half the columns of its 16 keys' dK
-// and dV and computing S^T and dP^T whole (MmaTiles says why).  At
-// gemma3-4b's training shape (B 2, H 8, Hk 4, S 2048, causal) dq does
-// 6.445e10 FLOP (0.0652 ms at 989 TFLOP/s) and dk/dv 8.594e10 (0.0869 ms;
-// 0.0489 and 0.0652 with the local layers' window of 1024) against ~84 MB
-// (0.025 ms): bound by the operations, which mma.sync reaches only in
-// part; its Hopper redesign is later work.  The f32 path (not on the
+// accumulators feed the next products.  dq at Dh 320 is that design
+// widened (MmaTiles says how): 8 warps a block, Q and dO kept in shared
+// memory, 16-key K/V tiles; mma.sync reaches only part of the tensor cores'
+// rate, and its Hopper redesign is later work.  The f32 path (not on the
 // training path; it lets a small f32 model be checked tightly on the card)
 // is SIMT FMA with 4 threads per row, 8 at Dh 320.
 //
@@ -136,48 +149,31 @@ __device__ __forceinline__ void query_range(const Params& p, int n0, int n1, int
 }
 
 // ---------------------------------------------------------------------------
-// bf16, Dh in {16, 32, 320}: tensor cores through mma.sync
+// bf16, Dh in {16, 32} (dq also 320): tensor cores through mma.sync
 // ---------------------------------------------------------------------------
 
-constexpr int kRows = 64;  // keys of a dk/dv block: 4 rows of warps x 16 keys
+constexpr int kRows = 64;  // keys of a dk/dv block: 4 warps x 16 keys
 
 // The tiles of the mma.sync kernels.  Dh 16 / 32: 4 warps, a dq block of 64
 // q rows stepping 64 keys, a dk/dv block of 64 keys stepping 32 q rows.
 //
-// Dh 320 (gemma3-4b, 2560 / 8 heads), the forward's wide design
-// (flash_fwd.cu, flash_fwd_bf16_wide_kernel) carried over.  A warp's 16 rows
-// x 320 columns of f32 accumulator are 160 registers a thread, so:
-//   * dq: a warp owns 16 q rows and their dQ (160 registers); Q and dO stay
-//     in shared memory and are read again for every key tile; 8 warps (128
-//     q rows) share each K/V tile.  Q and dO of 128 rows take 164 KB, which
-//     leaves room for K and V double-buffered only at 16 keys a tile (the
-//     forward, with no dO, takes 32): 205 KB in all.  S and dP of a 16-key
-//     tile are 8 registers each.
-//   * dk/dv: dK and dV of 16 keys x 320 columns would be 2 x 160 registers
-//     a thread, more than the 255 a thread can have.  Of the three ways out
-//     (columns split over two warps, dV parked in shared memory between q
-//     steps, dV and dK in two passes) this takes the first: two warps own
-//     the same 16 keys, each 160 of the columns of their dK and dV (2 x 80
-//     registers), and both compute S^T and dP^T over the whole Dh.  That
-//     doubles the S / dP products (12 Dh FLOP a visible pair where 8 Dh
-//     would do), but keeps every sum in registers, in one fixed order, with
-//     no shared-memory round trips of the accumulators and no second pass
-//     over Q and dO.  8 warps: 64 keys x 2 column halves; K and V of the 64
-//     keys stay in shared memory, Q and dO stream in 16-row steps
-//     double-buffered, 123 KB.
-// Both are simple first: mma.sync, which reaches only part of the tensor
-// cores' rate, and one block an SM; the Hopper redesign is later work.
+// dq at Dh 320 (gemma3-4b, 2560 / 8 heads): a warp's 16 rows x 320 columns
+// of dQ are 160 f32 registers a thread, so a warp owns 16 q rows and their
+// dQ; Q and dO stay in shared memory and are read again for every key tile;
+// 8 warps (128 q rows) share each K/V tile.  Q and dO of 128 rows take 164
+// KB, which leaves room for K and V double-buffered only at 16 keys a tile:
+// 205 KB in all.  S and dP of a 16-key tile are 8 registers each.  It is
+// simple first: mma.sync reaches only part of the tensor cores' rate; its
+// Hopper redesign is later work.
 template <int D>
 struct MmaTiles {
   static constexpr bool kWide = D > 128;
   static constexpr int kDqWarps = kWide ? 8 : 4;  // 16 q rows a warp
   static constexpr int kDqRows = 16 * kDqWarps;   // q rows of a dq block
   static constexpr int kBN = kWide ? 16 : 64;     // keys per k step of dq
-  static constexpr int kParts = kWide ? 2 : 1;    // column parts of dk / dv
-  static constexpr int kDkvWarps = 4 * kParts;    // 16 keys x D / kParts columns a warp
-  static constexpr int kBQ = kWide ? 16 : 32;     // q rows per q step of dk/dv
+  static constexpr int kBQ = 32;                  // q rows per q step of dk/dv
   static constexpr int kDqThreads = 32 * kDqWarps;
-  static constexpr int kDkvThreads = 32 * kDkvWarps;
+  static constexpr int kDkvThreads = 128;
   static constexpr int kLD = D + 8;  // row pitch in shared memory (bank-conflict-free)
   // Q, dO, two K tiles, two V tiles
   static constexpr int kDqSmem = (2 * kDqRows + 4 * kBN) * kLD * 2;
@@ -315,8 +311,8 @@ template <int D>
 __global__ void __launch_bounds__(MmaTiles<D>::kDkvThreads)
     flash_bwd_dkv_bf16_kernel(const Params p) {
   using T = MmaTiles<D>;
+  static_assert(!T::kWide, "dk/dv at Dh 320 is the wgmma kernel");
   constexpr int LD = T::kLD, BQ = T::kBQ, THREADS = T::kDkvThreads;
-  constexpr int DC = D / T::kParts;  // columns of dK and dV a warp owns
   constexpr int kQTile = BQ * LD;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -331,8 +327,6 @@ __global__ void __launch_bounds__(MmaTiles<D>::kDkvThreads)
   const long long b = blockIdx.z, hk = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int quad = lane / 4, tq = lane % 4;
-  const int kw = warp % 4;          // the warp's 16 keys: kw * 16 on
-  const int col0 = warp / 4 * DC;   // and its columns of dK and dV: col0 on
 
   const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.skb + hk * p.skh;
   const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.svb + hk * p.svh;
@@ -368,13 +362,13 @@ __global__ void __launch_bounds__(MmaTiles<D>::kDkvThreads)
   if (n_steps > 0) load_step(0, 0);
   cp_async_commit();
 
-  float dk[DC / 8][4], dv[DC / 8][4];
+  float dk[D / 8][4], dv[D / 8][4];
 #pragma unroll
-  for (int d = 0; d < DC / 8; ++d)
+  for (int d = 0; d < D / 8; ++d)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.f;
   // this thread's keys: quad and quad + 8 of the warp's 16
-  const int key[2] = {n0 + kw * 16 + quad, n0 + kw * 16 + quad + 8};
+  const int key[2] = {n0 + warp * 16 + quad, n0 + warp * 16 + quad + 8};
 
   for (int c = 0; c < n_steps; ++c) {
     const int buf = c & 1;
@@ -388,7 +382,7 @@ __global__ void __launch_bounds__(MmaTiles<D>::kDkvThreads)
     const float* tD = sD + buf * BQ;
     const int r0 = q_first + (c % n_chunks) * BQ;
 
-    // S^T = K Q^T and dP^T = V dO^T for 16 keys x BQ rows, over all of Dh
+    // S^T = K Q^T and dP^T = V dO^T for 16 keys x BQ rows
     float st[BQ / 8][4], dpt[BQ / 8][4];
 #pragma unroll
     for (int t = 0; t < BQ / 8; ++t)
@@ -397,8 +391,8 @@ __global__ void __launch_bounds__(MmaTiles<D>::kDkvThreads)
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       uint32_t ka[4], va[4];
-      load_a<LD>(ka, sK, kw * 16, kk * 16, lane);
-      load_a<LD>(va, sV, kw * 16, kk * 16, lane);
+      load_a<LD>(ka, sK, warp * 16, kk * 16, lane);
+      load_a<LD>(va, sV, warp * 16, kk * 16, lane);
 #pragma unroll
       for (int j = 0; j < BQ / 16; ++j) {
         uint32_t qb[4], ob[4];
@@ -424,7 +418,7 @@ __global__ void __launch_bounds__(MmaTiles<D>::kDkvThreads)
       }
     }
 
-    // dV += P^T dO and dK += dS^T Q on this warp's columns
+    // dV += P^T dO and dK += dS^T Q
 #pragma unroll
     for (int j = 0; j < BQ / 16; ++j) {
       const uint32_t pa[4] = {pack_bf16(st[2 * j][0], st[2 * j][1]),
@@ -436,12 +430,12 @@ __global__ void __launch_bounds__(MmaTiles<D>::kDkvThreads)
                               pack_bf16(dpt[2 * j + 1][0], dpt[2 * j + 1][1]),
                               pack_bf16(dpt[2 * j + 1][2], dpt[2 * j + 1][3])};
 #pragma unroll
-      for (int d = 0; d < DC / 16; ++d) {
+      for (int d = 0; d < D / 16; ++d) {
         uint32_t ob[4], qb[4];
-        load_b_kn<LD>(ob, tO, j * 16, col0 + d * 16, lane);
+        load_b_kn<LD>(ob, tO, j * 16, d * 16, lane);
         mma_bf16(dv[2 * d], pa, ob[0], ob[1]);
         mma_bf16(dv[2 * d + 1], pa, ob[2], ob[3]);
-        load_b_kn<LD>(qb, tQ, j * 16, col0 + d * 16, lane);
+        load_b_kn<LD>(qb, tQ, j * 16, d * 16, lane);
         mma_bf16(dk[2 * d], da, qb[0], qb[1]);
         mma_bf16(dk[2 * d + 1], da, qb[2], qb[3]);
       }
@@ -451,8 +445,8 @@ __global__ void __launch_bounds__(MmaTiles<D>::kDkvThreads)
   cp_async_wait<0>();
 
 #pragma unroll
-  for (int d = 0; d < DC / 8; ++d) {
-    const int col = col0 + d * 8 + tq * 2;
+  for (int d = 0; d < D / 8; ++d) {
+    const int col = d * 8 + tq * 2;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       if (key[i] < p.Skv) {
@@ -466,7 +460,7 @@ __global__ void __launch_bounds__(MmaTiles<D>::kDkvThreads)
 }
 
 // ---------------------------------------------------------------------------
-// bf16, Dh in {64, 128}: TMA, wgmma and warp specialisation
+// bf16, Dh in {64, 128} (dk/dv also 320): TMA, wgmma and warp specialisation
 // ---------------------------------------------------------------------------
 
 constexpr int kWgThreads = 384;  // producer warpgroup, then two consumers
@@ -476,9 +470,22 @@ constexpr int kDqRows = 128;  // q rows of a dq item: two consumers of 64
 constexpr int kDqKeys = 128;  // keys per dq step
 constexpr int kDqStages = 2;  // K/V ring depth
 
-constexpr int kDkvKeys = 128;  // keys of a dk/dv item: two consumers of 64
-constexpr int kDkvRows = 64;   // q rows per dk/dv step
-constexpr int kDkvStages = 3;  // Q/dO ring depth
+constexpr int kDkvStages = 3;  // Q/dO ring depth of dk/dv at Dh 64 / 128
+
+// The tiles of dk/dv.  Dh 64 / 128: an item is 128 keys, 64 a consumer, and
+// each consumer runs every product of its keys; a step is 64 q rows.  Dh
+// 320: dK and dV of 64 keys x 320 would be 320 f32 registers a thread, so
+// the two consumers share an item of 64 keys and split the work by output
+// (dkv_consumer_split); a step is 48 q rows, and K, V and a ring of two
+// (Q, dO) stages take 200 KB (a first build with 32-row steps in a ring of
+// three was slower: S^T as m64n32 reads more shared memory per product).
+template <int D>
+struct DkvTiles {
+  static constexpr bool kSplit = D > 128;                  // consumer 0 owns dV, consumer 1 dK
+  static constexpr int kKeys = kSplit ? 64 : 128;          // keys of an item
+  static constexpr int kRows = kSplit ? 48 : 64;           // q rows per step
+  static constexpr int kStages = kSplit ? 2 : kDkvStages;  // Q/dO ring depth
+};
 
 // Shared memory of the dq kernel, in bytes from a 1024-byte-aligned base:
 // the Q tile, the dO tile, the K ring, the V ring, then the mbarriers.  A
@@ -501,23 +508,28 @@ struct DqSmem {
 };
 
 // Shared memory of the dk/dv kernel: the K tile, the V tile, the ring of
-// (Q, dO) stages, each stage's 64 rows of lse * log2 e then delta (f32),
-// then the mbarriers: 162 KB at Dh 128.
+// (Q, dO) stages, each stage's rows of lse * log2 e then delta (f32), at Dh
+// 320 the two buffers that pass P^T between the consumers (f32, one
+// accumulator fragment a thread), then the mbarriers: 162 KB at Dh 128,
+// 225 KB at Dh 320.
 template <int D>
 struct DkvSmem {
+  using T = DkvTiles<D>;
   static constexpr int kSlabs = D / 64;
-  static constexpr int kKVSlab = kDkvKeys * 128;
-  static constexpr int kQSlab = kDkvRows * 128;
+  static constexpr int kKVSlab = T::kKeys * 128;
+  static constexpr int kQSlab = T::kRows * 128;
   static constexpr int kKV = kSlabs * kKVSlab;  // the K tile; the V tile alike
   static constexpr int kQ = kSlabs * kQSlab;    // a stage's Q tile; its dO tile alike
   static constexpr int kStage = 2 * kQ;
   static constexpr int kV = kKV;
   static constexpr int kRing = 2 * kKV;
-  static constexpr int kStats = kRing + kDkvStages * kStage;
-  static constexpr int kStatsStage = 2 * kDkvRows * 4;
-  static constexpr int kBars = kStats + kDkvStages * kStatsStage;
+  static constexpr int kStats = kRing + T::kStages * kStage;
+  static constexpr int kStatsStage = 2 * T::kRows * 4;
+  static constexpr int kXchg = kStats + T::kStages * kStatsStage;
+  static constexpr int kXchgBytes = T::kSplit ? 2 * 128 * (T::kRows / 2) * 4 : 0;
+  static constexpr int kBars = kXchg + kXchgBytes;
   // kv_full, kv_empty, then per stage full, empty
-  static constexpr int kNumBars = 2 + 2 * kDkvStages;
+  static constexpr int kNumBars = 2 + 2 * T::kStages;
   static constexpr int kBytes = kBars + kNumBars * 8 + 1024;
 };
 
@@ -553,71 +565,27 @@ __device__ __forceinline__ DqItem dq_item(const Params& p, int w) {
   return t;
 }
 
-// A dk/dv item: one (128-key tile, kv head, batch) and its steps, the
-// (query head of the group, 64-row q tile) pairs whose rows can see the
-// keys; key tile 0 first, which sees the most rows under a causal mask.
+// A dk/dv item: one (key tile, kv head, batch) and its steps, the (query
+// head of the group, q tile) pairs whose rows can see the keys; key tile 0
+// first, which sees the most rows under a causal mask.
 struct DkvItem {
   int n0, hk, b, q_first, n_chunks, n_steps;
 };
 
+template <int D>
 __device__ __forceinline__ DkvItem dkv_item(const Params& p, int w) {
+  using T = DkvTiles<D>;
   const int rank = w / (p.Hk * p.B), hb = w % (p.Hk * p.B);
   DkvItem t;
-  t.n0 = rank * kDkvKeys;
+  t.n0 = rank * T::kKeys;
   t.hk = hb % p.Hk;
   t.b = hb / p.Hk;
   int q_lo, q_hi;
-  query_range(p, t.n0, min(p.Skv, t.n0 + kDkvKeys), q_lo, q_hi);
-  t.q_first = (q_lo / kDkvRows) * kDkvRows;
-  t.n_chunks = q_hi > t.q_first ? (q_hi - t.q_first + kDkvRows - 1) / kDkvRows : 0;
+  query_range(p, t.n0, min(p.Skv, t.n0 + T::kKeys), q_lo, q_hi);
+  t.q_first = (q_lo / T::kRows) * T::kRows;
+  t.n_chunks = q_hi > t.q_first ? (q_hi - t.q_first + T::kRows - 1) / T::kRows : 0;
   t.n_steps = t.n_chunks * p.group;
   return t;
-}
-
-// d (64 x N over the warpgroup) = A B^T: A (64 rows) and B (N rows) are
-// K-major tiles of D columns in shared memory, their slabs AROWS and BROWS
-// rows long; D / 16 k steps of 32 bytes along a slab's rows, 4 a slab.
-template <int D, int N, int AROWS, int BROWS>
-__device__ __forceinline__ void wgmma_abt(float (&d)[N / 2], const unsigned char* a,
-                                          const unsigned char* b) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint64_t da = hopper::desc_sw128(a + (kk / 4) * AROWS * 128 + (kk % 4) * 32, 16, 1024);
-    const uint64_t db = hopper::desc_sw128(b + (kk / 4) * BROWS * 128 + (kk % 4) * 32, 16, 1024);
-    if constexpr (N == 128)
-      hopper::wgmma_ss_m64n128k16(d, da, db, kk > 0);
-    else
-      hopper::wgmma_ss_m64n64k16(d, da, db, kk > 0);
-  }
-}
-
-// acc (64 x D) += A B: A (64 x K) bf16 in registers, k step j holding
-// columns 16j .. 16j + 15; B (K x D) is a tile in shared memory read
-// MN-major (transposed): a k step is 16 rows, slabs BROWS rows long.
-template <int D, int K, int BROWS>
-__device__ __forceinline__ void wgmma_ab(float (&acc)[D / 2], const uint32_t (&a)[K / 16][4],
-                                         const unsigned char* b) {
-#pragma unroll
-  for (int j = 0; j < K / 16; ++j) {
-    const uint64_t db = hopper::desc_sw128(b + j * 16 * 128, BROWS * 128, 1024);
-    if constexpr (D == 128)
-      hopper::wgmma_rs_m64n128k16(acc, a[j], db);
-    else
-      hopper::wgmma_rs_m64n64k16(acc, a[j], db);
-  }
-}
-
-// An accumulator fragment (64 x N) to bf16 in the layout of wgmma's register
-// A operand: columns 16j .. 16j + 15 are k step j's A fragment.
-template <int N>
-__device__ __forceinline__ void pack_a(const float (&s)[N / 2], uint32_t (&a)[N / 16][4]) {
-#pragma unroll
-  for (int j = 0; j < N / 16; ++j) {
-    a[j][0] = pack_bf16(s[8 * j], s[8 * j + 1]);
-    a[j][1] = pack_bf16(s[8 * j + 2], s[8 * j + 3]);
-    a[j][2] = pack_bf16(s[8 * j + 4], s[8 * j + 5]);
-    a[j][3] = pack_bf16(s[8 * j + 6], s[8 * j + 7]);
-  }
 }
 
 // dS = P o (dP - delta) of one dq step, in place in s: rows qrow and qrow +
@@ -657,13 +625,14 @@ __device__ __forceinline__ void dq_ds(const Params& p, float (&s)[kDqKeys / 2],
 // (sl, sd).  Masks as in dq_ds; a row that sees no key takes p = exp(-lse)
 // = 1/Skv on every key below Skv and dS = 0.  The mask test is on this
 // consumer's 64 keys from kn0 and the step's rows [r0, r1).
-__device__ __forceinline__ void dkv_p_ds(const Params& p, float (&s)[kDkvRows / 2],
-                                         float (&dp)[kDkvRows / 2], const float* sl,
+template <int ROWS>
+__device__ __forceinline__ void dkv_p_ds(const Params& p, float (&s)[ROWS / 2],
+                                         float (&dp)[ROWS / 2], const float* sl,
                                          const float* sd, int key, int kn0, int r0, int r1,
                                          int tq, float sl2) {
   if (tile_needs_mask(p, kn0, 64, r0, r1)) {
 #pragma unroll
-    for (int i = 0; i < kDkvRows / 8; ++i) {
+    for (int i = 0; i < ROWS / 8; ++i) {
       const float2 l = *reinterpret_cast<const float2*>(sl + 8 * i + 2 * tq);
       const float2 dl = *reinterpret_cast<const float2*>(sd + 8 * i + 2 * tq);
 #pragma unroll
@@ -682,7 +651,7 @@ __device__ __forceinline__ void dkv_p_ds(const Params& p, float (&s)[kDkvRows / 
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < kDkvRows / 8; ++i) {
+    for (int i = 0; i < ROWS / 8; ++i) {
       const float2 l = *reinterpret_cast<const float2*>(sl + 8 * i + 2 * tq);
       const float2 dl = *reinterpret_cast<const float2*>(sd + 8 * i + 2 * tq);
 #pragma unroll
@@ -691,6 +660,54 @@ __device__ __forceinline__ void dkv_p_ds(const Params& p, float (&s)[kDkvRows / 
         s[4 * i + e] = pr;
         dp[4 * i + e] = pr * (dp[4 * i + e] - ((e & 1) ? dl.y : dl.x));
       }
+    }
+  }
+}
+
+// The halves of dkv_p_ds that the split consumers (Dh 320) run apart, with
+// its masks: P^T in place in s (consumer 0), and dS^T = P^T o (dP^T -
+// delta) in place in dp from consumer 0's P^T (consumer 1).
+template <int ROWS>
+__device__ __forceinline__ void dkv_p(const Params& p, float (&s)[ROWS / 2], const float* sl,
+                                      int key, int r0, int tq, float sl2, bool edge) {
+#pragma unroll
+  for (int i = 0; i < ROWS / 8; ++i) {
+    const float2 l = *reinterpret_cast<const float2*>(sl + 8 * i + 2 * tq);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float lse2 = (e & 1) ? l.y : l.x;
+      float x = fmaf(s[4 * i + e], sl2, -lse2);
+      if (edge) {
+        const int k = key + 8 * (e / 2), row = r0 + 8 * i + 2 * tq + (e & 1);
+        const int qpos = row + p.q_offset;
+        const bool in = (row < p.Sq) & (k < p.Skv);
+        const bool vis = in & (!p.causal | (k <= qpos)) & (!p.has_window | (k > qpos - p.window));
+        const bool no_key = in & (p.has_window != 0) & (qpos - p.window + 1 >= p.Skv);
+        x = vis ? x : (no_key ? -lse2 : -INFINITY);
+      }
+      s[4 * i + e] = hopper::exp2_approx(x);
+    }
+  }
+}
+
+template <int ROWS>
+__device__ __forceinline__ void dkv_ds(const Params& p, float (&dp)[ROWS / 2],
+                                       const float (&pt)[ROWS / 2], const float* sd, int key,
+                                       int r0, int tq, bool edge) {
+#pragma unroll
+  for (int i = 0; i < ROWS / 8; ++i) {
+    const float2 dl = *reinterpret_cast<const float2*>(sd + 8 * i + 2 * tq);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float ds = pt[4 * i + e] * (dp[4 * i + e] - ((e & 1) ? dl.y : dl.x));
+      if (edge) {
+        const int k = key + 8 * (e / 2), row = r0 + 8 * i + 2 * tq + (e & 1);
+        const int qpos = row + p.q_offset;
+        const bool vis = (row < p.Sq) & (k < p.Skv) & (!p.causal | (k <= qpos)) &
+                         (!p.has_window | (k > qpos - p.window));
+        ds = vis ? ds : 0.f;
+      }
+      dp[4 * i + e] = ds;
     }
   }
 }
@@ -846,6 +863,204 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
+// Dh 64 / 128's consumers: each owns 64 keys of the item, and runs S^T =
+// K Q^T and dP^T = V dO^T (m64n64), P^T and dS^T on the fragments, then dV
+// += P^T dO and dK += dS^T Q (RS, Q and dO read MN-major).
+template <int D>
+__device__ __forceinline__ void dkv_consumer_keys(const Params& p, int total, int c, int tid,
+                                                  const unsigned char* sK,
+                                                  const unsigned char* sV,
+                                                  const unsigned char* sRing,
+                                                  const float* sStats, uint64_t* kv_full,
+                                                  uint64_t* kv_empty, uint64_t* full,
+                                                  uint64_t* empty) {
+  using L = DkvSmem<D>;
+  using T = DkvTiles<D>;
+  using namespace hopper;
+  constexpr int KEYS = T::kKeys, ROWS = T::kRows;
+  const int warp = tid / 32, lane = tid % 32;
+  const int quad = lane / 4, tq = lane % 4;
+  const int krow = c * 64 + warp * 16 + quad;  // this thread's keys in the item: krow, krow + 8
+  const float sl2 = p.scale * kLog2e;
+  const unsigned char* sKc = sK + c * 64 * 128;  // this consumer's 64 keys of K
+  const unsigned char* sVc = sV + c * 64 * 128;  // and of V
+  int it = 0, kvi = 0;
+  for (int k = 0;; ++k) {
+    const int w = item_index(k, total);
+    if (w < 0) break;
+    const DkvItem t = dkv_item<D>(p, w);
+    const int kn0 = t.n0 + c * 64;
+    float dk[D / 2], dv[D / 2];  // 64 keys x D each over the warpgroup
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    if (t.n_steps > 0) mbar_wait(kv_full, kvi & 1);
+    for (int cs = 0; cs < t.n_steps; ++cs, ++it) {
+      const int st = it % T::kStages;
+      const int r0 = t.q_first + (cs % t.n_chunks) * ROWS;
+      const unsigned char* tQ = sRing + st * L::kStage;
+      const unsigned char* tdO = tQ + L::kQ;
+      const float* sl = sStats + st * 2 * ROWS;
+      float s[ROWS / 2], dp[ROWS / 2];
+      mbar_wait(&full[st], (it / T::kStages) & 1);
+      wgmma_fence();
+      wgmma_abt<D, ROWS, KEYS, ROWS>(s, sKc, tQ);
+      wgmma_abt<D, ROWS, KEYS, ROWS>(dp, sVc, tdO);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(s);
+      fence_operand(dp);
+      __syncwarp();
+      if (lane == 0 && cs == t.n_steps - 1) mbar_arrive(kv_empty);  // K and V are free
+      dkv_p_ds<ROWS>(p, s, dp, sl, sl + ROWS, t.n0 + krow, kn0, r0, min(p.Sq, r0 + ROWS), tq,
+                     sl2);
+      uint32_t pa[ROWS / 16][4], da[ROWS / 16][4];
+      pack_a<ROWS>(s, pa);
+      pack_a<ROWS>(dp, da);
+      fence_operand(dv);
+      fence_operand(dk);
+      wgmma_fence();
+      wgmma_ab<D, ROWS, ROWS>(dv, pa, tdO);
+      wgmma_ab<D, ROWS, ROWS>(dk, da, tQ);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(dv);
+      fence_operand(dk);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);  // the stage is free
+    }
+    if (t.n_steps > 0) ++kvi;
+
+    __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(p.dk) + (long long)t.b * p.sdkb +
+                         (long long)t.hk * p.sdkh;
+    __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(p.dv) + (long long)t.b * p.sdvb +
+                         (long long)t.hk * p.sdvh;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = t.n0 + krow + 8 * r;
+        if (key < p.Skv) {
+          *reinterpret_cast<__nv_bfloat162*>(dkg + (long long)key * p.sdks + 8 * i + 2 * tq) =
+              __floats2bfloat162_rn(dk[4 * i + 2 * r] * p.scale,
+                                    dk[4 * i + 2 * r + 1] * p.scale);
+          *reinterpret_cast<__nv_bfloat162*>(dvg + (long long)key * p.sdvs + 8 * i + 2 * tq) =
+              __floats2bfloat162_rn(dv[4 * i + 2 * r], dv[4 * i + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// Dh 320's consumers share the item's 64 keys and split the work by
+// output, so that each keeps one 64 x 320 accumulator (160 registers a
+// thread).  Consumer 0 computes S^T = K Q^T of the step's 48 rows and P^T,
+// hands P^T (f32) to consumer 1 through shared memory, and runs dV += P^T
+// dO; consumer 1 computes dP^T = V dO^T, takes P^T, forms dS^T and runs dK
+// += dS^T Q.  Each executes 4 Dh of the 8 Dh FLOP of a visible pair, S^T /
+// dP^T as m64n48 (both operands in shared memory), dV / dK as n128 + n128
+// + n64 products on whole 64-column slabs.  The P^T buffers alternate by
+// step: named barrier 1 + b says buffer b is written, 3 + b that it has
+// been read; each side arrives on each once a step, so no barrier runs a
+// phase ahead of its partner, and consumer 0 waits out the last two
+// "read"s before the block ends.
+template <int D>
+__device__ __forceinline__ void dkv_consumer_split(const Params& p, int total, int c, int tid,
+                                                   const unsigned char* sK,
+                                                   const unsigned char* sV,
+                                                   const unsigned char* sRing,
+                                                   const float* sStats, float4* sX,
+                                                   uint64_t* kv_full, uint64_t* kv_empty,
+                                                   uint64_t* full, uint64_t* empty) {
+  using L = DkvSmem<D>;
+  using T = DkvTiles<D>;
+  using namespace hopper;
+  constexpr int KEYS = T::kKeys, ROWS = T::kRows, X4 = ROWS / 8;  // float4s of a fragment
+  const int warp = tid / 32, lane = tid % 32;
+  const int quad = lane / 4, tq = lane % 4;
+  const int krow = warp * 16 + quad;  // this thread's keys in the item: krow, krow + 8
+  const float sl2 = p.scale * kLog2e;
+  const unsigned char* sA = c == 0 ? sK : sV;  // the A operand of S^T / dP^T
+  int it = 0, kvi = 0;
+  for (int k = 0;; ++k) {
+    const int w = item_index(k, total);
+    if (w < 0) break;
+    const DkvItem t = dkv_item<D>(p, w);
+    float acc[D / 2];  // dV (consumer 0) or dK (consumer 1), 64 keys x D
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    if (t.n_steps > 0) mbar_wait(kv_full, kvi & 1);
+    for (int cs = 0; cs < t.n_steps; ++cs, ++it) {
+      const int st = it % T::kStages, buf = it % 2;
+      const int r0 = t.q_first + (cs % t.n_chunks) * ROWS;
+      const unsigned char* tQ = sRing + st * L::kStage;
+      const unsigned char* tdO = tQ + L::kQ;
+      const float* sl = sStats + st * 2 * ROWS;  // lse * log2 e, then delta
+      float4* x = sX + buf * X4 * 128 + tid;     // P^T, float4 j at x[128 j]
+      float s[ROWS / 2];  // S^T (consumer 0) or dP^T (consumer 1)
+      mbar_wait(&full[st], (it / T::kStages) & 1);
+      wgmma_fence();
+      wgmma_abt<D, ROWS, KEYS, ROWS>(s, sA, c == 0 ? tQ : tdO);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(s);
+      __syncwarp();
+      if (lane == 0 && cs == t.n_steps - 1) mbar_arrive(kv_empty);  // done with K or V
+      const bool edge = tile_needs_mask(p, t.n0, KEYS, r0, min(p.Sq, r0 + ROWS));
+      if (c == 0) {
+        dkv_p<ROWS>(p, s, sl, t.n0 + krow, r0, tq, sl2, edge);
+        if (it >= 2) named_barrier_sync(3 + buf, 256);  // consumer 1 has read step it - 2's
+#pragma unroll
+        for (int j = 0; j < X4; ++j)
+          x[128 * j] = make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+        named_barrier_arrive(1 + buf, 256);
+      } else {
+        float pt[ROWS / 2];
+        named_barrier_sync(1 + buf, 256);
+#pragma unroll
+        for (int j = 0; j < X4; ++j) {
+          const float4 v = x[128 * j];
+          pt[4 * j] = v.x;
+          pt[4 * j + 1] = v.y;
+          pt[4 * j + 2] = v.z;
+          pt[4 * j + 3] = v.w;
+        }
+        named_barrier_arrive(3 + buf, 256);
+        dkv_ds<ROWS>(p, s, pt, sl + ROWS, t.n0 + krow, r0, tq, edge);
+      }
+      uint32_t a[ROWS / 16][4];  // P^T or dS^T as the A operand
+      pack_a<ROWS>(s, a);
+      fence_operand(acc);
+      wgmma_fence();
+      wgmma_ab<D, ROWS, ROWS>(acc, a, c == 0 ? tdO : tQ);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);  // this consumer is done with the stage
+    }
+    if (t.n_steps > 0) ++kvi;
+
+    __nv_bfloat16* out = c == 0 ? static_cast<__nv_bfloat16*>(p.dv) + (long long)t.b * p.sdvb +
+                                      (long long)t.hk * p.sdvh
+                                : static_cast<__nv_bfloat16*>(p.dk) + (long long)t.b * p.sdkb +
+                                      (long long)t.hk * p.sdkh;
+    const long long stride = c == 0 ? p.sdvs : p.sdks;
+    const float scale = c == 0 ? 1.f : p.scale;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = t.n0 + krow + 8 * r;
+        if (key < p.Skv)
+          *reinterpret_cast<__nv_bfloat162*>(out + (long long)key * stride + 8 * i + 2 * tq) =
+              __floats2bfloat162_rn(acc[4 * i + 2 * r] * scale, acc[4 * i + 2 * r + 1] * scale);
+      }
+    }
+  }
+  if (c == 0)
+    for (int j = max(0, it - 2); j < it; ++j) named_barrier_sync(3 + j % 2, 256);
+}
+
 template <int D>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -854,7 +1069,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                                const __grid_constant__ CUtensorMap map_do, const Params p,
                                int total) {
   using L = DkvSmem<D>;
+  using T = DkvTiles<D>;
   using namespace hopper;
+  constexpr int ROWS = T::kRows;
   extern __shared__ __align__(16) unsigned char wg_smem[];
   unsigned char* smem = wg_smem + ((1024 - (hopper::smem_u32(wg_smem) & 1023)) & 1023);
   unsigned char* sK = smem;
@@ -864,12 +1081,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
   uint64_t* kv_empty = kv_full + 1;
   uint64_t* full = kv_full + 2;
-  uint64_t* empty = full + kDkvStages;
+  uint64_t* empty = full + T::kStages;
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
     mbar_init(kv_empty, 8);  // lane 0 of each of the 8 consumer warps
-    for (int s = 0; s < kDkvStages; ++s) {
+    for (int s = 0; s < T::kStages; ++s) {
       mbar_init(&full[s], 32);  // the producer warp's lanes (lane 0 with the copies' bytes)
       mbar_init(&empty[s], 8);
     }
@@ -889,7 +1106,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       for (int k = 0;; ++k) {
         const int w = item_index(k, total);
         if (w < 0) break;
-        const DkvItem t = dkv_item(p, w);
+        const DkvItem t = dkv_item<D>(p, w);
         if (t.n_steps == 0) continue;
         if (lane == 0) {
           // the consumers' last K Q^T and V dO^T of the previous item have retired
@@ -903,16 +1120,16 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         }
         ++kvi;
         for (int c = 0; c < t.n_steps; ++c, ++it) {
-          const int st = it % kDkvStages;
-          if (it >= kDkvStages) mbar_wait(&empty[st], (it / kDkvStages - 1) & 1);
+          const int st = it % T::kStages;
+          if (it >= T::kStages) mbar_wait(&empty[st], (it / T::kStages - 1) & 1);
           const int h = t.hk * p.group + c / t.n_chunks;
-          const int r0 = t.q_first + (c % t.n_chunks) * kDkvRows;
+          const int r0 = t.q_first + (c % t.n_chunks) * ROWS;
           const long long stat = ((long long)t.b * p.H + h) * p.Sq;
-          float* sl = sStats + st * 2 * kDkvRows;
-          for (int i = lane; i < kDkvRows; i += 32) {
+          float* sl = sStats + st * 2 * ROWS;
+          for (int i = lane; i < ROWS; i += 32) {
             const bool ok = r0 + i < p.Sq;
             sl[i] = ok ? p.lse[stat + r0 + i] * kLog2e : 0.f;
-            sl[kDkvRows + i] = ok ? p.delta[stat + r0 + i] : 0.f;
+            sl[ROWS + i] = ok ? p.delta[stat + r0 + i] : 0.f;
           }
           if (lane == 0) {
             unsigned char* tQ = sRing + st * L::kStage;
@@ -929,80 +1146,15 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       }
     }
   } else {
-    // consumers: 64 keys of each item each
     reg_alloc<232>();
-    const int c = threadIdx.x / 128 - 1;
-    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
-    const int quad = lane / 4, tq = lane % 4;
-    const int krow = c * 64 + warp * 16 + quad;  // this thread's keys in the item: krow, krow + 8
-    const float sl2 = p.scale * kLog2e;
-    const unsigned char* sKc = sK + c * 64 * 128;  // this consumer's 64 keys of K
-    const unsigned char* sVc = sV + c * 64 * 128;  // and of V
-    int it = 0, kvi = 0;
-    for (int k = 0;; ++k) {
-      const int w = item_index(k, total);
-      if (w < 0) break;
-      const DkvItem t = dkv_item(p, w);
-      const int kn0 = t.n0 + c * 64;
-      float dk[D / 2], dv[D / 2];  // 64 keys x D each over the warpgroup
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
-      if (t.n_steps > 0) mbar_wait(kv_full, kvi & 1);
-      for (int cs = 0; cs < t.n_steps; ++cs, ++it) {
-        const int st = it % kDkvStages;
-        const int r0 = t.q_first + (cs % t.n_chunks) * kDkvRows;
-        const unsigned char* tQ = sRing + st * L::kStage;
-        const unsigned char* tdO = tQ + L::kQ;
-        const float* sl = sStats + st * 2 * kDkvRows;
-        float s[kDkvRows / 2], dp[kDkvRows / 2];
-        mbar_wait(&full[st], (it / kDkvStages) & 1);
-        wgmma_fence();
-        wgmma_abt<D, kDkvRows, kDkvKeys, kDkvRows>(s, sKc, tQ);
-        wgmma_abt<D, kDkvRows, kDkvKeys, kDkvRows>(dp, sVc, tdO);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_operand(s);
-        fence_operand(dp);
-        __syncwarp();
-        if (lane == 0 && cs == t.n_steps - 1) mbar_arrive(kv_empty);  // K and V are free
-        dkv_p_ds(p, s, dp, sl, sl + kDkvRows, t.n0 + krow, kn0, r0, min(p.Sq, r0 + kDkvRows),
-                 tq, sl2);
-        uint32_t pa[kDkvRows / 16][4], da[kDkvRows / 16][4];
-        pack_a<kDkvRows>(s, pa);
-        pack_a<kDkvRows>(dp, da);
-        fence_operand(dv);
-        fence_operand(dk);
-        wgmma_fence();
-        wgmma_ab<D, kDkvRows, kDkvRows>(dv, pa, tdO);
-        wgmma_ab<D, kDkvRows, kDkvRows>(dk, da, tQ);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_operand(dv);
-        fence_operand(dk);
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&empty[st]);  // the stage is free
-      }
-      if (t.n_steps > 0) ++kvi;
-
-      __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(p.dk) + (long long)t.b * p.sdkb +
-                           (long long)t.hk * p.sdkh;
-      __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(p.dv) + (long long)t.b * p.sdvb +
-                           (long long)t.hk * p.sdvh;
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int key = t.n0 + krow + 8 * r;
-          if (key < p.Skv) {
-            *reinterpret_cast<__nv_bfloat162*>(dkg + (long long)key * p.sdks + 8 * i + 2 * tq) =
-                __floats2bfloat162_rn(dk[4 * i + 2 * r] * p.scale,
-                                      dk[4 * i + 2 * r + 1] * p.scale);
-            *reinterpret_cast<__nv_bfloat162*>(dvg + (long long)key * p.sdvs + 8 * i + 2 * tq) =
-                __floats2bfloat162_rn(dv[4 * i + 2 * r], dv[4 * i + 2 * r + 1]);
-          }
-        }
-      }
-    }
+    const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+    if constexpr (T::kSplit)
+      dkv_consumer_split<D>(p, total, c, tid, sK, sV, sRing, sStats,
+                            reinterpret_cast<float4*>(smem + L::kXchg), kv_full, kv_empty, full,
+                            empty);
+    else
+      dkv_consumer_keys<D>(p, total, c, tid, sK, sV, sRing, sStats, kv_full, kv_empty, full,
+                           empty);
   }
 }
 
@@ -1219,10 +1371,10 @@ cudaError_t launch_f32(const Params& p, bool dq, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_mma(const Params& p, bool dq, cudaStream_t stream) {
+template <int D, bool DQ>
+cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
   using T = MmaTiles<D>;
-  if (dq) {
+  if constexpr (DQ) {
     cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            T::kDqSmem);
@@ -1242,13 +1394,15 @@ cudaError_t launch_mma(const Params& p, bool dq, cudaStream_t stream) {
 
 // maps: the geometry of the q, k, v and dout maps (hopper::kMapFields
 // each).  The boxes must be the tiles whose bytes the kernels' barriers
-// count: dq loads 128-row Q and dO tiles, dk/dv 64-row ones; both 128-key
-// K and V tiles.  Returns a cudaError_t, or minus the CUresult of a failed
+// count: dq loads 128-row Q and dO tiles and 128-key K and V tiles; dk/dv
+// loads Q and dO tiles of a step's rows and K and V tiles of an item's keys
+// (DkvTiles).  Returns a cudaError_t, or minus the CUresult of a failed
 // encode.
-template <int D>
-int launch_wgmma(const Params& p, bool dq, const long long* maps, cudaStream_t stream) {
+template <int D, bool DQ>
+int launch_wgmma(const Params& p, const long long* maps, cudaStream_t stream) {
   const void* base[4] = {p.q, p.k, p.v, p.dout};
-  const long long q_rows = dq ? kDqRows : kDkvRows, kv_rows = dq ? kDqKeys : kDkvKeys;
+  const long long q_rows = DQ ? kDqRows : DkvTiles<D>::kRows;
+  const long long kv_rows = DQ ? kDqKeys : DkvTiles<D>::kKeys;
   const long long rows[4] = {q_rows, kv_rows, kv_rows, q_rows};
   const long long seq[4] = {p.Sq, p.Skv, p.Skv, p.Sq};
   const long long heads[4] = {p.H, p.Hk, p.Hk, p.H};
@@ -1268,7 +1422,7 @@ int launch_wgmma(const Params& p, bool dq, const long long* maps, cudaStream_t s
   if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
-  if (dq) {
+  if constexpr (DQ) {
     const int smem = DqSmem<D>::kBytes;
     err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1277,11 +1431,12 @@ int launch_wgmma(const Params& p, bool dq, const long long* maps, cudaStream_t s
     flash_bwd_dq_wgmma_kernel<D><<<min(total, sms), kWgThreads, smem, stream>>>(
         m[0], m[1], m[2], m[3], p, total);
   } else {
+    constexpr int KEYS = DkvTiles<D>::kKeys;
     const int smem = DkvSmem<D>::kBytes;
     err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    const int total = (p.Skv + kDkvKeys - 1) / kDkvKeys * p.Hk * p.B;
+    const int total = (p.Skv + KEYS - 1) / KEYS * p.Hk * p.B;
     flash_bwd_dkv_wgmma_kernel<D><<<min(total, sms), kWgThreads, smem, stream>>>(
         m[0], m[1], m[2], m[3], p, total);
   }
@@ -1289,25 +1444,30 @@ int launch_wgmma(const Params& p, bool dq, const long long* maps, cudaStream_t s
 }
 
 // dtype 1 at Dh 64 / 128 takes the TMA / wgmma kernels, Dh 16 / 32 the
-// mma.sync ones (no model of the repo has Dh < 64) and Dh 320 (gemma3-4b)
-// their wide form; dtype 0 the f32 ones
-int launch(const Params& p, bool dq, int dtype, int D, const long long* maps,
-           cudaStream_t stream) {
+// mma.sync ones (no model of the repo has Dh < 64); at Dh 320 (gemma3-4b)
+// dk/dv is the wgmma kernel and dq the wide mma.sync one; dtype 0 the f32
+// ones
+template <bool DQ>
+int launch(const Params& p, int dtype, int D, const long long* maps, cudaStream_t stream) {
   if (dtype == 1) {
     switch (D) {
-      case 16: return launch_mma<16>(p, dq, stream);
-      case 32: return launch_mma<32>(p, dq, stream);
-      case 64: return launch_wgmma<64>(p, dq, maps, stream);
-      case 128: return launch_wgmma<128>(p, dq, maps, stream);
-      case 320: return launch_mma<320>(p, dq, stream);
+      case 16: return launch_mma<16, DQ>(p, stream);
+      case 32: return launch_mma<32, DQ>(p, stream);
+      case 64: return launch_wgmma<64, DQ>(p, maps, stream);
+      case 128: return launch_wgmma<128, DQ>(p, maps, stream);
+      case 320:
+        if constexpr (DQ)
+          return launch_mma<320, true>(p, stream);
+        else
+          return launch_wgmma<320, false>(p, maps, stream);
     }
   } else if (dtype == 0) {
     switch (D) {
-      case 16: return launch_f32<16>(p, dq, stream);
-      case 32: return launch_f32<32>(p, dq, stream);
-      case 64: return launch_f32<64>(p, dq, stream);
-      case 128: return launch_f32<128>(p, dq, stream);
-      case 320: return launch_f32<320>(p, dq, stream);
+      case 16: return launch_f32<16>(p, DQ, stream);
+      case 32: return launch_f32<32>(p, DQ, stream);
+      case 64: return launch_f32<64>(p, DQ, stream);
+      case 128: return launch_f32<128>(p, DQ, stream);
+      case 320: return launch_f32<320>(p, DQ, stream);
     }
   }
   return cudaErrorInvalidValue;
@@ -1350,9 +1510,10 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
 // dtype: 0 = float32, 1 = bfloat16.  `strides` holds 21 element strides,
 // (batch, head, row) of q, k, v, dout, dq, dk, dv in that order; the last
 // dimension of every tensor is contiguous.  lse and delta are contiguous
-// (B, H, Sq) f32.  window <= 0 means no window.  maps: for bf16 at Dh in
-// {64, 128}, which take the wgmma kernels, the geometry of the q, k, v and
-// dout tensor maps (4 x 11 integers, see hopper::encode_map); else null.
+// (B, H, Sq) f32.  window <= 0 means no window.  maps: for the wgmma
+// kernels (bf16 at Dh 64 and 128, and flash_bwd_dkv at Dh 320), the
+// geometry of the q, k, v and dout tensor maps (4 x 11 integers, see
+// hopper::encode_map); else null.
 // flash_bwd_dq writes dq; flash_bwd_dkv writes dk and dv, summed over each
 // kv head's query group.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -1362,7 +1523,7 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
                             const long long* maps) {
   const Params p = make_params(q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, H, Hk, Sq, Skv,
                                strides, scale, causal, window, q_offset);
-  return launch(p, true, dtype, D, maps, static_cast<cudaStream_t>(stream));
+  return launch<true>(p, dtype, D, maps, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
@@ -1372,5 +1533,5 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              int q_offset, void* stream, const long long* maps) {
   const Params p = make_params(q, k, v, dout, lse, delta, nullptr, dk, dv, B, H, Hk, Sq, Skv,
                                strides, scale, causal, window, q_offset);
-  return launch(p, false, dtype, D, maps, static_cast<cudaStream_t>(stream));
+  return launch<false>(p, dtype, D, maps, static_cast<cudaStream_t>(stream));
 }

@@ -78,6 +78,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// A wgmma accumulator fragment (64 x N) to bf16 in the layout of wgmma's
+// register A operand: columns 16j .. 16j + 15 are k step j's A fragment.
+template <int N>
+__device__ __forceinline__ void pack_a(const float (&s)[N / 2], uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < N / 16; ++j) {
+    a[j][0] = pack_bf16(s[8 * j], s[8 * j + 1]);
+    a[j][1] = pack_bf16(s[8 * j + 2], s[8 * j + 3]);
+    a[j][2] = pack_bf16(s[8 * j + 4], s[8 * j + 5]);
+    a[j][3] = pack_bf16(s[8 * j + 6], s[8 * j + 7]);
+  }
+}
+
 // The fragment loads of a (rows, LD)-pitched bf16 tile in shared memory, for
 // a warp.  mma A operand: rows [m0, m0 + 16) x cols [k0, k0 + 16).
 template <int LD>

@@ -13,48 +13,55 @@
 // S=1024, Dh=128, bf16, causal) the work is 2.58e10 FLOP over the visible
 // (q, key) pairs, 0.0261 ms at 989 TFLOP/s, against 67 MB of q/k/v/o, 0.020
 // ms at 3.35 TB/s: the operations bound it, and only wgmma reaches the
-// tensor cores' rate on this card.
+// tensor cores' rate on this card.  At gemma3-4b's prefill (B 4, H 8, Hk 4,
+// S 2048, Dh 320, causal) it is 8.59e10 FLOP, 0.087 ms, against 126 MB,
+// 0.038 ms: the operations again.
 //
-// The design for bf16 at Dh in {64, 128} (the dense, MoE and vlm models have
-// Dh 128, whisper 64): a persistent kernel, one block of three warpgroups per SM, walking
-// work items of (128-row q tile, head, batch), heaviest first, in snake
-// order over the blocks.  Warpgroup 0 is the producer: it gives back its
-// registers (setmaxnreg 24) and one thread issues every TMA load, each
-// item's Q tile and then its 128-key K and V tiles into a ring of two stages
-// that runs on across items.  K and V each have `full` mbarriers (completed
-// by the copies' bytes) and `empty` ones (released by the consumers), so K
-// is refilled as soon as Q K^T has read it.  Warpgroups 1 and 2 are the
-// consumers (setmaxnreg 240), 64 q rows each.  S = Q K^T is wgmma
-// m64n128k16 with both operands in shared memory; the online softmax runs
-// on the accumulator fragment in registers (one FFMA and one ex2 a score,
+// The design for bf16 at Dh in {64, 128, 320} (the dense, MoE and vlm models
+// have Dh 128, whisper 64, gemma3-4b 320): a persistent kernel, one block of
+// three warpgroups per SM, walking work items of (128-row q tile, head,
+// batch), heaviest first, in snake order over the blocks.  Warpgroup 0 is
+// the producer: it gives back its registers (setmaxnreg 24) and one thread
+// issues every TMA load, each item's Q tile and then its K and V tiles into
+// a ring that runs on across items.  K and V each have `full` mbarriers
+// (completed by the copies' bytes) and `empty` ones (released by the
+// consumers), so K is refilled as soon as Q K^T has read it.  Warpgroups 1
+// and 2 are the consumers (setmaxnreg 240), 64 q rows each.  S = Q K^T is
+// wgmma with both operands in shared memory; the online softmax runs on the
+// accumulator fragment in registers (one FFMA and one ex2 a score,
 // branch-free masks on edge tiles only); P is packed to bf16 in registers,
 // in the layout wgmma takes as its A operand, and O += P V reads V MN-major
 // (transposed) from shared memory.  Tile j's Q K^T is issued together with
 // tile j-1's P V, so the softmax of tile j runs while P V is on the tensor
 // cores, and the two consumers take turns to issue (named barriers), so one's
 // softmax runs beside the other's products.  Tiles are 64-column slabs,
-// 128-byte swizzled by TMA and read so by wgmma.  O goes through shared
-// memory and a TMA store that overlaps the next item.  The tensor maps are
-// 4-D (Dh, S, H, B) with the S extent Sq or Skv, so TMA zero-fills rows past
-// the end on load and clips them on store, for contiguous tensors and for
-// the transposed views of (B, S, H, Dh) that the model passes alike.  It
-// reaches about 0.062 ms at the serving shape, 42 % of the bound, where the
-// PR 11 design (mma.sync, cp.async, every thread loading and computing, no
-// overlap of softmax and products) took 0.167 ms: PERF.md has the steps.
+// 128-byte swizzled by TMA and read so by wgmma.  The tensor maps are 4-D
+// (Dh, S, H, B) with the S extent Sq or Skv, so TMA zero-fills rows past the
+// end on load (and clips them on store), for contiguous tensors and for the
+// transposed views of (B, S, H, Dh) that the model passes alike.
+//   * Dh 64 / 128 (FwdTiles): 128-key tiles; O goes through shared memory
+//     and a TMA store that overlaps the next item.  It reaches about 0.062
+//     ms at the serving shape, 42 % of the bound, where the first design
+//     (mma.sync, cp.async, every thread loading and computing, no overlap
+//     of softmax and products) took 0.167 ms: PERF.md has the steps.
+//   * Dh 320: a consumer's 64 x 320 O accumulator is 160 f32 registers a
+//     thread, which leaves room beside it for S and the previous tile's
+//     packed P of 48 keys (24 + 12 registers under 240).  So the key tiles
+//     are 48 keys (S as wgmma m64n48, P V as n128 + n128 + n64 products
+//     over V's five slabs; a first build with 32-key tiles in a ring of
+//     three was slower, its m64n32 S reading more shared memory per
+//     product), and Q (80 KB) and the ring (120 KB) leave no room for an O
+//     tile: O is stored from registers.  The mma.sync design it replaces
+//     (16 rows of O a warp, Q read again from shared memory for every
+//     32-key tile by ldmatrix) reached 15 % of the bound at gemma3's
+//     prefill.
 // Not done: a cluster sharing K/V tiles between blocks (TMA multicast).
 
 // bf16 at Dh in {16, 32} (card tests and small cases only) keeps the first
 // design: mma.sync m16n8k16, ldmatrix, K/V tiles double-buffered with
-// cp.async, one 4-warp block per 64 q rows.  bf16 at Dh 320 (gemma3-4b,
-// 2560 / 8 heads) is that design reshaped for a wide head: at 64 q rows a
-// warpgroup the O accumulator alone would be 160 registers a thread on the
-// wgmma path, so each warp keeps its 16 rows of O (160 registers) and reads
-// Q from shared memory for every 32-key tile, 8 warps a block sharing the
-// K/V tiles.  At gemma3's prefill (B 4, H 8, Hk 4, S 2048, causal) it does
-// 8.59e10 FLOP against 126 MB, 0.087 ms at 989 TFLOP/s: bound by the
-// operations, which mma.sync reaches only in part; its Hopper redesign is
-// later work.  The f32 path, which serving does not take, is SIMT FMA (4
-// threads per q row) so that it keeps f32 accuracy.
+// cp.async, one 4-warp block per 64 q rows.  The f32 path, which serving
+// does not take, is SIMT FMA (4 threads per q row) so that it keeps f32
+// accuracy.
 //
 // Semantics kept from the TPU kernel: masked scores are -1e30, never -inf,
 // so a query row that sees no key averages v over all keys, exactly as the
@@ -289,207 +296,39 @@ __global__ void __launch_bounds__(kThreads, 3) flash_fwd_bf16_kernel(const Param
 }
 
 // ---------------------------------------------------------------------------
-// bf16, Dh 320 (gemma3-4b): mma.sync with the Q tile kept in shared memory
-// ---------------------------------------------------------------------------
-
-// A warp's O accumulator of 16 rows x 320 columns is 160 f32 registers a
-// thread, so nothing else of that size can stay in registers: the Q tile
-// stays in shared memory and is read again, one 16 x 16 fragment at a time,
-// for every key tile, and the key tiles are 32 keys, so that the S fragment
-// is 16 registers.  8 warps share each K/V tile (128 q rows a block), which
-// halves the K/V traffic per row against 4 warps; K and V are double-buffered
-// with cp.async.  One block per SM: 164 KB of shared memory at Dh 320.
-constexpr int kWideBM = 128;       // q rows per block (8 warps x 16)
-constexpr int kWideBN = 32;        // keys per k step
-constexpr int kWideThreads = 256;
-
-template <int D>
-constexpr int wide_smem_bytes() {
-  return (kWideBM + 4 * kWideBN) * (D + 8) * (int)sizeof(__nv_bfloat16);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kWideThreads, 1) flash_fwd_bf16_wide_kernel(const Params p) {
-  constexpr int LD = D + 8;
-  constexpr int kTile = kWideBN * LD;  // elements of one K or V tile
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sK = sQ + kWideBM * LD;  // two K tiles, then two V tiles
-  __nv_bfloat16* sV = sK + 2 * kTile;
-
-  const int n_qtiles = (p.Sq + kWideBM - 1) / kWideBM;
-  const int r0 = (n_qtiles - 1 - (int)blockIdx.x) * kWideBM;  // longest causal rows first
-  const int r1 = min(p.Sq, r0 + kWideBM);
-  const long long b = blockIdx.z, h = blockIdx.y, hk = h / p.group;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int quad = lane / 4, tq = lane % 4;
-
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + b * p.sqb + h * p.sqh;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.skb + hk * p.skh;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.svb + hk * p.svh;
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.sob + h * p.soh;
-
-  int k_lo, k_hi;
-  key_range(p, r0, r1, k_lo, k_hi);
-  const int n_first = (k_lo / kWideBN) * kWideBN;
-
-  // first copy group: the Q tile and the first K/V tile
-  load_tile_bf16<D, kWideBM, kWideThreads>(sQ, qg, p.sqs, r0, p.Sq);
-  load_tile_bf16<D, kWideBN, kWideThreads>(sK, kg, p.sks, n_first, p.Skv);
-  load_tile_bf16<D, kWideBN, kWideThreads>(sV, vg, p.svs, n_first, p.Skv);
-  cp_async_commit();
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int d = 0; d < D / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-  float m_run[2] = {kMasked, kMasked};  // rows quad and quad + 8 of the warp
-  float l_run[2] = {0.f, 0.f};          // partial over this thread's columns
-  const int qpos0 = r0 + warp * 16 + quad + p.q_offset;
-
-  for (int n0 = n_first, it = 0; n0 < k_hi; n0 += kWideBN, ++it) {
-    const int buf = it & 1;
-    if (n0 + kWideBN < k_hi) {
-      load_tile_bf16<D, kWideBN, kWideThreads>(sK + (buf ^ 1) * kTile, kg, p.sks, n0 + kWideBN,
-                                               p.Skv);
-      load_tile_bf16<D, kWideBN, kWideThreads>(sV + (buf ^ 1) * kTile, vg, p.svs, n0 + kWideBN,
-                                               p.Skv);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // all but the prefetch have landed
-    __syncthreads();
-    const __nv_bfloat16* tK = sK + buf * kTile;
-    const __nv_bfloat16* tV = sV + buf * kTile;
-
-    // S = Q K^T for 16 rows x 32 keys: 4 n-tiles of 8 keys
-    float s[kWideBN / 8][4];
-#pragma unroll
-    for (int t = 0; t < kWideBN / 8; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4];
-      load_a<LD>(qa, sQ, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int j = 0; j < kWideBN / 16; ++j) {
-        uint32_t kb[4];
-        load_b_nk<LD>(kb, tK, j * 16, kk * 16, lane);
-        mma_bf16(s[2 * j], qa, kb[0], kb[1]);
-        mma_bf16(s[2 * j + 1], qa, kb[2], kb[3]);
-      }
-    }
-
-    const bool edge = tile_needs_mask(p, n0, kWideBN, r0, r1);
-#pragma unroll
-    for (int t = 0; t < kWideBN / 8; ++t) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[t][e] * p.scale;
-        if (edge) x = masked_score(p, x, qpos0 + (e >= 2 ? 8 : 0), n0 + t * 8 + tq * 2 + (e & 1));
-        s[t][e] = x;
-      }
-    }
-
-    // online softmax: the 4 threads of a quad share a row
-    float m_new[2] = {m_run[0], m_run[1]};
-#pragma unroll
-    for (int t = 0; t < kWideBN / 8; ++t) {
-      m_new[0] = fmaxf(m_new[0], fmaxf(s[t][0], s[t][1]));
-      m_new[1] = fmaxf(m_new[1], fmaxf(s[t][2], s[t][3]));
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      m_new[i] = fmaxf(m_new[i], __shfl_xor_sync(0xffffffffu, m_new[i], 1));
-      m_new[i] = fmaxf(m_new[i], __shfl_xor_sync(0xffffffffu, m_new[i], 2));
-    }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      alpha[i] = __expf(m_run[i] - m_new[i]);
-      m_run[i] = m_new[i];
-      l_run[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int t = 0; t < kWideBN / 8; ++t) {
-      s[t][0] = __expf(s[t][0] - m_new[0]);
-      s[t][1] = __expf(s[t][1] - m_new[0]);
-      s[t][2] = __expf(s[t][2] - m_new[1]);
-      s[t][3] = __expf(s[t][3] - m_new[1]);
-      l_run[0] += s[t][0] + s[t][1];
-      l_run[1] += s[t][2] + s[t][3];
-    }
-#pragma unroll
-    for (int d = 0; d < D / 8; ++d) {
-      acc[d][0] *= alpha[0];
-      acc[d][1] *= alpha[0];
-      acc[d][2] *= alpha[1];
-      acc[d][3] *= alpha[1];
-    }
-
-    // O += P V: the S accumulators of two n-tiles are one A fragment
-#pragma unroll
-    for (int j = 0; j < kWideBN / 16; ++j) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                              pack_bf16(s[2 * j][2], s[2 * j][3]),
-                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-#pragma unroll
-      for (int d = 0; d < D / 16; ++d) {
-        uint32_t vb[4];
-        load_b_kn<LD>(vb, tV, j * 16, d * 16, lane);
-        mma_bf16(acc[2 * d], pa, vb[0], vb[1]);
-        mma_bf16(acc[2 * d + 1], pa, vb[2], vb[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer before it is refilled
-  }
-  cp_async_wait<0>();
-
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
-    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
-    inv[i] = 1.f / fmaxf(l_run[i], 1e-30f);
-  }
-  const int ra = r0 + warp * 16 + quad, rb = ra + 8;
-  if (p.lse != nullptr && tq == 0) {
-    float* lse = p.lse + (b * p.H + h) * p.Sq;
-    if (ra < p.Sq) lse[ra] = row_lse(m_run[0], l_run[0]);
-    if (rb < p.Sq) lse[rb] = row_lse(m_run[1], l_run[1]);
-  }
-#pragma unroll
-  for (int d = 0; d < D / 8; ++d) {
-    const int col = d * 8 + tq * 2;
-    if (ra < p.Sq)
-      *reinterpret_cast<__nv_bfloat162*>(og + ra * p.sos + col) =
-          __floats2bfloat162_rn(acc[d][0] * inv[0], acc[d][1] * inv[0]);
-    if (rb < p.Sq)
-      *reinterpret_cast<__nv_bfloat162*>(og + rb * p.sos + col) =
-          __floats2bfloat162_rn(acc[d][2] * inv[1], acc[d][3] * inv[1]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16, Dh in {64, 128}: TMA, wgmma and warp specialisation
+// bf16, Dh in {64, 128, 320}: TMA, wgmma and warp specialisation
 // ---------------------------------------------------------------------------
 
 constexpr int kWgBM = 128;      // q rows per work item: two consumer warpgroups of 64
-constexpr int kWgBN = 128;      // keys per k step
 constexpr int kWgORows = 64;    // rows of one consumer's O store
 constexpr int kWgStages = 2;    // K/V ring depth
 constexpr int kWgThreads = 384; // producer warpgroup, then two consumers
 
+// The tiles of one head dim.  Dh 64 / 128: 128-key K/V tiles, O through
+// shared memory and a TMA store.  Dh 320: a consumer's O accumulator alone
+// is 160 registers a thread, so a key tile is 48 keys (S 24 registers, the
+// previous tile's packed P 12 more); Q (80 KB) and the ring (120 KB) leave
+// no room for an O tile, so O is stored from registers.
+template <int D>
+struct FwdTiles {
+  static constexpr int kBN = D > 128 ? 48 : 128;  // keys per k step
+  static constexpr bool kOTma = D <= 128;         // O through shared memory and TMA
+};
+
 // Shared memory, in bytes from a 1024-byte-aligned base: the Q tile, the O
-// tile, the K ring, the V ring, then the mbarriers.  A tile is D / 64 slabs
-// of 128 bytes a row: 193 KB at Dh 128.
+// tile (where O goes through TMA), the K ring, the V ring, then the
+// mbarriers.  A tile is D / 64 slabs of 128 bytes a row: 193 KB at Dh 128,
+// 201 KB at Dh 320.
 template <int D>
 struct WgSmem {
+  using T = FwdTiles<D>;
   static constexpr int kSlabs = D / 64;
   static constexpr int kQSlab = kWgBM * 128;
-  static constexpr int kKVSlab = kWgBN * 128;
+  static constexpr int kKVSlab = T::kBN * 128;
   static constexpr int kQ = kSlabs * kQSlab;    // the Q tile; the O tile alike
   static constexpr int kKV = kSlabs * kKVSlab;  // one K or V tile
   static constexpr int kO = kQ;
-  static constexpr int kK = kO + kQ;
+  static constexpr int kK = kO + (T::kOTma ? kQ : 0);
   static constexpr int kV = kK + kWgStages * kKV;
   static constexpr int kBars = kV + kWgStages * kKV;
   // q_full, q_empty, then per stage k_full, v_full, k_empty, v_empty
@@ -498,13 +337,14 @@ struct WgSmem {
   static constexpr int kBytes = kBars + kNumBars * 8 + 1024;
 };
 
-// A work item: one (128-row q tile, head, batch), and the key tiles it sees.
+// A work item: one (128-row q tile, head, batch), and the BN-key tiles it sees.
 struct WgItem {
   int r0, r1, h, b, hk, n_first, n_tiles;
 };
 
 // Items are numbered heaviest first across all heads: the last q tile (the
 // longest causal rows) of every (head, batch), then the one before, ...
+template <int BN>
 __device__ __forceinline__ WgItem wg_item(const Params& p, int w) {
   const int n_qtiles = (p.Sq + kWgBM - 1) / kWgBM;
   const int rank = w / (p.H * p.B), hb = w % (p.H * p.B);
@@ -516,8 +356,8 @@ __device__ __forceinline__ WgItem wg_item(const Params& p, int w) {
   t.hk = t.h / p.group;
   int k_lo, k_hi;
   key_range(p, t.r0, t.r1, k_lo, k_hi);
-  t.n_first = (k_lo / kWgBN) * kWgBN;
-  t.n_tiles = (k_hi - t.n_first + kWgBN - 1) / kWgBN;
+  t.n_first = (k_lo / BN) * BN;
+  t.n_tiles = (k_hi - t.n_first + BN - 1) / BN;
   return t;
 }
 
@@ -530,51 +370,22 @@ __device__ __forceinline__ int wg_item_index(int k, int total) {
   return w < total ? w : -1;
 }
 
-// S (64 q rows x 128 keys over the warpgroup) = Q K^T: D / 16 k steps.  Q
-// and K are K-major: a step is 32 bytes along a slab's rows, a slab 4 steps.
-template <int D>
-__device__ __forceinline__ void wgmma_qk(float (&s)[kWgBN / 2], const unsigned char* sQc,
-                                         const unsigned char* tK) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int off = (kk / 4) * kWgBM * 128 + (kk % 4) * 32;
-    const int koff = (kk / 4) * kWgBN * 128 + (kk % 4) * 32;
-    hopper::wgmma_ss_m64n128k16(s, hopper::desc_sw128(sQc + off, 16, 1024),
-                                hopper::desc_sw128(tK + koff, 16, 1024), kk > 0);
-  }
-}
-
-// O += P V: the probabilities of keys 16j .. 16j + 15 (registers) are the A
-// operand of k step j; V is MN-major: a step is 16 rows, slabs 64 columns
-// (a slab's rows) apart.
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&acc)[D / 2], const uint32_t (&pa)[kWgBN / 16][4],
-                                         const unsigned char* tV) {
-#pragma unroll
-  for (int j = 0; j < kWgBN / 16; ++j) {
-    const uint64_t dv = hopper::desc_sw128(tV + j * 16 * 128, kWgBN * 128, 1024);
-    if constexpr (D == 128)
-      hopper::wgmma_rs_m64n128k16(acc, pa[j], dv);
-    else
-      hopper::wgmma_rs_m64n64k16(acc, pa[j], dv);
-  }
-}
-
 // The online softmax of one tile on the S fragment, in place: s becomes
 // exp2(s * scale * log2 e - m), m the new running max in the log2 domain,
 // and alpha = exp2(m_old - m) rescales l here and O in rescale_o.  Edge
 // tiles mask in the log2 domain (scores of -1e30, or -inf past Skv); the
 // others fold the scale into one FFMA per score.  Rows row and row + 8 of
 // the accumulator layout; the 4 threads of a quad share a row.
-__device__ __forceinline__ void softmax_tile(const Params& p, float (&s)[kWgBN / 2],
+template <int BN>
+__device__ __forceinline__ void softmax_tile(const Params& p, float (&s)[BN / 2],
                                              float (&m_run)[2], float (&l_run)[2],
                                              float (&alpha)[2], int n0, int r0, int r1,
                                              int qpos0, int tq, float scale_log2) {
-  const bool edge = tile_needs_mask(p, n0, kWgBN, r0, r1);
+  const bool edge = tile_needs_mask(p, n0, BN, r0, r1);
   float mx[2] = {-INFINITY, -INFINITY};
   if (edge) {
 #pragma unroll
-    for (int i = 0; i < kWgBN / 8; ++i) {
+    for (int i = 0; i < BN / 8; ++i) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float x = masked_score(p, s[4 * i + e] * scale_log2, qpos0 + (e >= 2 ? 8 : 0),
@@ -585,7 +396,7 @@ __device__ __forceinline__ void softmax_tile(const Params& p, float (&s)[kWgBN /
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < kWgBN / 8; ++i) {
+    for (int i = 0; i < BN / 8; ++i) {
       mx[0] = fmaxf(mx[0], fmaxf(s[4 * i], s[4 * i + 1]));
       mx[1] = fmaxf(mx[1], fmaxf(s[4 * i + 2], s[4 * i + 3]));
     }
@@ -604,14 +415,14 @@ __device__ __forceinline__ void softmax_tile(const Params& p, float (&s)[kWgBN /
   float sum[4] = {0.f, 0.f, 0.f, 0.f};  // two partial sums a row
   if (edge) {
 #pragma unroll
-    for (int i = 0; i < kWgBN / 2; ++i) {
+    for (int i = 0; i < BN / 2; ++i) {
       s[i] = hopper::exp2_approx(s[i] - m_new[(i % 4) / 2]);
       sum[i % 4] += s[i];
     }
   } else {
     // a row's max is real here: no sentinel meets the FFMA's rounding
 #pragma unroll
-    for (int i = 0; i < kWgBN / 2; ++i) {
+    for (int i = 0; i < BN / 2; ++i) {
       s[i] = hopper::exp2_approx(fmaf(s[i], scale_log2, -m_new[(i % 4) / 2]));
       sum[i % 4] += s[i];
     }
@@ -631,19 +442,6 @@ __device__ __forceinline__ void rescale_o(float (&acc)[D / 2], const float (&alp
   }
 }
 
-// P to bf16 in the layout of wgmma's register A operand: the accumulator
-// fragment of keys 16j .. 16j + 15 is k step j's A fragment
-__device__ __forceinline__ void pack_p(const float (&s)[kWgBN / 2],
-                                       uint32_t (&pa)[kWgBN / 16][4]) {
-#pragma unroll
-  for (int j = 0; j < kWgBN / 16; ++j) {
-    pa[j][0] = pack_bf16(s[8 * j], s[8 * j + 1]);
-    pa[j][1] = pack_bf16(s[8 * j + 2], s[8 * j + 3]);
-    pa[j][2] = pack_bf16(s[8 * j + 4], s[8 * j + 5]);
-    pa[j][3] = pack_bf16(s[8 * j + 6], s[8 * j + 7]);
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -651,7 +449,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                            const __grid_constant__ CUtensorMap map_v,
                            const __grid_constant__ CUtensorMap map_o, const Params p, int total) {
   using L = WgSmem<D>;
+  using T = FwdTiles<D>;
   using namespace hopper;
+  constexpr int BN = T::kBN;
   extern __shared__ __align__(16) unsigned char wg_smem[];
   unsigned char* smem = wg_smem + ((1024 - (hopper::smem_u32(wg_smem) & 1023)) & 1023);
   unsigned char* sQ = smem;
@@ -688,7 +488,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       for (int k = 0;; ++k) {
         const int w = wg_item_index(k, total);
         if (w < 0) break;
-        const WgItem t = wg_item(p, w);
+        const WgItem t = wg_item<BN>(p, w);
         // the consumers' last Q K^T of the previous item has retired
         if (k > 0) mbar_wait(q_empty, (k - 1) & 1);
         mbar_arrive_expect_tx(q_full, L::kQ);
@@ -696,7 +496,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         for (int s = 0; s < L::kSlabs; ++s)
           tma_load_4d(sQ + s * L::kQSlab, &map_q, q_full, s * 64, t.r0, t.h, t.b);
         for (int j = 0; j < t.n_tiles; ++j, ++kv) {
-          const int st = kv % kWgStages, n0 = t.n_first + j * kWgBN;
+          const int st = kv % kWgStages, n0 = t.n_first + j * BN;
           // the stage's previous K, then V, has been released by both consumers
           const uint32_t released = (kv / kWgStages - 1) & 1;
           if (kv >= kWgStages) mbar_wait(&k_empty[st], released);
@@ -738,7 +538,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     for (int k = 0;; ++k) {
       const int w = wg_item_index(k, total);
       if (w < 0) break;
-      const WgItem t = wg_item(p, w);
+      const WgItem t = wg_item<BN>(p, w);
       const bool last_item = wg_item_index(k + 1, total) < 0;
       const int qpos0 = t.r0 + row + p.q_offset;
       float acc[D / 2];  // O, 64 x D over the warpgroup
@@ -746,17 +546,17 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
       float m_run[2] = {kMasked, kMasked};  // rows row and row + 8, log2 domain
       float l_run[2] = {0.f, 0.f};          // partial over this thread's columns
-      uint32_t pa[kWgBN / 16][4];  // P of the previous tile, bf16, as wgmma's A operand
+      uint32_t pa[BN / 16][4];  // P of the previous tile, bf16, as wgmma's A operand
       float alpha[2];
 
       mbar_wait(q_full, k & 1);
       {
         const int st = kv % kWgStages;
-        float s[kWgBN / 2];
+        float s[BN / 2];
         mbar_wait(&k_full[st], (kv / kWgStages) & 1);
         named_barrier_sync(my_turn, 256);
         wgmma_fence();
-        wgmma_qk<D>(s, sQc, sK + st * L::kKV);
+        wgmma_abt<D, BN, kWgBM, BN>(s, sQc, sK + st * L::kKV);
         wgmma_commit();
         named_barrier_arrive(other_turn, 256);
         wgmma_wait<0>();
@@ -766,21 +566,22 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           mbar_arrive(&k_empty[st]);  // this warp is done with K
           if (t.n_tiles == 1) mbar_arrive(q_empty);  // and with Q
         }
-        softmax_tile(p, s, m_run, l_run, alpha, t.n_first, t.r0, t.r1, qpos0, tq, scale_log2);
-        pack_p(s, pa);  // O is still 0: nothing to rescale
+        softmax_tile<BN>(p, s, m_run, l_run, alpha, t.n_first, t.r0, t.r1, qpos0, tq,
+                         scale_log2);
+        pack_a<BN>(s, pa);  // O is still 0: nothing to rescale
       }
       for (int j = 1; j < t.n_tiles; ++j) {
         const int g = kv + j, st = g % kWgStages, pst = (g - 1) % kWgStages;
-        float s[kWgBN / 2];
+        float s[BN / 2];
         mbar_wait(&k_full[st], (g / kWgStages) & 1);
         mbar_wait(&v_full[pst], ((g - 1) / kWgStages) & 1);
         named_barrier_sync(my_turn, 256);
         fence_operand(acc);
         wgmma_fence();
-        wgmma_qk<D>(s, sQc, sK + st * L::kKV);
+        wgmma_abt<D, BN, kWgBM, BN>(s, sQc, sK + st * L::kKV);
         wgmma_commit();
         wgmma_fence();
-        wgmma_pv<D>(acc, pa, sV + pst * L::kKV);
+        wgmma_ab<D, BN, BN>(acc, pa, sV + pst * L::kKV);
         wgmma_commit();
         named_barrier_arrive(other_turn, 256);
         wgmma_wait<1>();  // S is done; P V may still run
@@ -790,14 +591,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           mbar_arrive(&k_empty[st]);
           if (j == t.n_tiles - 1) mbar_arrive(q_empty);
         }
-        softmax_tile(p, s, m_run, l_run, alpha, t.n_first + j * kWgBN, t.r0, t.r1, qpos0, tq,
-                     scale_log2);
+        softmax_tile<BN>(p, s, m_run, l_run, alpha, t.n_first + j * BN, t.r0, t.r1, qpos0, tq,
+                         scale_log2);
         wgmma_wait<0>();
         fence_operand(acc);
         __syncwarp();
         if (lane == 0) mbar_arrive(&v_empty[pst]);
         rescale_o<D>(acc, alpha);
-        pack_p(s, pa);
+        pack_a<BN>(s, pa);
       }
       {
         const int g = kv + t.n_tiles - 1, pst = g % kWgStages;
@@ -805,7 +606,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         named_barrier_sync(my_turn, 256);
         fence_operand(acc);
         wgmma_fence();
-        wgmma_pv<D>(acc, pa, sV + pst * L::kKV);
+        wgmma_ab<D, BN, BN>(acc, pa, sV + pst * L::kKV);
         wgmma_commit();
         // consumer 1's last turn of the block is the last one
         if (c == 0 || !last_item) named_barrier_arrive(other_turn, 256);
@@ -831,32 +632,49 @@ __global__ void __launch_bounds__(kWgThreads, 1)
             lse[t.r0 + row + 8 * r] = row_lse_log2(m_run[r], l_run[r]);
         }
       }
-      // O through shared memory, 128-byte swizzled as the O map's box
-      // expects, then one TMA store a slab.  This consumer's previous store
-      // has to have read its rows first.
-      if (tid == 0) tma_store_wait_read();
-      named_barrier_sync(3 + c, 128);
+      if constexpr (T::kOTma) {
+        // O through shared memory, 128-byte swizzled as the O map's box
+        // expects, then one TMA store a slab.  This consumer's previous
+        // store has to have read its rows first.
+        if (tid == 0) tma_store_wait_read();
+        named_barrier_sync(3 + c, 128);
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
+        for (int i = 0; i < D / 8; ++i) {
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int orow = warp * 16 + quad + 8 * r;
-          const int chunk = (i % 8) ^ (orow % 8);
-          *reinterpret_cast<uint32_t*>(sOc + (i / 8) * L::kQSlab + orow * 128 + chunk * 16 +
-                                       tq * 4) =
-              pack_bf16(acc[4 * i + 2 * r] * inv[r], acc[4 * i + 2 * r + 1] * inv[r]);
+          for (int r = 0; r < 2; ++r) {
+            const int orow = warp * 16 + quad + 8 * r;
+            const int chunk = (i % 8) ^ (orow % 8);
+            *reinterpret_cast<uint32_t*>(sOc + (i / 8) * L::kQSlab + orow * 128 + chunk * 16 +
+                                         tq * 4) =
+                pack_bf16(acc[4 * i + 2 * r] * inv[r], acc[4 * i + 2 * r + 1] * inv[r]);
+          }
+        }
+        fence_proxy_async();
+        named_barrier_sync(3 + c, 128);  // this consumer's rows are all written
+        if (tid == 0) {
+#pragma unroll
+          for (int s = 0; s < L::kSlabs; ++s)
+            tma_store_4d(&map_o, sOc + s * L::kQSlab, s * 64, t.r0 + c * 64, t.h, t.b);
+          tma_store_commit();
+        }
+      } else {
+        __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + (long long)t.b * p.sob +
+                            (long long)t.h * p.soh;
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int gr = t.r0 + row + 8 * r;
+            if (gr < p.Sq)
+              *reinterpret_cast<uint32_t*>(og + (long long)gr * p.sos + 8 * i + 2 * tq) =
+                  pack_bf16(acc[4 * i + 2 * r] * inv[r], acc[4 * i + 2 * r + 1] * inv[r]);
+          }
         }
       }
-      fence_proxy_async();
-      named_barrier_sync(3 + c, 128);  // this consumer's rows are all written
-      if (tid == 0) {
-#pragma unroll
-        for (int s = 0; s < L::kSlabs; ++s)
-          tma_store_4d(&map_o, sOc + s * L::kQSlab, s * 64, t.r0 + c * 64, t.h, t.b);
-        tma_store_commit();
-      }
     }
-    if (tid == 0) tma_store_wait_read();  // before the block's shared memory goes
+    if constexpr (T::kOTma) {
+      if (tid == 0) tma_store_wait_read();  // before the block's shared memory goes
+    }
   }
 }
 
@@ -968,17 +786,6 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(const Params
 }
 
 template <int D>
-cudaError_t launch_bf16_wide(const Params& p, cudaStream_t stream) {
-  const int smem = wide_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_wide_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + kWideBM - 1) / kWideBM, p.H, p.B);
-  flash_fwd_bf16_wide_kernel<D><<<grid, kWideThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <int D>
 cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
   const int smem = 4 * kBN * (D + 8) * (int)sizeof(__nv_bfloat16);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
@@ -995,13 +802,15 @@ template <int D>
 int launch_wgmma(const Params& p, const long long* maps, cudaStream_t stream) {
   using L = WgSmem<D>;
   const void* base[4] = {p.q, p.k, p.v, p.o};
-  // the boxes must be the tiles whose bytes the kernel's barriers count
-  const long long rows[4] = {kWgBM, kWgBN, kWgBN, kWgORows};
+  // the boxes must be the tiles whose bytes the kernel's barriers count;
+  // there is no o map where O is stored from registers
+  const int n_maps = FwdTiles<D>::kOTma ? 4 : 3;
+  const long long rows[4] = {kWgBM, FwdTiles<D>::kBN, FwdTiles<D>::kBN, kWgORows};
   const long long seq[4] = {p.Sq, p.Skv, p.Skv, p.Sq};
   const long long heads[4] = {p.H, p.Hk, p.Hk, p.H};
-  CUtensorMap m[4];
+  CUtensorMap m[4] = {};
   if (maps == nullptr) return cudaErrorInvalidValue;
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < n_maps; ++i) {
     const long long* g = maps + hopper::kMapFields * i;
     if (g[0] != D || g[1] != seq[i] || g[2] != heads[i] || g[3] != p.B || g[7] != 64 ||
         g[8] != rows[i] || g[9] != 1 || g[10] != 1)
@@ -1035,8 +844,9 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the last
 // dimension of every tensor is contiguous.  window <= 0 means no window.
 // lse: null, or a contiguous (B, H, Sq) f32 buffer to fill.  maps: for bf16
-// at Dh in {64, 128}, which take the wgmma kernel, the geometry of the q, k,
-// v and o tensor maps (4 x 11 integers, see hopper::encode_map); else null.
+// at Dh in {64, 128, 320}, which take the wgmma kernel, the geometry of the
+// q, k, v and (Dh 64 / 128) o tensor maps (11 integers each, see
+// hopper::encode_map); else null.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                          int dtype, int B,
                          int H, int Hk, int Sq, int Skv, int D, long long sqb, long long sqh,
@@ -1076,13 +886,12 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     switch (D) {
-      // no model of the repo has Dh < 64: those stay on mma.sync; Dh 320
-      // (gemma3-4b) takes the mma.sync kernel with Q in shared memory
+      // no model of the repo has Dh < 64: those stay on mma.sync
       case 16: return launch_bf16<16>(p, st);
       case 32: return launch_bf16<32>(p, st);
       case 64: return launch_wgmma<64>(p, maps, st);
       case 128: return launch_wgmma<128>(p, maps, st);
-      case 320: return launch_bf16_wide<320>(p, st);
+      case 320: return launch_wgmma<320>(p, maps, st);
     }
   } else if (dtype == 0) {
     switch (D) {

@@ -155,14 +155,23 @@ __device__ __forceinline__ float exp2_approx(float x) {
 // ---------------------------------------------------------------------------
 
 // The shared-memory matrix descriptor of a 128-byte-swizzled bf16 tile at
-// `ptr`.  K-major (A = Q, B = K): rows of 64 k values, sbo = 1024 bytes
+// shared-memory address `addr`.  K-major (A = Q, B = K): rows of 64 k values, sbo = 1024 bytes
 // between 8-row groups, lbo unused (16).  MN-major (B = V, transpose bit
 // set): rows of 64 n values along k; lbo = bytes between 64-column slabs,
 // sbo = 1024 bytes between 8-row (8 k) groups.
-__device__ __forceinline__ uint64_t desc_sw128(const void* ptr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((smem_u32(ptr) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// The shared-memory address of an operand tile, hidden from the compiler,
+// so that the descriptors built from it are rebuilt at each product and not
+// kept live across a loop when the tile does not change (Q in the forward:
+// 20 descriptors, 40 registers, at Dh 320).
+__device__ __forceinline__ uint32_t opaque_smem_u32(const void* ptr) {
+  uint32_t addr = smem_u32(ptr);
+  asm volatile("" : "+r"(addr));
+  return addr;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -224,6 +233,22 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d (64 x 48 f32) (+)= A * B^T, A (64 x 16) and B (48 x 16) K-major in
+// shared memory; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_m64n48k16(float (&d)[24], uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // d (64 x N f32) += A * B, A (64 x 16 bf16) from registers in the
 // accumulator's layout (a[0] rows l / 4, k 2 (l % 4); a[1] rows + 8; a[2]
 // k + 8; a[3] both), B (16 x N) MN-major in shared memory.
@@ -263,6 +288,54 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// The products of the flash kernels, over whole tiles of 64-column slabs.
+
+// d (64 x N over the warpgroup) (+)= A B^T, A (64 rows) and B (N rows) both
+// K-major tiles of D columns in shared memory, their slabs AROWS and BROWS
+// rows long: D / 16 k steps of 32 bytes along a slab's rows, 4 a slab.  The
+// first k step overwrites d.
+template <int D, int N, int AROWS, int BROWS>
+__device__ __forceinline__ void wgmma_abt(float (&d)[N / 2], const unsigned char* a,
+                                          const unsigned char* b) {
+  static_assert(N == 48 || N == 64 || N == 128, "no wgmma helper of this width");
+  const uint32_t sa = opaque_smem_u32(a), sb = opaque_smem_u32(b);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t da = desc_sw128(sa + (kk / 4) * AROWS * 128 + (kk % 4) * 32, 16, 1024);
+    const uint64_t db = desc_sw128(sb + (kk / 4) * BROWS * 128 + (kk % 4) * 32, 16, 1024);
+    if constexpr (N == 128)
+      wgmma_ss_m64n128k16(d, da, db, kk > 0);
+    else if constexpr (N == 64)
+      wgmma_ss_m64n64k16(d, da, db, kk > 0);
+    else
+      wgmma_ss_m64n48k16(d, da, db, kk > 0);
+  }
+}
+
+// acc (64 x D over the warpgroup) += A B: A (64 x K bf16) in registers, k
+// step j holding columns 16j .. 16j + 15 (pack_a's layout); B (K x D) a tile
+// in shared memory read MN-major (transposed): a k step is 16 rows, its
+// 64-column slabs BROWS rows apart.  Each k step is one n128 product per
+// pair of slabs and one n64 for a slab left over (Dh 64: one; Dh 320: five
+// slabs in three products); the accumulator's 8-column group i is acc[4i ..
+// 4i + 3] whatever the product widths.
+template <int D, int K, int BROWS>
+__device__ __forceinline__ void wgmma_ab(float (&acc)[D / 2], const uint32_t (&a)[K / 16][4],
+                                         const unsigned char* b) {
+  constexpr uint32_t kSlab = BROWS * 128;
+  const uint32_t sb = opaque_smem_u32(b);
+#pragma unroll
+  for (int j = 0; j < K / 16; ++j) {
+    const uint32_t bj = sb + j * 16 * 128;
+#pragma unroll
+    for (int c = 0; c < D / 128; ++c)
+      wgmma_rs_m64n128k16(*reinterpret_cast<float(*)[64]>(&acc[64 * c]), a[j],
+                          desc_sw128(bj + 2 * c * kSlab, kSlab, 1024));
+    if constexpr (D % 128 != 0)
+      wgmma_rs_m64n64k16(*reinterpret_cast<float(*)[32]>(&acc[D / 2 - 32]), a[j],
+                         desc_sw128(bj + (D / 64 - 1) * kSlab, kSlab, 1024));
+  }
+}
 
 // ---------------------------------------------------------------------------
 // Host: tensor maps

@@ -20,10 +20,12 @@ mask the ragged edge themselves.  The forward takes Dh in ``HEAD_DIMS``, the
 backward in ``BWD_HEAD_DIMS`` (both include gemma3-4b's 320); any other Dh
 raises ``ValueError`` on the card before a launch.
 
-At bf16 and Dh in ``TMA_HEAD_DIMS`` the kernels read their inputs through
-TMA tensor maps (the forward writes o through one too);
-``tma_map_geometry`` computes each map's geometry here, and the C side
-encodes what it is given.
+At bf16 the TMA / wgmma kernels (the forward at Dh 64, 128 and 320, dq at
+Dh 64 and 128, dk/dv at Dh 64, 128 and 320) read their inputs through TMA
+tensor maps (the forward at Dh 64 and 128 writes o through one too);
+``tma_map_geometry`` computes each map's geometry here, with the boxes of
+``TMA_FWD_ROWS`` / ``TMA_BWD_ROWS``, and the C side checks the boxes
+against its tiles and encodes what it is given.
 """
 
 from __future__ import annotations
@@ -41,14 +43,25 @@ BWD_SOURCE = "flash_attention/csrc/flash_bwd.cu"
 HEAD_DIMS = (16, 32, 64, 128, 320)
 BWD_HEAD_DIMS = (16, 32, 64, 128, 320)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# head dims whose bf16 forward is the TMA / wgmma kernel, and its tiles: the
-# map boxes are 64 columns (128 bytes, the swizzle's width) by these rows
-TMA_HEAD_DIMS = (64, 128)
+# The TMA / wgmma kernels' map boxes: 64 columns (128 bytes, the swizzle's
+# width) by the rows of the tile each map loads, per head dim.  The forward's
+# maps are q, k, v and o: 128-row q tiles (64 rows of o a consumer) and
+# 128-key k / v tiles at Dh 64 and 128; at Dh 320 48-key k / v tiles and no
+# o map (that kernel stores o from registers).
 TMA_SLAB = 64
 TMA_Q_ROWS, TMA_KV_ROWS, TMA_O_ROWS = 128, 128, 64
-# the backward's maps of (q, k, v, do): dq loads 128-row q / do tiles, dk/dv
-# 64-row ones (a step of its q loop); both 128-key k / v tiles
-TMA_BWD_ROWS = {"flash_bwd_dq": (128, 128, 128, 128), "flash_bwd_dkv": (64, 128, 128, 64)}
+TMA_FWD_ROWS = {64: (TMA_Q_ROWS, TMA_KV_ROWS, TMA_KV_ROWS, TMA_O_ROWS),
+                128: (TMA_Q_ROWS, TMA_KV_ROWS, TMA_KV_ROWS, TMA_O_ROWS),
+                320: (TMA_Q_ROWS, 48, 48)}
+# the backward's maps of (q, k, v, do) by (kernel, Dh): dq loads 128-row q /
+# do tiles and 128-key k / v tiles; dk/dv loads q / do tiles of a step's
+# rows and k / v tiles of an item's keys, 64 and 128 at Dh 64 / 128, 48 and
+# 64 at Dh 320.  dq at Dh 320 is an mma.sync kernel and takes no map.
+TMA_BWD_ROWS = {("flash_bwd_dq", 64): (128, 128, 128, 128),
+                ("flash_bwd_dq", 128): (128, 128, 128, 128),
+                ("flash_bwd_dkv", 64): (64, 128, 128, 64),
+                ("flash_bwd_dkv", 128): (64, 128, 128, 64),
+                ("flash_bwd_dkv", 320): (48, 64, 64, 48)}
 
 # kernel launches since the counts were last reset
 LAUNCHES = 0        # flash_fwd
@@ -151,25 +164,27 @@ def tma_map_geometry(name: str, t: torch.Tensor, rows: int) -> Tuple[int, ...]:
     return (Dh, S, H, B, ss * n, sh * n, sb * n, TMA_SLAB, rows, 1, 1)
 
 
-def _fwd_maps(q, k, v, o):
-    """The q, k, v and o maps' geometry as the C entry point takes it, or
-    None where the forward takes no tensor map."""
-    if q.dtype != torch.bfloat16 or q.shape[3] not in TMA_HEAD_DIMS:
+def _maps(names, tensors, rows):
+    """The maps' geometry as a C entry point takes it, one map for each of
+    ``rows`` (which may be fewer than the tensors); None without ``rows``."""
+    if rows is None:
         return None
-    fields = (*tma_map_geometry("q", q, TMA_Q_ROWS), *tma_map_geometry("k", k, TMA_KV_ROWS),
-              *tma_map_geometry("v", v, TMA_KV_ROWS), *tma_map_geometry("o", o, TMA_O_ROWS))
+    fields = [f for name, t, r in zip(names, tensors, rows) for f in tma_map_geometry(name, t, r)]
     return (_LL * len(fields))(*fields)
+
+
+def _fwd_maps(q, k, v, o):
+    """The q, k, v (and, at Dh 64 / 128, o) maps' geometry as the C entry
+    point takes it, or None where the forward takes no tensor map."""
+    rows = TMA_FWD_ROWS.get(q.shape[3]) if q.dtype == torch.bfloat16 else None
+    return _maps(("q", "k", "v", "o"), (q, k, v, o), rows)
 
 
 def _bwd_maps(name, q, k, v, do):
     """The q, k, v and do maps' geometry for the backward kernel ``name``,
     or None where it takes no tensor map."""
-    if q.dtype != torch.bfloat16 or q.shape[3] not in TMA_HEAD_DIMS:
-        return None
-    fields = [f for t_name, t, rows in zip(("q", "k", "v", "do"), (q, k, v, do),
-                                           TMA_BWD_ROWS[name])
-              for f in tma_map_geometry(t_name, t, rows)]
-    return (_LL * len(fields))(*fields)
+    rows = TMA_BWD_ROWS.get((name, q.shape[3])) if q.dtype == torch.bfloat16 else None
+    return _maps(("q", "k", "v", "do"), (q, k, v, do), rows)
 
 
 def _stream(t: torch.Tensor) -> int:

@@ -68,8 +68,9 @@ CASES = [
     (2, 20, 20, 224, 1500, 64, False, None, 0, torch.bfloat16),
     (1, 12, 2, 1024, 1024, 128, True, None, 0, torch.bfloat16),      # qwen2-vl-2b, group 6
 ]
-# head_dim 320 (gemma3-4b): the forward's wide kernel and the backward's
-# wide mma.sync kernels (f32: the SIMT kernels at 8 threads a row)
+# head_dim 320 (gemma3-4b): the forward's and dk/dv's TMA / wgmma kernels
+# (128-row q tiles over 48-key tiles; 64-key items over 48-row q steps),
+# dq's wide mma.sync kernel (f32: the SIMT kernels at 8 threads a row)
 D320_CASES = [
     (1, 8, 4, 2048, 2048, 320, True, 1024, 0, torch.bfloat16),       # gemma3 local layer
     (1, 8, 4, 2048, 2048, 320, True, None, 0, torch.bfloat16),       # gemma3 global layer
@@ -78,6 +79,12 @@ D320_CASES = [
     (1, 4, 2, 64, 128, 320, False, 16, 100, torch.bfloat16),         # rows that see no key
     (1, 4, 2, 333, 333, 320, True, None, 0, torch.float32),
     (1, 4, 2, 200, 300, 320, False, 64, 50, torch.float32),
+    # the edges of the wgmma kernels' tiles at Dh 320
+    (1, 4, 2, 270, 270, 320, False, None, 0, torch.bfloat16),        # Skv no multiple of 48 or 64
+    (2, 4, 2, 40, 40, 320, True, None, 0, torch.bfloat16),           # Sq < 64
+    (1, 6, 6, 256, 256, 320, True, None, 0, torch.bfloat16),         # MHA
+    (1, 8, 2, 300, 300, 320, True, None, 0, torch.bfloat16),         # GQA group 4
+    (1, 4, 2, 300, 300, 320, True, 50, 0, torch.bfloat16),           # a window ending inside a tile
 ]
 # q/k/v as the transposed views of (B, S, H, Dh) that ops.flash_attention
 # passes (rows H * Dh apart): the serving prefill shape, moonshot's MHA

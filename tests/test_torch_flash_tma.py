@@ -79,7 +79,8 @@ def test_maps_of_the_forward():
 
 
 @pytest.mark.parametrize("dtype, Dh", [(torch.float32, 128), (torch.float32, 64),
-                                       (torch.bfloat16, 32), (torch.bfloat16, 16)])
+                                       (torch.bfloat16, 32), (torch.bfloat16, 16),
+                                       (torch.float32, 320)])
 def test_no_maps_where_the_forward_takes_none(dtype, Dh):
     q = torch.zeros(1, 2, 64, Dh, dtype=dtype)
     assert fa._fwd_maps(q, q, q, q) is None
@@ -135,17 +136,21 @@ def test_maps_of_the_backward(shape, name, layout):
     fields = list(fa._bwd_maps(name, q, k, v, do))
     assert len(fields) == 4 * 11
     dims = ((Dh, Sq, H, B), (Dh, Skv, Hk, B), (Dh, Skv, Hk, B), (Dh, Sq, H, B))
-    for i, (t, want, rows) in enumerate(zip((q, k, v, do), dims, fa.TMA_BWD_ROWS[name])):
+    for i, (t, want, rows) in enumerate(zip((q, k, v, do), dims, fa.TMA_BWD_ROWS[name, Dh])):
         g = fields[11 * i:11 * i + 11]
         assert tuple(g[:4]) == want
         assert tuple(g[4:7]) == (t.stride(2) * 2, t.stride(1) * 2, t.stride(0) * 2)
         assert tuple(g[7:]) == (fa.TMA_SLAB, rows, 1, 1)
 
 
-@pytest.mark.parametrize("name, q_rows", [("flash_bwd_dq", 128), ("flash_bwd_dkv", 64)])
-def test_backward_boxes_are_the_kernels_tiles(name, q_rows):
-    # dq walks 128-row items, dk/dv 64-row q steps; both read 128-key k / v tiles
-    assert fa.TMA_BWD_ROWS[name] == (q_rows, fa.TMA_KV_ROWS, fa.TMA_KV_ROWS, q_rows)
+@pytest.mark.parametrize("name, Dh, q_rows, kv_rows", [
+    ("flash_bwd_dq", 64, 128, 128), ("flash_bwd_dq", 128, 128, 128),
+    ("flash_bwd_dkv", 64, 64, 128), ("flash_bwd_dkv", 128, 64, 128),
+    ("flash_bwd_dkv", 320, 48, 64)])
+def test_backward_boxes_are_the_kernels_tiles(name, Dh, q_rows, kv_rows):
+    # dq walks 128-row items reading 128-key k / v tiles; dk/dv walks q steps
+    # of 64 rows over items of 128 keys, at Dh 320 steps of 48 over 64 keys
+    assert fa.TMA_BWD_ROWS[name, Dh] == (q_rows, kv_rows, kv_rows, q_rows)
 
 
 @pytest.mark.parametrize("name", BWD_KERNELS)
@@ -181,3 +186,73 @@ def test_the_backward_refuses_a_layout_tma_cannot_take(name, kind, match, bad):
     tensors[bad] = _bad_layout(kind, shapes[bad])
     with pytest.raises(ValueError, match=f"^{bad} needs .*{match}"):
         fa._bwd_maps(name, **tensors)
+
+
+# head_dim 320 (gemma3-4b): the forward and dk/dv are TMA / wgmma kernels,
+# dq is not
+D320_SHAPES = [
+    # B, H, Hk, Sq, Skv, Dh
+    (4, 8, 4, 2048, 2048, 320),    # gemma3-4b prefill
+    (2, 8, 4, 2048, 2048, 320),    # gemma3-4b training
+    (2, 4, 2, 333, 333, 320),      # ragged: 333 is no multiple of 32, 48, 64 or 128
+    (1, 8, 4, 40, 40, 320),        # Sq < one q tile or step, < one 64-key item
+    (1, 8, 8, 256, 256, 320),      # MHA
+]
+
+
+def _d320_tensors(shape, layout):
+    B, H, Hk, Sq, Skv, Dh = shape
+    q, o = (_kernel_layout(B, H, Sq, Dh, layout) for _ in range(2))
+    k, v = (_kernel_layout(B, Hk, Skv, Dh, layout) for _ in range(2))
+    return q, k, v, o
+
+
+def _check_maps(fields, tensors, dims, rows):
+    assert len(fields) == 11 * len(rows)
+    for i, (t, want, r) in enumerate(zip(tensors, dims, rows)):
+        g = fields[11 * i:11 * i + 11]
+        assert tuple(g[:4]) == want
+        assert tuple(g[4:7]) == (t.stride(2) * 2, t.stride(1) * 2, t.stride(0) * 2)
+        assert tuple(g[7:]) == (fa.TMA_SLAB, r, 1, 1)
+
+
+@pytest.mark.parametrize("layout", ["kernel", "model"])
+@pytest.mark.parametrize("shape", D320_SHAPES)
+def test_forward_maps_at_head_dim_320(shape, layout):
+    # q, k and v only: the Dh-320 kernel stores o from registers; 128-row q
+    # tiles and 48-key k / v tiles, the bytes its barriers count
+    B, H, Hk, Sq, Skv, Dh = shape
+    q, k, v, o = _d320_tensors(shape, layout)
+    fields = list(fa._fwd_maps(q, k, v, o))
+    assert fa.TMA_FWD_ROWS[320] == (128, 48, 48)
+    _check_maps(fields, (q, k, v), ((Dh, Sq, H, B), (Dh, Skv, Hk, B), (Dh, Skv, Hk, B)),
+                fa.TMA_FWD_ROWS[320])
+
+
+@pytest.mark.parametrize("layout", ["kernel", "model"])
+@pytest.mark.parametrize("shape", D320_SHAPES)
+def test_dkv_maps_at_head_dim_320(shape, layout):
+    # 48-row q / do steps over items of 64 keys
+    B, H, Hk, Sq, Skv, Dh = shape
+    q, k, v, do = _d320_tensors(shape, layout)
+    fields = list(fa._bwd_maps("flash_bwd_dkv", q, k, v, do))
+    dims = ((Dh, Sq, H, B), (Dh, Skv, Hk, B), (Dh, Skv, Hk, B), (Dh, Sq, H, B))
+    _check_maps(fields, (q, k, v, do), dims, (48, 64, 64, 48))
+
+
+@pytest.mark.parametrize("layout", ["kernel", "model"])
+@pytest.mark.parametrize("shape", D320_SHAPES)
+def test_dq_takes_no_map_at_head_dim_320(shape, layout):
+    # dq at Dh 320 is still the mma.sync kernel
+    q, k, v, do = _d320_tensors(shape, layout)
+    assert fa._bwd_maps("flash_bwd_dq", q, k, v, do) is None
+    assert ("flash_bwd_dq", 320) not in fa.TMA_BWD_ROWS
+
+
+def test_the_forward_map_boxes_by_head_dim():
+    # Dh 64 / 128: q, k, v and o; Dh 320: no o map
+    for Dh in (64, 128):
+        assert fa.TMA_FWD_ROWS[Dh] == (fa.TMA_Q_ROWS, fa.TMA_KV_ROWS, fa.TMA_KV_ROWS,
+                                       fa.TMA_O_ROWS)
+    assert len(fa.TMA_FWD_ROWS[320]) == 3
+    assert set(fa.TMA_FWD_ROWS) == {64, 128, 320}

@@ -71,21 +71,24 @@ And an A/B of the flash-attention kernels against another checkout:
   shape; then gemma3-4b's Dh-320 shapes in the model's layout (H=8, Hk=4,
   S=2048, global and local layers): ``flash_fwd`` at the prefill's B=4,
   ``flash_fwd_lse`` and the backward kernels at the training shape's B=2,
-  and the f32 Dh-320 forward at a small shape.  Timed in the package of
+  and the f32 Dh-320 forward at a small shape and at gemma3-4b's head
+  geometry (B=1, S=2048).  Timed in the package of
   the checkout at DIR (say, the parent commit unpacked with ``git
   archive``) and in this one, in turns (DIR, this, this, DIR), each run in
   a fresh process that builds that checkout's kernels: device time (a CUDA
   graph of 20 launches) and 20 back-to-back wrapper calls timed with
   events; last, each call's two device times on each side and DIR / this.
 
-* flash_ablate: what each part of the TMA / wgmma kernels' design is worth.
-  Variants of ``flash_fwd.cu`` and of ``flash_bwd.cu``, each with one part
-  taken out (or, marked so, added) by a text substitution, are built beside
-  the unmodified sources and timed at the serving prefill / training shape
-  and at gemma3-4b's Dh-320 ones (device time, CUDA graph), in two rounds,
-  each build's error at a ragged Dh-320 case printed beside.  The forward variants that drop
-  work (the softmax, the K/V loads) give wrong outputs: they only measure
-  what that work costs.
+* flash_ablate: what each part of the TMA / wgmma kernels' design, and of
+  the f32 forward's, is worth.  Variants of ``flash_fwd.cu`` and of
+  ``flash_bwd.cu``, each with one part taken out (or, marked so, added) by a
+  text substitution, are built beside the unmodified sources and timed at
+  the serving prefill / training shape and at gemma3-4b's Dh-320 ones, the
+  f32 forward at two Dh-320 shapes (device time, CUDA graph), in two
+  rounds, each build's error at a ragged Dh-320 case printed beside.  The
+  forward variants that drop work (the softmax, the K/V loads) give wrong
+  outputs, and one TF32 pass an f32 output past its tolerance: they only
+  measure what that work costs.
 
 The same for the scans:
 
@@ -1211,6 +1214,7 @@ for tag, window in (("global", None), ("local", 1024)):
     add("_d320_prefill_" + tag, 4, 8, 4, 2048, 320, window, ALL[:1], layout="model")
     add("_d320_train_" + tag, 2, 8, 4, 2048, 320, window, ALL[1:], layout="model")
 add("_d320_f32", 1, 4, 2, 333, 320, None, ALL[:1], dtype=torch.float32)
+add("_d320_f32_2048", 1, 8, 4, 2048, 320, None, ALL[:1], dtype=torch.float32)
 out = {name: {"device_ms": graph_ms(call), "back_to_back_ms": events_ms(call)}
        for name, call in calls.items()}
 print(json.dumps(out))
@@ -1297,8 +1301,14 @@ def flash_ab(smi: str, other: str) -> None:
         "B=4 H=24 Hk=8 S=1024 Dh=128 bf16 causal; gemma3-4b at Dh 320 (H=8 Hk=4 S=2048 bf16 "
         "causal, model layout, global and local = window 1024): flash_fwd at the prefill's "
         "B=4 (_d320_prefill_*), flash_fwd_lse, flash_bwd_dq and flash_bwd_dkv at the training "
-        "shape's B=2 (_d320_train_*); flash_fwd f32 at B=1 H=4 Hk=2 S=333 Dh=320 (_d320_f32)",
+        "shape's B=2 (_d320_train_*); flash_fwd f32 at Dh=320, B=1 H=4 Hk=2 S=333 (_d320_f32) "
+        "and B=1 H=8 Hk=4 S=2048 (_d320_f32_2048)",
         _FLASH_TIMING)
+
+
+# the f32 kernels' precision ablation (flash_fwd.cu, ssd_fwd.cu, mlstm_fwd.cu)
+_ONE_PASS = ("(output past the tolerance) 3xTF32: one TF32 pass per product instead of three",
+             [(r"\A", "#define TF32_PASSES 1\n")])
 
 
 # variant name -> (what it takes out, [(pattern, replacement)] applied with
@@ -1332,6 +1342,10 @@ FLASH_ABLATIONS = {
         (r"(void rescale_o\(float \(&acc\)\[D / 2\], const float \(&alpha\)\[2\]\) \{)",
          r"\1\n  if (D > 128 && !__any_sync(0xffffffffu, (alpha[0] != 1.f) | (alpha[1] != 1.f))) "
          r"return;")]),
+    # f32 only
+    "one_tf32_pass": _ONE_PASS,
+    "f32_one_split": ("the f32 kernel's key split: a block walks all its keys, no combine", [
+        (r"p\.chunk = chunk;", "p.chunk = chunk > 0 ? (Skv + kTfChunk - 1) / kTfChunk * kTfChunk : 0;")]),
 }
 
 
@@ -1348,12 +1362,13 @@ FLASH_BWD_ABLATIONS = {
     "dkv_two_stages": ("the third stage of dk/dv's ring (dq's ring has two: a third "
                        "would not fit in shared memory)", [
         (r"(constexpr int kDkvStages) = 3;", r"\1 = 2;")]),
+    "dq_one_consumer": ("dq's split of an item's key tiles at Dh 320: consumer 0 walks them "
+                        "all, consumer 1 passes zeros", [
+        (r"\(g & 1\) == c;", "c == 0;")]),
 }
 
 
 # the same for the scans: ssd_fwd.cu, then mlstm_fwd.cu
-_ONE_PASS = ("(output past the tolerance) 3xTF32: one TF32 pass per product instead of three",
-             [(r"\A", "#define TF32_PASSES 1\n")])
 _RNA_SPLIT = ("(added) both halves of each operand rounded to nearest (cvt.rna.tf32.f32) "
               "instead of truncated", [(r"\A", "#define TF32_RNA_SPLIT 1\n")])
 SSD_ABLATIONS = {
@@ -1452,8 +1467,9 @@ def _ablate(smi: str, source: str, ablations: dict, calls: dict, what: str,
 def flash_ablate(smi: str) -> None:
     """The ablations at the serving prefill / training shape (Dh 128) and at
     gemma3-4b's Dh-320 prefill (B 4) and training (B 2) shapes, global and
-    local layers, with each build's error against the plain version at a
-    ragged Dh-320 case (the variants marked "wrong output" aside)."""
+    local layers, and of the f32 forward at its two Dh-320 shapes, with each
+    build's error against the plain version at a ragged Dh-320 case (the
+    variants marked "wrong output" aside)."""
     from chip_smoke import _flash_inputs
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
@@ -1472,14 +1488,22 @@ def flash_ablate(smi: str) -> None:
            for w in ("global", "local")}
     win = {"global": None, "local": 1024}
     qr, kr, vr = _flash_inputs(2, 4, 2, 333, 333, 320, "bfloat16", seed=2)
+    # the f32 forward (3xTF32) at a ragged shape and at gemma3-4b's head geometry
+    f32 = {"": _flash_inputs(1, 4, 2, 333, 333, 320, "float32", seed=3),
+           "_2048": _flash_inputs(1, 8, 4, 2048, 2048, 320, "float32", seed=3)}
+    f32_ref = attention_ref(*f32[""])
     shape = "B=4 H=24 Hk=8 S=1024 Dh=128 bf16 causal; gemma3-4b Dh 320 (model layout)"
     _ablate(smi, fa.SOURCE, FLASH_ABLATIONS,
             {"flash_fwd": lambda: fa.flash_attention_fwd(q, k, v),
              **{f"flash_fwd_d320_prefill_{w}": (lambda w=w: fa.flash_attention_fwd(
-                 *pre[w], window=win[w])) for w in pre}},
-            f"flash_fwd at {shape} B=4 S=2048",
+                 *pre[w], window=win[w])) for w in pre},
+             **{f"flash_fwd_d320_f32{t}": (lambda t=t: fa.flash_attention_fwd(*f32[t]))
+                for t in f32}},
+            f"flash_fwd at {shape} B=4 S=2048; f32 at Dh 320 B=1 H=4 Hk=2 S=333 and B=1 H=8 "
+            f"Hk=4 S=2048 (rel err of the f32 output: F32_TOL is 1e-4 abs)",
             {"d320_ragged": lambda: rel(fa.flash_attention_fwd(qr, kr, vr),
-                                        attention_ref(qr, kr, vr))})
+                                        attention_ref(qr, kr, vr)),
+             "d320_ragged_f32": lambda: rel(fa.flash_attention_fwd(*f32[""]), f32_ref)})
     calls = {}
     for tag, B, H, Hk, S, Dh, window, layout in (
             ("", 4, 24, 8, 1024, 128, None, "kernel"),
@@ -1488,17 +1512,17 @@ def flash_ablate(smi: str) -> None:
         q_, k_, v_, do, _, lse, delta = bwd_inputs(B, H, Hk, S, Dh, window, layout)
         a = (q_, k_, v_, do, lse, delta)
         bkw = dict(causal=True, window=window, scale=Dh ** -0.5, q_offset=0)
-        if Dh == 128:
-            calls["flash_bwd_dq"] = lambda a=a, kw=bkw: fa.bwd_dq(*a, **kw)
+        calls[f"flash_bwd_dq{tag}"] = lambda a=a, kw=bkw: fa.bwd_dq(*a, **kw)
         calls[f"flash_bwd_dkv{tag}"] = lambda a=a, kw=bkw: fa.bwd_dkv(*a, **kw)
     rq, rk, rv, rdo, ro, rlse, rdelta = bwd_inputs(2, 4, 2, 333, 320, None, "kernel")
     want = attention_bwd_ref(rq, rk, rv, ro, rlse, rdo)
+    rkw = dict(causal=True, window=None, scale=320 ** -0.5, q_offset=0)
     _ablate(smi, fa.BWD_SOURCE, FLASH_BWD_ABLATIONS, calls,
             f"flash_bwd_dq and flash_bwd_dkv at {shape} B=2 S=2048",
-            {"d320_ragged_dk_dv": lambda: max(
-                rel(g, w) for g, w in zip(fa.bwd_dkv(rq, rk, rv, rdo, rlse, rdelta, causal=True,
-                                                     window=None, scale=320 ** -0.5, q_offset=0),
-                                          want[1:]))})
+            {"d320_ragged_dq_dk_dv": lambda: max(
+                rel(g, w) for g, w in zip(
+                    (fa.bwd_dq(rq, rk, rv, rdo, rlse, rdelta, **rkw),
+                     *fa.bwd_dkv(rq, rk, rv, rdo, rlse, rdelta, **rkw)), want))})
 
 
 def scan_ablate(smi: str) -> None:

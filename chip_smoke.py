@@ -17,10 +17,12 @@ Phases, each printed as it runs; any failure exits non-zero:
            call that computes the same function.  flash_fwd is also timed
            at gemma3-4b's prefill (Dh 320, local and global layers),
            whisper-large-v3's encoder and cross-attention and qwen2-vl-2b's
-           prefill (FAMILY_TIMED); flash_fwd_lse, flash_bwd_dq and
-           flash_bwd_dkv at gemma3-4b's training shape (Dh 320, 2 x 2048
-           tokens, local and global layers: BWD_TIMED).  Every case's
-           backward runs twice and must give the same bits.
+           prefill, and the f32 forward at a ragged Dh-320 shape and at
+           gemma3-4b's head geometry (FAMILY_TIMED); flash_fwd_lse,
+           flash_bwd_dq and flash_bwd_dkv at gemma3-4b's training shape (Dh
+           320, 2 x 2048 tokens, local and global layers) and in f32 at the
+           ragged Dh-320 shape (BWD_TIMED).  Every case's backward runs
+           twice and must give the same bits.
 4. model   a small llama-shaped f32 model on the card (flash kernels)
            against the same weights on the CPU (plain path): a forward, two
            train steps (remat on the card), and a checkpoint round trip;
@@ -185,13 +187,13 @@ def phase_build() -> None:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"build:   {line.strip()}")
     # the TMA / wgmma kernels keep their products' fragments in registers
-    # (at Dh 320 a 160-register accumulator a thread beside them), and dq's
-    # Dh-320 mma.sync kernel 160 accumulator registers a thread: each
-    # instantiation must build without spilling
+    # (at Dh 320 a 160-register accumulator a thread beside them), and so
+    # does the f32 forward (3xTF32 mma.sync; at Dh 320 160 registers of O a
+    # thread): each instantiation must build without spilling
     for src, kernel, want in ((fa.SOURCE, "flash_fwd_wgmma_kernel", "Dh 64, 128, 320"),
-                              (fa.BWD_SOURCE, "flash_bwd_dq_wgmma_kernel", "Dh 64, 128"),
-                              (fa.BWD_SOURCE, "flash_bwd_dkv_wgmma_kernel", "Dh 64, 128, 320"),
-                              (fa.BWD_SOURCE, "flash_bwd_dq_bf16_kernelILi320E", "Dh 320")):
+                              (fa.SOURCE, "flash_fwd_tf32_kernel", "Dh 16, 32, 64, 128, 320"),
+                              (fa.BWD_SOURCE, "flash_bwd_dq_wgmma_kernel", "Dh 64, 128, 320"),
+                              (fa.BWD_SOURCE, "flash_bwd_dkv_wgmma_kernel", "Dh 64, 128, 320")):
         spills = _spill_stores(build.BUILD_INFO[src]["log"], kernel)
         print(f"build: {kernel} instantiations {len(spills)}, spill stores "
               f"{sorted(spills.values())} bytes", flush=True)
@@ -273,7 +275,8 @@ def _host_us(fn, iters: int = 50) -> float:
 
 # name, B, H, Hk, Sq, Skv, Dh, causal, window, q_offset, dtype, layout.  bf16
 # at Dh 64, 128 and 320 runs the TMA / wgmma kernel (128-row q tiles over
-# 128-key tiles, 48-key at Dh 320), Dh 16 and 32 the mma.sync one; "model"
+# 128-key tiles, 48-key at Dh 320), Dh 16 and 32 the mma.sync one; f32 the
+# 3xTF32 one (64-row blocks, the keys split at small grids); "model"
 # passes q/k/v as the transposed views of (B, S, H, Dh) that
 # ops.flash_attention passes.
 FLASH_CASES = [
@@ -304,6 +307,8 @@ FLASH_CASES = [
     ("gemma3_local", 4, 8, 4, 2048, 2048, 320, True, 1024, 0, "bfloat16", "model"),
     ("gemma3_global", 4, 8, 4, 2048, 2048, 320, True, None, 0, "bfloat16", "model"),
     ("d320_ragged_f32", 1, 4, 2, 333, 333, 320, True, None, 0, "float32", "kernel"),
+    # the f32 forward (3xTF32) at gemma3-4b's head geometry
+    ("gemma3_global_f32", 1, 8, 4, 2048, 2048, 320, True, None, 0, "float32", "kernel"),
     ("d320_ragged_q_offset", 2, 4, 2, 200, 1100, 320, True, 700, 900, "bfloat16", "kernel"),
     ("no_visible_key_d320", 1, 4, 2, 64, 128, 320, False, 16, 100, "bfloat16", "kernel"),
     # whisper-large-v3: the encoder (1500 frames, not a multiple of the
@@ -313,17 +318,20 @@ FLASH_CASES = [
     # qwen2-vl-2b's prefill: a GQA group of 6
     ("qwen2vl_prefill", 4, 12, 2, 1024, 1024, 128, True, None, 0, "bfloat16", "model"),
     # gemma3-4b's training shape (2 x 2048 tokens, Dh 320): the forward with
-    # lse, dq (mma.sync) and dk/dv (wgmma), local and global layers
+    # lse, dq and dk/dv (all wgmma), local and global layers
     ("gemma3_train_local", 2, 8, 4, 2048, 2048, 320, True, 1024, 0, "bfloat16", "model"),
     ("gemma3_train_global", 2, 8, 4, 2048, 2048, 320, True, None, 0, "bfloat16", "model"),
 ]
-# the cases of the gemma3, whisper and vlm serving paths, timed beside their
-# bounds in the kernel phase
-FAMILY_TIMED = ("gemma3_local", "gemma3_global", "d320_ragged_f32", "whisper_enc",
-                 "whisper_cross", "qwen2vl_prefill")
-# the cases of the gemma3 training path, whose forward with lse and backward
-# are timed beside their bounds; the last one's times go into the kernels line
-BWD_TIMED = ("gemma3_train_local", "gemma3_train_global")
+# the cases of the gemma3, whisper and vlm serving paths and of the f32
+# forward (the model phase's f32 checks), timed beside their bounds in the
+# kernel phase; the f32 ones beside the memory-efficient backend, the only
+# sdpa backend that takes f32 at Dh 320
+FAMILY_TIMED = ("gemma3_local", "gemma3_global", "d320_ragged_f32", "gemma3_global_f32",
+                "whisper_enc", "whisper_cross", "qwen2vl_prefill")
+# the cases of the gemma3 training path, and the f32 backward at Dh 320,
+# whose forward with lse and backward are timed beside their bounds; the
+# last one's times go into the kernels line
+BWD_TIMED = ("d320_ragged_f32", "gemma3_train_local", "gemma3_train_global")
 
 
 def _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed, layout="kernel"):
@@ -447,11 +455,17 @@ def _time_flash_case(case) -> tuple:
     bound = _bound(flops, nbytes, dtype)
     lib = (f"{library[lib_name]:.4f} ms, {lib_name}, kernel/library "
            f"{ms / library[lib_name]:.3f}") if library else "none takes this shape"
+    tf32 = ""
+    if dtype == "float32":  # the f32 kernel's own route: 3xTF32 on the tensor cores
+        from repro_torch.kernels import bounds
+        b = bounds._bound(flops, nbytes)
+        tf32 = (f"; 3xTF32 bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+                f"{b['bound_ms'] / ms:.1%} of it")
     print(f"kernel flash_fwd timing at {name} (B={B} H={H} Hk={Hk} Sq={Sq} Skv={Skv} Dh={Dh} "
           f"{dtype} causal={causal} window={window} {layout} layout): kernel {ms:.4f} ms device "
           f"(CUDA graph of 20 launches); plain {plain_ms:.4f} ms; library {lib}; bound "
           f"{bound[0]:.4f} ms ({bound[1]}: {flops:.4g} FLOP, {nbytes:.4g} B), "
-          f"{bound[0] / ms:.1%} of bound", flush=True)
+          f"{bound[0] / ms:.1%} of bound{tf32}", flush=True)
     return ms, plain_ms, bound, library[lib_name] if library else None
 
 

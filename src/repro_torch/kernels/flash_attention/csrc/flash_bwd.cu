@@ -24,7 +24,7 @@
 // 0.0652 with the local layers' window of 1024) against ~84 MB (0.025 ms):
 // the operations again.
 //
-// The design for bf16 at Dh in {64, 128} (dk/dv also 320) is the forward's:
+// The design for bf16 at Dh in {64, 128, 320} is the forward's:
 // persistent kernels, one block of three warpgroups per SM, walking work
 // items heaviest first in snake order over the blocks.  Warpgroup 0 is the
 // producer (setmaxnreg 24; 40 in dk/dv, whose producer warp also stages lse
@@ -35,15 +35,35 @@
 // consumers (setmaxnreg 240; 232 in dk/dv), running every product on wgmma
 // with f32 accumulators in registers; P and dS are rounded to bf16 as
 // operands, as the forward's P V does.
-//   * dq: an item is (128-row q tile, head, batch), 64 rows a consumer.  Its
-//     Q and dO tiles load once; 128-key K and V tiles stream through a
-//     two-stage ring.  A step is S = Q K^T and dP = dO V^T (wgmma m64n128,
-//     both operands K-major in shared memory), dS = P o (dP - delta) on the
-//     fragments (one FFMA, one ex2 and two more a score; branch-free masks
-//     on edge tiles only), then dQ += dS K with dS packed to bf16 in
-//     registers as the A operand and K read MN-major.  V is released as soon
-//     as dP has read it, K after dS K (each has its own `empty` barrier).
-//     lse and delta of the item's rows stay in registers.
+//   * dq (DqTiles): an item is a q tile of one (head, batch), whose Q and dO
+//     tiles load once while K and V tiles stream through a two-stage ring.
+//     A step is S = Q K^T and dP = dO V^T (wgmma, both operands K-major in
+//     shared memory), dS = P o (dP - delta) on the fragments (one FFMA, one
+//     ex2 and two more a score; branch-free masks on edge tiles only), then
+//     dQ += dS K with dS packed to bf16 in registers as the A operand and K
+//     read MN-major.  V is released as soon as dP has read it, K after dS K
+//     (each has its own `empty` barrier).  lse and delta of the item's rows
+//     stay in registers.
+//     - Dh 64 / 128: 128-row items, 64 rows a consumer; both consumers read
+//       every 128-key tile (m64n128).
+//     - Dh 320: a consumer's 64 x 320 dQ is 160 f32 registers a thread, so
+//       S and dP fit beside it only for a few keys (48: 24 + 24, and 12 of
+//       packed dS, under 240).  Each step's SS products read the consumer's
+//       64 rows of Q and dO (80 KB) as A operands however few keys it
+//       covers, so narrow tiles leave the step bound by shared-memory reads;
+//       and 128-row items (Q and dO 160 KB) would leave room for no more
+//       than 16-key K/V stages.  So an item is 64 rows and the two consumers
+//       split its key tiles: the ring's even tiles go to consumer 0, its odd
+//       ones to consumer 1 (the ring's two stages are one a consumer), each
+//       accumulates a partial dQ of all 64 rows over its keys, and at the
+//       item's end consumer 1 hands its partial to consumer 0 through
+//       shared memory, one 64 x 64 f32 slab at a time, which adds it to its
+//       own (one fixed order) and stores dQ.  Q and dO (80 KB), two stages of
+//       48-key K and V (120 KB) and the 16 KB slab take 217 KB.  512 items
+//       at gemma3-4b's training shape (3.9 rounds on 132 SMs).  The
+//       mma.sync design it replaces (8 warps of 16 rows, Q and dO read again
+//       by ldmatrix for every 16-key tile, not persistent) reached 10.5 % of
+//       the bound.
 //   * dk/dv: an item is a key tile of one (kv head, batch), whose K and V
 //     stay in shared memory for the whole item.  The producer streams
 //     (query head of the group, q tile) steps through a ring (DkvTiles): Q
@@ -82,12 +102,9 @@
 // design: mma.sync m16n8k16 from ldmatrix fragments, tiles
 // double-buffered with cp.async, one 4-warp block per 64-row (dq) or 64-key
 // (dk/dv) tile; dk/dv computes S^T and dP^T directly so that the
-// accumulators feed the next products.  dq at Dh 320 is that design
-// widened (MmaTiles says how): 8 warps a block, Q and dO kept in shared
-// memory, 16-key K/V tiles; mma.sync reaches only part of the tensor cores'
-// rate, and its Hopper redesign is later work.  The f32 path (not on the
-// training path; it lets a small f32 model be checked tightly on the card)
-// is SIMT FMA with 4 threads per row, 8 at Dh 320.
+// accumulators feed the next products.  The f32 path (not on the training
+// path; it lets a small f32 model be checked tightly on the card) is SIMT
+// FMA with 4 threads per row, 8 at Dh 320.
 //
 // A query row that sees no key (a window past the end of the keys): the
 // reference's softmax over all -1e30 scores gives p = 1/Skv on every key,
@@ -149,31 +166,19 @@ __device__ __forceinline__ void query_range(const Params& p, int n0, int n1, int
 }
 
 // ---------------------------------------------------------------------------
-// bf16, Dh in {16, 32} (dq also 320): tensor cores through mma.sync
+// bf16, Dh in {16, 32}: tensor cores through mma.sync
 // ---------------------------------------------------------------------------
 
 constexpr int kRows = 64;  // keys of a dk/dv block: 4 warps x 16 keys
 
-// The tiles of the mma.sync kernels.  Dh 16 / 32: 4 warps, a dq block of 64
-// q rows stepping 64 keys, a dk/dv block of 64 keys stepping 32 q rows.
-//
-// dq at Dh 320 (gemma3-4b, 2560 / 8 heads): a warp's 16 rows x 320 columns
-// of dQ are 160 f32 registers a thread, so a warp owns 16 q rows and their
-// dQ; Q and dO stay in shared memory and are read again for every key tile;
-// 8 warps (128 q rows) share each K/V tile.  Q and dO of 128 rows take 164
-// KB, which leaves room for K and V double-buffered only at 16 keys a tile:
-// 205 KB in all.  S and dP of a 16-key tile are 8 registers each.  It is
-// simple first: mma.sync reaches only part of the tensor cores' rate; its
-// Hopper redesign is later work.
+// The tiles of the mma.sync kernels: 4 warps, a dq block of 64 q rows
+// stepping 64 keys, a dk/dv block of 64 keys stepping 32 q rows.
 template <int D>
 struct MmaTiles {
-  static constexpr bool kWide = D > 128;
-  static constexpr int kDqWarps = kWide ? 8 : 4;  // 16 q rows a warp
-  static constexpr int kDqRows = 16 * kDqWarps;   // q rows of a dq block
-  static constexpr int kBN = kWide ? 16 : 64;     // keys per k step of dq
-  static constexpr int kBQ = 32;                  // q rows per q step of dk/dv
-  static constexpr int kDqThreads = 32 * kDqWarps;
-  static constexpr int kDkvThreads = 128;
+  static constexpr int kDqRows = 64;  // q rows of a dq block, 16 a warp
+  static constexpr int kBN = 64;      // keys per k step of dq
+  static constexpr int kBQ = 32;      // q rows per q step of dk/dv
+  static constexpr int kThreads = 128;
   static constexpr int kLD = D + 8;  // row pitch in shared memory (bank-conflict-free)
   // Q, dO, two K tiles, two V tiles
   static constexpr int kDqSmem = (2 * kDqRows + 4 * kBN) * kLD * 2;
@@ -182,10 +187,9 @@ struct MmaTiles {
 };
 
 template <int D>
-__global__ void __launch_bounds__(MmaTiles<D>::kDqThreads)
-    flash_bwd_dq_bf16_kernel(const Params p) {
+__global__ void __launch_bounds__(MmaTiles<D>::kThreads) flash_bwd_dq_bf16_kernel(const Params p) {
   using T = MmaTiles<D>;
-  constexpr int LD = T::kLD, BN = T::kBN, ROWS = T::kDqRows, THREADS = T::kDqThreads;
+  constexpr int LD = T::kLD, BN = T::kBN, ROWS = T::kDqRows, THREADS = T::kThreads;
   constexpr int kTile = BN * LD;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -308,11 +312,9 @@ __global__ void __launch_bounds__(MmaTiles<D>::kDqThreads)
 }
 
 template <int D>
-__global__ void __launch_bounds__(MmaTiles<D>::kDkvThreads)
-    flash_bwd_dkv_bf16_kernel(const Params p) {
+__global__ void __launch_bounds__(MmaTiles<D>::kThreads) flash_bwd_dkv_bf16_kernel(const Params p) {
   using T = MmaTiles<D>;
-  static_assert(!T::kWide, "dk/dv at Dh 320 is the wgmma kernel");
-  constexpr int LD = T::kLD, BQ = T::kBQ, THREADS = T::kDkvThreads;
+  constexpr int LD = T::kLD, BQ = T::kBQ, THREADS = T::kThreads;
   constexpr int kQTile = BQ * LD;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -460,17 +462,42 @@ __global__ void __launch_bounds__(MmaTiles<D>::kDkvThreads)
 }
 
 // ---------------------------------------------------------------------------
-// bf16, Dh in {64, 128} (dk/dv also 320): TMA, wgmma and warp specialisation
+// bf16, Dh in {64, 128, 320}: TMA, wgmma and warp specialisation
 // ---------------------------------------------------------------------------
 
 constexpr int kWgThreads = 384;  // producer warpgroup, then two consumers
 constexpr float kLog2e = 1.4426950408889634f;
 
-constexpr int kDqRows = 128;  // q rows of a dq item: two consumers of 64
-constexpr int kDqKeys = 128;  // keys per dq step
-constexpr int kDqStages = 2;  // K/V ring depth
-
+constexpr int kDqStages = 2;   // K/V ring depth of dq at Dh 64 / 128
 constexpr int kDkvStages = 3;  // Q/dO ring depth of dk/dv at Dh 64 / 128
+
+// The tiles of dq.  Dh 64 / 128: an item is 128 q rows, 64 a consumer, and
+// both consumers read every 128-key tile.  Dh 320: a 64-row item whose key
+// tiles (48 keys) the consumers split (dq_tile_mine), each accumulating a
+// partial dQ of all 64 rows; the ring's stages alternate between them, so
+// its depth is even: stage g % 2 is consumer g % 2's.
+template <int D>
+struct DqTiles {
+  static constexpr bool kSplit = D > 128;               // the consumers split the key tiles
+  static constexpr int kRows = kSplit ? 64 : 128;       // q rows of an item
+  static constexpr int kKeys = kSplit ? 48 : 128;       // keys of a K/V tile
+  static constexpr int kStages = kSplit ? 2 : kDqStages;  // K/V ring depth
+  static_assert(!kSplit || kStages % 2 == 0, "a split ring's stages alternate between consumers");
+};
+
+// Whether K/V tile g of the ring (counted across items) is consumer c's.
+template <int D>
+__device__ __forceinline__ bool dq_tile_mine(int g, int c) {
+  return !DqTiles<D>::kSplit || (g & 1) == c;
+}
+
+// Whether consumer c has a tile among ring tiles [g0, g1).
+template <int D>
+__device__ __forceinline__ bool dq_has_tile(int g0, int g1, int c) {
+  for (int g = g0; g < g1; ++g)
+    if (dq_tile_mine<D>(g, c)) return true;
+  return false;
+}
 
 // The tiles of dk/dv.  Dh 64 / 128: an item is 128 keys, 64 a consumer, and
 // each consumer runs every product of its keys; a step is 64 q rows.  Dh
@@ -488,21 +515,26 @@ struct DkvTiles {
 };
 
 // Shared memory of the dq kernel, in bytes from a 1024-byte-aligned base:
-// the Q tile, the dO tile, the K ring, the V ring, then the mbarriers.  A
-// tile is D / 64 slabs of 128 bytes a row: 193 KB at Dh 128.
+// the Q tile, the dO tile, the K ring, the V ring, at Dh 320 the 64 x 64
+// f32 slab that passes dQ between the consumers, then the mbarriers.  A
+// tile is D / 64 slabs of 128 bytes a row: 193 KB at Dh 128, 217 KB at Dh
+// 320.
 template <int D>
 struct DqSmem {
+  using T = DqTiles<D>;
   static constexpr int kSlabs = D / 64;
-  static constexpr int kQSlab = kDqRows * 128;
-  static constexpr int kKVSlab = kDqKeys * 128;
+  static constexpr int kQSlab = T::kRows * 128;
+  static constexpr int kKVSlab = T::kKeys * 128;
   static constexpr int kQ = kSlabs * kQSlab;    // the Q tile; the dO tile alike
   static constexpr int kKV = kSlabs * kKVSlab;  // one K or V tile
   static constexpr int kDO = kQ;
   static constexpr int kK = kDO + kQ;
-  static constexpr int kV = kK + kDqStages * kKV;
-  static constexpr int kBars = kV + kDqStages * kKV;
+  static constexpr int kV = kK + T::kStages * kKV;
+  static constexpr int kXchg = kV + T::kStages * kKV;
+  static constexpr int kXchgBytes = T::kSplit ? 64 * 64 * 4 : 0;
+  static constexpr int kBars = kXchg + kXchgBytes;
   // q_full, q_empty, then per stage k_full, v_full, k_empty, v_empty
-  static constexpr int kNumBars = 2 + 4 * kDqStages;
+  static constexpr int kNumBars = 2 + 4 * T::kStages;
   // the dynamic base is only 16-byte aligned: room to align it by hand
   static constexpr int kBytes = kBars + kNumBars * 8 + 1024;
 };
@@ -542,26 +574,28 @@ __device__ __forceinline__ int item_index(int k, int total) {
   return w < total ? w : -1;
 }
 
-// A dq item: one (128-row q tile, head, batch) and the key tiles it sees,
-// numbered heaviest first across all heads (the last q tile, whose causal
-// rows see the most keys, of every (head, batch), then the one before, ...).
+// A dq item: one (q tile, head, batch) and the key tiles it sees, numbered
+// heaviest first across all heads (the last q tile, whose causal rows see
+// the most keys, of every (head, batch), then the one before, ...).
 struct DqItem {
   int r0, r1, h, b, hk, n_first, n_tiles;
 };
 
+template <int D>
 __device__ __forceinline__ DqItem dq_item(const Params& p, int w) {
-  const int n_qtiles = (p.Sq + kDqRows - 1) / kDqRows;
+  using T = DqTiles<D>;
+  const int n_qtiles = (p.Sq + T::kRows - 1) / T::kRows;
   const int rank = w / (p.H * p.B), hb = w % (p.H * p.B);
   DqItem t;
-  t.r0 = (n_qtiles - 1 - rank) * kDqRows;
-  t.r1 = min(p.Sq, t.r0 + kDqRows);
+  t.r0 = (n_qtiles - 1 - rank) * T::kRows;
+  t.r1 = min(p.Sq, t.r0 + T::kRows);
   t.h = hb % p.H;
   t.b = hb / p.H;
   t.hk = t.h / p.group;
   int k_lo, k_hi;
   key_range(p, t.r0, t.r1, k_lo, k_hi);
-  t.n_first = (k_lo / kDqKeys) * kDqKeys;
-  t.n_tiles = (k_hi - t.n_first + kDqKeys - 1) / kDqKeys;
+  t.n_first = (k_lo / T::kKeys) * T::kKeys;
+  t.n_tiles = (k_hi - t.n_first + T::kKeys - 1) / T::kKeys;
   return t;
 }
 
@@ -593,13 +627,14 @@ __device__ __forceinline__ DkvItem dkv_item(const Params& p, int w) {
 // takes one FFMA and one ex2 a score; an edge tile masks with selects, so
 // its scores stay one block of straight-line code.  Rows past Sq load zero
 // Q and dO and lse = delta = 0, so they give dS = 0 on either path.
-__device__ __forceinline__ void dq_ds(const Params& p, float (&s)[kDqKeys / 2],
-                                      const float (&dp)[kDqKeys / 2], const float (&lse2)[2],
+template <int KEYS>
+__device__ __forceinline__ void dq_ds(const Params& p, float (&s)[KEYS / 2],
+                                      const float (&dp)[KEYS / 2], const float (&lse2)[2],
                                       const float (&dlt)[2], int qrow, int n0, int r0, int r1,
                                       int tq, float sl2) {
-  if (tile_needs_mask(p, n0, kDqKeys, r0, r1)) {
+  if (tile_needs_mask(p, n0, KEYS, r0, r1)) {
 #pragma unroll
-    for (int i = 0; i < kDqKeys / 8; ++i) {
+    for (int i = 0; i < KEYS / 8; ++i) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e / 2, row = qrow + 8 * r, key = n0 + 8 * i + 2 * tq + (e & 1);
@@ -612,7 +647,7 @@ __device__ __forceinline__ void dq_ds(const Params& p, float (&s)[kDqKeys / 2],
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < kDqKeys / 2; ++i) {
+    for (int i = 0; i < KEYS / 2; ++i) {
       const int r = (i % 4) / 2;
       s[i] = hopper::exp2_approx(fmaf(s[i], sl2, -lse2[r])) * (dp[i] - dlt[r]);
     }
@@ -720,7 +755,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                               const __grid_constant__ CUtensorMap map_do, const Params p,
                               int total) {
   using L = DqSmem<D>;
+  using T = DqTiles<D>;
   using namespace hopper;
+  constexpr int ROWS = T::kRows, KEYS = T::kKeys, STAGES = T::kStages;
   extern __shared__ __align__(16) unsigned char wg_smem[];
   unsigned char* smem = wg_smem + ((1024 - (hopper::smem_u32(wg_smem) & 1023)) & 1023);
   unsigned char* sQ = smem;
@@ -730,18 +767,20 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
   uint64_t* q_empty = q_full + 1;
   uint64_t* k_full = q_full + 2;
-  uint64_t* v_full = k_full + kDqStages;
-  uint64_t* k_empty = v_full + kDqStages;
-  uint64_t* v_empty = k_empty + kDqStages;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* k_empty = v_full + STAGES;
+  uint64_t* v_empty = k_empty + STAGES;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     mbar_init(q_empty, 8);  // lane 0 of each of the 8 consumer warps
-    for (int s = 0; s < kDqStages; ++s) {
+    // a stage is released by the warps that read it: both consumers', or
+    // (split) its owner's 4
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(&k_full[s], 1);
       mbar_init(&v_full[s], 1);
-      mbar_init(&k_empty[s], 8);
-      mbar_init(&v_empty[s], 8);
+      mbar_init(&k_empty[s], T::kSplit ? 4 : 8);
+      mbar_init(&v_empty[s], T::kSplit ? 4 : 8);
     }
     fence_mbar_init();
   }
@@ -756,7 +795,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       for (int k = 0;; ++k) {
         const int w = item_index(k, total);
         if (w < 0) break;
-        const DqItem t = dq_item(p, w);
+        const DqItem t = dq_item<D>(p, w);
         // the consumers' last Q K^T and dO V^T of the previous item have retired
         if (k > 0) mbar_wait(q_empty, (k - 1) & 1);
         mbar_arrive_expect_tx(q_full, 2 * L::kQ);
@@ -766,16 +805,16 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           tma_load_4d(sdO + s * L::kQSlab, &map_do, q_full, s * 64, t.r0, t.h, t.b);
         }
         for (int j = 0; j < t.n_tiles; ++j, ++kv) {
-          const int st = kv % kDqStages, n0 = t.n_first + j * kDqKeys;
-          // the stage's previous V, then K, has been released by both consumers
-          const uint32_t released = (kv / kDqStages - 1) & 1;
-          if (kv >= kDqStages) mbar_wait(&v_empty[st], released);
+          const int st = kv % STAGES, n0 = t.n_first + j * KEYS;
+          // the stage's previous V, then K, has been released by its readers
+          const uint32_t released = (kv / STAGES - 1) & 1;
+          if (kv >= STAGES) mbar_wait(&v_empty[st], released);
           mbar_arrive_expect_tx(&v_full[st], L::kKV);
 #pragma unroll
           for (int s = 0; s < L::kSlabs; ++s)
             tma_load_4d(sV + st * L::kKV + s * L::kKVSlab, &map_v, &v_full[st], s * 64, n0,
                         t.hk, t.b);
-          if (kv >= kDqStages) mbar_wait(&k_empty[st], released);
+          if (kv >= STAGES) mbar_wait(&k_empty[st], released);
           mbar_arrive_expect_tx(&k_full[st], L::kKV);
 #pragma unroll
           for (int s = 0; s < L::kSlabs; ++s)
@@ -785,21 +824,23 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       }
     }
   } else {
-    // consumers: 64 q rows of each item each
+    // consumers: 64 q rows of each item each, or (split) all 64 rows of the
+    // item over the key tiles that are theirs
     reg_alloc<240>();
     const int c = threadIdx.x / 128 - 1;
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
-    const int quad = lane / 4, tq = lane % 4;    // accumulator row / column pair
-    const int row = c * 64 + warp * 16 + quad;   // this thread's rows: row, row + 8
+    const int quad = lane / 4, tq = lane % 4;  // accumulator row / column pair
+    const int c0 = T::kSplit ? 0 : c * 64;     // this consumer's first row in the item
+    const int row = c0 + warp * 16 + quad;     // this thread's rows: row, row + 8
     const float sl2 = p.scale * kLog2e;
-    const unsigned char* sQc = sQ + c * 64 * 128;  // this consumer's 64 rows of Q
-    const unsigned char* sdOc = sdO + c * 64 * 128;  // and of dO
-    int kv = 0;
-    for (int k = 0;; ++k) {
+    const unsigned char* sQc = sQ + c0 * 128;    // this consumer's 64 rows of Q
+    const unsigned char* sdOc = sdO + c0 * 128;  // and of dO
+    int kv = 0, k = 0;  // K/V tiles of the ring so far; items so far
+    for (;; ++k) {
       const int w = item_index(k, total);
       if (w < 0) break;
-      const DqItem t = dq_item(p, w);
-      const int cr0 = t.r0 + c * 64, cr1 = min(p.Sq, cr0 + 64);
+      const DqItem t = dq_item<D>(p, w);
+      const int cr0 = t.r0 + c0, cr1 = min(p.Sq, cr0 + 64);
       // lse (in the log2 domain) and delta of rows row and row + 8
       const long long stat = ((long long)t.b * p.H + t.h) * p.Sq;
       float lse2[2], dlt[2];
@@ -809,20 +850,23 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         lse2[r] = gr < p.Sq ? p.lse[stat + gr] * kLog2e : 0.f;
         dlt[r] = gr < p.Sq ? p.delta[stat + gr] : 0.f;
       }
-      float acc[D / 2];  // dQ, 64 x D over the warpgroup
+      float acc[D / 2];  // dQ, 64 x D over the warpgroup (split: this consumer's keys only)
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
       mbar_wait(q_full, k & 1);
+      // a consumer with no tile in this item is done with Q and dO at once
+      if (lane == 0 && !dq_has_tile<D>(kv, kv + t.n_tiles, c)) mbar_arrive(q_empty);
       for (int j = 0; j < t.n_tiles; ++j) {
-        const int g = kv + j, st = g % kDqStages;
-        const uint32_t phase = (g / kDqStages) & 1;
-        float s[kDqKeys / 2], dp[kDqKeys / 2];
+        const int g = kv + j, st = g % STAGES;
+        if (!dq_tile_mine<D>(g, c)) continue;
+        const uint32_t phase = (g / STAGES) & 1;
+        float s[KEYS / 2], dp[KEYS / 2];
         mbar_wait(&k_full[st], phase);
         mbar_wait(&v_full[st], phase);
         wgmma_fence();
-        wgmma_abt<D, kDqKeys, kDqRows, kDqKeys>(s, sQc, sK + st * L::kKV);
-        wgmma_abt<D, kDqKeys, kDqRows, kDqKeys>(dp, sdOc, sV + st * L::kKV);
+        wgmma_abt<D, KEYS, ROWS, KEYS>(s, sQc, sK + st * L::kKV);
+        wgmma_abt<D, KEYS, ROWS, KEYS>(dp, sdOc, sV + st * L::kKV);
         wgmma_commit();
         wgmma_wait<0>();
         fence_operand(s);
@@ -830,14 +874,15 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         __syncwarp();
         if (lane == 0) {
           mbar_arrive(&v_empty[st]);  // V is free: only dO V^T reads it
-          if (j == t.n_tiles - 1) mbar_arrive(q_empty);  // and so are Q and dO
+          // and after this consumer's last tile of the item, Q and dO
+          if (!dq_has_tile<D>(g + 1, kv + t.n_tiles, c)) mbar_arrive(q_empty);
         }
-        dq_ds(p, s, dp, lse2, dlt, t.r0 + row, t.n_first + j * kDqKeys, cr0, cr1, tq, sl2);
-        uint32_t da[kDqKeys / 16][4];
-        pack_a<kDqKeys>(s, da);
+        dq_ds<KEYS>(p, s, dp, lse2, dlt, t.r0 + row, t.n_first + j * KEYS, cr0, cr1, tq, sl2);
+        uint32_t da[KEYS / 16][4];
+        pack_a<KEYS>(s, da);
         fence_operand(acc);
         wgmma_fence();
-        wgmma_ab<D, kDqKeys, kDqKeys>(acc, da, sK + st * L::kKV);
+        wgmma_ab<D, KEYS, KEYS>(acc, da, sK + st * L::kKV);
         wgmma_commit();
         wgmma_wait<0>();
         fence_operand(acc);
@@ -846,13 +891,48 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       }
       kv += t.n_tiles;
 
-      __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(p.dq) + (long long)t.b * p.sdqb +
-                           (long long)t.h * p.sdqh;
+      if constexpr (T::kSplit) {
+        // consumer 1's partial dQ to consumer 0, one 64 x 64 slab (32
+        // accumulators a thread, in the same fragment layout) at a time;
+        // consumer 0 adds it to its own.  Named barrier 1 says the slab is
+        // written, 2 that it has been read: each side arrives on each once a
+        // slab, and consumer 1 waits out the last "read" before it ends.
+        float4* xchg = reinterpret_cast<float4*>(smem + L::kXchg) + tid;  // float4 j at xchg[128 j]
+#pragma unroll
+        for (int s = 0; s < D / 64; ++s) {
+          if (c == 1) {
+            if (k > 0 || s > 0) named_barrier_sync(2, 256);
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              xchg[128 * j] = make_float4(acc[32 * s + 4 * j], acc[32 * s + 4 * j + 1],
+                                          acc[32 * s + 4 * j + 2], acc[32 * s + 4 * j + 3]);
+            named_barrier_arrive(1, 256);
+          } else {
+            named_barrier_sync(1, 256);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const float4 x = xchg[128 * j];
+              acc[32 * s + 4 * j] += x.x;
+              acc[32 * s + 4 * j + 1] += x.y;
+              acc[32 * s + 4 * j + 2] += x.z;
+              acc[32 * s + 4 * j + 3] += x.w;
+            }
+            named_barrier_arrive(2, 256);
+          }
+        }
+        if (c == 1) continue;  // consumer 0 stores the item's dQ
+      }
+
+      // the item again rather than its head and batch kept live across the
+      // tile loop: two registers that the Dh-320 consumers lack
+      const DqItem u = dq_item<D>(p, w);
+      __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(p.dq) + (long long)u.b * p.sdqb +
+                           (long long)u.h * p.sdqh;
 #pragma unroll
       for (int i = 0; i < D / 8; ++i) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          const int gr = t.r0 + row + 8 * r;
+          const int gr = u.r0 + row + 8 * r;
           if (gr < p.Sq)
             *reinterpret_cast<__nv_bfloat162*>(dqg + (long long)gr * p.sdqs + 8 * i + 2 * tq) =
                 __floats2bfloat162_rn(acc[4 * i + 2 * r] * p.scale,
@@ -860,6 +940,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         }
       }
     }
+    if (T::kSplit && c == 1 && k > 0) named_barrier_sync(2, 256);
   }
 }
 
@@ -1380,29 +1461,29 @@ cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
                                            T::kDqSmem);
     if (err != cudaSuccess) return err;
     const dim3 grid((p.Sq + T::kDqRows - 1) / T::kDqRows, p.H, p.B);
-    flash_bwd_dq_bf16_kernel<D><<<grid, T::kDqThreads, T::kDqSmem, stream>>>(p);
+    flash_bwd_dq_bf16_kernel<D><<<grid, T::kThreads, T::kDqSmem, stream>>>(p);
   } else {
     cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_bf16_kernel<D>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            T::kDkvSmem);
     if (err != cudaSuccess) return err;
     const dim3 grid((p.Skv + kRows - 1) / kRows, p.Hk, p.B);
-    flash_bwd_dkv_bf16_kernel<D><<<grid, T::kDkvThreads, T::kDkvSmem, stream>>>(p);
+    flash_bwd_dkv_bf16_kernel<D><<<grid, T::kThreads, T::kDkvSmem, stream>>>(p);
   }
   return cudaGetLastError();
 }
 
 // maps: the geometry of the q, k, v and dout maps (hopper::kMapFields
 // each).  The boxes must be the tiles whose bytes the kernels' barriers
-// count: dq loads 128-row Q and dO tiles and 128-key K and V tiles; dk/dv
-// loads Q and dO tiles of a step's rows and K and V tiles of an item's keys
-// (DkvTiles).  Returns a cudaError_t, or minus the CUresult of a failed
+// count: dq loads Q and dO tiles of an item's rows and K and V tiles of a
+// step's keys (DqTiles); dk/dv loads Q and dO tiles of a step's rows and K
+// and V tiles of an item's keys (DkvTiles).  Returns a cudaError_t, or minus the CUresult of a failed
 // encode.
 template <int D, bool DQ>
 int launch_wgmma(const Params& p, const long long* maps, cudaStream_t stream) {
   const void* base[4] = {p.q, p.k, p.v, p.dout};
-  const long long q_rows = DQ ? kDqRows : DkvTiles<D>::kRows;
-  const long long kv_rows = DQ ? kDqKeys : DkvTiles<D>::kKeys;
+  const long long q_rows = DQ ? DqTiles<D>::kRows : DkvTiles<D>::kRows;
+  const long long kv_rows = DQ ? DqTiles<D>::kKeys : DkvTiles<D>::kKeys;
   const long long rows[4] = {q_rows, kv_rows, kv_rows, q_rows};
   const long long seq[4] = {p.Sq, p.Skv, p.Skv, p.Sq};
   const long long heads[4] = {p.H, p.Hk, p.Hk, p.H};
@@ -1427,7 +1508,8 @@ int launch_wgmma(const Params& p, const long long* maps, cudaStream_t stream) {
     err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    const int total = (p.Sq + kDqRows - 1) / kDqRows * p.H * p.B;
+    constexpr int ROWS = DqTiles<D>::kRows;
+    const int total = (p.Sq + ROWS - 1) / ROWS * p.H * p.B;
     flash_bwd_dq_wgmma_kernel<D><<<min(total, sms), kWgThreads, smem, stream>>>(
         m[0], m[1], m[2], m[3], p, total);
   } else {
@@ -1443,9 +1525,8 @@ int launch_wgmma(const Params& p, const long long* maps, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// dtype 1 at Dh 64 / 128 takes the TMA / wgmma kernels, Dh 16 / 32 the
-// mma.sync ones (no model of the repo has Dh < 64); at Dh 320 (gemma3-4b)
-// dk/dv is the wgmma kernel and dq the wide mma.sync one; dtype 0 the f32
+// dtype 1 at Dh 64, 128 and 320 takes the TMA / wgmma kernels, Dh 16 / 32
+// the mma.sync ones (no model of the repo has Dh < 64); dtype 0 the f32
 // ones
 template <bool DQ>
 int launch(const Params& p, int dtype, int D, const long long* maps, cudaStream_t stream) {
@@ -1455,11 +1536,7 @@ int launch(const Params& p, int dtype, int D, const long long* maps, cudaStream_
       case 32: return launch_mma<32, DQ>(p, stream);
       case 64: return launch_wgmma<64, DQ>(p, maps, stream);
       case 128: return launch_wgmma<128, DQ>(p, maps, stream);
-      case 320:
-        if constexpr (DQ)
-          return launch_mma<320, true>(p, stream);
-        else
-          return launch_wgmma<320, false>(p, maps, stream);
+      case 320: return launch_wgmma<320, DQ>(p, maps, stream);
     }
   } else if (dtype == 0) {
     switch (D) {
@@ -1511,9 +1588,8 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
 // (batch, head, row) of q, k, v, dout, dq, dk, dv in that order; the last
 // dimension of every tensor is contiguous.  lse and delta are contiguous
 // (B, H, Sq) f32.  window <= 0 means no window.  maps: for the wgmma
-// kernels (bf16 at Dh 64 and 128, and flash_bwd_dkv at Dh 320), the
-// geometry of the q, k, v and dout tensor maps (4 x 11 integers, see
-// hopper::encode_map); else null.
+// kernels (bf16 at Dh 64, 128 and 320), the geometry of the q, k, v and
+// dout tensor maps (4 x 11 integers, see hopper::encode_map); else null.
 // flash_bwd_dq writes dq; flash_bwd_dkv writes dk and dv, summed over each
 // kv head's query group.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,

@@ -59,9 +59,27 @@
 
 // bf16 at Dh in {16, 32} (card tests and small cases only) keeps the first
 // design: mma.sync m16n8k16, ldmatrix, K/V tiles double-buffered with
-// cp.async, one 4-warp block per 64 q rows.  The f32 path, which serving
-// does not take, is SIMT FMA (4 threads per q row) so that it keeps f32
-// accuracy.
+// cp.async, one 4-warp block per 64 q rows.
+//
+// f32 (every Dh; serving does not take it: it lets a small f32 model be
+// held tightly against the CPU on the card) must keep f32 accuracy.  The
+// fastest f32-accurate route on this card is 3xTF32 on the tensor cores
+// (three TF32 products a product, 495 / 3 = 165 TFLOP/s; f32 outside them
+// is 67): at gemma3-4b's head geometry in f32 (B 1, H 8, Hk 4, S 2048, Dh
+// 320, causal) 2.15e10 FLOP take 0.130 ms there against 63 MB (0.019 ms),
+// so the operations bound it.  Its shapes are small, though: the card
+// checks run B 1-4, H 2-8, S 100-2048.  So: mma.sync m16n8k8 in 3xTF32
+// (tf32_mma.cuh); blocks
+// of 64 q rows, two warps a 16-row strip each holding half of its O and
+// summing half of each score, all 8 sharing K and V tiles of 32 keys (16
+// at Dh 320) (flash_fwd_tf32_kernel); no sum run long through the tensor cores, which
+// truncate as they accumulate; and where the blocks would not fill the card
+// the keys are split across blocks (f32_key_split in flash_attention.py
+// picks the split), each writing its partial (m, l, O) to scratch, and a
+// second kernel sums the splits in one fixed order
+// (flash_fwd_combine_kernel).  The SIMT kernel it replaces (4 threads a
+// row, two shuffles a score, 24 blocks at B 1, H 4, S 333) took 3.6 times
+// as long as PyTorch's memory-efficient attention there.
 //
 // Semantics kept from the TPU kernel: masked scores are -1e30, never -inf,
 // so a query row that sees no key averages v over all keys, exactly as the
@@ -83,6 +101,7 @@
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -98,6 +117,12 @@ struct Params {
   long long sqb, sqh, sqs, skb, skh, sks, svb, svh, svs, sob, soh, sos;
   float scale;
   int causal, has_window, window, q_offset;
+  // f32: keys a split (a multiple of kTfChunk) and the number of splits; with
+  // more than one, the splits' partial O (splits, B, H, Sq, D) and, from
+  // ml_offset, their (m, l) pairs (splits, B, H, Sq, 2), f32
+  int chunk, splits;
+  float* part;
+  long long ml_offset;
 };
 
 // written with selects, not branches, so that a tile's scores stay one
@@ -679,110 +704,324 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// f32: SIMT FMA, 4 threads per q row
+// f32: 3xTF32 on the tensor cores (mma.sync m16n8k8, common/tf32_mma.cuh)
 // ---------------------------------------------------------------------------
 
-constexpr int kF32Rows = 64;
-constexpr int kF32Keys = 32;
-constexpr int kF32Threads = 4 * kF32Rows;
+constexpr int kTfChunk = 32;  // a key split is a multiple of this
+constexpr int kTfGroup = 4;   // k steps of S summed in the tensor cores
+constexpr float kLog2e = 1.4426950408889634f;
 
+// The f32 kernel's tiles, in floats: the block's Q rows, one K tile and one
+// V tile of a step's keys, and each thread's partial S.  Q and K are read as
+// mma A / B fragments at (row g, column q) and V at (row q, column g) (g =
+// lane / 4, q = lane % 4): rows of D + 4 and D + 8 floats keep both free of
+// bank conflicts.  A block is 8 warps: 4 strips of 16 q rows, two warps a
+// strip, each of which holds half of the strip's O (80 registers a thread
+// at Dh 320) and sums half of each score's head dims; 130 KB at Dh 320 (one
+// block an SM), 83 KB at Dh 128.
 template <int D>
-__global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(const Params p) {
-  constexpr int C = D / 16;  // float4 chunks per thread: chunk c * 4 + part
-  // keys a step: at Dh 320 sixteen, so that sK and sV (40 KB) fit the 48 KB
-  // of static shared memory
-  constexpr int KEYS = D > 128 ? 16 : kF32Keys;
-  __shared__ __align__(16) float sK[KEYS][D];
-  __shared__ __align__(16) float sV[KEYS][D];
+struct Tf32Tiles {
+  static constexpr int kWarps = 8;
+  static constexpr int kRows = 64;  // q rows of a block, 16 a strip
+  static constexpr int kThreads = 32 * kWarps;
+  // keys a step: at Dh 320 16, so that S's sums (24 registers) and the
+  // step's P V (80) fit beside O (80) without a spill
+  static constexpr int kKeys = D > 128 ? 16 : 32;
+  static constexpr int kHalf = D / 2;   // head dims a warp covers, of S's sums and of O
+  static constexpr int kLdQK = D + 4;
+  static constexpr int kLdV = D + 8;
+  static constexpr int kK = kRows * kLdQK;
+  static constexpr int kV = kK + kKeys * kLdQK;
+  static constexpr int kX = kV + kKeys * kLdV;  // partial S: float4 (w NT + t) 32 + lane
+  static constexpr int kBytes = (kX + kThreads * kKeys / 2) * 4;
+  static_assert(kTfChunk % kKeys == 0, "a split starts on a step");
+};
 
-  const int n_qtiles = (p.Sq + kF32Rows - 1) / kF32Rows;
-  const int r0 = (n_qtiles - 1 - (int)blockIdx.x) * kF32Rows;
-  const int r1 = min(p.Sq, r0 + kF32Rows);
-  const long long b = blockIdx.z, h = blockIdx.y, hk = h / p.group;
-  const int part = threadIdx.x % 4;
-  const int r = r0 + threadIdx.x / 4;
-  const int qpos = r + p.q_offset;
+// Keys [lo, hi) of key split s for the block of rows [r0, r1): the block's
+// keys (key_range, from a multiple of the step) cut at multiples of
+// p.chunk.  Empty where the split holds none of them.
+template <int D>
+__device__ __forceinline__ void split_keys(const Params& p, int r0, int r1, int s, int& lo,
+                                           int& hi) {
+  constexpr int KEYS = Tf32Tiles<D>::kKeys;
+  int k_lo, k_hi;
+  key_range(p, r0, r1, k_lo, k_hi);
+  lo = max((k_lo / KEYS) * KEYS, s * p.chunk);
+  hi = min(k_hi, (s + 1) * p.chunk);
+}
+
+// One block: 64 q rows of one (head, batch) over the keys of one split.
+// Per step of KEYS keys, each warp sums S = Q K^T over its half of the head
+// dims (16 x KEYS), the two warps of a strip swap their halves through
+// shared memory and each adds the other's (the same sum in both), both run
+// the same online softmax on the fragments, and each adds P V to its half
+// of O.  The K rows of S's B fragment are read permuted (column 2j of an
+// 8-key n-tile is key j, column 2j + 1 key j + 4), so that S's accumulator
+// fragment is, element for element, P's A fragment for P V: no shuffles.
+// The tensor cores truncate as they add into an accumulator, so no sum runs
+// through them for long: S takes kTfGroup k steps there, the two small
+// products of 3xTF32 in a chain of their own (with them in the large ones'
+// chain, or with S's whole sum or O's in the tensor cores, the card-vs-CPU
+// training check at Dh 320 missed its bound on the params), and adds each
+// group in f32 registers; P V of a step (2 or 4 k steps of 8 keys) is
+// summed from zero there and added to O in f32.  K and V have one buffer
+// each: K of step j + 1 loads while the softmax and P V of step j run, V of
+// step j + 1 while S of step j + 1 does.  With one split it writes O and
+// lse; with more, its unnormalised O and (m, l) go to p.part for the
+// combine.
+template <int D>
+__global__ void __launch_bounds__(Tf32Tiles<D>::kThreads, 1) flash_fwd_tf32_kernel(const Params p) {
+  using T = Tf32Tiles<D>;
+  constexpr int LQ = T::kLdQK, LV = T::kLdV, KEYS = T::kKeys, NT = KEYS / 8, HALF = T::kHalf;
+  constexpr int ROWS = T::kRows, THREADS = T::kThreads;
+  constexpr int G = HALF / 8 < kTfGroup ? HALF / 8 : kTfGroup;
+  static_assert((HALF / 8) % G == 0, "whole groups of k steps");
+  extern __shared__ __align__(16) float tf_smem[];
+  float* sQ = tf_smem;
+  float* sK = tf_smem + T::kK;
+  float* sV = tf_smem + T::kV;
+  float4* sX = reinterpret_cast<float4*>(tf_smem + T::kX);
+
+  const int n_qtiles = (p.Sq + ROWS - 1) / ROWS;
+  const int rank = blockIdx.z / p.splits, split = blockIdx.z % p.splits;
+  const int r0 = (n_qtiles - 1 - rank) * ROWS;  // longest causal rows first
+  const int r1 = min(p.Sq, r0 + ROWS);
+  const long long h = blockIdx.x, b = blockIdx.y, hk = h / p.group;
+  int k_lo, k_hi;
+  split_keys<D>(p, r0, r1, split, k_lo, k_hi);
+  if (k_lo >= k_hi) return;  // no key of this block in this split: the combine skips it
 
   const float* qg = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
   const float* kg = static_cast<const float*>(p.k) + b * p.skb + hk * p.skh;
   const float* vg = static_cast<const float*>(p.v) + b * p.svb + hk * p.svh;
-  float* og = static_cast<float*>(p.o) + b * p.sob + h * p.soh;
+  // rows are 16-byte aligned (the wrapper checks): whole 16-byte copies
+  tf32::load_tile<THREADS>(sQ, LQ, qg + r0 * p.sqs, p.sqs, ROWS, D, p.Sq - r0, D, true);
+  tf32::load_tile<THREADS>(sK, LQ, kg + k_lo * p.sks, p.sks, KEYS, D, p.Skv - k_lo, D, true);
+  tf32::commit();
+  tf32::load_tile<THREADS>(sV, LV, vg + k_lo * p.svs, p.svs, KEYS, D, p.Skv - k_lo, D, true);
+  tf32::commit();
 
-  float4 q[C], acc[C];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int strip = warp / 2, half = warp % 2;  // 16 q rows; which half of the head dims
+  const int g = lane / 4, q4 = lane % 4;        // mma groupID, thread in group
+  const int qpos0 = r0 + strip * 16 + g + p.q_offset;  // rows g and g + 8 of the strip
+  const float sl2 = p.scale * kLog2e;
+  const float* wQ = sQ + strip * 16 * LQ + half * HALF;
+  const float* wK = sK + half * HALF;
+  const float* wV = sV + half * HALF;
+  float acc[HALF / 8][4];  // this half of O: n-tile n holds columns half HALF + 8n + 2 q4 (+ 1)
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < p.Sq) x = *reinterpret_cast<const float4*>(qg + r * p.sqs + (c * 4 + part) * 4);
-    q[c] = make_float4(x.x * p.scale, x.y * p.scale, x.z * p.scale, x.w * p.scale);
-    acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  float m_run = kMasked, l_run = 0.f;
+  for (int n = 0; n < HALF / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m_run[2] = {kMasked, kMasked};  // log2 domain
+  float l_run[2] = {0.f, 0.f};          // partial over this thread's columns
 
-  int k_lo, k_hi;
-  key_range(p, r0, r1, k_lo, k_hi);
-  for (int n0 = (k_lo / KEYS) * KEYS; n0 < k_hi; n0 += KEYS) {
+  const int n_steps = (k_hi - k_lo + KEYS - 1) / KEYS;
+  for (int j = 0; j < n_steps; ++j) {
+    const int n0 = k_lo + j * KEYS;
+    tf32::wait<1>();  // K (and Q) have landed; V may still be in flight
     __syncthreads();
-    for (int c = threadIdx.x; c < KEYS * (D / 4); c += kF32Threads) {
-      const int rr = c / (D / 4), col = (c % (D / 4)) * 4;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (n0 + rr < p.Skv) {
-        kv = *reinterpret_cast<const float4*>(kg + (n0 + rr) * p.sks + col);
-        vv = *reinterpret_cast<const float4*>(vg + (n0 + rr) * p.svs + col);
+    // this warp's half of S = Q K^T: n-tile t holds keys n0 + 8t + q4 and + 4
+    // in columns 2 q4, 2 q4 + 1
+    float s[NT][4];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
+#pragma unroll
+    for (int k0 = 0; k0 < HALF / 8; k0 += G) {
+      float big[NT][4], small[NT][4];
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) big[t][e] = small[t][e] = 0.f;
+#pragma unroll
+      for (int kk = k0; kk < k0 + G; ++kk) {
+        const float* qa = wQ + g * LQ + kk * 8 + q4;
+        const tf32::AFrag a = tf32::a_frag(qa[0], qa[8 * LQ], qa[4], qa[8 * LQ + 4]);
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          const float* kb = wK + (8 * t + (g >> 1) + 4 * (g & 1)) * LQ + kk * 8 + q4;
+          const tf32::BFrag bf = tf32::b_frag(kb[0], kb[4]);
+          if (tf32::kPasses == 3) {
+            tf32::mma1(small[t], a.v[0].lo, a.v[1].lo, a.v[2].lo, a.v[3].lo, bf.v[0].hi,
+                       bf.v[1].hi);
+            tf32::mma1(small[t], a.v[0].hi, a.v[1].hi, a.v[2].hi, a.v[3].hi, bf.v[0].lo,
+                       bf.v[1].lo);
+          }
+          tf32::mma1(big[t], a.v[0].hi, a.v[1].hi, a.v[2].hi, a.v[3].hi, bf.v[0].hi, bf.v[1].hi);
+        }
       }
-      *reinterpret_cast<float4*>(&sK[rr][col]) = kv;
-      *reinterpret_cast<float4*>(&sV[rr][col]) = vv;
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[t][e] += big[t][e] + small[t][e];
     }
-    __syncthreads();
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+      sX[(warp * NT + t) * 32 + lane] = make_float4(s[t][0], s[t][1], s[t][2], s[t][3]);
+    __syncthreads();  // every warp is done with K, and every half of S is written
+    if (j + 1 < n_steps)
+      tf32::load_tile<THREADS>(sK, LQ, kg + (n0 + KEYS) * p.sks, p.sks, KEYS, D,
+                               p.Skv - n0 - KEYS, D, true);
+    tf32::commit();
+    // the other half's sum (addition commutes: both warps get the same S)
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const float4 o = sX[((warp ^ 1) * NT + t) * 32 + lane];
+      s[t][0] += o.x;
+      s[t][1] += o.y;
+      s[t][2] += o.z;
+      s[t][3] += o.w;
+    }
 
-    float s[KEYS];
-    float m_new = m_run;
+    // online softmax in the log2 domain; edge tiles masked (-1e30, or -inf past Skv)
+    const bool edge = tile_needs_mask(p, n0, KEYS, r0, r1);
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < KEYS; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(sK[j]);
-      float dot = 0.f;
+    for (int t = 0; t < NT; ++t) {
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float4 kv = kr[c * 4 + part];
-        dot += q[c].x * kv.x + q[c].y * kv.y + q[c].z * kv.z + q[c].w * kv.w;
+      for (int e = 0; e < 4; ++e) {
+        float x = s[t][e] * sl2;
+        if (edge) x = masked_score(p, x, qpos0 + 8 * (e >> 1), n0 + 8 * t + q4 + 4 * (e & 1));
+        s[t][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      s[j] = masked_score(p, dot, qpos, n0 + j);
-      m_new = fmaxf(m_new, s[j]);
     }
-    const float alpha = expf(m_run - m_new);
-    m_run = m_new;
-    l_run *= alpha;
+    float alpha[2], sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      acc[c].x *= alpha;
-      acc[c].y *= alpha;
-      acc[c].z *= alpha;
-      acc[c].w *= alpha;
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      alpha[r] = exp2f(m_run[r] - m_new);
+      m_run[r] = m_new;
     }
 #pragma unroll
-    for (int j = 0; j < KEYS; ++j) {
-      const float pj = expf(s[j] - m_new);
-      l_run += pj;
-      const float4* vr = reinterpret_cast<const float4*>(sV[j]);
+    for (int t = 0; t < NT; ++t) {
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float4 vv = vr[c * 4 + part];
-        acc[c].x += pj * vv.x;
-        acc[c].y += pj * vv.y;
-        acc[c].z += pj * vv.z;
-        acc[c].w += pj * vv.w;
+      for (int e = 0; e < 4; ++e) {
+        s[t][e] = exp2f(s[t][e] - m_run[e >> 1]);
+        sum[e >> 1] += s[t][e];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + sum[r];
+
+    tf32::wait<1>();  // V has landed; the next K may still be in flight
+    __syncthreads();
+    // this half of O = alpha O + P V: the step's P V summed from zero in the
+    // tensor cores (8 keys a k step; P's A fragment is S's accumulator
+    // fragment), then added to O in f32
+    float pv[HALF / 8][4];
+#pragma unroll
+    for (int n = 0; n < HALF / 8; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const tf32::AFrag a = tf32::a_frag(s[t][0], s[t][2], s[t][1], s[t][3]);
+      const float* vb = wV + (8 * t + q4) * LV + g;
+#pragma unroll
+      for (int n = 0; n < HALF / 8; ++n)
+        tf32::mma(pv[n], a, tf32::b_frag(vb[8 * n], vb[4 * LV + 8 * n]));
+    }
+#pragma unroll
+    for (int n = 0; n < HALF / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = fmaf(acc[n][e], alpha[e >> 1], pv[n][e]);
+    __syncthreads();  // every warp is done with V
+    if (j + 1 < n_steps)
+      tf32::load_tile<THREADS>(sV, LV, vg + (n0 + KEYS) * p.svs, p.svs, KEYS, D,
+                               p.Skv - n0 - KEYS, D, true);
+    tf32::commit();
+  }
+  tf32::wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+  const int rows[2] = {r0 + strip * 16 + g, r0 + strip * 16 + g + 8};
+  if (p.splits == 1) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (rows[r] >= p.Sq) continue;
+      if (p.lse != nullptr && half == 0 && q4 == 0)
+        p.lse[(b * p.H + h) * p.Sq + rows[r]] = row_lse_log2(m_run[r], l_run[r]);
+      const float inv = 1.f / fmaxf(l_run[r], 1e-30f);
+      float* og = static_cast<float*>(p.o) + b * p.sob + h * p.soh + rows[r] * p.sos +
+                  half * HALF + 2 * q4;
+#pragma unroll
+      for (int n = 0; n < HALF / 8; ++n)
+        *reinterpret_cast<float2*>(og + 8 * n) =
+            make_float2(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+    }
+  } else {
+    // the split's partial: O unnormalised, then (m, l) (see flash_fwd_combine_kernel)
+    const long long bh = (split * p.B + b) * p.H + h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (rows[r] >= p.Sq) continue;
+      const long long at = bh * p.Sq + rows[r];
+      if (half == 0 && q4 == 0)
+        *reinterpret_cast<float2*>(p.part + p.ml_offset + 2 * at) = make_float2(m_run[r], l_run[r]);
+      float* og = p.part + at * D + half * HALF + 2 * q4;
+#pragma unroll
+      for (int n = 0; n < HALF / 8; ++n)
+        *reinterpret_cast<float2*>(og + 8 * n) = make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+    }
+  }
+}
+
+// Sums the key splits of flash_fwd_tf32_kernel, one warp a (b, h, row): M
+// the largest split max, O = sum_s 2^(m_s - M) O_s / L with L = sum_s 2^(m_s
+// - M) l_s, split by split in one fixed order, over the splits that hold
+// keys of the row's block; lse from M and L.
+template <int D>
+__global__ void __launch_bounds__(256) flash_fwd_combine_kernel(const Params p) {
+  const long long wi = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  if (wi >= (long long)p.B * p.H * p.Sq) return;
+  const int lane = threadIdx.x % 32;
+  const int row = wi % p.Sq;
+  const long long bh = wi / p.Sq, h = bh % p.H, b = bh / p.H;
+  constexpr int ROWS = Tf32Tiles<D>::kRows;
+  const int r0 = row / ROWS * ROWS, r1 = min(p.Sq, r0 + ROWS);
+  const long long stride = (long long)p.B * p.H * p.Sq;  // between splits, in rows
+  const float2* ml = reinterpret_cast<const float2*>(p.part + p.ml_offset) + wi;
+  float M = -INFINITY;
+  for (int s = 0; s < p.splits; ++s) {
+    int lo, hi;
+    split_keys<D>(p, r0, r1, s, lo, hi);
+    if (lo < hi) M = fmaxf(M, ml[s * stride].x);
+  }
+  float Lsum = 0.f;
+  float4 o[(D / 4 + 31) / 32];
+#pragma unroll
+  for (int c = 0; c < (D / 4 + 31) / 32; ++c) o[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < p.splits; ++s) {
+    int lo, hi;
+    split_keys<D>(p, r0, r1, s, lo, hi);
+    if (lo >= hi) continue;
+    const float2 x = ml[s * stride];
+    const float w = exp2f(x.x - M);
+    Lsum += w * x.y;
+    const float4* os = reinterpret_cast<const float4*>(p.part + (s * stride + wi) * D);
+#pragma unroll
+    for (int c = 0; c < (D / 4 + 31) / 32; ++c) {
+      if (32 * c + lane < D / 4) {
+        const float4 v = os[32 * c + lane];
+        o[c].x += w * v.x;
+        o[c].y += w * v.y;
+        o[c].z += w * v.z;
+        o[c].w += w * v.w;
       }
     }
   }
-
-  if (r >= p.Sq) return;
-  if (p.lse != nullptr && part == 0) p.lse[(b * p.H + h) * p.Sq + r] = row_lse(m_run, l_run);
-  const float inv = 1.f / fmaxf(l_run, 1e-30f);
+  const float inv = 1.f / fmaxf(Lsum, 1e-30f);
+  float4* og = reinterpret_cast<float4*>(static_cast<float*>(p.o) + b * p.sob + h * p.soh +
+                                         row * p.sos);
 #pragma unroll
-  for (int c = 0; c < C; ++c)
-    *reinterpret_cast<float4*>(og + r * p.sos + (c * 4 + part) * 4) =
-        make_float4(acc[c].x * inv, acc[c].y * inv, acc[c].z * inv, acc[c].w * inv);
+  for (int c = 0; c < (D / 4 + 31) / 32; ++c)
+    if (32 * c + lane < D / 4)
+      og[32 * c + lane] = make_float4(o[c].x * inv, o[c].y * inv, o[c].z * inv, o[c].w * inv);
+  if (p.lse != nullptr && lane == 0) p.lse[wi] = row_lse_log2(M, Lsum);
 }
 
 template <int D>
@@ -832,10 +1071,22 @@ int launch_wgmma(const Params& p, const long long* maps, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The f32 kernel over p.splits key splits (p.chunk keys each), then, with
+// more than one, the combine.
 template <int D>
-cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
-  const dim3 grid((p.Sq + kF32Rows - 1) / kF32Rows, p.H, p.B);
-  flash_fwd_f32_kernel<D><<<grid, kF32Threads, 0, stream>>>(p);
+cudaError_t launch_tf32(const Params& p, cudaStream_t stream) {
+  constexpr int smem = Tf32Tiles<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_tf32_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  constexpr int ROWS = Tf32Tiles<D>::kRows;
+  const dim3 grid(p.H, p.B, (p.Sq + ROWS - 1) / ROWS * p.splits);
+  flash_fwd_tf32_kernel<D><<<grid, Tf32Tiles<D>::kThreads, smem, stream>>>(p);
+  if (p.splits > 1) {
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const long long rows = (long long)p.B * p.H * p.Sq;
+    flash_fwd_combine_kernel<D><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(p);
+  }
   return cudaGetLastError();
 }
 
@@ -846,14 +1097,18 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
 // lse: null, or a contiguous (B, H, Sq) f32 buffer to fill.  maps: for bf16
 // at Dh in {64, 128, 320}, which take the wgmma kernel, the geometry of the
 // q, k, v and (Dh 64 / 128) o tensor maps (11 integers each, see
-// hopper::encode_map); else null.
+// hopper::encode_map); else null.  f32 only: `chunk`, the keys of one key
+// split (a multiple of 32), and `part`, scratch of splits x B x H x Sq x (D
+// + 2) floats with splits = ceil(Skv / chunk), or null when that is 1
+// (flash_attention.py, f32_key_split).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                          int dtype, int B,
                          int H, int Hk, int Sq, int Skv, int D, long long sqb, long long sqh,
                          long long sqs, long long skb, long long skh, long long sks,
                          long long svb, long long svh, long long svs, long long sob,
                          long long soh, long long sos, float scale, int causal, int window,
-                         int q_offset, void* stream, const long long* maps) {
+                         int q_offset, void* stream, const long long* maps, void* part,
+                         int chunk) {
   Params p;
   p.q = q;
   p.k = k;
@@ -883,6 +1138,10 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
   p.has_window = window > 0;
   p.window = window;
   p.q_offset = q_offset;
+  p.chunk = chunk;
+  p.splits = p.chunk > 0 ? (Skv + p.chunk - 1) / p.chunk : 0;
+  p.part = static_cast<float*>(part);
+  p.ml_offset = (long long)p.splits * B * H * Sq * D;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     switch (D) {
@@ -894,12 +1153,14 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
       case 320: return launch_wgmma<320>(p, maps, st);
     }
   } else if (dtype == 0) {
+    if (p.chunk <= 0 || p.chunk % kTfChunk != 0 || (p.splits > 1 && part == nullptr))
+      return cudaErrorInvalidValue;
     switch (D) {
-      case 16: return launch_f32<16>(p, st);
-      case 32: return launch_f32<32>(p, st);
-      case 64: return launch_f32<64>(p, st);
-      case 128: return launch_f32<128>(p, st);
-      case 320: return launch_f32<320>(p, st);
+      case 16: return launch_tf32<16>(p, st);
+      case 32: return launch_tf32<32>(p, st);
+      case 64: return launch_tf32<64>(p, st);
+      case 128: return launch_tf32<128>(p, st);
+      case 320: return launch_tf32<320>(p, st);
     }
   }
   return cudaErrorInvalidValue;

@@ -20,12 +20,16 @@ mask the ragged edge themselves.  The forward takes Dh in ``HEAD_DIMS``, the
 backward in ``BWD_HEAD_DIMS`` (both include gemma3-4b's 320); any other Dh
 raises ``ValueError`` on the card before a launch.
 
-At bf16 the TMA / wgmma kernels (the forward at Dh 64, 128 and 320, dq at
-Dh 64 and 128, dk/dv at Dh 64, 128 and 320) read their inputs through TMA
-tensor maps (the forward at Dh 64 and 128 writes o through one too);
-``tma_map_geometry`` computes each map's geometry here, with the boxes of
-``TMA_FWD_ROWS`` / ``TMA_BWD_ROWS``, and the C side checks the boxes
-against its tiles and encodes what it is given.
+At bf16 the TMA / wgmma kernels (the forward, dq and dk/dv at Dh 64, 128
+and 320) read their inputs through TMA tensor maps (the forward at Dh 64
+and 128 writes o through one too); ``tma_map_geometry`` computes each map's
+geometry here, with the boxes of ``TMA_FWD_ROWS`` / ``TMA_BWD_ROWS``, and
+the C side checks the boxes against its tiles and encodes what it is given.
+
+In f32 the forward (3xTF32 on the tensor cores) may split the keys across
+blocks where its q tiles alone would leave the card idle, and sum the
+splits in a second kernel: ``f32_key_split`` picks the split, and the
+wrapper allocates the splits' scratch.
 """
 
 from __future__ import annotations
@@ -53,15 +57,23 @@ TMA_Q_ROWS, TMA_KV_ROWS, TMA_O_ROWS = 128, 128, 64
 TMA_FWD_ROWS = {64: (TMA_Q_ROWS, TMA_KV_ROWS, TMA_KV_ROWS, TMA_O_ROWS),
                 128: (TMA_Q_ROWS, TMA_KV_ROWS, TMA_KV_ROWS, TMA_O_ROWS),
                 320: (TMA_Q_ROWS, 48, 48)}
-# the backward's maps of (q, k, v, do) by (kernel, Dh): dq loads 128-row q /
-# do tiles and 128-key k / v tiles; dk/dv loads q / do tiles of a step's
+# the backward's maps of (q, k, v, do) by (kernel, Dh): dq loads q / do
+# tiles of an item's rows and k / v tiles of a step's keys, 128 and 128 at
+# Dh 64 / 128, 64 and 48 at Dh 320; dk/dv loads q / do tiles of a step's
 # rows and k / v tiles of an item's keys, 64 and 128 at Dh 64 / 128, 48 and
-# 64 at Dh 320.  dq at Dh 320 is an mma.sync kernel and takes no map.
+# 64 at Dh 320.
 TMA_BWD_ROWS = {("flash_bwd_dq", 64): (128, 128, 128, 128),
                 ("flash_bwd_dq", 128): (128, 128, 128, 128),
+                ("flash_bwd_dq", 320): (64, 48, 48, 64),
                 ("flash_bwd_dkv", 64): (64, 128, 128, 64),
                 ("flash_bwd_dkv", 128): (64, 128, 128, 64),
                 ("flash_bwd_dkv", 320): (48, 64, 64, 48)}
+
+# The f32 forward's blocks (flash_fwd.cu, flash_fwd_tf32_kernel): 64 q rows
+# over the keys of one split, whose keys are a multiple of 32, so of the
+# kernel's steps (32 keys, 16 at Dh 320); a split holds at least 64 keys.
+F32_ROWS, F32_CHUNK = 64, 32
+F32_MIN_SPLIT = 2 * F32_CHUNK
 
 # kernel launches since the counts were last reset
 LAUNCHES = 0        # flash_fwd
@@ -86,7 +98,7 @@ def _fwd_fn():
     fn = build.load(SOURCE).flash_fwd
     if fn.argtypes is None:
         fn.argtypes = [_P] * 5 + [_I] * 7 + [_LL] * 12 + [ctypes.c_float, _I, _I, _I, _P,
-                                                          ctypes.POINTER(_LL)]
+                                                          ctypes.POINTER(_LL), _P, _I]
         fn.restype = _I
     return fn
 
@@ -187,6 +199,23 @@ def _bwd_maps(name, q, k, v, do):
     return _maps(("q", "k", "v", "do"), (q, k, v, do), rows)
 
 
+def f32_key_split(B: int, H: int, Sq: int, Skv: int, sms: int) -> Tuple[int, int]:
+    """(splits, keys a split) of the f32 forward: enough splits that its
+    blocks, ``ceil(Sq / F32_ROWS) * H * B`` of them, number at least the
+    card's ``sms``, but none shorter than ``F32_MIN_SPLIT`` keys; the keys a
+    split are a multiple of ``F32_CHUNK``, and the splits cover Skv."""
+    blocks = -(-Sq // F32_ROWS) * H * B
+    want = max(1, min(-(-sms // blocks), -(-Skv // F32_MIN_SPLIT)))
+    chunk = -(-(-(-Skv // want)) // F32_CHUNK) * F32_CHUNK
+    return -(-Skv // chunk), chunk
+
+
+def f32_split_scratch(splits: int, B: int, H: int, Sq: int, Dh: int) -> int:
+    """f32 elements of the splits' scratch: each split's partial o (B, H,
+    Sq, Dh) and its rows' (max, sum) pairs; none for one split."""
+    return 0 if splits == 1 else splits * B * H * Sq * (Dh + 2)
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -208,6 +237,12 @@ def _fwd(q, k, v, causal, window, scale, q_offset, with_lse: bool):
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if with_lse else None
     if o.numel() == 0:  # nothing to compute; an empty grid is not a valid launch
         return o, lse
+    part, chunk = None, 0
+    if q.dtype == torch.float32:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        splits, chunk = f32_key_split(B, H, Sq, Skv, sms)
+        n = f32_split_scratch(splits, B, H, Sq, Dh)
+        part = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
     with torch.cuda.device(q.device):
         err = _fwd_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -215,7 +250,7 @@ def _fwd(q, k, v, causal, window, scale, q_offset, with_lse: bool):
             _DTYPE_CODES[q.dtype], B, H, Hk, Sq, Skv, Dh,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
             float(scale), int(causal), int(window or 0), int(q_offset), _stream(q),
-            _fwd_maps(q, k, v, o),
+            _fwd_maps(q, k, v, o), part.data_ptr() if part is not None else None, chunk,
         )
     _raise_on(err, "flash_fwd")
     return o, lse

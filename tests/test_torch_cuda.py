@@ -67,10 +67,15 @@ CASES = [
     (1, 20, 20, 1500, 1500, 64, False, None, 0, torch.bfloat16),
     (2, 20, 20, 224, 1500, 64, False, None, 0, torch.bfloat16),
     (1, 12, 2, 1024, 1024, 128, True, None, 0, torch.bfloat16),      # qwen2-vl-2b, group 6
+    # f32 at small grids, where the forward splits the keys across blocks
+    (1, 4, 2, 1, 333, 128, True, None, 332, torch.float32),          # Sq 1: one row, 6 splits
+    (1, 4, 2, 17, 333, 128, True, None, 316, torch.float32),         # Sq 17
 ]
-# head_dim 320 (gemma3-4b): the forward's and dk/dv's TMA / wgmma kernels
-# (128-row q tiles over 48-key tiles; 64-key items over 48-row q steps),
-# dq's wide mma.sync kernel (f32: the SIMT kernels at 8 threads a row)
+# head_dim 320 (gemma3-4b): the TMA / wgmma kernels (the forward's 128-row
+# q tiles over 48-key tiles; dq's 64-row items whose 48-key tiles the two
+# consumers split; dk/dv's 64-key items over 48-row q steps); f32: the
+# 3xTF32 forward (64-row blocks, keys split across blocks at small grids)
+# and the SIMT backward at 8 threads a row
 D320_CASES = [
     (1, 8, 4, 2048, 2048, 320, True, 1024, 0, torch.bfloat16),       # gemma3 local layer
     (1, 8, 4, 2048, 2048, 320, True, None, 0, torch.bfloat16),       # gemma3 global layer
@@ -85,6 +90,14 @@ D320_CASES = [
     (1, 6, 6, 256, 256, 320, True, None, 0, torch.bfloat16),         # MHA
     (1, 8, 2, 300, 300, 320, True, None, 0, torch.bfloat16),         # GQA group 4
     (1, 4, 2, 300, 300, 320, True, 50, 0, torch.bfloat16),           # a window ending inside a tile
+    # the edges of dq's split items
+    (1, 4, 2, 100, 250, 320, True, None, 150, torch.bfloat16),       # Skv no multiple of 48, q_offset
+    (1, 4, 2, 65, 65, 320, True, None, 0, torch.bfloat16),           # the last item holds one row
+    (1, 4, 2, 256, 256, 320, True, 100, 0, torch.bfloat16),          # windows start inside tiles at items' edges
+    # f32 at small grids (the forward's key split)
+    (1, 4, 2, 1, 333, 320, True, None, 332, torch.float32),          # Sq 1: one row, 6 splits
+    (1, 4, 2, 17, 333, 320, True, None, 316, torch.float32),         # Sq 17
+    (1, 4, 2, 64, 128, 320, False, 16, 100, torch.float32),          # rows that see no key
 ]
 # q/k/v as the transposed views of (B, S, H, Dh) that ops.flash_attention
 # passes (rows H * Dh apart): the serving prefill shape, moonshot's MHA

@@ -1,7 +1,11 @@
 """The host side of the TMA flash-attention kernels, on the CPU: the tensor
 maps' geometry that the wrappers compute and the C side encodes
 (``flash_attention.tma_map_geometry``), for the layouts the kernels take,
-and what they refuse."""
+and what they refuse; and the f32 forward's key split
+(``flash_attention.f32_key_split``), with its arithmetic emulated in torch
+against the plain version."""
+
+import math
 
 import pytest
 
@@ -145,11 +149,13 @@ def test_maps_of_the_backward(shape, name, layout):
 
 @pytest.mark.parametrize("name, Dh, q_rows, kv_rows", [
     ("flash_bwd_dq", 64, 128, 128), ("flash_bwd_dq", 128, 128, 128),
+    ("flash_bwd_dq", 320, 64, 48),
     ("flash_bwd_dkv", 64, 64, 128), ("flash_bwd_dkv", 128, 64, 128),
     ("flash_bwd_dkv", 320, 48, 64)])
 def test_backward_boxes_are_the_kernels_tiles(name, Dh, q_rows, kv_rows):
-    # dq walks 128-row items reading 128-key k / v tiles; dk/dv walks q steps
-    # of 64 rows over items of 128 keys, at Dh 320 steps of 48 over 64 keys
+    # dq walks 128-row items reading 128-key k / v tiles, at Dh 320 64-row
+    # items over 48-key tiles; dk/dv walks q steps of 64 rows over items of
+    # 128 keys, at Dh 320 steps of 48 over 64 keys
     assert fa.TMA_BWD_ROWS[name, Dh] == (q_rows, kv_rows, kv_rows, q_rows)
 
 
@@ -188,8 +194,7 @@ def test_the_backward_refuses_a_layout_tma_cannot_take(name, kind, match, bad):
         fa._bwd_maps(name, **tensors)
 
 
-# head_dim 320 (gemma3-4b): the forward and dk/dv are TMA / wgmma kernels,
-# dq is not
+# head_dim 320 (gemma3-4b): the forward, dq and dk/dv are TMA / wgmma kernels
 D320_SHAPES = [
     # B, H, Hk, Sq, Skv, Dh
     (4, 8, 4, 2048, 2048, 320),    # gemma3-4b prefill
@@ -242,11 +247,15 @@ def test_dkv_maps_at_head_dim_320(shape, layout):
 
 @pytest.mark.parametrize("layout", ["kernel", "model"])
 @pytest.mark.parametrize("shape", D320_SHAPES)
-def test_dq_takes_no_map_at_head_dim_320(shape, layout):
-    # dq at Dh 320 is still the mma.sync kernel
+def test_dq_maps_at_head_dim_320(shape, layout):
+    # 64-row q / do tiles (an item) over 48-key k / v tiles (a step of one
+    # consumer), the bytes the kernel's barriers count
+    B, H, Hk, Sq, Skv, Dh = shape
     q, k, v, do = _d320_tensors(shape, layout)
-    assert fa._bwd_maps("flash_bwd_dq", q, k, v, do) is None
-    assert ("flash_bwd_dq", 320) not in fa.TMA_BWD_ROWS
+    fields = list(fa._bwd_maps("flash_bwd_dq", q, k, v, do))
+    dims = ((Dh, Sq, H, B), (Dh, Skv, Hk, B), (Dh, Skv, Hk, B), (Dh, Sq, H, B))
+    assert fa.TMA_BWD_ROWS["flash_bwd_dq", 320] == (64, 48, 48, 64)
+    _check_maps(fields, (q, k, v, do), dims, (64, 48, 48, 64))
 
 
 def test_the_forward_map_boxes_by_head_dim():
@@ -256,3 +265,110 @@ def test_the_forward_map_boxes_by_head_dim():
                                        fa.TMA_O_ROWS)
     assert len(fa.TMA_FWD_ROWS[320]) == 3
     assert set(fa.TMA_FWD_ROWS) == {64, 128, 320}
+
+
+# The f32 forward's key split (flash_fwd.cu: flash_fwd_tf32_kernel, then
+# flash_fwd_combine_kernel): (B, H, Sq, Skv) and the (splits, keys a split)
+# that an H100's 132 SMs give.
+F32_SPLITS = [
+    ((1, 4, 333, 333), (6, 64)),      # d320_ragged_f32: 24 blocks of 64 rows
+    ((1, 8, 2048, 2048), (1, 2048)),  # gemma3_global_f32: 256 blocks fill the card
+    ((4, 2, 128, 128), (2, 64)),      # gemma3-smoke at Dh 320 (the model phase)
+    ((2, 8, 1000, 1000), (1, 1024)),  # the f32 case at Dh 128
+    ((1, 4, 1, 333), (6, 64)),        # Sq 1: as many splits as 64-key chunks
+    ((1, 4, 17, 128), (2, 64)),
+    ((1, 4, 200, 300), (5, 64)),
+]
+
+
+@pytest.mark.parametrize("shape, want", F32_SPLITS)
+def test_f32_key_split_at_the_cards_shapes(shape, want):
+    assert fa.f32_key_split(*shape, sms=132) == want
+
+
+@pytest.mark.parametrize("sms", [1, 16, 132, 1000])
+@pytest.mark.parametrize("shape", [s for s, _ in F32_SPLITS])
+def test_f32_key_split_covers_the_keys(shape, sms):
+    B, H, Sq, Skv = shape
+    splits, chunk = fa.f32_key_split(B, H, Sq, Skv, sms)
+    assert chunk % fa.F32_CHUNK == 0  # a split starts on a step
+    assert (splits - 1) * chunk < Skv <= splits * chunk  # every key, no split past them
+    assert splits == 1 or chunk >= fa.F32_MIN_SPLIT
+    blocks = -(-Sq // fa.F32_ROWS) * H * B
+    assert (splits - 1) * blocks < sms  # no more splits than it takes to fill the card
+
+
+def test_f32_split_scratch():
+    assert fa.f32_split_scratch(1, 1, 8, 2048, 320) == 0
+    # each split's o and its rows' (max, sum)
+    assert fa.f32_split_scratch(6, 1, 4, 333, 320) == 6 * 4 * 333 * (320 + 2)
+
+
+def _key_range(Sq, Skv, causal, window, q_offset, r0, r1):
+    """flash_common.cuh's key_range: the keys rows [r0, r1) can see."""
+    qmin, qmax = r0 + q_offset, r1 - 1 + q_offset
+    if window is not None and qmax - window + 1 >= Skv:
+        return 0, Skv  # the last row sees no key: every key
+    lo = max(0, qmin - window + 1) if window is not None else 0
+    return lo, (min(Skv, qmax + 1) if causal else Skv)
+
+
+def _split_forward(q, k, v, *, causal, window, q_offset, splits, chunk):
+    """The f32 forward's arithmetic in torch: each 64-row block's key splits
+    (whole 32-key steps from the block's first key, cut at multiples of
+    ``chunk``), each split's (m, l, O) over the scores of its steps in the
+    log2 domain (masked -1e30, -inf past Skv), then the combine over the
+    splits that hold keys; -> (o, lse)."""
+    from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_mask
+
+    B, H, Sq, Dh = q.shape
+    Hk, Skv = k.shape[1], k.shape[2]
+    ke, ve = (t.repeat_interleave(H // Hk, dim=1) for t in (k, v))
+    x = torch.einsum("bhqd,bhkd->bhqk", q, ke) * (Dh ** -0.5 * math.log2(math.e))
+    x = torch.where(attention_mask(Sq, Skv, causal, window, q_offset), x, NEG_INF)
+    o, lse = torch.empty_like(q), torch.empty(B, H, Sq)
+    for r0 in range(0, Sq, fa.F32_ROWS):
+        r1 = min(Sq, r0 + fa.F32_ROWS)
+        k_lo, k_hi = _key_range(Sq, Skv, causal, window, q_offset, r0, r1)
+        parts = []
+        for s in range(splits):
+            step = fa.F32_CHUNK  # the kernel's keys a step
+            lo, hi = max(k_lo // step * step, s * chunk), min(k_hi, (s + 1) * chunk)
+            if lo >= hi:
+                continue
+            end = min(Skv, lo + -(-(hi - lo) // step) * step)
+            xs = x[:, :, r0:r1, lo:end]
+            m = xs.amax(-1, keepdim=True)
+            p = torch.exp2(xs - m)
+            parts.append((m, p.sum(-1, keepdim=True), p @ ve[:, :, lo:end]))
+        M = torch.stack([m for m, _, _ in parts]).amax(0)
+        w = [torch.exp2(m - M) for m, _, _ in parts]
+        L = sum(wi * l for wi, (_, l, _) in zip(w, parts))
+        o[:, :, r0:r1] = sum(wi * oi for wi, (_, _, oi) in zip(w, parts)) / L
+        lse[:, :, r0:r1] = (torch.where(M == NEG_INF, 0.0, M * math.log(2)) + torch.log(L))[..., 0]
+    return o, lse
+
+
+@pytest.mark.parametrize("case", [
+    # B, H, Hk, Sq, Skv, Dh, causal, window, q_offset
+    (1, 4, 2, 333, 333, 16, True, None, 0),     # d320_ragged_f32's geometry, 6 splits
+    (1, 4, 2, 200, 300, 16, False, 64, 50),     # a window, Sq != Skv
+    (1, 4, 2, 64, 128, 16, False, 16, 100),     # rows that see no key average v
+    (2, 2, 1, 128, 128, 32, True, 8, 0),        # gemma3-smoke's window of 8
+    (1, 4, 2, 17, 128, 16, True, None, 111),    # Sq 17 at the end of the keys
+    (1, 4, 2, 1, 333, 16, True, None, 332),     # Sq 1: one row over every split
+])
+def test_f32_split_and_combine_give_the_plain_forward(case):
+    from repro_torch.kernels.flash_attention.ref import attention_fwd_lse_ref
+
+    B, H, Hk, Sq, Skv, Dh, causal, window, q_offset = case
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(B, h, S, Dh, generator=g)
+               for h, S in ((H, Sq), (Hk, Skv), (Hk, Skv)))
+    splits, chunk = fa.f32_key_split(B, H, Sq, Skv, sms=132)
+    assert splits > 1  # each case splits the keys
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o, lse = _split_forward(q, k, v, splits=splits, chunk=chunk, **kw)
+    o_ref, lse_ref = attention_fwd_lse_ref(q, k, v, **kw)
+    assert (o - o_ref).abs().max().item() <= 1e-5
+    assert (lse - lse_ref).abs().max().item() <= 1e-5

@@ -70,9 +70,10 @@ And an A/B of the flash-attention kernels against another checkout:
   kernels ``flash_bwd_dq`` and ``flash_bwd_dkv`` at the same (training)
   shape; then gemma3-4b's Dh-320 shapes in the model's layout (H=8, Hk=4,
   S=2048, global and local layers): ``flash_fwd`` at the prefill's B=4,
-  ``flash_fwd_lse`` and the backward kernels at the training shape's B=2,
-  and the f32 Dh-320 forward at a small shape and at gemma3-4b's head
-  geometry (B=1, S=2048).  Timed in the package of
+  ``flash_fwd_lse`` and the backward kernels at the training shape's B=2;
+  in f32 (the 3xTF32 kernels), all four at Dh 320 at a small shape and at
+  gemma3-4b's head geometry (B=1, S=2048), and the forward with lse and the
+  backward at llama3.2-3b's training shape.  Timed in the package of
   the checkout at DIR (say, the parent commit unpacked with ``git
   archive``) and in this one, in turns (DIR, this, this, DIR), each run in
   a fresh process that builds that checkout's kernels: device time (a CUDA
@@ -80,12 +81,13 @@ And an A/B of the flash-attention kernels against another checkout:
   events; last, each call's two device times on each side and DIR / this.
 
 * flash_ablate: what each part of the TMA / wgmma kernels' design, and of
-  the f32 forward's, is worth.  Variants of ``flash_fwd.cu`` and of
+  the f32 (3xTF32) kernels', is worth.  Variants of ``flash_fwd.cu`` and of
   ``flash_bwd.cu``, each with one part taken out (or, marked so, added) by a
   text substitution, are built beside the unmodified sources and timed at
   the serving prefill / training shape and at gemma3-4b's Dh-320 ones, the
-  f32 forward at two Dh-320 shapes (device time, CUDA graph), in two
-  rounds, each build's error at a ragged Dh-320 case printed beside.  The
+  f32 forward at two Dh-320 shapes and the f32 backward at those and at
+  llama3.2-3b's training shape (device time, CUDA graph), in two rounds,
+  each build's error at a ragged Dh-320 case printed beside.  The
   forward variants that drop work (the softmax, the K/V loads) give wrong
   outputs, and one TF32 pass an f32 output past its tolerance: they only
   measure what that work costs.
@@ -1213,8 +1215,9 @@ add("", 4, 24, 8, 1024, 128, None, ALL)
 for tag, window in (("global", None), ("local", 1024)):
     add("_d320_prefill_" + tag, 4, 8, 4, 2048, 320, window, ALL[:1], layout="model")
     add("_d320_train_" + tag, 2, 8, 4, 2048, 320, window, ALL[1:], layout="model")
-add("_d320_f32", 1, 4, 2, 333, 320, None, ALL[:1], dtype=torch.float32)
-add("_d320_f32_2048", 1, 8, 4, 2048, 320, None, ALL[:1], dtype=torch.float32)
+add("_d320_f32", 1, 4, 2, 333, 320, None, ALL, dtype=torch.float32)
+add("_d320_f32_2048", 1, 8, 4, 2048, 320, None, ALL, dtype=torch.float32)
+add("_llama_f32", 4, 24, 8, 1024, 128, None, ALL[1:], dtype=torch.float32, layout="model")
 out = {name: {"device_ms": graph_ms(call), "back_to_back_ms": events_ms(call)}
        for name, call in calls.items()}
 print(json.dumps(out))
@@ -1301,8 +1304,10 @@ def flash_ab(smi: str, other: str) -> None:
         "B=4 H=24 Hk=8 S=1024 Dh=128 bf16 causal; gemma3-4b at Dh 320 (H=8 Hk=4 S=2048 bf16 "
         "causal, model layout, global and local = window 1024): flash_fwd at the prefill's "
         "B=4 (_d320_prefill_*), flash_fwd_lse, flash_bwd_dq and flash_bwd_dkv at the training "
-        "shape's B=2 (_d320_train_*); flash_fwd f32 at Dh=320, B=1 H=4 Hk=2 S=333 (_d320_f32) "
-        "and B=1 H=8 Hk=4 S=2048 (_d320_f32_2048)",
+        "shape's B=2 (_d320_train_*); f32: the four at Dh=320, B=1 H=4 Hk=2 S=333 (_d320_f32) "
+        "and B=1 H=8 Hk=4 S=2048 (_d320_f32_2048), flash_fwd_lse, flash_bwd_dq and "
+        "flash_bwd_dkv at llama3.2-3b's training shape (B=4 H=24 Hk=8 S=1024 Dh=128, model "
+        "layout, _llama_f32)",
         _FLASH_TIMING)
 
 
@@ -1365,6 +1370,34 @@ FLASH_BWD_ABLATIONS = {
     "dq_one_consumer": ("dq's split of an item's key tiles at Dh 320: consumer 0 walks them "
                         "all, consumer 1 passes zeros", [
         (r"\(g & 1\) == c;", "c == 0;")]),
+    # f32 only
+    "one_tf32_pass": _ONE_PASS,
+    "f32_one_split": ("the f32 kernels' splits across blocks: dq's blocks walk all their keys, "
+                      "dk/dv's all their rows and heads, no combine", [
+        (r"p\.chunk = chunk;",
+         "p.chunk = chunk > 0 ? (split_extent + kTfChunk - 1) / kTfChunk * kTfChunk : 0;"),
+        (r"p\.head_splits = head_splits;", "p.head_splits = 1;")]),
+    "f32_exact_exp2": ("the f32 kernels' ex2.approx for P: exp2f, which also handles "
+                       "subnormal results", [
+        (r"hopper::exp2_approx\(fmaf\(s\[t\]\[e\], sl2, nl2", "exp2f(fmaf(s[t][e], sl2, nl2"),
+        (r"\? hopper::exp2_approx\(nl2\)", "? exp2f(nl2)")]),
+    "f32_kstep_sums": ("(added) the f32 kernels' products into dQ, dK and dV summed one "
+                       "8-key (8-row) k step at a time in the tensor cores, not one step's", [
+        (r"  tf32::AFrag a\[NT\];\n#pragma unroll\n  for \(int t = 0; t < NT; \+\+t\) "
+         r"a\[t\] = tf32::a_frag\(f\[t\]\[0\], f\[t\]\[2\], f\[t\]\[1\], f\[t\]\[3\]\);\n"
+         r"#pragma unroll\n  for \(int n = 0; n < NN; \+\+n\) \{\n    float d\[4\] = "
+         r"\{0.f, 0.f, 0.f, 0.f\};\n#pragma unroll\n    for \(int t = 0; t < NT; \+\+t\) \{",
+         "#pragma unroll\n  for (int t = 0; t < NT; ++t) {\n    const tf32::AFrag at = "
+         "tf32::a_frag(f[t][0], f[t][2], f[t][1], f[t][3]);\n#pragma unroll\n    for (int n = 0; "
+         "n < NN; ++n) {\n      float d[4] = {0.f, 0.f, 0.f, 0.f};"),
+        (r"      tf32::mma\(d, a\[t\], tf32::b_frag\(zb\[0\], zb\[4 \* LD\]\)\);\n    \}\n"
+         r"#pragma unroll\n    for \(int e = 0; e < 4; \+\+e\) acc\[n\]\[e\] \+= d\[e\];\n  \}",
+         "      tf32::mma(d, at, tf32::b_frag(zb[0], zb[4 * LD]));\n#pragma unroll\n      "
+         "for (int e = 0; e < 4; ++e) acc[n][e] += d[e];\n    }\n  }")]),
+    "d320_dkv_one_warp_an_output": ("f32 dk/dv's column split at Dh 320: one warp holds all "
+                                    "320 columns of dV (or of dK) of its 16 keys, 4 warps a "
+                                    "block of 32 keys", [
+        (r"static constexpr int kCols = D > 128 \? 2 : 1;", "static constexpr int kCols = 1;")]),
 }
 
 
@@ -1467,9 +1500,10 @@ def _ablate(smi: str, source: str, ablations: dict, calls: dict, what: str,
 def flash_ablate(smi: str) -> None:
     """The ablations at the serving prefill / training shape (Dh 128) and at
     gemma3-4b's Dh-320 prefill (B 4) and training (B 2) shapes, global and
-    local layers, and of the f32 forward at its two Dh-320 shapes, with each
-    build's error against the plain version at a ragged Dh-320 case (the
-    variants marked "wrong output" aside)."""
+    local layers, and of the f32 kernels: the forward at its two Dh-320
+    shapes, the backward at those and at llama3.2-3b's training shape; with
+    each build's error against the plain version at a ragged Dh-320 case, in
+    bf16 and in f32 (the variants marked "wrong output" aside)."""
     from chip_smoke import _flash_inputs
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
@@ -1477,9 +1511,9 @@ def flash_ablate(smi: str) -> None:
     def rel(got, want):
         return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
 
-    def bwd_inputs(B, H, Hk, S, Dh, window, layout):
-        q, k, v = _flash_inputs(B, H, Hk, S, S, Dh, "bfloat16", seed=0, layout=layout)
-        do = _flash_inputs(B, H, Hk, S, S, Dh, "bfloat16", seed=1, layout=layout)[0]
+    def bwd_inputs(B, H, Hk, S, Dh, window, layout, dtype="bfloat16"):
+        q, k, v = _flash_inputs(B, H, Hk, S, S, Dh, dtype, seed=0, layout=layout)
+        do = _flash_inputs(B, H, Hk, S, S, Dh, dtype, seed=1, layout=layout)[0]
         o, lse = fa.flash_attention_fwd_lse(q, k, v, window=window)
         return q, k, v, do, o, lse, (o.float() * do.float()).sum(-1).contiguous()
 
@@ -1514,15 +1548,28 @@ def flash_ablate(smi: str) -> None:
         bkw = dict(causal=True, window=window, scale=Dh ** -0.5, q_offset=0)
         calls[f"flash_bwd_dq{tag}"] = lambda a=a, kw=bkw: fa.bwd_dq(*a, **kw)
         calls[f"flash_bwd_dkv{tag}"] = lambda a=a, kw=bkw: fa.bwd_dkv(*a, **kw)
-    rq, rk, rv, rdo, ro, rlse, rdelta = bwd_inputs(2, 4, 2, 333, 320, None, "kernel")
-    want = attention_bwd_ref(rq, rk, rv, ro, rlse, rdo)
-    rkw = dict(causal=True, window=None, scale=320 ** -0.5, q_offset=0)
+    # the f32 backward (3xTF32) at d320_ragged_f32, gemma3_global_f32 and
+    # llama_train_f32
+    for tag, B, H, Hk, S, Dh, layout in (("_d320_f32", 1, 4, 2, 333, 320, "kernel"),
+                                         ("_d320_f32_2048", 1, 8, 4, 2048, 320, "kernel"),
+                                         ("_llama_f32", 4, 24, 8, 1024, 128, "model")):
+        q_, k_, v_, do, _, lse, delta = bwd_inputs(B, H, Hk, S, Dh, None, layout, "float32")
+        a = (q_, k_, v_, do, lse, delta)
+        bkw = dict(causal=True, window=None, scale=Dh ** -0.5, q_offset=0)
+        calls[f"flash_bwd_dq{tag}"] = lambda a=a, kw=bkw: fa.bwd_dq(*a, **kw)
+        calls[f"flash_bwd_dkv{tag}"] = lambda a=a, kw=bkw: fa.bwd_dkv(*a, **kw)
+    checks = {}
+    for tag, dtype in (("d320_ragged", "bfloat16"), ("d320_ragged_f32", "float32")):
+        r = bwd_inputs(2, 4, 2, 333, 320, None, "kernel", dtype)
+        want = attention_bwd_ref(*r[:3], r[4], r[5], r[3])
+        rkw = dict(causal=True, window=None, scale=320 ** -0.5, q_offset=0)
+        a = (*r[:4], r[5], r[6])
+        checks[f"{tag}_dq_dk_dv"] = lambda a=a, want=want, rkw=rkw: max(
+            rel(g, w) for g, w in zip((fa.bwd_dq(*a, **rkw), *fa.bwd_dkv(*a, **rkw)), want))
     _ablate(smi, fa.BWD_SOURCE, FLASH_BWD_ABLATIONS, calls,
-            f"flash_bwd_dq and flash_bwd_dkv at {shape} B=2 S=2048",
-            {"d320_ragged_dq_dk_dv": lambda: max(
-                rel(g, w) for g, w in zip(
-                    (fa.bwd_dq(rq, rk, rv, rdo, rlse, rdelta, **rkw),
-                     *fa.bwd_dkv(rq, rk, rv, rdo, rlse, rdelta, **rkw)), want))})
+            f"flash_bwd_dq and flash_bwd_dkv at {shape} B=2 S=2048; f32 at Dh 320 B=1 H=4 Hk=2 "
+            f"S=333 and B=1 H=8 Hk=4 S=2048, and at B=4 H=24 Hk=8 S=1024 Dh=128 (model layout; "
+            f"rel err of the f32 gradients: GRAD_REL_TOL is 1e-4)", checks)
 
 
 def scan_ablate(smi: str) -> None:

@@ -20,8 +20,11 @@ Phases, each printed as it runs; any failure exits non-zero:
            prefill, and the f32 forward at a ragged Dh-320 shape and at
            gemma3-4b's head geometry (FAMILY_TIMED); flash_fwd_lse,
            flash_bwd_dq and flash_bwd_dkv at gemma3-4b's training shape (Dh
-           320, 2 x 2048 tokens, local and global layers) and in f32 at the
-           ragged Dh-320 shape (BWD_TIMED).  Every case's backward runs
+           320, 2 x 2048 tokens, local and global layers) and in f32 (the
+           3xTF32 kernels) at the ragged Dh-320 shape, at gemma3-4b's head
+           geometry and at llama3.2-3b's training shape (BWD_TIMED), the f32
+           lines beside both bounds (3xTF32 and f32 SIMT) and each backward
+           pair beside aten's whole backward.  Every case's backward runs
            twice and must give the same bits.
 4. model   a small llama-shaped f32 model on the card (flash kernels)
            against the same weights on the CPU (plain path): a forward, two
@@ -188,12 +191,15 @@ def phase_build() -> None:
                 print(f"build:   {line.strip()}")
     # the TMA / wgmma kernels keep their products' fragments in registers
     # (at Dh 320 a 160-register accumulator a thread beside them), and so
-    # does the f32 forward (3xTF32 mma.sync; at Dh 320 160 registers of O a
-    # thread): each instantiation must build without spilling
+    # do the f32 kernels (3xTF32 mma.sync; at Dh 320 80 registers of O, dQ,
+    # dK or dV a thread): each instantiation must build without spilling
+    f32_dims = "Dh 16, 32, 64, 128, 320"
     for src, kernel, want in ((fa.SOURCE, "flash_fwd_wgmma_kernel", "Dh 64, 128, 320"),
-                              (fa.SOURCE, "flash_fwd_tf32_kernel", "Dh 16, 32, 64, 128, 320"),
+                              (fa.SOURCE, "flash_fwd_tf32_kernel", f32_dims),
                               (fa.BWD_SOURCE, "flash_bwd_dq_wgmma_kernel", "Dh 64, 128, 320"),
-                              (fa.BWD_SOURCE, "flash_bwd_dkv_wgmma_kernel", "Dh 64, 128, 320")):
+                              (fa.BWD_SOURCE, "flash_bwd_dkv_wgmma_kernel", "Dh 64, 128, 320"),
+                              (fa.BWD_SOURCE, "flash_bwd_dq_tf32_kernel", f32_dims),
+                              (fa.BWD_SOURCE, "flash_bwd_dkv_tf32_kernel", f32_dims)):
         spills = _spill_stores(build.BUILD_INFO[src]["log"], kernel)
         print(f"build: {kernel} instantiations {len(spills)}, spill stores "
               f"{sorted(spills.values())} bytes", flush=True)
@@ -321,6 +327,9 @@ FLASH_CASES = [
     # lse, dq and dk/dv (all wgmma), local and global layers
     ("gemma3_train_local", 2, 8, 4, 2048, 2048, 320, True, 1024, 0, "bfloat16", "model"),
     ("gemma3_train_global", 2, 8, 4, 2048, 2048, 320, True, None, 0, "bfloat16", "model"),
+    # llama3.2-3b's training shape at the configs' default dtype, f32: the
+    # 3xTF32 forward with lse, dq and dk/dv
+    ("llama_train_f32", 4, 24, 8, 1024, 1024, 128, True, None, 0, "float32", "model"),
 ]
 # the cases of the gemma3, whisper and vlm serving paths and of the f32
 # forward (the model phase's f32 checks), timed beside their bounds in the
@@ -328,10 +337,12 @@ FLASH_CASES = [
 # sdpa backend that takes f32 at Dh 320
 FAMILY_TIMED = ("gemma3_local", "gemma3_global", "d320_ragged_f32", "gemma3_global_f32",
                 "whisper_enc", "whisper_cross", "qwen2vl_prefill")
-# the cases of the gemma3 training path, and the f32 backward at Dh 320,
-# whose forward with lse and backward are timed beside their bounds; the
-# last one's times go into the kernels line
-BWD_TIMED = ("d320_ragged_f32", "gemma3_train_local", "gemma3_train_global")
+# the cases of the gemma3 training path, and of the f32 kernels (Dh 320 at a
+# ragged shape and at gemma3-4b's head geometry, llama3.2-3b's training
+# shape), whose forward with lse and backward are timed beside their bounds;
+# gemma3_train_global's times go into the kernels line (the *_d320 entries)
+BWD_TIMED = ("d320_ragged_f32", "gemma3_global_f32", "gemma3_train_local",
+             "gemma3_train_global", "llama_train_f32")
 
 
 def _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed, layout="kernel"):
@@ -715,10 +726,9 @@ def _training_kernels() -> list:
               f"{pair / lib_bwd:.3f}", flush=True)
     print("kernel: plain_ms of flash_bwd_dq and flash_bwd_dkv is the whole plain backward "
           "(dq, dk, dv); their library_ms is the fastest whole PyTorch backward", flush=True)
-    # the Dh-320 kernels at gemma3-4b's training shape
-    for case in FLASH_CASES:
-        if case[0] in BWD_TIMED:
-            d320 = _time_bwd_case(case)
+    # the Dh-320 kernels at gemma3-4b's training shape, and the f32 ones
+    timed = {case[0]: _time_bwd_case(case) for case in FLASH_CASES if case[0] in BWD_TIMED}
+    d320 = timed["gemma3_train_global"]
     for kname, line in (("flash_fwd_lse", 79), ("flash_bwd_dq", 121), ("flash_bwd_dkv", 159)):
         src = "flash_fwd.cu" if kname == "flash_fwd_lse" else "flash_bwd.cu"
         entries.append(_flash_entry(f"{kname}_d320", src, line, None, worst[f"{kname}_d320"],
@@ -820,6 +830,14 @@ def _time_bwd_case(case) -> dict:
     qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
     fwd_lib = _fwd_yardsticks(qc, kc, vc, False, causal=causal, mask=mask)
     bwd_lib, _ = _bwd_yardsticks(qc, kc, vc, doc, mask=None if plain_causal else mask)
+    if dtype == "float32":
+        # f32 work: aten's memory-efficient backward.  cuDNN's op takes f32
+        # inputs at Dh <= 256 but runs faster than f32-accurate work can (its
+        # time is under the 3xTF32 bound): it is printed, not compared
+        for label, (t, how) in bwd_lib.items():
+            print(f"kernel flash_attention_bwd yardstick at {name}: {label} {t:.4f} ms ({how})",
+                  flush=True)
+        bwd_lib = {n: t for n, t in bwd_lib.items() if "efficient" in n}
     fwd_name = min(fwd_lib, key=fwd_lib.get) if fwd_lib else None
     bwd_name = min(bwd_lib, key=lambda n: bwd_lib[n][0]) if bwd_lib else None
     library = {"flash_fwd_lse": (fwd_lib[fwd_name], fwd_name) if fwd_lib else None}
@@ -838,12 +856,25 @@ def _time_bwd_case(case) -> dict:
         note = "; forward without lse" if kname == "flash_fwd_lse" else ""
         lib_txt = (f"{lib[0]:.4f} ms ({lib[1]}{note})" if lib
                    else "refused (no PyTorch call takes this shape)")
+        simt, tf32 = "", ""
+        if dtype == "float32":  # the f32 kernels' own route: 3xTF32 on the tensor cores
+            from repro_torch.kernels import bounds
+            b = bounds._bound(flops[kname], nbytes[kname])
+            simt = " at the f32 SIMT peak"
+            tf32 = (f"; 3xTF32 bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+                    f"{b['bound_ms'] / ms[kname]:.1%} of it")
         print(f"kernel {kname} timing at {name} (B={B} H={H} Hk={Hk} S={Sq} Dh={Dh} {dtype} "
               f"causal={causal} window={window} {layout} layout): kernel {ms[kname]:.4f} ms "
               f"device (CUDA graph of 20 launches); plain {plain[kname]:.4f} ms; library "
-              f"{lib_txt}; bound {bound[0]:.4f} ms ({bound[1]}: {flops[kname]:.4g} FLOP, "
-              f"{nbytes[kname]:.4g} B), {bound[0] / ms[kname]:.1%} of bound", flush=True)
+              f"{lib_txt}; bound{simt} {bound[0]:.4f} ms ({bound[1]}: {flops[kname]:.4g} FLOP, "
+              f"{nbytes[kname]:.4g} B), {bound[0] / ms[kname]:.1%} of bound{tf32}", flush=True)
         out[kname] = (ms[kname], plain[kname], bound, lib[0] if lib else None)
+    lib = library["flash_bwd_dq"]
+    if lib:
+        pair = ms["flash_bwd_dq"] + ms["flash_bwd_dkv"]
+        print(f"kernel flash_attention_bwd at {name}: dq + dk/dv kernels (with their combines) "
+              f"{pair:.4f} ms device, library {lib[0]:.4f} ms ({lib[1]}): kernels/library "
+              f"{pair / lib[0]:.3f}", flush=True)
     return out
 
 

@@ -102,9 +102,38 @@
 // design: mma.sync m16n8k16 from ldmatrix fragments, tiles
 // double-buffered with cp.async, one 4-warp block per 64-row (dq) or 64-key
 // (dk/dv) tile; dk/dv computes S^T and dP^T directly so that the
-// accumulators feed the next products.  The f32 path (not on the training
-// path; it lets a small f32 model be checked tightly on the card) is SIMT
-// FMA with 4 threads per row, 8 at Dh 320.
+// accumulators feed the next products.
+//
+// f32 is every config's default dtype (configs/base.py: param_dtype and
+// compute_dtype), so a model trained at its own dtype with attn_impl "flash"
+// runs the f32 kernels on every attention layer of every step (the full-size
+// phases of chip_smoke.py choose bf16).  They must keep f32 accuracy, and
+// the fastest f32-accurate route on this card is 3xTF32 on the tensor cores
+// (three TF32 products a product, 495 / 3 = 165 TFLOP/s; f32 outside them
+// is 67): at llama3.2-3b's training shape in f32 dq's 3.87e10 FLOP take
+// 0.235 ms there and dk/dv's 5.16e10 0.313 ms, against ~0.19 GB (0.06 ms),
+// so the operations bound both.  So: mma.sync m16n8k8 in 3xTF32
+// (tf32_mma.cuh), in the pattern of the f32 forward (flash_fwd.cu), whose
+// rules they keep: no sum runs long through the tensor cores, which truncate
+// as they accumulate (scores summed 4 k steps at a time, the products into
+// dQ, dK and dV one step's keys or rows at a time, each then added in f32);
+// no warp holds more than 80 accumulator registers at Dh 320; and where the
+// blocks would leave the card idle, the work is split across blocks and a
+// second kernel sums the partials in one fixed order.
+//   * dq (flash_bwd_dq_tf32_kernel): the forward's blocks, 64 q rows and two
+//     warps a 16-row strip, each summing half of every S and dP score's head
+//     dims and holding half of dQ's columns; the keys split across blocks
+//     (flash_attention.f32_key_split; flash_bwd_dq_combine_kernel).
+//   * dk/dv (flash_bwd_dkv_tf32_kernel): blocks of 64 keys (32 at Dh 320),
+//     walking q rows in steps; a 16-key strip's warps split the work by
+//     output (a warp forms S^T, P^T and dV, its partner dP^T, dS^T and dK,
+//     P^T passing through shared memory) and at Dh 320 by columns too; the
+//     group's heads and the rows split across blocks where the key tiles
+//     alone leave the card idle (flash_attention.f32_dkv_split;
+//     flash_bwd_dkv_combine_kernel).
+// The SIMT kernels they replace (4 threads a row, 8 at Dh 320, a shuffle
+// reduction a score, 44 and 22 blocks at B 1, H 4, Hk 2, S 333) took 2.3
+// times as long as PyTorch's memory-efficient f32 backward there.
 //
 // A query row that sees no key (a window past the end of the keys): the
 // reference's softmax over all -1e30 scores gives p = 1/Skv on every key,
@@ -120,6 +149,7 @@
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -140,17 +170,23 @@ struct Params {
   long long sdqb, sdqh, sdqs, sdkb, sdkh, sdks, sdvb, sdvh, sdvs;
   float scale;
   int causal, has_window, window, q_offset;
+  // f32: the splits across blocks (flash_attention.py, f32_key_split and
+  // f32_dkv_split).  dq: p.chunk keys a split (a multiple of kTfChunk), p.splits
+  // of them.  dk/dv: p.chunk q rows a split, p.splits of them, and
+  // p.head_splits, 1 (a block walks the group's heads) or the group (a block
+  // takes one).  With more than one split the partials go to `part`.
+  int chunk, splits, head_splits;
+  float* part;
 };
 
 // P of (row, key) from the row's lse, given the scaled score; `vis` says
 // whether the pair's score is differentiable (dS is 0 elsewhere).
-template <bool kFast>
 __device__ __forceinline__ float prob(const Params& p, float s, float lse, int row, int key,
                                       bool& vis) {
   const int qpos = row + p.q_offset;
   vis = row < p.Sq && visible(p, qpos, key);
-  if (vis) return kFast ? __expf(s - lse) : expf(s - lse);
-  if (row < p.Sq && key < p.Skv && sees_no_key(p, qpos)) return kFast ? __expf(-lse) : expf(-lse);
+  if (vis) return __expf(s - lse);
+  if (row < p.Sq && key < p.Skv && sees_no_key(p, qpos)) return __expf(-lse);
   return 0.f;
 }
 
@@ -275,7 +311,7 @@ __global__ void __launch_bounds__(MmaTiles<D>::kThreads) flash_bwd_dq_bf16_kerne
       for (int e = 0; e < 4; ++e) {
         const int i = e >> 1;
         bool vis;
-        const float pr = prob<true>(p, s[t][e] * p.scale, lse[i], row[i],
+        const float pr = prob(p, s[t][e] * p.scale, lse[i], row[i],
                                     n0 + t * 8 + tq * 2 + (e & 1), vis);
         s[t][e] = vis ? pr * (dp[t][e] - delta[i]) : 0.f;
       }
@@ -414,7 +450,7 @@ __global__ void __launch_bounds__(MmaTiles<D>::kThreads) flash_bwd_dkv_bf16_kern
       for (int e = 0; e < 4; ++e) {
         const int col = t * 8 + tq * 2 + (e & 1);
         bool vis;
-        const float pr = prob<true>(p, st[t][e] * p.scale, tL[col], r0 + col, key[e >> 1], vis);
+        const float pr = prob(p, st[t][e] * p.scale, tL[col], r0 + col, key[e >> 1], vis);
         st[t][e] = pr;
         dpt[t][e] = vis ? pr * (dpt[t][e] - tD[col]) : 0.f;
       }
@@ -1240,214 +1276,596 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// f32: SIMT FMA, TPR threads per row (each holds D / TPR of it as float4s)
+// f32: 3xTF32 on the tensor cores (mma.sync m16n8k8, common/tf32_mma.cuh)
 // ---------------------------------------------------------------------------
 
-constexpr int kF32Threads = 256;
+constexpr int kTfChunk = 32;  // a dq key split and a dk/dv row split are multiples of this
+constexpr int kTfGroup = 4;   // k steps of a score's head-dim sum taken in the tensor cores
 
-// Up to Dh 128: 4 threads a row, 64 rows (keys) a block, 32 keys (rows) a
-// step.  Dh 320: 8 threads a row, so that a thread's share of q, dO and dQ
-// (dq) or of k, v, dK and dV (dk/dv) stays within 160 registers, and 16 a
-// step, so that the two tiles of a step (40 KB) fit the 48 KB of static
-// shared memory, as the forward's f32 kernel does.
-template <int D>
-struct F32Tiles {
-  static constexpr int kTPR = D > 128 ? 8 : 4;
-  static constexpr int kRows = kF32Threads / kTPR;  // q rows of a dq block, keys of a dk/dv block
-  static constexpr int kStep = D > 128 ? 16 : 32;   // keys (dq) or q rows (dk/dv) per step
-  static constexpr int kChunks = D / (4 * kTPR);    // float4s of a row a thread holds
-};
-
-__device__ __forceinline__ float dot4(float4 a, float4 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-
-__device__ __forceinline__ void fma4(float4& acc, float s, float4 x) {
-  acc.x += s * x.x;
-  acc.y += s * x.y;
-  acc.z += s * x.z;
-  acc.w += s * x.w;
-}
-
-// sum over the TPR threads of a row
-template <int TPR>
-__device__ __forceinline__ float row_sum(float x) {
+// A warp's 16 x (8 NT) scores X Y^T over HW head dims: X's 16-row strip at
+// wA (rows g and g + 8 of its A fragments) against 8 NT rows of Y at wB,
+// both in shared memory with rows of LD floats.  Y's rows are read permuted
+// (column 2j of an 8-row n-tile is row j, column 2j + 1 row j + 4), so that
+// n-tile t's C fragment holds Y rows 8t + q and 8t + q + 4 in columns 2q,
+// 2q + 1: element for element the A fragment of k step t of a product with
+// Y's rows as the k dimension (`accumulate`), with no shuffles.  The tensor
+// cores truncate as they add into an accumulator, so the sum runs there for
+// kTfGroup k steps at a time, the two small products of 3xTF32 in a chain of
+// their own, and each group is added in f32 (the forward's rule, PERF.md).
+template <int HW, int NT, int LD>
+__device__ __forceinline__ void partial_scores(float (&s)[NT][4], const float* wA, const float* wB,
+                                               int g, int q4) {
+  constexpr int G = HW / 8 < kTfGroup ? HW / 8 : kTfGroup;
+  static_assert((HW / 8) % G == 0, "whole groups of k steps");
 #pragma unroll
-  for (int m = 1; m < TPR; m *= 2) x += __shfl_xor_sync(0xffffffffu, x, m);
-  return x;
-}
-
-// rows [row0, row0 + STEP) of a (rows, D) f32 slab into shared memory; zero past `limit`
-template <int D, int STEP>
-__device__ __forceinline__ void load_tile_f32(float (*dst)[D], const float* src, long long stride,
-                                              int row0, int limit) {
-  for (int c = threadIdx.x; c < STEP * (D / 4); c += kF32Threads) {
-    const int r = c / (D / 4), col = (c % (D / 4)) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < limit) x = *reinterpret_cast<const float4*>(src + (row0 + r) * stride + col);
-    *reinterpret_cast<float4*>(&dst[r][col]) = x;
+  for (int t = 0; t < NT; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
+#pragma unroll
+  for (int k0 = 0; k0 < HW / 8; k0 += G) {
+    float big[NT][4], small[NT][4];
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) big[t][e] = small[t][e] = 0.f;
+#pragma unroll
+    for (int kk = k0; kk < k0 + G; ++kk) {
+      const float* xa = wA + g * LD + kk * 8 + q4;
+      const tf32::AFrag a = tf32::a_frag(xa[0], xa[8 * LD], xa[4], xa[8 * LD + 4]);
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const float* yb = wB + (8 * t + (g >> 1) + 4 * (g & 1)) * LD + kk * 8 + q4;
+        const tf32::BFrag bf = tf32::b_frag(yb[0], yb[4]);
+        if (tf32::kPasses == 3) {
+          tf32::mma1(small[t], a.v[0].lo, a.v[1].lo, a.v[2].lo, a.v[3].lo, bf.v[0].hi, bf.v[1].hi);
+          tf32::mma1(small[t], a.v[0].hi, a.v[1].hi, a.v[2].hi, a.v[3].hi, bf.v[0].lo, bf.v[1].lo);
+        }
+        tf32::mma1(big[t], a.v[0].hi, a.v[1].hi, a.v[2].hi, a.v[3].hi, bf.v[0].hi, bf.v[1].hi);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[t][e] += big[t][e] + small[t][e];
   }
 }
 
+// acc (16 x 8 NN) += F Z: F the 16 x (8 NT) C fragments of `partial_scores`
+// (k step t is F's n-tile t), Z's rows 8t + q and 8t + q + 4 at wZ (shared,
+// rows of LD floats), columns 8n + g.  Each n-tile's sum over the NT k steps
+// runs in the tensor cores from zero (one step's rows or keys, as the
+// forward's P V) and is then added to acc in f32.
+template <int NN, int NT, int LD>
+__device__ __forceinline__ void accumulate(float (&acc)[NN][4], const float (&f)[NT][4],
+                                           const float* wZ, int g, int q4) {
+  tf32::AFrag a[NT];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) a[t] = tf32::a_frag(f[t][0], f[t][2], f[t][1], f[t][3]);
+#pragma unroll
+  for (int n = 0; n < NN; ++n) {
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const float* zb = wZ + (8 * t + q4) * LD + 8 * n + g;
+      tf32::mma(d, a[t], tf32::b_frag(zb[0], zb[4 * LD]));
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += d[e];
+  }
+}
+
+// dq's tiles, in floats: the block's Q and dO rows, K and V tiles of a
+// step's keys (two of each, one a step, where they fit), and each thread's
+// partial S and dP.  A block is 8 warps: 4 strips of 16 q rows, two warps a
+// strip, each of which sums half of every S and dP score's head dims and
+// holds half of the strip's dQ (80 registers a thread at Dh 320).  Rows of
+// D + 4 floats keep the fragment reads at (row g, column q) free of bank
+// conflicts (K's reads as dS K's B operand, at (row q, column g), take two
+// ways).  224 KB at Dh 320 (one K and one V tile), 168 KB at Dh 128: one
+// block an SM.
 template <int D>
-__global__ void __launch_bounds__(kF32Threads) flash_bwd_dq_f32_kernel(const Params p) {
-  using T = F32Tiles<D>;
-  constexpr int C = T::kChunks, TPR = T::kTPR, ROWS = T::kRows, STEP = T::kStep;
-  __shared__ __align__(16) float sK[STEP][D];
-  __shared__ __align__(16) float sV[STEP][D];
+struct DqTf32Tiles {
+  static constexpr int kWarps = 8;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kRows = 64;
+  // keys a step: at Dh 320 16, so that a Q, dO, K and V tile fit beside
+  // each other in shared memory, as the forward's steps do
+  static constexpr int kKeys = D > 128 ? 16 : 32;
+  static constexpr int kBufs = D > 128 ? 1 : 2;  // K and V tiles of each
+  static constexpr int kHalf = D / 2;
+  static constexpr int kLd = D + 4;
+  static constexpr int kO = kRows * kLd;
+  static constexpr int kK = 2 * kRows * kLd;
+  static constexpr int kV = kK + kBufs * kKeys * kLd;
+  // partial S, then dP: float4 (w NT + t) 32 + lane
+  static constexpr int kX = kV + kBufs * kKeys * kLd;
+  static constexpr int kBytes = (kX + kThreads * kKeys) * 4;
+  static_assert(kTfChunk % kKeys == 0, "a split starts on a step");
+};
+
+// Keys [lo, hi) of dq's key split s for the block of rows [r0, r1): the
+// block's keys (key_range, from a multiple of the step) cut at multiples of
+// p.chunk.  Empty where the split holds none of them.
+template <int D>
+__device__ __forceinline__ void dq_split_keys(const Params& p, int r0, int r1, int s, int& lo,
+                                              int& hi) {
+  constexpr int KEYS = DqTf32Tiles<D>::kKeys;
+  int k_lo, k_hi;
+  key_range(p, r0, r1, k_lo, k_hi);
+  lo = max((k_lo / KEYS) * KEYS, s * p.chunk);
+  hi = min(k_hi, (s + 1) * p.chunk);
+}
+
+// One block: 64 q rows of one (head, batch) over the keys of one split.  A
+// step of KEYS keys: each warp sums its half of dP = dO V^T and of S = Q
+// K^T (with two tiles of each, the next step's K and V load during the whole
+// step; with one, at Dh 320, dP comes first, so V of the next step loads
+// while S, dS and dS K run, K while the next dP does); the two warps of a
+// strip swap their halves through shared memory (a barrier of the pair),
+// both form P = exp2(S s log2 e - lse log2 e) (ex2.approx, within 2 ulp) and
+// dS = P o (dP - delta) on the fragments (dS = 0 off the visible pairs:
+// masked, past Skv, and every pair of a row that sees no key), and each
+// adds dS K to its half of dQ, dS's C fragment serving as the A fragment.
+// With one split it writes dq = scale dQ; with more, its rows' scale dQ go
+// to p.part for flash_bwd_dq_combine_kernel.
+template <int D>
+__global__ void __launch_bounds__(DqTf32Tiles<D>::kThreads, 1)
+    flash_bwd_dq_tf32_kernel(const Params p) {
+  using T = DqTf32Tiles<D>;
+  constexpr int LD = T::kLd, KEYS = T::kKeys, NT = KEYS / 8, HALF = T::kHalf;
+  constexpr int ROWS = T::kRows, THREADS = T::kThreads;
+  extern __shared__ __align__(16) float tf_smem[];
+  float* sQ = tf_smem;
+  float* sO = tf_smem + T::kO;
+  float* sK = tf_smem + T::kK;
+  float* sV = tf_smem + T::kV;
+  float4* sXs = reinterpret_cast<float4*>(tf_smem + T::kX);
+  float4* sXp = sXs + THREADS * NT;
 
   const int n_qtiles = (p.Sq + ROWS - 1) / ROWS;
-  const int r0 = (n_qtiles - 1 - (int)blockIdx.x) * ROWS;
+  const int rank = blockIdx.z / p.splits, split = blockIdx.z % p.splits;
+  const int r0 = (n_qtiles - 1 - rank) * ROWS;  // longest causal rows first
   const int r1 = min(p.Sq, r0 + ROWS);
-  const long long b = blockIdx.z, h = blockIdx.y, hk = h / p.group;
-  const int part = threadIdx.x % TPR;
-  const int r = r0 + threadIdx.x / TPR;
+  const long long h = blockIdx.x, b = blockIdx.y, hk = h / p.group;
+  int k_lo, k_hi;
+  dq_split_keys<D>(p, r0, r1, split, k_lo, k_hi);
+  // no key of this block in this split: the combine skips it (one split
+  // always writes its rows, zeros where they see no key)
+  if (k_lo >= k_hi && p.splits > 1) return;
+  const int n_steps = k_lo < k_hi ? (k_hi - k_lo + KEYS - 1) / KEYS : 0;
 
   const float* qg = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
   const float* og = static_cast<const float*>(p.dout) + b * p.sdob + h * p.sdoh;
   const float* kg = static_cast<const float*>(p.k) + b * p.skb + hk * p.skh;
   const float* vg = static_cast<const float*>(p.v) + b * p.svb + hk * p.svh;
-  float* dqg = static_cast<float*>(p.dq) + b * p.sdqb + h * p.sdqh;
+  // rows are 16-byte aligned (the wrapper checks): whole 16-byte copies.
+  // Q, dO and the first V in one group, the first K in the next
+  tf32::load_tile<THREADS>(sQ, LD, qg + r0 * p.sqs, p.sqs, ROWS, D, p.Sq - r0, D, true);
+  tf32::load_tile<THREADS>(sO, LD, og + r0 * p.sdos, p.sdos, ROWS, D, p.Sq - r0, D, true);
+  // step j's K or V tile: rows from key k_lo + j KEYS, into buffer j % kBufs
+  auto load_kv = [&](float* dst, const float* src, long long ld, int j) {
+    const int n0 = k_lo + j * KEYS;
+    tf32::load_tile<THREADS>(dst + (j % T::kBufs) * KEYS * LD, LD, src + n0 * ld, ld, KEYS, D,
+                             p.Skv - n0, D, true);
+  };
+  if (n_steps > 0) load_kv(sV, vg, p.svs, 0);
+  tf32::commit();
+  if (n_steps > 0) load_kv(sK, kg, p.sks, 0);
+  tf32::commit();
 
-  // chunk c of this thread is float4 c * TPR + part of the row
-  float4 q[C], o[C], acc[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    q[c] = o[c] = acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < p.Sq) {
-      q[c] = *reinterpret_cast<const float4*>(qg + r * p.sqs + (c * TPR + part) * 4);
-      o[c] = *reinterpret_cast<const float4*>(og + r * p.sdos + (c * TPR + part) * 4);
-    }
-  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int strip = warp / 2, half = warp % 2;  // 16 q rows; which half of the head dims
+  const int g = lane / 4, q4 = lane % 4;        // mma groupID, thread in group
+  const int row_a = r0 + strip * 16 + g;        // rows row_a and row_a + 8
+  const float sl2 = p.scale * kLog2e;
   const long long stat = (b * p.H + h) * p.Sq;
-  const float lse = r < p.Sq ? p.lse[stat + r] : 0.f;
-  const float delta = r < p.Sq ? p.delta[stat + r] : 0.f;
+  float nl2[2], dl[2];  // -lse log2 e and delta of the two rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    nl2[r] = row < p.Sq ? -p.lse[stat + row] * kLog2e : 0.f;
+    dl[r] = row < p.Sq ? p.delta[stat + row] : 0.f;
+  }
+  const float* wQ = sQ + strip * 16 * LD + half * HALF;
+  const float* wO = sO + strip * 16 * LD + half * HALF;
+  float acc[HALF / 8][4];  // this half of dQ: n-tile n holds columns half HALF + 8n + 2 q4 (+ 1)
+#pragma unroll
+  for (int n = 0; n < HALF / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
-  int k_lo, k_hi;
-  key_range(p, r0, r1, k_lo, k_hi);
-  for (int n0 = (k_lo / STEP) * STEP; n0 < k_hi; n0 += STEP) {
-    __syncthreads();
-    load_tile_f32<D, STEP>(sK, kg, p.sks, n0, p.Skv);
-    load_tile_f32<D, STEP>(sV, vg, p.svs, n0, p.Skv);
-    __syncthreads();
-    for (int j = 0; j < STEP; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(sK[j]);
-      const float4* vr = reinterpret_cast<const float4*>(sV[j]);
-      float s = 0.f, dp = 0.f;
+  // dP and S of a step from this step's K and V tiles, then dS in place of
+  // S, then dQ += dS K
+  auto step = [&](int j, const float* tK, const float* tV) {
+    const int n0 = k_lo + j * KEYS;
+    float dp[NT][4], s[NT][4];
+    partial_scores<HALF, NT, LD>(dp, wO, tV, g, q4);
+    if constexpr (T::kBufs == 1) {
+      tf32::wait<0>();  // K has landed
+      __syncthreads();  // every warp is done with V
+      if (j + 1 < n_steps) load_kv(sV, vg, p.svs, j + 1);
+      tf32::commit();
+    }
+    partial_scores<HALF, NT, LD>(s, wQ, tK, g, q4);
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        s += dot4(q[c], kr[c * TPR + part]);
-        dp += dot4(o[c], vr[c * TPR + part]);
+    for (int t = 0; t < NT; ++t) {
+      sXp[(warp * NT + t) * 32 + lane] = make_float4(dp[t][0], dp[t][1], dp[t][2], dp[t][3]);
+      sXs[(warp * NT + t) * 32 + lane] = make_float4(s[t][0], s[t][1], s[t][2], s[t][3]);
+    }
+    hopper::named_barrier_sync(1 + strip, 64);  // both halves of the strip's S and dP are written
+    // the other half's sums (addition commutes: both warps get the same S, dP)
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const float4 os = sXs[((warp ^ 1) * NT + t) * 32 + lane];
+      const float4 op = sXp[((warp ^ 1) * NT + t) * 32 + lane];
+      s[t][0] += os.x, s[t][1] += os.y, s[t][2] += os.z, s[t][3] += os.w;
+      dp[t][0] += op.x, dp[t][1] += op.y, dp[t][2] += op.z, dp[t][3] += op.w;
+    }
+    // dS in place of S: element e of n-tile t is row row_a + 8 (e >> 1), key
+    // n0 + 8t + q4 + 4 (e & 1); masks on edge tiles only, as selects
+    const bool edge = tile_needs_mask(p, n0, KEYS, r0, r1);
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float ds = hopper::exp2_approx(fmaf(s[t][e], sl2, nl2[r])) * (dp[t][e] - dl[r]);
+        if (edge) {
+          const int row = row_a + 8 * r;
+          if (!(row < p.Sq && visible(p, row + p.q_offset, n0 + 8 * t + q4 + 4 * (e & 1))))
+            ds = 0.f;
+        }
+        s[t][e] = ds;
       }
-      s = row_sum<TPR>(s);
-      dp = row_sum<TPR>(dp);
-      bool vis;
-      const float pr = prob<false>(p, s * p.scale, lse, r, n0 + j, vis);
-      if (!vis) continue;
-      const float ds = pr * (dp - delta);
-#pragma unroll
-      for (int c = 0; c < C; ++c) fma4(acc[c], ds, kr[c * TPR + part]);
+    }
+    accumulate<HALF / 8, NT, LD>(acc, s, tK, g, q4);
+  };
+
+  for (int j = 0; j < n_steps; ++j) {
+    const int buf = (j % T::kBufs) * KEYS * LD + half * HALF;
+    if constexpr (T::kBufs == 2) {
+      tf32::wait<0>();  // this step's K and V have landed
+      __syncthreads();  // and every warp is done with the last step's
+      if (j + 1 < n_steps) {
+        load_kv(sV, vg, p.svs, j + 1);
+        load_kv(sK, kg, p.sks, j + 1);
+      }
+      tf32::commit();
+      step(j, sK + buf, sV + buf);
+    } else {
+      tf32::wait<1>();  // Q, dO and this step's V have landed; K may be in flight
+      __syncthreads();
+      step(j, sK + buf, sV + buf);
+      __syncthreads();  // every warp is done with K
+      if (j + 1 < n_steps) load_kv(sK, kg, p.sks, j + 1);
+      tf32::commit();
     }
   }
+  tf32::wait<0>();
 
-  if (r >= p.Sq) return;
+  float* out = p.splits == 1
+                   ? static_cast<float*>(p.dq) + b * p.sdqb + h * p.sdqh
+                   : p.part + ((split * (long long)p.B + b) * p.H + h) * p.Sq * D;
+  const long long ld_out = p.splits == 1 ? p.sdqs : D;
 #pragma unroll
-  for (int c = 0; c < C; ++c)
-    *reinterpret_cast<float4*>(dqg + r * p.sdqs + (c * TPR + part) * 4) =
-        make_float4(acc[c].x * p.scale, acc[c].y * p.scale, acc[c].z * p.scale,
-                    acc[c].w * p.scale);
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    if (row >= p.Sq) continue;
+    float* dst = out + row * ld_out + half * HALF + 2 * q4;
+#pragma unroll
+    for (int n = 0; n < HALF / 8; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n) =
+          make_float2(acc[n][2 * r] * p.scale, acc[n][2 * r + 1] * p.scale);
+  }
 }
 
+// Sums dq's key splits, one thread a float4 of dq: the splits that hold keys
+// of the row's block, in split order.
 template <int D>
-__global__ void __launch_bounds__(kF32Threads) flash_bwd_dkv_f32_kernel(const Params p) {
-  using T = F32Tiles<D>;
-  constexpr int C = T::kChunks, TPR = T::kTPR, ROWS = T::kRows, STEP = T::kStep;
-  __shared__ __align__(16) float sQ[STEP][D];
-  __shared__ __align__(16) float sO[STEP][D];
-  __shared__ float sL[STEP], sD[STEP];
+__global__ void __launch_bounds__(256) flash_bwd_dq_combine_kernel(const Params p) {
+  constexpr int C4 = D / 4, ROWS = DqTf32Tiles<D>::kRows;
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= (long long)p.B * p.H * p.Sq * C4) return;
+  const long long wi = i / C4, bh = wi / p.Sq;
+  const int c = i % C4, row = wi % p.Sq;
+  const long long h = bh % p.H, b = bh / p.H;
+  const int r0 = row / ROWS * ROWS, r1 = min(p.Sq, r0 + ROWS);
+  const long long stride = (long long)p.B * p.H * p.Sq * C4;  // float4s between splits
+  const float4* part = reinterpret_cast<const float4*>(p.part) + i;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < p.splits; ++s) {
+    int lo, hi;
+    dq_split_keys<D>(p, r0, r1, s, lo, hi);
+    if (lo >= hi) continue;
+    const float4 v = part[s * stride];
+    acc.x += v.x, acc.y += v.y, acc.z += v.z, acc.w += v.w;
+  }
+  *reinterpret_cast<float4*>(static_cast<float*>(p.dq) + b * p.sdqb + h * p.sdqh +
+                             row * p.sdqs + 4 * c) = acc;
+}
 
-  const int n0 = blockIdx.x * ROWS;
-  const int n1 = min(p.Skv, n0 + ROWS);
-  const long long b = blockIdx.z, hk = blockIdx.y;
-  const int part = threadIdx.x % TPR;
-  const int key = n0 + threadIdx.x / TPR;
+// dk/dv's tiles, in floats.  A strip is 16 keys, and its warps split the
+// work by output: kCols warps hold dV (D / kCols columns each) and kCols hold
+// dK, so that no warp holds more than 80 accumulator registers at Dh 320
+// (dK and dV of 16 keys x 320 are 320 a thread).  A dV warp sums S^T = K Q^T
+// over its part of the head dims, a dK warp dP^T = V dO^T over its part;
+// at Dh 320 the two warps of an output swap their partial sums through
+// shared memory.  8 warps: 4 strips (64 keys) at Dh <= 128, 2 (32 keys) at
+// Dh 320.  A step is kRows q rows of one head; K and V stay for the block,
+// Q, dO and the rows' lse and delta go through a ring of two stages.
+// 144 KB at Dh 128, 176 KB at Dh 320: one block an SM.
+template <int D>
+struct DkvTf32Tiles {
+  static constexpr int kCols = D > 128 ? 2 : 1;  // column parts of each output
+  static constexpr int kStrips = D > 128 ? 2 : 4;
+  static constexpr int kWarps = kStrips * 2 * kCols;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kKeys = 16 * kStrips;
+  static constexpr int kRows = D > 128 ? 16 : 32;  // q rows a step
+  static constexpr int kPart = D / kCols;          // head dims a warp sums, columns it holds
+  static constexpr int kLd = D + 4;
+  static constexpr int kStages = 2;
+  static constexpr int kV = kKeys * kLd;
+  static constexpr int kRing = 2 * kKeys * kLd;
+  static constexpr int kStage = 2 * kRows * kLd + 2 * kRows;  // Q, dO, lse, delta
+  static constexpr int kP = kRing + kStages * kStage;        // P^T: float4 (strip NT + t) 32 + lane
+  // partial sums: float4 (w NT + t) 32 + lane
+  static constexpr int kX = kP + kStrips * kRows * 16;
+  static constexpr int kBytes = (kX + (kCols > 1 ? kThreads * kRows / 2 : 0)) * 4;
+  static_assert(kTfChunk % kRows == 0, "a split starts on a step");
+};
+
+// Q rows [lo, hi) of dk/dv's row split s for the keys [n0, n1): the rows
+// they take gradient from (query_range, from a multiple of the step) cut at
+// multiples of p.chunk.  Empty where the split holds none of them.
+template <int D>
+__device__ __forceinline__ void dkv_split_rows(const Params& p, int n0, int n1, int s, int& lo,
+                                               int& hi) {
+  constexpr int ROWS = DkvTf32Tiles<D>::kRows;
+  int q_lo, q_hi;
+  query_range(p, n0, n1, q_lo, q_hi);
+  lo = max((q_lo / ROWS) * ROWS, s * p.chunk);
+  hi = min(q_hi, (s + 1) * p.chunk);
+}
+
+// One block: a tile of keys of one (kv head, batch), over the q rows of one
+// row split and either every head of the group in turn (p.head_splits 1) or
+// one of them (p.head_splits = group).  A step, in each strip: the dV warps
+// form S^T and P^T = exp2(S^T s log2 e - lse log2 e) (lse and delta indexed
+// by column; a row that sees no key takes p = 1/Skv on every key, a masked
+// pair or a key past Skv 0) and pass P^T to the dK warps through shared
+// memory (a barrier of the strip's warps); the dK warps form dP^T and dS^T
+// = P^T o (dP^T - delta) (0 off the visible pairs); then dV += P^T dO and dK
+// += dS^T Q, the C fragments serving as A fragments.  The GQA sum happens in
+// the accumulators (p.head_splits 1) or in the combine.  The key tiles are
+// the slowest grid dimension, so the heaviest causal ones start first.
+// With one split of rows and heads it writes dk = scale dK and dv = dV;
+// with more, the split's partials go to p.part for
+// flash_bwd_dkv_combine_kernel.
+template <int D>
+__global__ void __launch_bounds__(DkvTf32Tiles<D>::kThreads, 1)
+    flash_bwd_dkv_tf32_kernel(const Params p) {
+  using T = DkvTf32Tiles<D>;
+  constexpr int LD = T::kLd, KEYS = T::kKeys, R = T::kRows, NT = R / 8, PART = T::kPart;
+  constexpr int THREADS = T::kThreads, COLS = T::kCols;
+  extern __shared__ __align__(16) float tf_smem[];
+  float* sK = tf_smem;
+  float* sV = tf_smem + T::kV;
+  float* ring = tf_smem + T::kRing;
+  float4* sP = reinterpret_cast<float4*>(tf_smem + T::kP);
+  float4* sX = reinterpret_cast<float4*>(tf_smem + T::kX);
+
+  // the slowest grid dimension walks the key tiles: the heaviest causal
+  // ones (the first) start first
+  const int kt = blockIdx.z / p.splits, split = blockIdx.z % p.splits;
+  const int hsel = blockIdx.x % p.head_splits;
+  const long long hk = blockIdx.x / p.head_splits, b = blockIdx.y;
+  const int n0 = kt * KEYS, n1 = min(p.Skv, n0 + KEYS);
+  int q_lo, q_hi;
+  dkv_split_rows<D>(p, n0, n1, split, q_lo, q_hi);
+  const bool parts = p.splits * p.head_splits > 1;
+  // no row of these keys in this split: the combine skips it (one split
+  // always writes its keys, zeros where no row sees them)
+  if (q_lo >= q_hi && parts) return;
+  const int n_steps = q_lo < q_hi ? (q_hi - q_lo + R - 1) / R : 0;
+  const int n_heads = p.head_splits == 1 ? p.group : 1;
+  const long long h_first = hk * p.group + (p.head_splits == 1 ? 0 : hsel);
+  const int total = n_heads * n_steps;
 
   const float* kg = static_cast<const float*>(p.k) + b * p.skb + hk * p.skh;
   const float* vg = static_cast<const float*>(p.v) + b * p.svb + hk * p.svh;
-  float* dkg = static_cast<float*>(p.dk) + b * p.sdkb + hk * p.sdkh;
-  float* dvg = static_cast<float*>(p.dv) + b * p.sdvb + hk * p.sdvh;
+  tf32::load_tile<THREADS>(sK, LD, kg + n0 * p.sks, p.sks, KEYS, D, p.Skv - n0, D, true);
+  tf32::load_tile<THREADS>(sV, LD, vg + n0 * p.svs, p.svs, KEYS, D, p.Skv - n0, D, true);
+  // step c: head h_first + c / n_steps, rows from q_lo + (c % n_steps) R;
+  // rows past Sq load as zeros (and add nothing: their dO and Q are 0)
+  auto load_step = [&](int c) {
+    const long long h = h_first + c / n_steps;
+    const int r0 = q_lo + (c % n_steps) * R;
+    float* st = ring + (c % T::kStages) * T::kStage;
+    const float* qg = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh + r0 * p.sqs;
+    const float* og = static_cast<const float*>(p.dout) + b * p.sdob + h * p.sdoh + r0 * p.sdos;
+    tf32::load_tile<THREADS>(st, LD, qg, p.sqs, R, D, p.Sq - r0, D, true);
+    tf32::load_tile<THREADS>(st + R * LD, LD, og, p.sdos, R, D, p.Sq - r0, D, true);
+    const long long stat = (b * p.H + h) * p.Sq + r0;
+    for (int i = threadIdx.x; i < 2 * R; i += THREADS) {
+      const int r = i % R;
+      const float* src = (i < R ? p.lse : p.delta) + stat;
+      tf32::cp4(st + 2 * R * LD + i, src + (r0 + r < p.Sq ? r : 0), r0 + r < p.Sq);
+    }
+  };
+  if (total > 0) load_step(0);
+  tf32::commit();
 
-  float4 k[C], v[C], dk[C], dv[C];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int strip = warp / (2 * COLS), role = warp % (2 * COLS);
+  const bool is_v = role < COLS;  // dV warps first in a strip, then dK warps
+  const int cpart = role % COLS;  // which part of the head dims and of the output's columns
+  const int g = lane / 4, q4 = lane % 4;
+  const int key_a = n0 + strip * 16 + g;  // keys key_a and key_a + 8
+  const float sl2 = p.scale * kLog2e;
+  // a dV warp: S^T from K and Q, then dV += P^T dO; a dK warp: dP^T from V
+  // and dO, then dK += dS^T Q
+  const float* wA = (is_v ? sK : sV) + strip * 16 * LD + cpart * PART;
+  float acc[PART / 8][4];  // n-tile n holds columns cpart PART + 8n + 2 q4 (+ 1)
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    k[c] = v[c] = dk[c] = dv[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (key < p.Skv) {
-      k[c] = *reinterpret_cast<const float4*>(kg + key * p.sks + (c * TPR + part) * 4);
-      v[c] = *reinterpret_cast<const float4*>(vg + key * p.svs + (c * TPR + part) * 4);
+  for (int n = 0; n < PART / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int c = 0; c < total; ++c) {
+    tf32::wait<0>();  // this step's stage (and K, V) have landed
+    __syncthreads();  // and every warp is done with the last step's
+    if (c + 1 < total) load_step(c + 1);
+    tf32::commit();
+    const float* stQ = ring + (c % T::kStages) * T::kStage;
+    const float* stO = stQ + R * LD;
+    const float* stL = stQ + 2 * R * LD;  // lse, then delta
+    const int r0 = q_lo + (c % n_steps) * R;
+    float s[NT][4];
+    partial_scores<PART, NT, LD>(s, wA, (is_v ? stQ : stO) + cpart * PART, g, q4);
+    if constexpr (COLS > 1) {
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+        sX[(warp * NT + t) * 32 + lane] = make_float4(s[t][0], s[t][1], s[t][2], s[t][3]);
+      hopper::named_barrier_sync(1 + warp / 2, 64);  // the pair's partial sums are written
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const float4 o = sX[((warp ^ 1) * NT + t) * 32 + lane];
+        s[t][0] += o.x, s[t][1] += o.y, s[t][2] += o.z, s[t][3] += o.w;
+      }
+    }
+    // element e of n-tile t: key key_a + 8 (e >> 1), row r0 + 8t + q4 + 4 (e & 1)
+    const bool edge = tile_needs_mask(p, n0, KEYS, r0, min(p.Sq, r0 + R));
+    if (is_v) {
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ri = 8 * t + q4 + 4 * (e & 1);
+          const float nl2 = -stL[ri] * kLog2e;
+          float pr = hopper::exp2_approx(fmaf(s[t][e], sl2, nl2));
+          if (edge) {
+            const int row = r0 + ri, key = key_a + 8 * (e >> 1), qpos = row + p.q_offset;
+            if (!(row < p.Sq && visible(p, qpos, key)))
+              pr = row < p.Sq && key < p.Skv && sees_no_key(p, qpos) ? hopper::exp2_approx(nl2)
+                                                                     : 0.f;
+          }
+          s[t][e] = pr;
+        }
+        if (cpart == 0)
+          sP[(strip * NT + t) * 32 + lane] = make_float4(s[t][0], s[t][1], s[t][2], s[t][3]);
+      }
+    }
+    // P^T is written: a barrier of the strip's warps
+    hopper::named_barrier_sync(1 + T::kWarps / 2 + strip, 64 * COLS);
+    if (!is_v) {
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const float4 pt = sP[(strip * NT + t) * 32 + lane];
+        const float pe[4] = {pt.x, pt.y, pt.z, pt.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ri = 8 * t + q4 + 4 * (e & 1);
+          float ds = pe[e] * (s[t][e] - stL[R + ri]);
+          if (edge) {
+            const int row = r0 + ri;
+            if (!(row < p.Sq && visible(p, row + p.q_offset, key_a + 8 * (e >> 1)))) ds = 0.f;
+          }
+          s[t][e] = ds;
+        }
+      }
+    }
+    accumulate<PART / 8, NT, LD>(acc, s, (is_v ? stO : stQ) + cpart * PART, g, q4);
+  }
+  tf32::wait<0>();
+
+  const long long plane = (long long)p.B * p.Hk * p.Skv * D;  // floats of one partial
+  const long long at = (b * p.Hk + hk) * p.Skv * D;
+  const long long pi = (long long)split * p.head_splits + hsel;
+  float* out;
+  long long ld_out;
+  if (!parts) {
+    out = is_v ? static_cast<float*>(p.dv) + b * p.sdvb + hk * p.sdvh
+               : static_cast<float*>(p.dk) + b * p.sdkb + hk * p.sdkh;
+    ld_out = is_v ? p.sdvs : p.sdks;
+  } else {
+    const long long n_parts = (long long)p.splits * p.head_splits;
+    out = p.part + (is_v ? n_parts + pi : pi) * plane + at;
+    ld_out = D;
+  }
+  const float sc = is_v ? 1.f : p.scale;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key_a + 8 * r;
+    if (key >= p.Skv) continue;
+    float* dst = out + key * ld_out + cpart * PART + 2 * q4;
+#pragma unroll
+    for (int n = 0; n < PART / 8; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n) =
+          make_float2(acc[n][2 * r] * sc, acc[n][2 * r + 1] * sc);
+  }
+}
+
+// Sums dk/dv's partials, one thread a float4 of dk and of dv: the row splits
+// that hold rows of the key's tile, each over its head splits, in one fixed
+// order.
+template <int D>
+__global__ void __launch_bounds__(256) flash_bwd_dkv_combine_kernel(const Params p) {
+  constexpr int C4 = D / 4, KEYS = DkvTf32Tiles<D>::kKeys;
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= (long long)p.B * p.Hk * p.Skv * C4) return;
+  const long long wi = i / C4, bhk = wi / p.Skv;
+  const int c = i % C4, key = wi % p.Skv;
+  const long long hk = bhk % p.Hk, b = bhk / p.Hk;
+  const int n0 = key / KEYS * KEYS, n1 = min(p.Skv, n0 + KEYS);
+  const long long stride = (long long)p.B * p.Hk * p.Skv * C4;  // float4s between partials
+  const long long n_parts = (long long)p.splits * p.head_splits;
+  const float4* part = reinterpret_cast<const float4*>(p.part) + i;
+  float4 dk = make_float4(0.f, 0.f, 0.f, 0.f), dv = dk;
+  for (int s = 0; s < p.splits; ++s) {
+    int lo, hi;
+    dkv_split_rows<D>(p, n0, n1, s, lo, hi);
+    if (lo >= hi) continue;
+    for (int hs = 0; hs < p.head_splits; ++hs) {
+      const long long pi = (long long)s * p.head_splits + hs;
+      const float4 x = part[pi * stride], y = part[(n_parts + pi) * stride];
+      dk.x += x.x, dk.y += x.y, dk.z += x.z, dk.w += x.w;
+      dv.x += y.x, dv.y += y.y, dv.z += y.z, dv.w += y.w;
     }
   }
-
-  int q_lo, q_hi;
-  query_range(p, n0, n1, q_lo, q_hi);
-  for (int g = 0; g < p.group; ++g) {
-    const long long h = hk * p.group + g;
-    const float* qg = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
-    const float* og = static_cast<const float*>(p.dout) + b * p.sdob + h * p.sdoh;
-    const long long stat = (b * p.H + h) * p.Sq;
-    for (int r0 = (q_lo / STEP) * STEP; r0 < q_hi; r0 += STEP) {
-      __syncthreads();
-      load_tile_f32<D, STEP>(sQ, qg, p.sqs, r0, p.Sq);
-      load_tile_f32<D, STEP>(sO, og, p.sdos, r0, p.Sq);
-      for (int i = threadIdx.x; i < STEP; i += kF32Threads) {
-        sL[i] = r0 + i < p.Sq ? p.lse[stat + r0 + i] : 0.f;
-        sD[i] = r0 + i < p.Sq ? p.delta[stat + r0 + i] : 0.f;
-      }
-      __syncthreads();
-      for (int i = 0; i < STEP; ++i) {
-        const float4* qr = reinterpret_cast<const float4*>(sQ[i]);
-        const float4* orow = reinterpret_cast<const float4*>(sO[i]);
-        float s = 0.f, dp = 0.f;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          s += dot4(k[c], qr[c * TPR + part]);
-          dp += dot4(v[c], orow[c * TPR + part]);
-        }
-        s = row_sum<TPR>(s);
-        dp = row_sum<TPR>(dp);
-        bool vis;
-        const float pr = prob<false>(p, s * p.scale, sL[i], r0 + i, key, vis);
-        const float ds = vis ? pr * (dp - sD[i]) : 0.f;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          fma4(dv[c], pr, orow[c * TPR + part]);
-          fma4(dk[c], ds, qr[c * TPR + part]);
-        }
-      }
-    }
-  }
-
-  if (key >= p.Skv) return;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    *reinterpret_cast<float4*>(dkg + key * p.sdks + (c * TPR + part) * 4) =
-        make_float4(dk[c].x * p.scale, dk[c].y * p.scale, dk[c].z * p.scale, dk[c].w * p.scale);
-    *reinterpret_cast<float4*>(dvg + key * p.sdvs + (c * TPR + part) * 4) = dv[c];
-  }
+  *reinterpret_cast<float4*>(static_cast<float*>(p.dk) + b * p.sdkb + hk * p.sdkh +
+                             key * p.sdks + 4 * c) = dk;
+  *reinterpret_cast<float4*>(static_cast<float*>(p.dv) + b * p.sdvb + hk * p.sdvh +
+                             key * p.sdvs + 4 * c) = dv;
 }
 
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
+// The f32 kernel over its splits (dq: p.splits of the keys; dk/dv: p.splits
+// of the rows times p.head_splits), then, with more than one, its combine.
 template <int D>
-cudaError_t launch_f32(const Params& p, bool dq, cudaStream_t stream) {
-  constexpr int ROWS = F32Tiles<D>::kRows;
+cudaError_t launch_tf32(const Params& p, bool dq, cudaStream_t stream) {
+  cudaError_t err;
   if (dq) {
-    const dim3 grid((p.Sq + ROWS - 1) / ROWS, p.H, p.B);
-    flash_bwd_dq_f32_kernel<D><<<grid, kF32Threads, 0, stream>>>(p);
+    using T = DqTf32Tiles<D>;
+    err = cudaFuncSetAttribute(flash_bwd_dq_tf32_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, T::kBytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(p.H, p.B, (p.Sq + T::kRows - 1) / T::kRows * p.splits);
+    flash_bwd_dq_tf32_kernel<D><<<grid, T::kThreads, T::kBytes, stream>>>(p);
+    if (p.splits > 1) {
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      const long long n = (long long)p.B * p.H * p.Sq * (D / 4);
+      flash_bwd_dq_combine_kernel<D><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(p);
+    }
   } else {
-    const dim3 grid((p.Skv + ROWS - 1) / ROWS, p.Hk, p.B);
-    flash_bwd_dkv_f32_kernel<D><<<grid, kF32Threads, 0, stream>>>(p);
+    using T = DkvTf32Tiles<D>;
+    err = cudaFuncSetAttribute(flash_bwd_dkv_tf32_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, T::kBytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(p.Hk * p.head_splits, p.B, (p.Skv + T::kKeys - 1) / T::kKeys * p.splits);
+    flash_bwd_dkv_tf32_kernel<D><<<grid, T::kThreads, T::kBytes, stream>>>(p);
+    if (p.splits * p.head_splits > 1) {
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      const long long n = (long long)p.B * p.Hk * p.Skv * (D / 4);
+      flash_bwd_dkv_combine_kernel<D><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(p);
+    }
   }
   return cudaGetLastError();
 }
@@ -1539,12 +1957,16 @@ int launch(const Params& p, int dtype, int D, const long long* maps, cudaStream_
       case 320: return launch_wgmma<320, DQ>(p, maps, stream);
     }
   } else if (dtype == 0) {
+    if (p.chunk <= 0 || p.chunk % kTfChunk != 0 ||
+        (p.head_splits != 1 && (DQ || p.head_splits != p.group)) ||
+        (p.splits * p.head_splits > 1 && p.part == nullptr))
+      return cudaErrorInvalidValue;
     switch (D) {
-      case 16: return launch_f32<16>(p, DQ, stream);
-      case 32: return launch_f32<32>(p, DQ, stream);
-      case 64: return launch_f32<64>(p, DQ, stream);
-      case 128: return launch_f32<128>(p, DQ, stream);
-      case 320: return launch_f32<320>(p, DQ, stream);
+      case 16: return launch_tf32<16>(p, DQ, stream);
+      case 32: return launch_tf32<32>(p, DQ, stream);
+      case 64: return launch_tf32<64>(p, DQ, stream);
+      case 128: return launch_tf32<128>(p, DQ, stream);
+      case 320: return launch_tf32<320>(p, DQ, stream);
     }
   }
   return cudaErrorInvalidValue;
@@ -1553,7 +1975,8 @@ int launch(const Params& p, int dtype, int D, const long long* maps, cudaStream_
 Params make_params(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, void* dq, void* dk, void* dv, int B,
                    int H, int Hk, int Sq, int Skv, const long long* strides, float scale,
-                   int causal, int window, int q_offset) {
+                   int causal, int window, int q_offset, void* part, int chunk,
+                   int head_splits, int split_extent) {
   Params p;
   p.q = q;
   p.k = k;
@@ -1579,6 +2002,10 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
   p.has_window = window > 0;
   p.window = window;
   p.q_offset = q_offset;
+  p.chunk = chunk;
+  p.splits = chunk > 0 ? (split_extent + chunk - 1) / chunk : 0;
+  p.head_splits = head_splits;
+  p.part = static_cast<float*>(part);
   return p;
 }
 
@@ -1591,14 +2018,20 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
 // kernels (bf16 at Dh 64, 128 and 320), the geometry of the q, k, v and
 // dout tensor maps (4 x 11 integers, see hopper::encode_map); else null.
 // flash_bwd_dq writes dq; flash_bwd_dkv writes dk and dv, summed over each
-// kv head's query group.
+// kv head's query group.  f32 only (flash_attention.py, f32_key_split and
+// f32_dkv_split): `chunk`, the keys (dq) or q rows (dk/dv) of one split, a
+// multiple of 32; `head_splits` (dk/dv; 1 for dq), 1 or H / Hk; `part`,
+// scratch for the splits' partials: splits x B x H x Sq x D floats (dq,
+// splits = ceil(Skv / chunk)), 2 x splits x head_splits x B x Hk x Skv x D
+// (dk/dv, splits = ceil(Sq / chunk)), or null where that is one split.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dq, int dtype, int B, int H,
                             int Hk, int Sq, int Skv, int D, const long long* strides, float scale,
                             int causal, int window, int q_offset, void* stream,
-                            const long long* maps) {
+                            const long long* maps, void* part, int chunk, int head_splits) {
   const Params p = make_params(q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, H, Hk, Sq, Skv,
-                               strides, scale, causal, window, q_offset);
+                               strides, scale, causal, window, q_offset, part, chunk,
+                               head_splits, Skv);
   return launch<true>(p, dtype, D, maps, static_cast<cudaStream_t>(stream));
 }
 
@@ -1606,8 +2039,10 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              const void* lse, const void* delta, void* dk, void* dv, int dtype,
                              int B, int H, int Hk, int Sq, int Skv, int D,
                              const long long* strides, float scale, int causal, int window,
-                             int q_offset, void* stream, const long long* maps) {
+                             int q_offset, void* stream, const long long* maps, void* part,
+                             int chunk, int head_splits) {
   const Params p = make_params(q, k, v, dout, lse, delta, nullptr, dk, dv, B, H, Hk, Sq, Skv,
-                               strides, scale, causal, window, q_offset);
+                               strides, scale, causal, window, q_offset, part, chunk,
+                               head_splits, Sq);
   return launch<false>(p, dtype, D, maps, static_cast<cudaStream_t>(stream));
 }

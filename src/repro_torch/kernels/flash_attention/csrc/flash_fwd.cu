@@ -61,10 +61,11 @@
 // design: mma.sync m16n8k16, ldmatrix, K/V tiles double-buffered with
 // cp.async, one 4-warp block per 64 q rows.
 //
-// f32 (every Dh; serving does not take it: it lets a small f32 model be
-// held tightly against the CPU on the card) must keep f32 accuracy.  The
-// fastest f32-accurate route on this card is 3xTF32 on the tensor cores
-// (three TF32 products a product, 495 / 3 = 165 TFLOP/s; f32 outside them
+// f32 (every Dh) is every config's default dtype (configs/base.py), so a
+// model run at its own dtype with attn_impl "flash" takes this path (the
+// full-size phases of chip_smoke.py choose bf16); it must keep f32
+// accuracy.  The fastest f32-accurate route on this card is 3xTF32 on the
+// tensor cores (three TF32 products a product, 495 / 3 = 165 TFLOP/s; f32 outside them
 // is 67): at gemma3-4b's head geometry in f32 (B 1, H 8, Hk 4, S 2048, Dh
 // 320, causal) 2.15e10 FLOP take 0.130 ms there against 63 MB (0.019 ms),
 // so the operations bound it.  Its shapes are small, though: the card

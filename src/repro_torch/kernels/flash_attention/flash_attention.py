@@ -26,10 +26,11 @@ and 128 writes o through one too); ``tma_map_geometry`` computes each map's
 geometry here, with the boxes of ``TMA_FWD_ROWS`` / ``TMA_BWD_ROWS``, and
 the C side checks the boxes against its tiles and encodes what it is given.
 
-In f32 the forward (3xTF32 on the tensor cores) may split the keys across
-blocks where its q tiles alone would leave the card idle, and sum the
-splits in a second kernel: ``f32_key_split`` picks the split, and the
-wrapper allocates the splits' scratch.
+In f32 every kernel runs 3xTF32 on the tensor cores, and each may split its
+work across blocks where its tiles alone would leave the card idle, then sum
+the splits' partials in a second kernel in one fixed order: the forward and
+dq split the keys (``f32_key_split``), dk/dv the group's heads and the q rows
+(``f32_dkv_split``).  The wrappers allocate the partials' scratch.
 """
 
 from __future__ import annotations
@@ -69,9 +70,13 @@ TMA_BWD_ROWS = {("flash_bwd_dq", 64): (128, 128, 128, 128),
                 ("flash_bwd_dkv", 128): (64, 128, 128, 64),
                 ("flash_bwd_dkv", 320): (48, 64, 64, 48)}
 
-# The f32 forward's blocks (flash_fwd.cu, flash_fwd_tf32_kernel): 64 q rows
-# over the keys of one split, whose keys are a multiple of 32, so of the
-# kernel's steps (32 keys, 16 at Dh 320); a split holds at least 64 keys.
+# The f32 forward's blocks (flash_fwd.cu, flash_fwd_tf32_kernel), and dq's
+# (flash_bwd.cu, flash_bwd_dq_tf32_kernel): 64 q rows over the keys of one
+# split, whose keys are a multiple of 32, so of the kernels' steps (32 keys,
+# 16 at Dh 320); a split holds at least 64 keys.  dk/dv's
+# (flash_bwd_dkv_tf32_kernel): a tile of keys (``f32_dkv_keys``) over the q
+# rows of one split, a multiple of 32 (its steps are 32 rows, 16 at Dh 320),
+# at least 64, and over every head of the group or one of them.
 F32_ROWS, F32_CHUNK = 64, 32
 F32_MIN_SPLIT = 2 * F32_CHUNK
 
@@ -109,7 +114,7 @@ def _bwd_fn(name: str):
         n_out = 1 if name == "flash_bwd_dq" else 2
         fn.argtypes = [_P] * (6 + n_out) + [_I] * 7 + [ctypes.POINTER(_LL),
                                                       ctypes.c_float, _I, _I, _I, _P,
-                                                      ctypes.POINTER(_LL)]
+                                                      ctypes.POINTER(_LL), _P, _I, _I]
         fn.restype = _I
     return fn
 
@@ -216,6 +221,42 @@ def f32_split_scratch(splits: int, B: int, H: int, Sq: int, Dh: int) -> int:
     return 0 if splits == 1 else splits * B * H * Sq * (Dh + 2)
 
 
+def f32_dq_scratch(splits: int, B: int, H: int, Sq: int, Dh: int) -> int:
+    """f32 elements of dq's scratch: each key split's partial dq (B, H, Sq,
+    Dh); none for one split."""
+    return 0 if splits == 1 else splits * B * H * Sq * Dh
+
+
+def f32_dkv_keys(Dh: int) -> int:
+    """Keys of an f32 dk/dv block: 4 strips of 16, 2 at Dh 320."""
+    return 32 if Dh > 128 else 64
+
+
+def f32_dkv_split(B: int, Hk: int, group: int, Sq: int, Skv: int, Dh: int,
+                  sms: int) -> Tuple[int, int, int]:
+    """(head splits, row splits, q rows a split) of the f32 dk/dv kernel.
+    Where its blocks, ``ceil(Skv / f32_dkv_keys(Dh)) * Hk * B`` of them,
+    number fewer than the card's ``sms``: a block a head of the group, then
+    enough row splits that the blocks number at least ``sms``, none shorter
+    than ``F32_MIN_SPLIT`` rows.  The rows a split are a multiple of
+    ``F32_CHUNK``, and the splits cover Sq."""
+    blocks = -(-Skv // f32_dkv_keys(Dh)) * Hk * B
+    heads = group if blocks < sms else 1
+    want = max(1, min(-(-sms // (blocks * heads)), -(-Sq // F32_MIN_SPLIT)))
+    chunk = -(-(-(-Sq // want)) // F32_CHUNK) * F32_CHUNK
+    return heads, -(-Sq // chunk), chunk
+
+
+def f32_dkv_scratch(heads: int, splits: int, B: int, Hk: int, Skv: int, Dh: int) -> int:
+    """f32 elements of dk/dv's scratch: each (row split, head split)'s
+    partial dk and dv (B, Hk, Skv, Dh); none for one of each."""
+    return 0 if heads * splits == 1 else 2 * heads * splits * B * Hk * Skv * Dh
+
+
+def _sms(t: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -239,8 +280,7 @@ def _fwd(q, k, v, causal, window, scale, q_offset, with_lse: bool):
         return o, lse
     part, chunk = None, 0
     if q.dtype == torch.float32:
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        splits, chunk = f32_key_split(B, H, Sq, Skv, sms)
+        splits, chunk = f32_key_split(B, H, Sq, Skv, _sms(q))
         n = f32_split_scratch(splits, B, H, Sq, Dh)
         part = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
     with torch.cuda.device(q.device):
@@ -299,10 +339,11 @@ def flash_attention_fwd_lse(
     return o, lse
 
 
-def _bwd_launch(name, q, k, v, do, lse, delta, outs, dq_dk_dv, causal, window, scale, q_offset):
+def _bwd_launch(name, q, k, v, do, lse, delta, outs, dq_dk_dv, causal, window, scale, q_offset,
+                part=None, chunk=0, head_splits=1):
     """Launch ``name`` writing ``outs``.  ``dq_dk_dv`` give the output strides
     the kernel takes; a slot it does not write may be any tensor of that
-    shape."""
+    shape.  f32: the split (``chunk``, ``head_splits``) and its scratch."""
     B, H, Sq, Dh = q.shape
     Hk, Skv = k.shape[1], k.shape[2]
     strides = (_LL * 21)(*(s for t in (q, k, v, do, *dq_dk_dv) for s in t.stride()[:3]))
@@ -312,6 +353,7 @@ def _bwd_launch(name, q, k, v, do, lse, delta, outs, dq_dk_dv, causal, window, s
             delta.data_ptr(), *(t.data_ptr() for t in outs), _DTYPE_CODES[q.dtype],
             B, H, Hk, Sq, Skv, Dh, strides, float(scale), int(causal), int(window or 0),
             int(q_offset), _stream(q), _bwd_maps(name, q, k, v, do),
+            part.data_ptr() if part is not None else None, chunk, head_splits,
         )
     _raise_on(err, name)
 
@@ -319,8 +361,14 @@ def _bwd_launch(name, q, k, v, do, lse, delta, outs, dq_dk_dv, causal, window, s
 def bwd_dq(q, k, v, do, lse, delta, *, causal, window, scale, q_offset) -> torch.Tensor:
     """The dq kernel alone (arguments checked by ``flash_attention_bwd``)."""
     dq = torch.empty_like(q)
+    part, chunk = None, 0
+    if q.dtype == torch.float32:
+        B, H, Sq, Dh = q.shape
+        splits, chunk = f32_key_split(B, H, Sq, k.shape[2], _sms(q))
+        n = f32_dq_scratch(splits, B, H, Sq, Dh)
+        part = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
     _bwd_launch("flash_bwd_dq", q, k, v, do, lse, delta, (dq,), (dq, k, v),
-                causal, window, scale, q_offset)
+                causal, window, scale, q_offset, part, chunk)
     global DQ_LAUNCHES
     DQ_LAUNCHES += 1
     return dq
@@ -329,8 +377,15 @@ def bwd_dq(q, k, v, do, lse, delta, *, causal, window, scale, q_offset) -> torch
 def bwd_dkv(q, k, v, do, lse, delta, *, causal, window, scale, q_offset):
     """The dk/dv kernel alone (arguments checked by ``flash_attention_bwd``)."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    part, chunk, heads = None, 0, 1
+    if q.dtype == torch.float32:
+        B, H, Sq, Dh = q.shape
+        Hk, Skv = k.shape[1], k.shape[2]
+        heads, splits, chunk = f32_dkv_split(B, Hk, H // Hk, Sq, Skv, Dh, _sms(q))
+        n = f32_dkv_scratch(heads, splits, B, Hk, Skv, Dh)
+        part = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
     _bwd_launch("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), (q, dk, dv),
-                causal, window, scale, q_offset)
+                causal, window, scale, q_offset, part, chunk, heads)
     global DKV_LAUNCHES
     DKV_LAUNCHES += 1
     return dk, dv

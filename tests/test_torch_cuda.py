@@ -74,8 +74,9 @@ CASES = [
 # head_dim 320 (gemma3-4b): the TMA / wgmma kernels (the forward's 128-row
 # q tiles over 48-key tiles; dq's 64-row items whose 48-key tiles the two
 # consumers split; dk/dv's 64-key items over 48-row q steps); f32: the
-# 3xTF32 forward (64-row blocks, keys split across blocks at small grids)
-# and the SIMT backward at 8 threads a row
+# 3xTF32 kernels (the forward and dq: 64-row blocks, keys split across
+# blocks at small grids; dk/dv: 32-key blocks, the group's heads and the
+# rows split across blocks at small grids)
 D320_CASES = [
     (1, 8, 4, 2048, 2048, 320, True, 1024, 0, torch.bfloat16),       # gemma3 local layer
     (1, 8, 4, 2048, 2048, 320, True, None, 0, torch.bfloat16),       # gemma3 global layer
@@ -107,6 +108,30 @@ MODEL_LAYOUT_CASES = [
     (4, 16, 16, 1024, 1024, 128, True, None, 0, torch.bfloat16),
     (2, 8, 4, 1000, 1000, 128, True, None, 0, torch.bfloat16),
     (2, 8, 2, 333, 333, 64, True, 100, 0, torch.bfloat16),
+]
+
+
+# the f32 backward (3xTF32: flash_bwd_dq_tf32_kernel, flash_bwd_dkv_tf32_kernel
+# and, where the work is split across blocks, their combines) at every head
+# dim; (sms=132) the split each case takes is in the comment
+F32_BWD_CASES = [
+    # B, H, Hk, Sq, Skv, Dh, causal, window, q_offset
+    (1, 4, 4, 200, 200, 16, True, None, 0),       # GQA group 1 (MHA): dk/dv 4 row splits
+    (2, 4, 2, 333, 333, 32, True, None, 0),       # group 2: dq 3 key splits, dk/dv 2 heads x 3 rows
+    (1, 8, 2, 300, 300, 64, True, 40, 0),         # group 4, a window
+    (1, 4, 2, 64, 128, 128, False, 16, 100),      # rows that see no key
+    (1, 4, 2, 64, 128, 320, False, 16, 100),      # the same at Dh 320
+    (1, 4, 2, 1, 333, 320, True, None, 332),      # Sq 1 over 333 keys: dq 6 key splits
+    (1, 4, 2, 17, 333, 320, True, None, 316),     # Sq 17
+    (1, 4, 2, 17, 333, 64, True, None, 316),
+    # causal at d320_ragged_f32's shape: the first q tile has keys in one of
+    # dq's 6 key splits, the last key tile rows in one of dk/dv's 3 row
+    # splits; the other splits' blocks have no work
+    (1, 4, 2, 333, 333, 320, True, None, 0),
+    (1, 8, 4, 260, 260, 320, False, 100, 0),      # group 2, a window, not causal
+    (1, 4, 2, 200, 1100, 320, True, 700, 900),    # q_offset and a window
+    (2, 12, 4, 256, 256, 128, True, None, 0),     # group 3
+    (4, 8, 4, 1024, 1024, 128, True, None, 0),    # one split each: dq and dk/dv write directly
 ]
 
 
@@ -187,6 +212,33 @@ def test_flash_bwd_at_head_dim_320(card, case, layout):
         assert torch.isfinite(got).all()
         scale = max(want.float().abs().max().item(), 1.0)
         assert (got.float() - want.float()).abs().max().item() <= GRAD_REL[dtype] * scale
+
+
+@pytest.mark.parametrize("case", F32_BWD_CASES)
+@pytest.mark.parametrize("layout", ["kernel", "model"])
+def test_f32_backward_matches_plain_version_twice(card, case, layout):
+    """The 3xTF32 backward kernels against the plain backward at the f32
+    tolerances; each call launches both kernels, and two calls give the
+    same bits (the splits are summed in one fixed order, no atomics)."""
+    *_, causal, window, q_offset = case
+    case = (*case, torch.float32)
+    q, k, v = _inputs(case, layout=layout)
+    do = _inputs(case, seed=1, layout=layout)[0]
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
+    before = fa.launch_counts()
+    first = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    second = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    after = fa.launch_counts()
+    assert after["flash_bwd_dq"] - before["flash_bwd_dq"] == 2
+    assert after["flash_bwd_dkv"] - before["flash_bwd_dkv"] == 2
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for got, want in zip(first, attention_bwd_ref(q, k, v, o, lse, do, **kw)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert torch.isfinite(got).all()
+        scale = max(want.abs().max().item(), 1.0)
+        assert (got - want).abs().max().item() <= GRAD_REL[torch.float32] * scale
 
 
 def test_grad_at_head_dim_320_goes_through_the_kernels(card):

@@ -48,6 +48,11 @@
   frames, 4 x 224 tokens) at full size in bf16: prefill, whisper's encode,
   the one-call cache fill and decode steps.
 
+* train_e2e (the ``chip_smoke.py`` train_e2e phase): one railx-100m f32
+  step through ``gspmd_fsdp`` on a world of one (2 microbatches, the f32
+  flash kernels) after three warm-up steps, then the one-process step split
+  as the train target's is.
+
 * train_gemma3 (the ``chip_smoke.py`` train_gemma3 phase): one gemma3-4b
   AdamW step of 2 x 2048 tokens with remat and the flash kernels at Dh 320
   (the backward's mma.sync kernels), after one warm-up step, split as the
@@ -62,6 +67,15 @@
   then sharded serving at full depth on (1, 4, 1): prefill, fill and 16
   decode steps; last, at 4 layers, 8 EP steps on each shape against one
   card's with as many microbatches as "data" ranks (losses within 1e-2).
+
+* elastic_cards (needs 4 cards, one NCCL rank each; ``--chips 4``): the
+  fault drill of ``examples/torch/fault_tolerant_training.py`` (llama3.2-3b
+  smoke, ``gspmd_fsdp``) with phase 1 on a (2, 2) ("data", "model") world of
+  four cards, then a fresh world of two cards on (1, 2) that restores the
+  latest checkpoint with resharding and trains on: the data axis really
+  shrinks.  Each step's loss against the same drill on one card (worlds of
+  one on (1, 1)), within CARDS_LOSS_REL; the restored step; each phase's
+  step times.
 
 And an A/B of the flash-attention kernels against another checkout:
 
@@ -118,8 +132,9 @@ And one look at numbers rather than time:
   the model keeps the reference's normaliser).
 
     python3 chip_profile.py [serve] [train] [serve_hybrid] [train_dist] [dist_cards]
-                            [serve_moe] [moe_cards] [serve_gemma3] [serve_vlm]
-                            [serve_whisper] [xlstm_agreement] [flash_ab DIR]
+                            [serve_moe] [moe_cards] [elastic_cards] [serve_gemma3] [serve_vlm]
+                            [serve_whisper] [train_gemma3] [train_e2e]
+                            [xlstm_agreement] [flash_ab DIR]
                             [flash_ablate] [scan_ab DIR] [scan_ablate]
                                                     # serve and train when none is named
 
@@ -230,6 +245,51 @@ def profile_train_gemma3(smi: str) -> None:
     print(f"profile: {cfg.name} bf16 train step, {data.B} x {data.S} tokens, remat, flash "
           f"[{smi}]")
     _profile_train_step(zoo, ocfg, params, opt, data.batches(0), micro)
+
+
+def profile_train_e2e(smi: str) -> None:
+    """The ``chip_smoke.py`` train_e2e step: railx-100m in f32 with the
+    flash kernels, ``gspmd_fsdp`` with 2 microbatches on a world of one,
+    16 x 128 tokens (drawn from a 4096-token corpus: the table of the
+    model's 16384 takes a minute to build, and a step's work does not depend
+    on the ids); one step after three warm-up steps, then the one-process
+    step's halves (``_profile_train_step``)."""
+    import torch
+
+    from chip_smoke import _world_of_one, example
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.parallel.sharding import param_layout
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = dataclasses.replace(example("train_end_to_end").railx_config(), attn_impl="flash")
+    zoo = get_model(cfg)
+    ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=300, weight_decay=0.01)
+    data = SyntheticLM(DataConfig(vocab=4096, seq_len=128, global_batch=16))
+    print(f"profile: {cfg.name} f32 train step, 16 x 128 tokens in 2 microbatches, flash, "
+          f"gspmd_fsdp on a world of one [{smi}]", flush=True)
+    with _world_of_one() as mesh:
+        layout = param_layout(zoo, mesh)
+        params = layout.shard(zoo.init(0, device="cuda"))
+        params.requires_grad_(True)
+        step_fn = make_train_step(zoo, ocfg, microbatches=2, device="cuda", mesh=mesh,
+                                  dp_mode="gspmd_fsdp")
+        state = {"opt": opt_lib.init(ocfg, params)}
+        batches = data.batches(0)
+
+        def step():
+            _, state["opt"], m = step_fn(params, state["opt"], next(batches))
+            m["loss"].item()
+
+        for _ in range(3):
+            step()
+        prof, host_ms = _profiled(step)
+        _report("train_e2e step (gspmd_fsdp)", prof, host_ms, unit="step")
+    params = zoo.init(0, device="cuda")
+    params.requires_grad_(True)
+    _profile_train_step(zoo, ocfg, params, opt_lib.init(ocfg, params), data.batches(0), 2)
+    torch.cuda.empty_cache()
 
 
 def _profile_train_step(zoo, ocfg, params, opt, batches, microbatches: int = 1) -> None:
@@ -934,6 +994,77 @@ def moe_cards(smi: str) -> None:
                        start_method="spawn")
 
 
+def _elastic_rank(rank: int, world: int, port: int, ckpt_dir: str, phase: str, shape: tuple,
+                  tag: str) -> None:
+    """One rank of a drill phase on ``shape`` ("data", "model"), one card a
+    rank; rank 0 writes the phase's per-step losses and step times."""
+    import datetime
+    import json
+
+    import torch
+    import torch.distributed as dist
+
+    from chip_smoke import example
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    try:
+        ft = example("fault_tolerant_training")
+        mesh = make_mesh(shape, ("data", "model"), "cuda")
+        log = (lambda line: print(f"elastic_cards {tag} phase {phase}: {line}", flush=True)) \
+            if rank == 0 else (lambda line: None)
+        if phase == "1":
+            start, res = 0, ft.phase1(mesh, "cuda", ckpt_dir, log_fn=log, log_every=1)
+        else:
+            start, res = ft.phase2(mesh, "cuda", ckpt_dir, log_fn=log, log_every=1)
+        if rank == 0:
+            with open(f"{ckpt_dir}/elastic_{phase}.json", "w") as f:
+                json.dump({"start": start, "loss": [h["loss"] for h in res.history],
+                           "step_ms": [1e3 * h["step_time_s"] for h in res.history]}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def elastic_cards(smi: str) -> None:
+    import json
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch.mesh import free_port
+
+    world = torch.cuda.device_count()
+    if world < 4:
+        sys.exit(f"elastic_cards needs 4 cards, found {world}")
+    print(f"elastic_cards: the drill on (2, 2) over 4 cards, then (1, 2) over 2; against "
+          f"(1, 1) on one card [{smi}]", flush=True)
+    runs = {}
+    for tag, shapes in (("one card", ((1, 1), (1, 1))), ("cards", ((2, 2), (1, 2)))):
+        with tempfile.TemporaryDirectory() as ckpt:
+            for phase, shape in zip(("1", "2"), shapes):
+                n = shape[0] * shape[1]
+                mp.start_processes(_elastic_rank, args=(n, free_port(), ckpt, phase, shape, tag),
+                                   nprocs=n, join=True, start_method="spawn")
+                with open(f"{ckpt}/elastic_{phase}.json") as f:
+                    runs[tag, phase] = json.load(f)
+    for phase, shape in (("1", (2, 2)), ("2", (1, 2))):
+        got, want = runs["cards", phase], runs["one card", phase]
+        gap = max(abs(a - b) / abs(b) for a, b in zip(got["loss"], want["loss"]))
+        print(f"elastic_cards phase {phase} on {shape} ({shape[0] * shape[1]} cards), restored "
+              f"step {got['start']} (one card {want['start']}): losses {got['loss']} against "
+              f"one card's {want['loss']}, largest relative gap {gap:.3e} (tol "
+              f"{CARDS_LOSS_REL:g}); step ms {[round(t, 2) for t in got['step_ms']]} against "
+              f"one card's {[round(t, 2) for t in want['step_ms']]} [{smi}]", flush=True)
+        if not (gap <= CARDS_LOSS_REL and got["start"] == want["start"]
+                and len(got["loss"]) == len(want["loss"])):
+            raise RuntimeError(f"elastic_cards phase {phase}: loss gap {gap:.3e} or the restored "
+                               f"step differs")
+
+
 def profile_serve(smi: str) -> None:
     import numpy as np
     import torch
@@ -1617,6 +1748,7 @@ def main() -> None:
         {"serve": profile_serve, "train": profile_train, "serve_hybrid": profile_serve_hybrid,
          "train_dist": profile_train_dist, "dist_cards": dist_cards,
          "serve_moe": profile_serve_moe, "moe_cards": moe_cards,
+         "elastic_cards": elastic_cards, "train_e2e": profile_train_e2e,
          "xlstm_agreement": xlstm_agreement, "flash_ablate": flash_ablate,
          "scan_ablate": scan_ablate,
          "serve_gemma3": lambda smi: profile_serve_family(smi, "gemma3-4b"),

@@ -108,11 +108,28 @@ Phases, each printed as it runs; any failure exits non-zero:
            flash: 8 AdamW steps each; the loss must fall by 0.5 nats and the
            launches be 2 flash_fwd_lse and one each of flash_bwd_dq and
            flash_bwd_dkv an attention a microbatch a step.
+15. train_e2e  railx-100m (examples/train_end_to_end.py: 12 layers, d_model
+           768, 12 / 4 heads, vocab 16384, f32) through the twin's ``run``
+           (``examples/torch/train_end_to_end.py``) on a world of one, mesh
+           (1, 1, 1), ``gspmd_fsdp`` with 2 microbatches, the reference's data
+           (16 x 128 tokens a step) and AdamW, with attn_impl "flash" (the
+           only change from the reference's config): 3 steps of each
+           attention path from the same seed (loss rel 1e-5, grad_norm rel
+           1e-4), then the reference's 300 steps; the loss must fall by 0.5
+           nats and the launches be L x 2 of each of flash_fwd_lse,
+           flash_bwd_dq and flash_bwd_dkv a step (the f32 3xTF32 kernels) and
+           nothing else.
+16. examples  the smoke-size twins on worlds of one, each to its reference
+           assertion: the fault drill (phase 1 on (1, 1), phase 2 restoring
+           with resharding on a fresh (1, 1) world), quickstart step 4 on
+           (1, 1, 1), serve_decode on (1, 1) under a port ``Tracer`` (its
+           trace valid, one serve.decode_step span a decode call).
 
 Every serve and train phase sets all launch counts to 0 before it runs and
 reads them after; the ``kernels`` line reports each kernel's launches from
 the phase whose path it serves, the Dh-320 kernels (``*_d320``) from
-serve_gemma3 and train_gemma3.
+serve_gemma3 and train_gemma3, the f32 kernels (``*_f32``, timed at
+railx-100m's training shape, bound at the 3xTF32 rate) from train_e2e.
 
 Then the ``kernels`` JSON line and, last, the ``ok`` JSON line.  It needs a
 CUDA device and the rest of the repository: without either it fails before
@@ -330,6 +347,10 @@ FLASH_CASES = [
     # llama3.2-3b's training shape at the configs' default dtype, f32: the
     # 3xTF32 forward with lse, dq and dk/dv
     ("llama_train_f32", 4, 24, 8, 1024, 1024, 128, True, None, 0, "float32", "model"),
+    # railx-100m's training shape (examples/train_end_to_end.py): f32, GQA
+    # group 3, one of 2 microbatches of 16 x 128 tokens; the kernels line's
+    # *_f32 entries come from it
+    ("railx100m_train_f32", 8, 12, 4, 128, 128, 64, True, None, 0, "float32", "model"),
 ]
 # the cases of the gemma3, whisper and vlm serving paths and of the f32
 # forward (the model phase's f32 checks), timed beside their bounds in the
@@ -338,11 +359,13 @@ FLASH_CASES = [
 FAMILY_TIMED = ("gemma3_local", "gemma3_global", "d320_ragged_f32", "gemma3_global_f32",
                 "whisper_enc", "whisper_cross", "qwen2vl_prefill")
 # the cases of the gemma3 training path, and of the f32 kernels (Dh 320 at a
-# ragged shape and at gemma3-4b's head geometry, llama3.2-3b's training
-# shape), whose forward with lse and backward are timed beside their bounds;
-# gemma3_train_global's times go into the kernels line (the *_d320 entries)
+# ragged shape and at gemma3-4b's head geometry, llama3.2-3b's and
+# railx-100m's training shapes), whose forward with lse and backward are
+# timed beside their bounds; gemma3_train_global's times go into the kernels
+# line (the *_d320 entries), railx100m_train_f32's (the *_f32 entries, at
+# the 3xTF32 bound)
 BWD_TIMED = ("d320_ragged_f32", "gemma3_global_f32", "gemma3_train_local",
-             "gemma3_train_global", "llama_train_f32")
+             "gemma3_train_global", "llama_train_f32", "railx100m_train_f32")
 
 
 def _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed, layout="kernel"):
@@ -512,9 +535,11 @@ def _runs(call) -> bool:
     return True
 
 
-def _fwd_yardsticks(q, k, v, with_lse: bool, causal: bool = True, mask=None) -> dict:
+def _fwd_yardsticks(q, k, v, with_lse: bool, causal: bool = True, mask=None,
+                    outputs=None) -> dict:
     """Library calls of PyTorch that compute the forward at the timed shape,
-    timed as the kernel is: {label: ms}.  Without lse: sdpa pinned to each
+    timed as the kernel is: {label: ms}; ``outputs``, where given, gets each
+    timed call's result by label.  Without lse: sdpa pinned to each
     backend that runs here (GQA through enable_gqa where the backend takes
     it, else k/v expanded to H heads outside the timing); with ``mask``
     (the visible keys, (Sq, Skv)) where a window or a q offset makes the
@@ -557,6 +582,8 @@ def _fwd_yardsticks(q, k, v, with_lse: bool, causal: bool = True, mask=None) -> 
                     calls[f"sdpa[{backend.name}{'' if gqa else ', k/v expanded'}"
                           f"{', bool mask' if 'attn_mask' in attn else ''}]"] = call
                     break
+    if outputs is not None:
+        outputs.update({label: call() for label, call in calls.items()})
     return {label: _graph_ms(call) for label, call in calls.items()}
 
 
@@ -618,7 +645,7 @@ def _training_kernels() -> list:
     )
 
     worst = {f"{n}{d}": 0.0 for n in ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
-             for d in ("", "_d320")}
+             for d in ("", "_d320", "_f32")}
     for i, (name, B, H, Hk, Sq, Skv, Dh, causal, window, q_off, dtype,
             layout) in enumerate(FLASH_CASES):
         q, k, v = _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed=100 + i, layout=layout)
@@ -660,6 +687,8 @@ def _training_kernels() -> list:
                 worst[kname] = max(worst[kname], err)
             if Dh == 320 and dtype == "bfloat16":
                 worst[f"{kname}_d320"] = max(worst[f"{kname}_d320"], err)
+            if name == "railx100m_train_f32":
+                worst[f"{kname}_f32"] = max(worst[f"{kname}_f32"], err)
 
     # timing at the training step's shape: the serve_prefill case's shape
     fwd_ms, plain_fwd, fwd_bound, lib_fwd = _time_forward(
@@ -728,15 +757,16 @@ def _training_kernels() -> list:
           "(dq, dk, dv); their library_ms is the fastest whole PyTorch backward", flush=True)
     # the Dh-320 kernels at gemma3-4b's training shape, and the f32 ones
     timed = {case[0]: _time_bwd_case(case) for case in FLASH_CASES if case[0] in BWD_TIMED}
-    d320 = timed["gemma3_train_global"]
-    for kname, line in (("flash_fwd_lse", 79), ("flash_bwd_dq", 121), ("flash_bwd_dkv", 159)):
-        src = "flash_fwd.cu" if kname == "flash_fwd_lse" else "flash_bwd.cu"
-        entries.append(_flash_entry(f"{kname}_d320", src, line, None, worst[f"{kname}_d320"],
-                                    *d320[kname]))
+    for suffix, case in (("_d320", "gemma3_train_global"), ("_f32", "railx100m_train_f32")):
+        for kname, line in (("flash_fwd_lse", 79), ("flash_bwd_dq", 121),
+                            ("flash_bwd_dkv", 159)):
+            src = "flash_fwd.cu" if kname == "flash_fwd_lse" else "flash_bwd.cu"
+            entries.append(_flash_entry(f"{kname}{suffix}", src, line, None,
+                                        worst[f"{kname}{suffix}"], *timed[case][kname]))
     return entries
 
 
-def _bwd_yardsticks(q, k, v, do, mask=None) -> tuple:
+def _bwd_yardsticks(q, k, v, do, mask=None, outputs=None) -> tuple:
     """PyTorch's own attention backwards at the timed shape, called as aten
     ops (so that they capture into a CUDA graph), each fed by its own aten
     forward, on k/v expanded to H heads (they take no GQA).  Causal, or,
@@ -744,7 +774,8 @@ def _bwd_yardsticks(q, k, v, do, mask=None) -> tuple:
     an additive bias (FlashAttention's op takes no bias and is not run).
     Returns ({label: (ms, how it was timed)}, ms of summing the expanded dk
     or dv back to Hk heads, twice): an op that will not capture is timed
-    back-to-back, and says so."""
+    back-to-back, and says so.  ``outputs``, where given, gets each timed
+    op's (dq, dk, dv) by label, dk and dv on the expanded heads."""
     import torch
 
     aten = torch.ops.aten
@@ -781,12 +812,14 @@ def _bwd_yardsticks(q, k, v, do, mask=None) -> tuple:
         label = label if causal else f"{label} (bias)"
         try:
             call = make()
-            call()
+            grads = call()[:3]
             torch.cuda.synchronize()
         except RuntimeError as e:
             print(f"kernel: yardstick {label} refused: {str(e).splitlines()[0][:160]}",
                   flush=True)
             continue
+        if outputs is not None:
+            outputs[label] = grads
         try:
             times[label] = (_graph_ms(call), "device time, CUDA graph")
         except RuntimeError as e:
@@ -802,8 +835,11 @@ def _time_bwd_case(case) -> dict:
     """Time flash_fwd_lse, flash_bwd_dq and flash_bwd_dkv at one FLASH_CASES
     shape of the gemma3-4b training path (its own layout) beside their
     bounds, their plain versions and PyTorch's own calls (contiguous copies:
-    the fastest sdpa forward; the fastest aten backward, or "refused"), a
-    line each; -> {kernel: (ms, plain_ms, (bound_ms, bound_by), library_ms)}."""
+    the fastest sdpa forward; the fastest aten backward, or "refused"; in
+    f32 also aten's forwards with lse, and only the calls that are
+    f32-accurate, ``_f32_accurate``), a line each; -> {kernel: (ms,
+    plain_ms, (bound_ms, bound_by), library_ms)}, the bound at the 3xTF32
+    rate for f32 (the f32 kernels' route)."""
     import torch
 
     from repro_torch.kernels.flash_attention import flash_attention as fa
@@ -828,16 +864,17 @@ def _time_bwd_case(case) -> dict:
     mask = attention_mask(Sq, Skv, causal, window, q_off, "cuda")
     plain_causal = causal and window is None and q_off == 0
     qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
-    fwd_lib = _fwd_yardsticks(qc, kc, vc, False, causal=causal, mask=mask)
-    bwd_lib, _ = _bwd_yardsticks(qc, kc, vc, doc, mask=None if plain_causal else mask)
+    fwd_out, bwd_out = {}, {}
+    fwd_lib = _fwd_yardsticks(qc, kc, vc, False, causal=causal, mask=mask, outputs=fwd_out)
+    if dtype == "float32" and plain_causal:
+        # aten's forwards with lse: cuDNN's takes f32 inputs, sdpa's cuDNN
+        # backend does not
+        fwd_lib.update(_fwd_yardsticks(qc, kc, vc, True, outputs=fwd_out))
+    bwd_lib, _ = _bwd_yardsticks(qc, kc, vc, doc, mask=None if plain_causal else mask,
+                                 outputs=bwd_out)
     if dtype == "float32":
-        # f32 work: aten's memory-efficient backward.  cuDNN's op takes f32
-        # inputs at Dh <= 256 but runs faster than f32-accurate work can (its
-        # time is under the 3xTF32 bound): it is printed, not compared
-        for label, (t, how) in bwd_lib.items():
-            print(f"kernel flash_attention_bwd yardstick at {name}: {label} {t:.4f} ms ({how})",
-                  flush=True)
-        bwd_lib = {n: t for n, t in bwd_lib.items() if "efficient" in n}
+        fwd_lib, bwd_lib = _f32_accurate(name, (q, k, v, do), kw, fwd_lib, fwd_out, bwd_lib,
+                                         bwd_out)
     fwd_name = min(fwd_lib, key=fwd_lib.get) if fwd_lib else None
     bwd_name = min(bwd_lib, key=lambda n: bwd_lib[n][0]) if bwd_lib else None
     library = {"flash_fwd_lse": (fwd_lib[fwd_name], fwd_name) if fwd_lib else None}
@@ -853,22 +890,23 @@ def _time_bwd_case(case) -> dict:
     for kname in ms:
         bound = _bound(flops[kname], nbytes[kname], dtype)
         lib = library[kname]
-        note = "; forward without lse" if kname == "flash_fwd_lse" else ""
+        note = "; forward without lse" if lib and lib[1].startswith("sdpa") else ""
         lib_txt = (f"{lib[0]:.4f} ms ({lib[1]}{note})" if lib
                    else "refused (no PyTorch call takes this shape)")
-        simt, tf32 = "", ""
+        simt, tf32, entry_bound = "", "", bound
         if dtype == "float32":  # the f32 kernels' own route: 3xTF32 on the tensor cores
             from repro_torch.kernels import bounds
             b = bounds._bound(flops[kname], nbytes[kname])
             simt = " at the f32 SIMT peak"
             tf32 = (f"; 3xTF32 bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
                     f"{b['bound_ms'] / ms[kname]:.1%} of it")
+            entry_bound = (b["bound_ms"], b["bound_by"])
         print(f"kernel {kname} timing at {name} (B={B} H={H} Hk={Hk} S={Sq} Dh={Dh} {dtype} "
               f"causal={causal} window={window} {layout} layout): kernel {ms[kname]:.4f} ms "
               f"device (CUDA graph of 20 launches); plain {plain[kname]:.4f} ms; library "
               f"{lib_txt}; bound{simt} {bound[0]:.4f} ms ({bound[1]}: {flops[kname]:.4g} FLOP, "
               f"{nbytes[kname]:.4g} B), {bound[0] / ms[kname]:.1%} of bound{tf32}", flush=True)
-        out[kname] = (ms[kname], plain[kname], bound, lib[0] if lib else None)
+        out[kname] = (ms[kname], plain[kname], entry_bound, lib[0] if lib else None)
     lib = library["flash_bwd_dq"]
     if lib:
         pair = ms["flash_bwd_dq"] + ms["flash_bwd_dkv"]
@@ -876,6 +914,48 @@ def _time_bwd_case(case) -> dict:
               f"{pair:.4f} ms device, library {lib[0]:.4f} ms ({lib[1]}): kernels/library "
               f"{pair / lib[0]:.3f}", flush=True)
     return out
+
+
+def _f32_accurate(name, inputs, kw, fwd_lib, fwd_out, bwd_lib, bwd_out) -> tuple:
+    """The f32 library calls that are as accurate as the f32 kernels are held
+    to be, on the same inputs: a forward's o within F32_TOL of the plain
+    version's, a backward's dq, dk and dv (dk, dv summed over the query
+    group) within GRAD_REL_TOL of the plain backward's scale, as in
+    _training_kernels.  Each call is printed with its time and its error; one
+    that misses is not a yardstick.  -> (fwd_lib, bwd_lib), filtered."""
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_fwd_lse_ref
+
+    q, k, v, do = inputs
+    o_ref, lse_ref = attention_fwd_lse_ref(q, k, v, **kw)
+    grads_ref = attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
+    Hk = k.shape[1]
+    fwd_keep, bwd_keep = {}, {}
+    for label, t in fwd_lib.items():
+        out = fwd_out[label]
+        err = _max_err(out[0] if isinstance(out, (tuple, list)) else out, o_ref)[0]
+        ok = err <= F32_TOL
+        verdict = "compared" if ok else "not f32-accurate, not compared"
+        print(f"kernel flash_fwd_lse yardstick at {name}: {label} {t:.4f} ms, o max_abs_err "
+              f"{err:.3e} (tol {F32_TOL:g}): {verdict}", flush=True)
+        if ok:
+            fwd_keep[label] = t
+    for label, (t, how) in bwd_lib.items():
+        dq, dke, dve = bwd_out[label]
+        B, H, S, Dh = dke.shape
+        got = (dq, *(g.reshape(B, Hk, H // Hk, S, Dh).sum(2) for g in (dke, dve)))
+        errs = []
+        for g, want in zip(got, grads_ref):
+            err, scale = _max_err(g, want)
+            errs.append((err, GRAD_REL_TOL["float32"] * max(scale, 1.0)))
+        ok = all(err <= tol for err, tol in errs)
+        verdict = "compared" if ok else "not f32-accurate, not compared"
+        txt = ", ".join(f"{g} {e:.3e} (tol {tol:.3g})" for g, (e, tol) in zip(("dq", "dk", "dv"),
+                                                                            errs))
+        print(f"kernel flash_attention_bwd yardstick at {name}: {label} {t:.4f} ms ({how}), "
+              f"{txt}: {verdict}", flush=True)
+        if ok:
+            bwd_keep[label] = (t, how)
+    return fwd_keep, bwd_keep
 
 
 # The scans take f32 (the model path casts to f32).  Tolerances relative to
@@ -2262,8 +2342,10 @@ def _largest_gap(got: list, want: list) -> float:
 
 
 @contextlib.contextmanager
-def _world_of_one():
-    """A (1, 1, 1) ("pod", "data", "model") mesh of one rank through NCCL."""
+def _world_of_one(shape=(1, 1, 1), axes=("pod", "data", "model")):
+    """A mesh of one rank through NCCL, (1, 1, 1) ("pod", "data", "model")
+    unless ``shape`` / ``axes`` say otherwise; a new process group each
+    time, destroyed on exit."""
     import torch
     import torch.distributed as dist
 
@@ -2272,7 +2354,7 @@ def _world_of_one():
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
                             world_size=1)
     try:
-        mesh = make_mesh((1, 1, 1), ("pod", "data", "model"), device="cuda")
+        mesh = make_mesh(shape, axes, device="cuda")
         print(f"world of one: backend {dist.get_backend()}, world {dist.get_world_size()}, mesh "
               f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} on {torch.cuda.get_device_name(0)}",
               flush=True)
@@ -2625,6 +2707,198 @@ def phase_train_whisper(smi: str) -> dict:
     return _phase_train_family(smi, "train_whisper", "whisper-large-v3")
 
 
+def example(name: str):
+    """The module of ``examples/torch/<name>.py`` (a twin of a reference
+    example; it imports nothing of JAX), loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"torch_example_{name}",
+                                                  ROOT / "examples" / "torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the reference's step count, and the flash-vs-plain check's steps before it;
+# the timed window's first and last step (train_loop logs both)
+E2E_STEPS, E2E_CHECK_STEPS = 300, 3
+E2E_WINDOW = (20, E2E_STEPS - 1)
+
+
+def phase_train_e2e(smi: str) -> dict:
+    """railx-100m (examples/train_end_to_end.py) through the twin's ``run`` on
+    the world of one, mesh (1, 1, 1), ``gspmd_fsdp`` with 2 microbatches, the
+    reference's data, AdamW and 300 steps, with ``attn_impl="flash"`` (the
+    f32 3xTF32 kernels): first 3 steps of each attention path from the same
+    seed (loss rel 1e-5, grad_norm rel 1e-4), then the 300 steps with every
+    launch count set to 0 before and read after; the loss must fall by 0.5
+    nats (the reference's check) and each of flash_fwd_lse, flash_bwd_dq and
+    flash_bwd_dkv run L x 2 microbatches a step.  The steady step, tokens/s
+    and MFU come from one window of steps (E2E_WINDOW, less the checkpoints
+    saved inside it).  Returns the run's launches."""
+    import tempfile
+
+    import torch
+
+    e2e = example("train_end_to_end")
+    base = e2e.railx_config()
+    cfg = dataclasses.replace(base, attn_impl="flash")
+    t0 = time.perf_counter()
+    data = e2e.corpus(cfg)
+    n_params = cfg.param_count()
+    print(f"train_e2e: {cfg.name} L={cfg.num_layers} d_model={cfg.d_model} H={cfg.heads} "
+          f"Hk={cfg.kv_heads} Dh={cfg.resolved_head_dim} vocab={cfg.vocab} f32, attn_impl flash; "
+          f"{n_params / 1e6:.1f}M params (param_count); corpus of the model's vocabulary, floor "
+          f"{data[1]:.4f} nats/token, built in {time.perf_counter() - t0:.2f} s on the host",
+          flush=True)
+    draws = data[0].batches(E2E_STEPS)  # steps the run does not draw
+    t0 = time.perf_counter()
+    for _ in range(5):
+        next(draws)
+    print(f"train_e2e: one batch drawn on the host in {(time.perf_counter() - t0) / 5 * 1e3:.2f} "
+          f"ms (mean of 5; train_loop draws it outside the step's own time)", flush=True)
+    log = lambda line: print(f"train_e2e: {line}", flush=True)  # noqa: E731
+    with tempfile.TemporaryDirectory() as ckpt, _world_of_one() as mesh:
+        hist = {}
+        for impl in ("flash", "ref"):
+            res, _ = e2e.run(dataclasses.replace(base, attn_impl=impl), E2E_CHECK_STEPS, mesh,
+                             "cuda", f"{ckpt}/{impl}", log, data=data, log_every=1)
+            hist[impl] = res.history
+        for step, (f, r) in enumerate(zip(hist["flash"], hist["ref"])):
+            dl = abs(f["loss"] - r["loss"]) / abs(r["loss"])
+            dg = abs(f["grad_norm"] - r["grad_norm"]) / abs(r["grad_norm"])
+            print(f"train_e2e: step {step} flash loss {f['loss']:.7f} gnorm "
+                  f"{f['grad_norm']:.7f}, ref loss {r['loss']:.7f} gnorm {r['grad_norm']:.7f}: "
+                  f"rel diff {dl:.2e} (tol {MODEL_LOSS_RTOL:g}), {dg:.2e} "
+                  f"(tol {MODEL_GNORM_RTOL:g})", flush=True)
+            if not (dl <= MODEL_LOSS_RTOL and dg <= MODEL_GNORM_RTOL):
+                fail(f"train_e2e: step {step}: the flash and plain attention paths disagree on "
+                     f"the card")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with _e2e_clock(log) as (timed_log, marks, saves):
+            res, floor = e2e.run(cfg, E2E_STEPS, mesh, "cuda", f"{ckpt}/run", timed_log,
+                                 data=data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+    hist = res.history
+    first, last = hist[0]["loss"], res.last_metrics["loss"]
+    print(f"train_e2e: loss {first:.4f} -> {last:.4f} after {res.steps_done} steps, drop "
+          f"{first - last:.4f} nats (need >= 0.5); floor {floor:.4f}, final loss - floor "
+          f"{last - floor:.4f}", flush=True)
+    if not (res.steps_done == E2E_STEPS and math.isfinite(last) and first - last >= 0.5):
+        fail(f"train_e2e: the loss fell from {first} to {last} in {res.steps_done} steps, "
+             f"expected a drop >= 0.5")
+    n = cfg.num_layers * 2 * E2E_STEPS  # an attention a layer a microbatch, no remat
+    want = {**{k: 0 for k in launches},
+            **{k: n for k in ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")}}
+    print(f"train_e2e: launches {launches}; expected {want} ({cfg.num_layers} layers x 2 "
+          f"microbatches x {E2E_STEPS} steps, no remat)", flush=True)
+    if launches != want:
+        fail(f"train_e2e launches {launches} differ from {want}")
+    # the window: from the end of step a to the end of step b (train_loop
+    # waits for each step's loss before it logs), less the checkpoints saved
+    # inside it; it holds each step's batch drawn on the host
+    a, b = E2E_WINDOW
+    inside = {step: t for step, t in saves.items() if a < step <= b}
+    window_s = marks[b] - marks[a] - sum(inside.values())
+    step_ms = 1e3 * window_s / (b - a)
+    tokens = 16 * 128
+    mfu = 6.0 * n_params * tokens / (step_ms / 1e3) / PEAK_FLOPS["float32"]
+    sampled = [round(1e3 * h["step_time_s"], 2) for h in hist if a <= h["step"] <= b]
+    ckpts = {s_ - 1: round(t, 3) for s_, t in saves.items()}
+    print(f"train_e2e: step ms of the logged steps {a}-{b} (the step call and its wait, no "
+          f"batch) {sampled}; s of the checkpoint saved after each step {ckpts}", flush=True)
+    print(f"train_e2e: steady step {step_ms:.2f} ms over the window of steps {a + 1}-{b} "
+          f"({b - a} steps, {marks[b] - marks[a]:.2f} s less the checkpoints after steps "
+          f"{sorted(s_ - 1 for s_ in inside)}, {sum(inside.values()):.2f} s), "
+          f"{tokens / (step_ms / 1e3):.1f} tokens/s, MFU {mfu:.2%} (6 N tokens / step time / "
+          f"67 TFLOP/s, the f32 peak outside the tensor cores: TF32 is off), "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; the whole run, its first step and "
+          f"{len(saves)} checkpoints included: {E2E_STEPS} steps in {wall:.2f} s, "
+          f"{E2E_STEPS * tokens / wall:.1f} tokens/s [{smi}]", flush=True)
+    return launches
+
+
+@contextlib.contextmanager
+def _e2e_clock(log):
+    """A log function for ``train_loop`` that also notes when each logged
+    step ended (the loop waits for the step's loss before it logs), and the
+    time of each checkpoint save, by the step it is saved at.  Yields
+    (log_fn, {step: perf_counter}, {saved step: seconds})."""
+    import re
+
+    import torch
+
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+
+    marks, saves, save = {}, {}, ckpt_lib.save
+
+    def timed_log(line):
+        m = re.match(r"step\s+(\d+) ", line)
+        if m:
+            marks[int(m.group(1))] = time.perf_counter()
+        log(line)
+
+    def timed_save(directory, step, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = save(directory, step, *args, **kwargs)
+        torch.cuda.synchronize()
+        saves[step] = time.perf_counter() - t
+        return out
+
+    ckpt_lib.save = timed_save
+    try:
+        yield timed_log, marks, saves
+    finally:
+        ckpt_lib.save = save
+
+
+def phase_examples(smi: str) -> None:
+    """The three smoke-size twins on worlds of one, each to its reference
+    assertion: the fault drill (phase 1 on (1, 1), the recovery plan, phase
+    2 restoring with resharding on a fresh (1, 1) world), quickstart step 4
+    on (1, 1, 1), and serve_decode on (1, 1) under a port ``Tracer`` whose
+    trace must validate and hold one ``serve.decode_step`` a decode call."""
+    import tempfile
+
+    from repro_torch.obs import Tracer, tracing, validate_trace
+
+    log = lambda line: print(f"examples: {line}", flush=True)  # noqa: E731
+    ft, qs, sd = (example(n) for n in ("fault_tolerant_training", "quickstart", "serve_decode"))
+    try:
+        with tempfile.TemporaryDirectory() as ckpt:
+            with _world_of_one((1, 1), ("data", "model")) as mesh:
+                ft.phase1(mesh, "cuda", ckpt, log_fn=log)
+                plan = ft.recovery_plan(log)
+            with _world_of_one((1, 1), ("data", "model")) as mesh:
+                start, _ = ft.phase2(mesh, "cuda", ckpt, log_fn=log)
+        if start != ft.STEPS or plan.mesh_shape != (9, 2):
+            fail(f"examples: the drill restored step {start} (want {ft.STEPS}), plan "
+                 f"{plan.mesh_shape} (want (9, 2))")
+        with _world_of_one() as mesh:
+            losses = qs.train_step4(mesh, "cuda", log_fn=log)
+        if not (len(losses) == qs.STEPS and all(map(math.isfinite, losses))
+                and losses[-1] < losses[0]):
+            fail(f"examples: quickstart step 4's losses {losses} did not fall")
+        with _world_of_one((1, 1), ("data", "model")) as mesh:
+            with tracing(Tracer(process="serve_decode")) as tracer:
+                served = sd.serve(mesh, "cuda", log)
+    except AssertionError as e:
+        fail(f"examples: a twin's own check failed: {e}")
+    stats = validate_trace(tracer.to_dict())
+    totals = tracer.phase_totals()
+    spans = totals.get("serve.decode_step", {}).get("count", 0)
+    print(f"examples: serve_decode trace {stats}; phase_totals {totals} [{smi}]", flush=True)
+    if spans != served["steps"] or stats["spans"] != served["steps"]:
+        fail(f"examples: {spans} serve.decode_step spans for {served['steps']} decode calls")
+
+
 def main() -> None:
     import torch
 
@@ -2659,11 +2933,18 @@ def main() -> None:
     train_gemma3 = phase_train_gemma3(smi)
     for phase in (phase_train_vlm, phase_train_whisper):
         phase(smi)
+    torch.cuda.empty_cache()
+    train_e2e = phase_train_e2e(smi)
+    torch.cuda.empty_cache()
+    phase_examples(smi)
     launches.update({k: train["launches"][k]
                      for k in ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")})
     # the Dh-320 kernels' launches from gemma3-4b's serving and training paths
     launches["flash_fwd_d320"] = served["phase_serve_gemma3"]["flash_fwd"]
     launches.update({f"{k}_d320": train_gemma3["launches"][k]
+                     for k in ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")})
+    # the f32 kernels' launches from railx-100m's training path
+    launches.update({f"{k}_f32": train_e2e[k]
                      for k in ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")})
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -96,6 +96,32 @@ def _rank_main(rank: int, fn: Callable, world: int, port: int, args: tuple) -> N
         dist.destroy_process_group()
 
 
+def run_world(fn: Callable, devices: int, device: _device.DeviceLike, *args: Any) -> None:
+    """Run ``fn(rank, world, *args)`` on every rank of a world, as the port's
+    examples do: ``devices`` > 0 spawns that many local gloo ranks on the CPU
+    (``spawn_cpu_world``; ``device`` must be ``"cpu"``); else, under
+    ``torchrun`` (``RANK`` set), this process is its rank (NCCL on the card,
+    gloo on the CPU); else this process is a world of one, on a free local
+    port.  The process group is destroyed when ``fn`` returns or raises."""
+    if devices:
+        if torch.device(device or "cuda").type != "cpu":
+            raise SystemExit("--devices spawns gloo ranks on the CPU: pass --device cpu, "
+                             "or run one rank per card under torchrun")
+        spawn_cpu_world(fn, devices, *args)
+        return
+    dev = _device.resolve(device)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if "RANK" in os.environ:
+        dist.init_process_group(backend)
+    else:
+        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                                world_size=1)
+    try:
+        fn(dist.get_rank(), dist.get_world_size(), *args)
+    finally:
+        dist.destroy_process_group()
+
+
 def spawn_cpu_world(fn: Callable, world: int, *args: Any) -> None:
     """Run ``fn(rank, world, *args)`` in ``world`` local processes joined
     by gloo on the CPU (the counterpart of the reference's forced host

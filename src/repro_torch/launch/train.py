@@ -73,26 +73,13 @@ def main(argv: Optional[List[str]] = None) -> None:
     from ..train.train_step import check_dp_mode
 
     if args.devices or "RANK" in os.environ:
+        from .mesh import run_world
+
         cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
         check_dp_mode(cfg, args.dp_mode)  # before any rank starts
-    if args.devices:
-        if args.device != "cpu":
-            raise SystemExit("--devices spawns gloo ranks on the CPU: pass --device cpu, "
-                             "or run one rank per card under torchrun")
-        from .mesh import spawn_cpu_world
-
-        spawn_cpu_world(_train_rank, args.devices, args)
+        run_world(_train_rank, args.devices, args.device, args)
         return
-    if "RANK" in os.environ:
-        import torch.distributed as dist
-
-        dist.init_process_group("nccl" if args.device == "cuda" else "gloo")
-        try:
-            _train(args)
-        finally:
-            dist.destroy_process_group()
-        return
-    _train(args)
+    _train(args)  # one process, no process group
 
 
 def _train_rank(rank: int, world: int, args: argparse.Namespace) -> None:

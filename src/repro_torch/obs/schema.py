@@ -1,0 +1,113 @@
+"""Minimal Chrome trace-event schema validation (the port's own copy of
+``repro/obs/schema.py``; stdlib only).
+
+``validate_trace`` checks the structural invariants a Perfetto-loadable
+trace must satisfy, so a broken instrumentation point (an unterminated
+span, an event missing required fields, a non-monotonic clock) fails
+loudly instead of producing a trace the viewer silently mis-renders.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, List, Mapping, Tuple, Union
+
+_PHASES = {"B", "E", "i", "I", "C", "M", "X"}
+_REQUIRED = ("name", "ph", "pid", "tid")
+
+# Catalog of span names the port's instrumentation points emit, by layer,
+# under the reference's names (``repro/obs/schema.py``).  Documentary for
+# validate_trace (unknown names are not an error), but ``known_span_names()``
+# lets tools and tests enumerate what a fully traced run can contain, and
+# ``tests/test_torch_obs.py`` checks that every name emitted in
+# ``src/repro_torch`` is here and that no name here is dead.
+KNOWN_SPANS: Dict[str, Tuple[str, ...]] = {
+    "serve": (
+        "serve.prefill",         # one prefill_fn call (serve_step)
+        "serve.decode_step",     # one decode_fn call (serve_step)
+    ),
+}
+
+
+def known_span_names() -> frozenset:
+    """Every span name in :data:`KNOWN_SPANS`, flattened."""
+    return frozenset(n for names in KNOWN_SPANS.values() for n in names)
+
+
+def validate_trace(
+    trace: Union[Mapping, Iterable[Mapping]],
+) -> Dict[str, int]:
+    """Validate a trace (the ``to_dict()`` object or a raw event list).
+
+    Checks, raising ``ValueError`` on the first violation:
+
+    * every event carries ``name``/``ph``/``pid``/``tid``, a known
+      phase, and (except metadata) a numeric non-negative ``ts``;
+    * per ``(pid, tid)``, timestamps are non-decreasing in emission
+      order (the tracer clock is monotonic — a violation means events
+      were reordered or the clock is broken);
+    * ``B``/``E`` span events nest properly: every ``E`` closes the most
+      recent open ``B`` of the same name, and no span stays open.
+
+    Returns summary stats: ``{"events": N, "spans": S, "instants": I,
+    "counters": C}``.
+    """
+    if isinstance(trace, Mapping):
+        events = trace.get("traceEvents")
+        if not isinstance(events, list):
+            raise ValueError("trace object has no 'traceEvents' list")
+    else:
+        events = list(trace)
+    last_ts: Dict[Tuple[object, object], float] = {}
+    open_spans: Dict[Tuple[object, object], List[str]] = {}
+    spans = instants = counters = 0
+    for i, ev in enumerate(events):
+        if not isinstance(ev, Mapping):
+            raise ValueError(f"event {i} is not an object: {ev!r}")
+        for field in _REQUIRED:
+            if field not in ev:
+                raise ValueError(f"event {i} missing field {field!r}: {ev!r}")
+        ph = ev["ph"]
+        if ph not in _PHASES:
+            raise ValueError(f"event {i} has unknown phase {ph!r}")
+        if ph == "M":
+            continue
+        ts = ev.get("ts")
+        if not isinstance(ts, (int, float)) or ts < 0:
+            raise ValueError(f"event {i} has bad ts {ts!r}")
+        key = (ev["pid"], ev["tid"])
+        prev = last_ts.get(key)
+        if prev is not None and ts < prev:
+            raise ValueError(
+                f"event {i} ts {ts} not monotonic on {key} (prev {prev})"
+            )
+        last_ts[key] = ts
+        if ph == "B":
+            open_spans.setdefault(key, []).append(ev["name"])
+        elif ph == "E":
+            stack = open_spans.get(key)
+            if not stack:
+                raise ValueError(
+                    f"event {i}: span end {ev['name']!r} with no open span"
+                )
+            if stack[-1] != ev["name"]:
+                raise ValueError(
+                    f"event {i}: span end {ev['name']!r} does not match "
+                    f"open span {stack[-1]!r}"
+                )
+            stack.pop()
+            spans += 1
+        elif ph in ("i", "I"):
+            instants += 1
+        elif ph == "C":
+            counters += 1
+        elif ph == "X":
+            spans += 1
+    for key, stack in open_spans.items():
+        if stack:
+            raise ValueError(f"unterminated span(s) on {key}: {stack!r}")
+    return {
+        "events": len(events),
+        "spans": spans,
+        "instants": instants,
+        "counters": counters,
+    }

@@ -39,6 +39,7 @@ import torch
 from .. import device as _device
 from ..collectives.schedules import all_gather_axis
 from ..models.model_zoo import ModelZoo
+from ..obs import get_tracer
 from ..parallel.sharding import (
     Layout, batch_specs_tree, block_slices, cache_layout, entry_axes, param_layout,
 )
@@ -62,11 +63,11 @@ def make_serve_step(zoo: ModelZoo, device: _device.DeviceLike = None, mesh=None,
         return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
 
     if mesh is None:
-        def decode_fn(params, cache, batch):
+        def decode(params, cache, batch):
             with torch.inference_mode():
                 return zoo.decode_step(params, cache, to_dev(batch))
 
-        def prefill_fn(params, batch):
+        def prefill(params, batch):
             with torch.inference_mode():
                 logits, _ = zoo.forward(params, to_dev(batch))
             return logits
@@ -77,7 +78,7 @@ def make_serve_step(zoo: ModelZoo, device: _device.DeviceLike = None, mesh=None,
                 with torch.inference_mode():
                     return zoo.encode(params, torch.as_tensor(enc_embeds).to(dev))
 
-        return ServeArtifacts(decode_fn, prefill_fn, encode_fn=encode_fn)
+        return ServeArtifacts(*_traced_pair(decode, prefill), encode_fn=encode_fn)
 
     params_lay = param_layout(zoo, mesh)
     cache_lay = cache_layout(zoo, mesh, cache_example)
@@ -98,19 +99,40 @@ def make_serve_step(zoo: ModelZoo, device: _device.DeviceLike = None, mesh=None,
         logits = plan.gather_logits(logits)
         return all_gather_axis(logits, mesh, rows, 0) if rows else logits
 
-    def decode_fn(params, cache, batch):
+    def decode(params, cache, batch):
         mine, rows = local(batch)
         with torch.inference_mode():
             logits, cache = zoo.decode_step(params, cache, mine, plan)
             return whole(logits, rows), cache
 
-    def prefill_fn(params, batch):
+    def prefill(params, batch):
         mine, rows = local(batch)
         with torch.inference_mode():
             logits, _ = zoo.forward(params, mine, plan)
             return whole(logits, rows)
 
-    return ServeArtifacts(decode_fn, prefill_fn, params_lay, cache_lay)
+    return ServeArtifacts(*_traced_pair(decode, prefill), params_lay, cache_lay)
+
+
+def _traced(fn: Callable, open_span: Callable) -> Callable:
+    """``fn`` inside the span ``open_span(tracer)`` opens, one a call, while
+    tracing; otherwise ``fn`` itself is called.  The span names stay
+    literals at the call sites, where the span catalog's check finds them."""
+    def traced(*args):
+        trc = get_tracer()
+        if not trc.enabled:
+            return fn(*args)
+        with open_span(trc):
+            return fn(*args)
+
+    return traced
+
+
+def _traced_pair(decode: Callable, prefill: Callable) -> tuple:
+    """(decode_fn, prefill_fn): ``decode`` in a ``serve.decode_step`` span and
+    ``prefill`` in a ``serve.prefill`` span (cat ``serve``) while tracing."""
+    return (_traced(decode, lambda trc: trc.span("serve.decode_step", cat="serve")),
+            _traced(prefill, lambda trc: trc.span("serve.prefill", cat="serve")))
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Rank bodies of the port's gloo worlds for ``tests/test_torch_collectives.py``,
-``tests/test_torch_dist_train.py``, ``tests/test_torch_fsdp.py`` and
-``tests/test_torch_moe_ep.py``; imports
+``tests/test_torch_dist_train.py``, ``tests/test_torch_fsdp.py``,
+``tests/test_torch_moe_ep.py`` and ``tests/test_torch_examples.py``; imports
 neither JAX nor ``repro``.
 
     python tests/torch_dist_worlds.py NAME WORLD WORKDIR
@@ -20,6 +20,7 @@ at most one world loads the host's cores at any moment.
 import contextlib
 import fcntl
 import os
+import shutil
 import subprocess
 import sys
 
@@ -36,6 +37,10 @@ TRAIN_STEPS = 3
 OCFG = dict(lr=1e-3, warmup_steps=2, total_steps=20)
 # a world's or a JAX process's time limit
 TIMEOUT = 180
+# the CPU priority of the worlds and their JAX processes, below the test
+# processes': with 8 ranks on the host's cores, a test with a deadline
+# (Hypothesis's 200 ms) in another process must not wait for a core
+NICE = 10
 
 
 def jax_env(src: str, devices: int) -> dict:
@@ -62,10 +67,14 @@ def one_world_at_a_time(tmp_path_factory):
 def run_in_turn(tmp_path_factory, cmds: dict, env: dict) -> dict:
     """Run each command of ``{name: argv}`` to its end, one after another,
     under ``one_world_at_a_time``; each must exit 0 within ``TIMEOUT``.
-    Returns ``{name: stdout}``."""
+    Each runs at ``NICE``: a world's ranks fill the host's cores, and the
+    test processes beside it keep theirs.  Returns ``{name: stdout}``."""
     outs = {}
+    nice = shutil.which("nice")
     with one_world_at_a_time(tmp_path_factory):
         for name, cmd in cmds.items():
+            if nice:
+                cmd = [nice, "-n", str(NICE), *cmd]
             proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=TIMEOUT)
             assert proc.returncode == 0, (name, proc.stderr[-4000:])
             outs[name] = proc.stdout
@@ -495,6 +504,93 @@ def moe_ep(rank, world, workdir):
         logits, cache = arts.decode_fn(params, cache, {"tokens": prompt[:, i:i + 1]})
         out[f"serve.decode{i}"] = logits
     _save(workdir, "moe_ep", rank, out)
+
+
+# the end-to-end twin at a small size (examples/torch/train_end_to_end.py run);
+# the drill's steps a phase and checkpoint interval
+E2E_CONFIG = dict(name="railx-tiny", family="dense", num_layers=2, d_model=64, heads=4,
+                  kv_heads=2, d_ff=128, vocab=256, tie_embeddings=True)
+E2E_STEPS = 4
+DRILL_STEPS, DRILL_CKPT_EVERY = 4, 2
+
+
+def example(name):
+    """The module of ``examples/torch/<name>.py``, loaded by path as
+    ``chip_smoke.py`` loads it."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+    from chip_smoke import example as load
+
+    return load(name)
+
+
+def _tree(workdir, prefix):
+    from repro_torch.models.common import ParamTree
+
+    init = np.load(os.path.join(workdir, "params.npz"))
+    n = len(prefix) + 1
+    return ParamTree.from_state_dict({k[n:]: torch.from_numpy(init[k].copy())
+                                      for k in init.files if k.startswith(prefix + ".")})
+
+
+def _history(res, key):
+    return [h[key] for h in res.history]
+
+
+def examples(rank, world, workdir):
+    """The port's example twins on a world of 8 from the JAX inits in
+    params.npz: the end-to-end ``run`` on (2, 2, 2) at ``E2E_CONFIG`` with
+    each attention path, the drill's phase 1 on (4, 2), quickstart step 4 on
+    (2, 2, 2), and serve_decode on (4, 2) under a port ``Tracer``."""
+    import dataclasses
+
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.obs import Tracer, tracing, validate_trace
+
+    quiet = lambda *a, **k: None  # noqa: E731
+    out = {}
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), "cpu")
+    e2e = example("train_end_to_end")
+    for impl in ("ref", "flash"):
+        cfg = dataclasses.replace(ModelConfig(**E2E_CONFIG), attn_impl=impl)
+        res, floor = e2e.run(cfg, E2E_STEPS, mesh, "cpu", os.path.join(workdir, f"e2e_{impl}"),
+                             quiet, init=_tree(workdir, "e2e"), log_every=1)
+        out[f"e2e.{impl}.loss"] = _history(res, "loss")
+        out[f"e2e.{impl}.grad_norm"] = _history(res, "grad_norm")
+        out[f"e2e.{impl}.step"] = _history(res, "step")
+        out["e2e.floor"] = floor
+
+    ft = example("fault_tolerant_training")
+    res = ft.phase1(make_mesh((4, 2), ("data", "model"), "cpu"), "cpu",
+                    os.path.join(workdir, "drill"), DRILL_STEPS, DRILL_CKPT_EVERY, quiet,
+                    init=_tree(workdir, "llama"), log_every=1)
+    out["drill.p1.loss"] = _history(res, "loss")
+    out["drill.p1.step"] = _history(res, "step")
+
+    out["quick.loss"] = example("quickstart").train_step4(mesh, "cpu", log_fn=quiet,
+                                                          init=_tree(workdir, "llama"))
+
+    with tracing(Tracer()) as tracer:
+        served = example("serve_decode").serve(make_mesh((4, 2), ("data", "model"), "cpu"),
+                                               "cpu", quiet, init=_tree(workdir, "qwen"))
+    out["serve.steps"] = served["steps"]
+    out["serve.done"] = served["done"]
+    out["serve.sampled"] = served["sampled"]
+    out["serve.logits"] = torch.stack(served["logits"])
+    out["serve.spans"] = tracer.phase_totals()["serve.decode_step"]["count"]
+    out["serve.valid_spans"] = validate_trace(tracer.to_dict())["spans"]
+    _save(workdir, "examples", rank, out)
+
+
+def examples_shrunk(rank, world, workdir):
+    """The drill's phase 2: a fresh world of 4 on (2, 2) restores phase 1's
+    checkpoint with resharding and trains on."""
+    ft = example("fault_tolerant_training")
+    start, res = ft.phase2(make_mesh((2, 2), ("data", "model"), "cpu"), "cpu",
+                           os.path.join(workdir, "drill"), DRILL_STEPS, DRILL_CKPT_EVERY,
+                           lambda *a, **k: None, log_every=1)
+    _save(workdir, "examples_shrunk", rank, {"drill.start": start,
+                                             "drill.p2.loss": _history(res, "loss"),
+                                             "drill.p2.step": _history(res, "step")})
 
 
 if __name__ == "__main__":

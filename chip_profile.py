@@ -77,6 +77,21 @@
   one on (1, 1)), within CARDS_LOSS_REL; the restored step; each phase's
   step times.
 
+* family_cards (needs 4 cards, one NCCL rank each; ``--chips 4``):
+  zamba2-7b at all 81 layers in f32 (6.66 B params: params, grads and
+  AdamW moments take 106.6 GB, more than a card) under ``gspmd_fsdp`` on
+  (1, 4, 1), 4 x 256 tokens a step, 3 steps; its first loss against the
+  unsharded forward of the same weights in a one-card process before the
+  world starts (rel 1e-4), params + moments held and the peak a card,
+  step times, MFU on the leaves.  Then xlstm-125m, whisper-large-v3 and
+  qwen2-vl-2b (``chip_smoke.py``'s train cells) tensor-parallel on (1, 2, 2)
+  ("pod", "data", "model"), 3 steps each against one card's.
+
+* pipe_cards (needs 4 cards; ``--chips 4``): ``parallel/pipeline.py`` on a
+  (4,) "pipe" ring of NCCL ranks: the reference's test (4 stages x 6
+  microbatches, x * 24 within 1e-4), then a llama3.2-3b layer a stage over
+  6 microbatches of 1 x 1024 tokens against the layers in turn on one card.
+
 And an A/B of the flash-attention kernels against another checkout:
 
 * flash_ab DIR: ``flash_fwd`` and ``flash_fwd_lse`` at the serving prefill
@@ -132,7 +147,8 @@ And one look at numbers rather than time:
   the model keeps the reference's normaliser).
 
     python3 chip_profile.py [serve] [train] [serve_hybrid] [train_dist] [dist_cards]
-                            [serve_moe] [moe_cards] [elastic_cards] [serve_gemma3] [serve_vlm]
+                            [serve_moe] [moe_cards] [elastic_cards] [family_cards]
+                            [pipe_cards] [serve_gemma3] [serve_vlm]
                             [serve_whisper] [train_gemma3] [train_e2e]
                             [xlstm_agreement] [flash_ab DIR]
                             [flash_ablate] [scan_ab DIR] [scan_ablate]
@@ -1730,6 +1746,303 @@ def scan_ablate(smi: str) -> None:
             {"mlstm_fwd": lambda: rel(mlstm.mlstm_fwd(*x, chunk=64), want)})
 
 
+# family_cards: zamba2-7b at all 81 layers in f32 (the registry's dtypes)
+# under gspmd_fsdp on (1, 4, 1), 4 x 256 tokens a step (a row a card), its
+# first loss against the unsharded forward of the same weights on one card;
+# then xlstm-125m, whisper-large-v3 and qwen2-vl-2b (chip_smoke.py's train
+# cells) tensor-parallel on (1, 2, 2) against one card
+HYBRID_CARDS_B, HYBRID_CARDS_S, HYBRID_CARDS_STEPS = 4, 256, 3
+HYBRID_CARDS_REL = 1e-4
+TP_CARDS_ARCHS = ("xlstm-125m", "whisper-large-v3", "qwen2-vl-2b")
+
+
+def _hybrid_cards_setup():
+    """zamba2-7b whole in f32 with remat (the reference's group remat), its
+    AdamW config and batches."""
+    from chip_smoke import TRAIN_STEPS
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.train import optimizer as opt_lib
+
+    cfg = dataclasses.replace(get_config("zamba2-7b"), remat=True)
+    ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    data = SyntheticLM(DataConfig(vocab=4096, seq_len=HYBRID_CARDS_S, global_batch=HYBRID_CARDS_B))
+    return cfg, get_model(cfg), ocfg, data
+
+
+def _hybrid_one_card(out) -> None:
+    """The unsharded forward loss of the 4-card run's weights (seed 0) on
+    its first batch, on one card, without gradients."""
+    import torch
+
+    cfg, zoo, ocfg, data = _hybrid_cards_setup()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = zoo.init(gen, device="cuda")
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in data.batch(0).items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        loss, _ = zoo.loss(params, batch)
+    out.put((float(loss), time.perf_counter() - t0, torch.cuda.max_memory_allocated(),
+             sum(p.numel() for p in params.parameters())))
+
+
+def family_cards_hybrid(rank: int, world: int, smi: str, want: float) -> None:
+    """zamba2-7b at 81 layers under gspmd_fsdp on (1, 4, 1): params and
+    AdamW moments sharded over "data", 3 steps; the first loss against the
+    one-card forward's ``want`` (rel 1e-4), the params + moments held and
+    the peak a card, step times; ssd_fwd launches."""
+    import torch
+
+    from chip_smoke import _train_init, _train_run, scan_launches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import param_layout
+    from repro_torch.train.train_step import make_train_step
+
+    cfg, zoo, ocfg, data = _hybrid_cards_setup()
+    mesh = make_mesh((1, world, 1), ("pod", "data", "model"), "cuda")
+    layout = param_layout(zoo, mesh)
+    params, opt = _train_init(zoo, ocfg, layout)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    step_fn = make_train_step(zoo, ocfg, device="cuda", mesh=mesh)
+    run = _train_run(f"family_cards zamba2 rank {rank}", step_fn, params, opt, data,
+                     HYBRID_CARDS_STEPS)
+    per_step = scan_launches(cfg, True)["ssd_fwd"]
+    if run["launches"]["ssd_fwd"] != per_step * HYBRID_CARDS_STEPS:
+        raise RuntimeError(f"rank {rank}: launches {run['launches']}, want {per_step} ssd_fwd "
+                           "a step")
+    if rank == 0:
+        gap = abs(run["loss"][0] - want) / abs(want)
+        n = sum(int(torch.tensor(s).prod()) for s in layout.shapes.values())
+        tokens = HYBRID_CARDS_B * HYBRID_CARDS_S
+        mean_s = sum(run["step_ms"][1:]) / (len(run["step_ms"]) - 1) / 1e3
+        mfu = 6.0 * n * tokens / mean_s / (world * 67e12)
+        print(f"family_cards zamba2-7b L={cfg.num_layers} f32 gspmd_fsdp on "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}: losses {run['loss']}, grad_norms "
+              f"{run['grad_norm']}; first loss against one card's unsharded forward {want:.7f}: "
+              f"rel {gap:.3e} (tol {HYBRID_CARDS_REL:g}); per-step ms "
+              f"{[round(t, 2) for t in run['step_ms']]}, {tokens / mean_s:.1f} tokens/s, MFU "
+              f"{mfu:.3%} on {n} leaves (6 N tokens / step time / (4 x 67 TFLOP/s f32)); "
+              f"params + moments held {held / 2**30:.2f} GiB a card, max_memory_allocated "
+              f"{run['peak'] / 2**30:.2f} GiB; ssd_fwd launches {per_step} a step a card [{smi}]",
+              flush=True)
+        if not gap <= HYBRID_CARDS_REL:
+            raise RuntimeError(f"family_cards zamba2: first loss off by {gap:.3e}")
+
+
+def _tp_setup(arch: str):
+    from chip_smoke import family_train_setup, recurrent_train_setup
+
+    if arch == "xlstm-125m":
+        cfg, zoo, ocfg, data = recurrent_train_setup(arch)
+        return cfg, zoo, ocfg, data, 1
+    return family_train_setup(arch)
+
+
+def family_cards_tp(rank: int, world: int, smi: str) -> None:
+    """xlstm-125m, whisper-large-v3 and qwen2-vl-2b under gspmd_fsdp on
+    (1, 2, 2): FSDP over "data", the heads (and whisper's vocab) over
+    "model"; 3 steps each against one card's (rank 0, the one-process
+    step), losses within CARDS_LOSS_REL; launches a card."""
+    import torch
+    import torch.distributed as dist
+
+    from chip_smoke import (
+        _largest_gap, _train_init, _train_launches, _train_run, n_attentions, scan_launches,
+    )
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import param_layout
+    from repro_torch.train.train_step import make_train_step
+
+    mesh = make_mesh((1, 2, world // 2), ("pod", "data", "model"), "cuda")
+    for arch in TP_CARDS_ARCHS:
+        cfg, zoo, ocfg, data, micro = _tp_setup(arch)
+        one = None
+        if rank == 0:
+            params, opt = _train_init(zoo, ocfg)
+            one = _train_run(f"family_cards {arch} one card", make_train_step(
+                zoo, ocfg, microbatches=micro, device="cuda"), params, opt, data, CARDS_STEPS)
+            del params, opt
+            torch.cuda.empty_cache()
+        dist.barrier()
+        layout = param_layout(zoo, mesh)
+        plan = zoo.shard_plan(layout)
+        params, opt = _train_init(zoo, ocfg, layout)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        step_fn = make_train_step(zoo, ocfg, microbatches=micro, device="cuda", mesh=mesh)
+        run = _train_run(f"family_cards {arch} rank {rank}", step_fn, params, opt, data,
+                         CARDS_STEPS)
+        del params, opt, step_fn
+        torch.cuda.empty_cache()
+        if cfg.family == "xlstm":
+            want = {**_train_launches(0, CARDS_STEPS),
+                    **{k: v * CARDS_STEPS for k, v in scan_launches(cfg, True).items()}}
+        else:
+            want = _train_launches(n_attentions(cfg) * micro, CARDS_STEPS)
+        if run["launches"] != want:
+            raise RuntimeError(f"rank {rank} {arch}: launches {run['launches']}, want {want}")
+        if rank == 0:
+            gap = _largest_gap(run["loss"], one["loss"])
+            print(f"family_cards {arch} gspmd_fsdp on {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+                  f" (heads split {plan.heads}, vocab split {plan.head_vocab}): losses "
+                  f"{run['loss']} against one card's {one['loss']}, largest relative gap "
+                  f"{gap:.3e} (tol {CARDS_LOSS_REL:g}); grad_norms {run['grad_norm']} against "
+                  f"{one['grad_norm']}; per-step ms {[round(t, 2) for t in run['step_ms']]} "
+                  f"against one card's {[round(t, 2) for t in one['step_ms']]}; held "
+                  f"{held / 2**30:.2f} GiB a card, max_memory_allocated "
+                  f"{run['peak'] / 2**30:.2f} GiB (one card {one['peak'] / 2**30:.2f}); "
+                  f"launches a card {run['launches']} [{smi}]", flush=True)
+            if not gap <= CARDS_LOSS_REL:
+                raise RuntimeError(f"family_cards {arch}: loss gap {gap:.3e}")
+
+
+def _family_cards_rank(rank: int, world: int, port: int, smi: str, want: float) -> None:
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=600))
+    try:
+        family_cards_hybrid(rank, world, smi, want)
+        torch.cuda.empty_cache()
+        family_cards_tp(rank, world, smi)
+    finally:
+        dist.destroy_process_group()
+
+
+def family_cards(smi: str) -> None:
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch.mesh import free_port
+
+    world = torch.cuda.device_count()
+    if world != 4:
+        sys.exit(f"family_cards needs 4 cards, found {world}")
+    ctx = mp.get_context("spawn")
+    q = ctx.SimpleQueue()
+    proc = ctx.Process(target=_hybrid_one_card, args=(q,))
+    proc.start()
+    want, secs, peak, n = q.get()
+    proc.join()
+    print(f"family_cards: zamba2-7b L=81 f32 unsharded forward on one card ({n} params): loss "
+          f"{want:.7f} in {secs:.2f} s (first call), max_memory_allocated {peak / 2**30:.2f} GiB "
+          f"[{smi}]", flush=True)
+    print(f"family_cards: {world} ranks, one a card, NCCL [{smi}]", flush=True)
+    mp.start_processes(_family_cards_rank, args=(world, free_port(), smi, want), nprocs=world,
+                       join=True, start_method="spawn")
+
+
+# pipe_cards: the reference's pipeline test and a llama3.2-3b layer a stage
+PIPE_STAGES, PIPE_MICRO, PIPE_S = 4, 6, 1024
+
+
+def pipe_cards_rank(rank: int, world: int, smi: str) -> None:
+    """``make_pipelined_apply`` on a (4,) "pipe" ring of NCCL ranks: the
+    reference's test (x @ (eye x (s + 1)), 6 microbatches, x * 24 within
+    1e-4), then a llama3.2-3b decoder layer at full width in bf16 (flash)
+    a stage over 6 microbatches of 1 x 1024 tokens, against the 4 layers
+    applied in turn to each microbatch on one card (rel 1e-3 of the
+    largest output); the pipelined call's time beside the unpipelined
+    one's."""
+    import torch
+    import torch.distributed as dist
+
+    from chip_smoke import _time_ms
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.models.common import DTypes, layer_slice
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.parallel.pipeline import make_pipelined_apply
+
+    mesh = make_mesh((world,), ("pipe",), "cuda")
+    ws = torch.stack([torch.eye(8, device="cuda") * (i + 1) for i in range(world)])
+    xs = torch.randn((PIPE_MICRO, 3, 8), generator=torch.Generator(device="cuda").manual_seed(0),
+                     device="cuda")
+    toy = make_pipelined_apply(mesh, lambda w, x: x @ w, PIPE_MICRO)(ws, xs)
+    toy_err = (toy - xs * 24).abs().max().item()
+
+    cfg = dataclasses.replace(get_config("llama3.2-3b"), num_layers=world,
+                              param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                              attn_impl="flash")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    layers = get_model(cfg).init(gen, device="cuda")["layers"]
+    dt = DTypes(param=cfg.param_dtype, compute=cfg.compute_dtype)
+    positions = torch.arange(PIPE_S, device="cuda")[None]
+
+    def stage(lp, x):
+        return transformer._layer_fwd(lp, cfg, x, positions, None, True, dt)[0]
+
+    x = torch.randn((PIPE_MICRO, 1, PIPE_S, cfg.d_model), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    apply = make_pipelined_apply(mesh, stage, PIPE_MICRO)
+
+    def unpiped():
+        outs = []
+        for m in x:
+            for i in range(world):
+                m = stage(layer_slice(layers, i), m)
+            outs.append(m)
+        return torch.stack(outs)
+
+    with torch.inference_mode():
+        got = apply(layers, x)
+        want = unpiped()
+        dist.barrier()
+        piped_ms = _time_ms(lambda: apply(layers, x), iters=5, warmup=1)
+        one_ms = _time_ms(unpiped, iters=5, warmup=1) if rank == 0 else 0.0
+    rel = (got.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+    if rank == 0 or toy_err >= 1e-4 or rel > 1e-3:
+        print(f"pipe_cards rank {rank}: the reference's test, {world} stages x {PIPE_MICRO} "
+              f"microbatches: max |err| against x * 24 {toy_err:.3e} (tol 1e-4); a "
+              f"{cfg.name} layer a stage, {PIPE_MICRO} microbatches of 1 x {PIPE_S} tokens: "
+              f"max |err| against the layers in turn on one card {rel:.3e} of the largest "
+              f"output (tol 1e-3); pipelined {piped_ms:.2f} ms a call ({PIPE_MICRO + world - 1} "
+              f"ticks), one card {one_ms:.2f} ms [{smi}]", flush=True)
+    if toy_err >= 1e-4 or rel > 1e-3:
+        raise RuntimeError(f"pipe_cards rank {rank}: toy {toy_err}, layers {rel}")
+
+
+def _pipe_cards_rank(rank: int, world: int, port: int, smi: str) -> None:
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=300))
+    try:
+        pipe_cards_rank(rank, world, smi)
+    finally:
+        dist.destroy_process_group()
+
+
+def pipe_cards(smi: str) -> None:
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch.mesh import free_port
+
+    world = torch.cuda.device_count()
+    if world != PIPE_STAGES:
+        sys.exit(f"pipe_cards needs {PIPE_STAGES} cards, found {world}")
+    print(f"pipe_cards: {world} ranks, one a card, NCCL [{smi}]", flush=True)
+    mp.start_processes(_pipe_cards_rank, args=(world, free_port(), smi), nprocs=world,
+                       join=True, start_method="spawn")
+
+
 def main() -> None:
     import torch
 
@@ -1754,7 +2067,8 @@ def main() -> None:
          "serve_gemma3": lambda smi: profile_serve_family(smi, "gemma3-4b"),
          "serve_vlm": lambda smi: profile_serve_family(smi, "qwen2-vl-2b"),
          "serve_whisper": lambda smi: profile_serve_family(smi, "whisper-large-v3"),
-         "train_gemma3": profile_train_gemma3}[name](smi)
+         "train_gemma3": profile_train_gemma3, "family_cards": family_cards,
+         "pipe_cards": pipe_cards}[name](smi)
 
 
 if __name__ == "__main__":

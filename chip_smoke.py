@@ -25,7 +25,11 @@ Phases, each printed as it runs; any failure exits non-zero:
            geometry and at llama3.2-3b's training shape (BWD_TIMED), the f32
            lines beside both bounds (3xTF32 and f32 SIMT) and each backward
            pair beside aten's whole backward.  Every case's backward runs
-           twice and must give the same bits.
+           twice and must give the same bits.  ssd_fwd and mlstm_fwd are
+           also timed at the hybrid and xLSTM training shapes
+           (``SCAN_TRAIN_TIMED``: zamba2-7b's 4 x 256 tokens and a rank's
+           row of them, xlstm-125m's 4 x 256 and a rank's half of the rows
+           and heads).
 4. model   a small llama-shaped f32 model on the card (flash kernels)
            against the same weights on the CPU (plain path): a forward, two
            train steps (remat on the card), and a checkpoint round trip;
@@ -40,7 +44,10 @@ Phases, each printed as it runs; any failure exits non-zero:
            3 decode steps, within 1e-3 (``family_agreement``); then the
            same three and gemma3-smoke widened to Dh 320: two train steps
            (remat, flash kernels) against the CPU at the small llama's
-           tolerances (``family_train_agreement``).
+           tolerances (``family_train_agreement``); then zamba2-smoke (SSD
+           kernel, remat) two train steps the same way and xlstm-smoke's two
+           steps' gradients from the CPU's params, leaf by leaf
+           (``recurrent_train_agreement``).
 5. serve   llama3.2-3b at full width in bf16, random weights from a seed:
            8 requests of 1024-token prompts, 32 new tokens each, in two
            waves of 4 slots; counts the kernel launches of that run.
@@ -108,6 +115,23 @@ Phases, each printed as it runs; any failure exits non-zero:
            flash: 8 AdamW steps each; the loss must fall by 0.5 nats and the
            launches be 2 flash_fwd_lse and one each of flash_bwd_dq and
            flash_bwd_dkv an attention a microbatch a step.
+14b. train_hybrid, train_xlstm  zamba2-7b at full width cut to 12 layers
+           (4 x 256 tokens a step; 1.28 B leaves) and xlstm-125m whole (4 x 256)
+           in bf16 with remat: 8 AdamW steps each; zamba2's loss must fall by
+           0.5 nats (xLSTM's drop is reported), the launches be 24 ssd_fwd /
+           18 mlstm_fwd a step; MFU on the leaves' count.  Both scans'
+           backwards replay the sequential scan: host-bound steps.
+14c. train_fsdp_families  on the world of one, ``gspmd_fsdp`` for
+           zamba2-7b (12 layers), xlstm-125m, whisper-large-v3 and
+           qwen2-vl-2b: 3 steps each whose losses and grad_norms must equal
+           their one-process phase's first 3 within rel 1e-5, launches too.
+14d. serve_sharded_families  ``make_serve_step(mesh=)`` on a world of one
+           ((1, 1) "data", "model") for the same four at full width in bf16:
+           a prefill of 4 x 256 tokens and 4 decode calls from a fresh cache
+           against the unsharded serve of the same params (rel 1e-5).
+14e. pipeline  ``parallel/pipeline.py`` with one stage (a world of one,
+           (1,) "pipe"): a llama3.2-3b layer over 4 microbatches of 1 x 1024
+           tokens, the same bits as the layer applied unpipelined.
 15. train_e2e  railx-100m (examples/train_end_to_end.py: 12 layers, d_model
            768, 12 / 4 heads, vocab 16384, f32) through the twin's ``run``
            (``examples/torch/train_end_to_end.py``) on a world of one, mesh
@@ -145,6 +169,7 @@ import math
 import subprocess
 import sys
 import time
+from typing import Optional
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -428,7 +453,10 @@ def launch_counts() -> dict:
 
 
 def phase_kernel() -> list:
-    return [*_flash_fwd_kernel(), *_training_kernels(), _ssd_kernel(), _mlstm_kernel()]
+    kernels = [*_flash_fwd_kernel(), *_training_kernels(), _ssd_kernel(), _mlstm_kernel()]
+    for kname, where, shape in SCAN_TRAIN_TIMED:
+        time_scan(kname, where, shape)
+    return kernels
 
 
 def _flash_fwd_kernel() -> list:
@@ -1069,6 +1097,45 @@ def _scan_bound(kname, where, ms, b2b, plain_ms, flops, nbytes) -> tuple:
     return b["bound_ms"], b["bound_by"]
 
 
+# the scans at this slice's training shapes: zamba2-7b's 4 x 256 tokens
+# (train_hybrid, all 112 heads) and one rank's quarter of them in
+# chip_profile.py family_cards ((1, 4, 1): a row a rank); xlstm-125m's 4 x 256
+# (train_xlstm) and one rank's half of the rows and heads on (1, 2, 2)
+SCAN_TRAIN_TIMED = (
+    ("ssd_fwd", "zamba2-7b train", (4, 256, 112, 64, 64, 64)),
+    ("ssd_fwd", "zamba2-7b train, a rank of (1, 4, 1)", (1, 256, 112, 64, 64, 64)),
+    ("mlstm_fwd", "xlstm-125m train", (4, 256, 4, 192, 64)),
+    ("mlstm_fwd", "xlstm-125m train, a rank of (1, 2, 2)", (2, 256, 2, 192, 64)),
+)
+
+
+def time_scan(kname: str, where: str, shape: tuple) -> dict:
+    """A scan kernel timed at ``shape`` (ssd_fwd: B, S, H, P, N, chunk;
+    mlstm_fwd: B, S, H, D, chunk) beside its bounds and its chunked plain
+    version; -> {ms, plain_ms, bound_ms, bound_by}."""
+    from repro_torch.kernels import bounds
+    from repro_torch.kernels.mlstm import mlstm
+    from repro_torch.kernels.mlstm.ref import mlstm_chunked_ref
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+
+    *dims, chunk = shape
+    if kname == "ssd_fwd":
+        x = _ssd_inputs(*dims, seed=0)
+        fn, plain, flops = ssd.ssd_fwd, ssd_chunked_ref, bounds.ssd_flops(*shape)
+    else:
+        x = _mlstm_inputs(*dims, seed=0)
+        fn, plain, flops = mlstm.mlstm_fwd, mlstm_chunked_ref, bounds.mlstm_flops(*shape)
+    ms = _graph_ms(lambda: fn(*x, chunk=chunk))
+    b2b = _time_ms(lambda: fn(*x, chunk=chunk))
+    plain_ms = _time_ms(lambda: plain(*x, chunk), iters=5)
+    names = "B S H P N" if kname == "ssd_fwd" else "B S H D"
+    dims_s = " ".join(f"{n}={v}" for n, v in zip(names.split(), dims))
+    bound = _scan_bound(kname, f"{where} ({dims_s} chunk={chunk} f32)", ms, b2b, plain_ms, flops,
+                        _nbytes(*x, x[0]))
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1]}
+
+
 def _ssd_kernel() -> dict:
     import torch
 
@@ -1161,6 +1228,8 @@ def phase_model() -> None:
         family_agreement(arch)
     for base in (*map(get_smoke_config, FAMILY_ARCHS), gemma3_d320_smoke()):
         family_train_agreement(base)
+    for arch in RECURRENT_ARCHS:
+        recurrent_train_agreement(get_smoke_config(arch))
 
 
 # smoke recurrent models, f32, card (kernels, cuBLAS) vs CPU (chunked plain
@@ -1299,16 +1368,18 @@ MODEL_LOSS_RTOL, MODEL_GNORM_RTOL = 1e-5, 1e-4
 MODEL_PARAM_TIGHT, MODEL_PARAM_SHARE, MODEL_PARAM_MAX = 1e-6, 0.999, 1e-4
 
 
-def _train_card_vs_cpu(tag: str, base, state: dict, batches: list, n_attn: int) -> tuple:
+def _train_card_vs_cpu(tag: str, base, state: dict, batches: list, n_attn: int,
+                       scans: Optional[dict] = None) -> tuple:
     """AdamW steps of ``base`` in f32 from the weights ``state``, one a
-    batch: the flash kernels with remat on the card against the plain path
-    on the CPU.  Fails unless the card launched 2 flash_fwd_lse and one each
-    of flash_bwd_dq and flash_bwd_dkv per attention (``n_attn`` a forward)
-    a step, and nothing else, and the two sides agree on loss, grad_norm and
-    params within the MODEL_* bounds; -> the card's (params, AdamW state)."""
+    batch: the kernels with remat on the card against the plain path on the
+    CPU.  Fails unless the card launched 2 flash_fwd_lse and one each of
+    flash_bwd_dq and flash_bwd_dkv per attention (``n_attn`` a forward) a
+    step, the scan launches ``scans`` ({kernel: launches a step}, none by
+    default), and nothing else, and the two sides agree on loss, grad_norm
+    and params within the MODEL_* bounds; -> the card's (params, AdamW
+    state)."""
     import torch
 
-    from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.models.common import ParamTree
     from repro_torch.models.model_zoo import get_model
     from repro_torch.train import optimizer as opt_lib
@@ -1322,15 +1393,17 @@ def _train_card_vs_cpu(tag: str, base, state: dict, batches: list, n_attn: int) 
                                            requires_grad=True)
         step_fn = make_train_step(get_model(cfg), ocfg, device=dev)
         opt = opt_lib.init(ocfg, params)
-        fa.reset_launch_counts()
+        reset_launch_counts()
         metrics = []
         for batch in batches:
             params, opt, m = step_fn(params, opt, batch)
             metrics.append({k: float(v) for k, v in m.items()})
-        sides[dev] = (params, opt, metrics, fa.launch_counts())
+        sides[dev] = (params, opt, metrics, launch_counts())
     (gp, gopt, gm, counts), (cp, _, cm, _) = sides["cuda"], sides["cpu"]
     n = n_attn * len(batches)
-    want = {"flash_fwd": 0, "flash_fwd_lse": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    want = {"flash_fwd": 0, "flash_fwd_lse": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+            "ssd_fwd": 0, "mlstm_fwd": 0}
+    want.update({k: v * len(batches) for k, v in (scans or {}).items()})
     print(f"{tag}: {len(batches)} train steps (remat) on the card launched {counts}", flush=True)
     if counts != want:
         fail(f"{tag}: {len(batches)} train steps launched {counts}, expected {want}")
@@ -1417,6 +1490,90 @@ def family_train_agreement(base) -> None:
         batches.append(batch)
     _train_card_vs_cpu(f"model: {base.name} Dh={base.resolved_head_dim}", base, state, batches,
                        n_attentions(base))
+
+
+RECURRENT_ARCHS = ("zamba2-7b", "xlstm-125m")
+
+
+def scan_launches(cfg, remat: bool) -> dict:
+    """The scan kernel's launches in one training step of the hybrid or
+    xLSTM family: one a Mamba2 / mLSTM layer a forward, the hybrid's grouped
+    layers and every xLSTM layer run twice under remat (the reference
+    rematerialises the hybrid's groups, not its tail), the backward none
+    (it differentiates the sequential scan)."""
+    twice = 2 if remat else 1
+    if cfg.family == "hybrid":
+        grouped = cfg.num_layers // cfg.shared_attn_every * cfg.shared_attn_every
+        return {"ssd_fwd": twice * grouped + cfg.num_layers - grouped}
+    every = cfg.xlstm_slstm_every
+    mlstm = sum(1 for i in range(cfg.num_layers) if i % every != every - 1)
+    return {"mlstm_fwd": twice * mlstm}
+
+
+# a leaf's gradient, card against CPU from the same params, relative to the
+# leaf's largest element: the mLSTM backward's tolerance on the CPU
+# (tests/test_torch_mlstm.py, tests/test_torch_family_train.py GRAD_RTOL)
+GRAD_LEAF_RTOL = 1e-4
+
+
+def recurrent_train_agreement(base) -> None:
+    """Two f32 AdamW steps of the zamba2 smoke config on the card (SSD
+    kernel, remat) against the CPU (the chunked plain version), 4 x 128
+    tokens from the bigram corpus, at the train rows' bounds
+    (``_train_card_vs_cpu``).  xLSTM's first AdamW step moves a parameter
+    whose gradient is near zero by up to lr either way (1.02e-3 on the
+    card), so for xlstm-smoke each of the two steps' gradients is held
+    instead, from the CPU's params before it: the loss and grad norm at the
+    train rows' bounds, each leaf within GRAD_LEAF_RTOL of its largest
+    element, and the mLSTM launches of a remat step."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.common import ParamTree
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import make_train_step
+
+    state = {k: v.detach() for k, v in get_model(base).init(0, device="cpu").state_dict().items()}
+    data = SyntheticLM(DataConfig(vocab=base.vocab, seq_len=128, global_batch=4))
+    batches = [data.batch(s) for s in range(2)]
+    scans = scan_launches(dataclasses.replace(base, remat=True), True)
+    if base.family != "xlstm":
+        _train_card_vs_cpu(f"model: {base.name}", base, state, batches, 0, scans)
+        return
+    tag = f"model: {base.name}"
+    ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    params = ParamTree.from_state_dict({k: v.clone() for k, v in state.items()},
+                                       requires_grad=True)
+    opt, step_fn = opt_lib.init(ocfg, params), make_train_step(get_model(base), ocfg, device="cpu")
+    for step, batch in enumerate(batches):
+        sides = {}
+        for dev, cfg in (("cuda", dataclasses.replace(base, remat=True)), ("cpu", base)):
+            p = ParamTree.from_state_dict({k: v.detach().to(dev).clone()
+                                           for k, v in params.state_dict().items()},
+                                          requires_grad=True)
+            reset_launch_counts()
+            loss, _ = get_model(cfg).loss(p, {k: torch.as_tensor(v, device=dev)
+                                              for k, v in batch.items()})
+            loss.backward()
+            grads = {k: q.grad.cpu() for k, q in p.named_parameters()}
+            norm = torch.sqrt(sum(torch.sum(g.double() ** 2) for g in grads.values())).item()
+            sides[dev] = (float(loss), norm, grads, launch_counts())
+        (gl, gn, gg, counts), (cl, cn, cg, _) = sides["cuda"], sides["cpu"]
+        leaf = max((gg[k] - cg[k]).abs().max().item() / max(cg[k].abs().max().item(), 1e-30)
+                   for k in cg)
+        dl, dn = abs(gl - cl) / abs(cl), abs(gn - cn) / abs(cn)
+        want = {**{k: 0 for k in counts}, **scans}
+        print(f"{tag}: step {step} gradients from the CPU's params: card loss {gl:.7f} gnorm "
+              f"{gn:.7f}, cpu loss {cl:.7f} gnorm {cn:.7f}: rel diff {dl:.2e} (tol "
+              f"{MODEL_LOSS_RTOL:g}), {dn:.2e} (tol {MODEL_GNORM_RTOL:g}); largest leaf "
+              f"difference {leaf:.2e} of its largest element (tol {GRAD_LEAF_RTOL:g}); launched "
+              f"{counts}", flush=True)
+        if not (dl <= MODEL_LOSS_RTOL and dn <= MODEL_GNORM_RTOL and leaf <= GRAD_LEAF_RTOL):
+            fail(f"{tag}: step {step}: card and CPU gradients disagree")
+        if counts != want:
+            fail(f"{tag}: a step launched {counts}, expected {want}")
+        params, opt, _ = step_fn(params, opt, batch)
 
 
 # moonshot-smoke in f32, card (flash, cuBLAS) vs CPU: routed alike, the two
@@ -2707,6 +2864,276 @@ def phase_train_whisper(smi: str) -> dict:
     return _phase_train_family(smi, "train_whisper", "whisper-large-v3")
 
 
+# the recurrent families' training cells: (batch, tokens, layers or None for
+# all).  zamba2-7b at full width cut to 12 layers (the shared block runs
+# twice), as serve_hybrid's prompts are cut to 256 tokens; xlstm-125m whole
+# at 256 tokens (at 512 a step took 9.5 s).  Both scans' backwards replay
+# the sequential scan in a Python loop over tokens, so the steps are
+# host-bound
+RECURRENT_TRAIN = {"zamba2-7b": (4, 256, 12), "xlstm-125m": (4, 256, None)}
+# the loss drop the cell must show in 8 steps; xlstm-125m's loss does not
+# fall over 8 batches of the bigram corpus at lr 1e-3 (in bf16 or f32, at
+# batch 4 or 16) while it fits one batch repeated (11.24 -> 6.85 in 8
+# steps, f32 on the CPU), so its drop is reported, not held
+RECURRENT_MIN_DROP = {"zamba2-7b": 0.5, "xlstm-125m": None}
+
+
+def recurrent_train_setup(arch: str):
+    """``arch`` in bf16 with remat at its ``RECURRENT_TRAIN`` cut, the train
+    phase's AdamW config and its batches (the 4096-token bigram corpus)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.train import optimizer as opt_lib
+
+    B, S, layers = RECURRENT_TRAIN[arch]
+    cfg = dataclasses.replace(get_config(arch), param_dtype=torch.bfloat16,
+                              compute_dtype=torch.bfloat16, remat=True)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    data = SyntheticLM(DataConfig(vocab=4096, seq_len=S, global_batch=B))
+    return cfg, get_model(cfg), ocfg, data
+
+
+def _phase_train_recurrent(smi: str, tag: str, arch: str) -> dict:
+    """8 AdamW steps of ``arch`` (``RECURRENT_TRAIN``) through
+    ``train_loop``: the loss must fall by ``RECURRENT_MIN_DROP``, every loss
+    and grad_norm be finite, and the launches be ``scan_launches`` a step
+    and nothing else; prints the steady step time, tokens/s, MFU on the
+    leaves' count and peak memory."""
+    import torch
+
+    from repro_torch.train.train_step import make_train_step
+
+    t0 = time.perf_counter()
+    cfg, zoo, ocfg, data = recurrent_train_setup(arch)
+    params, opt = _train_init(zoo, ocfg)
+    step_fn = make_train_step(zoo, ocfg, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    B, S, _ = RECURRENT_TRAIN[arch]
+    print(f"{tag}: {cfg.name} L={cfg.num_layers} d_model={cfg.d_model} H={cfg.heads} "
+          f"vocab={cfg.vocab} bf16 params, f32 moments, remat; {n_params / 1e9:.3f} B params "
+          f"(the leaves); batch {B} x {S} tokens from a 4096-token bigram corpus; set-up "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    run = _train_run(tag, step_fn, params, opt, data, TRAIN_STEPS)
+    del params, opt, step_fn
+    torch.cuda.empty_cache()
+    losses = run["loss"]
+    drop, need = losses[0] - losses[-1], RECURRENT_MIN_DROP[arch]
+    print(f"{tag}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, drop {drop:.4f} nats "
+          f"({f'need >= {need}' if need is not None else 'reported, not held'})", flush=True)
+    if need is not None and not drop >= need:
+        fail(f"{tag}: the loss fell by {drop} nats in {TRAIN_STEPS} steps, expected >= {need}")
+    want = {**_train_launches(0, TRAIN_STEPS),
+            **{k: v * TRAIN_STEPS for k, v in scan_launches(cfg, True).items()}}
+    print(f"{tag}: launches {run['launches']}; expected {want} (remat)", flush=True)
+    if run["launches"] != want:
+        fail(f"{tag} launches {run['launches']} differ from {want}")
+    mean_s = run["mean_ms"] / 1e3
+    mfu = 6.0 * n_params * B * S / mean_s / PEAK_FLOPS["bfloat16"]
+    print(f"{tag}: per-step ms {[round(t, 2) for t in run['step_ms']]}", flush=True)
+    print(f"{tag}: steady step {run['mean_ms']:.2f} ms (mean of steps 1-{TRAIN_STEPS - 1}), "
+          f"{B * S / mean_s:.1f} tokens/s, MFU {mfu:.2%} (6 N tokens, N the leaves' "
+          f"{n_params}, / step time / 989 TFLOP/s), max_memory_allocated "
+          f"{run['peak'] / 2**30:.2f} GiB [{smi}]", flush=True)
+    return run
+
+
+def phase_train_hybrid(smi: str) -> dict:
+    """zamba2-7b at full width, 12 layers: 4 x 256 tokens a step; 24 ssd_fwd
+    a step (each Mamba2 layer twice under remat)."""
+    return _phase_train_recurrent(smi, "train_hybrid", "zamba2-7b")
+
+
+def phase_train_xlstm(smi: str) -> dict:
+    """xlstm-125m whole: 4 x 256 tokens a step; 18 mlstm_fwd a step (9
+    mLSTM layers, twice under remat)."""
+    return _phase_train_recurrent(smi, "train_xlstm", "xlstm-125m")
+
+
+# the sharded step of the four families on the world of one: its first
+# steps against the one-process phase's
+FSDP_FAMILY_STEPS = 3
+
+
+def phase_train_fsdp_families(smi: str, runs: dict, mesh) -> None:
+    """``gspmd_fsdp`` on the world of one for zamba2-7b (12 layers),
+    xlstm-125m, whisper-large-v3 and qwen2-vl-2b with the one-process
+    phases' configs, seeds and data: each rank's blocks are whole leaves,
+    and the hybrid's and xLSTM's sharded forms (``plan``) run.  Their
+    losses and grad_norms must equal the one-process phase's first steps
+    within rel 1e-5, and their launches those steps'."""
+    import torch
+
+    from repro_torch.parallel.sharding import param_layout
+    from repro_torch.train.train_step import make_train_step
+
+    for arch, run in runs.items():
+        if arch in RECURRENT_TRAIN:
+            cfg, zoo, ocfg, data = recurrent_train_setup(arch)
+            micro = 1
+        else:
+            cfg, zoo, ocfg, data, micro = family_train_setup(arch)
+        layout = param_layout(zoo, mesh)
+        params, opt = _train_init(zoo, ocfg, layout)
+        step_fn = make_train_step(zoo, ocfg, microbatches=micro, device="cuda", mesh=mesh)
+        got = _train_run(f"train_fsdp_families {arch}", step_fn, params, opt, data,
+                         FSDP_FAMILY_STEPS)
+        del params, opt, step_fn
+        torch.cuda.empty_cache()
+        n = FSDP_FAMILY_STEPS
+        want = {k: v * n // TRAIN_STEPS for k, v in run["launches"].items()}
+        gaps = {"loss": _largest_gap(got["loss"], run["loss"][:n]),
+                "grad_norm": _largest_gap(got["grad_norm"], run["grad_norm"][:n])}
+        print(f"train_fsdp_families {arch}: largest relative gap to its one-process phase's "
+              f"first {n} steps: loss {gaps['loss']:.3e}, grad_norm {gaps['grad_norm']:.3e} "
+              f"(tol {DIST_REL_TOL:g}); launches {got['launches']} (want {want}); step ms "
+              f"{[round(t, 2) for t in got['step_ms']]} against {[round(t, 2) for t in run['step_ms'][:n]]}; "
+              f"max_memory_allocated {got['peak'] / 2**30:.2f} GiB [{smi}]", flush=True)
+        _check_gaps(f"train_fsdp_families {arch}", gaps)
+        if got["launches"] != want:
+            fail(f"train_fsdp_families {arch}: launches {got['launches']} differ from {want}")
+
+
+# sharded serving on the world of one: prompts of SHARDED_PROMPT tokens, then
+# SHARDED_DECODE one-token calls from a fresh cache
+SHARDED_SLOTS, SHARDED_PROMPT, SHARDED_DECODE = 4, 256, 4
+
+
+def _serve_setup(arch: str):
+    """``arch`` at full width in bf16 (zamba2-7b cut to train_hybrid's 12
+    layers), its weights from seed 0 on the card and one prompt batch."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import get_model
+
+    cfg = dataclasses.replace(get_config(arch), param_dtype=torch.bfloat16,
+                              compute_dtype=torch.bfloat16, attn_impl="flash")
+    if arch in RECURRENT_TRAIN and RECURRENT_TRAIN[arch][2] is not None:
+        cfg = dataclasses.replace(cfg, num_layers=RECURRENT_TRAIN[arch][2])
+    zoo = get_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = zoo.init(gen, device="cuda")
+    B, P = SHARDED_SLOTS, SHARDED_PROMPT
+    batch = {"tokens": torch.randint(0, min(4096, cfg.vocab), (B, P), generator=gen,
+                                     device="cuda")}
+    if cfg.family == "vlm":
+        batch["positions3"] = _grid_positions3(B, P, 16)[0].cuda()
+    if cfg.family == "whisper":
+        batch["enc_embeds"] = torch.randn((B, WHISPER_FRAMES, cfg.d_model), generator=gen,
+                                          device="cuda", dtype=torch.bfloat16)
+    return cfg, zoo, params, batch
+
+
+def phase_serve_sharded_families(smi: str, mesh) -> None:
+    """``make_serve_step(mesh=)`` on a world of one ((1, 1) ("data",
+    "model")) for zamba2-7b (12 layers), xlstm-125m, whisper-large-v3 and
+    qwen2-vl-2b at full width in bf16: the prefill of 4 x 256 tokens and 4
+    one-token decode calls from a fresh cache, each held against the
+    unsharded serve of the same params (rel 1e-5 of the logits' largest
+    element); the prefill's launches must be the unsharded one's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.serve_step import make_serve_step
+
+    for arch in ("zamba2-7b", "xlstm-125m", "whisper-large-v3", "qwen2-vl-2b"):
+        _, zoo, params, batch = _serve_setup(arch)
+        B = SHARDED_SLOTS
+        cache_len = SHARDED_DECODE + 1
+        whole = make_serve_step(zoo, "cuda")
+        sharded = make_serve_step(
+            zoo, "cuda", mesh=mesh, batch_example={"tokens": np.zeros((B, 1), np.int64)},
+            cache_example=zoo.init_cache(B, cache_len, device="cuda"))
+        local = sharded.param_layout.shard(params)
+        logits, launches = {}, {}
+        for name, arts, p in (("whole", whole, params), ("sharded", sharded, local)):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            pre = arts.prefill_fn(p, batch)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            launches[name] = launch_counts()
+            cache = zoo.init_cache(B, cache_len, device="cuda")
+            if arts.cache_layout is not None:
+                cache = arts.cache_layout.shard(cache)
+            if zoo.has_encoder:
+                cache["enc_out"] = arts.encode_fn(p, batch["enc_embeds"])
+            steps = []
+            for t in range(SHARDED_DECODE):
+                step = {"tokens": batch["tokens"][:, t:t + 1]}
+                if "positions3" in batch:
+                    step["positions3"] = batch["positions3"][:, :, t:t + 1]
+                out, cache = arts.decode_fn(p, cache, step)
+                steps.append(out.float())
+            logits[name] = [pre.float(), *steps]
+            print(f"serve_sharded_families {arch} {name}: prefill {tuple(pre.shape)} in "
+                  f"{ms:.1f} ms (first call) launching {launches[name]}", flush=True)
+        errs = [(a - b).abs().max().item() / max(b.abs().max().item(), 1e-6)
+                for a, b in zip(logits["sharded"], logits["whole"])]
+        print(f"serve_sharded_families {arch}: sharded vs unsharded, relative to the largest "
+              f"logit: prefill {errs[0]:.3e}, decode calls {[f'{e:.3e}' for e in errs[1:]]} "
+              f"(tol {DIST_REL_TOL:g}) [{smi}]", flush=True)
+        if not all(bool(torch.isfinite(x).all()) for x in logits["sharded"]) or \
+                max(errs) > DIST_REL_TOL:
+            fail(f"serve_sharded_families {arch}: the sharded serve disagrees: {errs}")
+        if launches["sharded"] != launches["whole"] or not any(launches["whole"].values()):
+            fail(f"serve_sharded_families {arch}: prefill launches {launches}")
+        del params, local, cache, logits
+        torch.cuda.empty_cache()
+
+
+PIPE_MICRO = 4
+
+
+def phase_pipeline(smi: str, mesh) -> None:
+    """``parallel.pipeline.make_pipelined_apply`` with one stage (a world of
+    one, (1,) "pipe": the ring's hop is a local copy): a llama3.2-3b
+    decoder layer at full width in bf16 (flash) over 4 microbatches of
+    1 x 1024 tokens, against the layer applied to each microbatch
+    unpipelined (the same bits)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.common import DTypes, layer_slice
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.parallel.pipeline import make_pipelined_apply
+
+    cfg = dataclasses.replace(get_config("llama3.2-3b"), num_layers=1, param_dtype=torch.bfloat16,
+                              compute_dtype=torch.bfloat16, attn_impl="flash")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    layers = get_model(cfg).init(gen, device="cuda")["layers"]
+    S, dt = 1024, DTypes(param=cfg.param_dtype, compute=cfg.compute_dtype)
+    positions = torch.arange(S, device="cuda")[None]
+
+    def stage(lp, x):
+        return transformer._layer_fwd(lp, cfg, x, positions, None, True, dt)[0]
+
+    xs = torch.randn((PIPE_MICRO, 1, S, cfg.d_model), generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    apply = make_pipelined_apply(mesh, stage, PIPE_MICRO)
+    with torch.inference_mode():
+        reset_launch_counts()
+        got = apply(layers, xs)
+        counts = launch_counts()
+        want = torch.stack([stage(layer_slice(layers, 0), x) for x in xs])
+    err = (got.float() - want.float()).abs().max().item()
+    print(f"pipeline: one stage, {PIPE_MICRO} microbatches of 1 x {S} tokens through a "
+          f"{cfg.name} layer (d_model {cfg.d_model}, bf16, flash): max_abs_err against the "
+          f"unpipelined layer {err:.3e} (want 0); flash_fwd launches {counts['flash_fwd']} "
+          f"(want {PIPE_MICRO}) [{smi}]", flush=True)
+    if err != 0 or counts["flash_fwd"] != PIPE_MICRO:
+        fail(f"pipeline: one stage differs from its layer ({err}) or launched {counts}")
+
+
 def example(name: str):
     """The module of ``examples/torch/<name>.py`` (a twin of a reference
     example; it imports nothing of JAX), loaded by path."""
@@ -2931,8 +3358,19 @@ def main() -> None:
         phase_train_moe_fsdp(smi, train_moe, mesh)
     torch.cuda.empty_cache()
     train_gemma3 = phase_train_gemma3(smi)
-    for phase in (phase_train_vlm, phase_train_whisper):
-        phase(smi)
+    one_process = {"whisper-large-v3": phase_train_whisper(smi),
+                   "qwen2-vl-2b": phase_train_vlm(smi)}
+    torch.cuda.empty_cache()
+    one_process["zamba2-7b"] = phase_train_hybrid(smi)
+    one_process["xlstm-125m"] = phase_train_xlstm(smi)
+    with _world_of_one() as mesh:
+        phase_train_fsdp_families(smi, one_process, mesh)
+    torch.cuda.empty_cache()
+    with _world_of_one((1, 1), ("data", "model")) as mesh:
+        phase_serve_sharded_families(smi, mesh)
+    torch.cuda.empty_cache()
+    with _world_of_one((1,), ("pipe",)) as mesh:
+        phase_pipeline(smi, mesh)
     torch.cuda.empty_cache()
     train_e2e = phase_train_e2e(smi)
     torch.cuda.empty_cache()

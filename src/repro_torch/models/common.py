@@ -423,10 +423,13 @@ def gelu_mlp_specs() -> Params:
     }
 
 
-def gelu_mlp(p: Params, x: torch.Tensor, dt: DTypes) -> torch.Tensor:
-    """``jax.nn.gelu``'s default is the tanh approximation: so is this one."""
+def gelu_mlp(p: Params, x: torch.Tensor, dt: DTypes, tp: Optional[TP] = None) -> torch.Tensor:
+    """``jax.nn.gelu``'s default is the tanh approximation: so is this one.
+    With ``tp`` the hidden dim is split over it, as ``swiglu``'s."""
+    if tp is not None:
+        x = copy_to(x, tp.mesh, tp.axis)
     h = torch.nn.functional.gelu(linear(p["wi"], x, dt), approximate="tanh")
-    return linear(p["wo"], h, dt)
+    return row_linear(p["wo"], h, dt, tp) if tp is not None else linear(p["wo"], h, dt)
 
 
 # ---------------------------------------------------------------------------

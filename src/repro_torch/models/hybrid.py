@@ -16,7 +16,20 @@ directly).  The shared block's attention is the plain path
 ``C.attention`` without ``impl``; Mamba2's full-sequence scan runs the SSD
 kernel on the card.
 
-API as the dense family (``models/transformer.py``).  The cache is
+API as the dense family (``models/transformer.py``), sharded forms
+included: with a ``ShardPlan`` (``shard_plan``) a rank runs its blocks of
+the reference's layout (``param_specs`` / ``cache_specs``).  Each Mamba2
+layer and the shared block gather their leaves over "data" inside the
+group's function (rematerialised with ``cfg.remat``, as the reference's
+``group_body``); on "model" the Mamba2 layers run a rank's heads
+(``ssm.mamba2(..., tp=)``) when they divide it, and the shared block is the
+transformer's tensor-parallel attention and SwiGLU
+(``transformer._layer_weights``).  A sharded decode runs the Mamba2 state
+step whole on every rank of "model", so every replica of the whole SSM
+state stays equal; the conv state, split over "model" on its channels as in
+the reference, is gathered for the step and each rank keeps its block.
+
+The cache is
 ``{"mamba": {"conv", "ssm"}, "tail": {...}, "attn_k", "attn_v": (groups, B,
 cache_len, Hk, Dh), "index": int}``; ``decode_step`` takes ONE token per
 call (the reference's Mamba2 state step reads position 0 only) and writes
@@ -25,14 +38,20 @@ the cache in place.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..collectives.autograd import copy_to, reduce_from
+from ..collectives.schedules import all_gather_axis
 from ..configs.base import ModelConfig
+from ..parallel.sharding import Layout
 from . import common as C
+from . import transformer as T
 from .common import DTypes, Params, ParamTree
-from .ssm import Mamba2Config, init_mamba2, mamba2, mamba2_init_state
+from .ssm import Mamba2Config, init_mamba2, mamba2, mamba2_init_state, mamba2_specs
 
 # tokens a decode_step call takes: one (see the module docstring)
 DECODE_TOKENS = 1
@@ -97,45 +116,133 @@ def init(gen: torch.Generator, cfg: ModelConfig, device) -> ParamTree:
     return ParamTree(p)
 
 
-def _shared_block(sp, cfg: ModelConfig, x, x0, positions, dt: DTypes, kv=None, index=None):
+def param_specs(cfg: ModelConfig) -> Params:
+    _, tail = _group_sizes(cfg)
+    layer = {"ln": C.rmsnorm_specs(), "mix": mamba2_specs(_mcfg(cfg))}
+    p: Params = {
+        "embed": C.embedding_specs(),
+        "groups": _stacked(layer, ("stack", "stack")),
+        "shared": {
+            "in_proj": C.linear_specs(("fsdp", "embed")),
+            "ln1": C.rmsnorm_specs(),
+            "attn": C.attention_specs(_attn_cfg(cfg)),
+            "ln2": C.rmsnorm_specs(),
+            "ffn": C.swiglu_specs(),
+        },
+        "final_norm": C.rmsnorm_specs(),
+    }
+    if tail:
+        p["tail"] = _stacked(layer, ("stack",))
+    return p
+
+
+def _stacked(tree: Any, lead: Tuple[str, ...]) -> Any:
+    if isinstance(tree, dict):
+        return {k: _stacked(v, lead) for k, v in tree.items()}
+    return lead + tuple(tree)
+
+
+def cache_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    _, tail = _group_sizes(cfg)
+    mamba = {"conv": ("batch", None, "mlp"), "ssm": ("batch", None, None, None)}
+    return {
+        "mamba": _stacked(mamba, ("stack", "stack")),
+        "tail": _stacked(mamba, ("stack",)) if tail else {},
+        "attn_k": ("stack", "batch", "kv_seq", "kv_heads", "head_dim"),
+        "attn_v": ("stack", "batch", "kv_seq", "kv_heads", "head_dim"),
+        "index": (),
+    }
+
+
+def shard_plan(cfg: ModelConfig, layout: Layout) -> T.ShardPlan:
+    """The shared block's attention and SwiGLU as the transformer's; the
+    Mamba2 heads split (``plan.ssm``) when ``out_proj``'s rows are split
+    over "model" and the heads divide it."""
+    plan = T.tp_plan(cfg, layout, "shared.attn", "shared.ffn", mha=True)
+    ssm = (T.on_model(layout, "groups.mix.out_proj.w", -2)
+           and _mcfg(cfg).n_heads % plan.tp.size == 0)
+    return dataclasses.replace(plan, ssm=ssm)
+
+
+def _mamba_weights(lp, plan: T.ShardPlan, prefix: str, lead: int, split: bool):
+    """A Mamba2 layer's leaves as ``ssm.mamba2`` takes them: with ``split``
+    ``out_proj``'s rows kept and the rest gathered whole, the block then
+    running a rank's heads; else all whole."""
+    return T._layer_weights(lp, plan, prefix, lead, {"mix": split},
+                            lambda key: key.endswith("out_proj.w"))
+
+
+def _attend(sp, cfg: ModelConfig, a_in, positions, dt: DTypes, plan: Optional[T.ShardPlan],
+            kv=None, index=None):
+    """The shared block's attention; with ``plan.heads`` on a rank's heads
+    (and its KV heads of ``kv``), ``wo`` row-parallel."""
+    acfg = _attn_cfg(cfg)
+    split = plan is not None and plan.heads
+    if split:
+        acfg = T._local_attn(acfg, plan)
+        a_in = copy_to(a_in, plan.tp.mesh, plan.tp.axis)
+    out, _ = C.attention(sp["attn"], acfg, a_in, positions, dt, kv_cache=kv, cache_index=index)
+    return reduce_from(out, plan.tp.mesh, plan.tp.axis) if split else out
+
+
+def _shared_block(sp, cfg: ModelConfig, x, x0, positions, dt: DTypes, kv=None, index=None,
+                  plan: Optional[T.ShardPlan] = None):
     """The shared transformer block on concat(x, x0); ``kv`` (this call's
     cache) is written in place."""
+    if plan is not None:
+        sp = T._layer_weights(sp, plan, "shared.", lead=0)
     h = C.linear(sp["in_proj"], torch.cat([x, x0], dim=-1), dt)
     a_in = C.rmsnorm(sp["ln1"], h)
-    attn_out, _ = C.attention(sp["attn"], _attn_cfg(cfg), a_in, positions, dt,
-                              kv_cache=kv, cache_index=index)
-    h = h + attn_out
+    h = h + _attend(sp, cfg, a_in, positions, dt, plan, kv, index)
     f_in = C.rmsnorm(sp["ln2"], h)
-    h = h + C.swiglu(sp["ffn"], f_in, dt)
+    h = h + C.swiglu(sp["ffn"], f_in, dt, plan.tp if plan is not None and plan.mlp else None)
     return x + h
 
 
 def _mamba_layers(params, cfg: ModelConfig):
-    """(group or None, layer params) in execution order; group None is the tail."""
+    """(group or None, [(layer params, prefix, stacked dims)]) in execution
+    order; group None is the tail."""
     groups, tail = _group_sizes(cfg)
     for gi in range(groups):
         gp = C.layer_slice(params["groups"], gi)
-        yield gi, [C.layer_slice(gp, li) for li in range(cfg.shared_attn_every)]
+        yield gi, [(C.layer_slice(gp, li), "groups.", 2) for li in range(cfg.shared_attn_every)]
     if tail:
-        yield None, [C.layer_slice(params["tail"], li) for li in range(tail)]
+        yield None, [(C.layer_slice(params["tail"], li), "tail.", 1) for li in range(tail)]
 
 
-def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+def _group(layers, params, cfg: ModelConfig, x, x0, positions, shared: bool,
+           plan: Optional[T.ShardPlan]):
+    """A group's Mamba2 layers, then the shared block when ``shared``."""
+    dt, mcfg = _dt(cfg), _mcfg(cfg)
+    tp = plan.tp if plan is not None and plan.ssm else None
+    for lp, prefix, lead in layers:
+        if plan is not None:
+            lp = _mamba_weights(lp, plan, prefix, lead, tp is not None)
+        out, _ = mamba2(lp["mix"], mcfg, C.rmsnorm(lp["ln"], x), dt, tp=tp)
+        x = x + out
+    if shared:
+        x = _shared_block(params["shared"], cfg, x, x0, positions, dt, plan=plan)
+    return x
+
+
+def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            plan: Optional[T.ShardPlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch: tokens (B, S) int.  Returns (logits, aux = 0)."""
     dt = _dt(cfg)
-    mcfg = _mcfg(cfg)
-    x = C.embed(params["embed"], batch["tokens"], dt)
+    x = T.embed_tokens(params, batch["tokens"], dt, plan)
     x0 = x
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    remat = cfg.remat and torch.is_grad_enabled()
     for gi, layers in _mamba_layers(params, cfg):
-        for lp in layers:
-            out, _ = mamba2(lp["mix"], mcfg, C.rmsnorm(lp["ln"], x), dt)
-            x = x + out
-        if gi is not None:
-            x = _shared_block(params["shared"], cfg, x, x0, positions, dt)
-    x = C.rmsnorm(params["final_norm"], x)
-    return C.unembed(params["embed"], x, dt), torch.zeros((), dtype=torch.float32, device=x.device)
+        if remat and gi is not None:  # the reference rematerialises group_body only
+            x = checkpoint(_group, layers, params, cfg, x, x0, positions, True, plan,
+                           use_reentrant=False)
+        else:
+            x = _group(layers, params, cfg, x, x0, positions, gi is not None, plan)
+    x = C.rmsnorm({"scale": T._outer(params, "final_norm.scale", plan, False)}, x)
+    return T.tied_logits(params, x, dt, plan), torch.zeros((), dtype=torch.float32,
+                                                           device=x.device)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device) -> Dict[str, Any]:
@@ -159,14 +266,24 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device) -> Dict[str
     }
 
 
+def _conv_whole(conv: torch.Tensor, mcfg: Mamba2Config, plan: Optional[T.ShardPlan]):
+    """A layer's conv state over all channels, and whether it was a
+    "model" block (gathered here)."""
+    whole = mcfg.d_inner + 2 * mcfg.d_state
+    if conv.shape[-1] == whole:
+        return conv, False
+    return all_gather_axis(conv, plan.tp.mesh, plan.tp.axis, conv.dim() - 1), True
+
+
 def decode_step(
     params, cfg: ModelConfig, cache: Dict[str, Any], batch: Dict[str, torch.Tensor],
+    plan: Optional[T.ShardPlan] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One new token: batch has tokens (B, 1).  Writes the cache in place and
     returns it with ``index`` advanced by one."""
     dt = _dt(cfg)
     mcfg = _mcfg(cfg)
-    x = C.embed(params["embed"], batch["tokens"], dt)
+    x = T.embed_tokens(params, batch["tokens"], dt, plan)
     x0 = x
     B, S, _ = x.shape
     if S != DECODE_TOKENS:
@@ -176,16 +293,24 @@ def decode_step(
     positions = torch.full((B, S), index, dtype=torch.long, device=x.device)
     for gi, layers in _mamba_layers(params, cfg):
         states = cache["mamba"] if gi is not None else cache["tail"]
-        for li, lp in enumerate(layers):
+        for li, (lp, prefix, lead) in enumerate(layers):
+            if plan is not None:
+                lp = _mamba_weights(lp, plan, prefix, lead, False)
             pos = (gi, li) if gi is not None else (li,)
             st = {k: v[pos] for k, v in states.items()}
-            out, nst = mamba2(lp["mix"], mcfg, C.rmsnorm(lp["ln"], x), dt, state=st)
+            conv, split = _conv_whole(st["conv"], mcfg, plan)
+            out, nst = mamba2(lp["mix"], mcfg, C.rmsnorm(lp["ln"], x), dt,
+                              state={"conv": conv, "ssm": st["ssm"]})
+            if split:  # this rank's channels of the new conv state
+                n = st["conv"].shape[-1]
+                nst["conv"] = nst["conv"].narrow(-1, plan.tp.rank * n, n)
             for k, v in nst.items():
                 st[k].copy_(v)
             x = x + out
         if gi is not None:
             x = _shared_block(params["shared"], cfg, x, x0, positions, dt,
-                              kv=(cache["attn_k"][gi], cache["attn_v"][gi]), index=index)
-    x = C.rmsnorm(params["final_norm"], x)
-    logits = C.unembed(params["embed"], x, dt)
+                              kv=(cache["attn_k"][gi], cache["attn_v"][gi]), index=index,
+                              plan=plan)
+    x = C.rmsnorm({"scale": T._outer(params, "final_norm.scale", plan, False)}, x)
+    logits = T.tied_logits(params, x, dt, plan)
     return logits, {**cache, "index": index + S}

@@ -14,8 +14,10 @@
 card they raise unless given ``device="cpu"``).  ``decode_tokens`` is the
 number of tokens a ``decode_step`` call must take (1 for the hybrid family,
 whose Mamba2 state step reads one position), or None for any number.
-An encoder-decoder family (whisper) also has ``encode(params, enc_embeds)``,
-whose output the caller puts in the cache's ``enc_out``.
+An encoder-decoder family (whisper) also has ``encode(params, enc_embeds,
+plan=None)``, whose output the caller puts in the cache's ``enc_out``.
+Every family has its sharded forms (``param_specs``, ``cache_specs``,
+``shard_plan``, and ``forward`` / ``decode_step`` / ``encode`` with a plan).
 """
 
 from __future__ import annotations
@@ -32,14 +34,6 @@ from ..collectives.schedules import all_reduce_axis
 from ..configs.base import ModelConfig
 from . import hybrid, transformer, whisper, xlstm_lm
 from .common import ParamTree
-
-# where sharding of a family that has none yet is queued
-_SHARDING_LATER = {
-    "hybrid": "ROADMAP Queue 1 item 10 (sharding for the hybrid and xLSTM families)",
-    "xlstm": "ROADMAP Queue 1 item 10 (sharding for the hybrid and xLSTM families)",
-    "whisper": "ROADMAP Queue 1 item 14 (sharding for whisper and vlm's positions3)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class ModelZoo:
@@ -67,23 +61,17 @@ class ModelZoo:
     def has_encoder(self) -> bool:
         return hasattr(self._mod, "encode")
 
-    def encode(self, params, enc_embeds):
-        return self._mod.encode(params, self.cfg, enc_embeds)
-
-    def _sharded(self, name: str):
-        if not hasattr(self._mod, "shard_plan"):
-            raise NotImplementedError(f"family {self.cfg.family!r} has no sharded form yet: "
-                                      f"{_SHARDING_LATER[self.cfg.family]}")
-        return getattr(self._mod, name)
+    def encode(self, params, enc_embeds, plan=None):
+        return self._mod.encode(params, self.cfg, enc_embeds, plan)
 
     def param_specs(self):
-        return self._sharded("param_specs")(self.cfg)
+        return self._mod.param_specs(self.cfg)
 
     def cache_specs(self):
-        return self._sharded("cache_specs")(self.cfg)
+        return self._mod.cache_specs(self.cfg)
 
     def shard_plan(self, layout):
-        return self._sharded("shard_plan")(self.cfg, layout)
+        return self._mod.shard_plan(self.cfg, layout)
 
     def param_shapes(self) -> Dict[str, Tuple[int, ...]]:
         """Whole leaf shapes by state-dict key (the params built on the meta

@@ -10,6 +10,17 @@ function: the hand-written CUDA kernel on the card (``kernels/ssd``,
 f32, as in the reference.  sLSTM is a plain loop over time, not a kernel.
 
 All shapes batch-first: x (B, S, D).
+
+``*_specs`` name the leaves' logical axes as the reference's.  With a
+``tp`` (``common.TP``) the full-sequence forms run a rank's H/tp heads, as
+the reference's GSPMD step computes them on a "model" axis: Mamba2 takes
+the whole ``in_proj`` / conv leaves (their "mlp" blocks cut the
+concatenated ``[z, x, B, C, dt]`` columns across heads) and picks its
+heads' columns and the shared B and C, the gated RMSNorm sums its squares
+over the ranks, and ``out_proj`` is row-parallel; the mLSTM and sLSTM take
+their column blocks of the head projections, their heads' columns of the
+whole gates ``wi`` / ``wf``, and ``out`` row-parallel.  The recurrent forms
+(decode) run whole.
 """
 
 from __future__ import annotations
@@ -21,10 +32,14 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..collectives.autograd import copy_to, reduce_from
 from ..kernels.mlstm.ops import mlstm as mlstm_op
 from ..kernels.mlstm.ref import NEG, mlstm_step
 from ..kernels.ssd.ops import ssd as ssd_op
-from .common import DTypes, Params, init_linear, init_rmsnorm, linear, rmsnorm, trunc_normal
+from .common import (
+    TP, DTypes, Params, init_linear, init_rmsnorm, linear, linear_specs, rmsnorm, rmsnorm_specs,
+    row_linear, trunc_normal,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -66,6 +81,56 @@ def init_mamba2(gen, cfg: Mamba2Config, dt: DTypes, device) -> Params:
     }
 
 
+def mamba2_specs(cfg: Mamba2Config) -> Params:
+    return {
+        "in_proj": linear_specs(("fsdp", "mlp")),
+        "conv_w": (None, "mlp"),
+        "conv_b": ("mlp",),
+        "A_log": (None,),
+        "D": (None,),
+        "dt_bias": (None,),
+        "norm": rmsnorm_specs(),
+        "out_proj": linear_specs(("mlp", "fsdp")),
+    }
+
+
+def _span(start: int, n: int, device) -> torch.Tensor:
+    return torch.arange(start, start + n, device=device)
+
+
+def _mamba2_local(p: Params, cfg: Mamba2Config, tp: TP) -> Params:
+    """Rank ``tp.rank``'s view of a Mamba2 block: its H/tp heads' columns of
+    the whole ``in_proj`` and conv leaves (z, x and dt of its heads, B and C
+    whole), of ``A_log`` / ``D`` / ``dt_bias`` and of the norm's scale;
+    ``out_proj`` is already its rows."""
+    Din, N, H = cfg.d_inner // tp.size, cfg.d_state, cfg.n_heads // tp.size
+    r, dev = tp.rank, p["A_log"].device
+    cols = torch.cat([_span(r * Din, Din, dev), _span(cfg.d_inner + r * Din, Din, dev),
+                      _span(2 * cfg.d_inner, 2 * N, dev),
+                      _span(2 * cfg.d_inner + 2 * N + r * H, H, dev)])
+    conv = torch.cat([_span(r * Din, Din, dev), _span(cfg.d_inner, 2 * N, dev)])
+    heads = slice(r * H, (r + 1) * H)
+    return {
+        "in_proj": {"w": p["in_proj"]["w"].index_select(1, cols)},
+        "conv_w": p["conv_w"].index_select(1, conv),
+        "conv_b": p["conv_b"].index_select(0, conv),
+        "A_log": p["A_log"][heads], "D": p["D"][heads], "dt_bias": p["dt_bias"][heads],
+        "norm": {"scale": p["norm"]["scale"][r * Din:(r + 1) * Din]},
+        "out_proj": p["out_proj"],
+    }
+
+
+def _gated_norm(scale: torch.Tensor, y: torch.Tensor, d: int, tp: TP,
+                eps: float = 1e-6) -> torch.Tensor:
+    """``rmsnorm`` over the whole d_inner (``d``) of a rank's y slice: the
+    squares summed over ``tp``.  Each rank normalises its own slice with the
+    sum, so the sum's gradient is summed over ``tp`` too (``copy_to``)."""
+    y32 = y.to(torch.float32)
+    ss = reduce_from(torch.sum(y32 * y32, dim=-1, keepdim=True), tp.mesh, tp.axis)
+    var = copy_to(ss, tp.mesh, tp.axis) / d
+    return (y32 * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(y.dtype)
+
+
 def _pad_seq(a: torch.Tensor, n: int, value: float = 0.0) -> torch.Tensor:
     """Append ``n`` positions along dim 1 of a (B, S, ...) tensor."""
     return F.pad(a, (0, 0) * (a.dim() - 2) + (0, n), value=value)
@@ -73,13 +138,20 @@ def _pad_seq(a: torch.Tensor, n: int, value: float = 0.0) -> torch.Tensor:
 
 def mamba2(
     p: Params, cfg: Mamba2Config, x: torch.Tensor, dt: DTypes,
-    state: Optional[Dict[str, torch.Tensor]] = None,
+    state: Optional[Dict[str, torch.Tensor]] = None, tp: Optional[TP] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Full Mamba2 block.  ``state`` (decode): {"conv": (B, d_conv-1, Dc),
     "ssm": (B, H, P, N)}; x then has one position, as in the reference
-    (whose state branch reads position 0 only)."""
+    (whose state branch reads position 0 only).  ``tp`` (no ``state``): a
+    rank's heads (see the module docstring)."""
     Bsz, S, _ = x.shape
     Din, N, H, Pd = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.head_dim
+    if tp is not None:
+        if state is not None:
+            raise ValueError("the Mamba2 state step runs whole, not split over heads")
+        p = _mamba2_local(p, cfg, tp)
+        x = copy_to(x, tp.mesh, tp.axis)
+        Din, H = Din // tp.size, H // tp.size
     zxbcdt = linear(p["in_proj"], x, dt)
     z, xr, Bc, Cc, dtg = torch.split(zxbcdt, [Din, Din, N, N, H], dim=-1)
     conv_in = torch.cat([xr, Bc, Cc], dim=-1)             # (B, S, Din + 2N)
@@ -122,6 +194,9 @@ def mamba2(
         new_state = None
     y = y + xh[:, :S].to(x.dtype) * p["D"].to(x.dtype)[None, None, :, None]
     y = y.reshape(Bsz, S, Din)
+    if tp is not None:
+        y = _gated_norm(p["norm"]["scale"], y, cfg.d_inner, tp) * F.silu(z)
+        return row_linear(p["out_proj"], y, dt, tp), None
     y = rmsnorm(p["norm"], y) * F.silu(z)
     return linear(p["out_proj"], y, dt), new_state
 
@@ -166,18 +241,51 @@ def init_mlstm(gen, cfg: XLSTMConfig, dt: DTypes, device) -> Params:
     }
 
 
+def mlstm_specs(cfg: XLSTMConfig) -> Params:
+    return {
+        "wq": linear_specs(("fsdp", "heads")),
+        "wk": linear_specs(("fsdp", "heads")),
+        "wv": linear_specs(("fsdp", "heads")),
+        "wi": linear_specs(("fsdp", None)),
+        "wf": linear_specs(("fsdp", None)),
+        "wo_gate": linear_specs(("fsdp", "heads")),
+        "norm": rmsnorm_specs(),
+        "out": linear_specs(("heads", "fsdp")),
+    }
+
+
+def _heads_local(p: Params, cfg: XLSTMConfig, x: torch.Tensor, tp: Optional[TP]):
+    """(p, x, heads) as a rank computes an xLSTM block: with ``tp`` the
+    whole gates ``wi`` / ``wf`` cut to its heads' columns and x entering
+    the split region."""
+    if tp is None:
+        return p, x, cfg.heads
+    H = cfg.heads // tp.size
+    cols = slice(tp.rank * H, (tp.rank + 1) * H)
+    p = {**p, "wi": {"w": p["wi"]["w"][:, cols]}, "wf": {"w": p["wf"]["w"][:, cols]}}
+    return p, copy_to(x, tp.mesh, tp.axis), H
+
+
+def _out(p: Params, y: torch.Tensor, dt: DTypes, tp: Optional[TP]) -> torch.Tensor:
+    return row_linear(p["out"], y, dt, tp) if tp is not None else linear(p["out"], y, dt)
+
+
 def mlstm(
     p: Params, cfg: XLSTMConfig, x: torch.Tensor, dt: DTypes,
-    state: Optional[Dict[str, torch.Tensor]] = None,
+    state: Optional[Dict[str, torch.Tensor]] = None, tp: Optional[TP] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """mLSTM with exponential gating and matrix memory (xLSTM section 2.3).
     Without ``state``: the chunkwise form over the whole sequence (padded to
     a multiple of the chunk with an input gate of -1e30).  With ``state``
     {"C", "n", "m"}: the recurrence over the S new positions, dividing by
     max(|q.n|, 1) where the chunkwise form divides by max(|q.n|, exp(-m)) (a
-    reference quirk, kept)."""
-    B, S, D = x.shape
-    H, Dh = cfg.heads, cfg.head_dim
+    reference quirk, kept).  ``tp``: a rank's heads (no ``state``)."""
+    if tp is not None and state is not None:
+        raise ValueError("the mLSTM recurrence runs whole, not split over heads")
+    p, x, H = _heads_local(p, cfg, x, tp)
+    B, S, _ = x.shape
+    Dh = cfg.head_dim
+    D = H * Dh
     q = linear(p["wq"], x, dt).reshape(B, S, H, Dh) / math.sqrt(Dh)
     k = linear(p["wk"], x, dt).reshape(B, S, H, Dh)
     v = linear(p["wv"], x, dt).reshape(B, S, H, Dh)
@@ -206,7 +314,7 @@ def mlstm(
     y = rmsnorm(p["norm"], y)
     o = torch.sigmoid(linear(p["wo_gate"], x, dt)).reshape(B, S, H, Dh)
     y = (y * o).reshape(B, S, D)
-    return linear(p["out"], y, dt), new_state
+    return _out(p, y, dt, tp), new_state
 
 
 def mlstm_init_state(cfg: XLSTMConfig, batch: int, device) -> Dict[str, torch.Tensor]:
@@ -231,21 +339,37 @@ def init_slstm(gen, cfg: XLSTMConfig, dt: DTypes, device) -> Params:
     }
 
 
+def slstm_specs(cfg: XLSTMConfig) -> Params:
+    return {
+        "wz": linear_specs(("fsdp", "heads")),
+        "wi": linear_specs(("fsdp", None)),
+        "wf": linear_specs(("fsdp", None)),
+        "wo_gate": linear_specs(("fsdp", "heads")),
+        "norm": rmsnorm_specs(),
+        "out": linear_specs(("heads", "fsdp")),
+    }
+
+
 def slstm(
     p: Params, cfg: XLSTMConfig, x: torch.Tensor, dt: DTypes,
-    state: Optional[Dict[str, torch.Tensor]] = None,
+    state: Optional[Dict[str, torch.Tensor]] = None, tp: Optional[TP] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """sLSTM (xLSTM section 2.2): scalar memory per head dim with
     exponential gating; a sequential loop over time (from zeros without
-    ``state``, from it with one; the new state is returned with one)."""
-    B, S, D = x.shape
-    H, Dh = cfg.heads, cfg.head_dim
+    ``state``, from it with one; the new state is returned with one).
+    ``tp``: a rank's heads (no ``state``)."""
+    if tp is not None and state is not None:
+        raise ValueError("the sLSTM recurrence runs whole, not split over heads")
+    p, x, H = _heads_local(p, cfg, x, tp)
+    B, S, _ = x.shape
+    Dh = cfg.head_dim
+    D = H * Dh
     z = torch.tanh(linear(p["wz"], x, dt)).reshape(B, S, H, Dh).to(torch.float32)
     i_gate = linear(p["wi"], x, dt).to(torch.float32)
     f_gate = linear(p["wf"], x, dt).to(torch.float32)
     logf = F.logsigmoid(f_gate)
     if state is None:
-        init = slstm_init_state(cfg, B, x.device)
+        init = slstm_init_state(dataclasses.replace(cfg, heads=H, d_model=D), B, x.device)
         c, n, m = init["c"], init["n"], init["m"]
     else:
         c, n, m = state["c"], state["n"], state["m"]   # (B,H,Dh), (B,H), (B,H)
@@ -263,7 +387,7 @@ def slstm(
     y = rmsnorm(p["norm"], y)
     o = torch.sigmoid(linear(p["wo_gate"], x, dt)).reshape(B, S, H, Dh)
     y = (y * o).reshape(B, S, D)
-    out = linear(p["out"], y, dt)
+    out = _out(p, y, dt, tp)
     new_state = {"c": c, "n": n, "m": m} if state is not None else None
     return out, new_state
 

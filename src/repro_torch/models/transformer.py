@@ -105,10 +105,6 @@ def _moe_cfg(cfg: ModelConfig) -> Optional[MoEConfig]:
     )
 
 
-# where a sharded run of M-RoPE positions is queued
-_MROPE_SHARDING_LATER = "ROADMAP Queue 1 item 14 (sharding for whisper and vlm's positions3)"
-
-
 def check_supported(cfg: ModelConfig) -> None:
     if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {cfg.attn_impl!r} is not one of {ATTN_IMPLS}")
@@ -200,6 +196,7 @@ class ShardPlan:
     head_vocab: bool     # the logits' vocab split
     dp: Tuple[str, ...]  # the batch axes of size > 1
     ep: Optional[EPGroup] = None  # MoE layers: expert-parallel over "data"
+    ssm: bool = False    # the hybrid's Mamba2 heads split (models/hybrid.py)
 
     def gather_logits(self, logits: torch.Tensor) -> torch.Tensor:
         """Whole-vocab logits (no gradient)."""
@@ -210,22 +207,43 @@ class ShardPlan:
 
 def shard_plan(cfg: ModelConfig, layout: Layout) -> ShardPlan:
     check_supported(cfg)
+    plan = tp_plan(cfg, layout, "layers.attn", None if cfg.moe is not None else "layers.ffn")
+    if cfg.moe is None:
+        return plan
+    return dataclasses.replace(plan, ep=_ep_group(cfg, layout, plan.tp, plan.dp))
+
+
+def on_model(layout: Layout, key: str, dim: int) -> bool:
+    """Whether dim ``dim`` of leaf ``key`` is split over a "model" axis of
+    size > 1."""
+    return layout.sizes.get("model", 1) > 1 and "model" in entry_axes(layout.specs[key][dim])
+
+
+def tp_plan(cfg: ModelConfig, layout: Layout, attn: Optional[str], mlp: Optional[str],
+            mlp_leaves: Tuple[str, ...] = ("wi", "wg"), mha: bool = False) -> ShardPlan:
+    """The plan of a model whose attention leaves sit under ``attn``
+    (``wq`` ... ``wo``) and whose MLP sits under ``mlp`` (``mlp_leaves``
+    column-parallel, ``wo`` row-parallel), from their specs' last two dims,
+    so stacked and unstacked leaves alike.  ``mha``: split the heads only
+    with the KV heads (a caller that attends through ``common.attention``
+    needs whole KV groups on a rank)."""
     tp = C.TP(layout.mesh) if layout.sizes.get("model", 1) > 1 else None
 
-    def on_model(key: str, dim: int) -> bool:
-        return tp is not None and tp.axis in entry_axes(layout.specs[key][dim])
+    def split(key: str, dim: int) -> bool:
+        return on_model(layout, key, dim)
 
-    heads = (on_model("layers.attn.wq.w", 2) and on_model("layers.attn.wo.w", 1)
+    heads = (attn is not None and split(f"{attn}.wq.w", -1) and split(f"{attn}.wo.w", -2)
              and cfg.heads % tp.size == 0)
-    kv = (heads and on_model("layers.attn.wk.w", 2) and on_model("layers.attn.wv.w", 2)
+    kv = (heads and split(f"{attn}.wk.w", -1) and split(f"{attn}.wv.w", -1)
           and cfg.kv_heads % tp.size == 0)
-    mlp = cfg.moe is None and (on_model("layers.ffn.wi.w", 2) and on_model("layers.ffn.wg.w", 2)
-                               and on_model("layers.ffn.wo.w", 1))
-    embed_vocab = on_model("embed.table", 0)
-    head_vocab = embed_vocab if cfg.tie_embeddings else on_model("lm_head.w", 1)
+    if mha:
+        heads = kv
+    mlp_split = mlp is not None and split(f"{mlp}.wo.w", -2) and all(
+        split(f"{mlp}.{k}.w", -1) for k in mlp_leaves)
+    embed_vocab = split("embed.table", 0)
+    head_vocab = embed_vocab if cfg.tie_embeddings else split("lm_head.w", 1)
     dp = tuple(a for a in dp_axes(layout.sizes) if layout.sizes[a] > 1)
-    ep = _ep_group(cfg, layout, tp, dp) if cfg.moe is not None else None
-    return ShardPlan(layout, tp, heads, kv, mlp, embed_vocab, head_vocab, dp, ep)
+    return ShardPlan(layout, tp, heads, kv, mlp_split, embed_vocab, head_vocab, dp)
 
 
 def _ep_group(cfg: ModelConfig, layout: Layout, tp: Optional[C.TP],
@@ -281,40 +299,47 @@ def _expert_weight(w: torch.Tensor, spec, plan: ShardPlan) -> torch.Tensor:
     return w
 
 
-def _layer_weights(lp, plan: ShardPlan, prefix: str = "layers."):
-    """``_weight`` over every leaf of a layer slice.  A leaf of a block that
-    runs split over the model axis (attention with ``plan.heads``, the MLP
-    with ``plan.mlp``) but is not split itself is gathered ``partial`` or,
-    when whole, passes ``copy_to``: its gradient is summed over the model
-    axis.  The MoE expert leaves keep their blocks (``_expert_weight``)."""
+_ATTN_BLOCKS = ("attn", "self_attn", "cross_attn")
+_MLP_BLOCKS = ("ffn", "mlp")
+
+
+def _layer_weights(lp, plan: ShardPlan, prefix: str = "layers.", lead: int = 1,
+                   split: Optional[Dict[str, bool]] = None, keep=None):
+    """``_weight`` over every leaf of a layer slice (``lead`` stacked dims
+    dropped from the specs).  A leaf of a block that runs split over the
+    model axis (``split``: block name -> bool; by default attention with
+    ``plan.heads``, the MLP with ``plan.mlp``) keeps its model block when
+    ``keep(key)`` (default ``_keeps_model``); otherwise it is gathered
+    ``partial`` or, when whole, passes ``copy_to``: its gradient is summed
+    over the model axis.  The MoE expert leaves keep their blocks
+    (``_expert_weight``)."""
+    if split is None:
+        split = {**{b: plan.heads for b in _ATTN_BLOCKS}, **{b: plan.mlp for b in _MLP_BLOCKS}}
+    keep = keep or (lambda key: _keeps_model(plan, key))
     out = {}
     for k in lp.keys():
         v, key = lp[k], f"{prefix}{k}"
         if not torch.is_tensor(v):
-            out[k] = _layer_weights(v, plan, key + ".")
+            out[k] = _layer_weights(v, plan, key + ".", lead, split, keep)
             continue
-        spec = plan.layout.specs[key][1:]  # the layer dim is gone
+        spec = plan.layout.specs[key][lead:]  # the stacked dims are gone
         if key in _EXPERT_LEAVES:
             out[k] = _expert_weight(v, spec, plan)
             continue
-        block = key.split(".")[1]
-        in_split = {"attn": plan.heads, "ffn": plan.mlp}.get(block, False)
-        keep = in_split and _keeps_model(plan, key)
-        w = _weight(v, spec, plan, keep, in_split)
-        if in_split and not keep and not any(plan.tp.axis in entry_axes(e) for e in spec):
+        in_split = split.get(key.split(".")[1], False)
+        kept = in_split and keep(key)
+        w = _weight(v, spec, plan, kept, in_split)
+        if in_split and not kept and not any(plan.tp.axis in entry_axes(e) for e in spec):
             w = copy_to(w, plan.tp.mesh, plan.tp.axis)
         out[k] = w
     return out
 
 
 def _keeps_model(plan: ShardPlan, key: str) -> bool:
-    if ".wq." in key or ".attn.wo." in key:
-        return plan.heads
-    if ".wk." in key or ".wv." in key:
-        return plan.kv
-    if ".ffn." in key:
-        return plan.mlp
-    return False
+    block, leaf = key.split(".")[-3], key.split(".")[-2]
+    if block in _ATTN_BLOCKS:
+        return plan.heads if leaf in ("wq", "wo") else plan.kv and leaf in ("wk", "wv")
+    return block in _MLP_BLOCKS and plan.mlp
 
 
 def _local_attn(acfg: C.AttnConfig, plan: Optional[ShardPlan]) -> C.AttnConfig:
@@ -356,16 +381,27 @@ def _outer(params, key: str, plan: Optional[ShardPlan], keep_model: bool) -> tor
     return _weight(node, plan.layout.specs[key], plan, keep_model, False)
 
 
+def embed_tokens(params, ids, dt: DTypes, plan: Optional[ShardPlan] = None) -> torch.Tensor:
+    """Rows of ``embed.table``; vocab-parallel with ``plan.embed_vocab``."""
+    vocab = plan is not None and plan.embed_vocab
+    table = {"table": _outer(params, "embed.table", plan, vocab)}
+    if vocab:
+        return C.vocab_embed(table, ids, dt, plan.tp)
+    return C.embed(table, ids, dt)
+
+
+def tied_logits(params, x, dt: DTypes, plan: Optional[ShardPlan] = None) -> torch.Tensor:
+    """x @ embed.tableᵀ; with ``plan.head_vocab`` this rank's vocab slice."""
+    split = plan is not None and plan.head_vocab
+    table = {"table": _outer(params, "embed.table", plan, split)}
+    return C.vocab_unembed(table, x, dt, plan.tp) if split else C.unembed(table, x, dt)
+
+
 def _embed(params, cfg: ModelConfig, batch, dt: DTypes,
            plan: Optional[ShardPlan] = None) -> torch.Tensor:
     if "embeds" in batch:
         return batch["embeds"].to(cfg.compute_dtype)
-    vocab = plan is not None and plan.embed_vocab
-    table = {"table": _outer(params, "embed.table", plan, vocab)}
-    if vocab:
-        x = C.vocab_embed(table, batch["tokens"], dt, plan.tp)
-    else:
-        x = C.embed(table, batch["tokens"], dt)
+    x = embed_tokens(params, batch["tokens"], dt, plan)
     # sqrt(d_model) rounded to the compute dtype first, as the reference
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.compute_dtype, device=x.device)
 
@@ -374,10 +410,9 @@ def _unembed(params, cfg: ModelConfig, x, dt: DTypes,
              plan: Optional[ShardPlan] = None) -> torch.Tensor:
     """Logits; with ``plan.head_vocab`` this rank's vocab slice only."""
     x = C.rmsnorm({"scale": _outer(params, "final_norm.scale", plan, False)}, x)
-    split = plan is not None and plan.head_vocab
     if cfg.tie_embeddings:
-        table = {"table": _outer(params, "embed.table", plan, split)}
-        return C.vocab_unembed(table, x, dt, plan.tp) if split else C.unembed(table, x, dt)
+        return tied_logits(params, x, dt, plan)
+    split = plan is not None and plan.head_vocab
     head = {"w": _outer(params, "lm_head.w", plan, split)}
     return C.column_linear(head, x, dt, plan.tp) if split else C.linear(head, x, dt)
 
@@ -457,13 +492,6 @@ def _layer_fwd(lp, cfg: ModelConfig, x, positions, positions3, is_global: bool, 
     return x + out, aux
 
 
-def _positions3(batch, plan: Optional[ShardPlan]) -> Optional[torch.Tensor]:
-    positions3 = batch.get("positions3")
-    if positions3 is not None and plan is not None:
-        raise NotImplementedError(f"M-RoPE positions3 on a mesh: {_MROPE_SHARDING_LATER}")
-    return positions3
-
-
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             plan: Optional[ShardPlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch: tokens (B, S) int [or embeds (B, S, D)], positions (B, S)
@@ -477,7 +505,7 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    positions3 = _positions3(batch, plan)
+    positions3 = batch.get("positions3")
     remat = cfg.remat and torch.is_grad_enabled()
     layers = C.layer_slices(params["layers"], cfg.num_layers)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -563,7 +591,7 @@ def decode_step(
     if S > cache["k"].shape[2]:
         raise ValueError(f"{S} tokens do not fit a cache of length {cache['k'].shape[2]}")
     positions = (index + torch.arange(S, device=x.device))[None].expand(B, S)
-    positions3 = _positions3(batch, plan)
+    positions3 = batch.get("positions3")
     acfg = _attn_cfg(cfg)
     for i, is_global in enumerate(_is_global_flags(cfg)):
         lp = C.layer_slice(params["layers"], i)

@@ -27,10 +27,21 @@ cross-attention run the flash kernel in ``forward`` and ``encode``;
 
 API (as ``models/transformer.py``):
     init(gen, cfg, device) / param_specs(cfg) / cache_specs(cfg)
-    encode(params, cfg, enc_embeds)               -> enc_out (B, S_enc, D)
-    forward(params, cfg, batch)                   -> (logits, 0)
+    shard_plan(cfg, layout)                       -> ShardPlan
+    encode(params, cfg, enc_embeds, plan=None)    -> enc_out (B, S_enc, D)
+    forward(params, cfg, batch, plan=None)        -> (logits, 0)
     init_cache(cfg, batch, cache_len, device, enc_len=1500)
-    decode_step(params, cfg, cache, batch)        -> (logits, cache)
+    decode_step(params, cfg, cache, batch, plan=None) -> (logits, cache)
+
+With a ``ShardPlan`` each layer gathers its leaves over "data" inside its
+(rematerialised) function, and on "model" the encoder's attention, the
+decoder's self- and cross-attention run a rank's heads (wq / wk / wv
+column-parallel, wo row-parallel; the encoder states enter each
+cross-attention through ``copy_to``) when the heads divide it, the MLPs
+split their hidden dim, and the tied embedding splits the vocab when it
+divides (51866 does over 2, not over 4; ``sanitize_specs`` keeps it whole
+then).  The cache holds a rank's rows and KV heads, and its rows of
+``enc_out``.
 
 The cache is ``{"k", "v": (L, B, cache_len, Hk, Dh), "enc_out": (B, enc_len,
 D), "index": int}``; the caller sets ``enc_out`` to ``encode``'s output
@@ -46,8 +57,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..collectives.autograd import copy_to, reduce_from
 from ..configs.base import ModelConfig
+from ..parallel.sharding import Layout
 from . import common as C
+from . import transformer as T
 from .common import DTypes, Params, ParamTree
 
 
@@ -146,13 +160,47 @@ def param_specs(cfg: ModelConfig) -> Params:
 # ---------------------------------------------------------------------------
 
 
+def shard_plan(cfg: ModelConfig, layout: Layout) -> T.ShardPlan:
+    """The decoder's self-attention and MLP leaves decide for every
+    attention and MLP block (all have the same shapes)."""
+    return T.tp_plan(cfg, layout, "dec_layers.self_attn", "dec_layers.mlp", ("wi",), mha=True)
+
+
 def _run_layers(body, x, layers: list, remat: bool):
     for lp in layers:
         x = checkpoint(body, x, lp, use_reentrant=False) if remat else body(x, lp)
     return x
 
 
-def encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor) -> torch.Tensor:
+def _attend(p, acfg: C.AttnConfig, x, positions, dt: DTypes, plan: Optional[T.ShardPlan],
+            **kw) -> torch.Tensor:
+    """``common.attention``; with ``plan.heads`` on a rank's heads, the
+    encoder states (``xattn_kv``) entering the split region as x does."""
+    if plan is None or not plan.heads:
+        return C.attention(p, acfg, x, positions, dt, **kw)[0]
+    mesh, axis = plan.tp.mesh, plan.tp.axis
+    if kw.get("xattn_kv") is not None:
+        kw["xattn_kv"] = copy_to(kw["xattn_kv"], mesh, axis)
+    out, _ = C.attention(p, T._local_attn(acfg, plan), copy_to(x, mesh, axis), positions, dt,
+                         **kw)
+    return reduce_from(out, mesh, axis)
+
+
+def _mlp(p, x, dt: DTypes, plan: Optional[T.ShardPlan]) -> torch.Tensor:
+    return C.gelu_mlp(p, x, dt, plan.tp if plan is not None and plan.mlp else None)
+
+
+def _weights(lp, plan: Optional[T.ShardPlan], prefix: str):
+    return lp if plan is None else T._layer_weights(lp, plan, prefix)
+
+
+def _norm(params, key: str, x, plan: Optional[T.ShardPlan]) -> torch.Tensor:
+    return C.layernorm({k: T._outer(params, f"{key}.{k}", plan, False)
+                        for k in ("scale", "bias")}, x)
+
+
+def encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor,
+           plan: Optional[T.ShardPlan] = None) -> torch.Tensor:
     dt = _dt(cfg)
     B, S, D = enc_embeds.shape
     x = enc_embeds.to(cfg.compute_dtype) + _sinusoids(S, D, enc_embeds.device)[None].to(
@@ -160,73 +208,71 @@ def encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor) -> torch.Tensor:
     zeros = torch.zeros((B, S), dtype=torch.long, device=x.device)
 
     def body(x, lp):
+        lp = _weights(lp, plan, "enc_layers.")
         h = C.layernorm(lp["ln1"], x)
-        out, _ = C.attention(lp["attn"], _attn_cfg(cfg, False), h, zeros, dt,
-                             impl=cfg.attn_impl)
-        x = x + out
+        x = x + _attend(lp["attn"], _attn_cfg(cfg, False), h, zeros, dt, plan,
+                        impl=cfg.attn_impl)
         h = C.layernorm(lp["ln2"], x)
-        return x + C.gelu_mlp(lp["mlp"], h, dt)
+        return x + _mlp(lp["mlp"], h, dt, plan)
 
     layers = C.layer_slices(params["enc_layers"], cfg.enc_layers)
     x = _run_layers(body, x, layers, cfg.remat and torch.is_grad_enabled())
-    return C.layernorm(params["enc_norm"], x)
+    return _norm(params, "enc_norm", x, plan)
 
 
 def _decoder(
     params, cfg: ModelConfig, tokens: torch.Tensor, enc_out: torch.Tensor,
     offset: int = 0, caches: Optional[Dict[str, Any]] = None,
+    plan: Optional[T.ShardPlan] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     dt = _dt(cfg)
     B, S = tokens.shape
-    x = C.embed(params["embed"], tokens, dt)
+    x = T.embed_tokens(params, tokens, dt, plan)
     pos = torch.arange(S, device=x.device) + offset
-    x = x + dt.c(params["dec_pos"])[pos][None]
+    x = x + dt.c(T._outer(params, "dec_pos", plan, False))[pos][None]
     self_cfg, cross_cfg = _attn_cfg(cfg, True), _attn_cfg(cfg, False)
 
     if caches is None:
         zeros = torch.zeros((B, S), dtype=torch.long, device=x.device)
 
         def body(x, lp):
+            lp = _weights(lp, plan, "dec_layers.")
             h = C.layernorm(lp["ln1"], x)
-            out, _ = C.attention(lp["self_attn"], self_cfg, h, zeros, dt, impl=cfg.attn_impl)
-            x = x + out
+            x = x + _attend(lp["self_attn"], self_cfg, h, zeros, dt, plan, impl=cfg.attn_impl)
             h = C.layernorm(lp["ln_x"], x)
-            out, _ = C.attention(lp["cross_attn"], cross_cfg, h, None, dt, xattn_kv=enc_out,
-                                 impl=cfg.attn_impl)
-            x = x + out
+            x = x + _attend(lp["cross_attn"], cross_cfg, h, None, dt, plan, xattn_kv=enc_out,
+                            impl=cfg.attn_impl)
             h = C.layernorm(lp["ln2"], x)
-            return x + C.gelu_mlp(lp["mlp"], h, dt)
+            return x + _mlp(lp["mlp"], h, dt, plan)
 
         layers = C.layer_slices(params["dec_layers"], cfg.num_layers)
         x = _run_layers(body, x, layers, cfg.remat and torch.is_grad_enabled())
-        x = C.layernorm(params["dec_norm"], x)
-        return C.unembed(params["embed"], x, dt), None
+        x = _norm(params, "dec_norm", x, plan)
+        return T.tied_logits(params, x, dt, plan), None
 
     index = caches["index"]
     # every token of the call at the cache index (the reference's rope)
     at_index = torch.full((B, S), index, dtype=torch.long, device=x.device)
     for i in range(cfg.num_layers):
-        lp = C.layer_slice(params["dec_layers"], i)
+        lp = _weights(C.layer_slice(params["dec_layers"], i), plan, "dec_layers.")
         h = C.layernorm(lp["ln1"], x)
-        out, _ = C.attention(lp["self_attn"], self_cfg, h, at_index, dt,
-                             kv_cache=(caches["k"][i], caches["v"][i]), cache_index=index)
-        x = x + out
+        x = x + _attend(lp["self_attn"], self_cfg, h, at_index, dt, plan,
+                        kv_cache=(caches["k"][i], caches["v"][i]), cache_index=index)
         h = C.layernorm(lp["ln_x"], x)
-        out, _ = C.attention(lp["cross_attn"], cross_cfg, h, None, dt, xattn_kv=enc_out)
-        x = x + out
+        x = x + _attend(lp["cross_attn"], cross_cfg, h, None, dt, plan, xattn_kv=enc_out)
         h = C.layernorm(lp["ln2"], x)
-        x = x + C.gelu_mlp(lp["mlp"], h, dt)
-    x = C.layernorm(params["dec_norm"], x)
-    logits = C.unembed(params["embed"], x, dt)
+        x = x + _mlp(lp["mlp"], h, dt, plan)
+    x = _norm(params, "dec_norm", x, plan)
+    logits = T.tied_logits(params, x, dt, plan)
     return logits, {"k": caches["k"], "v": caches["v"], "index": index + S}
 
 
-def forward(params, cfg: ModelConfig,
-            batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            plan: Optional[T.ShardPlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch: enc_embeds (B, S_enc, D), the frame-embedding stub, and tokens
     (B, S).  Returns (logits, 0)."""
-    enc_out = encode(params, cfg, batch["enc_embeds"])
-    logits, _ = _decoder(params, cfg, batch["tokens"], enc_out)
+    enc_out = encode(params, cfg, batch["enc_embeds"], plan)
+    logits, _ = _decoder(params, cfg, batch["tokens"], enc_out, plan=plan)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
@@ -258,12 +304,13 @@ def cache_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any],
-                batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                batch: Dict[str, torch.Tensor],
+                plan: Optional[T.ShardPlan] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """S new tokens (batch["tokens"] (B, S)) at the cache index, attending
     over the self-attention cache and ``cache["enc_out"]``."""
     if batch["tokens"].shape[1] > cache["k"].shape[2]:
         raise ValueError(f"{batch['tokens'].shape[1]} tokens do not fit a cache of length "
                          f"{cache['k'].shape[2]}")
     logits, new = _decoder(params, cfg, batch["tokens"], cache["enc_out"],
-                           offset=cache["index"], caches=cache)
+                           offset=cache["index"], caches=cache, plan=plan)
     return logits, {**new, "enc_out": cache["enc_out"]}

@@ -9,7 +9,15 @@ paths); the reference's per-layer ``lax.cond`` is a Python branch on the
 layer's flag.  The embedding has no sqrt(d_model) factor.  mLSTM's
 full-sequence form runs the mLSTM kernel on the card.
 
-API as the dense family (``models/transformer.py``).  The cache is the
+API as the dense family (``models/transformer.py``), sharded forms
+included: with a ``ShardPlan`` (``shard_plan``) each layer gathers the
+leaves of the block it runs over "data" inside its function (rematerialised
+with ``cfg.remat``), and on "model" the mLSTM and sLSTM run a rank's heads
+(``ssm.mlstm`` / ``ssm.slstm`` with ``tp``) when they divide it.  The
+embedding and the logits split the vocab as the transformer's.  A sharded
+decode runs the recurrences whole on every rank of "model", so every
+replica of the states, whole over "model" in ``cache_specs`` as in the
+reference, stays equal.  The cache is the
 recurrent state only, ``{"mlstm": {"C", "n", "m"}, "slstm": {"c", "n", "m"},
 "index": int}``, each leaf stacked over all layers in f32; ``decode_step``
 takes any number of tokens (the recurrences loop over them) and writes the
@@ -18,14 +26,24 @@ cache in place.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..parallel.sharding import Layout
 from . import common as C
+from . import transformer as T
 from .common import DTypes, Params, ParamTree
-from .ssm import XLSTMConfig, init_mlstm, init_slstm, mlstm, mlstm_init_state, slstm, slstm_init_state
+from .ssm import (
+    XLSTMConfig, init_mlstm, init_slstm, mlstm, mlstm_init_state, mlstm_specs, slstm,
+    slstm_init_state, slstm_specs,
+)
+
+# the leaves of a block that keep their "model" block when the heads split
+_HEAD_LEAVES = ("wq", "wk", "wv", "wo_gate", "out", "wz")
 
 
 def _dt(cfg: ModelConfig) -> DTypes:
@@ -60,18 +78,71 @@ def init(gen: torch.Generator, cfg: ModelConfig, device) -> ParamTree:
     return ParamTree(p)
 
 
-def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """batch: tokens (B, S) int.  Returns (logits, aux = 0)."""
-    dt = _dt(cfg)
+def param_specs(cfg: ModelConfig) -> Params:
     xc = _xcfg(cfg)
-    x = C.embed(params["embed"], batch["tokens"], dt)
+    layer = {"ln": C.rmsnorm_specs(), "mlstm": mlstm_specs(xc), "slstm": slstm_specs(xc)}
+    return {
+        "embed": C.embedding_specs(),
+        "layers": C.stacked_specs(layer),
+        "final_norm": C.rmsnorm_specs(),
+    }
+
+
+def cache_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    return {
+        "mlstm": {"C": ("stack", "batch", None, None, None), "n": ("stack", "batch", None, None),
+                  "m": ("stack", "batch", None)},
+        "slstm": {"c": ("stack", "batch", None, None), "n": ("stack", "batch", None),
+                  "m": ("stack", "batch", None)},
+        "index": (),
+    }
+
+
+def shard_plan(cfg: ModelConfig, layout: Layout) -> T.ShardPlan:
+    """``plan.heads``: the mLSTM and sLSTM heads split over "model" (their
+    head projections' columns and ``out``'s rows split, the heads
+    dividing it)."""
+    plan = T.tp_plan(cfg, layout, None, None)
+    heads = plan.tp is not None and cfg.heads % plan.tp.size == 0 and all(
+        T.on_model(layout, f"layers.{b}.{k}.w", d)
+        for b, leaves in (("mlstm", ("wq", "wk", "wv", "wo_gate")), ("slstm", ("wz", "wo_gate")))
+        for k, d in [(leaf, -1) for leaf in leaves] + [("out", -2)])
+    return dataclasses.replace(plan, heads=heads, kv=heads, mlp=False)
+
+
+def _layer(lp, i: int, cfg: ModelConfig, x, is_s: bool, plan: Optional[T.ShardPlan],
+           split: bool, state=None):
+    """Layer ``i``: pre-norm, then its sLSTM or mLSTM block (on a rank's
+    heads when ``split``); (x, new state)."""
+    kind = "slstm" if is_s else "mlstm"
+    lp = {"ln": lp["ln"], kind: lp[kind]}
+    if plan is not None:
+        lp = T._layer_weights(lp, plan, "layers.", 1, {kind: split},
+                              lambda key: key.split(".")[-2] in _HEAD_LEAVES)
+    tp = plan.tp if split else None
+    out, new = (slstm if is_s else mlstm)(lp[kind], _xcfg(cfg), C.rmsnorm(lp["ln"], x),
+                                          _dt(cfg), state=state, tp=tp)
+    return x + out, new
+
+
+def _final(params, cfg: ModelConfig, x, plan: Optional[T.ShardPlan]) -> torch.Tensor:
+    x = C.rmsnorm({"scale": T._outer(params, "final_norm.scale", plan, False)}, x)
+    return T.tied_logits(params, x, _dt(cfg), plan)
+
+
+def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            plan: Optional[T.ShardPlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """batch: tokens (B, S) int.  Returns (logits, aux = 0)."""
+    x = T.embed_tokens(params, batch["tokens"], _dt(cfg), plan)
+    split = plan is not None and plan.heads
+    remat = cfg.remat and torch.is_grad_enabled()
     for i, is_s in enumerate(_is_slstm_flags(cfg)):
         lp = C.layer_slice(params["layers"], i)
-        h = C.rmsnorm(lp["ln"], x)
-        block = slstm if is_s else mlstm
-        x = x + block(lp["slstm" if is_s else "mlstm"], xc, h, dt)[0]
-    x = C.rmsnorm(params["final_norm"], x)
-    return C.unembed(params["embed"], x, dt), torch.zeros((), dtype=torch.float32, device=x.device)
+        if remat:
+            x, _ = checkpoint(_layer, lp, i, cfg, x, is_s, plan, split, use_reentrant=False)
+        else:
+            x, _ = _layer(lp, i, cfg, x, is_s, plan, split)
+    return _final(params, cfg, x, plan), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device) -> Dict[str, Any]:
@@ -90,21 +161,15 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device) -> Dict[str
 
 def decode_step(
     params, cfg: ModelConfig, cache: Dict[str, Any], batch: Dict[str, torch.Tensor],
+    plan: Optional[T.ShardPlan] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """S new tokens: batch has tokens (B, S).  Writes the cache in place and
     returns it with ``index`` advanced by S."""
-    dt = _dt(cfg)
-    xc = _xcfg(cfg)
-    x = C.embed(params["embed"], batch["tokens"], dt)
+    x = T.embed_tokens(params, batch["tokens"], _dt(cfg), plan)
     for i, is_s in enumerate(_is_slstm_flags(cfg)):
-        lp = C.layer_slice(params["layers"], i)
-        h = C.rmsnorm(lp["ln"], x)
-        kind = "slstm" if is_s else "mlstm"
-        st = {k: v[i] for k, v in cache[kind].items()}
-        out, new = (slstm if is_s else mlstm)(lp[kind], xc, h, dt, state=st)
+        st = {k: v[i] for k, v in cache["slstm" if is_s else "mlstm"].items()}
+        x, new = _layer(C.layer_slice(params["layers"], i), i, cfg, x, is_s, plan, False, st)
         for k, v in new.items():
             st[k].copy_(v)
-        x = x + out
-    x = C.rmsnorm(params["final_norm"], x)
-    logits = C.unembed(params["embed"], x, dt)
+    logits = _final(params, cfg, x, plan)
     return logits, {**cache, "index": cache["index"] + batch["tokens"].shape[1]}

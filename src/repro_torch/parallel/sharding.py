@@ -326,12 +326,22 @@ class Layout:
             requires_grad = any(p.requires_grad for p in tree.parameters())
             return ParamTree.from_state_dict(
                 {k: v.detach() for k, v in state.items()}, requires_grad)
-        return {k: (fn(k, v) if torch.is_tensor(v) and k in self.specs else v)
-                for k, v in tree.items()}
+        return self._map_nested(tree, fn, "")
+
+    def _map_nested(self, tree: Mapping, fn, prefix: str) -> Dict[str, Any]:
+        out = {}
+        for k, v in tree.items():
+            key = prefix + k
+            if isinstance(v, Mapping):
+                out[k] = self._map_nested(v, fn, key + ".")
+            else:
+                out[k] = fn(key, v) if torch.is_tensor(v) and key in self.specs else v
+        return out
 
     def shard(self, tree: Any) -> Any:
-        """Whole leaves -> this rank's blocks, contiguous (a ``ParamTree`` or
-        a flat dict; leaves without a spec and ints pass through)."""
+        """Whole leaves -> this rank's blocks, contiguous (a ``ParamTree``, or
+        a dict, flat or nested, of ``a.b.c`` paths; leaves without a spec and
+        ints pass through)."""
         return self._map(tree, lambda k, v: self.block(k, v).contiguous())
 
     def gather(self, tree: Any) -> Any:
@@ -354,8 +364,8 @@ def cache_layout(zoo, mesh, cache_example: Optional[Mapping[str, Any]] = None) -
     ``make_serve_step``."""
     rules = make_rules(mesh.mesh_dim_names)
     specs = flatten(logical_spec_tree(zoo.cache_specs(), rules))
-    shapes = {k: _shape(cache_example[k]) if cache_example is not None else None
-              for k in specs}
+    example = flatten(cache_example) if cache_example is not None else {}
+    shapes = {k: _shape(example[k]) if cache_example is not None else None for k in specs}
     if cache_example is not None:
         specs = sanitize_specs(specs, shapes, mesh)
     return Layout(mesh, specs, shapes)

@@ -8,7 +8,8 @@
   (through the flash kernel when ``attn_impl="flash"``).  As in the
   reference it returns logits only and writes no cache;
 * ``encode_fn(params, enc_embeds) -> enc_out`` for an encoder-decoder
-  family (whisper), else None: the encoder, whose output the cache holds.
+  family (whisper), else None: the encoder, whose output the cache holds
+  (on a mesh, this rank's rows of it, as its cache block holds them).
 
 ``serve_waves`` answers a ``BatchScheduler``'s requests with those two
 steps: per wave, (a) ``prefill_fn`` on the prompts gives the first new
@@ -89,8 +90,9 @@ def make_serve_step(zoo: ModelZoo, device: _device.DeviceLike = None, mesh=None,
     def local(batch: Dict[str, Any]):
         """This rank's rows, and the DP axes they were cut over."""
         batch = to_dev(batch)
-        specs = fixed or batch_specs_tree(mesh, batch)
-        rows_spec = specs["tokens" if "tokens" in specs else "embeds"]
+        specs = {**batch_specs_tree(mesh, batch),
+                 **{k: v for k, v in (fixed or {}).items() if k in batch}}
+        rows_spec = specs[next(k for k in ("tokens", "embeds", "enc_embeds") if k in specs)]
         rows = tuple(a for a in entry_axes(rows_spec[0]) if sizes[a] > 1)
         return {k: v[block_slices(v.shape, specs[k], sizes, coord)]
                 for k, v in batch.items()}, rows
@@ -111,7 +113,15 @@ def make_serve_step(zoo: ModelZoo, device: _device.DeviceLike = None, mesh=None,
             logits, _ = zoo.forward(params, mine, plan)
             return whole(logits, rows)
 
-    return ServeArtifacts(*_traced_pair(decode, prefill), params_lay, cache_lay)
+    encode_fn = None
+    if zoo.has_encoder:
+        def encode_fn(params, enc_embeds):
+            """This rank's rows of ``enc_out``, as its cache block holds them."""
+            mine, _ = local({"enc_embeds": enc_embeds})
+            with torch.inference_mode():
+                return zoo.encode(params, mine["enc_embeds"], plan)
+
+    return ServeArtifacts(*_traced_pair(decode, prefill), params_lay, cache_lay, encode_fn)
 
 
 def _traced(fn: Callable, open_span: Callable) -> Callable:

@@ -19,13 +19,14 @@ global batch and its slice of it over the ("pod", "data") axes, pod-major
 (``positions3`` on dim 1; a batch dim that does not divide the DP size
 stays whole; ``parallel.sharding.batch_specs_tree``).
 
-* ``gspmd_fsdp`` (dense and MoE families): params and AdamW moments are stored as
+* ``gspmd_fsdp`` (every family): params and AdamW moments are stored as
   each rank's block of the reference's layout (``param_layout(zoo, mesh)``:
   fsdp -> "data", heads / kv_heads / mlp / vocab -> "model"; build them with
   ``layout.shard`` or ``interop.params_from_jax(..., layout=)``).  Each layer
   gathers its leaves over "data" inside its (rematerialised) function and
   reduce-scatters their gradients; "model" runs tensor parallelism
-  (``models/transformer.py``).  The loss is the global one (the masked sum
+  (``models/transformer.py``; the hybrid's Mamba2 and the xLSTM blocks split
+  their heads, ``models/ssm.py``; whisper's three attentions, ``models/whisper.py``).  The loss is the global one (the masked sum
   over the global mask sum), a rank's gradient its share, so the batch axes
   only sum: a leaf split over "data" then all-reduces its 1/|data| block over
   "pod"; a leaf whole over "data" goes through Eq. (8), RS(data) ->
@@ -37,7 +38,7 @@ stays whole; ``parallel.sharding.batch_specs_tree``).
   only; the router, whole, is summed over the batch axes; ``aux`` is the
   layers' sum of each layer's aux averaged over the batch axes.
   Microbatches are slices of the global batch, as in the one-process step,
-  each cut over the ranks.  Other families raise ``NotImplementedError``.
+  each cut over the ranks.
 * ``manual_hier``: params and AdamW state replicated on every rank;
   ranks along "model" compute the same thing; the gradients go through
   ``schedule`` and are divided by the DP size:
@@ -110,7 +111,6 @@ class _GspmdFsdp:
 
     def __init__(self, zoo: ModelZoo, mesh: DeviceMesh):
         self.mesh = mesh
-        # another family's param_specs raises, naming the ROADMAP item
         self.layout: Layout = param_layout(zoo, mesh)
         self.plan = zoo.shard_plan(self.layout)
         sizes = self.layout.sizes

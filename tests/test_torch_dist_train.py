@@ -196,18 +196,25 @@ def test_world_of_one_gspmd_fsdp_is_the_one_process_step(runs):
 @pytest.mark.parametrize("tag,error,words", [
     ("pod1", "ValueError", ("'pod'", "wrong sum")),
     ("nopod", "ValueError", ("'pod'", "wrong sum")),
-    ("fsdp", "NotImplementedError", ("'hybrid'", "Queue 1 item 10")),
+    ("ep_axis", "NotImplementedError", ("'data' axis", "EP axis 'model'")),
     ("sched", "ValueError", ("ring",)),
     ("mode", "ValueError", ("auto",)),
 ])
 def test_make_train_step_refuses(runs, tag, error, words):
     """compressed without a pod axis of size > 1 (the reference's wrong sum),
-    gspmd_fsdp for a family without a sharded form (the hybrid), and
-    unknown names."""
+    an MoE config whose experts split over another axis than "data"
+    (ROADMAP Queue 1 item 12), and unknown names."""
     msg = str(runs["one"][f"refuse.{tag}"])
     assert msg.startswith(error + ":"), msg
     for w in words:
         assert w in msg, msg
+
+
+def test_make_train_step_builds_gspmd_fsdp_for_the_hybrid(runs):
+    """Every family has its sharded form: the hybrid's gspmd_fsdp step
+    builds where it was refused before (tests/test_torch_fsdp_families.py
+    holds its steps against the reference's)."""
+    assert str(runs["one"]["refuse.fsdp"]) == ""
 
 
 def test_launch_train_spawns_a_cpu_world(runs):

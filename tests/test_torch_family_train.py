@@ -1,7 +1,9 @@
-"""Training the gemma3, vlm and whisper families in the port against the
-JAX package, on the CPU in f32: three AdamW steps of gemma3-smoke (24
-tokens, past its window of 8), qwen2-vl-smoke (tokens with ``positions3``,
-and embeddings with ``positions3``) and whisper-smoke (``enc_embeds``),
+"""Training the gemma3, vlm, whisper, hybrid and xLSTM families in the port
+against the JAX package, on the CPU in f32: three AdamW steps of
+gemma3-smoke (24 tokens, past its window of 8), qwen2-vl-smoke (tokens with
+``positions3``, and embeddings with ``positions3``), whisper-smoke
+(``enc_embeds``) and zamba2-smoke (24 tokens), and xlstm-smoke's three
+steps' gradients, each from the reference's params before it,
 each through the port's ``make_train_step`` on both attention paths (the
 flash path runs the ``_Flash`` autograd Function, whose backward on CPU
 tensors is the kernels' plain version), held against the reference's
@@ -49,7 +51,17 @@ CASES = {
     "vlm_tokens": ("qwen2-vl-2b", ("positions3",), 2, 16),
     "vlm_embeds": ("qwen2-vl-2b", ("embeds", "positions3"), 2, 16),
     "whisper": ("whisper-large-v3", ("enc_embeds",), 2, 8),
+    # past 24 tokens the reference's chunked-SSD gradients are NaN
+    # (test_torch_ssm.py), so the hybrid is held at 24
+    "hybrid": ("zamba2-7b", (), 2, 24),
 }
+# xlstm-smoke's grad norm drifts past LOSS over three AdamW steps on
+# near-zero gradients, so each step's gradients are held from the
+# reference's params before it (test_xlstm_step_gradients_match_jax)
+XLSTM_CASE = ("xlstm-125m", (), 2, 24)
+# a leaf's gradient against the reference's, relative to the leaf's largest
+# element: the mLSTM backward's tolerance (test_torch_mlstm.py, 1e-4)
+GRAD_RTOL = 1e-4
 S_ENC = 12
 
 
@@ -67,7 +79,7 @@ def _grid3(B, S, side):
 
 def _batches(case, B=None):
     """STEPS batches of ``case`` as numpy arrays, from seeds."""
-    arch, extra, b, S = CASES[case]
+    arch, extra, b, S = CASES[case] if case in CASES else XLSTM_CASE
     B = B or b
     cfg = jax_smoke(arch)
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B))
@@ -95,7 +107,7 @@ def _jax_init(arch):
 @functools.lru_cache(maxsize=None)
 def _jax_run(case):
     """The reference's STEPS steps: [(metrics, params as numpy)]."""
-    zoo, params = _jax_init(CASES[case][0])
+    zoo, params = _jax_init((CASES[case] if case in CASES else XLSTM_CASE)[0])
     jcfg = jax_opt.AdamWConfig(**OCFG)
 
     @jax.jit
@@ -172,3 +184,43 @@ def test_microbatched_step_with_positions3_matches_jax_make_train_step(case):
         for key in ("loss", "nll", "grad_norm"):
             np.testing.assert_allclose(float(tm[key]), float(jm[key]), **LOSS)
         _compare_params(tparams, jax.tree_util.tree_map(np.asarray, jp))
+
+
+def _grads(tparams):
+    return {k: p.grad for k, p in tparams.named_parameters()}
+
+
+@pytest.mark.parametrize("step", range(STEPS))
+def test_xlstm_step_gradients_match_jax(step):
+    """xlstm-smoke's step ``step`` from the reference's params before it
+    (its trajectory of three AdamW steps): the port's loss and each leaf's
+    gradient against ``jax.value_and_grad(zoo.loss)``, and the port's step
+    (``make_train_step``) from those params gives the reference's grad norm."""
+    arch = XLSTM_CASE[0]
+    jzoo, jinit = _jax_init(arch)
+    before = jax.tree_util.tree_map(np.asarray, jinit) if step == 0 else \
+        _jax_run("xlstm")[step - 1][1]
+    batch = _batches("xlstm")[step]
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(jzoo.loss, has_aux=True))(
+        before, {k: jnp.asarray(v) for k, v in batch.items()})
+    want = params_from_jax(jax.tree_util.tree_map(np.asarray, jgrads), dtype="float32",
+                           device="cpu")
+    zoo = get_model(get_smoke_config(arch))
+    tparams = ParamTree.from_state_dict(params_from_jax(before, dtype="float32", device="cpu"),
+                                        requires_grad=True)
+    loss, _ = zoo.loss(tparams, {k: torch.as_tensor(v) for k, v in batch.items()})
+    loss.backward()
+    np.testing.assert_allclose(float(loss), float(jloss), **LOSS)
+    got = _grads(tparams)
+    assert set(got) == set(want)
+    for k, g in got.items():
+        scale = want[k].abs().max().item()
+        assert (g - want[k]).abs().max().item() <= GRAD_RTOL * scale, k
+    ocfg = opt_lib.AdamWConfig(**OCFG)
+    tparams = ParamTree.from_state_dict(params_from_jax(before, dtype="float32", device="cpu"),
+                                        requires_grad=True)
+    _, _, tm = make_train_step(zoo, ocfg, device="cpu")(tparams, opt_lib.init(ocfg, tparams),
+                                                         batch)
+    jnorm = float(np.sqrt(sum(float(np.sum(np.asarray(g, np.float64) ** 2))
+                              for g in jax.tree_util.tree_leaves(jgrads))))
+    np.testing.assert_allclose(float(tm["grad_norm"]), jnorm, **LOSS)

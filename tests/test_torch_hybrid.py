@@ -177,3 +177,17 @@ def test_bf16_cache_crosses_to_jax_and_back():
     back = _flat(params_to_jax(sd))
     for k, v in _flat(jc).items():
         np.testing.assert_array_equal(back[k], v)
+
+
+def test_param_count_is_the_references():
+    """A reference quirk, kept: ``ModelConfig.param_count`` counts a SwiGLU
+    in each of zamba2-7b's 81 layers, where only the shared block has one,
+    so it gives 18.9 B against the leaves' 6.66 B (MFU is reported on the
+    leaves)."""
+    from repro.configs import get_config as jax_config
+    from repro_torch.configs import get_config
+
+    full = get_config(ARCH)
+    assert full.param_count() == jax_config(ARCH).param_count() == 18_912_452_608
+    leaves = sum(int(np.prod(s)) for s in get_model(full).param_shapes().values())
+    assert leaves == 6_662_132_944

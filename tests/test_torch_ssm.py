@@ -139,3 +139,39 @@ def test_block_param_trees_match_jax():
         for k in ("A_log", "D", "dt_bias", "conv_b"):  # deterministic inits
             if k in jp:
                 _close(tp[k], jp[k].numpy())
+
+
+def test_block_specs_match_jax():
+    """The logical axes of each block's leaves are the reference's
+    (``mamba2_specs``, ``mlstm_specs``, ``slstm_specs``)."""
+    mc, xc = J.Mamba2Config(**MCFG), J.XLSTMConfig(**XCFG)
+    assert T.mamba2_specs(T.Mamba2Config(**MCFG)) == J.mamba2_specs(mc)
+    assert T.mlstm_specs(T.XLSTMConfig(**XCFG)) == J.mlstm_specs(xc)
+    assert T.slstm_specs(T.XLSTMConfig(**XCFG)) == J.slstm_specs(xc)
+
+
+def test_reference_hybrid_gradients_are_nan_past_24_tokens():
+    """A reference quirk (ROADMAP Queue 3): zamba2-smoke's gradients through
+    the chunked SSD (``repro.models.ssm._ssd_chunked``) are non-finite at 32
+    tokens, where exp of the masked (upper-triangle) segment sums overflows
+    and its zero mask gives 0 * inf in the backward.  The port's backward
+    differentiates the sequential scan (``kernels/ssd/ops.py``): finite."""
+    from repro.configs import get_smoke_config as jax_smoke
+    from repro.models.model_zoo import get_model as jax_get_model
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model_zoo import get_model
+
+    jzoo = jax_get_model(jax_smoke("zamba2-7b"))
+    jparams = jzoo.init(jax.random.PRNGKey(0))
+    batch = SyntheticLM(DataConfig(vocab=128, seq_len=32, global_batch=2)).batch(0)
+    grads = jax.jit(jax.grad(lambda p, b: jzoo.loss(p, b)[0]))(
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    finite = [bool(jnp.all(jnp.isfinite(g))) for g in jax.tree_util.tree_leaves(grads)]
+    assert len(finite) == 30 and finite.count(False) == 10
+    tparams = _carry(jparams)
+    tparams.requires_grad_(True)
+    loss, _ = get_model(get_smoke_config("zamba2-7b")).loss(
+        tparams, {k: torch.from_numpy(v).long() for k, v in batch.items()})
+    loss.backward()
+    assert all(bool(torch.isfinite(p.grad).all()) for p in tparams.parameters())

@@ -4,6 +4,7 @@ over by params_from_jax."""
 
 import dataclasses
 import functools
+import types
 
 import pytest
 
@@ -21,6 +22,7 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.interop import params_from_jax, torch_dtype  # noqa: E402
 from repro_torch.models.common import ParamTree  # noqa: E402
 from repro_torch.models.model_zoo import get_model  # noqa: E402
+from repro_torch.parallel import sharding as S  # noqa: E402
 
 ARCHS = ["llama3.2-3b", "qwen3-8b", "granite-20b"]
 # f32 on both sides: XLA and torch differ only in sum order and libm (rope
@@ -239,7 +241,12 @@ def test_unported_features_raise():
     moe_cfg = dataclasses.replace(moe.cfg, moe=MoEParams(num_experts=4, top_k=2, d_ff=32))
     keys = get_model(moe_cfg).init(0, device="cpu").state_dict()
     assert "layers.moe.wi" in keys and not any(".ffn." in k for k in keys)
-    # whisper is ported (tests/test_torch_whisper.py), its sharding not yet
+    # whisper is ported (tests/test_torch_whisper.py), its sharding too
+    # (tests/test_torch_fsdp_families.py): the heads and the MLP split on a
+    # "model" axis of 2
     whisper = get_model(get_smoke_config("whisper-large-v3"))
-    with pytest.raises(NotImplementedError, match="'whisper'.*item 14"):
-        whisper.param_specs()
+    assert whisper.param_specs()["dec_layers"]["cross_attn"]["wq"]["w"] == ("stack", "fsdp",
+                                                                            "heads")
+    plan = whisper.shard_plan(S.param_layout(whisper, types.SimpleNamespace(
+        shape=(2, 2, 2), mesh_dim_names=("pod", "data", "model"))))
+    assert (plan.heads, plan.kv, plan.mlp) == (True, True, True)

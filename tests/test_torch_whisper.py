@@ -8,6 +8,7 @@ does not: a test pins that gap in both packages."""
 
 import dataclasses
 import functools
+import types
 
 import pytest
 
@@ -28,6 +29,7 @@ from repro_torch.models import common as C  # noqa: E402
 from repro_torch.models import whisper  # noqa: E402
 from repro_torch.models.common import ParamTree  # noqa: E402
 from repro_torch.models.model_zoo import get_model  # noqa: E402
+from repro_torch.parallel import sharding as S  # noqa: E402
 from repro_torch.serve.serve_step import (  # noqa: E402
     BatchScheduler, Request, make_serve_step, serve_waves,
 )
@@ -215,10 +217,21 @@ def test_serve_waves_fills_enc_out_and_answers():
     np.testing.assert_allclose(_np(waves[0].prefill_last), _np(waves[0].fill_last), **F32)
 
 
+def _mesh(shape):
+    return types.SimpleNamespace(shape=shape, mesh_dim_names=("pod", "data", "model"))
+
+
 def test_sharding_and_param_count_are_the_references():
+    """The sharded form (tests/test_torch_fsdp_families.py): the vocab of
+    51866 splits over a "model" axis of 2 and stays whole over 4, as the
+    reference's sanitize_specs keeps it; the 20 heads split over both."""
     zoo = get_model(get_smoke_config(ARCH))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        zoo.shard_plan(None)
+    assert zoo.shard_plan(S.param_layout(zoo, _mesh((2, 2, 2)))).heads
+    full_zoo = get_model(get_config(ARCH))
+    for model, vocab in ((2, True), (4, False)):
+        plan = full_zoo.shard_plan(S.param_layout(full_zoo, _mesh((1, 2, model))))
+        assert (plan.heads, plan.mlp, plan.embed_vocab, plan.head_vocab) == (
+            True, True, vocab, vocab)
     # the reference's count (SwiGLU MLPs, no dec_pos) is kept; the leaves differ
     full = get_config(ARCH)
     assert full.param_count() == jax_config(ARCH).param_count()

@@ -1,6 +1,7 @@
 """Rank bodies of the port's gloo worlds for ``tests/test_torch_collectives.py``,
 ``tests/test_torch_dist_train.py``, ``tests/test_torch_fsdp.py``,
-``tests/test_torch_moe_ep.py`` and ``tests/test_torch_examples.py``; imports
+``tests/test_torch_moe_ep.py``, ``tests/test_torch_fsdp_families.py``,
+``tests/test_torch_pipeline.py`` and ``tests/test_torch_examples.py``; imports
 neither JAX nor ``repro``.
 
     python tests/torch_dist_worlds.py NAME WORLD WORKDIR
@@ -195,7 +196,7 @@ def train(rank, world, workdir):
 def one(rank, world, workdir):
     """A world of one: the mesh steps (``manual_hier`` per schedule, and
     ``gspmd_fsdp``, the default) must be the one-process step; the
-    refusals."""
+    refusals, and the hybrid's gspmd_fsdp step, which builds."""
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train.train_step import make_train_step
 
@@ -219,11 +220,16 @@ def one(rank, world, workdir):
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.model_zoo import get_model
 
+    import dataclasses
+
     hybrid = get_model(get_smoke_config("zamba2-7b"))
+    ep_model = get_model(dataclasses.replace(get_smoke_config("moonshot-v1-16b-a3b"),
+                                             moe_ep_axis="model"))
     manual = dict(dp_mode="manual_hier")
     for tag, zoo, m, kw in (("pod1", _zoo(), mesh, dict(manual, schedule="compressed")),
                             ("nopod", _zoo(), data_only, dict(manual, schedule="compressed")),
                             ("fsdp", hybrid, mesh, dict(dp_mode="gspmd_fsdp")),
+                            ("ep_axis", ep_model, mesh, dict(dp_mode="gspmd_fsdp")),
                             ("sched", _zoo(), mesh, dict(manual, schedule="ring")),
                             ("mode", _zoo(), mesh, dict(dp_mode="auto"))):
         try:
@@ -376,6 +382,121 @@ def fsdp(rank, world, workdir):
             out[f"serve.{arch}.decode{i}"] = logits
         out[f"serve.{arch}.index"] = cache["index"]
     _save(workdir, "fsdp", rank, out)
+
+
+# the hybrid, xLSTM, whisper and vlm smoke configs: gspmd_fsdp on (2, 2, 2)
+# and (but the vlm) sharded serving on (4, 2)
+FAMILY_ARCHS = ("zamba2-7b", "xlstm-125m", "whisper-large-v3", "qwen2-vl-2b")
+FAMILY_SERVE = ("zamba2-7b", "xlstm-125m", "whisper-large-v3")
+
+
+def family_batch(inp, arch, i):
+    """Step ``i``'s batch of ``arch`` from inputs.npz (keys ``arch/i/name``)."""
+    pre = f"{arch}/{i}/"
+    return {k[len(pre):]: inp[k] for k in inp.files if k.startswith(pre)}
+
+
+def _grads_from_jax(zoo, mesh, inp, arch, workdir, out):
+    """From each of the reference's params before its steps (``jax.npz``
+    keys ``arch.before{i}.*``, where it recorded them), the gathered
+    gradient of the sharded loss on step i's batch."""
+    from repro_torch.models.common import ParamTree
+    from repro_torch.train.train_step import _GspmdFsdp, to_device
+
+    ref = np.load(os.path.join(workdir, "jax.npz"))
+    fsdp = _GspmdFsdp(zoo, mesh)
+    for i in range(TRAIN_STEPS):
+        pre = f"{arch}.before{i}."
+        whole = {k[len(pre):]: torch.from_numpy(ref[k].copy()) for k in ref.files
+                 if k.startswith(pre)}
+        if not whole:
+            return
+        params = fsdp.layout.shard(ParamTree.from_state_dict(whole, requires_grad=True))
+        mb = fsdp.microbatches(to_device(family_batch(inp, arch, i), torch.device("cpu")), 1)[0]
+        zoo.loss(params, mb, fsdp.plan)[0].backward()
+        grads = fsdp.reduce_grads({k: p.grad for k, p in params.named_parameters()})
+        out.update({f"{arch}.grad{i}.{k}": v for k, v in fsdp.layout.gather(grads).items()})
+
+
+def families(rank, world, workdir):
+    """gspmd_fsdp on (2, 2, 2) for ``FAMILY_ARCHS`` from the JAX inits in
+    params.npz, 3 steps each: losses, grad norms, each rank's param and
+    moment blocks and the gathered params; then ``make_serve_step(mesh=)``
+    on (4, 2) for ``FAMILY_SERVE``: prefill, the prompt decoded one token a
+    call, and each rank's cache blocks after it."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.common import ParamTree
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.parallel.sharding import flatten, param_layout
+    from repro_torch.serve.serve_step import make_serve_step
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import make_train_step
+
+    inp = np.load(os.path.join(workdir, "inputs.npz"))
+    ocfg = opt_lib.AdamWConfig(**OCFG)
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), "cpu")
+    out = {}
+    for arch in FAMILY_ARCHS:
+        zoo = get_model(get_smoke_config(arch))
+        lay = param_layout(zoo, mesh)
+        params = lay.shard(ParamTree.from_state_dict(_whole_params(workdir, arch),
+                                                     requires_grad=True))
+        step_fn = make_train_step(zoo, ocfg, device="cpu", mesh=mesh)
+        opt = opt_lib.init(ocfg, params)
+        losses, gnorms = [], []
+        for i in range(TRAIN_STEPS):
+            params, opt, m = step_fn(params, opt, family_batch(inp, arch, i))
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+        out[f"{arch}.loss"], out[f"{arch}.grad_norm"] = losses, gnorms
+        if os.path.exists(os.path.join(workdir, "jax.npz")):
+            _grads_from_jax(zoo, mesh, inp, arch, workdir, out)
+        gathered = lay.gather(params).state_dict()
+        for k, v in params.state_dict().items():
+            out[f"{arch}.local.{k}"] = v
+            out[f"{arch}.local_mu.{k}"] = opt.mu[k]
+            out[f"{arch}.param.{k}"] = gathered[k]
+
+    mesh = make_mesh((4, 2), ("data", "model"), "cpu")
+    for arch in FAMILY_SERVE:
+        zoo = get_model(get_smoke_config(arch))
+        prompt = torch.from_numpy(inp[f"{arch}/prompt"])
+        whole_cache = zoo.init_cache(SERVE_SLOTS, SERVE_CACHE, device="cpu")
+        arts = make_serve_step(zoo, "cpu", mesh=mesh,
+                               batch_example={"tokens": np.zeros((SERVE_SLOTS, 1), np.int64)},
+                               cache_example=whole_cache)
+        params = arts.param_layout.shard(ParamTree.from_state_dict(_whole_params(workdir, arch)))
+        cache = arts.cache_layout.shard(whole_cache)
+        batch = {"tokens": prompt}
+        if zoo.has_encoder:
+            enc = torch.from_numpy(inp[f"{arch}/enc_embeds"])
+            batch["enc_embeds"] = enc
+            cache["enc_out"] = arts.encode_fn(params, enc)
+        out[f"serve.{arch}.prefill"] = arts.prefill_fn(params, batch)
+        for i in range(prompt.shape[1]):
+            logits, cache = arts.decode_fn(params, cache, {"tokens": prompt[:, i:i + 1]})
+            out[f"serve.{arch}.decode{i}"] = logits
+        for k, v in flatten(cache).items():
+            out[f"serve.{arch}.cache.{k}"] = v
+    _save(workdir, "families", rank, out)
+
+
+def pipeline(rank, world, workdir):
+    """``make_pipelined_apply`` on a (4,) "pipe" ring, the reference's test:
+    4 stages, each multiplying by its stage weight, over 6 microbatches; and
+    on (4, 1) ("rep", "pipe"), a one-stage ring on each rank."""
+    from repro_torch.parallel.pipeline import make_pipelined_apply
+
+    inp = np.load(os.path.join(workdir, "inputs.npz"))
+    ws, xs = torch.from_numpy(inp["ws"]), torch.from_numpy(inp["xs"])
+
+    def stage(w, x):
+        return x @ w
+
+    out = {"four": make_pipelined_apply(make_mesh((4,), ("pipe",), "cpu"), stage, 6)(ws, xs),
+           "one": make_pipelined_apply(make_mesh((4, 1), ("rep", "pipe"), "cpu"), stage,
+                                       6)(ws[rank:rank + 1], xs)}
+    _save(workdir, "pipeline", rank, out)
 
 
 # moe_ffn_ep cases: (mesh shape, axes, token_scatter, capacity factor).  A

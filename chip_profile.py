@@ -87,6 +87,25 @@
   qwen2-vl-2b (``chip_smoke.py``'s train cells) tensor-parallel on (1, 2, 2)
   ("pod", "data", "model"), 3 steps each against one card's.
 
+* tp_cards (needs 4 cards, one NCCL rank each; ``--chips 4``): qwen3-8b at
+  full size (36 layers, 8.19 B params) in bf16 with remat and the flash
+  kernels, ``manual_hier`` with tensor parallelism on "model" on (1, 2, 2)
+  ("pod", "data", "model"), ``hierarchical`` then ``flat``, then
+  ``gspmd_fsdp`` on the same mesh, 4 x 1024 tokens and 4 steps each: the
+  first loss against one card's bf16 forward of the same weights and batch
+  (a one-card process before the world starts, rel 1e-2), params + moments
+  held and the peak a card beside the dry run's figures for the same cell
+  (``launch/dryrun.py`` on a fake world of 4, here, before the world),
+  step times, collective bytes by op and axes, the flash kernels' launches
+  a step.
+
+* moe_axes_cards (needs 4 cards; ``--chips 4``): moonshot-v1-16b-a3b in
+  bf16 with its experts split over "model" (``moe_ep_axis="model"``) on
+  (1, 2, 2) at 16 layers, and on a (2, 2) ("pod", "model") mesh without
+  "data" (dense over the global batch) at 4 layers; losses, aux, step times
+  and all-to-all bytes, and at 4 layers each against one card's steps with
+  the same routing (2 microbatches for the EP case), rel 1e-2.
+
 * pipe_cards (needs 4 cards; ``--chips 4``): ``parallel/pipeline.py`` on a
   (4,) "pipe" ring of NCCL ranks: the reference's test (4 stages x 6
   microbatches, x * 24 within 1e-4), then a llama3.2-3b layer a stage over
@@ -148,7 +167,8 @@ And one look at numbers rather than time:
 
     python3 chip_profile.py [serve] [train] [serve_hybrid] [train_dist] [dist_cards]
                             [serve_moe] [moe_cards] [elastic_cards] [family_cards]
-                            [pipe_cards] [serve_gemma3] [serve_vlm]
+                            [pipe_cards] [tp_cards] [moe_axes_cards]
+                            [serve_gemma3] [serve_vlm]
                             [serve_whisper] [train_gemma3] [train_e2e]
                             [xlstm_agreement] [flash_ab DIR]
                             [flash_ablate] [scan_ab DIR] [scan_ablate]
@@ -1942,6 +1962,298 @@ def family_cards(smi: str) -> None:
                        join=True, start_method="spawn")
 
 
+# tp_cards: qwen3-8b at full size (36 layers, 8.19 B params) in bf16 with
+# remat and flash, manual_hier with TP on (1, 2, 2) ("pod", "data",
+# "model"), then gspmd_fsdp on the same mesh; the global batch of 4 x 1024
+# tokens, two sequences a data rank
+TP_CARDS_STEPS = 4
+TP_CARDS_SHAPE = (1, 2, 2)
+
+
+def _qwen3_setup():
+    """qwen3-8b at full size in bf16 with remat and flash, its AdamW config
+    and the train phase's data (4 x 1024 tokens of a 4096-token corpus)."""
+    import torch
+
+    from chip_smoke import TRAIN_B, TRAIN_S
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.train import optimizer as opt_lib
+
+    cfg = dataclasses.replace(get_config("qwen3-8b"), param_dtype=torch.bfloat16,
+                              compute_dtype=torch.bfloat16, remat=True, attn_impl="flash")
+    ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TP_CARDS_STEPS)
+    data = SyntheticLM(DataConfig(vocab=4096, seq_len=TRAIN_S, global_batch=TRAIN_B))
+    return cfg, get_model(cfg), ocfg, data
+
+
+def _qwen3_one_card(out) -> None:
+    """One card's bf16 forward loss of the weights (seed 0) and first batch
+    of the four-card run, without gradients."""
+    import torch
+
+    cfg, zoo, ocfg, data = _qwen3_setup()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = zoo.init(gen, device="cuda")
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in data.batch(0).items()}
+    with torch.inference_mode():
+        loss, _ = zoo.loss(params, batch)
+    out.put((float(loss), torch.cuda.max_memory_allocated(),
+             sum(p.numel() for p in params.parameters())))
+
+
+def _tp_cards_dryrun(dp_mode: str) -> dict:
+    """The dry run of the four-card cell on a fake world of 4 (meta tensors,
+    this process): argument and peak bytes a rank, the roofline terms."""
+    import torch.distributed as dist
+
+    from chip_smoke import TRAIN_B, TRAIN_S
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg, *_ = _qwen3_setup()
+    dryrun.fake_world(4)
+    try:
+        mesh = make_mesh(TP_CARDS_SHAPE, ("pod", "data", "model"), "cpu")
+        shape = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN_S, global_batch=TRAIN_B)
+        res = dryrun.run_cell("qwen3-8b", "train_4k", dp_mode=dp_mode, mesh=mesh, cfg=cfg,
+                              shape=shape, tag=f"tp_cards_{dp_mode}")
+    finally:
+        dist.destroy_process_group()
+    return res["report"]
+
+
+def _tp_cards_run(rank: int, tag: str, zoo, ocfg, data, mesh, dp_mode: str,
+                  schedule: str, device: str) -> dict:
+    """TP_CARDS_STEPS steps of ``dp_mode`` on ``mesh`` from seed 0 under the
+    byte ledger: the run, the params + moments held a card and the bytes by
+    op and axes."""
+    import torch
+
+    from chip_smoke import _train_init, _train_run
+    from repro_torch.collectives import byte_ledger
+    from repro_torch.train.train_step import make_train_step
+
+    step_fn = make_train_step(zoo, ocfg, device=device, mesh=mesh, dp_mode=dp_mode,
+                              schedule=schedule)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = _train_init(zoo, ocfg, step_fn.layout)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    with byte_ledger() as ledger:
+        run = _train_run(f"{tag} rank {rank}", step_fn, params, opt, data, TP_CARDS_STEPS)
+    by = {}
+    for r in ledger.records:
+        key = f"{r.op}({','.join(r.axes)})"
+        by[key] = by.get(key, 0) + r.nbytes
+    run.update(held=held, bytes={k: round(b / TP_CARDS_STEPS / 1e9, 4) for k, b in by.items()},
+               blocks=sum(p.numel() for p in params.parameters()))
+    del params, opt, step_fn
+    torch.cuda.empty_cache()
+    return run
+
+
+def tp_cards_rank(rank: int, world: int, smi: str, want: float, dry: dict,
+                  device: str = "cuda") -> None:
+    """qwen3-8b's manual_hier (hierarchical, then flat) and gspmd_fsdp on
+    (1, 2, 2): the first loss against one card's forward ``want`` (rel
+    CARDS_LOSS_REL), held and peak memory a card against the dry run's
+    ``dry`` figures, step times, bytes by op and axes, the flash launches a
+    step."""
+    from chip_smoke import _train_launches
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg, zoo, ocfg, data = _qwen3_setup()
+    mesh = make_mesh(TP_CARDS_SHAPE, ("pod", "data", "model"), device)
+    want_launches = _train_launches(cfg.num_layers, TP_CARDS_STEPS)
+    for dp_mode, schedule in (("manual_hier", "hierarchical"), ("manual_hier", "flat"),
+                              ("gspmd_fsdp", "hierarchical")):
+        tag = f"tp_cards {dp_mode}" + (f" {schedule}" if dp_mode == "manual_hier" else "")
+        run = _tp_cards_run(rank, tag, zoo, ocfg, data, mesh, dp_mode, schedule, device)
+        if run["launches"] != want_launches:
+            raise RuntimeError(f"{tag} rank {rank}: launches {run['launches']}, want "
+                               f"{want_launches}")
+        if rank != 0:
+            continue
+        gap = abs(run["loss"][0] - want) / abs(want)
+        d = dry[dp_mode]
+        m = d["memory_stats"]
+        tokens = 4 * 1024
+        print(f"{tag} on {dict(zip(mesh.mesh_dim_names, mesh.shape))}: {cfg.name} "
+              f"L={cfg.num_layers} bf16, remat, flash, {run['blocks'] / 1e9:.3f} B params a card; "
+              f"losses {run['loss']}, grad_norms {run['grad_norm']}; first loss against one "
+              f"card's bf16 forward {want:.6f}: rel {gap:.3e} (tol {CARDS_LOSS_REL:g}); per-step "
+              f"ms {[round(t, 2) for t in run['step_ms']]}, steady {run['mean_ms']:.2f} ms, "
+              f"{tokens / run['mean_ms'] * 1e3:.1f} tokens/s; params + moments held "
+              f"{run['held'] / 2**30:.3f} GiB a card (dry run's arguments "
+              f"{(m['param_bytes'] + m['moment_bytes']) / 2**30:.3f}); max_memory_allocated "
+              f"{run['peak'] / 2**30:.3f} GiB (dry run's peak {m['peak_bytes'] / 2**30:.3f}); "
+              f"dry run's terms: compute {d['compute_s'] * 1e3:.1f} ms, memory "
+              f"{d['memory_s'] * 1e3:.1f} ms, collective {d['collective_s'] * 1e3:.1f} ms; "
+              f"collective results GB a rank a step {run['bytes']} (dry run's "
+              f"{({k: round(v / 1e9, 4) for k, v in d['collectives'].items()})}); flash launches "
+              f"a step at the rank's shape (B 2, H 16, Hk 4, S 1024, Dh 128): "
+              f"{({k: v // TP_CARDS_STEPS for k, v in run['launches'].items() if v})} [{smi}]",
+              flush=True)
+        if not gap <= CARDS_LOSS_REL:
+            raise RuntimeError(f"{tag}: first loss off by {gap:.3e}")
+
+
+def _tp_cards_rank(rank: int, world: int, port: int, smi: str, want: float, dry: dict) -> None:
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=600))
+    try:
+        tp_cards_rank(rank, world, smi, want, dry)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_cards(smi: str) -> None:
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch.mesh import free_port
+
+    world = torch.cuda.device_count()
+    if world != 4:
+        sys.exit(f"tp_cards needs 4 cards, found {world}")
+    t0 = time.perf_counter()
+    dry = {mode: _tp_cards_dryrun(mode) for mode in ("manual_hier", "gspmd_fsdp")}
+    print(f"tp_cards: dry runs of the cell on a fake world of 4 in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ctx = mp.get_context("spawn")
+    q = ctx.SimpleQueue()
+    proc = ctx.Process(target=_qwen3_one_card, args=(q,))
+    proc.start()
+    want, peak, n = q.get()
+    proc.join()
+    print(f"tp_cards: qwen3-8b bf16 forward on one card ({n} params): loss {want:.6f}, "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB [{smi}]", flush=True)
+    print(f"tp_cards: {world} ranks, one a card, NCCL [{smi}]", flush=True)
+    mp.start_processes(_tp_cards_rank, args=(world, free_port(), smi, want, dry), nprocs=world,
+                       join=True, start_method="spawn")
+
+
+# moe_axes_cards: moonshot-v1-16b-a3b's experts split over "model" on
+# (1, 2, 2) at MOE_CARDS_LAYERS, and its MoE layers dense over the global
+# batch on (2, 2) ("pod", "model"), a mesh without "data", at
+# MOE_CHECK_LAYERS; each against one card's steps with the same routing
+MOE_AXES_CASES = (
+    ("ep_model", (1, 2, 2), ("pod", "data", "model"), {"moe_ep_axis": "model"}),
+    ("no_data", (2, 2), ("pod", "model"), {}),
+)
+
+
+def moe_axes_cards_rank(rank: int, world: int, smi: str, device: str = "cuda") -> None:
+    """Each of MOE_AXES_CASES: TRAIN_STEPS gspmd_fsdp steps under the byte
+    ledger (losses, aux, step ms, all-to-all bytes a rank a step, peak), at
+    MOE_CARDS_LAYERS for the EP case; then at MOE_CHECK_LAYERS each case's
+    losses against one card's steps (rank 0) with as many microbatches as
+    the EP groups of a pod (the tokens a "model" rank routes), within
+    CARDS_LOSS_REL."""
+    import torch
+    import torch.distributed as dist
+
+    from chip_smoke import TRAIN_B, TRAIN_S, TRAIN_STEPS, _largest_gap, _train_init
+    from chip_smoke import _train_launches, _train_run
+    from repro_torch.collectives import byte_ledger
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import make_train_step
+
+    ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    data = SyntheticLM(DataConfig(vocab=4096, seq_len=TRAIN_S, global_batch=TRAIN_B))
+    for name, shape, axes, fields in MOE_AXES_CASES:
+        mesh = make_mesh(shape, axes, device)
+        sizes = dict(zip(axes, shape))
+        micro = sizes.get("model", 1) if name == "ep_model" else 1
+        for layers in ((MOE_CARDS_LAYERS, MOE_CHECK_LAYERS) if name == "ep_model"
+                       else (MOE_CHECK_LAYERS,)):
+            cfg = dataclasses.replace(_moonshot(layers), **fields)
+            zoo = get_model(cfg)
+            one = None
+            if rank == 0 and layers == MOE_CHECK_LAYERS:
+                params, opt = _train_init(zoo, ocfg)
+                one = _train_run(f"moe_axes_cards {name} one card, {micro} microbatches",
+                                 make_train_step(zoo, ocfg, microbatches=micro, device=device),
+                                 params, opt, data, TRAIN_STEPS)
+                del params, opt
+                torch.cuda.empty_cache()
+            dist.barrier()
+            step_fn = make_train_step(zoo, ocfg, device=device, mesh=mesh)
+            params, opt = _train_init(zoo, ocfg, step_fn.layout)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            tag = f"moe_axes_cards {name} {layers} layers"
+            with byte_ledger() as ledger:
+                run = _train_run(f"{tag} rank {rank}", step_fn, params, opt, data, TRAIN_STEPS)
+            del params, opt, step_fn
+            torch.cuda.empty_cache()
+            want = _train_launches(cfg.num_layers, TRAIN_STEPS)
+            if run["launches"] != want:
+                raise RuntimeError(f"{tag} rank {rank}: launches {run['launches']}, want {want}")
+            if rank != 0:
+                continue
+            a2a = ledger.bytes("all_to_all") / TRAIN_STEPS
+            line = (f"{tag} on {sizes}: losses {run['loss']}, aux {run['aux']}, grad_norms "
+                    f"{run['grad_norm']}; per-step ms {[round(t, 2) for t in run['step_ms']]}, "
+                    f"steady {run['mean_ms']:.2f} ms; all_to_all {a2a / 1e9:.4f} GB a rank a "
+                    f"step; held {held / 2**30:.2f} GiB a card, max_memory_allocated "
+                    f"{run['peak'] / 2**30:.2f} GiB")
+            if one is not None:
+                gap = _largest_gap(run["loss"], one["loss"])
+                line += (f"; against one card's steps with {micro} microbatches: losses "
+                         f"{one['loss']}, aux {one['aux']}, largest relative gap {gap:.3e} "
+                         f"(tol {CARDS_LOSS_REL:g}), one card's steady {one['mean_ms']:.2f} ms")
+                if not (gap <= CARDS_LOSS_REL and run["loss"][-1] < run["loss"][0]):
+                    raise RuntimeError(f"{tag}: loss gap {gap:.3e} or the loss did not fall: "
+                                       f"{run['loss']}")
+            print(f"{line} [{smi}]", flush=True)
+
+
+def _moe_axes_cards_rank(rank: int, world: int, port: int, smi: str) -> None:
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=600))
+    try:
+        moe_axes_cards_rank(rank, world, smi)
+    finally:
+        dist.destroy_process_group()
+
+
+def moe_axes_cards(smi: str) -> None:
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch.mesh import free_port
+
+    world = torch.cuda.device_count()
+    if world != 4:
+        sys.exit(f"moe_axes_cards needs 4 cards, found {world}")
+    print(f"moe_axes_cards: {world} ranks, one a card, NCCL [{smi}]", flush=True)
+    mp.start_processes(_moe_axes_cards_rank, args=(world, free_port(), smi), nprocs=world,
+                       join=True, start_method="spawn")
+
+
 # pipe_cards: the reference's pipeline test and a llama3.2-3b layer a stage
 PIPE_STAGES, PIPE_MICRO, PIPE_S = 4, 6, 1024
 
@@ -2068,7 +2380,8 @@ def main() -> None:
          "serve_vlm": lambda smi: profile_serve_family(smi, "qwen2-vl-2b"),
          "serve_whisper": lambda smi: profile_serve_family(smi, "whisper-large-v3"),
          "train_gemma3": profile_train_gemma3, "family_cards": family_cards,
-         "pipe_cards": pipe_cards}[name](smi)
+         "pipe_cards": pipe_cards, "tp_cards": tp_cards,
+         "moe_axes_cards": moe_axes_cards}[name](smi)
 
 
 if __name__ == "__main__":

@@ -82,12 +82,19 @@ Phases, each printed as it runs; any failure exits non-zero:
            ``train_loop``; the loss must fall, and the launches of that run
            must be 2L flash_fwd_lse, L flash_bwd_dq and L flash_bwd_dkv per
            step and no flash_fwd.
+9b. dryrun_check  the dry run of phase 9's cell (``launch/roofline.py``:
+           the same step traced on the meta device): its argument bytes
+           must equal phase 9's parameters plus moments, and its reckoned
+           peak be within 15 % of phase 9's ``max_memory_allocated``;
+           prints its compute and memory terms beside the measured step.
 10. train_moe  moonshot-v1-16b-a3b at full width, depth cut to 4 layers,
            the same way: the loss must fall, aux be > 0 every step, and the
            launches be the train phase's per layer.
 11. train_dist  the same model, seed and data through the distributed
            ``manual_hier`` step on a world of one (NCCL, mesh (1, 1, 1)
-           ("pod", "data", "model")): 8 steps of the ``hierarchical``
+           ("pod", "data", "model"); its params the blocks of its layout,
+           which on one rank are the whole leaves, the loss through
+           ``zoo.shard_plan``): 8 steps of the ``hierarchical``
            schedule, whose per-step loss and grad_norm must equal phase 9's
            within rel 1e-5 and whose launches must equal phase 9's, then 3
            steps of ``flat`` against them; the ``compressed`` schedule is
@@ -376,6 +383,9 @@ FLASH_CASES = [
     # group 3, one of 2 microbatches of 16 x 128 tokens; the kernels line's
     # *_f32 entries come from it
     ("railx100m_train_f32", 8, 12, 4, 128, 128, 64, True, None, 0, "float32", "model"),
+    # a rank's training shape of qwen3-8b under TP on (1, 2, 2)
+    # (chip_profile.py tp_cards): 2 x 1024 tokens, 16 of 32 heads, 4 of 8 KV
+    ("qwen3_rank_train", 2, 16, 4, 1024, 1024, 128, True, None, 0, "bfloat16", "model"),
 ]
 # the cases of the gemma3, whisper and vlm serving paths and of the f32
 # forward (the model phase's f32 checks), timed beside their bounds in the
@@ -390,7 +400,8 @@ FAMILY_TIMED = ("gemma3_local", "gemma3_global", "d320_ragged_f32", "gemma3_glob
 # line (the *_d320 entries), railx100m_train_f32's (the *_f32 entries, at
 # the 3xTF32 bound)
 BWD_TIMED = ("d320_ragged_f32", "gemma3_global_f32", "gemma3_train_local",
-             "gemma3_train_global", "llama_train_f32", "railx100m_train_f32")
+             "gemma3_train_global", "llama_train_f32", "railx100m_train_f32",
+             "qwen3_rank_train")
 
 
 def _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed, layout="kernel"):
@@ -1595,8 +1606,8 @@ def routing_choices():
 
     route, calls = moe._route, []
 
-    def recorded(router_w, cfg, xt, dt, cap):
-        r = route(router_w, cfg, xt, dt, cap)
+    def recorded(*args, **kw):
+        r = route(*args, **kw)
         calls.append(r.experts)
         return r
 
@@ -2470,7 +2481,10 @@ def phase_train(smi: str) -> dict:
           f"{TRAIN_S} tokens from a 4096-token bigram corpus; set-up "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
+    # the step's arguments as the dry run counts them (phase dryrun_check)
+    arg_bytes = _nbytes(*params.parameters(), *opt.mu.values(), *opt.nu.values())
     run = _train_run("train", step_fn, params, opt, data, TRAIN_STEPS)
+    run["arg_bytes"] = arg_bytes
     losses = run["loss"]
     drop = losses[0] - losses[-1]
     print(f"train: loss {losses[0]:.4f} -> {losses[-1]:.4f}, drop {drop:.4f} nats (need >= 0.5)",
@@ -2492,6 +2506,61 @@ def phase_train(smi: str) -> dict:
           f"{tokens / (mean_ms / 1e3):.1f} tokens/s, MFU {mfu:.2%} (6 N tokens / step time / "
           f"989 TFLOP/s), max_memory_allocated {run['peak'] / 2**30:.2f} GiB [{smi}]", flush=True)
     return run
+
+
+# the dry run's reckoned peak against the measured one
+DRYRUN_PEAK_REL = 0.15
+
+
+def phase_dryrun_check(smi: str, train: dict) -> None:
+    """The dry run of the train phase's own cell (``launch/roofline.py``:
+    the same step traced on the meta device): its argument bytes must equal
+    the parameters plus moments the phase held, and its peak (arguments +
+    what the traced step allocates at its peak) be within DRYRUN_PEAK_REL
+    of the phase's ``max_memory_allocated``; its compute term beside the
+    measured step time."""
+    import torch
+
+    from repro_torch.launch import roofline
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import make_train_step
+
+    t0 = time.perf_counter()
+    cfg, zoo, ocfg, data = _train_setup()
+    meta = torch.device("meta")
+    params = zoo.init(0, device=meta)
+    params.requires_grad_(True)
+    opt = opt_lib.init(ocfg, params)
+    batch = {k: torch.empty((TRAIN_B, TRAIN_S), dtype=torch.int64, device=meta)
+             for k in ("tokens", "targets")}
+    step_fn = make_train_step(zoo, ocfg, microbatches=1, device=meta)
+    args = [*params.parameters(), *opt.mu.values(), *opt.nu.values(), *batch.values()]
+    _, stats = roofline.trace(step_fn, params, opt, batch, external=args)
+    arg_bytes = _nbytes(*params.parameters(), *opt.mu.values(), *opt.nu.values())
+    peak = arg_bytes + _nbytes(*batch.values()) + stats.peak_bytes
+    H, Dh, L = cfg.heads, cfg.resolved_head_dim, cfg.num_layers
+    # the flash kernels' FLOPs, opaque to the count: forward, remat, backward
+    flash = 4 * (2 * 2 * TRAIN_B * H * TRAIN_S * TRAIN_S * Dh * 0.5 * L)
+    n = sum(p.numel() for p in params.parameters())
+    report = roofline.build_report(cfg.name, "train_4x1024", "one card", 1, stats,
+                                   {"argument_bytes": arg_bytes, "peak_bytes": peak},
+                                   roofline.model_train_flops(n, TRAIN_B * TRAIN_S),
+                                   default_trip=L, extra_flops_global=flash)
+    rel = abs(peak - train["peak"]) / train["peak"]
+    print(f"dryrun_check: {cfg.name} train cell ({TRAIN_B} x {TRAIN_S} tokens, bf16, remat, "
+          f"flash) traced on the meta device in {time.perf_counter() - t0:.1f} s, {stats.ops} "
+          f"ops: argument bytes {arg_bytes} against the train phase's parameters + moments "
+          f"{train['arg_bytes']}; reckoned peak {peak / 2**30:.3f} GiB against "
+          f"max_memory_allocated {train['peak'] / 2**30:.3f} GiB: rel {rel:.3f} (tol "
+          f"{DRYRUN_PEAK_REL:g}); roofline terms compute {report.compute_s * 1e3:.2f} ms "
+          f"({report.hlo_flops_per_dev / 1e12:.2f} TFLOP at 989 TFLOP/s), memory "
+          f"{report.memory_s * 1e3:.2f} ms ({report.hbm_bytes_per_dev / 1e9:.2f} GB at 3.35 "
+          f"TB/s), dominant {report.dominant}, against the measured steady step "
+          f"{train['mean_ms']:.2f} ms [{smi}]", flush=True)
+    if arg_bytes != train["arg_bytes"]:
+        fail(f"dryrun_check: argument bytes {arg_bytes} != the phase's {train['arg_bytes']}")
+    if not rel <= DRYRUN_PEAK_REL:
+        fail(f"dryrun_check: reckoned peak {peak} is {rel:.3f} off the measured {train['peak']}")
 
 
 def _largest_gap(got: list, want: list) -> float:
@@ -3348,6 +3417,7 @@ def main() -> None:
         torch.cuda.empty_cache()
     train = phase_train(smi)
     torch.cuda.empty_cache()
+    phase_dryrun_check(smi, train)
     train_moe = phase_train_moe(smi)
     torch.cuda.empty_cache()
     with _world_of_one() as mesh:

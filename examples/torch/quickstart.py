@@ -12,8 +12,9 @@ workload onto it, estimate collective times) drive the framework-free
 network twin (``repro.core``), which the port does not port: run
 ``examples/quickstart.py`` for them.  This step trains the llama3.2-3b smoke
 model with ``dp_mode="manual_hier"`` and ``schedule="hierarchical"``
-(replicated params, the gradients reduced by Eq. 8's reduce-scatter /
-all-reduce / all-gather over data and pod) and prints each step's loss.
+(params replicated over data and pod and split over model, the gradients
+reduced by Eq. 8's reduce-scatter / all-reduce / all-gather over data and
+pod) and prints each step's loss.
 ``--device`` defaults to ``cuda``.  Imports nothing of JAX or of the JAX
 package.
 """
@@ -45,7 +46,7 @@ def train_step4(mesh, device, steps: int = STEPS, log_fn: Callable[[str], None] 
     dp_mode, schedule = "manual_hier", "hierarchical"
     step_fn = make_train_step(zoo, ocfg, device=dev, mesh=mesh, dp_mode=dp_mode,
                               schedule=schedule)
-    params = zoo.init(0, device=dev) if init is None else init
+    params = step_fn.layout.shard(zoo.init(0, device=dev) if init is None else init)
     params.requires_grad_(True)
     opt = opt_lib.init(ocfg, params)
     log_fn(f"\ntraining {steps} steps with dp_mode={dp_mode}:")

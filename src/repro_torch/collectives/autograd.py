@@ -18,7 +18,12 @@ for the reference's GSPMD step):
     ``token_scatter``);
   * ``all_to_all``: block i of ``split_dim`` to coordinate i, the blocks
     received concatenated on ``concat_dim`` / the reverse all-to-all (the
-    expert-parallel dispatch and combine).
+    expert-parallel dispatch and combine);
+  * ``regroup``: a tensor split along a dim over some axes (and copied
+    over the rest) -> split over other axes / the same move back, for a
+    region whose ranks along an axis compute the same thing (a
+    ``shard_map`` whose in_specs split the tokens or the experts unlike
+    the step: the MoE layer with its EP axis on "model").
 
 Over an axis of size 1 each is the identity and issues nothing.  Every
 collective goes through ``schedules``, so the byte ledger records it.
@@ -30,7 +35,8 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from .schedules import (
-    _all_gather_one, _all_reduce_, _reduce_scatter_one, all_to_all_axis, axis_size,
+    _all_gather_one, _all_reduce_, _reduce_scatter_one, all_gather_axis, all_to_all_axis,
+    axis_size,
 )
 
 
@@ -94,6 +100,59 @@ class _AllToAll(torch.autograd.Function):
     def backward(ctx, g):
         mesh, axis, split_dim, concat_dim = ctx.args
         return all_to_all_axis(g, mesh, axis, concat_dim, split_dim), None, None, None, None
+
+
+def _common(src: tuple, dst: tuple) -> int:
+    n = 0
+    while n < min(len(src), len(dst)) and src[n] == dst[n]:
+        n += 1
+    return n
+
+
+def _regroup(x: torch.Tensor, mesh: DeviceMesh, moves: tuple) -> torch.Tensor:
+    """For each (dim, src, dst) of ``moves``, blocks over ``src`` -> blocks
+    over ``dst`` (axes major first, as a spec entry): the leading axes they
+    share stay; the rest of every ``src`` is all-gathered first, then the
+    rank's block over the rest of every ``dst`` is cut out (so no dim is cut
+    over an axis that another dim still splits)."""
+    for dim, src, dst in moves:
+        rest = src[_common(src, dst):]
+        if rest:
+            x = all_gather_axis(x, mesh, rest, dim)
+    for dim, src, dst in moves:
+        rest = dst[_common(src, dst):]
+        if rest:
+            idx = 0
+            for a in rest:
+                idx = idx * axis_size(mesh, a) + mesh.get_local_rank(a)
+            n = x.shape[dim] // axis_size(mesh, rest)
+            x = x.narrow(dim, idx * n, n).contiguous()
+    return x
+
+
+class _Regroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, moves):
+        ctx.args = (mesh, moves)
+        return _regroup(x, mesh, moves)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, moves = ctx.args
+        back = tuple((dim, dst, src) for dim, src, dst in moves)
+        return _regroup(g.contiguous(), mesh, back), None, None
+
+
+def regroup(x: torch.Tensor, mesh: DeviceMesh, moves) -> torch.Tensor:
+    """For each (dim, src, dst) of ``moves``, ``x`` split along ``dim`` over
+    the axes ``src`` -> split over ``dst``.  Ranks that hold the same block
+    carry the same gradient (the ranks along an axis outside ``dst``
+    compute the same thing), so the backward is the same move from ``dst``
+    to ``src``, with no sum."""
+    moves = tuple((d, tuple(s), tuple(t)) for d, s, t in moves if tuple(s) != tuple(t))
+    if not moves:
+        return x
+    return _Regroup.apply(x, mesh, moves)
 
 
 def gather(x: torch.Tensor, mesh: DeviceMesh, axis: str, dim: int) -> torch.Tensor:

@@ -114,3 +114,16 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
     "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Execution-level knobs consumed by launch/train/dry-run."""
+
+    model: ModelConfig
+    shape: ShapeConfig
+    # parallelism mapping (logical axis sizes implied by the mesh)
+    dp_schedule: str = "hierarchical"   # flat | hierarchical | ring2d | compressed
+    microbatches: int = 1
+    remat: bool = True
+    fsdp: bool = True

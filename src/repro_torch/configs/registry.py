@@ -29,6 +29,12 @@ _MODULES = {
 }
 
 ARCHS = list(_MODULES)
+ALL_CONFIGS = list(_MODULES)
+# the reference's ``ARCHS``: every name but paper-llama3-moe, in its order
+# (the dry run's ``--all``)
+DRYRUN_ARCHS = ["xlstm-125m", "qwen3-moe-235b-a22b", "moonshot-v1-16b-a3b", "qwen2-vl-2b",
+                "qwen3-8b", "llama3.2-3b", "granite-20b", "gemma3-4b", "whisper-large-v3",
+                "zamba2-7b"]
 
 
 def _module(arch: str):
@@ -43,3 +49,13 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).SMOKE
+
+
+def supports_decode(arch: str) -> bool:
+    return True  # every name has a decoder (whisper is encoder-decoder)
+
+
+def supports_long_context(arch: str) -> bool:
+    """long_500k runs only for the sub-quadratic families, xLSTM and the
+    hybrid."""
+    return get_config(arch).family in ("xlstm", "hybrid")

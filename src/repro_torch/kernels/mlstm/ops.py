@@ -12,10 +12,29 @@ from .mlstm import mlstm_fwd
 from .ref import mlstm_ref
 
 
+_META_OPS = []
+
+
+def _meta_op():
+    """``mlstm_fwd`` as an opaque op on the meta device, which holds shapes
+    only: the dry run (``launch/roofline.py``) traces a call as one op, its
+    inputs read and its output written once, and nothing is computed.
+    Registered on first use."""
+    if not _META_OPS:
+        lib = torch.library.Library("repro_torch_mlstm_fwd", "DEF")
+        lib.define("mlstm_fwd(Tensor q, Tensor k, Tensor v, Tensor i_gate, Tensor logf, int chunk)"
+                   " -> Tensor")
+        lib.impl("mlstm_fwd", lambda q, k, v, i_gate, logf, chunk: torch.empty_like(q), "Meta")
+        _META_OPS.append(lib)
+    return torch.ops.repro_torch_mlstm_fwd.mlstm_fwd
+
+
 class _MLSTM(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, i_gate, logf, chunk):
         ctx.save_for_backward(q, k, v, i_gate, logf)
+        if q.device.type == "meta":  # the dry run's trace: shapes only
+            return _meta_op()(q, k, v, i_gate, logf, chunk)
         return mlstm_fwd(q, k, v, i_gate, logf, chunk=chunk)
 
     @staticmethod

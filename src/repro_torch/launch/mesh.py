@@ -12,7 +12,9 @@ coordinate ``unravel(r, shape)``.  ``device="cuda"`` (the default) means
 NCCL, one rank per card; ``"cpu"`` means gloo.  The process group is the
 caller's (``torchrun``, ``spawn_cpu_world``, or its own
 ``init_process_group``); a mesh never moves from the card to gloo or to the
-CPU: a missing card, NCCL or process group raises.
+CPU: a missing card, NCCL or process group raises.  A world of torch's
+``"fake"`` backend (one process tracing one rank of a large world, the dry
+run's) takes a CPU mesh: its collectives move nothing.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
         raise RuntimeError(
             "no process group: run under torchrun, in spawn_cpu_world, or call "
             f"torch.distributed.init_process_group({backend!r}, ...) first")
-    if backend not in dist.get_backend():
+    if backend not in dist.get_backend() and dist.get_backend() != "fake":
         raise RuntimeError(f"the process group runs {dist.get_backend()!r}; a {dev.type} mesh "
                            f"needs {backend!r}")
     shape, axes = tuple(int(s) for s in shape), tuple(axes)

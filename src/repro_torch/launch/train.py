@@ -7,8 +7,9 @@ One process on one device:
 
 A world on a mesh runs ``--dp-mode`` ``gspmd_fsdp`` (the default, as in
 the reference: params and AdamW state sharded, FSDP over "data", tensor
-parallelism over "model") or ``manual_hier`` (replicated params, an
-explicit RailX ``--schedule``).  Under ``torchrun`` (one rank per card,
+parallelism over "model") or ``manual_hier`` (params replicated over the
+DP axes, tensor parallelism over "model", an explicit RailX
+``--schedule``).  Under ``torchrun`` (one rank per card,
 NCCL; it reads ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``)
 
     torchrun --nproc-per-node 8 -m repro_torch.launch.train --mesh 2,2,2 \\
@@ -29,9 +30,10 @@ Every rank takes the global batch's step and its own slice of it; rank 0
 prints.  Under ``gspmd_fsdp`` every rank inits the whole params from the
 seed and keeps its block; each checkpoint gathers whole leaves on every
 rank and rank 0 writes them, and every rank resumes its blocks from them.
-Under ``manual_hier`` rank 0 writes the checkpoints (params are
-replicated) and every rank resumes from them; an MoE ``--arch`` (expert
-parallelism over "data") runs ``gspmd_fsdp`` only, as in the reference.  Without ``--mesh`` a world
+Under ``manual_hier`` the params are replicated over "pod" and "data"
+and split over "model"; checkpoints and resumes go the same way, through
+the step's layout.  An MoE ``--arch`` (expert parallelism) runs
+``gspmd_fsdp`` only, as in the reference.  Without ``--mesh`` a world
 is one ``("data",)`` axis over all its ranks.  ``--device`` defaults to ``cuda``.  As in the
 reference, the data's vocabulary is the model's, and its bigram table is
 ``vocab x vocab`` float64, so a full-vocab config needs that much host
@@ -93,7 +95,6 @@ def _train(args: argparse.Namespace) -> None:
     from ..configs import get_config, get_smoke_config
     from ..data.pipeline import DataConfig, SyntheticLM
     from ..models.model_zoo import get_model
-    from ..parallel.sharding import param_layout
     from ..train import optimizer as opt_lib
     from ..train.train_step import make_train_step
     from ..train.trainer import CheckpointPolicy, StragglerMonitor, resume, train_loop
@@ -130,8 +131,8 @@ def _train(args: argparse.Namespace) -> None:
                               mesh=mesh, dp_mode=args.dp_mode, schedule=args.schedule)
     params = zoo.init(0, device=dev)
     layout = None
-    if mesh is not None and args.dp_mode == "gspmd_fsdp":
-        layout = param_layout(zoo, mesh)
+    if mesh is not None:
+        layout = step_fn.layout
         params = layout.shard(params)
     params.requires_grad_(True)
     opt = opt_lib.init(ocfg, params)

@@ -246,7 +246,8 @@ def apply_mrope(
         raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to head_dim / 2 = {half}")
     freqs = rope_freqs(x.shape[-1], theta, x.device)            # (half,)
     sec_ids = torch.repeat_interleave(torch.arange(3, device=x.device),
-                                      torch.tensor(sections, device=x.device))
+                                      torch.tensor(sections, device=x.device),
+                                      output_size=half)
     # for each frequency slot the matching position stream: (B, S, half)
     pos_slot = positions3.movedim(0, -1)[..., sec_ids]
     return _rotate(x, pos_slot.to(torch.float32) * freqs)
@@ -304,10 +305,11 @@ def init_attention(gen, cfg: AttnConfig, dt: DTypes, device) -> Params:
 # ---------------------------------------------------------------------------
 
 
-def masked_attention(q, k, v, mask: torch.Tensor, scale: float) -> torch.Tensor:
+def masked_attention(q, k, v, mask: torch.Tensor, scale: float, with_lse: bool = False):
     """GQA attention with f32 scores and softmax, output in q's dtype.
     q (B, Sq, H, Dh), k/v (B, Skv, Hk, Dh); mask (Sq, Skv) is True where
-    visible.  Masked scores are -1e30, so a row that sees no key averages v."""
+    visible.  Masked scores are -1e30, so a row that sees no key averages v.
+    ``with_lse``: (the output in f32, each row's logsumexp (B, Sq, H))."""
     B, Sq, H, Dh = q.shape
     Hk = k.shape[2]
     qg = (q.to(torch.float32) * scale).reshape(B, Sq, Hk, H // Hk, Dh)
@@ -315,7 +317,79 @@ def masked_attention(q, k, v, mask: torch.Tensor, scale: float) -> torch.Tensor:
     logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(torch.float32))
+    if with_lse:
+        lse = torch.logsumexp(logits, dim=-1).permute(0, 3, 1, 2).reshape(B, Sq, H)
+        return out.reshape(B, Sq, H, Dh), lse
     return out.reshape(B, Sq, H, Dh).to(q.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class KVSplit:
+    """A decode cache cut by position over the mesh axes ``axes`` (major
+    first, as a spec entry): the rank at linear coordinate c over them
+    holds positions [c * n, (c + 1) * n) of a cache of n * |axes|."""
+    mesh: Any
+    axes: Tuple[str, ...]
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for a in self.axes:
+            n *= self.mesh.shape[self.mesh.mesh_dim_names.index(a)]
+        return n
+
+    @property
+    def index(self) -> int:
+        idx = 0
+        for a in self.axes:
+            idx = idx * self.mesh.shape[self.mesh.mesh_dim_names.index(a)] \
+                + self.mesh.get_local_rank(a)
+        return idx
+
+
+def cache_write(ck: torch.Tensor, cv: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                index: int, split: Optional[KVSplit] = None) -> None:
+    """Write S new keys and values (B, S, Hk, Dh) into the cache (B, n, Hk,
+    Dh) in place at ``index``, the start clamped so that the update fits
+    (``dynamic_update_slice_in_dim``).  With ``split`` the cache holds this
+    rank's n positions of n * |split|, and the rank writes those of the S
+    that fall among them."""
+    S, n = k.shape[1], ck.shape[1]
+    total, off = (n * split.size, n * split.index) if split is not None else (n, 0)
+    start = min(max(index, 0), total - S)
+    lo, hi = max(start, off), min(start + S, off + n)
+    if lo < hi:
+        ck[:, lo - off:hi - off] = k[:, lo - start:hi - start].to(ck.dtype)
+        cv[:, lo - off:hi - off] = v[:, lo - start:hi - start].to(cv.dtype)
+
+
+def cache_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, index: int, scale: float,
+                 window: Optional[int] = None, split: Optional[KVSplit] = None) -> torch.Tensor:
+    """q (B, S, H, Dh) at positions index .. index + S - 1 over the cache,
+    causal (and within ``window``), on the plain path.  With ``split`` each
+    rank attends over the positions it holds and the ranks combine their
+    outputs by their logsumexps: a max over ``split.axes``, then one sum of
+    the rescaled outputs and weights."""
+    S, n = q.shape[1], ck.shape[1]
+    off = n * split.index if split is not None else 0
+    qpos = torch.arange(S, device=q.device)[:, None] + index
+    kpos = torch.arange(n, device=q.device)[None, :] + off
+    mask = kpos <= qpos
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    if split is None:
+        return masked_attention(q, ck, cv, mask, scale)
+    from ..collectives.schedules import all_reduce_axis
+    import torch.distributed as dist
+
+    out, lse = masked_attention(q, ck, cv, mask, scale, with_lse=True)  # f32
+    m = all_reduce_axis(lse, split.mesh, split.axes, op=dist.ReduceOp.MAX)
+    w = torch.exp(lse - m)
+    both = torch.cat([(out * w[..., None]).flatten(2), w], dim=-1)
+    both = all_reduce_axis(both, split.mesh, split.axes)
+    H, Dh = q.shape[2], q.shape[3]
+    num, den = both[..., :H * Dh].reshape(out.shape), both[..., H * Dh:]
+    return (num / den[..., None]).to(q.dtype)
 
 
 def sdpa(
@@ -339,6 +413,7 @@ def attention(
     cache_index: Optional[int] = None,
     xattn_kv: Optional[torch.Tensor] = None,
     impl: str = "ref",
+    kv_split: Optional[KVSplit] = None,
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Attention without qk-norm (its callers, the hybrid's shared block and
     whisper, have none).  Returns (output, kv cache).  Self-attention takes
@@ -351,7 +426,8 @@ def attention(
     keys and values into the cache in place and attends over it on the plain
     path.  The write start is clamped so the update fits while the mask
     keeps the unclamped index, as ``dynamic_update_slice_in_dim`` does in
-    the reference."""
+    the reference.  ``kv_split``: the cache holds this rank's positions
+    (``cache_write``, ``cache_attend``)."""
     B, S, _ = x.shape
     H, Hk, Dh = cfg.heads, cfg.kv_heads, cfg.head_dim
     src = x if xattn_kv is None else xattn_kv
@@ -364,10 +440,8 @@ def attention(
     scale = cfg.softmax_scale or (1.0 / math.sqrt(Dh))
     if kv_cache is not None:
         ck, cv = kv_cache
-        start = min(max(cache_index, 0), ck.shape[1] - S)
-        ck[:, start:start + S] = k.to(ck.dtype)
-        cv[:, start:start + S] = v.to(cv.dtype)
-        out = sdpa(q, ck, cv, causal=True, window=cfg.window, scale=scale, q_offset=cache_index)
+        cache_write(ck, cv, k, v, cache_index, kv_split)
+        out = cache_attend(q, ck, cv, cache_index, scale, cfg.window, kv_split)
         return linear(p["wo"], out.reshape(B, S, H * Dh), dt), (ck, cv)
     causal = cfg.causal and xattn_kv is None
     if impl == "flash":

@@ -181,7 +181,8 @@ def _attend(sp, cfg: ModelConfig, a_in, positions, dt: DTypes, plan: Optional[T.
     if split:
         acfg = T._local_attn(acfg, plan)
         a_in = copy_to(a_in, plan.tp.mesh, plan.tp.axis)
-    out, _ = C.attention(sp["attn"], acfg, a_in, positions, dt, kv_cache=kv, cache_index=index)
+    out, _ = C.attention(sp["attn"], acfg, a_in, positions, dt, kv_cache=kv, cache_index=index,
+                         kv_split=plan.kv_split if plan is not None else None)
     return reduce_from(out, plan.tp.mesh, plan.tp.axis) if split else out
 
 

@@ -16,6 +16,19 @@ Two implementations, as in the reference:
   1/|tp| of the bytes.  Its aux is the rank's own: the caller averages
   the layers' sum over the batch axes once (``aux_mean``), where the
   reference's ``pmean`` runs in every layer (the mean is linear).
+  The EP axis is any mesh axis (``cfg.ep_axis``).  The reference's
+  ``shard_map`` takes the tokens over ("pod", EP axis); the step's rows
+  are cut over ("pod", "data"), so with another EP axis the rows (and the
+  router's logits, so that the router's gradient stays the step's share)
+  are regrouped onto the EP axis and back (``collectives.autograd.regroup``),
+  the ranks along "data" then computing the same thing, as the reference's
+  do;
+* ``moe_ffn_global``: a mesh without the EP axis (no "data" in it): the
+  reference runs ``moe_ffn_dense`` under GSPMD over the global batch.  The
+  rank gathers the hidden states over the batch axes (the gradient
+  reduce-scattered), routes the global tokens with the global capacity,
+  runs the experts (F split over "model" when the layout splits it, the
+  partial sums all-reduced), and keeps its own rows.
 
 Router: softmax top-k with the aux load-balancing loss (paper §A.4
 Listing 1: ``aux_loss``, coeff 0.01).  Top-k ties go to the lower expert
@@ -37,7 +50,7 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..collectives.autograd import (
-    all_to_all, copy_to, gather, gather_whole, reduce_from, reduce_scatter,
+    all_to_all, copy_to, gather, gather_whole, reduce_from, reduce_scatter, regroup,
 )
 from ..collectives.schedules import all_reduce_axis, axis_size
 from . import common as C
@@ -60,13 +73,22 @@ class MoEConfig:
 
 @dataclasses.dataclass(frozen=True)
 class EPGroup:
-    """Where a rank's MoE layers run expert-parallel: the mesh with the EP
-    axis, the batch axes of size > 1 that ``aux`` is averaged over, and the
-    TP axis that splits the experts' F dim (None: each rank runs its
-    experts whole)."""
+    """Where a rank's MoE layers run: the mesh, the batch axes of size > 1
+    that the tokens are cut over and ``aux`` is averaged over (the
+    reference's ``batch_axes``, ("pod", EP axis)), the TP axis that splits
+    the experts' F dim (None: each rank runs its experts whole), the EP
+    axis (None: the mesh has none, and the layer runs dense over the
+    global batch), and ``rows``, the axes that the rank's rows arrive cut
+    over (None: ``batch_axes``)."""
     mesh: DeviceMesh
     batch_axes: Tuple[str, ...]
     tp: Optional[C.TP]
+    axis: Optional[str] = "data"
+    rows: Optional[Tuple[str, ...]] = None
+
+    @property
+    def row_axes(self) -> Tuple[str, ...]:
+        return self.batch_axes if self.rows is None else self.rows
 
 
 def init_moe(gen, cfg: MoEConfig, dt: DTypes, device) -> Params:
@@ -136,20 +158,28 @@ class Routing:
     capacity: int
 
 
-def _route(router_w: torch.Tensor, cfg: MoEConfig, xt: torch.Tensor, dt: DTypes,
-           cap: int) -> Routing:
+def router_logits(router_w: torch.Tensor, cfg: MoEConfig, xt: torch.Tensor,
+                  dt: DTypes) -> torch.Tensor:
+    return torch.matmul(xt, dt.c(router_w)).to(cfg.router_dtype)
+
+
+def _route(router_w: torch.Tensor, cfg: MoEConfig, xt: torch.Tensor, dt: DTypes, cap: int,
+           logits: Optional[torch.Tensor] = None) -> Routing:
     """Top-k routing of the tokens ``xt`` (T, D) into queues of ``cap``
-    slots an expert."""
-    T = xt.shape[0]
+    slots an expert; from their router ``logits`` (T, E) when given."""
+    if logits is None:
+        logits = router_logits(router_w, cfg, xt, dt)
+    T = logits.shape[0]
     E, K = cfg.num_experts, cfg.top_k
-    dev = xt.device
-    logits = torch.matmul(xt, dt.c(router_w)).to(cfg.router_dtype)
+    dev = logits.device
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = top_k(probs, K)                           # (T, K)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
 
     me = probs.mean(0)
-    ce = torch.bincount(gate_idx.reshape(-1), minlength=E).to(cfg.router_dtype) / (T * K)
+    # the choices' counts (bincount's, with a shape that needs no host read)
+    ce = torch.zeros(E, dtype=cfg.router_dtype, device=dev).index_add_(
+        0, gate_idx.reshape(-1), torch.ones(T * K, dtype=cfg.router_dtype, device=dev)) / (T * K)
     aux = cfg.aux_loss_coeff * E * torch.sum(me * ce)
 
     # position-in-expert by a stable sort (the reference's, not a one-hot cumsum)
@@ -245,10 +275,11 @@ def moe_ffn_dense(p: Params, cfg: MoEConfig, x: torch.Tensor,
 
 def moe_ffn_ep(p: Params, cfg: MoEConfig, x: torch.Tensor, dt: DTypes,
                ep: EPGroup) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: the rank's rows (B_local, S, D), whole over the TP axis; ``p``'s
-    expert leaves are the rank's (E/|ep|, D, F/|tp|) / (E/|ep|, F/|tp|, D)
-    blocks, the router whole.  Returns the rank's rows and the aux of its
-    tokens, which ``aux_mean`` averages over ``ep.batch_axes``."""
+    """x: the rank's rows (B_local, S, D), cut over ``ep.row_axes`` and
+    whole over the TP axis; ``p``'s expert leaves are the rank's
+    (E/|ep|, D, F/|tp|) / (E/|ep|, F/|tp|, D) blocks, the router whole.
+    Returns the rank's rows and the aux of the tokens it routed, which
+    ``aux_mean`` averages over ``ep.batch_axes``."""
     B, S, D = x.shape
     E = cfg.num_experts
     mesh, tp = ep.mesh, ep.tp
@@ -256,11 +287,17 @@ def moe_ffn_ep(p: Params, cfg: MoEConfig, x: torch.Tensor, dt: DTypes,
     if E % n_ep:
         raise ValueError(f"{E} experts do not split over {cfg.ep_axis!r} ({n_ep}): "
                          "the reference's moe_ffn_ep asserts E % ep == 0")
-    xt = x.reshape(B * S, D)
-    cap = capacity(cfg, B * S)
+    logits = router_logits(p["router"]["w"], cfg, x.reshape(B * S, D), dt)
+    # the tokens as the reference's shard_map cuts them: over ("pod", EP axis)
+    to_ep, back = [(0, ep.row_axes, ep.batch_axes)], [(0, ep.batch_axes, ep.row_axes)]
+    xb = regroup(x, mesh, to_ep)
+    logits = regroup(logits.reshape(B, S, E), mesh, to_ep)
+    Bl = xb.shape[0]
+    xt = xb.reshape(Bl * S, D)
+    cap = capacity(cfg, Bl * S)
     if tp is not None:
         cap = -(-cap // tp.size) * tp.size
-    r = _route(p["router"]["w"], cfg, xt, dt, cap)
+    r = _route(p["router"]["w"], cfg, xt, dt, cap, logits.reshape(Bl * S, E))
     expert_in = _dispatch(xt, r)
     scatter = tp is not None and cfg.token_scatter
     if tp is not None:
@@ -281,10 +318,47 @@ def moe_ffn_ep(p: Params, cfg: MoEConfig, x: torch.Tensor, dt: DTypes,
     expert_out = all_to_all(out_p, mesh, cfg.ep_axis, 1, 0)         # (E, C(/tp), D)
     if scatter:
         expert_out = gather_whole(expert_out, mesh, tp.axis, 1)
-    out = _combine(xt, expert_out, r)
-    if cfg.num_shared_experts:
-        out = out + C.swiglu(p["shared"], xt, dt)
-    return out.reshape(B, S, D), r.aux.to(torch.float32)
+    out = regroup(_combine(xt, expert_out, r).reshape(Bl, S, D), mesh, back)
+    return _with_shared(p, cfg, x, out, dt), r.aux.to(torch.float32)
+
+
+def _with_shared(p: Params, cfg: MoEConfig, x: torch.Tensor, out: torch.Tensor,
+                 dt: DTypes) -> torch.Tensor:
+    """``out`` plus the shared experts' SwiGLU of the rank's rows ``x``."""
+    if not cfg.num_shared_experts:
+        return out
+    B, S, D = x.shape
+    return out + C.swiglu(p["shared"], x.reshape(B * S, D), dt).reshape(B, S, D)
+
+
+def moe_ffn_global(p: Params, cfg: MoEConfig, x: torch.Tensor, dt: DTypes,
+                   ep: EPGroup) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A mesh without the EP axis: ``moe_ffn_dense`` over the global batch
+    (the rows gathered over ``ep.row_axes``, the global capacity), the
+    experts' F dim split over ``ep.tp`` when given; returns the rank's rows
+    and the global aux (every rank's the same; ``aux_mean`` keeps it and
+    gives each rank its share of the gradient)."""
+    B, S, D = x.shape
+    mesh, tp = ep.mesh, ep.tp
+    xg = x
+    for a in reversed(ep.row_axes):  # minor first: blocks in mesh order
+        xg = gather(xg, mesh, a, 0)
+    T = xg.shape[0] * S
+    xt = xg.reshape(T, D)
+    r = _route(p["router"]["w"], cfg, xt, dt, capacity(cfg, T))
+    expert_in = _dispatch(xt, r)
+    if tp is not None:
+        expert_in = copy_to(expert_in, tp.mesh, tp.axis)
+    expert_out = _expert_ffn(expert_in, dt.c(p["wi"]), dt.c(p["wg"]), dt.c(p["wo"])).to(xt.dtype)
+    if tp is not None:
+        expert_out = reduce_from(expert_out, tp.mesh, tp.axis)
+    out = _combine(xt, expert_out, r).reshape(-1, S, D)
+    if ep.row_axes:
+        idx = 0
+        for a in ep.row_axes:
+            idx = idx * axis_size(mesh, a) + mesh.get_local_rank(a)
+        out = out.narrow(0, idx * B, B)
+    return _with_shared(p, cfg, x, out, dt), r.aux.to(torch.float32)
 
 
 def aux_mean(aux: torch.Tensor, ep: EPGroup) -> torch.Tensor:
@@ -301,8 +375,10 @@ def aux_mean(aux: torch.Tensor, ep: EPGroup) -> torch.Tensor:
 def moe_ffn(p: Params, cfg: MoEConfig, x: torch.Tensor, dt: DTypes,
             ep: Optional[EPGroup] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expert-parallel when the rank computes on a mesh with the EP axis
-    (``ep``), as the reference does when a mesh is current; dense
-    otherwise."""
+    (``ep``), as the reference does when a mesh is current; dense over the
+    global batch on a mesh without it; dense without a mesh."""
     if ep is None:
         return moe_ffn_dense(p, cfg, x, dt)
+    if ep.axis is None:
+        return moe_ffn_global(p, cfg, x, dt, ep)
     return moe_ffn_ep(p, cfg, x, dt, ep)

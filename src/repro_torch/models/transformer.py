@@ -35,13 +35,15 @@ gathered over "model", and each rank attends with the KV heads its query
 heads use.  The MLP splits its hidden dim when it divides; the embedding
 and the logits split the vocab (``common.vocab_embed``); the logits stay
 split (the loss reduces over "model", ``ModelZoo.loss``).  An MoE layer
-runs expert-parallel (``moe.moe_ffn_ep``): its expert leaves keep their
-"data" block (E/|data| experts a rank, never gathered) and, with TP, their
-"model" block (F/|model| columns); the tokens go to their experts by an
-all-to-all over "data".  The router passes whole.  The layers' aux sum is
-averaged over the batch axes once (``moe.aux_mean``).  Batch rows are
-the caller's: the step passes each rank its rows, and the cache its rows
-and KV heads.
+runs expert-parallel over ``cfg.moe_ep_axis`` (``moe.moe_ffn_ep``): its
+expert leaves are regrouped from their stored blocks into E/|ep| experts a
+rank and, with TP, F/|model| columns (with the EP axis on "data", the
+stored blocks themselves, never gathered); the tokens go to their experts
+by an all-to-all over the EP axis.  On a mesh without the EP axis it runs
+dense over the global batch (``moe.moe_ffn_global``).  The router passes
+whole.  The layers' aux sum is averaged over the batch axes once
+(``moe.aux_mean``).  Batch rows are the caller's: the step passes each
+rank its rows, and the cache its rows, KV heads and positions.
 
 The cache is ``{"k", "v": (L, B, cache_len, Hk, Dh), "index": int}``.
 ``index`` is a host int (the reference keeps a device scalar) so a decode
@@ -59,7 +61,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..collectives.autograd import copy_to, gather, gather_whole
+from ..collectives.autograd import copy_to, gather, gather_whole, regroup
 from ..collectives.schedules import all_gather_axis
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention
@@ -195,8 +197,14 @@ class ShardPlan:
     embed_vocab: bool    # the embedding table's vocab split
     head_vocab: bool     # the logits' vocab split
     dp: Tuple[str, ...]  # the batch axes of size > 1
-    ep: Optional[EPGroup] = None  # MoE layers: expert-parallel over "data"
+    ep: Optional[EPGroup] = None  # MoE layers: expert-parallel, or dense over the global batch
     ssm: bool = False    # the hybrid's Mamba2 heads split (models/hybrid.py)
+    kv_seq: Tuple[str, ...] = ()  # decode: the axes that cut the cache by position
+
+    @property
+    def kv_split(self) -> Optional[C.KVSplit]:
+        """The decode cache's cut by position, if any."""
+        return C.KVSplit(self.layout.mesh, self.kv_seq) if self.kv_seq else None
 
     def gather_logits(self, logits: torch.Tensor) -> torch.Tensor:
         """Whole-vocab logits (no gradient)."""
@@ -248,25 +256,26 @@ def tp_plan(cfg: ModelConfig, layout: Layout, attn: Optional[str], mlp: Optional
 
 def _ep_group(cfg: ModelConfig, layout: Layout, tp: Optional[C.TP],
               dp: Tuple[str, ...]) -> EPGroup:
-    """The MoE layers' expert parallelism on ``layout``: the experts split
-    over the EP axis ("data"), and their F dim over "model" when the config
-    splits it (``moe_tp``), as the reference's ``moe_ffn_ep`` takes them."""
-    axis = cfg.moe_ep_axis
-    if axis != "data" or axis not in layout.sizes:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE layers run expert-parallel over the mesh's 'data' axis; "
-            f"mesh axes {tuple(layout.sizes)}, EP axis {axis!r}")
-    moe_tp = tp if cfg.moe_tp else None
-    for key, f_dim in (("layers.moe.wi", 3), ("layers.moe.wg", 3), ("layers.moe.wo", 2)):
-        spec = layout.specs[key]
-        if axis not in entry_axes(spec[1]):
-            raise ValueError(f"{key} {spec}: {cfg.moe.num_experts} experts do not split over "
-                             f"{axis!r} ({layout.sizes[axis]}); the reference's moe_ffn_ep "
-                             "asserts E % ep == 0")
-        if moe_tp is not None and moe_tp.axis not in entry_axes(spec[f_dim]):
-            raise ValueError(f"{key} {spec}: d_ff {cfg.moe.d_ff} does not split over "
-                             f"'model' ({moe_tp.size}), which the reference's moe_ffn_ep needs")
-    return EPGroup(layout.mesh, dp, moe_tp)
+    """The MoE layers' parallelism on ``layout``, as the reference's
+    ``moe_ffn``: expert-parallel over ``cfg.moe_ep_axis`` when the mesh has
+    it (the experts split over it, their F dim over "model" with
+    ``moe_tp`` unless "model" is the EP axis, the tokens over ("pod", EP
+    axis)); else dense over the global batch (``moe.moe_ffn_global``), the
+    F dim split over "model" when the layout splits it."""
+    axis, sizes = cfg.moe_ep_axis, layout.sizes
+    E, F = cfg.moe.num_experts, cfg.moe.d_ff
+    if axis not in sizes:
+        f_split = tp is not None and on_model(layout, "layers.moe.wi", 3)
+        return EPGroup(layout.mesh, dp, tp if f_split else None, axis=None)
+    if E % sizes[axis]:
+        raise ValueError(f"{cfg.name}: {E} experts do not split over {axis!r} "
+                         f"({sizes[axis]}); the reference's moe_ffn_ep asserts E % ep == 0")
+    moe_tp = tp if cfg.moe_tp and tp is not None and tp.axis != axis else None
+    if moe_tp is not None and F % moe_tp.size:
+        raise ValueError(f"{cfg.name}: d_ff {F} does not split over 'model' ({moe_tp.size}), "
+                         "which the reference's moe_ffn_ep needs")
+    batch = tuple(dict.fromkeys(a for a in ("pod", axis) if sizes.get(a, 1) > 1))
+    return EPGroup(layout.mesh, batch, moe_tp, axis=axis, rows=dp)
 
 
 def _weight(w: torch.Tensor, spec, plan: ShardPlan, keep_model: bool, partial: bool):
@@ -288,15 +297,22 @@ def _weight(w: torch.Tensor, spec, plan: ShardPlan, keep_model: bool, partial: b
 _EXPERT_LEAVES = ("layers.moe.wi", "layers.moe.wg", "layers.moe.wo")
 
 
-def _expert_weight(w: torch.Tensor, spec, plan: ShardPlan) -> torch.Tensor:
-    """An expert leaf as ``moe_ffn_ep`` takes it: the rank's block over
-    "data" (EP), and over "model" when the experts run F-split; gathered
-    whole over "model" when they do not."""
+def _expert_weight(w: torch.Tensor, spec, plan: ShardPlan, f_dim: int) -> torch.Tensor:
+    """An expert leaf as the MoE layer takes it: its experts (dim 0) split
+    over the EP axis and its F dim (``f_dim``) over ``plan.ep.tp``, whole
+    otherwise, regrouped from the stored blocks (``spec``) as the
+    reference's ``shard_map`` reshards them."""
+    ep, sizes = plan.ep, plan.layout.sizes
+    moves = []
     for dim, entry in enumerate(spec):
-        for a in entry_axes(entry):
-            if a == "model" and plan.ep.tp is None:
-                w = gather_whole(w, plan.layout.mesh, a, dim)
-    return w
+        src = tuple(a for a in entry_axes(entry) if sizes[a] > 1)
+        dst = ()
+        if dim == 0 and ep.axis is not None and sizes[ep.axis] > 1:
+            dst = (ep.axis,)
+        elif dim == f_dim and ep.tp is not None:
+            dst = (ep.tp.axis,)
+        moves.append((dim, src, dst))
+    return regroup(w, plan.layout.mesh, moves)
 
 
 _ATTN_BLOCKS = ("attn", "self_attn", "cross_attn")
@@ -324,7 +340,7 @@ def _layer_weights(lp, plan: ShardPlan, prefix: str = "layers.", lead: int = 1,
             continue
         spec = plan.layout.specs[key][lead:]  # the stacked dims are gone
         if key in _EXPERT_LEAVES:
-            out[k] = _expert_weight(v, spec, plan)
+            out[k] = _expert_weight(v, spec, plan, 1 if k == "wo" else 2)
             continue
         in_split = split.get(key.split(".")[1], False)
         kept = in_split and keep(key)
@@ -548,8 +564,8 @@ def cache_specs(cfg: ModelConfig) -> Dict[str, Any]:
 def _decode_attention(p, acfg: C.AttnConfig, x, positions, positions3, is_global: bool, ck, cv,
                       index: int, dt, plan: Optional[ShardPlan] = None):
     """Attention of S new tokens over the cache of one layer; ck/cv
-    (B, cache_len, Hk, Dh), this rank's rows and KV heads, are written in
-    place at ``index``."""
+    (B, cache_len, Hk, Dh), this rank's rows, KV heads and positions
+    (``plan.kv_seq``), are written in place at ``index``."""
     B, S, _ = x.shape
     local = _local_attn(acfg, plan)
     H, Dh = local.heads, acfg.head_dim
@@ -560,19 +576,13 @@ def _decode_attention(p, acfg: C.AttnConfig, x, positions, positions3, is_global
         raise ValueError(f"a cache of {ck.shape[0]} rows and {ck.shape[2]} KV heads for "
                          f"{B} rows and {k.shape[2]} KV heads: the cache is sharded unlike "
                          "the step")
-    Skv = ck.shape[1]
+    split = plan.kv_split if plan is not None else None
     # dynamic_update_slice clamps the start so the update fits; the mask
-    # below still uses the unclamped index (a reference quirk, kept)
-    start = min(max(index, 0), Skv - S)
-    ck[:, start:start + S] = k.to(ck.dtype)
-    cv[:, start:start + S] = v.to(cv.dtype)
-    qpos = torch.arange(S, device=x.device)[:, None] + index
-    kpos = torch.arange(Skv, device=x.device)[None, :]
-    mask = kpos <= qpos
-    if acfg.window is not None and not is_global:
-        mask = mask & (kpos > qpos - acfg.window)
+    # still uses the unclamped index (a reference quirk, kept)
+    C.cache_write(ck, cv, k, v, index, split)
     ck, cv = _kv_for_heads(ck, cv, acfg, plan)
-    out = C.masked_attention(q, ck, cv, mask, 1.0 / math.sqrt(Dh))
+    window = acfg.window if not is_global else None
+    out = C.cache_attend(q, ck, cv, index, 1.0 / math.sqrt(Dh), window, split)
     return _attn_out(p, out.reshape(B, S, H * Dh), dt, plan)
 
 
@@ -588,8 +598,10 @@ def decode_step(
     x = _embed(params, cfg, batch, dt, plan)
     B, S, _ = x.shape
     index = cache["index"]
-    if S > cache["k"].shape[2]:
-        raise ValueError(f"{S} tokens do not fit a cache of length {cache['k'].shape[2]}")
+    split = plan.kv_split if plan is not None else None
+    cache_len = cache["k"].shape[2] * (split.size if split is not None else 1)
+    if S > cache_len:
+        raise ValueError(f"{S} tokens do not fit a cache of length {cache_len}")
     positions = (index + torch.arange(S, device=x.device))[None].expand(B, S)
     positions3 = batch.get("positions3")
     acfg = _attn_cfg(cfg)

@@ -257,7 +257,8 @@ def _decoder(
         lp = _weights(C.layer_slice(params["dec_layers"], i), plan, "dec_layers.")
         h = C.layernorm(lp["ln1"], x)
         x = x + _attend(lp["self_attn"], self_cfg, h, at_index, dt, plan,
-                        kv_cache=(caches["k"][i], caches["v"][i]), cache_index=index)
+                        kv_cache=(caches["k"][i], caches["v"][i]), cache_index=index,
+                        kv_split=plan.kv_split if plan is not None else None)
         h = C.layernorm(lp["ln_x"], x)
         x = x + _attend(lp["cross_attn"], cross_cfg, h, None, dt, plan, xattn_kv=enc_out)
         h = C.layernorm(lp["ln2"], x)
@@ -308,9 +309,11 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any],
                 plan: Optional[T.ShardPlan] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """S new tokens (batch["tokens"] (B, S)) at the cache index, attending
     over the self-attention cache and ``cache["enc_out"]``."""
-    if batch["tokens"].shape[1] > cache["k"].shape[2]:
+    split = plan.kv_split if plan is not None else None
+    cache_len = cache["k"].shape[2] * (split.size if split is not None else 1)
+    if batch["tokens"].shape[1] > cache_len:
         raise ValueError(f"{batch['tokens'].shape[1]} tokens do not fit a cache of length "
-                         f"{cache['k'].shape[2]}")
+                         f"{cache_len}")
     logits, new = _decoder(params, cfg, batch["tokens"], cache["enc_out"],
                            offset=cache["index"], caches=cache, plan=plan)
     return logits, {**new, "enc_out": cache["enc_out"]}

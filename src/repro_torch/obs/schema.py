@@ -25,6 +25,9 @@ KNOWN_SPANS: Dict[str, Tuple[str, ...]] = {
         "serve.prefill",         # one prefill_fn call (serve_step)
         "serve.decode_step",     # one decode_fn call (serve_step)
     ),
+    "launch": (
+        "roofline.parse",        # one traced step's count (launch/roofline.py)
+    ),
 }
 
 

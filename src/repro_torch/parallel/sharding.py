@@ -349,20 +349,23 @@ class Layout:
         return self._map(tree, self.whole)
 
 
-def param_layout(zoo, mesh) -> Layout:
+def param_layout(zoo, mesh, overrides: Optional[Dict[str, PhysAxes]] = None) -> Layout:
     """The layout of ``zoo``'s params on ``mesh`` under the default rules
-    (as the reference's ``make_train_step`` / ``make_serve_step`` derive
-    their param shardings)."""
+    and ``overrides`` (as the reference's ``make_train_step`` /
+    ``make_serve_step`` derive their param shardings from
+    ``rules_overrides``)."""
     shapes = zoo.param_shapes()
-    specs = flatten(logical_spec_tree(zoo.param_specs(), make_rules(mesh.mesh_dim_names)))
+    rules = make_rules(mesh.mesh_dim_names, overrides)
+    specs = flatten(logical_spec_tree(zoo.param_specs(), rules))
     return Layout(mesh, sanitize_specs(specs, shapes, mesh), shapes)
 
 
-def cache_layout(zoo, mesh, cache_example: Optional[Mapping[str, Any]] = None) -> Layout:
-    """The layout of ``zoo``'s decode cache on ``mesh``; sanitized against
-    ``cache_example`` (whole shapes) when one is given, as the reference's
-    ``make_serve_step``."""
-    rules = make_rules(mesh.mesh_dim_names)
+def cache_layout(zoo, mesh, cache_example: Optional[Mapping[str, Any]] = None,
+                 overrides: Optional[Dict[str, PhysAxes]] = None) -> Layout:
+    """The layout of ``zoo``'s decode cache on ``mesh`` under the default
+    rules and ``overrides``; sanitized against ``cache_example`` (whole
+    shapes) when one is given, as the reference's ``make_serve_step``."""
+    rules = make_rules(mesh.mesh_dim_names, overrides)
     specs = flatten(logical_spec_tree(zoo.cache_specs(), rules))
     example = flatten(cache_example) if cache_example is not None else {}
     shapes = {k: _shape(example[k]) if cache_example is not None else None for k in specs}

@@ -53,11 +53,21 @@ class ServeArtifacts:
     param_layout: Optional[Layout] = None
     cache_layout: Optional[Layout] = None
     encode_fn: Optional[Callable] = None
+    plan: Any = None                        # with a mesh: the rank's ShardPlan
+    shard_batch: Optional[Callable] = None  # with a mesh: batch -> the rank's rows
 
 
 def make_serve_step(zoo: ModelZoo, device: _device.DeviceLike = None, mesh=None,
                     batch_example: Optional[Dict[str, Any]] = None,
-                    cache_example: Optional[Dict[str, Any]] = None) -> ServeArtifacts:
+                    cache_example: Optional[Dict[str, Any]] = None,
+                    rules_overrides: Optional[Dict[str, Any]] = None) -> ServeArtifacts:
+    """With a mesh, params and cache are each rank's blocks of
+    ``param_layout`` / ``cache_layout`` under the default rules and
+    ``rules_overrides`` (the reference's).  ``kv_seq`` over some axes cuts
+    the cache by position: each rank attends over the positions it holds
+    and the ranks combine by logsumexp (``common.cache_attend``); ``batch``
+    -> None keeps the cache's rows whole.  ``seq`` is an activation hint in
+    the reference; the port runs no sequence parallelism."""
     dev = _device.resolve(device)
 
     def to_dev(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -81,9 +91,9 @@ def make_serve_step(zoo: ModelZoo, device: _device.DeviceLike = None, mesh=None,
 
         return ServeArtifacts(*_traced_pair(decode, prefill), encode_fn=encode_fn)
 
-    params_lay = param_layout(zoo, mesh)
-    cache_lay = cache_layout(zoo, mesh, cache_example)
-    plan = zoo.shard_plan(params_lay)
+    params_lay = param_layout(zoo, mesh, rules_overrides)
+    cache_lay = cache_layout(zoo, mesh, cache_example, rules_overrides)
+    plan = dataclasses.replace(zoo.shard_plan(params_lay), kv_seq=_kv_seq_axes(cache_lay))
     sizes, coord = params_lay.sizes, params_lay.coord
     fixed = batch_specs_tree(mesh, batch_example) if batch_example is not None else None
 
@@ -121,7 +131,17 @@ def make_serve_step(zoo: ModelZoo, device: _device.DeviceLike = None, mesh=None,
             with torch.inference_mode():
                 return zoo.encode(params, mine["enc_embeds"], plan)
 
-    return ServeArtifacts(*_traced_pair(decode, prefill), params_lay, cache_lay, encode_fn)
+    return ServeArtifacts(*_traced_pair(decode, prefill), params_lay, cache_lay, encode_fn, plan,
+                          lambda batch: local(batch)[0])
+
+
+def _kv_seq_axes(lay: Layout) -> tuple:
+    """The axes of size > 1 that cut the attention cache's positions (dim 2
+    of its ``k`` leaf)."""
+    key = next((k for k in ("k", "attn_k") if k in lay.specs), None)
+    if key is None:
+        return ()
+    return tuple(a for a in entry_axes(lay.specs[key][2]) if lay.sizes[a] > 1)
 
 
 def _traced(fn: Callable, open_span: Callable) -> Callable:

@@ -39,9 +39,16 @@ stays whole; ``parallel.sharding.batch_specs_tree``).
   layers' sum of each layer's aux averaged over the batch axes.
   Microbatches are slices of the global batch, as in the one-process step,
   each cut over the ranks.
-* ``manual_hier``: params and AdamW state replicated on every rank;
-  ranks along "model" compute the same thing; the gradients go through
-  ``schedule`` and are divided by the DP size:
+* ``manual_hier``: params and AdamW state replicated over the DP axes and
+  split over "model" as the rules say with ``fsdp`` and ``expert`` set to
+  None (``param_layout(zoo, mesh, {"fsdp": None, "expert": None} |
+  rules_overrides)``, the reference's partial-manual ``shard_map``, manual
+  over the DP axes and automatic over "model"): attention heads, the MLP
+  and the vocab run tensor-parallel (``zoo.shard_plan``), the rest whole on
+  every "model" rank.  Each rank's loss is the mean over its own rows, as
+  in the reference's manual region; the gradients (each rank's block, 1/|model|
+  of a leaf split over "model") go through ``schedule`` and are divided by
+  the DP size:
 
   * ``flat`` (or a mesh without "data"): one all-reduce over the DP axes;
   * ``hierarchical``: Eq. (8) leaf by leaf, RS(data) -> AR(pod) -> AG(data);
@@ -50,10 +57,25 @@ stays whole; ``parallel.sharding.batch_specs_tree``).
     It needs a "pod" axis of size > 1: the reference, without one, passes
     the data axis as both intra and inter axes and returns a wrong sum.
 
-  Loss, ``nll`` and ``aux`` are averaged over the DP axes, then AdamW runs.
+  Loss, ``nll`` and ``aux`` are averaged over the DP axes; ``grad_norm`` is
+  the whole gradient's (``sharded_global_norm``, a leaf whole over "model"
+  counted once); then AdamW runs on the blocks.
   The MoE family is refused (``check_dp_mode``), as the reference cannot
   run it: its expert-parallel ``shard_map`` cannot nest in the manual
   region.
+
+Both modes take the params and moments as each rank's blocks of
+``step_layout(zoo, mesh, dp_mode, rules_overrides)`` (``layout.shard`` of
+the whole leaves; on a world of one the blocks are the whole leaves).
+``rules_overrides`` are the reference's: logical axis -> mesh axes, over
+the default rules (``parallel.sharding.DEFAULT_RULES``).  An override that
+moves a leaf (``heads``, ``kv_heads``, ``mlp``, ``vocab``, ``fsdp``,
+``expert`` to None or another axis) changes the layout, and the plan
+follows it: heads that stay whole run attention whole on every "model"
+rank.  ``seq`` and ``kv_seq`` name no parameter; ``seq -> "model"`` is an
+activation hint in the reference (``shard_hint``), and the port runs no
+sequence parallelism: activations follow the plan, and the numbers are
+the same.
 
 Params are updated in place, the counterpart of the reference's donated
 buffers.
@@ -61,6 +83,7 @@ buffers.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -109,9 +132,10 @@ def _split(batch: Dict[str, torch.Tensor], n: int) -> list:
 class _GspmdFsdp:
     """The ``gspmd_fsdp`` step's layout and its collectives on ``mesh``."""
 
-    def __init__(self, zoo: ModelZoo, mesh: DeviceMesh):
+    def __init__(self, zoo: ModelZoo, mesh: DeviceMesh,
+                 overrides: Optional[Dict[str, Any]] = None):
         self.mesh = mesh
-        self.layout: Layout = param_layout(zoo, mesh)
+        self.layout: Layout = step_layout(zoo, mesh, "gspmd_fsdp", overrides)
         self.plan = zoo.shard_plan(self.layout)
         sizes = self.layout.sizes
         self.intra = "data" if sizes.get("data", 1) > 1 else None
@@ -148,11 +172,18 @@ class _GspmdFsdp:
 
 
 class _ManualHier:
-    """The DP half of the ``manual_hier`` step on ``mesh``."""
+    """The ``manual_hier`` step on ``mesh``: the layout over "model", and
+    the DP half (this rank's rows, the gradient schedule, the metrics'
+    mean)."""
 
-    def __init__(self, mesh: DeviceMesh, schedule: str):
+    def __init__(self, zoo: ModelZoo, mesh: DeviceMesh, schedule: str,
+                 overrides: Optional[Dict[str, Any]] = None):
         names = mesh.mesh_dim_names
         self.mesh = mesh
+        self.layout: Layout = step_layout(zoo, mesh, "manual_hier", overrides)
+        # each rank's loss is its own rows' mean, as in the reference's
+        # manual region: no sum over the batch axes inside the loss
+        self.plan = dataclasses.replace(zoo.shard_plan(self.layout), dp=())
         self.dp_axes = tuple(a for a in ("pod", "data") if a in names)
         self.dp_size = axis_size(mesh, self.dp_axes)
         coord = dict(zip(names, mesh.get_coordinate()))
@@ -218,6 +249,19 @@ def check_dp_mode(cfg, dp_mode: str) -> None:
             "expert-parallel shard_map cannot nest in its manual region); use 'gspmd_fsdp'")
 
 
+def step_layout(zoo: ModelZoo, mesh, dp_mode: Optional[str] = None,
+                rules_overrides: Optional[Dict[str, Any]] = None) -> Layout:
+    """The layout of the params and moments that ``make_train_step(mesh=,
+    dp_mode=, rules_overrides=)`` takes: the rules with ``rules_overrides``,
+    and under ``manual_hier`` with ``fsdp`` and ``expert`` None unless the
+    overrides name them (the reference's ``setdefault``)."""
+    overrides = dict(rules_overrides or {})
+    if (dp_mode or "gspmd_fsdp") == "manual_hier":
+        overrides.setdefault("fsdp", None)
+        overrides.setdefault("expert", None)
+    return param_layout(zoo, mesh, overrides)
+
+
 def make_train_step(
     zoo: ModelZoo,
     opt_cfg: opt_lib.AdamWConfig,
@@ -227,9 +271,12 @@ def make_train_step(
     mesh: Optional[DeviceMesh] = None,
     dp_mode: Optional[str] = None,
     schedule: str = "hierarchical",
+    rules_overrides: Optional[Dict[str, Any]] = None,
 ) -> StepFn:
     """``dp_mode`` (with a mesh): ``gspmd_fsdp`` (the default) or
-    ``manual_hier``; ``schedule`` is ``manual_hier``'s."""
+    ``manual_hier``; ``schedule`` is ``manual_hier``'s; ``rules_overrides``
+    the reference's logical-rule overrides.  With a mesh the returned step
+    has ``step_fn.layout``, its params' ``step_layout``."""
     dev = _device.resolve(device)
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
@@ -237,10 +284,10 @@ def make_train_step(
     if mesh is not None:
         dp_mode = dp_mode or "gspmd_fsdp"
         if dp_mode == "gspmd_fsdp":
-            fsdp = _GspmdFsdp(zoo, mesh)
+            fsdp = _GspmdFsdp(zoo, mesh, rules_overrides)
         elif dp_mode == "manual_hier":
             check_dp_mode(zoo.cfg, dp_mode)
-            dp = _ManualHier(mesh, schedule)
+            dp = _ManualHier(zoo, mesh, schedule, rules_overrides)
         else:
             raise ValueError(f"unknown dp_mode {dp_mode!r}")
 
@@ -259,11 +306,9 @@ def make_train_step(
         acc = None if microbatches == 1 else {
             n: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for n, p in named.items()}
         losses = []
+        plan = fsdp.plan if fsdp is not None else dp.plan if dp is not None else None
         for mb in slices:
-            if fsdp is not None:
-                loss, metrics = zoo.loss(params, mb, fsdp.plan)
-            else:
-                loss, metrics = zoo.loss(params, mb)
+            loss, metrics = zoo.loss(params, mb, plan)
             loss.backward()
             losses.append(loss.detach())
             if acc is not None:
@@ -279,6 +324,7 @@ def make_train_step(
         gnorm = None
         if dp is not None:
             grads = dp.reduce_grads(grads)
+            gnorm = opt_lib.sharded_global_norm(grads, dp.layout)
         if fsdp is not None:
             grads = fsdp.reduce_grads(grads)
             gnorm = opt_lib.sharded_global_norm(grads, fsdp.layout)
@@ -292,4 +338,6 @@ def make_train_step(
         out.update(opt_metrics)
         return params, opt_state, out
 
+    if mesh is not None:
+        step_fn.layout = (fsdp or dp).layout
     return step_fn

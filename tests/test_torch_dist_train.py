@@ -34,7 +34,7 @@ from repro_torch.launch.mesh import railx_mesh_from_plan  # noqa: E402
 from repro_torch.models.common import ParamTree  # noqa: E402
 from repro_torch.models.model_zoo import get_model  # noqa: E402
 from repro_torch.train import optimizer as opt_lib  # noqa: E402
-from repro_torch.train.train_step import make_train_step  # noqa: E402
+from repro_torch.train.train_step import make_train_step, step_layout  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
@@ -141,11 +141,35 @@ def test_manual_hier_matches_jax(runs, schedule):
 
 @pytest.mark.parametrize("schedule", SCHEDULES)
 def test_ranks_stay_replicated(runs, schedule):
+    """Ranks along the DP axes ("pod", "data") hold the same numbers; each
+    "model" rank holds its block of the gathered params (TP on "model",
+    the reference's automatic axis), the same on every rank."""
     ranks = runs["train"]
-    for r in range(1, RANKS):
-        for k, v in ranks[0].items():
+    lay = step_layout(get_model(get_smoke_config(ARCH)), _Mesh((2, 2, 2)), "manual_hier")
+    split = 0
+    for r in range(RANKS):
+        model = r % 2  # (2, 2, 2): "model" is the minor axis
+        for k, v in ranks[model].items():  # the rank of the same model coordinate
             if k.startswith(schedule + "."):
                 np.testing.assert_array_equal(ranks[r][k], v, err_msg=f"{k} rank {r}")
+        for k, spec in lay.specs.items():
+            whole = ranks[r][f"{schedule}.param.{k}"]
+            np.testing.assert_array_equal(whole, ranks[0][f"{schedule}.param.{k}"])
+            idx = tuple(slice(model * n // 2, (model + 1) * n // 2) if e == "model"
+                        else slice(None) for e, n in zip(spec, whole.shape))
+            np.testing.assert_array_equal(ranks[r][f"{schedule}.local.{k}"], whole[idx],
+                                          err_msg=f"{k} rank {r}")
+            split += r == 0 and "model" in spec
+    assert split > 0
+
+
+class _Mesh:
+    """A (pod, data, model) mesh's names and sizes: all a layout's specs
+    need."""
+
+    def __init__(self, shape):
+        self.mesh_dim_names = ("pod", "data", "model")
+        self.shape = shape
 
 
 @pytest.mark.parametrize("schedule", ["flat", "hierarchical"])
@@ -196,15 +220,20 @@ def test_world_of_one_gspmd_fsdp_is_the_one_process_step(runs):
 @pytest.mark.parametrize("tag,error,words", [
     ("pod1", "ValueError", ("'pod'", "wrong sum")),
     ("nopod", "ValueError", ("'pod'", "wrong sum")),
-    ("ep_axis", "NotImplementedError", ("'data' axis", "EP axis 'model'")),
+    ("ep_axis", None, ()),
     ("sched", "ValueError", ("ring",)),
     ("mode", "ValueError", ("auto",)),
 ])
 def test_make_train_step_refuses(runs, tag, error, words):
-    """compressed without a pod axis of size > 1 (the reference's wrong sum),
-    an MoE config whose experts split over another axis than "data"
-    (ROADMAP Queue 1 item 12), and unknown names."""
+    """compressed without a pod axis of size > 1 (the reference's wrong sum)
+    and unknown names.  An MoE config whose experts split over "model"
+    builds, as the reference's takes any EP axis
+    (``test_torch_tp_manual_hier.py`` holds its steps against the
+    reference's)."""
     msg = str(runs["one"][f"refuse.{tag}"])
+    if error is None:
+        assert msg == "", msg
+        return
     assert msg.startswith(error + ":"), msg
     for w in words:
         assert w in msg, msg

@@ -325,12 +325,15 @@ def test_one_card_serving_answers_as_jax_decode():
 @pytest.mark.parametrize("shape,axes,d_ff,error,match", [
     ((3, 2), ("data", "model"), 96, ValueError, "E % ep"),           # 4 experts over 3
     ((2, 4), ("data", "model"), 98, ValueError, "d_ff 98"),          # F = 98 over 4
-    ((2, 2), ("pod", "model"), 96, NotImplementedError, "'data'"),   # no EP axis
+    ((2, 2), ("pod", "model"), 96, None, None),                      # no EP axis: dense
 ])
 def test_shard_plan_refuses_what_moe_ffn_ep_cannot_run(shape, axes, d_ff, error, match):
-    """The reference's moe_ffn_ep asserts E % |data| == 0 and takes F split
-    over "model": a plan whose layout cannot give that raises, and no dense
-    path stands in for EP under a mesh."""
+    """The reference's moe_ffn_ep asserts E % |ep| == 0 and takes F split
+    over "model": a plan whose layout cannot give that raises.  A mesh
+    without the EP axis runs the layer dense over the global batch, as the
+    reference's moe_ffn does under GSPMD, with F split over "model" where
+    the layout splits it (``test_torch_tp_manual_hier.py`` holds its steps
+    against the reference's)."""
     import types
 
     from repro_torch.parallel.sharding import param_layout
@@ -338,6 +341,10 @@ def test_shard_plan_refuses_what_moe_ffn_ep_cannot_run(shape, axes, d_ff, error,
     cfg = get_smoke_config("moonshot-v1-16b-a3b")
     zoo = get_model(dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, d_ff=d_ff)))
     mesh = types.SimpleNamespace(shape=shape, mesh_dim_names=axes)
+    if error is None:
+        ep = zoo.shard_plan(param_layout(zoo, mesh)).ep
+        assert ep.axis is None and ep.batch_axes == ("pod",) and ep.tp is not None
+        return
     with pytest.raises(error, match=match):
         zoo.shard_plan(param_layout(zoo, mesh))
 

@@ -190,7 +190,7 @@ def test_every_port_span_is_cataloged_and_none_is_dead():
     reference's names."""
     literals, prefixes = _span_usage()
     catalog = port.known_span_names()
-    assert literals == {"serve.prefill", "serve.decode_step"}
+    assert literals == {"serve.prefill", "serve.decode_step", "roofline.parse"}
     assert not prefixes
     assert literals <= catalog and catalog <= literals
     assert catalog <= ref.known_span_names()

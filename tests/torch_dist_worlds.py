@@ -172,7 +172,8 @@ def _run(step_fn, params, batches, steps, opt_lib, ocfg):
 
 def train(rank, world, workdir):
     """Three manual_hier steps of the smoke model on (2, 2, 2) for each
-    schedule, from the weights in params.npz."""
+    schedule, from the weights in params.npz: losses, grad norms, each
+    rank's blocks and the gathered params."""
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train.train_step import make_train_step
 
@@ -185,11 +186,13 @@ def train(rank, world, workdir):
     for sched in ("flat", "hierarchical", "compressed"):
         step_fn = make_train_step(_zoo(), ocfg, device="cpu", mesh=mesh, dp_mode="manual_hier",
                                   schedule=sched)
-        params, losses, gnorms = _run(step_fn, _params(workdir), batches, TRAIN_STEPS, opt_lib,
-                                      ocfg)
+        params, losses, gnorms = _run(step_fn, step_fn.layout.shard(_params(workdir)), batches,
+                                      TRAIN_STEPS, opt_lib, ocfg)
         out[f"{sched}.loss"] = losses
         out[f"{sched}.grad_norm"] = gnorms
-        out.update({f"{sched}.param.{k}": v for k, v in params.state_dict().items()})
+        out.update({f"{sched}.local.{k}": v for k, v in params.state_dict().items()})
+        out.update({f"{sched}.param.{k}": v
+                    for k, v in step_fn.layout.gather(params).state_dict().items()})
     _save(workdir, "train", rank, out)
 
 
@@ -305,9 +308,8 @@ def fsdp(rank, world, workdir):
         for tag, kw, micro in runs:
             params = ParamTree.from_state_dict({k: v.clone() for k, v in whole.items()},
                                                requires_grad=True)
-            if tag != "manual":
-                params = lay.shard(params)
             step_fn = make_train_step(zoo, ocfg, micro, device="cpu", mesh=mesh, **kw)
+            params = step_fn.layout.shard(params)
             opt = opt_lib.init(ocfg, params)
             losses, gnorms = [], []
             for b in batches:
@@ -625,6 +627,183 @@ def moe_ep(rank, world, workdir):
         logits, cache = arts.decode_fn(params, cache, {"tokens": prompt[:, i:i + 1]})
         out[f"serve.decode{i}"] = logits
     _save(workdir, "moe_ep", rank, out)
+
+
+# tensor parallelism inside manual_hier: every non-MoE family on both meshes
+TP_ARCHS = ("llama3.2-3b", "gemma3-4b", "qwen2-vl-2b", "whisper-large-v3", "zamba2-7b",
+            "xlstm-125m")
+TP_MESHES = ((2, 2, 2), (1, 2, 4))
+TP_STEPS = 2
+# gspmd_fsdp steps under the dry run's attention_overrides: (smoke arch, mesh)
+OV_CASES = {"kv_whole": ("llama3.2-3b", (1, 2, 4)), "heads_whole": ("llama3.2-3b", (1, 1, 8))}
+# the MoE layers on other axes: (mesh shape, axes, fields of the smoke config)
+MOE_AXES_CASES = {
+    "ep_model": ((2, 2, 2), ("pod", "data", "model"), {"moe_ep_axis": "model"}),
+    "pod_model": ((2, 4), ("pod", "model"), {}),
+    "model": ((8,), ("model",), {}),
+}
+# decode over a cache cut by position: (smoke arch, |data|); a leading "rep"
+# axis fills the world of 8
+KV_CASES = {"llama_d2": ("llama3.2-3b", 2), "llama_d4": ("llama3.2-3b", 4),
+            "zamba2_d2": ("zamba2-7b", 2), "zamba2_d4": ("zamba2-7b", 4)}
+KV_OVERRIDES = {"batch": None, "kv_seq": "data"}
+KV_CACHE = 16
+
+
+def tp_batch(inp, arch, i):
+    """Step ``i``'s batch of ``arch`` from inputs.npz (keys ``tp/arch/i/name``)."""
+    pre = f"tp/{arch}/{i}/"
+    return {k[len(pre):]: inp[k] for k in inp.files if k.startswith(pre)}
+
+
+def _steps(step_fn, params, opt_lib, ocfg, batches):
+    opt = opt_lib.init(ocfg, params)
+    losses, gnorms, aux = [], [], []
+    for b in batches:
+        params, opt, m = step_fn(params, opt, b)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        aux.append(float(m["aux"]))
+    return params, opt, {"loss": losses, "grad_norm": gnorms, "aux": aux}
+
+
+def tp(rank, world, workdir):
+    """``manual_hier`` (hierarchical) with TP on "model" for ``TP_ARCHS`` on
+    both ``TP_MESHES`` from the JAX inits in params.npz, ``TP_STEPS`` steps:
+    losses, grad norms, each rank's blocks and the gathered params; a
+    checkpoint round trip of the llama run; ``gspmd_fsdp`` under
+    ``OV_CASES``' attention_overrides (layout specs too); the MoE layers on
+    ``MOE_AXES_CASES``; decode over a cache cut by position on
+    ``KV_CASES``."""
+    import dataclasses
+
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.common import ParamTree
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.parallel.sharding import attention_overrides, flatten
+    from repro_torch.serve.serve_step import make_serve_step
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import make_train_step
+
+    inp = np.load(os.path.join(workdir, "inputs.npz"))
+    ocfg = opt_lib.AdamWConfig(**OCFG)
+    out = {}
+
+    def tree(arch):
+        return ParamTree.from_state_dict({k: v.clone() for k, v in
+                                          _whole_params(workdir, arch).items()},
+                                         requires_grad=True)
+
+    for arch in TP_ARCHS:
+        zoo = get_model(get_smoke_config(arch))
+        batches = [tp_batch(inp, arch, i) for i in range(TP_STEPS)]
+        for shape in TP_MESHES:
+            tag = f"tp.{arch}.{''.join(map(str, shape))}"
+            mesh = make_mesh(shape, ("pod", "data", "model"), "cpu")
+            step_fn = make_train_step(zoo, ocfg, device="cpu", mesh=mesh, dp_mode="manual_hier")
+            lay = step_fn.layout
+            params, opt, hist = _steps(step_fn, lay.shard(tree(arch)), opt_lib, ocfg, batches)
+            out.update({f"{tag}.{k}": v for k, v in hist.items()})
+            for k, v in params.state_dict().items():
+                out[f"{tag}.local.{k}"] = v.detach().clone()
+            gathered = lay.gather(params).state_dict()
+            out.update({f"{tag}.param.{k}": v for k, v in gathered.items()})
+            if arch == "llama3.2-3b" and shape == TP_MESHES[0]:
+                path = os.path.join(workdir, "tp_ckpt")
+                ckpt_lib.save(path, TP_STEPS, {"params": params, "opt": opt}, layout=lay)
+                back, _ = ckpt_lib.restore(path, {"params": params, "opt": opt}, layout=lay)
+                out[f"{tag}.restored_equal"] = all(
+                    torch.equal(a, b) for a, b in zip(back["params"].state_dict().values(),
+                                                      params.state_dict().values()))
+                # the files hold whole leaves: restored with no layout into
+                # whole-shaped params, they are the gathered ones
+                files, _ = ckpt_lib.restore(path, {"params": lay.gather(params)})
+                out[f"{tag}.ckpt_whole_equal"] = all(
+                    torch.equal(files["params"].state_dict()[k], v)
+                    for k, v in gathered.items())
+
+    for name, (arch, shape) in OV_CASES.items():
+        cfg = get_smoke_config(arch)
+        zoo = get_model(cfg)
+        ov = attention_overrides(cfg, shape[-1], "train")
+        mesh = make_mesh(shape, ("pod", "data", "model"), "cpu")
+        step_fn = make_train_step(zoo, ocfg, device="cpu", mesh=mesh, rules_overrides=ov)
+        lay = step_fn.layout
+        batches = [tp_batch(inp, arch, i) for i in range(TP_STEPS)]
+        params, _, hist = _steps(step_fn, lay.shard(tree(arch)), opt_lib, ocfg, batches)
+        out.update({f"ov.{name}.{k}": v for k, v in hist.items()})
+        out.update({f"ov.{name}.spec.{k}": repr(v) for k, v in lay.specs.items()})
+        out.update({f"ov.{name}.param.{k}": v for k, v in lay.gather(params).state_dict().items()})
+
+    arch = MOE_ARCH
+    for name, (shape, axes, fields) in MOE_AXES_CASES.items():
+        zoo = get_model(dataclasses.replace(get_smoke_config(arch), **fields))
+        mesh = make_mesh(shape, axes, "cpu")
+        step_fn = make_train_step(zoo, ocfg, device="cpu", mesh=mesh)
+        lay = step_fn.layout
+        batches = [tp_batch(inp, arch, i) for i in range(TP_STEPS)]
+        from repro_torch.collectives import byte_ledger
+        with byte_ledger() as ledger:
+            params, _, hist = _steps(step_fn, lay.shard(tree(arch)), opt_lib, ocfg, batches)
+        out.update({f"moe.{name}.{k}": v for k, v in hist.items()})
+        out[f"moe.{name}.a2a_bytes"] = ledger.bytes("all_to_all")
+        out.update({f"moe.{name}.param.{k}": v
+                    for k, v in lay.gather(params).state_dict().items()})
+
+    for name, (arch, n) in KV_CASES.items():
+        zoo = get_model(get_smoke_config(arch))
+        mesh = make_mesh((world // n, n), ("rep", "data"), "cpu")
+        whole = zoo.init_cache(1, KV_CACHE, device="cpu")
+        arts = make_serve_step(zoo, "cpu", mesh=mesh,
+                               batch_example={"tokens": np.zeros((1, 1), np.int64)},
+                               cache_example=whole, rules_overrides=KV_OVERRIDES)
+        params = arts.param_layout.shard(ParamTree.from_state_dict(_whole_params(workdir, arch)))
+        cache = arts.cache_layout.shard(whole)
+        prompt = torch.from_numpy(inp[f"kv/{arch}/prompt"])
+        for i in range(prompt.shape[1]):
+            logits, cache = arts.decode_fn(params, cache, {"tokens": prompt[:, i:i + 1]})
+            out[f"kv.{name}.decode{i}"] = logits
+        for k, v in flatten(cache).items():
+            if torch.is_tensor(v):
+                out[f"kv.{name}.cache.{k}"] = v
+    _save(workdir, "tp", rank, out)
+
+
+def dry(rank, world, workdir):
+    """The dry run's smoke cell run for real: llama3.2-3b-smoke's
+    ``gspmd_fsdp`` step on (2, 2, 2) with CPU tensors, its FLOPs under
+    ``FlopCounterMode``, its collectives under the byte ledger and its
+    argument bytes from the blocks it holds."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.collectives import byte_ledger
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import make_train_step
+
+    inp = np.load(os.path.join(workdir, "inputs.npz"))
+    zoo = get_model(get_smoke_config("llama3.2-3b"))
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), "cpu")
+    ocfg = opt_lib.AdamWConfig()
+    step_fn = make_train_step(zoo, ocfg, device="cpu", mesh=mesh)
+    params = step_fn.layout.shard(zoo.init(0, device="cpu"))
+    params.requires_grad_(True)
+    opt = opt_lib.init(ocfg, params)
+    batch = {"tokens": torch.from_numpy(inp["dry.tokens"]),
+             "targets": torch.from_numpy(inp["dry.targets"])}
+    flops = FlopCounterMode(display=False)
+    with byte_ledger() as ledger, flops:
+        step_fn(params, opt, batch)
+    out = {"flops": flops.get_total_flops(),
+           "param_bytes": sum(p.numel() * p.element_size() for p in params.parameters()),
+           "moment_bytes": sum(t.numel() * t.element_size()
+                               for t in list(opt.mu.values()) + list(opt.nu.values())),
+           "ledger.op": [r.op for r in ledger.records],
+           "ledger.axes": [",".join(r.axes) for r in ledger.records],
+           "ledger.bytes": [r.nbytes for r in ledger.records]}
+    _save(workdir, "dry", rank, out)
 
 
 # the end-to-end twin at a small size (examples/torch/train_end_to_end.py run);

@@ -106,6 +106,23 @@
   and all-to-all bytes, and at 4 layers each against one card's steps with
   the same routing (2 microbatches for the EP case), rel 1e-2.
 
+* sp_cards (needs 4 cards; ``--chips 4``): llama3.2-3b uncut (28 layers) in
+  bf16 with remat and the flash kernels under sequence parallelism over
+  "model" on (1, 1, 4) (``rules_overrides={"heads": None, "kv_heads": None,
+  "seq": "model"}``): ``gspmd_fsdp``, then ``manual_hier``, then
+  ``gspmd_fsdp`` on the same mesh with the sequence whole (the heads whole
+  too), 4 x 1024 tokens and 4 steps each, each card 256 of the 1024
+  positions under sequence parallelism; then the two ``gspmd_fsdp`` runs
+  again with the plain attention (the reference's default, f32 scores): the
+  first loss against one card's bf16 forward (rel 1e-3), the losses across
+  the two modes, params + moments held and the peak a card beside the dry
+  run's figures for each cell (a fake world of 4, before the world; every
+  run's peak within 15 %), each run's peak before its first optimizer step
+  and its gradient's bytes, each pair's peaks with whether the cut's is
+  lower (required of the plain attention's pair; the flash pair's is
+  printed), step times, collective bytes by op and axes, the flash
+  launches a step.
+
 * pipe_cards (needs 4 cards; ``--chips 4``): ``parallel/pipeline.py`` on a
   (4,) "pipe" ring of NCCL ranks: the reference's test (4 stages x 6
   microbatches, x * 24 within 1e-4), then a llama3.2-3b layer a stage over
@@ -167,7 +184,7 @@ And one look at numbers rather than time:
 
     python3 chip_profile.py [serve] [train] [serve_hybrid] [train_dist] [dist_cards]
                             [serve_moe] [moe_cards] [elastic_cards] [family_cards]
-                            [pipe_cards] [tp_cards] [moe_axes_cards]
+                            [pipe_cards] [tp_cards] [moe_axes_cards] [sp_cards]
                             [serve_gemma3] [serve_vlm]
                             [serve_whisper] [train_gemma3] [train_e2e]
                             [xlstm_agreement] [flash_ab DIR]
@@ -1988,12 +2005,13 @@ def _qwen3_setup():
     return cfg, get_model(cfg), ocfg, data
 
 
-def _qwen3_one_card(out) -> None:
+def _one_card_loss(out, setup) -> None:
     """One card's bf16 forward loss of the weights (seed 0) and first batch
-    of the four-card run, without gradients."""
+    of a four-card run (``setup()`` -> cfg, zoo, ocfg, data), without
+    gradients."""
     import torch
 
-    cfg, zoo, ocfg, data = _qwen3_setup()
+    cfg, zoo, ocfg, data = setup()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     params = zoo.init(gen, device="cuda")
@@ -2004,9 +2022,11 @@ def _qwen3_one_card(out) -> None:
              sum(p.numel() for p in params.parameters())))
 
 
-def _tp_cards_dryrun(dp_mode: str) -> dict:
-    """The dry run of the four-card cell on a fake world of 4 (meta tensors,
-    this process): argument and peak bytes a rank, the roofline terms."""
+def _cards_dryrun(arch: str, cfg, mesh_shape: tuple, dp_mode: str, tag: str,
+                  overrides=None) -> dict:
+    """The dry run of a four-card cell (``cfg``, 4 x 1024 tokens on
+    ``mesh_shape``) on a fake world of 4 (meta tensors, this process):
+    argument and peak bytes a rank, the roofline terms."""
     import torch.distributed as dist
 
     from chip_smoke import TRAIN_B, TRAIN_S
@@ -2014,23 +2034,22 @@ def _tp_cards_dryrun(dp_mode: str) -> dict:
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh
 
-    cfg, *_ = _qwen3_setup()
     dryrun.fake_world(4)
     try:
-        mesh = make_mesh(TP_CARDS_SHAPE, ("pod", "data", "model"), "cpu")
+        mesh = make_mesh(mesh_shape, ("pod", "data", "model"), "cpu")
         shape = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN_S, global_batch=TRAIN_B)
-        res = dryrun.run_cell("qwen3-8b", "train_4k", dp_mode=dp_mode, mesh=mesh, cfg=cfg,
-                              shape=shape, tag=f"tp_cards_{dp_mode}")
+        res = dryrun.run_cell(arch, "train_4k", dp_mode=dp_mode, mesh=mesh, cfg=cfg,
+                              shape=shape, rules_overrides=overrides, tag=tag)
     finally:
         dist.destroy_process_group()
     return res["report"]
 
 
 def _tp_cards_run(rank: int, tag: str, zoo, ocfg, data, mesh, dp_mode: str,
-                  schedule: str, device: str) -> dict:
+                  schedule: str, device: str, rules_overrides=None) -> dict:
     """TP_CARDS_STEPS steps of ``dp_mode`` on ``mesh`` from seed 0 under the
-    byte ledger: the run, the params + moments held a card and the bytes by
-    op and axes."""
+    byte ledger (with ``rules_overrides``): the run, the params + moments
+    held a card and the bytes by op and axes."""
     import torch
 
     from chip_smoke import _train_init, _train_run
@@ -2038,7 +2057,7 @@ def _tp_cards_run(rank: int, tag: str, zoo, ocfg, data, mesh, dp_mode: str,
     from repro_torch.train.train_step import make_train_step
 
     step_fn = make_train_step(zoo, ocfg, device=device, mesh=mesh, dp_mode=dp_mode,
-                              schedule=schedule)
+                              schedule=schedule, rules_overrides=rules_overrides)
     torch.cuda.reset_peak_memory_stats()
     params, opt = _train_init(zoo, ocfg, step_fn.layout)
     torch.cuda.empty_cache()
@@ -2103,7 +2122,8 @@ def tp_cards_rank(rank: int, world: int, smi: str, want: float, dry: dict,
             raise RuntimeError(f"{tag}: first loss off by {gap:.3e}")
 
 
-def _tp_cards_rank(rank: int, world: int, port: int, smi: str, want: float, dry: dict) -> None:
+def _nccl_rank(rank: int, world: int, port: int, body, *args) -> None:
+    """``body(rank, world, *args)`` on card ``rank`` of a NCCL world."""
     import datetime
 
     import torch
@@ -2114,7 +2134,7 @@ def _tp_cards_rank(rank: int, world: int, port: int, smi: str, want: float, dry:
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                             world_size=world, timeout=datetime.timedelta(seconds=600))
     try:
-        tp_cards_rank(rank, world, smi, want, dry)
+        body(rank, world, *args)
     finally:
         dist.destroy_process_group()
 
@@ -2129,20 +2149,180 @@ def tp_cards(smi: str) -> None:
     if world != 4:
         sys.exit(f"tp_cards needs 4 cards, found {world}")
     t0 = time.perf_counter()
-    dry = {mode: _tp_cards_dryrun(mode) for mode in ("manual_hier", "gspmd_fsdp")}
+    cfg, *_ = _qwen3_setup()
+    dry = {mode: _cards_dryrun("qwen3-8b", cfg, TP_CARDS_SHAPE, mode, f"tp_cards_{mode}")
+           for mode in ("manual_hier", "gspmd_fsdp")}
     print(f"tp_cards: dry runs of the cell on a fake world of 4 in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     ctx = mp.get_context("spawn")
     q = ctx.SimpleQueue()
-    proc = ctx.Process(target=_qwen3_one_card, args=(q,))
+    proc = ctx.Process(target=_one_card_loss, args=(q, _qwen3_setup))
     proc.start()
     want, peak, n = q.get()
     proc.join()
     print(f"tp_cards: qwen3-8b bf16 forward on one card ({n} params): loss {want:.6f}, "
           f"max_memory_allocated {peak / 2**30:.2f} GiB [{smi}]", flush=True)
     print(f"tp_cards: {world} ranks, one a card, NCCL [{smi}]", flush=True)
-    mp.start_processes(_tp_cards_rank, args=(world, free_port(), smi, want, dry), nprocs=world,
-                       join=True, start_method="spawn")
+    mp.start_processes(_nccl_rank, args=(world, free_port(), tp_cards_rank, smi, want, dry),
+                       nprocs=world, join=True, start_method="spawn")
+
+
+# sp_cards: llama3.2-3b uncut under sequence parallelism over "model" on
+# (1, 1, 4): each card takes 256 of the 1024 positions of the 4 rows
+SP_CARDS_SHAPE = (1, 1, 4)
+SP_CARDS_OVERRIDES = {"heads": None, "kv_heads": None, "seq": "model"}
+SP_CARDS_LOSS_REL = 1e-3
+# the dry run's reckoned peak against max_memory_allocated
+SP_CARDS_PEAK_REL = 0.15
+
+
+def _sp_setup(attn_impl: str = "flash"):
+    """llama3.2-3b at full width and depth in bf16 with remat and flash (the
+    train phase's setup) or the plain attention, with TP_CARDS_STEPS steps."""
+    from chip_smoke import _train_setup
+    from repro_torch.models.model_zoo import get_model
+
+    cfg, zoo, ocfg, data = _train_setup()
+    cfg = dataclasses.replace(cfg, attn_impl=attn_impl)
+    return cfg, get_model(cfg), dataclasses.replace(ocfg, total_steps=TP_CARDS_STEPS), data
+
+
+# (tag, dp_mode, overrides, attention): the positions cut, then the same
+# mesh with the sequence whole, with the flash kernels and with the plain
+# attention (the reference's default, whose f32 scores grow with S^2)
+SP_WHOLE = {"heads": None, "kv_heads": None}
+SP_CARDS_RUNS = (("sp gspmd_fsdp", "gspmd_fsdp", SP_CARDS_OVERRIDES, "flash"),
+                 ("sp manual_hier", "manual_hier", SP_CARDS_OVERRIDES, "flash"),
+                 ("whole gspmd_fsdp", "gspmd_fsdp", SP_WHOLE, "flash"),
+                 ("sp gspmd_fsdp ref", "gspmd_fsdp", SP_CARDS_OVERRIDES, "ref"),
+                 ("whole gspmd_fsdp ref", "gspmd_fsdp", SP_WHOLE, "ref"))
+
+
+def sp_cards_rank(rank: int, world: int, smi: str, want: float, dry: dict,
+                  device: str = "cuda") -> None:
+    """``SP_CARDS_RUNS`` on (1, 1, 4): llama3.2-3b's gspmd_fsdp and
+    manual_hier (hierarchical) steps with the positions cut over "model",
+    then gspmd_fsdp on the same mesh with the sequence whole on every rank
+    (the heads whole as well: the path before sequence parallelism), with
+    the flash kernels and then with the plain attention: the first loss
+    against one card's forward ``want`` (rel SP_CARDS_LOSS_REL), the losses
+    across the modes, held and peak memory a card against the dry run's
+    ``dry`` figures, step times, bytes by op and axes, the flash launches a
+    step."""
+    import torch
+
+    from chip_smoke import _train_launches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import optimizer as opt_lib
+
+    # the peak before the first optimizer step (the forward and backward and
+    # the gradient's reduction) and the gradient's bytes then: where the
+    # step's peak is set
+    real_apply, before_opt = opt_lib.apply, []
+
+    def apply(cfg, state, params, grads, *args, **kw):
+        if not before_opt:
+            before_opt.append((torch.cuda.max_memory_allocated(),
+                               sum(g.numel() * g.element_size() for g in grads.values())))
+        return real_apply(cfg, state, params, grads, *args, **kw)
+
+    mesh = make_mesh(SP_CARDS_SHAPE, ("pod", "data", "model"), device)
+    runs = {}
+    for tag, dp_mode, overrides, attn in SP_CARDS_RUNS:
+        cfg, zoo, ocfg, data = _sp_setup(attn)
+        before_opt.clear()
+        opt_lib.apply = apply
+        try:
+            run = _tp_cards_run(rank, f"sp_cards {tag}", zoo, ocfg, data, mesh, dp_mode,
+                                "hierarchical", device, overrides)
+        finally:
+            opt_lib.apply = real_apply
+        run["before_opt"], run["grad_bytes"] = before_opt[0]
+        want_launches = _train_launches(cfg.num_layers if attn == "flash" else 0,
+                                        TP_CARDS_STEPS)
+        if run["launches"] != want_launches:
+            raise RuntimeError(f"sp_cards {tag} rank {rank}: launches {run['launches']}, want "
+                               f"{want_launches}")
+        runs[tag] = run
+        if rank != 0:
+            continue
+        gap = abs(run["loss"][0] - want) / abs(want)
+        d = dry[tag]
+        m = d["memory_stats"]
+        peak_gap = abs(m["peak_bytes"] - run["peak"]) / run["peak"]
+        tokens = 4 * 1024
+        print(f"sp_cards {tag} on {dict(zip(mesh.mesh_dim_names, mesh.shape))}, overrides "
+              f"{overrides}: {cfg.name} L={cfg.num_layers} bf16, remat, {attn} attention, "
+              f"{run['blocks'] / 1e9:.3f} B params a card; losses {run['loss']}, grad_norms "
+              f"{run['grad_norm']}; first loss against one card's bf16 forward {want:.6f}: rel "
+              f"{gap:.3e} (tol {SP_CARDS_LOSS_REL:g}); per-step ms "
+              f"{[round(t, 2) for t in run['step_ms']]}, steady {run['mean_ms']:.2f} ms, "
+              f"{tokens / run['mean_ms'] * 1e3:.1f} tokens/s; params + moments held "
+              f"{run['held'] / 2**30:.3f} GiB a card (dry run's arguments "
+              f"{(m['param_bytes'] + m['moment_bytes']) / 2**30:.3f}); max_memory_allocated "
+              f"{run['peak'] / 2**30:.3f} GiB (dry run's peak {m['peak_bytes'] / 2**30:.3f}, "
+              f"off by {peak_gap:.1%}); before the first optimizer step "
+              f"{run['before_opt'] / 2**30:.3f} GiB with a gradient of "
+              f"{run['grad_bytes'] / 2**30:.3f} GiB; dry run's terms: compute "
+              f"{d['compute_s'] * 1e3:.1f} ms, "
+              f"memory {d['memory_s'] * 1e3:.1f} ms, collective {d['collective_s'] * 1e3:.1f} "
+              f"ms; collective results GB a rank a step {run['bytes']} (dry run's "
+              f"{({k: round(v / 1e9, 4) for k, v in d['collectives'].items()})}); flash launches "
+              f"a step: {({k: v // TP_CARDS_STEPS for k, v in run['launches'].items() if v})} "
+              f"[{smi}]", flush=True)
+        if not gap <= SP_CARDS_LOSS_REL:
+            raise RuntimeError(f"sp_cards {tag}: first loss off by {gap:.3e}")
+        if not peak_gap <= SP_CARDS_PEAK_REL:
+            raise RuntimeError(f"sp_cards {tag}: the dry run's peak is off by {peak_gap:.1%}")
+    if rank == 0:
+        sp, other, whole, sp_ref, whole_ref = (runs[t] for t, *_ in SP_CARDS_RUNS)
+        modes = max(abs(a - b) / abs(b) for a, b in zip(sp["loss"], other["loss"]))
+        print(f"sp_cards: losses gspmd_fsdp against manual_hier, largest rel gap {modes:.3e}",
+              flush=True)
+        for what, a, b in (("flash", sp, whole), ("ref", sp_ref, whole_ref)):
+            verdict = "lower: met" if a["peak"] < b["peak"] else "NOT lower: not met"
+            print(f"sp_cards {what}: peak a card with the positions cut {a['peak'] / 2**30:.3f} "
+                  f"GiB, with the sequence whole {b['peak'] / 2**30:.3f} GiB "
+                  f"({a['peak'] / b['peak']:.4f}x; the cut's peak {verdict}); before the "
+                  f"first optimizer step {a['before_opt'] / 2**30:.3f} against "
+                  f"{b['before_opt'] / 2**30:.3f} GiB; steady step {a['mean_ms']:.2f} against "
+                  f"{b['mean_ms']:.2f} ms [{smi}]", flush=True)
+        if not modes <= SP_CARDS_LOSS_REL:
+            raise RuntimeError(f"sp_cards: the two modes' losses differ by {modes:.3e}")
+        if not sp_ref["peak"] < whole_ref["peak"]:
+            raise RuntimeError("sp_cards: cutting the positions did not lower the peak of the "
+                               "plain attention's step")
+    torch.cuda.synchronize()
+
+
+def sp_cards(smi: str) -> None:
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch.mesh import free_port
+
+    world = torch.cuda.device_count()
+    if world != 4:
+        sys.exit(f"sp_cards needs 4 cards, found {world}")
+    t0 = time.perf_counter()
+    dry = {tag: _cards_dryrun("llama3.2-3b", _sp_setup(attn)[0], SP_CARDS_SHAPE, mode,
+                              f"sp_cards_{mode}_{attn}", ov)
+           for tag, mode, ov, attn in SP_CARDS_RUNS}
+    print(f"sp_cards: dry runs of the cells on a fake world of 4 in "
+          f"{time.perf_counter() - t0:.1f} s: peaks "
+          f"{({t: round(d['memory_stats']['peak_bytes'] / 2**30, 3) for t, d in dry.items()})} "
+          "GiB a rank", flush=True)
+    ctx = mp.get_context("spawn")
+    q = ctx.SimpleQueue()
+    proc = ctx.Process(target=_one_card_loss, args=(q, _sp_setup))
+    proc.start()
+    want, peak, _ = q.get()
+    proc.join()
+    print(f"sp_cards: llama3.2-3b bf16 forward on one card: loss {want:.6f}, "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB [{smi}]", flush=True)
+    print(f"sp_cards: {world} ranks, one a card, NCCL [{smi}]", flush=True)
+    mp.start_processes(_nccl_rank, args=(world, free_port(), sp_cards_rank, smi, want, dry),
+                       nprocs=world, join=True, start_method="spawn")
 
 
 # moe_axes_cards: moonshot-v1-16b-a3b's experts split over "model" on
@@ -2381,7 +2561,7 @@ def main() -> None:
          "serve_whisper": lambda smi: profile_serve_family(smi, "whisper-large-v3"),
          "train_gemma3": profile_train_gemma3, "family_cards": family_cards,
          "pipe_cards": pipe_cards, "tp_cards": tp_cards,
-         "moe_axes_cards": moe_axes_cards}[name](smi)
+         "moe_axes_cards": moe_axes_cards, "sp_cards": sp_cards}[name](smi)
 
 
 if __name__ == "__main__":

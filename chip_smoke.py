@@ -386,6 +386,13 @@ FLASH_CASES = [
     # a rank's training shape of qwen3-8b under TP on (1, 2, 2)
     # (chip_profile.py tp_cards): 2 x 1024 tokens, 16 of 32 heads, 4 of 8 KV
     ("qwen3_rank_train", 2, 16, 4, 1024, 1024, 128, True, None, 0, "bfloat16", "model"),
+    # a rank's training shape of llama3.2-3b under sequence parallelism over
+    # four ranks (chip_profile.py sp_cards): its 256 of 1024 positions of 4
+    # rows attend over all 1024 keys, gathered over "model" ("gathered"
+    # layout), the first and the last rank; on the first the keys past its
+    # last query take no gradient
+    ("llama_sp_rank0", 4, 24, 8, 256, 1024, 128, True, None, 0, "bfloat16", "gathered"),
+    ("llama_sp_rank3", 4, 24, 8, 256, 1024, 128, True, None, 768, "bfloat16", "gathered"),
 ]
 # the cases of the gemma3, whisper and vlm serving paths and of the f32
 # forward (the model phase's f32 checks), timed beside their bounds in the
@@ -401,7 +408,7 @@ FAMILY_TIMED = ("gemma3_local", "gemma3_global", "d320_ragged_f32", "gemma3_glob
 # the 3xTF32 bound)
 BWD_TIMED = ("d320_ragged_f32", "gemma3_global_f32", "gemma3_train_local",
              "gemma3_train_global", "llama_train_f32", "railx100m_train_f32",
-             "qwen3_rank_train")
+             "qwen3_rank_train", "llama_sp_rank0", "llama_sp_rank3")
 
 
 def _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed, layout="kernel"):
@@ -411,13 +418,16 @@ def _flash_inputs(B, H, Hk, Sq, Skv, Dh, dtype, seed, layout="kernel"):
     g.manual_seed(seed)
     dt = getattr(torch, dtype)
 
-    def randn(b, h, s, d):
-        if layout == "model":
+    def randn(b, h, s, d, kv=False):
+        if layout == "gathered" and kv:  # all-gathered over position blocks: (S, B, Hk, Dh)
+            x = torch.randn((s, b, h, d), generator=g, device="cuda", dtype=torch.float32)
+            return x.to(dt).movedim(0, 1).transpose(1, 2)
+        if layout in ("model", "gathered"):
             x = torch.randn((b, s, h, d), generator=g, device="cuda", dtype=torch.float32)
             return x.to(dt).transpose(1, 2)
         return torch.randn((b, h, s, d), generator=g, device="cuda", dtype=torch.float32).to(dt)
 
-    return randn(B, H, Sq, Dh), randn(B, Hk, Skv, Dh), randn(B, Hk, Skv, Dh)
+    return randn(B, H, Sq, Dh), randn(B, Hk, Skv, Dh, True), randn(B, Hk, Skv, Dh, True)
 
 
 def _bound(flops: float, nbytes: float, dtype: str):
@@ -603,9 +613,10 @@ def _fwd_yardsticks(q, k, v, with_lse: bool, causal: bool = True, mask=None,
                 calls[label] = fn
     else:
         # sdpa's own causal mask is the top-left triangle: anything else
-        # (a window, a q offset) goes in as a bool mask
-        if mask is None or bool(mask.equal(torch.ones_like(mask).tril() if causal else
-                                           torch.ones_like(mask))):
+        # (a window, a q offset, Sq != Skv) goes in as a bool mask
+        if mask is None or (bool(mask.equal(torch.ones_like(mask).tril() if causal else
+                                            torch.ones_like(mask)))
+                            and (not causal or mask.shape[0] == mask.shape[1])):
             attn = dict(is_causal=causal)
         else:
             attn = dict(attn_mask=mask)
@@ -713,6 +724,14 @@ def _training_kernels() -> list:
         finite = all(bool(torch.isfinite(t).all()) for t in (o, lse, dq, dk, dv))
         line = ", ".join(f"{t} {e:.3e} (max|ref| {m:.3g}, tol {tol:.3g})"
                          for _, t, e, m, tol in checks)
+        end = q_off + Sq
+        if causal and end < Skv:
+            # keys past the last query take no gradient: exactly 0
+            past = {t: int(torch.count_nonzero(g[:, :, end:])) for t, g in (("dk", dk),
+                                                                            ("dv", dv))}
+            line += f"; nonzero dk/dv past the last query (keys {end}..{Skv - 1}): {past}"
+            if any(past.values()):
+                fail(f"flash_bwd_dkv {name}: dk/dv past the last query are not 0: {past}")
         print(f"kernel train {name}: B={B} H={H} Hk={Hk} Sq={Sq} Skv={Skv} Dh={Dh} "
               f"causal={causal} window={window} q_offset={q_off} {dtype} {layout} layout: "
               f"{line}; two backward calls {'bit-identical' if same else 'DIFFER'}", flush=True)
@@ -874,11 +893,15 @@ def _time_bwd_case(case) -> dict:
     """Time flash_fwd_lse, flash_bwd_dq and flash_bwd_dkv at one FLASH_CASES
     shape of the gemma3-4b training path (its own layout) beside their
     bounds, their plain versions and PyTorch's own calls (contiguous copies:
-    the fastest sdpa forward; the fastest aten backward, or "refused"; in
-    f32 also aten's forwards with lse, and only the calls that are
-    f32-accurate, ``_f32_accurate``), a line each; -> {kernel: (ms,
-    plain_ms, (bound_ms, bound_by), library_ms)}, the bound at the 3xTF32
-    rate for f32 (the f32 kernels' route)."""
+    the fastest accurate sdpa forward; the fastest accurate aten backward,
+    or "refused"; in f32 also aten's forwards with lse; the calls on the
+    keys some query sees, ``_aligned_yardsticks``; a call is accurate when
+    it is as close to the plain version as the kernels are held to be,
+    ``_accurate``), a line each; -> {kernel: (ms, plain_ms, (bound_ms,
+    bound_by), library_ms)}, the bound at the 3xTF32 rate for f32 (the f32
+    kernels' route).  The bound counts the K and V rows some query sees,
+    read once: a causal rank of a sequence-parallel step reads no key past
+    its last query."""
     import torch
 
     from repro_torch.kernels.flash_attention import flash_attention as fa
@@ -901,7 +924,9 @@ def _time_bwd_case(case) -> dict:
                                        warmup=1),
              "flash_bwd_dq": plain_bwd, "flash_bwd_dkv": plain_bwd}
     mask = attention_mask(Sq, Skv, causal, window, q_off, "cuda")
-    plain_causal = causal and window is None and q_off == 0
+    # aten's causal flag is the top-left triangle, this function's only where
+    # Sq = Skv: otherwise the mask goes in explicitly
+    plain_causal = causal and window is None and q_off == 0 and Sq == Skv
     qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
     fwd_out, bwd_out = {}, {}
     fwd_lib = _fwd_yardsticks(qc, kc, vc, False, causal=causal, mask=mask, outputs=fwd_out)
@@ -911,9 +936,12 @@ def _time_bwd_case(case) -> dict:
         fwd_lib.update(_fwd_yardsticks(qc, kc, vc, True, outputs=fwd_out))
     bwd_lib, _ = _bwd_yardsticks(qc, kc, vc, doc, mask=None if plain_causal else mask,
                                  outputs=bwd_out)
-    if dtype == "float32":
-        fwd_lib, bwd_lib = _f32_accurate(name, (q, k, v, do), kw, fwd_lib, fwd_out, bwd_lib,
-                                         bwd_out)
+    if not plain_causal:
+        more_fwd, more_bwd = _aligned_yardsticks((qc, kc, vc, doc), kw, fwd_out, bwd_out)
+        fwd_lib.update(more_fwd)
+        bwd_lib.update(more_bwd)
+    fwd_lib, bwd_lib = _accurate(name, dtype, (q, k, v, do), kw, fwd_lib, fwd_out, bwd_lib,
+                                 bwd_out)
     fwd_name = min(fwd_lib, key=fwd_lib.get) if fwd_lib else None
     bwd_name = min(bwd_lib, key=lambda n: bwd_lib[n][0]) if bwd_lib else None
     library = {"flash_fwd_lse": (fwd_lib[fwd_name], fwd_name) if fwd_lib else None}
@@ -922,9 +950,11 @@ def _time_bwd_case(case) -> dict:
     visible = int(mask.sum()) * B * H
     flops = {"flash_fwd_lse": 4.0 * Dh * visible, "flash_bwd_dq": 6.0 * Dh * visible,
              "flash_bwd_dkv": 8.0 * Dh * visible}
-    nbytes = {"flash_fwd_lse": _nbytes(q, k, v, q, lse),
-              "flash_bwd_dq": _nbytes(q, k, v, do, lse, delta, q),
-              "flash_bwd_dkv": _nbytes(q, k, v, do, lse, delta, k, v)}
+    # K and V are read only at the keys some query sees; dk/dv writes every key
+    kv_read = _nbytes(k, v) * int(mask.any(0).sum()) / Skv
+    nbytes = {"flash_fwd_lse": kv_read + _nbytes(q, q, lse),
+              "flash_bwd_dq": kv_read + _nbytes(q, do, lse, delta, q),
+              "flash_bwd_dkv": kv_read + _nbytes(q, do, lse, delta, k, v)}
     out = {}
     for kname in ms:
         bound = _bound(flops[kname], nbytes[kname], dtype)
@@ -940,8 +970,9 @@ def _time_bwd_case(case) -> dict:
             tf32 = (f"; 3xTF32 bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
                     f"{b['bound_ms'] / ms[kname]:.1%} of it")
             entry_bound = (b["bound_ms"], b["bound_by"])
-        print(f"kernel {kname} timing at {name} (B={B} H={H} Hk={Hk} S={Sq} Dh={Dh} {dtype} "
-              f"causal={causal} window={window} {layout} layout): kernel {ms[kname]:.4f} ms "
+        print(f"kernel {kname} timing at {name} (B={B} H={H} Hk={Hk} Sq={Sq} Skv={Skv} "
+              f"q_offset={q_off} Dh={Dh} {dtype} causal={causal} window={window} {layout} "
+              f"layout): kernel {ms[kname]:.4f} ms "
               f"device (CUDA graph of 20 launches); plain {plain[kname]:.4f} ms; library "
               f"{lib_txt}; bound{simt} {bound[0]:.4f} ms ({bound[1]}: {flops[kname]:.4g} FLOP, "
               f"{nbytes[kname]:.4g} B), {bound[0] / ms[kname]:.1%} of bound{tf32}", flush=True)
@@ -955,15 +986,71 @@ def _time_bwd_case(case) -> dict:
     return out
 
 
-def _f32_accurate(name, inputs, kw, fwd_lib, fwd_out, bwd_lib, bwd_out) -> tuple:
-    """The f32 library calls that are as accurate as the f32 kernels are held
-    to be, on the same inputs: a forward's o within F32_TOL of the plain
-    version's, a backward's dq, dk and dv (dk, dv summed over the query
-    group) within GRAD_REL_TOL of the plain backward's scale, as in
-    _training_kernels.  Each call is printed with its time and its error; one
-    that misses is not a yardstick.  -> (fwd_lib, bwd_lib), filtered."""
+def _aligned_yardsticks(inputs, kw, fwd_out, bwd_out) -> tuple:
+    """PyTorch's calls for a causal function without a window whose Sq
+    queries sit at ``q_offset`` of Skv > Sq keys, where aten's causal flag
+    (the top-left triangle) is not the function: at q_offset 0 the causal
+    calls on the first Sq keys, the only ones a query sees (the slices are
+    copied outside the timing; the keys past them take a zero gradient);
+    where the last query sees the last key (q_offset + Sq = Skv), sdpa with
+    ``causal_lower_right`` and aten's calls with the causal flag, which
+    FlashAttention's aligns to the bottom right (the others' are dropped by
+    ``_accurate``).  -> ({label: ms}, {label: (ms, how)}); each call's
+    outputs go into ``fwd_out`` / ``bwd_out`` by label, dk and dv padded
+    with zeros to Skv keys."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+
+    q, k, v, do = inputs
+    Sq, Skv, off = q.shape[2], k.shape[2], kw["q_offset"]
+    if not kw["causal"] or kw["window"] is not None or Skv == Sq:
+        return {}, {}
+    f_out, b_out = {}, {}
+    if off == 0:
+        ks, vs = (t[:, :, :Sq].contiguous() for t in (k, v))
+        fwd = _fwd_yardsticks(q, ks, vs, False, causal=True, outputs=f_out)
+        bwd, _ = _bwd_yardsticks(q, ks, vs, do, outputs=b_out)
+        tag = f" on keys < {Sq}"
+    elif off + Sq == Skv:
+        H, Hk = q.shape[1], k.shape[1]
+        ke, ve = (t.repeat_interleave(H // Hk, dim=1) for t in (k, v))
+        bias = causal_lower_right(Sq, Skv)
+
+        def lower_right():
+            return F.scaled_dot_product_attention(q, ke, ve, attn_mask=bias)
+
+        fwd = {}
+        if _runs(lower_right):
+            label = "sdpa[causal_lower_right, k/v expanded]"
+            f_out[label] = lower_right()
+            try:
+                fwd[label] = _graph_ms(lower_right)
+            except RuntimeError:
+                torch.cuda.synchronize()
+                fwd[label] = _time_ms(lower_right)
+        bwd, _ = _bwd_yardsticks(q, k, v, do, outputs=b_out)
+        tag = " (causal flag at Sq < Skv)"
+    else:
+        return {}, {}
+    fwd_out.update({label + tag: out for label, out in f_out.items()})
+    bwd_out.update({label + tag: (dq, *(F.pad(g, (0, 0, 0, Skv - g.shape[2])) for g in (dk, dv)))
+                    for label, (dq, dk, dv) in b_out.items()})
+    return ({label + tag: t for label, t in fwd.items()},
+            {label + tag: t for label, t in bwd.items()})
+
+
+def _accurate(name, dtype, inputs, kw, fwd_lib, fwd_out, bwd_lib, bwd_out) -> tuple:
+    """The library calls that are as accurate as the kernels are held to be,
+    on the same inputs: a forward's o within F32_TOL (f32) or BF16_TOL
+    (bf16) of the plain version's, a backward's dq, dk and dv (dk, dv summed
+    over the query group) within GRAD_REL_TOL of the plain backward's scale,
+    as in _training_kernels.  Each call is printed with its time and its
+    error; one that misses is not a yardstick.  -> (fwd_lib, bwd_lib),
+    filtered."""
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_fwd_lse_ref
 
+    fwd_tol = F32_TOL if dtype == "float32" else BF16_TOL
     q, k, v, do = inputs
     o_ref, lse_ref = attention_fwd_lse_ref(q, k, v, **kw)
     grads_ref = attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
@@ -972,10 +1059,10 @@ def _f32_accurate(name, inputs, kw, fwd_lib, fwd_out, bwd_lib, bwd_out) -> tuple
     for label, t in fwd_lib.items():
         out = fwd_out[label]
         err = _max_err(out[0] if isinstance(out, (tuple, list)) else out, o_ref)[0]
-        ok = err <= F32_TOL
-        verdict = "compared" if ok else "not f32-accurate, not compared"
+        ok = err <= fwd_tol
+        verdict = "compared" if ok else "not accurate, not compared"
         print(f"kernel flash_fwd_lse yardstick at {name}: {label} {t:.4f} ms, o max_abs_err "
-              f"{err:.3e} (tol {F32_TOL:g}): {verdict}", flush=True)
+              f"{err:.3e} (tol {fwd_tol:g}): {verdict}", flush=True)
         if ok:
             fwd_keep[label] = t
     for label, (t, how) in bwd_lib.items():
@@ -985,9 +1072,9 @@ def _f32_accurate(name, inputs, kw, fwd_lib, fwd_out, bwd_lib, bwd_out) -> tuple
         errs = []
         for g, want in zip(got, grads_ref):
             err, scale = _max_err(g, want)
-            errs.append((err, GRAD_REL_TOL["float32"] * max(scale, 1.0)))
+            errs.append((err, GRAD_REL_TOL[dtype] * max(scale, 1.0)))
         ok = all(err <= tol for err, tol in errs)
-        verdict = "compared" if ok else "not f32-accurate, not compared"
+        verdict = "compared" if ok else "not accurate, not compared"
         txt = ", ".join(f"{g} {e:.3e} (tol {tol:.3g})" for g, (e, tol) in zip(("dq", "dk", "dv"),
                                                                             errs))
         print(f"kernel flash_attention_bwd yardstick at {name}: {label} {t:.4f} ms ({how}), "

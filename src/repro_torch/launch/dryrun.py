@@ -15,7 +15,8 @@ collectives move nothing), and record per rank:
     (``collectives.byte_ledger``);
   * the roofline terms at H100 SXM constants (``launch/roofline.py``).
 
-The rank runs the program it runs on a card: its rows, its blocks, its
+The rank runs the program it runs on a card: its rows (and, under
+``seq -> "model"``, its positions: sequence parallelism), its blocks, its
 collectives; prefill and decode return the rank's logits (the serve steps
 gather them whole for the caller, which the reference's sharded outputs do
 not).  Results land in ``results/dryrun_torch/<cell>.json``.
@@ -146,6 +147,7 @@ def run_cell(
     from ..parallel.sharding import attention_overrides
     from ..serve.serve_step import make_serve_step
     from ..train import optimizer as opt_lib
+    from ..parallel.sharding import rank_batch
     from ..train.train_step import make_train_step
     from .mesh import make_production_mesh
 
@@ -185,7 +187,7 @@ def run_cell(
         params = step_fn.layout.shard(zoo.init(0, device=META))
         params.requires_grad_(True)
         opt = opt_lib.init(ocfg, params)
-        rows = _rank_rows(mesh, batch)
+        rows = rank_batch(mesh, batch, seq=step_fn.plan.seq)
         memory["param_bytes"] = _bytes(dict(params.state_dict()))
         memory["moment_bytes"] = _bytes((opt.mu, opt.nu))
         memory["batch_bytes"] = _bytes(rows)
@@ -200,14 +202,14 @@ def run_cell(
         arts = make_serve_step(zoo, META, mesh=mesh, batch_example=batch, cache_example=cache,
                                rules_overrides=overrides)
         params = arts.param_layout.shard(zoo.init(0, device=META))
-        mine = arts.shard_batch(batch)
+        mine = arts.shard_batch(batch, prefill=shape.kind == "prefill")
         memory["param_bytes"] = _bytes(dict(params.state_dict()))
         memory["batch_bytes"] = _bytes(mine)
         args = [*params.parameters(), *_tensors(batch)]
         if shape.kind == "prefill":
             def fn():
                 with torch.inference_mode():
-                    return zoo.forward(params, mine, arts.plan)[0]
+                    return zoo.forward(params, mine, arts.prefill_plan())[0]
             tokens = shape.global_batch * shape.seq_len
         else:
             cache = arts.cache_layout.shard(cache)
@@ -247,15 +249,6 @@ def run_cell(
         "fits_80GB": memory["peak_bytes"] <= 80e9,
         "report": report.as_dict(),
     }
-
-
-def _rank_rows(mesh, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Rank 0's rows of the global batch (``batch_specs_tree``)."""
-    from ..parallel.sharding import axis_sizes, batch_specs_tree, block_slices
-
-    specs, sizes = batch_specs_tree(mesh, batch), axis_sizes(mesh)
-    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
-    return {k: v[block_slices(v.shape, specs[k], sizes, coord)] for k, v in batch.items()}
 
 
 def save_result(result: Dict[str, Any], out_dir: str = RESULTS_DIR) -> str:

@@ -23,7 +23,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
-from ..collectives.autograd import copy_to, reduce_from
+from ..collectives.autograd import copy_to, gather, reduce_from, reduce_scatter
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import NEG_INF, attention_mask
 
@@ -202,6 +202,24 @@ def vocab_embed(p: Params, ids: torch.Tensor, dt: DTypes, tp: TP) -> torch.Tenso
     mine = (local >= 0) & (local < n)
     out = torch.where(mine[..., None], table[local.clamp(0, n - 1)], 0)
     return reduce_from(out, tp.mesh, tp.axis)
+
+
+def seq_vocab_embed(p: Params, ids: torch.Tensor, dt: DTypes, sp: TP) -> torch.Tensor:
+    """Under sequence parallelism over ``sp``: the rows of this rank's
+    positions ``ids`` (B, S) from a vocab-parallel table (V/n rows a rank),
+    without gathering the table: every rank's ids are gathered, each rank
+    looks up the rows it holds for all positions (zeros for the others'),
+    and a reduce-scatter over the positions gives each rank the sum for its
+    own, the whole table's rows exactly.  The table's gradient stays this
+    rank's block."""
+    from ..collectives.schedules import all_gather_axis
+
+    table = dt.c(p["table"])
+    n = table.shape[0]
+    local = all_gather_axis(ids, sp.mesh, sp.axis, 1) - sp.rank * n
+    mine = (local >= 0) & (local < n)
+    out = torch.where(mine[..., None], table[local.clamp(0, n - 1)], 0)
+    return reduce_scatter(out, sp.mesh, sp.axis, 1)
 
 
 def vocab_unembed(p: Params, x: torch.Tensor, dt: DTypes, tp: TP) -> torch.Tensor:
@@ -392,6 +410,22 @@ def cache_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, index: int
     return (num / den[..., None]).to(q.dtype)
 
 
+def first_position(sp: Optional[TP], S: int) -> int:
+    """The first of the S positions this rank holds under sequence
+    parallelism over ``sp`` (rank r holds [r S, (r + 1) S)); 0 without."""
+    return sp.rank * S if sp is not None else 0
+
+
+def seq_gather_kv(k: torch.Tensor, v: torch.Tensor,
+                  sp: Optional[TP]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Under sequence parallelism over ``sp`` (k, v (B, S, Hk, Dh) hold a
+    rank's positions): every rank's, gathered over the axis in position
+    order, their gradients reduce-scattered back; else k, v as they are."""
+    if sp is None:
+        return k, v
+    return gather(k, sp.mesh, sp.axis, 1), gather(v, sp.mesh, sp.axis, 1)
+
+
 def sdpa(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     causal: bool, window: Optional[int], scale: float, q_offset: int = 0,
@@ -414,6 +448,7 @@ def attention(
     xattn_kv: Optional[torch.Tensor] = None,
     impl: str = "ref",
     kv_split: Optional[KVSplit] = None,
+    seq: Optional[TP] = None,
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Attention without qk-norm (its callers, the hybrid's shared block and
     whisper, have none).  Returns (output, kv cache).  Self-attention takes
@@ -427,7 +462,10 @@ def attention(
     path.  The write start is clamped so the update fits while the mask
     keeps the unclamped index, as ``dynamic_update_slice_in_dim`` does in
     the reference.  ``kv_split``: the cache holds this rank's positions
-    (``cache_write``, ``cache_attend``)."""
+    (``cache_write``, ``cache_attend``).  ``seq`` (without a cache): x and
+    ``xattn_kv`` hold the rank's block of positions (sequence parallelism
+    over that axis); the keys and values of every rank's block are gathered
+    (``seq_gather_kv``) and the queries start at ``first_position``."""
     B, S, _ = x.shape
     H, Hk, Dh = cfg.heads, cfg.kv_heads, cfg.head_dim
     src = x if xattn_kv is None else xattn_kv
@@ -444,10 +482,13 @@ def attention(
         out = cache_attend(q, ck, cv, cache_index, scale, cfg.window, kv_split)
         return linear(p["wo"], out.reshape(B, S, H * Dh), dt), (ck, cv)
     causal = cfg.causal and xattn_kv is None
+    k, v = seq_gather_kv(k, v, seq)
+    offset = first_position(seq, S)
     if impl == "flash":
-        out = flash_attention(q, k, v, causal=causal, window=cfg.window, scale=scale)
+        out = flash_attention(q, k, v, causal=causal, window=cfg.window, scale=scale,
+                              q_offset=offset)
     else:
-        out = sdpa(q, k, v, causal=causal, window=cfg.window, scale=scale)
+        out = sdpa(q, k, v, causal=causal, window=cfg.window, scale=scale, q_offset=offset)
     return linear(p["wo"], out.reshape(B, S, H * Dh), dt), None
 
 

@@ -7,7 +7,7 @@
     logits, cache = zoo.decode_step(params, cache, batch)
 
     specs = zoo.param_specs()                   # logical-axis tree for sharding
-    plan = zoo.shard_plan(layout)               # a rank's view of a sharded Layout
+    plan = zoo.shard_plan(layout, seq)          # a rank's view of a sharded Layout
     loss, metrics = zoo.loss(params, batch, plan)
 
 ``init`` and ``init_cache`` take ``device=`` (default ``"cuda"``; without a
@@ -70,8 +70,11 @@ class ModelZoo:
     def cache_specs(self):
         return self._mod.cache_specs(self.cfg)
 
-    def shard_plan(self, layout):
-        return self._mod.shard_plan(self.cfg, layout)
+    def shard_plan(self, layout, seq=()):
+        """A rank's plan on ``layout``; ``seq``, the axes that cut the
+        positions (``sharding.seq_axes``), applies to the families that run
+        sequence parallelism (``transformer.seq_plan``)."""
+        return transformer.seq_plan(self.cfg, self._mod.shard_plan(self.cfg, layout), seq)
 
     def param_shapes(self) -> Dict[str, Tuple[int, ...]]:
         """Whole leaf shapes by state-dict key (the params built on the meta
@@ -91,7 +94,10 @@ class ModelZoo:
         and the loss is the global one: the masked sum over all ranks' rows
         over the mask's global sum (the mean when there is no mask), on
         every rank.  Its gradient is this rank's share, so summing the
-        ranks' gradients over the batch axes gives the global loss's.
+        ranks' gradients over the batch axes gives the global loss's.  With
+        ``plan.seq`` the batch holds the rank's positions too, and the sums
+        run over the seq axes as well (under ``manual_hier``, whose
+        ``plan.dp`` is empty, over those alone).
         Split logits give the log-partition and the gold logit by a max and
         sums over the model axis, never by gathering the vocab."""
         logits, aux = self.forward(params, batch, plan)
@@ -115,8 +121,8 @@ class ModelZoo:
         else:
             total, count = torch.sum(nll * mask), torch.sum(mask)
         sums = torch.stack([total.detach(), count.to(torch.float32)])
-        if plan.dp:
-            sums = all_reduce_axis(sums, plan.layout.mesh, plan.dp)
+        if plan.dp or plan.seq:
+            sums = all_reduce_axis(sums, plan.layout.mesh, plan.dp + plan.seq)
         denom = torch.clamp(sums[1], min=1.0)
         mine = total / denom
         loss = sums[0] / denom + (mine - mine.detach())  # the global value, this rank's gradient

@@ -45,6 +45,15 @@ whole.  The layers' aux sum is averaged over the batch axes once
 (``moe.aux_mean``).  Batch rows are the caller's: the step passes each
 rank its rows, and the cache its rows, KV heads and positions.
 
+Under the reference's ``seq -> "model"`` rule (``seq_plan``; the dense and
+vlm families, and whisper, ``SEQ_FAMILIES``) a rank holds its block of S/|model| positions of every
+activation, as the reference's ``("batch", "seq", ...)`` hints resolve:
+the weights are gathered whole (their gradients summed over "model",
+``_seq_weight``), except that the embedding looks its rows up from the
+table's vocab blocks (``common.seq_vocab_embed``) and the logits gather
+their weight inside a checkpoint (``_seq_logits``); attention gathers K and
+V over "model" and its queries start at ``rank * S/|model|``.
+
 The cache is ``{"k", "v": (L, B, cache_len, Hk, Dh), "index": int}``.
 ``index`` is a host int (the reference keeps a device scalar) so a decode
 step needs no device sync.  ``decode_step`` writes the cache in place: the
@@ -56,7 +65,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -200,11 +209,18 @@ class ShardPlan:
     ep: Optional[EPGroup] = None  # MoE layers: expert-parallel, or dense over the global batch
     ssm: bool = False    # the hybrid's Mamba2 heads split (models/hybrid.py)
     kv_seq: Tuple[str, ...] = ()  # decode: the axes that cut the cache by position
+    seq: Tuple[str, ...] = ()     # train / prefill: the axes that cut the positions
 
     @property
     def kv_split(self) -> Optional[C.KVSplit]:
         """The decode cache's cut by position, if any."""
         return C.KVSplit(self.layout.mesh, self.kv_seq) if self.kv_seq else None
+
+    @property
+    def sp(self) -> Optional[C.TP]:
+        """The axis that cuts the positions (sequence parallelism), if any:
+        rank r of n holds positions [r S / n, (r + 1) S / n)."""
+        return C.TP(self.layout.mesh, self.seq[0]) if self.seq else None
 
     def gather_logits(self, logits: torch.Tensor) -> torch.Tensor:
         """Whole-vocab logits (no gradient)."""
@@ -219,6 +235,30 @@ def shard_plan(cfg: ModelConfig, layout: Layout) -> ShardPlan:
     if cfg.moe is None:
         return plan
     return dataclasses.replace(plan, ep=_ep_group(cfg, layout, plan.tp, plan.dp))
+
+
+# the families whose train and prefill activations follow seq -> "model"
+SEQ_FAMILIES = ("dense", "vlm", "whisper")
+
+
+def seq_plan(cfg: ModelConfig, plan, axes: Sequence[str]):
+    """``plan`` with the positions cut over ``axes`` (``sharding.seq_axes``),
+    as the reference's hints resolve under ``seq -> "model"``: ``seq``
+    takes the model axis before ``heads``, ``mlp`` and ``vocab``, so every
+    activation holds the rank's positions and nothing runs head-, MLP- or
+    vocab-parallel; the weights are gathered whole (``_seq_weight``).  The
+    families outside ``SEQ_FAMILIES`` keep ``plan``: their activations stay
+    whole."""
+    if not axes or cfg.family not in SEQ_FAMILIES:
+        return plan
+    return dataclasses.replace(plan, heads=False, kv=False, mlp=False, embed_vocab=False,
+                               head_vocab=False, seq=tuple(axes))
+
+
+def first_position(plan: Optional[ShardPlan], S: int) -> int:
+    """The first of the S positions this rank holds (``C.first_position``
+    of ``plan.sp``)."""
+    return C.first_position(plan.sp if plan is not None else None, S)
 
 
 def on_model(layout: Layout, key: str, dim: int) -> bool:
@@ -294,6 +334,18 @@ def _weight(w: torch.Tensor, spec, plan: ShardPlan, keep_model: bool, partial: b
     return w
 
 
+def _seq_weight(w: torch.Tensor, spec, plan: ShardPlan) -> torch.Tensor:
+    """A weight under sequence parallelism: whole on every rank, its
+    gradient (this rank's positions' share) summed over the seq axis: the
+    model blocks gathered with their gradient reduce-scattered, a leaf whole
+    over that axis through ``copy_to``."""
+    w = _weight(w, spec, plan, False, True)
+    axis = plan.sp.axis
+    if not any(axis in entry_axes(e) for e in spec):
+        w = copy_to(w, plan.layout.mesh, axis)
+    return w
+
+
 _EXPERT_LEAVES = ("layers.moe.wi", "layers.moe.wg", "layers.moe.wo")
 
 
@@ -328,7 +380,8 @@ def _layer_weights(lp, plan: ShardPlan, prefix: str = "layers.", lead: int = 1,
     ``keep(key)`` (default ``_keeps_model``); otherwise it is gathered
     ``partial`` or, when whole, passes ``copy_to``: its gradient is summed
     over the model axis.  The MoE expert leaves keep their blocks
-    (``_expert_weight``)."""
+    (``_expert_weight``).  Under sequence parallelism every leaf is
+    ``_seq_weight``'s."""
     if split is None:
         split = {**{b: plan.heads for b in _ATTN_BLOCKS}, **{b: plan.mlp for b in _MLP_BLOCKS}}
     keep = keep or (lambda key: _keeps_model(plan, key))
@@ -339,6 +392,9 @@ def _layer_weights(lp, plan: ShardPlan, prefix: str = "layers.", lead: int = 1,
             out[k] = _layer_weights(v, plan, key + ".", lead, split, keep)
             continue
         spec = plan.layout.specs[key][lead:]  # the stacked dims are gone
+        if plan.seq:
+            out[k] = _seq_weight(v, spec, plan)
+            continue
         if key in _EXPERT_LEAVES:
             out[k] = _expert_weight(v, spec, plan, 1 if k == "wo" else 2)
             continue
@@ -394,11 +450,20 @@ def _outer(params, key: str, plan: Optional[ShardPlan], keep_model: bool) -> tor
         node = node[k]
     if plan is None:
         return node
+    if plan.seq:
+        return _seq_weight(node, plan.layout.specs[key], plan)
     return _weight(node, plan.layout.specs[key], plan, keep_model, False)
 
 
 def embed_tokens(params, ids, dt: DTypes, plan: Optional[ShardPlan] = None) -> torch.Tensor:
-    """Rows of ``embed.table``; vocab-parallel with ``plan.embed_vocab``."""
+    """Rows of ``embed.table``; vocab-parallel with ``plan.embed_vocab``;
+    under sequence parallelism the rank's positions' rows from the table's
+    vocab blocks (``common.seq_vocab_embed``) where the layout splits its
+    vocab over the seq axis."""
+    if plan is not None and plan.seq and on_model(plan.layout, "embed.table", 0):
+        block = _weight(params["embed"]["table"], plan.layout.specs["embed.table"], plan, True,
+                        False)
+        return C.seq_vocab_embed({"table": block}, ids, dt, plan.sp)
     vocab = plan is not None and plan.embed_vocab
     table = {"table": _outer(params, "embed.table", plan, vocab)}
     if vocab:
@@ -406,8 +471,30 @@ def embed_tokens(params, ids, dt: DTypes, plan: Optional[ShardPlan] = None) -> t
     return C.embed(table, ids, dt)
 
 
+def _seq_logits(params, key: str, x, dt: DTypes, plan: ShardPlan) -> torch.Tensor:
+    """Under sequence parallelism: the logits of the rank's positions over
+    the whole vocab, from ``key`` (``embed.table``, tied, or ``lm_head.w``)
+    gathered whole inside a checkpoint, so that the whole weight lives only
+    while the logits and their gradients are formed (gathered again in the
+    backward), never across the loss between them."""
+    node = params
+    for k in key.split("."):
+        node = node[k]
+    spec = plan.layout.specs[key]
+
+    def logits(w, x):
+        w = _seq_weight(w, spec, plan)
+        return C.unembed({"table": w}, x, dt) if key == "embed.table" else C.linear({"w": w}, x, dt)
+
+    if torch.is_grad_enabled():
+        return checkpoint(logits, node, x, use_reentrant=False)
+    return logits(node, x)
+
+
 def tied_logits(params, x, dt: DTypes, plan: Optional[ShardPlan] = None) -> torch.Tensor:
     """x @ embed.tableᵀ; with ``plan.head_vocab`` this rank's vocab slice."""
+    if plan is not None and plan.seq:
+        return _seq_logits(params, "embed.table", x, dt, plan)
     split = plan is not None and plan.head_vocab
     table = {"table": _outer(params, "embed.table", plan, split)}
     return C.vocab_unembed(table, x, dt, plan.tp) if split else C.unembed(table, x, dt)
@@ -428,6 +515,8 @@ def _unembed(params, cfg: ModelConfig, x, dt: DTypes,
     x = C.rmsnorm({"scale": _outer(params, "final_norm.scale", plan, False)}, x)
     if cfg.tie_embeddings:
         return tied_logits(params, x, dt, plan)
+    if plan is not None and plan.seq:
+        return _seq_logits(params, "lm_head.w", x, dt, plan)
     split = plan is not None and plan.head_vocab
     head = {"w": _outer(params, "lm_head.w", plan, split)}
     return C.column_linear(head, x, dt, plan.tp) if split else C.linear(head, x, dt)
@@ -467,7 +556,10 @@ def _attention_dynwin(p, acfg: C.AttnConfig, x, positions, positions3, is_global
     ``"flash"`` takes the CUDA kernels, forward and backward, on the rank's
     heads, with the layer's window or none; ``"ref"`` is the plain path.
     (The reference reaches its flash path only without a window; both
-    compute the same function.)"""
+    compute the same function.)  Under sequence parallelism x holds the
+    rank's positions: K and V are gathered over the seq axis (their
+    gradients reduce-scattered) and the rank's queries attend from offset
+    ``rank * S``."""
     B, S, _ = x.shape
     local = _local_attn(acfg, plan)
     H, Dh = local.heads, acfg.head_dim
@@ -475,13 +567,16 @@ def _attention_dynwin(p, acfg: C.AttnConfig, x, positions, positions3, is_global
         x = copy_to(x, plan.tp.mesh, plan.tp.axis)
     q, k, v = _qkv(p, local, x, positions, positions3, dt)
     k, v = _kv_for_heads(k, v, acfg, plan)
+    sp = plan.sp if plan is not None else None
+    k, v = C.seq_gather_kv(k, v, sp)
+    offset = C.first_position(sp, S)
     window = None if is_global else acfg.window
     if impl == "flash":
         out = flash_attention(q, k, v, causal=acfg.causal, window=window,
-                              scale=1.0 / math.sqrt(Dh))
+                              scale=1.0 / math.sqrt(Dh), q_offset=offset)
         return _attn_out(p, out.reshape(B, S, H * Dh), dt, plan)
-    qpos = torch.arange(S, device=x.device)[:, None]
-    kpos = torch.arange(S, device=x.device)[None, :]
+    qpos = torch.arange(S, device=x.device)[:, None] + offset
+    kpos = torch.arange(k.shape[1], device=x.device)[None, :]
     mask = kpos <= qpos
     if window is not None:
         mask = mask & (kpos > qpos - window)
@@ -513,14 +608,16 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     """batch: tokens (B, S) int [or embeds (B, S, D)], positions (B, S)
     optional, positions3 (3, B, S) for M-RoPE.  Returns (logits, aux): aux
     is the MoE layers' aux loss summed over the layers (under EP, its mean
-    over the batch axes), 0 for the dense family."""
+    over the batch axes), 0 for the dense family.  With ``plan.seq`` every
+    entry holds the rank's block of positions (``sharding.rank_batch``)
+    and so do the logits."""
     check_supported(cfg)
     dt = _dt(cfg)
     x = _embed(params, cfg, batch, dt, plan)
     B, S, _ = x.shape
     positions = batch.get("positions")
     if positions is None:
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        positions = (first_position(plan, S) + torch.arange(S, device=x.device))[None].expand(B, S)
     positions3 = batch.get("positions3")
     remat = cfg.remat and torch.is_grad_enabled()
     layers = C.layer_slices(params["layers"], cfg.num_layers)

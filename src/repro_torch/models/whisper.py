@@ -175,7 +175,11 @@ def _run_layers(body, x, layers: list, remat: bool):
 def _attend(p, acfg: C.AttnConfig, x, positions, dt: DTypes, plan: Optional[T.ShardPlan],
             **kw) -> torch.Tensor:
     """``common.attention``; with ``plan.heads`` on a rank's heads, the
-    encoder states (``xattn_kv``) entering the split region as x does."""
+    encoder states (``xattn_kv``) entering the split region as x does; with
+    ``plan.seq`` (no cache) on the rank's positions of x and of the encoder
+    states, every rank's keys and values gathered."""
+    if plan is not None and plan.seq:
+        return C.attention(p, acfg, x, positions, dt, seq=plan.sp, **kw)[0]
     if plan is None or not plan.heads:
         return C.attention(p, acfg, x, positions, dt, **kw)[0]
     mesh, axis = plan.tp.mesh, plan.tp.axis
@@ -203,8 +207,9 @@ def encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor,
            plan: Optional[T.ShardPlan] = None) -> torch.Tensor:
     dt = _dt(cfg)
     B, S, D = enc_embeds.shape
-    x = enc_embeds.to(cfg.compute_dtype) + _sinusoids(S, D, enc_embeds.device)[None].to(
-        cfg.compute_dtype)
+    start = T.first_position(plan, S)  # the frames' first position
+    pos = _sinusoids(start + S, D, enc_embeds.device)[start:]
+    x = enc_embeds.to(cfg.compute_dtype) + pos[None].to(cfg.compute_dtype)
     zeros = torch.zeros((B, S), dtype=torch.long, device=x.device)
 
     def body(x, lp):
@@ -228,7 +233,7 @@ def _decoder(
     dt = _dt(cfg)
     B, S = tokens.shape
     x = T.embed_tokens(params, tokens, dt, plan)
-    pos = torch.arange(S, device=x.device) + offset
+    pos = torch.arange(S, device=x.device) + offset + T.first_position(plan, S)
     x = x + dt.c(T._outer(params, "dec_pos", plan, False))[pos][None]
     self_cfg, cross_cfg = _attn_cfg(cfg, True), _attn_cfg(cfg, False)
 
@@ -271,7 +276,8 @@ def _decoder(
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             plan: Optional[T.ShardPlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch: enc_embeds (B, S_enc, D), the frame-embedding stub, and tokens
-    (B, S).  Returns (logits, 0)."""
+    (B, S).  Returns (logits, 0).  With ``plan.seq`` both hold the rank's
+    block of positions (and so do the logits)."""
     enc_out = encode(params, cfg, batch["enc_embeds"], plan)
     logits, _ = _decoder(params, cfg, batch["tokens"], enc_out, plan=plan)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)

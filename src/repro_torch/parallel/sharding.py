@@ -23,7 +23,11 @@ placements.
 The reference's ``shard_hint``, ``use_rules`` and manual-axes machinery
 (activation constraints for GSPMD to propagate) have no counterpart: the
 port's layers name their collectives explicitly (``models/common.py``,
-``models/transformer.py``, ``collectives/autograd.py``).
+``models/transformer.py``, ``collectives/autograd.py``).  The one hint that
+moves work is ``seq``: ``seq_axes`` reads which axes the rules cut the
+positions over, and ``rank_batch`` gives a rank its rows of a batch and
+its block of their positions (sequence parallelism,
+``models/transformer.py``).
 """
 
 from __future__ import annotations
@@ -202,6 +206,60 @@ def batch_specs_tree(mesh: Any, example: Mapping[str, Any]) -> Dict[str, Spec]:
         else:
             out[key] = (shard, *([None] * (ndim - 1)))
     return out
+
+
+def seq_axes(mesh: Any, overrides: Optional[Dict[str, PhysAxes]] = None) -> Tuple[str, ...]:
+    """The mesh axes of size > 1 that cut the positions of the train and
+    prefill activations under the default rules and ``overrides``: the
+    rules' ``seq`` entry less the axes that ``batch`` takes first, as the
+    reference's ``("batch", "seq", ...)`` hints resolve (``seq -> "model"``
+    from ``attention_overrides`` where the heads do not divide |model|).
+    The port cuts positions over "model" only; another axis raises
+    ``ValueError``."""
+    sizes = axis_sizes(mesh)
+    spec = make_rules(tuple(sizes), overrides).spec(("batch", "seq"))
+    axes = tuple(a for a in entry_axes(spec[1]) if sizes.get(a, 1) > 1)
+    if axes and axes != ("model",):
+        raise ValueError(f"the rule seq -> {axes}: the port runs sequence parallelism over "
+                         "'model' only")
+    return axes
+
+
+def cut_positions(batch: Mapping[str, Any], mesh: Any, axes: Sequence[str]) -> Dict[str, Any]:
+    """Each entry's block of positions that this rank holds under sequence
+    parallelism over ``axes``: S / |axes| consecutive positions from
+    ``c * S / |axes|``, c the rank's coordinate over ``axes`` (major first).
+    |axes| must divide every entry's positions (the reference assumes "any
+    seq divides 16"); otherwise ``ValueError``."""
+    if not axes:
+        return dict(batch)
+    sizes = axis_sizes(mesh)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    n, idx = _axis_prod(sizes, axes), 0
+    for a in axes:
+        idx = idx * sizes[a] + coord[a]
+    out = {}
+    for key, v in batch.items():
+        d = 2 if key == "positions3" else 1  # (3, B, S); the rest (B, S, ...)
+        S = v.shape[d]
+        if S % n:
+            raise ValueError(f"{key}: {S} positions do not split over {tuple(axes)} ({n}); "
+                             f"sequence parallelism (the rule seq -> {tuple(axes)}) needs "
+                             "the axes to divide the sequence")
+        out[key] = v.narrow(d, idx * (S // n), S // n)
+    return out
+
+
+def rank_batch(mesh: Any, batch: Mapping[str, Any], specs: Optional[Mapping[str, Spec]] = None,
+               seq: Sequence[str] = ()) -> Dict[str, Any]:
+    """This rank's block of a batch: its rows (``block_slices`` over
+    ``specs``, by default ``batch_specs_tree``) and, under sequence
+    parallelism over ``seq``, its positions of them (``cut_positions``)."""
+    specs = batch_specs_tree(mesh, batch) if specs is None else specs
+    sizes = axis_sizes(mesh)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    rows = {k: v[block_slices(v.shape, specs[k], sizes, coord)] for k, v in batch.items()}
+    return cut_positions(rows, mesh, seq)
 
 
 def _shape(leaf: Any) -> Tuple[int, ...]:

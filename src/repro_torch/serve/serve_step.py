@@ -33,6 +33,7 @@ other.  Serving runs under ``torch.inference_mode()``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
@@ -42,7 +43,7 @@ from ..collectives.schedules import all_gather_axis
 from ..models.model_zoo import ModelZoo
 from ..obs import get_tracer
 from ..parallel.sharding import (
-    Layout, batch_specs_tree, block_slices, cache_layout, entry_axes, param_layout,
+    Layout, batch_specs_tree, cache_layout, entry_axes, param_layout, rank_batch, seq_axes,
 )
 
 
@@ -54,7 +55,10 @@ class ServeArtifacts:
     cache_layout: Optional[Layout] = None
     encode_fn: Optional[Callable] = None
     plan: Any = None                        # with a mesh: the rank's ShardPlan
-    shard_batch: Optional[Callable] = None  # with a mesh: batch -> the rank's rows
+    # with a mesh: batch -> the rank's rows (and, with prefill=True, the
+    # positions that prefill_plan cuts)
+    shard_batch: Optional[Callable] = None
+    prefill_plan: Optional[Callable] = None  # with a mesh: () -> the prefill's ShardPlan
 
 
 def make_serve_step(zoo: ModelZoo, device: _device.DeviceLike = None, mesh=None,
@@ -66,8 +70,11 @@ def make_serve_step(zoo: ModelZoo, device: _device.DeviceLike = None, mesh=None,
     ``rules_overrides`` (the reference's).  ``kv_seq`` over some axes cuts
     the cache by position: each rank attends over the positions it holds
     and the ranks combine by logsumexp (``common.cache_attend``); ``batch``
-    -> None keeps the cache's rows whole.  ``seq`` is an activation hint in
-    the reference; the port runs no sequence parallelism."""
+    -> None keeps the cache's rows whole.  ``seq -> "model"`` (the
+    reference's activation hint) makes the prefill sequence-parallel for
+    the dense, vlm and whisper families (``prefill_plan``): each rank takes
+    its block of S/|model| positions of every entry, and the logits are
+    gathered whole at the end.  Decode and ``encode_fn`` cut no positions."""
     dev = _device.resolve(device)
 
     def to_dev(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -94,34 +101,46 @@ def make_serve_step(zoo: ModelZoo, device: _device.DeviceLike = None, mesh=None,
     params_lay = param_layout(zoo, mesh, rules_overrides)
     cache_lay = cache_layout(zoo, mesh, cache_example, rules_overrides)
     plan = dataclasses.replace(zoo.shard_plan(params_lay), kv_seq=_kv_seq_axes(cache_lay))
-    sizes, coord = params_lay.sizes, params_lay.coord
+    sizes = params_lay.sizes
     fixed = batch_specs_tree(mesh, batch_example) if batch_example is not None else None
 
-    def local(batch: Dict[str, Any]):
-        """This rank's rows, and the DP axes they were cut over."""
+    @functools.lru_cache(maxsize=None)
+    def prefill_plan():
+        """The prefill's plan, the positions cut over the rules' ``seq``
+        axes, read at the first prefill: decode reads no ``seq`` rule."""
+        return zoo.shard_plan(params_lay, seq_axes(mesh, rules_overrides))
+
+    def local(batch: Dict[str, Any], seq=()):
+        """This rank's rows (and, over ``seq``, its positions of them), and
+        the DP axes the rows were cut over."""
         batch = to_dev(batch)
         specs = {**batch_specs_tree(mesh, batch),
                  **{k: v for k, v in (fixed or {}).items() if k in batch}}
         rows_spec = specs[next(k for k in ("tokens", "embeds", "enc_embeds") if k in specs)]
         rows = tuple(a for a in entry_axes(rows_spec[0]) if sizes[a] > 1)
-        return {k: v[block_slices(v.shape, specs[k], sizes, coord)]
-                for k, v in batch.items()}, rows
+        return rank_batch(mesh, batch, specs, seq), rows
 
-    def whole(logits: torch.Tensor, rows) -> torch.Tensor:
-        logits = plan.gather_logits(logits)
+    def whole(logits: torch.Tensor, rows, p) -> torch.Tensor:
+        logits = p.gather_logits(logits)
+        if p.seq:
+            logits = all_gather_axis(logits, mesh, p.seq, 1)
         return all_gather_axis(logits, mesh, rows, 0) if rows else logits
 
     def decode(params, cache, batch):
         mine, rows = local(batch)
         with torch.inference_mode():
             logits, cache = zoo.decode_step(params, cache, mine, plan)
-            return whole(logits, rows), cache
+            return whole(logits, rows, plan), cache
+
+    def shard_batch(batch, prefill: bool = False):
+        return local(batch, prefill_plan().seq if prefill else ())[0]
 
     def prefill(params, batch):
-        mine, rows = local(batch)
+        p = prefill_plan()
+        mine, rows = local(batch, p.seq)
         with torch.inference_mode():
-            logits, _ = zoo.forward(params, mine, plan)
-            return whole(logits, rows)
+            logits, _ = zoo.forward(params, mine, p)
+            return whole(logits, rows, p)
 
     encode_fn = None
     if zoo.has_encoder:
@@ -132,7 +151,7 @@ def make_serve_step(zoo: ModelZoo, device: _device.DeviceLike = None, mesh=None,
                 return zoo.encode(params, mine["enc_embeds"], plan)
 
     return ServeArtifacts(*_traced_pair(decode, prefill), params_lay, cache_lay, encode_fn, plan,
-                          lambda batch: local(batch)[0])
+                          shard_batch, prefill_plan)
 
 
 def _kv_seq_axes(lay: Layout) -> tuple:

@@ -72,10 +72,16 @@ the default rules (``parallel.sharding.DEFAULT_RULES``).  An override that
 moves a leaf (``heads``, ``kv_heads``, ``mlp``, ``vocab``, ``fsdp``,
 ``expert`` to None or another axis) changes the layout, and the plan
 follows it: heads that stay whole run attention whole on every "model"
-rank.  ``seq`` and ``kv_seq`` name no parameter; ``seq -> "model"`` is an
-activation hint in the reference (``shard_hint``), and the port runs no
-sequence parallelism: activations follow the plan, and the numbers are
-the same.
+rank.  ``seq`` and ``kv_seq`` name no parameter.  ``seq -> "model"`` (set
+by ``attention_overrides`` where the heads do not divide |model|) is the
+reference's activation hint, which the port follows as sequence
+parallelism for the dense, vlm and whisper families in both modes: each
+rank takes its rows and then its block of S/|model| consecutive positions
+of every batch entry (``sharding.rank_batch``; |model| must divide S),
+computes with every weight gathered whole (its gradient summed over
+"model"), gathers K and V over "model" for attention, and sums the loss's
+masked sums over "model" too (``models/transformer.py``).  The hybrid, MoE
+and xLSTM families keep their activations whole under ``seq``.
 
 Params are updated in place, the counterpart of the reference's donated
 buffers.
@@ -97,7 +103,7 @@ from ..collectives.schedules import (
 )
 from ..models.model_zoo import ModelZoo
 from ..parallel.sharding import (
-    Layout, batch_specs_tree, block_slices, entry_axes, param_layout,
+    Layout, cut_positions, entry_axes, param_layout, rank_batch, seq_axes,
 )
 from . import optimizer as opt_lib
 
@@ -136,20 +142,15 @@ class _GspmdFsdp:
                  overrides: Optional[Dict[str, Any]] = None):
         self.mesh = mesh
         self.layout: Layout = step_layout(zoo, mesh, "gspmd_fsdp", overrides)
-        self.plan = zoo.shard_plan(self.layout)
+        self.plan = zoo.shard_plan(self.layout, seq_axes(mesh, overrides))
         sizes = self.layout.sizes
         self.intra = "data" if sizes.get("data", 1) > 1 else None
         self.inter = "pod" if sizes.get("pod", 1) > 1 else None
 
     def microbatches(self, batch: Dict[str, torch.Tensor], n: int) -> list:
-        """Slices of the global batch, then each rank's rows of each."""
-        out = []
-        for mb in _split(batch, n):
-            specs, coord, sizes = batch_specs_tree(self.mesh, mb), self.layout.coord, \
-                self.layout.sizes
-            out.append({k: v[block_slices(v.shape, specs[k], sizes, coord)]
-                        for k, v in mb.items()})
-        return out
+        """Slices of the global batch, then each rank's rows of each (and,
+        under sequence parallelism, its positions)."""
+        return [rank_batch(self.mesh, mb, seq=self.plan.seq) for mb in _split(batch, n)]
 
     def reduce_grads(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Sum each leaf's gradient over the batch axes that do not split it
@@ -182,8 +183,11 @@ class _ManualHier:
         self.mesh = mesh
         self.layout: Layout = step_layout(zoo, mesh, "manual_hier", overrides)
         # each rank's loss is its own rows' mean, as in the reference's
-        # manual region: no sum over the batch axes inside the loss
-        self.plan = dataclasses.replace(zoo.shard_plan(self.layout), dp=())
+        # manual region: no sum over the batch axes inside the loss (over
+        # "model" under sequence parallelism, which is automatic there)
+        self.plan = dataclasses.replace(
+            zoo.shard_plan(self.layout, seq_axes(mesh, overrides)),
+            dp=())
         self.dp_axes = tuple(a for a in ("pod", "data") if a in names)
         self.dp_size = axis_size(mesh, self.dp_axes)
         coord = dict(zip(names, mesh.get_coordinate()))
@@ -204,8 +208,9 @@ class _ManualHier:
         self.schedule = "flat" if not self.intra else schedule
 
     def microbatches(self, batch: Dict[str, torch.Tensor], n: int) -> list:
-        """This rank's slice of the global batch (``batch_specs_tree``), cut
-        into ``n`` microbatches."""
+        """This rank's slice of the global batch (``batch_specs_tree``) and,
+        under sequence parallelism, its positions, cut into ``n``
+        microbatches."""
         out = {}
         for key, v in batch.items():
             bdim = _batch_dim(key)
@@ -213,7 +218,7 @@ class _ManualHier:
                 rows = v.shape[bdim] // self.dp_size
                 v = v.narrow(bdim, self.dp_rank * rows, rows)
             out[key] = v
-        return _split(out, n)
+        return _split(cut_positions(out, self.mesh, self.plan.seq), n)
 
     def reduce_grads(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         mesh, dp = self.mesh, self.dp_size
@@ -276,7 +281,8 @@ def make_train_step(
     """``dp_mode`` (with a mesh): ``gspmd_fsdp`` (the default) or
     ``manual_hier``; ``schedule`` is ``manual_hier``'s; ``rules_overrides``
     the reference's logical-rule overrides.  With a mesh the returned step
-    has ``step_fn.layout``, its params' ``step_layout``."""
+    has ``step_fn.layout``, its params' ``step_layout``, and ``step_fn.plan``,
+    the rank's ``ShardPlan``."""
     dev = _device.resolve(device)
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
@@ -340,4 +346,5 @@ def make_train_step(
 
     if mesh is not None:
         step_fn.layout = (fsdp or dp).layout
+        step_fn.plan = (fsdp or dp).plan
     return step_fn

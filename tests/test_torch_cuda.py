@@ -135,6 +135,29 @@ F32_BWD_CASES = [
 ]
 
 
+# a rank's geometry under sequence parallelism over "model": its Sq = S / n
+# queries from q_offset = r S / n over all S keys, so on every rank but the
+# last the keys past its last query take no gradient (dK = dV = 0 exactly);
+# the first and the last rank (and a middle one), bf16 at Dh 64 / 128 / 320
+# (the TMA / wgmma kernels) and f32 (3xTF32, split across blocks), and
+# whisper's encoder (not causal)
+SP_CASES = [
+    # B, H, Hk, Sq, Skv, Dh, causal, window, q_offset, dtype
+    (2, 24, 8, 256, 1024, 128, True, None, 0, torch.bfloat16),     # llama3.2-3b, 4 ranks
+    (2, 24, 8, 256, 1024, 128, True, None, 768, torch.bfloat16),
+    (2, 8, 2, 128, 512, 64, True, None, 0, torch.bfloat16),
+    (2, 8, 2, 128, 512, 64, True, None, 256, torch.bfloat16),
+    (1, 8, 4, 256, 1024, 320, True, None, 0, torch.bfloat16),      # gemma3-4b's heads
+    (1, 8, 4, 256, 1024, 320, True, 200, 256, torch.bfloat16),     # a window across ranks
+    (1, 8, 4, 256, 1024, 320, True, None, 768, torch.bfloat16),
+    (1, 4, 2, 256, 1024, 128, True, None, 0, torch.float32),
+    (1, 4, 2, 256, 1024, 128, True, None, 512, torch.float32),
+    (1, 4, 2, 128, 512, 320, True, None, 0, torch.float32),
+    (2, 4, 2, 128, 512, 64, True, 100, 384, torch.float32),
+    (1, 20, 20, 375, 1500, 64, False, None, 375, torch.bfloat16),  # whisper's encoder
+]
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -312,6 +335,46 @@ def test_flash_fwd_lse_and_bwd_match_plain_versions(card, case):
         assert torch.isfinite(got).all()
         scale = max(want.float().abs().max().item(), 1.0)
         assert (got.float() - want.float()).abs().max().item() <= GRAD_REL[dtype] * scale
+
+
+def _sp_inputs(case, layout):
+    """q, k, v, do of ``case``: in kernel layout, or as the sequence-parallel
+    path gives them (q and dO views of (B, Sq, H, Dh); k and v all-gathered
+    over the position blocks, views of (Skv, B, Hk, Dh))."""
+    B, H, Hk, Sq, Skv, Dh, *_, dtype = case
+    g = torch.Generator(device="cuda").manual_seed(7)
+    if layout == "kernel":
+        shapes = ((B, H, Sq, Dh), (B, Hk, Skv, Dh), (B, Hk, Skv, Dh), (B, H, Sq, Dh))
+        return [torch.randn(s, generator=g, device="cuda").to(dtype) for s in shapes]
+    q, do = (torch.randn((B, Sq, H, Dh), generator=g, device="cuda").to(dtype).transpose(1, 2)
+             for _ in range(2))
+    k, v = (torch.randn((Skv, B, Hk, Dh), generator=g, device="cuda").to(dtype)
+            .movedim(0, 1).transpose(1, 2) for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("case", SP_CASES)
+@pytest.mark.parametrize("layout", ["kernel", "gathered"])
+def test_flash_at_a_sequence_parallel_rank_matches_plain_versions(card, case, layout):
+    """fwd + lse, dq and dk/dv at a rank's geometry against the plain
+    versions; causal, dK and dV are exactly 0 on the keys past the rank's
+    last query, and so are the plain versions'."""
+    *_, Sq, Skv, Dh, causal, window, q_offset, dtype = case
+    q, k, v, do = _sp_inputs(case, layout)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    o_ref, lse_ref = attention_fwd_lse_ref(q, k, v, **kw)
+    assert (o.float() - o_ref.float()).abs().max().item() <= TOL[dtype]
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    for got, want in zip((dq, dk, dv), attention_bwd_ref(q, k, v, o, lse, do, **kw)):
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        scale = max(want.float().abs().max().item(), 1.0)
+        assert (got.float() - want.float()).abs().max().item() <= GRAD_REL[dtype] * scale
+        if causal and got is not dq:
+            end = q_offset + Sq
+            assert torch.count_nonzero(got[:, :, end:]).item() == 0
+            assert torch.count_nonzero(want[:, :, end:]).item() == 0
 
 
 @pytest.mark.parametrize("case", MODEL_LAYOUT_CASES)

@@ -156,12 +156,34 @@ def test_a_full_size_cell_runs_and_counts_its_arguments():
     # mesh does not divide it: at least 1/256 of the params a rank
     assert n * 2 / 256 <= m["param_bytes"] <= n * 2
     assert m["moment_bytes"] == 4 * m["param_bytes"]          # f32 mu and nu of bf16 params
-    assert m["batch_bytes"] == 2 * 16 * 4096 * 4              # tokens + targets, 16 rows
+    # tokens + targets: 16 rows, and under seq -> "model" (24 heads over 16)
+    # a rank's 4096 / 16 positions of them
+    assert m["batch_bytes"] == 2 * 16 * (4096 // 16) * 4
     assert m["argument_bytes"] == m["param_bytes"] + m["moment_bytes"] + m["batch_bytes"]
     assert m["peak_bytes"] > m["argument_bytes"]
     assert res["fits_80GB"] == (m["peak_bytes"] <= 80e9)
     assert rep["chips"] == 256 and rep["trip_counts"] == {"layers": 28}
     assert rep["hlo_flops_per_dev"] > rep["model_flops_per_dev"] > 0
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "gemma3-4b", "qwen2-vl-2b", "whisper-large-v3"])
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["pod1", "pod2"])
+def test_sequence_parallel_train_cells_fit_one_card(arch, multi_pod):
+    """The archs whose heads do not divide 16 train under the reference's
+    ``seq -> "model"`` (``attention_overrides``): the rank cuts its batch
+    rows by position and reckons a peak under 80 GiB with "ref" attention
+    on both production meshes (with the activations whole on every
+    "model" rank they reckoned 90.15, 43.62, 44.83 and 97.09 GiB on (16,
+    16))."""
+    res = dryrun.run_cell(arch, "train_4k", multi_pod=multi_pod)
+    assert res["status"] == "OK" and res["overrides"]["seq"] == "model"
+    m = res["report"]["memory_stats"]
+    assert m["peak_bytes"] < 80 * 2 ** 30
+    rows = 256 // (32 if multi_pod else 16)
+    # tokens + targets (whisper: + bf16 frames; vlm: bf16 embeds, positions3
+    # for tokens) of the rank's rows at 4096 / 16 positions
+    per_position = {"whisper-large-v3": 8 + 2 * 1280, "qwen2-vl-2b": 4 + 2 * 1536 + 12}
+    assert m["batch_bytes"] == rows * 256 * per_position.get(arch, 8)
 
 
 def test_skipped_cells_are_skipped():

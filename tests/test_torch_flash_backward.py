@@ -34,6 +34,17 @@ CASES = [
     (1, 4, 2, 128, 128, 320, True, None, 0, "bfloat16"),
     (1, 4, 2, 128, 128, 320, True, 64, 0, "bfloat16"),
 ]
+# a rank's geometry under sequence parallelism over 4: its Sq = S / 4 queries
+# from q_offset = r S / 4 over all S keys, so the keys past its last query
+# (every rank's but the last) take no gradient; the first, a middle and the
+# last rank, gemma3's window and head dim, and bf16
+SP_CASES = [
+    (1, 4, 2, 128, 512, 64, True, None, 0, "float32"),
+    (1, 4, 2, 128, 512, 64, True, None, 256, "float32"),
+    (1, 4, 2, 128, 512, 64, True, None, 384, "float32"),
+    (1, 2, 1, 128, 512, 320, True, 64, 128, "float32"),
+    (1, 4, 2, 128, 512, 128, True, None, 128, "bfloat16"),
+]
 # f32: both sides f32, sums in another order (dk/dv sum up to Sq x group
 # terms); bf16: both round the outputs to bf16, one ulp at |x| in [2, 4) is
 # 2^-6, so 2e-2 of the output's scale
@@ -62,7 +73,7 @@ def _close(got, want, dtype):
     np.testing.assert_allclose(got.float().numpy(), want, atol=TOL[dtype] * scale, rtol=0)
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + SP_CASES)
 def test_fwd_lse_matches_jax_pallas_interpret(case):
     (jq, jk, jv, _), (q, k, v, _) = _inputs(case)
     jo, jlse = jfa.flash_attention_fwd_lse(jq, jk, jv, **_kw(case), interpret=True)
@@ -74,7 +85,7 @@ def test_fwd_lse_matches_jax_pallas_interpret(case):
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=2e-5, rtol=0)
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + SP_CASES)
 def test_bwd_matches_jax_pallas_interpret(case):
     (jq, jk, jv, jdo), (q, k, v, do) = _inputs(case, seed=1)
     jo, jlse = jfa.flash_attention_fwd_lse(jq, jk, jv, **_kw(case), interpret=True)
@@ -84,6 +95,19 @@ def test_bwd_matches_jax_pallas_interpret(case):
     for g, w, like in zip(got, want, (q, k, v)):
         assert g.dtype == like.dtype and g.shape == like.shape
         _close(g, w, case[-1])
+
+
+@pytest.mark.parametrize("case", SP_CASES)
+def test_keys_past_the_last_query_take_no_gradient(case):
+    """At a sequence-parallel rank's geometry dK and dV are exactly 0 on
+    the keys past its last query, and nonzero on some key before it."""
+    _, (q, k, v, do) = _inputs(case, seed=3)
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, **_kw(case))
+    _, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, **_kw(case))
+    end = case[3] + case[8]  # Sq + q_offset
+    for g in (dk, dv):
+        assert torch.all(g[:, :, end:] == 0)
+        assert torch.any(g[:, :, :end] != 0)
 
 
 # window without causal: query rows at q >= 143 see no key among 128

@@ -1,7 +1,8 @@
 """Rank bodies of the port's gloo worlds for ``tests/test_torch_collectives.py``,
 ``tests/test_torch_dist_train.py``, ``tests/test_torch_fsdp.py``,
 ``tests/test_torch_moe_ep.py``, ``tests/test_torch_fsdp_families.py``,
-``tests/test_torch_pipeline.py`` and ``tests/test_torch_examples.py``; imports
+``tests/test_torch_pipeline.py``, ``tests/test_torch_tp_manual_hier.py``,
+``tests/test_torch_seq_parallel.py`` and ``tests/test_torch_examples.py``; imports
 neither JAX nor ``repro``.
 
     python tests/torch_dist_worlds.py NAME WORLD WORKDIR
@@ -768,6 +769,75 @@ def tp(rank, world, workdir):
             if torch.is_tensor(v):
                 out[f"kv.{name}.cache.{k}"] = v
     _save(workdir, "tp", rank, out)
+
+
+# sequence parallelism over "model": (smoke arch, mesh, S, rules overrides or
+# None for the dry run's attention_overrides)
+SP_OVERRIDES = {"heads": None, "kv_heads": None, "seq": "model"}
+SP_CASES = {"llama": ("llama3.2-3b", (1, 1, 8), 16, None),
+            "gemma3": ("gemma3-4b", (1, 2, 4), 32, SP_OVERRIDES),
+            "vlm": ("qwen2-vl-2b", (1, 2, 4), 16, SP_OVERRIDES),
+            "whisper": ("whisper-large-v3", (1, 2, 4), 16, SP_OVERRIDES)}
+SP_MODES = ("gspmd_fsdp", "manual_hier")
+SP_STEPS = 2
+
+
+def sp_overrides(cfg, shape, ov, kind="train"):
+    from repro_torch.parallel.sharding import attention_overrides
+
+    return dict(ov) if ov is not None else attention_overrides(cfg, shape[-1], kind)
+
+
+def sp(rank, world, workdir):
+    """Sequence parallelism over "model" for ``SP_CASES`` from the JAX
+    inits in params.npz: ``SP_STEPS`` steps of each ``SP_MODES`` mode
+    (losses, grad norms, gathered params) and the sharded prefill's whole
+    logits; the (query, key) lengths of every plain attention call of a
+    rank (``common.masked_attention``)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import common as C
+    from repro_torch.models.common import ParamTree
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.serve.serve_step import make_serve_step
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import make_train_step
+
+    inp = np.load(os.path.join(workdir, "inputs.npz"))
+    ocfg = opt_lib.AdamWConfig(**OCFG)
+    seen = []
+    plain = C.masked_attention
+
+    def recorded(q, k, *args, **kw):
+        seen.append((q.shape[1], k.shape[1]))
+        return plain(q, k, *args, **kw)
+
+    C.masked_attention = recorded
+    out = {}
+    for name, (arch, shape, _, ov) in SP_CASES.items():
+        cfg = get_smoke_config(arch)
+        zoo = get_model(cfg)
+        mesh = make_mesh(shape, ("pod", "data", "model"), "cpu")
+        batches = [tp_batch(inp, f"sp.{name}", i) for i in range(SP_STEPS)]
+        for mode in SP_MODES:
+            tag = f"sp.{name}.{mode}"
+            step_fn = make_train_step(zoo, ocfg, device="cpu", mesh=mesh, dp_mode=mode,
+                                      rules_overrides=sp_overrides(cfg, shape, ov))
+            lay = step_fn.layout
+            whole = ParamTree.from_state_dict(_whole_params(workdir, arch), requires_grad=True)
+            seen.clear()
+            params, _, hist = _steps(step_fn, lay.shard(whole), opt_lib, ocfg, batches)
+            out.update({f"{tag}.{k}": v for k, v in hist.items()})
+            out[f"{tag}.seq"] = ",".join(step_fn.plan.seq)
+            out[f"{tag}.attn"] = np.array(sorted(set(seen)))
+            out.update({f"{tag}.param.{k}": v for k, v in lay.gather(params).state_dict().items()})
+        prompt = {k: v for k, v in batches[0].items() if k != "targets"}
+        arts = make_serve_step(zoo, "cpu", mesh=mesh, batch_example=prompt,
+                               rules_overrides=sp_overrides(cfg, shape, ov, "prefill"))
+        params = arts.param_layout.shard(ParamTree.from_state_dict(_whole_params(workdir, arch)))
+        seen.clear()
+        out[f"sp.{name}.prefill"] = arts.prefill_fn(params, prompt)
+        out[f"sp.{name}.prefill.attn"] = np.array(sorted(set(seen)))
+    _save(workdir, "sp", rank, out)
 
 
 def dry(rank, world, workdir):

@@ -123,6 +123,12 @@
   printed), step times, collective bytes by op and axes, the flash
   launches a step.
 
+* flow (the ``chip_smoke.py`` flow phase's reach): the network core's
+  exact all-to-all sweep of RailX 64 m 2 (16,384 chips, batches of 1,024
+  sources) and its symmetry sweep of RailX 160 m 2 (102,400 chips), each
+  after a warm-up: host time, kernel time, the device's busy share and the
+  four flow kernels' launches and time (``kernels/flow/csrc/flow.cu``).
+
 * pipe_cards (needs 4 cards; ``--chips 4``): ``parallel/pipeline.py`` on a
   (4,) "pipe" ring of NCCL ranks: the reference's test (4 stages x 6
   microbatches, x * 24 within 1e-4), then a llama3.2-3b layer a stage over
@@ -238,7 +244,9 @@ def _device_us(prof) -> tuple:
 # the port's hand-written kernels, by a part of their device names: ssd_fwd
 # runs ssd_prep_kernel and ssd_scan_kernel, mlstm_fwd the three mlstm_ ones
 PORT_KERNELS = ("flash_fwd", "flash_bwd", "ssd_prep_kernel", "ssd_scan_kernel",
-                "mlstm_state_kernel", "mlstm_combine_kernel", "mlstm_out_kernel")
+                "mlstm_state_kernel", "mlstm_combine_kernel", "mlstm_out_kernel",
+                "bfs_top_down_kernel", "bfs_bottom_up_kernel", "fill_kernel", "subtree_kernel",
+                "orbit_kernel", "fold_kernel")
 
 
 def _report(name: str, prof, host_ms: float, per: int = 1, unit: str = "call") -> None:
@@ -267,6 +275,30 @@ def _profiled(fn):
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
     return prof, host_ms
+
+
+def profile_flow(smi: str) -> None:
+    import torch
+
+    from repro_torch.core import compiled_flow as cf
+    from repro_torch.kernels.flow import flow
+
+    cn = cf.build_compiled_railx_hyperx(64, 2, 2.0)
+    cf.alltoall_edge_counts(cn, cn.chips()[:1024])  # builds the kernels and reverse tables
+    flow.reset_launch_counts()
+    prof, host_ms = _profiled(lambda: cf.alltoall_edge_counts(cn))
+    print(f"profile flow exact: RailX 64 m 2, {cn.num_vertices} chips, {cn.num_edges} edges, "
+          f"launches {flow.launch_counts()} [{smi}]", flush=True)
+    _report("flow exact (16,384 chips)", prof, host_ms, unit="sweep")
+    del cn
+    torch.cuda.empty_cache()
+    cn = cf.build_compiled_railx_hyperx(160, 2, 2.0)
+    cf.symmetric_alltoall_counts(cn)
+    flow.reset_launch_counts()
+    prof, host_ms = _profiled(lambda: cf.symmetric_alltoall_counts(cn))
+    print(f"profile flow symmetry: RailX 160 m 2, {cn.num_vertices} chips, {cn.num_edges} "
+          f"edges, launches {flow.launch_counts()} [{smi}]", flush=True)
+    _report("flow symmetry (102,400 chips)", prof, host_ms, unit="sweep")
 
 
 def profile_train(smi: str) -> None:
@@ -2561,7 +2593,7 @@ def main() -> None:
          "serve_whisper": lambda smi: profile_serve_family(smi, "whisper-large-v3"),
          "train_gemma3": profile_train_gemma3, "family_cards": family_cards,
          "pipe_cards": pipe_cards, "tp_cards": tp_cards,
-         "moe_axes_cards": moe_axes_cards, "sp_cards": sp_cards}[name](smi)
+         "moe_axes_cards": moe_axes_cards, "sp_cards": sp_cards, "flow": profile_flow}[name](smi)
 
 
 if __name__ == "__main__":

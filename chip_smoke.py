@@ -7,7 +7,8 @@ Phases, each printed as it runs; any failure exits non-zero:
 
 1. env     torch/CUDA versions, the card, its power limit; TF32 off.
 2. build   nvcc builds every kernel source of the main paths (in parallel),
-           with the -Xptxas -v register / shared-memory lines.
+           with the -Xptxas -v register / shared-memory lines (the flow
+           kernels' source included).
 3. kernel  each kernel against its plain PyTorch version on the card, case
            by case (flash_fwd; flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv;
            ssd_fwd; mlstm_fwd), then timed at its main path's shape
@@ -30,6 +31,25 @@ Phases, each printed as it runs; any failure exits non-zero:
            (``SCAN_TRAIN_TIMED``: zamba2-7b's 4 x 256 tokens and a rank's
            row of them, xlstm-125m's 4 x 256 and a rank's half of the rows
            and heads).
+3b. flow  the network core (``core/compiled_flow.py``, the four kernels of
+           ``kernels/flow``): every kernel call of the exact and symmetry
+           sweeps on RailX and torus 16 (m 2, 1,024 chips) and of an ECMP
+           pass (num_paths 2, ``edge_ok``-masked levels) held against its
+           plain version on the card, call by call (trees and counts equal,
+           loads the same bits), and the whole results against the CPU's;
+           each kernel timed call by call beside its plain version at the
+           main path's shapes (the 4,096-chip exact sweep in batches of
+           256 sources, the 102,400-chip orbit gather, the ECMP fold),
+           bound by its bytes at 3.35 TB/s.  Then the main path, launch
+           counts set to 0 before and read after: the Fig. 14 exact points
+           from the registry's dict networks (RailX and torus 32, 4,096
+           chips) and the symmetry points from its canonical builders
+           (160, 102,400 chips), each ``==`` the reference's float recorded
+           in BENCH_simulator.json; the ECMP all-to-all on RailX 8's dict
+           network, equal to the same call on the CPU; the exact sweep at
+           16,384 chips (RailX 64), whose counts must equal the symmetry
+           sweep's on every representative edge.  Each sweep's wall time
+           is printed beside the card.
 4. model   a small llama-shaped f32 model on the card (flash kernels)
            against the same weights on the CPU (plain path): a forward, two
            train steps (remat on the card), and a checkpoint round trip;
@@ -152,15 +172,17 @@ Phases, each printed as it runs; any failure exits non-zero:
            nothing else.
 16. examples  the smoke-size twins on worlds of one, each to its reference
            assertion: the fault drill (phase 1 on (1, 1), phase 2 restoring
-           with resharding on a fresh (1, 1) world), quickstart step 4 on
-           (1, 1, 1), serve_decode on (1, 1) under a port ``Tracer`` (its
-           trace valid, one serve.decode_step span a decode call).
+           with resharding on a fresh (1, 1) world), quickstart steps 1-3 and
+           step 4 on (1, 1, 1), serve_decode on (1, 1) under a port
+           ``Tracer`` (its trace valid, one serve.decode_step span a decode
+           call).
 
 Every serve and train phase sets all launch counts to 0 before it runs and
 reads them after; the ``kernels`` line reports each kernel's launches from
 the phase whose path it serves, the Dh-320 kernels (``*_d320``) from
 serve_gemma3 and train_gemma3, the f32 kernels (``*_f32``, timed at
-railx-100m's training shape, bound at the 3xTF32 rate) from train_e2e.
+railx-100m's training shape, bound at the 3xTF32 rate) from train_e2e, the
+flow kernels (``flow_*``) from phase flow's main path.
 
 Then the ``kernels`` JSON line and, last, the ``ok`` JSON line.  It needs a
 CUDA device and the rest of the repository: without either it fails before
@@ -225,10 +247,11 @@ def phase_env():
 def phase_build() -> None:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flow import flow
     from repro_torch.kernels.mlstm import mlstm
     from repro_torch.kernels.ssd import ssd
 
-    sources = [fa.SOURCE, fa.BWD_SOURCE, ssd.SOURCE, mlstm.SOURCE]
+    sources = [fa.SOURCE, fa.BWD_SOURCE, ssd.SOURCE, mlstm.SOURCE, flow.SOURCE]
     t0 = time.perf_counter()
     build.build_all(sources)
     print(f"build: {len(sources)} source(s) in {time.perf_counter() - t0:.2f} s")
@@ -440,23 +463,24 @@ def _nbytes(*tensors) -> int:
 
 
 def _entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms) -> dict:
-    """``source`` and ``replaces`` are paths under src/repro_torch/kernels
-    and src/repro/kernels."""
+    """``source`` and ``replaces`` are paths under src/repro_torch and
+    src/repro."""
     return {
         "name": name, "route": "cuda",
-        "source": f"src/repro_torch/kernels/{source}",
-        "replaces": f"src/repro/kernels/{replaces}",
+        "source": f"src/repro_torch/{source}",
+        "replaces": f"src/repro/{replaces}",
         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms,
     }
 
 
 def _flash_entry(name, source, line, *rest) -> dict:
-    return _entry(name, f"flash_attention/csrc/{source}",
-                  f"flash_attention/flash_attention.py:{line}", *rest)
+    return _entry(name, f"kernels/flash_attention/csrc/{source}",
+                  f"kernels/flash_attention/flash_attention.py:{line}", *rest)
 
 
 def reset_launch_counts() -> None:
+    """The LLM paths' kernels (the flow kernels' counts are phase_flow's)."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.mlstm import mlstm
     from repro_torch.kernels.ssd import ssd
@@ -1258,8 +1282,8 @@ def _ssd_kernel() -> dict:
     nbytes = _nbytes(*x, x[0])  # x, dt, B, C, A in; y out
     bound = _scan_bound("ssd_fwd", f"zamba2-7b (B={B} S={S} H={H} P={P} N={N} chunk={chunk} "
                         "f32)", ms, b2b, plain_ms, flops, nbytes)
-    return _entry("ssd_fwd", "ssd/csrc/ssd_fwd.cu", "ssd/ssd.py:29", None, worst, ms, plain_ms,
-                  bound, None)
+    return _entry("ssd_fwd", "kernels/ssd/csrc/ssd_fwd.cu", "kernels/ssd/ssd.py:29", None, worst,
+                  ms, plain_ms, bound, None)
 
 
 def _mlstm_kernel() -> dict:
@@ -1286,8 +1310,402 @@ def _mlstm_kernel() -> dict:
     nbytes = _nbytes(*x, x[0])  # q, k, v, the gates in; h out
     bound = _scan_bound("mlstm_fwd", f"xlstm-125m (B={B} S={S} H={H} D={D} chunk={chunk} f32)",
                         ms, b2b, plain_ms, flops, nbytes)
-    return _entry("mlstm_fwd", "mlstm/csrc/mlstm_fwd.cu", "mlstm/mlstm.py:26", None, worst, ms,
-                  plain_ms, bound, None)
+    return _entry("mlstm_fwd", "kernels/mlstm/csrc/mlstm_fwd.cu", "kernels/mlstm/mlstm.py:26",
+                  None, worst, ms, plain_ms, bound, None)
+
+
+# ---------------------------------------------------------------------------
+# flow: the network core's all-to-all sweeps (core/compiled_flow.py) and the
+# four kernels of kernels/flow
+# ---------------------------------------------------------------------------
+
+# Fig. 14 at m 2, k_internal 2.0, 8 injection ports, as the reference's
+# benchmarks/bench_simulator.py runs it.  The expected throughputs are the
+# reference's own floats, recorded in BENCH_simulator.json ("rows"): its exact
+# engine on the dict networks at scale 32 (4,096 chips; equal to its seed
+# engine's "seed_baselines"), its symmetry sweep on the canonical networks at
+# scale 160 (102,400 chips).
+FLOW_M, FLOW_K, FLOW_INJ = 2, 2.0, 8.0
+FLOW_EXACT = (("railx-hyperx", 32, 1.023622047244098),
+              ("torus-2d", 32, 0.013885498046807778))
+FLOW_SYMMETRY = (("railx-hyperx", 160, 1.006269592476489),
+                 ("torus-2d", 160, 0.024999755859375))
+FLOW_REACH = 64           # the exact sweep at 16,384 chips, against the symmetry sweep
+FLOW_CHECK = 16           # kernels against their plain versions: 1,024 chips
+FLOW_ECMP = 8             # the ECMP pass (num_paths=2) on the dict network: 256 chips
+FLOW_TIMED_BATCH = 256    # the scale-32 exact sweep's batch, as the main path runs it
+# name -> the line of src/repro/core/compiled_flow.py where the function whose
+# numpy loop it replaces begins: _bfs_levels, subtree_edge_counts,
+# _symmetric_alltoall_counts_impl, _route_demands_impl
+FLOW_REPLACES = {"flow_bfs_level": 459, "flow_subtree_accumulate": 605,
+                 "flow_orbit_gather": 1014, "flow_ordered_fold": 895}
+
+
+def _sleep_then_time(fn) -> float:
+    """Device ms of ``fn``'s launches: the stream is held back by a spin
+    kernel while the host enqueues them, so no host time lies inside."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+class _FlowProbe:
+    """Patches the four wrappers of ``kernels/flow/flow.py`` so that every
+    call the sweeps make also runs the plain version (``ref.py``) on the card
+    on a copy of the same inputs, and must give the same tensors (integers
+    equal, floats the same bits); each call's kernel and plain version are
+    timed on the device, and its bytes reckoned from its inputs (each input
+    read once, each output written once, counting what this call's data
+    needs).  Its launches are not the main path's: the counts are reset after."""
+
+    NAMES = ("bfs_level", "subtree_accumulate", "orbit_gather", "ordered_fold")
+
+    def __init__(self):
+        self.stats = {f"flow_{k}": {"calls": 0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0.0,
+                                    "err": 0, "library_ms": 0.0, "top_down": 0, "bottom_up": 0}
+                      for k in self.NAMES}
+
+    def __enter__(self):
+        from repro_torch.kernels.flow import flow
+
+        self.flow, self.orig = flow, {k: getattr(flow, k) for k in self.NAMES}
+        for k in self.NAMES:
+            setattr(flow, k, getattr(self, k))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.orig.items():
+            setattr(self.flow, k, fn)
+        return False
+
+    def _same(self, kname: str, got, want) -> None:
+        import torch
+
+        st = self.stats[kname]
+        if got.dtype == torch.float64:
+            same = torch.equal(got.view(torch.int64), want.view(torch.int64))
+            err = (got - want).abs().max().item() if got.numel() else 0.0
+        else:
+            same = torch.equal(got, want)
+            err = (got - want).abs().max().item() if got.numel() else 0
+        st["err"] = max(st["err"], err)
+        if not same:
+            fail(f"{kname} disagrees with its plain version: max |diff| {err}")
+
+    def _add(self, kname, ms, plain_ms, nbytes) -> None:
+        st = self.stats[kname]
+        st["calls"] += 1
+        st["ms"] += ms
+        st["plain_ms"] += plain_ms
+        st["bytes"] += nbytes
+
+    def bfs_level(self, bottom_up, fkeys, rank, depth, indptr, nbr, rev_indptr, rev_edge,
+                  edge_src, edge_slot, edge_ok, win, n, stride):
+        import torch
+
+        from repro_torch.kernels.flow import ref
+
+        args = (fkeys, rank, depth, indptr, nbr, rev_indptr, rev_edge, edge_src, edge_slot,
+                edge_ok)
+        ms = _sleep_then_time(lambda: self.orig["bfs_level"](bottom_up, *args, win, n, stride))
+        want = torch.empty_like(win)
+        plain_ms = _sleep_then_time(lambda: ref.bfs_level_ref(bottom_up, *args, want, n, stride))
+        self._same("flow_bfs_level", win, want)
+        size, E = win.numel(), nbr.numel()
+        ok = 0 if edge_ok is None else 1
+        if bottom_up:
+            und = torch.nonzero(depth == -1).flatten() % n
+            I = int((rev_indptr[und + 1] - rev_indptr[und]).sum())
+            # depth; rev_indptr at the undiscovered; their in-edges' rev_edge,
+            # edge_src, edge_slot (and edge_ok); rank at the tails; win
+            nbytes = (4 * size + 8 * min(2 * und.numel(), n + 1) + (20 + ok) * min(I, E)
+                      + 8 * min(I, size) + 8 * size)
+        else:
+            u = fkeys % n
+            D = int((indptr[u + 1] - indptr[u]).sum())
+            # fkeys and their ranks; indptr at the frontier; nbr (and
+            # edge_ok) of its out-edges; depth at their heads; win
+            F = fkeys.numel()
+            nbytes = (16 * F + 8 * min(2 * F, n + 1) + (4 + ok) * min(D, E)
+                      + 4 * min(D, size) + 8 * size)
+        self.stats["flow_bfs_level"]["bottom_up" if bottom_up else "top_down"] += 1
+        self._add("flow_bfs_level", ms, plain_ms, nbytes)
+
+    def subtree_accumulate(self, keys, epos, edge_src, cnt, K, n):
+        import torch
+
+        from repro_torch.kernels.flow import ref
+
+        # a key whose count is 0 stops after reading it: the rest is read and
+        # written at the distinct parent edges and parents of the live keys
+        live = cnt[keys] != 0
+        lk, le = keys[live], epos[live]
+        parents = torch.unique(lk - lk % n + edge_src[le].long()).numel()
+        edges = torch.unique(le).numel()
+        cnt2, K2 = cnt.clone(), K.clone()
+        ms = _sleep_then_time(lambda: self.orig["subtree_accumulate"](keys, epos, edge_src,
+                                                                      cnt, K, n))
+        plain_ms = _sleep_then_time(lambda: ref.subtree_accumulate_ref(keys, epos, edge_src,
+                                                                      cnt2, K2, n))
+        self._same("flow_subtree_accumulate", cnt, cnt2)
+        self._same("flow_subtree_accumulate", K, K2)
+        L = keys.numel()
+        # keys and cnt at the keys; epos of the live keys; edge_src at their
+        # distinct parent edges, K there read and written; cnt at their
+        # distinct parents read and written
+        nbytes = 16 * L + 8 * lk.numel() + (4 + 16) * edges + 16 * parents
+        self._add("flow_subtree_accumulate", ms, plain_ms, nbytes)
+
+    def orbit_gather(self, C, indptr, re_u, re_slot, sx, sy, scale, m2):
+        from repro_torch.kernels.flow import ref
+
+        out = []
+        ms = _sleep_then_time(lambda: out.append(self.orig["orbit_gather"](
+            C, indptr, re_u, re_slot, sx, sy, scale, m2)))
+        want = []
+        plain_ms = _sleep_then_time(lambda: want.append(ref.orbit_gather_ref(
+            C, indptr, re_u, re_slot, sx, sy, scale, m2)))
+        self._same("flow_orbit_gather", out[0], want[0])
+        R, G = re_u.numel(), sx.numel()
+        # re_u, re_slot; sx, sy; indptr at the images; C at the image edges; K
+        nbytes = (16 * R + 16 * G + 8 * min(R * G, indptr.numel())
+                  + 8 * min(R * G, C.numel()) + 8 * R)
+        self._add("flow_orbit_gather", ms, plain_ms, nbytes)
+        return out[0]
+
+    def ordered_fold(self, w_sorted, off):
+        import torch
+
+        from repro_torch.kernels.flow import ref
+
+        out = []
+        ms = _sleep_then_time(lambda: out.append(self.orig["ordered_fold"](w_sorted, off)))
+        want = []
+        plain_ms = _sleep_then_time(lambda: want.append(ref.ordered_fold_ref(w_sorted, off)))
+        self._same("flow_ordered_fold", out[0], want[0])
+        E = off.numel() - 1
+        ids = torch.repeat_interleave(torch.arange(E, device=off.device), off[1:] - off[:-1])
+        library_ms = _sleep_then_time(lambda: torch.bincount(ids, weights=w_sorted, minlength=E))
+        self.stats["flow_ordered_fold"]["library_ms"] += library_ms
+        self._add("flow_ordered_fold", ms, plain_ms, 8 * w_sorted.numel() + 8 * (E + 1) + 8 * E)
+        return out[0]
+
+
+def _flow_equal(what: str, got, want) -> None:
+    import torch
+
+    same = torch.equal(got.cpu(), want.cpu()) if isinstance(got, torch.Tensor) else got == want
+    if not same:
+        fail(f"flow: {what}: the card and the CPU disagree")
+
+
+def _flow_checks(smi: str) -> None:
+    """Each kernel against its plain version on the card, call by call, on
+    RailX and torus at scale 16 (1,024 chips: the exact sweep, the symmetry
+    sweep) and an ECMP pass with num_paths=2 (``edge_ok``-masked levels, the
+    ordered fold) on 8 sources of RailX 16; then the whole results against the
+    same calls on the CPU (the plain versions): trees, counts, loads and
+    throughputs equal."""
+    import torch
+
+    from repro_torch.core import compiled_flow as cf
+
+    for arch_build, name in ((cf.build_compiled_railx_hyperx, "railx-hyperx"),
+                             (cf.build_compiled_torus2d, "torus-2d")):
+        nets = {dev: arch_build(FLOW_CHECK, FLOW_M, FLOW_K, device=dev) for dev in ("cuda", "cpu")}
+        for f in ("indptr", "nbr", "cap", "edge_src"):
+            _flow_equal(f"{name} {f}", getattr(nets["cuda"], f), getattr(nets["cpu"], f))
+        with _FlowProbe() as probe:
+            K = cf.alltoall_edge_counts(nets["cuda"])
+            re, Ks = cf.symmetric_alltoall_counts(nets["cuda"])
+            srcs = nets["cuda"].chips()[:64]
+            forest = cf.bfs_forest(nets["cuda"], srcs)
+        _flow_equal(f"{name} counts", K, cf.alltoall_edge_counts(nets["cpu"]))
+        _flow_equal(f"{name} symmetry counts", Ks, cf.symmetric_alltoall_counts(nets["cpu"])[1])
+        _flow_equal(f"{name} symmetry == exact", K[re], Ks)
+        want = cf.bfs_forest(nets["cpu"], srcs.cpu())
+        for got, w, what in zip(forest, want, ("parent_e", "depth")):
+            _flow_equal(f"{name} {what}", got, w)
+        thr = {dev: (cf.alltoall_throughput_compiled(cn, FLOW_INJ),
+                     cf.symmetric_alltoall_throughput(cn, FLOW_INJ)) for dev, cn in nets.items()}
+        _flow_equal(f"{name} throughputs", thr["cuda"], thr["cpu"])
+        st = probe.stats
+        print(f"flow check {name} {FLOW_CHECK} m {FLOW_M}: {nets['cuda'].num_vertices} chips, "
+              f"{nets['cuda'].num_edges} edges; exact {thr['cuda'][0]!r}, symmetry "
+              f"{thr['cuda'][1]!r}; every call equal to its plain version: "
+              + ", ".join(f"{k} {v['calls']}" for k, v in st.items())
+              + f" (bfs levels top-down {st['flow_bfs_level']['top_down']}, bottom-up "
+              f"{st['flow_bfs_level']['bottom_up']}); trees of 64 sources, counts and "
+              f"throughputs equal to the CPU's [{smi}]", flush=True)
+    nets = {dev: cf.build_compiled_railx_hyperx(FLOW_CHECK, FLOW_M, FLOW_K, device=dev)
+            for dev in ("cuda", "cpu")}
+    nchips = nets["cpu"].num_vertices
+    demands = {(s, t): 1.0 + s for s in range(0, 8 * 4, 4) for t in range(nchips) if t != s}
+    loads = {}
+    with _FlowProbe() as probe:
+        loads["cuda"] = [cf.route_demands(nets["cuda"], demands, p) for p in (1, 2)]
+    loads["cpu"] = [cf.route_demands(nets["cpu"], demands, p) for p in (1, 2)]
+    for p, got, want in zip((1, 2), loads["cuda"], loads["cpu"]):
+        _flow_equal(f"route_demands num_paths={p} (bits)", got.view(torch.int64),
+                    want.view(torch.int64))
+    print(f"flow check route_demands on railx-hyperx {FLOW_CHECK}, 8 sources x {nchips - 1} "
+          f"destinations, num_paths 1 and 2: loads bit-identical to the CPU's; "
+          + ", ".join(f"{k} {v['calls']}" for k, v in probe.stats.items()), flush=True)
+
+
+def _flow_timed(smi: str) -> dict:
+    """Each kernel timed call by call against its plain version at the main
+    path's shapes: the scale-32 RailX exact sweep, every chip a source and a
+    destination, in batches of 256 sources (``flow_bfs_level``,
+    ``flow_subtree_accumulate``), the scale-160 RailX symmetry sweep
+    (``flow_orbit_gather``: 4 classes, a group of 25,600) and the scale-8
+    ECMP pass of the dict network (``flow_ordered_fold``)."""
+    import torch
+
+    from repro_torch.arch import get
+    from repro_torch.core import compiled_flow as cf
+    from repro_torch.core.simulator import alltoall_throughput
+
+    (_, exact_scale, _), (_, sym_scale, _) = FLOW_EXACT[0], FLOW_SYMMETRY[0]
+    rx = cf.build_compiled_railx_hyperx(exact_scale, FLOW_M, FLOW_K)
+    with _FlowProbe() as exact:
+        cf.alltoall_edge_counts(rx, batch=FLOW_TIMED_BATCH)
+    del rx
+    torch.cuda.empty_cache()
+    with _FlowProbe() as sym:
+        cf.symmetric_alltoall_counts(get("railx-hyperx").compiled_fig14(sym_scale, FLOW_M, FLOW_K))
+    torch.cuda.empty_cache()
+    fb = get("railx-hyperx").flow_fig14(FLOW_ECMP, FLOW_M, FLOW_K, FLOW_INJ)
+    with _FlowProbe() as ecmp:
+        alltoall_throughput(fb.net, fb.chips, FLOW_INJ, num_paths=2)
+    timed = {"flow_bfs_level": (exact, f"RailX {exact_scale} m {FLOW_M}, the exact sweep in "
+                                       f"batches of {FLOW_TIMED_BATCH} sources"),
+             "flow_subtree_accumulate": (exact, "the same sweep"),
+             "flow_orbit_gather": (sym, f"RailX {sym_scale} m {FLOW_M}, symmetry sweep"),
+             "flow_ordered_fold": (ecmp, f"RailX {FLOW_ECMP} m 2 dict network, all-to-all "
+                                         "num_paths=2")}
+    out = {}
+    for kname, (probe, where) in timed.items():
+        st = probe.stats[kname]
+        c = st["calls"]
+        if not c:
+            fail(f"flow: {kname} was not called at {where}")
+        ms, plain_ms, bound = st["ms"] / c, st["plain_ms"] / c, st["bytes"] / c / PEAK_BYTES * 1e3
+        library = st["library_ms"] / c if kname == "flow_ordered_fold" else None
+        print(f"flow kernel {kname} at {where}: {c} calls, kernel {ms:.4f} ms a call (device, "
+              f"total {st['ms']:.3f} ms), plain {plain_ms:.4f} ms, library "
+              f"{'none' if library is None else f'{library:.4f} ms (torch.bincount)'}; "
+              f"{st['bytes'] / c:.4g} B a call, bound {bound:.4f} ms (bytes at 3.35 TB/s), "
+              f"{bound / ms:.1%} of it; max |diff| {st['err']} [{smi}]", flush=True)
+        out[kname] = {"err": st["err"], "ms": ms, "plain_ms": plain_ms,
+                      "bound": (bound, "bytes"), "library_ms": library}
+    return out
+
+
+def _flow_main_path(smi: str) -> None:
+    """The network core as a user drives it: the Fig. 14 exact points from
+    the registry's dict networks (``flow_fig14`` -> ``simulator.
+    alltoall_throughput``), the 102,400-chip symmetry points from its
+    canonical builders (``compiled_fig14`` -> ``symmetric_alltoall_throughput``),
+    the ECMP all-to-all with num_paths=2 (equal to the same call on the CPU),
+    and the exact sweep at 16,384 chips held against the symmetry sweep edge
+    by edge."""
+    import torch
+
+    from repro_torch.arch import get
+    from repro_torch.core import compiled_flow as cf
+    from repro_torch.core.simulator import alltoall_throughput
+
+    for arch, scale, want in FLOW_EXACT:
+        t0 = time.perf_counter()
+        fb = get(arch).flow_fig14(scale, FLOW_M, FLOW_K, FLOW_INJ)
+        t1 = time.perf_counter()
+        thr = alltoall_throughput(fb.net, fb.chips, FLOW_INJ)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        print(f"flow fig14 exact {arch} {scale} m {FLOW_M} ({len(fb.chips)} chips, dict "
+              f"network): throughput {thr!r} (reference {want!r}); dict build {t1 - t0:.3f} s, "
+              f"lowering + sweep {t2 - t1:.3f} s wall [{smi}]", flush=True)
+        if thr != want:
+            fail(f"flow: {arch} {scale} exact throughput {thr!r} != the reference's {want!r}")
+    for arch, scale, want in FLOW_SYMMETRY:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cn = get(arch).compiled_fig14(scale, FLOW_M, FLOW_K)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        thr = cf.symmetric_alltoall_throughput(cn, FLOW_INJ)
+        t2 = time.perf_counter()
+        print(f"flow fig14 symmetry {arch} {scale} m {FLOW_M} ({cn.num_vertices} chips, "
+              f"{cn.num_edges} edges): throughput {thr!r} (reference {want!r}); build "
+              f"{t1 - t0:.3f} s, sweep {t2 - t1:.3f} s wall [{smi}]", flush=True)
+        if thr != want:
+            fail(f"flow: {arch} {scale} symmetry throughput {thr!r} != the reference's {want!r}")
+        del cn
+        torch.cuda.empty_cache()
+    fb = get("railx-hyperx").flow_fig14(FLOW_ECMP, FLOW_M, FLOW_K, FLOW_INJ)
+    t0 = time.perf_counter()
+    ecmp = alltoall_throughput(fb.net, fb.chips, FLOW_INJ, num_paths=2)
+    t1 = time.perf_counter()
+    cpu = alltoall_throughput(fb.net, fb.chips, FLOW_INJ, num_paths=2, device="cpu")
+    print(f"flow ecmp railx-hyperx {FLOW_ECMP} m {FLOW_M} ({len(fb.chips)} chips): num_paths=2 "
+          f"throughput {ecmp!r} (CPU {cpu!r}); {t1 - t0:.3f} s wall [{smi}]", flush=True)
+    if not 0 < ecmp <= FLOW_INJ:
+        fail(f"flow: ECMP throughput {ecmp!r} out of (0, {FLOW_INJ}]")
+    _flow_equal("ECMP throughput", ecmp, cpu)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cn = cf.build_compiled_railx_hyperx(FLOW_REACH, FLOW_M, FLOW_K)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    K = cf.alltoall_edge_counts(cn)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    re, Ks = cf.symmetric_alltoall_counts(cn)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    nchips = cn.num_vertices
+    thr = FLOW_INJ * min(1.0, 1.0 / cf.utilization_from_counts(
+        K, cn.cap, FLOW_INJ / (nchips - 1), sequential=True))
+    print(f"flow reach railx-hyperx {FLOW_REACH} m {FLOW_M}: {nchips} chips, {cn.num_edges} "
+          f"edges, {nchips * (nchips - 1)} ordered pairs; build {t1 - t0:.3f} s, exact sweep "
+          f"{t2 - t1:.3f} s, symmetry sweep {t3 - t2:.3f} s wall; exact throughput {thr!r}; "
+          f"counts on all {re.numel()} representative edges equal to the symmetry sweep's: "
+          f"{bool(torch.equal(K[re], Ks))} [{smi}]", flush=True)
+    if not torch.equal(K[re], Ks):
+        fail("flow: the 16,384-chip exact sweep's counts differ from the symmetry sweep's")
+
+
+def phase_flow(smi: str) -> list:
+    """The network core on the card: the kernels against their plain
+    versions, timed at the main path's shapes, then the main path with the
+    launch counts set to 0 just before and read just after."""
+    import torch
+
+    from repro_torch.kernels.flow import flow
+
+    _flow_checks(smi)
+    timed = _flow_timed(smi)
+    torch.cuda.empty_cache()
+    flow.reset_launch_counts()
+    _flow_main_path(smi)
+    launches = flow.launch_counts()
+    print(f"flow launches on the main path: {launches}", flush=True)
+    for kname, c in launches.items():
+        if not c:
+            fail(f"flow: {kname} was not launched on the main path")
+    torch.cuda.empty_cache()
+    return [_entry(k, "kernels/flow/csrc/flow.cu", f"core/compiled_flow.py:{FLOW_REPLACES[k]}",
+                   launches[k], t["err"],
+                   t["ms"], t["plain_ms"], t["bound"], t["library_ms"])
+            for k, t in timed.items()]
 
 
 def phase_model() -> None:
@@ -3445,9 +3863,10 @@ def _e2e_clock(log):
 def phase_examples(smi: str) -> None:
     """The three smoke-size twins on worlds of one, each to its reference
     assertion: the fault drill (phase 1 on (1, 1), the recovery plan, phase
-    2 restoring with resharding on a fresh (1, 1) world), quickstart step 4
-    on (1, 1, 1), and serve_decode on (1, 1) under a port ``Tracer`` whose
-    trace must validate and hold one ``serve.decode_step`` a decode call."""
+    2 restoring with resharding on a fresh (1, 1) world), quickstart steps
+    1-3 (the network core, plain Python) and step 4 on (1, 1, 1), and
+    serve_decode on (1, 1) under a port ``Tracer`` whose trace must validate
+    and hold one ``serve.decode_step`` a decode call."""
     import tempfile
 
     from repro_torch.obs import Tracer, tracing, validate_trace
@@ -3464,6 +3883,7 @@ def phase_examples(smi: str) -> None:
         if start != ft.STEPS or plan.mesh_shape != (9, 2):
             fail(f"examples: the drill restored step {start} (want {ft.STEPS}), plan "
                  f"{plan.mesh_shape} (want (9, 2))")
+        qs.steps_1_to_3(log)
         with _world_of_one() as mesh:
             losses = qs.train_step4(mesh, "cuda", log_fn=log)
         if not (len(losses) == qs.STEPS and all(map(math.isfinite, losses))
@@ -3488,6 +3908,7 @@ def main() -> None:
     smi = phase_env()
     phase_build()
     kernels = phase_kernel()
+    flow_kernels = phase_flow(smi)
     phase_model()
     # each kernel's launches from the phase whose path it serves
     launches = phase_serve(smi)
@@ -3543,6 +3964,7 @@ def main() -> None:
                      for k in ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")})
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    kernels += flow_kernels  # their launches from phase_flow's main path
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,22 +1,23 @@
-"""Quickstart step 4, the PyTorch port's twin of step 4 of
-``examples/quickstart.py``: five training steps of a small model with the
-paper's hierarchical collective schedule on a (pod, data, model) = (2, 2, 2)
-mesh.
+"""Quickstart, the PyTorch port's twin of ``examples/quickstart.py``: the
+RailX toolkit in 60 seconds.
 
     PYTHONPATH=src python examples/torch/quickstart.py --device cpu --devices 8
     PYTHONPATH=src torchrun --nproc-per-node 8 examples/torch/quickstart.py
     PYTHONPATH=src python examples/torch/quickstart.py --mesh 1,1,1   # one card
 
-Steps 1-3 of the reference (design a RailX installation, map a 5D-parallel
-workload onto it, estimate collective times) drive the framework-free
-network twin (``repro.core``), which the port does not port: run
-``examples/quickstart.py`` for them.  This step trains the llama3.2-3b smoke
-model with ``dp_mode="manual_hier"`` and ``schedule="hierarchical"``
-(params replicated over data and pod and split over model, the gradients
-reduced by Eq. 8's reduce-scatter / all-reduce / all-gather over data and
-pod) and prints each step's loss.
-``--device`` defaults to ``cuda``.  Imports nothing of JAX or of the JAX
-package.
+1. Design a RailX installation and configure its topology (paper §3).
+2. Map a 5D-parallel LLM workload onto it (paper §5).
+3. Estimate collective times with the analytical model (paper §4.2).
+4. Run five training steps of a small model with the paper's hierarchical
+   collective schedule on a (pod, data, model) = (2, 2, 2) mesh.
+
+Steps 1-3 run on the port's network core (``repro_torch.core``: plain
+Python, no device) on rank 0 and print the reference's lines.  Step 4
+trains the llama3.2-3b smoke model with ``dp_mode="manual_hier"`` and
+``schedule="hierarchical"`` (params replicated over data and pod and split
+over model, the gradients reduced by Eq. 8's reduce-scatter / all-reduce /
+all-gather over data and pod) and prints each step's loss.  ``--device``
+defaults to ``cuda``.  Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -25,6 +26,48 @@ import argparse
 from typing import Callable, List
 
 STEPS = 5
+
+
+def steps_1_to_3(log_fn: Callable[[str], None] = print) -> dict:
+    """The reference's steps 1-3 on ``repro_torch.core``, printing its lines;
+    -> the values they print from."""
+    from repro_torch.core.analytical import t_allreduce_2d_ring, t_allreduce_hierarchical
+    from repro_torch.core.cost import table3
+    from repro_torch.core.mapping import (
+        ModelSpec, ParallelismPlan, WorkloadShape, plan_dimension_split,
+    )
+    from repro_torch.core.topology import RailXConfig, table2_metrics
+
+    # 1. hardware + topology
+    cfg = RailXConfig(m=4, n=9, R=128)
+    log_fn(f"RailX m={cfg.m} n={cfg.n} R={cfg.R}: {cfg.num_chips} chips, "
+           f"{cfg.num_switches} OCSes")
+    table2 = table2_metrics(cfg)
+    for name, row in table2.items():
+        log_fn(f"  {name:10s} scale={row['scale']:>10.0f} "
+               f"diam={row['diameter_ho']:>3} bisect/chip={row['bisection_per_chip']:.2f}")
+    rx = [r for r in table3() if r["name"] == "RailX7Mesh"][0]
+    log_fn(f"  cost: {rx['cost_musd']}M$ for {rx['scale']} chips "
+           f"({rx['cost_per_inject_x']}x FT cost/injection)")
+
+    # 2. workload mapping
+    model = ModelSpec(layers=80, hidden=8192, intermediate=28672,
+                      vocab=128256, heads=64, kv_heads=8, experts=8, top_k=2)
+    plan = ParallelismPlan(tp=16, cp=2, ep=8, dp=16, pp=4)
+    shape = WorkloadShape(micro_batch=1, num_micro_batches=8, seq_len=8192)
+    res = plan_dimension_split(RailXConfig(m=4, n=9, R=128), model, plan, shape)
+    log_fn("\ndimension split (rails per logical dim):")
+    for s in res.specs:
+        log_fn(f"  {s.name:4s} phys={s.phys} scale={s.scale:<4d} rails={s.rails:<3d} "
+               f"{s.interconnect}")
+
+    # 3. collective estimates
+    V, nB, alpha, k = 2 * 8192 * 28672 * 3 / 16, 9 * 100e9, 300e-9, 4.0
+    ring = t_allreduce_2d_ring(4, 16, V, nB, alpha)
+    hier = t_allreduce_hierarchical(4, 16, V, nB, alpha, k)
+    log_fn(f"\nDP grad all-reduce estimate: 2D-ring {ring*1e3:.2f} ms vs "
+           f"hierarchical {hier*1e3:.2f} ms ({ring/hier:.2f}x)")
+    return {"cfg": cfg, "table2": table2, "cost": rx, "split": res, "ring": ring, "hier": hier}
 
 
 def train_step4(mesh, device, steps: int = STEPS, log_fn: Callable[[str], None] = print, *,
@@ -61,6 +104,8 @@ def train_step4(mesh, device, steps: int = STEPS, log_fn: Callable[[str], None] 
 def _rank(rank: int, world: int, args: argparse.Namespace) -> None:
     from repro_torch.launch.mesh import make_mesh
 
+    if rank == 0:
+        steps_1_to_3()
     mesh = make_mesh(tuple(int(x) for x in args.mesh.split(",")), tuple(args.axes.split(",")),
                      args.device)
     train_step4(mesh, args.device, args.steps,

@@ -12,8 +12,10 @@
   spans the port emits, :data:`KNOWN_SPANS`, under the reference's names.
 
 The port emits ``serve.prefill`` and ``serve.decode_step`` around every
-``prefill_fn`` / ``decode_fn`` call of ``serve/serve_step.py``, as the
-reference does::
+``prefill_fn`` / ``decode_fn`` call of ``serve/serve_step.py``, and the
+``flow.*`` spans of the network simulator (``core/compiled_flow.py``:
+CSR assembly, BFS, the all-to-all and symmetry sweeps, the orbit gather,
+demand routing), as the reference does::
 
     from repro_torch.obs import Tracer, tracing
 

@@ -28,6 +28,16 @@ KNOWN_SPANS: Dict[str, Tuple[str, ...]] = {
     "launch": (
         "roofline.parse",        # one traced step's count (launch/roofline.py)
     ),
+    # core/compiled_flow.py (the reference's group also holds
+    # "goodput.estimate", which comes with the port of cluster/)
+    "flow": (
+        "flow.csr_assemble",
+        "flow.bfs",
+        "flow.alltoall_counts",
+        "flow.route",
+        "flow.symmetry_sweep",
+        "flow.orbit_gather",
+    ),
 }
 
 

@@ -697,3 +697,77 @@ def test_hierarchical_all_reduce_on_a_world_of_one_nccl_mesh(card):
             ("all_gather", ("data",), v), ("all_reduce", ("pod", "data"), v)]
     finally:
         dist.destroy_process_group()
+
+
+# the flow-level simulator's kernels (kernels/flow/csrc/flow.cu): trees,
+# counts and loads equal to the plain versions on the CPU, bit for bit
+FLOW_NETS = [("railx", 8, 2), ("railx", 6, 3), ("torus", 8, 2)]
+
+
+def _flow_nets(kind, scale, m):
+    from repro_torch.core import compiled_flow as cf
+
+    build = cf.build_compiled_railx_hyperx if kind == "railx" else cf.build_compiled_torus2d
+    return {dev: build(scale, m, 2.0, device=dev) for dev in ("cuda", "cpu")}
+
+
+@pytest.mark.parametrize("net", FLOW_NETS, ids=lambda n: f"{n[0]}{n[1]}_m{n[2]}")
+def test_flow_kernels_match_the_plain_versions(card, net):
+    from repro_torch.core import compiled_flow as cf
+    from repro_torch.kernels.flow import flow
+
+    nets = _flow_nets(*net)
+    flow.reset_launch_counts()
+    got, want = ({dev: f(nets[dev]) for dev in nets} for f in (
+        lambda cn: cf.alltoall_edge_counts(cn, batch=37),
+        lambda cn: cf.symmetric_alltoall_counts(cn)[1]))
+    for d in (got, want):
+        assert torch.equal(d["cuda"].cpu(), d["cpu"])
+    srcs = nets["cpu"].chips()[:20]
+    ok = torch.rand(nets["cpu"].num_edges, generator=torch.Generator().manual_seed(0)) < 0.7
+    for edge_ok in (None, ok):
+        forest = cf.bfs_forest(nets["cuda"], srcs, None if edge_ok is None else edge_ok.cuda())
+        for a, b in zip(forest, cf.bfs_forest(nets["cpu"], srcs, edge_ok)):
+            assert torch.equal(a.cpu(), b)
+    demands = {(s, t): 1.0 / (1 + s + t) for s in range(0, 40, 7)
+               for t in range(nets["cpu"].num_vertices) if t != s}
+    for p in (1, 2):
+        a, b = (cf.route_demands(nets[dev], demands, p) for dev in ("cuda", "cpu"))
+        assert torch.equal(a.cpu().view(torch.int64), b.view(torch.int64))
+    assert cf.alltoall_throughput_compiled(nets["cuda"], 8.0) == \
+        cf.alltoall_throughput_compiled(nets["cpu"], 8.0)
+    assert all(flow.launch_counts().values()), flow.launch_counts()
+
+
+@pytest.mark.parametrize("bottom_up", [False, True], ids=["top_down", "bottom_up"])
+def test_flow_bfs_level_both_directions_match_the_plain_version(card, bottom_up):
+    from repro_torch.core import compiled_flow as cf
+    from repro_torch.kernels.flow import flow, ref
+
+    cn = cf.build_compiled_railx_hyperx(6, 2, 2.0, device="cuda")
+    rev_indptr, rev_edge, edge_slot, stride = cf._reverse_tables(cn)
+    n, B = cn.num_vertices, 5
+    g = torch.Generator(device="cuda").manual_seed(1)
+    depth = torch.where(torch.rand(B * n, generator=g, device="cuda") < 0.5, -1, 1).int()
+    fkeys = torch.nonzero(depth == 1).flatten()[::3].contiguous()
+    rank = torch.full((B * n,), ref.INF, dtype=torch.int64, device="cuda")
+    b = fkeys // n
+    rank[fkeys] = torch.arange(fkeys.numel(), device="cuda") - torch.searchsorted(b, b)
+    ok = torch.rand(cn.num_edges, generator=g, device="cuda") < 0.8
+    args = (fkeys, rank, depth, cn.indptr, cn.nbr, rev_indptr, rev_edge, cn.edge_src, edge_slot,
+            ok)
+    win, want = torch.empty(B * n, dtype=torch.int64, device="cuda"), None
+    flow.bfs_level(bottom_up, *args, win, n, stride)
+    want = torch.empty_like(win)
+    ref.bfs_level_ref(bottom_up, *args, want, n, stride)
+    assert torch.equal(win, want) and (win != ref.INF).any()
+
+
+def test_flow_wrappers_reject_what_the_kernels_do_not_take(card):
+    from repro_torch.kernels.flow import flow
+
+    w = torch.ones(4, dtype=torch.float64, device="cuda")
+    with pytest.raises(TypeError, match="off must be int64"):
+        flow.ordered_fold(w, torch.tensor([0, 2, 4], dtype=torch.int32, device="cuda"))
+    with pytest.raises(ValueError, match="CUDA device"):
+        flow.ordered_fold(w, torch.tensor([0, 2, 4]))

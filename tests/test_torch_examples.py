@@ -5,6 +5,7 @@ attention path, ``gspmd_fsdp`` with 2 microbatches on (2, 2, 2)),
 ``fault_tolerant_training.py`` (phase 1 on a world of 8 on (4, 2), then
 phase 2 on a fresh world of 4 on (2, 2) restoring with resharding),
 ``quickstart.py`` step 4 (``manual_hier`` + ``hierarchical`` on (2, 2, 2))
+(its steps 1-3, on the port's network core, in-process against ``repro.core``)
 and ``serve_decode.py`` (qwen3-8b smoke on (4, 2) under a tracer) run in
 gloo worlds (``torch_dist_worlds.examples`` / ``examples_shrunk``) from the
 JAX inits at ``PRNGKey(0)``; the reference's bodies run in one JAX process
@@ -263,6 +264,54 @@ def test_serve_decode_matches_the_reference(runs):
     for out in runs["port"]:
         assert int(out["serve.spans"]) == int(out["serve.valid_spans"]) == int(out["serve.steps"])
     _same_on_every_rank(runs["port"], ["serve.sampled", "serve.logits"])
+
+
+def _twin(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"torch_example_{name}", os.path.join(HERE, "..", "examples", "torch", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_quickstart_steps_1_to_3_match_the_reference():
+    """Quickstart steps 1-3 on ``repro_torch.core`` print the reference
+    example's lines, made here from the values the same ``repro.core``
+    calls return."""
+    from repro.core.analytical import t_allreduce_2d_ring, t_allreduce_hierarchical
+    from repro.core.cost import table3
+    from repro.core.mapping import ModelSpec, ParallelismPlan, WorkloadShape, plan_dimension_split
+    from repro.core.topology import RailXConfig, table2_metrics
+
+    lines = []
+    got = _twin("quickstart").steps_1_to_3(lines.append)
+    cfg = RailXConfig(m=4, n=9, R=128)
+    want = [f"RailX m=4 n=9 R=128: {cfg.num_chips} chips, {cfg.num_switches} OCSes"]
+    for name, row in table2_metrics(cfg).items():
+        want.append(f"  {name:10s} scale={row['scale']:>10.0f} diam={row['diameter_ho']:>3} "
+                    f"bisect/chip={row['bisection_per_chip']:.2f}")
+    rx = [r for r in table3() if r["name"] == "RailX7Mesh"][0]
+    want.append(f"  cost: {rx['cost_musd']}M$ for {rx['scale']} chips "
+                f"({rx['cost_per_inject_x']}x FT cost/injection)")
+    res = plan_dimension_split(
+        cfg, ModelSpec(layers=80, hidden=8192, intermediate=28672, vocab=128256, heads=64,
+                       kv_heads=8, experts=8, top_k=2),
+        ParallelismPlan(tp=16, cp=2, ep=8, dp=16, pp=4),
+        WorkloadShape(micro_batch=1, num_micro_batches=8, seq_len=8192))
+    want.append("\ndimension split (rails per logical dim):")
+    want += [f"  {s.name:4s} phys={s.phys} scale={s.scale:<4d} rails={s.rails:<3d} "
+             f"{s.interconnect}" for s in res.specs]
+    V, nB, alpha = 2 * 8192 * 28672 * 3 / 16, 9 * 100e9, 300e-9
+    ring = t_allreduce_2d_ring(4, 16, V, nB, alpha)
+    hier = t_allreduce_hierarchical(4, 16, V, nB, alpha, 4.0)
+    want.append(f"\nDP grad all-reduce estimate: 2D-ring {ring*1e3:.2f} ms vs "
+                f"hierarchical {hier*1e3:.2f} ms ({ring/hier:.2f}x)")
+    assert lines == want
+    assert (got["ring"], got["hier"]) == (ring, hier)
+    assert [(s.name, s.phys, s.scale, s.rails, s.interconnect) for s in got["split"].specs] == \
+        [(s.name, s.phys, s.scale, s.rails, s.interconnect) for s in res.specs]
 
 
 TWINS = sorted(f for f in os.listdir(os.path.join(HERE, "..", "examples", "torch"))

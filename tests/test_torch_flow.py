@@ -1,0 +1,330 @@
+"""The port's flow-level simulator (``repro_torch.core.simulator`` and
+``compiled_flow``, on the CPU through the plain versions of the
+``kernels/flow`` kernels) against the reference's, at equality: CSR arrays,
+BFS trees, integer link counts, loads and every throughput float bit for
+bit, on the reference parity test's small shapes (RailX 4-16, torus 4-16,
+m 2-3, fat-tree 24), the dict networks of every Fig. 14 fabric, a graph
+with planted ties and an unreachable pair."""
+
+import random
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro import arch as ref_arch  # noqa: E402
+from repro.core import compiled_flow as R  # noqa: E402
+from repro.core import simulator as RS  # noqa: E402
+from repro.core.simulator import route_demands_ecmp_reference  # noqa: E402
+from repro_torch import arch  # noqa: E402
+from repro_torch.core import compiled_flow as P  # noqa: E402
+from repro_torch.core import simulator as PS  # noqa: E402
+from repro_torch.kernels.flow import ref as flow_ref  # noqa: E402
+
+CPU = "cpu"
+INJ = 8.0
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The sweeps are many small tensor ops, on which torch's thread pool
+    only spins: one thread runs them faster and leaves the other cores to
+    the test processes beside this one."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+CANONICAL = [  # (id, builder name, args, kwargs)
+    ("hyperx4", "build_compiled_railx_hyperx", (4, 2, 2.0), {}),
+    ("hyperx5", "build_compiled_railx_hyperx", (5, 2, 2.0), {}),
+    ("hyperx_m3", "build_compiled_railx_hyperx", (6, 3, 2.0), {}),
+    ("hyperx_m3_odd", "build_compiled_railx_hyperx", (4, 3, 2.0), {}),   # no symmetry
+    ("hyperx16", "build_compiled_railx_hyperx", (16, 2, 2.0), {}),
+    ("hyperx8_lpp3", "build_compiled_railx_hyperx", (8, 2, 4.0, 3), {}),
+    ("torus4", "build_compiled_torus2d", (4, 2, 2.0), {}),
+    ("torus5", "build_compiled_torus2d", (5, 2, 2.0), {}),
+    ("torus16", "build_compiled_torus2d", (16, 2, 2.0), {}),
+    ("fattree", "build_compiled_fattree", (24,), {"ports": 8.0}),
+]
+SYMMETRIC = {"hyperx4", "hyperx5", "hyperx_m3", "hyperx16", "hyperx8_lpp3", "torus4", "torus5",
+             "torus16", "fattree"}
+
+
+def _pair(case):
+    _, fn, args, kw = case
+    return getattr(P, fn)(*args, **kw, device=CPU), getattr(R, fn)(*args, **kw)
+
+
+def _eq(got, want, what=""):
+    """A port tensor equal to a reference array: values and type."""
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    assert got.dtype == np.asarray(want).dtype, (what, got.dtype, np.asarray(want).dtype)
+    np.testing.assert_array_equal(got, want, err_msg=what)
+
+
+def _csr_equal(cn, rcn):
+    for f in ("indptr", "nbr", "cap", "edge_src"):
+        _eq(getattr(cn, f), getattr(rcn, f), f)
+    _eq(cn.chips(), rcn.chips(), "chips")
+    assert cn.star_core == rcn.star_core
+    sym, rsym = cn.symmetry, rcn.symmetry
+    assert (sym is None) == (rsym is None)
+    if sym is not None:
+        assert (sym.scale, sym.mesh, sym.step) == (rsym.scale, rsym.mesh, rsym.step)
+
+
+@pytest.mark.parametrize("case", CANONICAL, ids=[c[0] for c in CANONICAL])
+def test_canonical_builders_trees_and_counts_match_the_reference(case):
+    """CSR arrays, the trees of every chip's BFS, the exact sweep's counts,
+    the symmetry sweep's counts and both throughputs, all equal."""
+    cn, rcn = _pair(case)
+    _csr_equal(cn, rcn)
+    chips = rcn.chips()
+    parent_e, depth = P.bfs_forest(cn, chips)
+    rparent_e, rdepth = R.bfs_forest(rcn, chips)
+    _eq(parent_e, rparent_e, "parent_e")
+    _eq(depth, rdepth, "depth")
+    K = P.alltoall_edge_counts(cn, batch=100)
+    _eq(K, R._alltoall_edge_counts_impl(rcn, chips, 1024), "counts")
+    _eq(P.subtree_edge_counts(cn, parent_e, depth, torch.as_tensor(chips)),
+        R.subtree_edge_counts(rcn, rparent_e, rdepth, chips), "subtree counts")
+    assert P.alltoall_throughput_compiled(cn, INJ) == R.alltoall_throughput_compiled(rcn, INJ)
+    if case[0] not in SYMMETRIC:
+        with pytest.raises(ValueError, match="no translation symmetry"):
+            P.symmetric_alltoall_counts(cn)
+        return
+    re, Ks = P.symmetric_alltoall_counts(cn)
+    rre, rKs = R.symmetric_alltoall_counts(rcn)
+    _eq(re, rre, "representative edges")
+    _eq(Ks, rKs, "symmetry counts")
+    _eq(K[re], rKs, "exact counts on the representatives")
+    assert P.symmetric_alltoall_throughput(cn, INJ) == R.symmetric_alltoall_throughput(rcn, INJ)
+    if cn.symmetry is not None:
+        _eq(P.representative_sources(cn), R.representative_sources(rcn), "representatives")
+
+
+@pytest.mark.parametrize("case", CANONICAL[:3] + CANONICAL[6:8], ids=lambda c: c[0])
+def test_masked_bfs_and_ecmp_match_the_reference(case):
+    """``edge_ok``-masked trees (a random mask that changes the trees) and
+    ``route_demands`` at num_paths 1 and 2, loads bit for bit."""
+    cn, rcn = _pair(case)
+    rng = np.random.RandomState(0)
+    ok = rng.rand(rcn.num_edges) < 0.7
+    srcs = rng.choice(rcn.chips(), 8, replace=False)
+    got = P.bfs_forest(cn, srcs, edge_ok=torch.as_tensor(ok))
+    want = R.bfs_forest(rcn, srcs, edge_ok=ok)
+    for g, w, what in zip(got, want, ("parent_e", "depth")):
+        _eq(g, w, what)
+    assert not np.array_equal(want[0], R.bfs_forest(rcn, srcs)[0])  # the mask bites
+    chips = rcn.chips()
+    demands = {}
+    for _ in range(60):
+        s, t = (int(x) for x in rng.choice(chips, 2, replace=False))
+        demands[(s, t)] = demands.get((s, t), 0.0) + float(rng.rand() * 3.0)
+    for num_paths in (1, 2):
+        _eq(P.route_demands(cn, demands, num_paths), R.route_demands(rcn, demands, num_paths),
+            f"loads num_paths={num_paths}")
+    load = P.route_demands(cn, demands, 2)
+    assert P.max_utilization_compiled(cn, load) == \
+        R.max_utilization_compiled(rcn, R.route_demands(rcn, demands, 2))
+
+
+FIG14 = [n for n in ref_arch.names() if ref_arch.get(n).flow_fig14 is not None]
+
+
+@pytest.mark.parametrize("name", FIG14)
+@pytest.mark.parametrize("scale", [3, 4])
+def test_dict_networks_of_every_fig14_fabric_match_the_reference(name, scale):
+    """``from_flow_network`` on the registry's Fig. 14 builders (dict
+    insertion order kept), and ``alltoall_throughput`` on the dict network,
+    exact and with ECMP, bit for bit."""
+    fb = arch.get(name).flow_fig14(scale, 2, 2.0, INJ)
+    rfb = ref_arch.get(name).flow_fig14(scale, 2, 2.0, INJ)
+    cn = P.CompiledNetwork.from_flow_network(fb.net, device=CPU)
+    rcn = R.CompiledNetwork.from_flow_network(rfb.net)
+    for f in ("indptr", "nbr", "cap", "edge_src"):
+        _eq(getattr(cn, f), getattr(rcn, f), f)
+    assert cn.vertex_of == rcn.vertex_of and cn.vertex_id == rcn.vertex_id
+    for num_paths in (1, 2):
+        got = PS.alltoall_throughput(fb.net, fb.chips, INJ, num_paths=num_paths, device=CPU)
+        assert got == RS.alltoall_throughput(rfb.net, rfb.chips, INJ, num_paths=num_paths)
+
+
+def test_fig14_throughput_equals_the_seed_engine():
+    """The exact sweep on the dict networks equals the reference's seed
+    engine (its ``route_demands_ecmp_reference`` over the full demand
+    matrix, the test oracle): the same bits, as the reference promises."""
+    for name, scale, inj in (("railx-hyperx", 3, 8.0), ("railx-hyperx", 5, 4.0),
+                             ("torus-2d", 5, 4.0)):
+        fb = arch.get(name).flow_fig14(scale, 2, 2.0, inj)
+        per_pair = inj / (len(fb.chips) - 1)
+        demands = {(s, t): per_pair for s in fb.chips for t in fb.chips if s != t}
+        util = RS.max_utilization(fb.net, route_demands_ecmp_reference(fb.net, demands))
+        got = PS.alltoall_throughput(fb.net, fb.chips, inj, device=CPU)
+        assert got == inj * min(1.0, 1.0 / util)
+
+
+def test_route_demands_randomized_parity_with_the_seed_engine():
+    """Randomized demand matrices on RailX / torus dict networks: the
+    port's load dict equals the seed engine's (keys and float values)."""
+    rng = random.Random(0xC0FFEE)
+    for trial in range(12):
+        scale = rng.randint(3, 5)
+        name = "railx-hyperx" if trial % 2 else "torus-2d"
+        fb = arch.get(name).build_flow(scale, 2, 2.0)
+        demands = {}
+        for _ in range(rng.randint(1, 40)):
+            s, t = rng.sample(fb.chips, 2)
+            demands[(s, t)] = demands.get((s, t), 0.0) + rng.random() * 3.0
+        got = PS.route_demands_ecmp(fb.net, demands, device=CPU)
+        want = dict(route_demands_ecmp_reference(fb.net, demands))
+        assert got == want, trial
+        assert PS.max_utilization(fb.net, got) == RS.max_utilization(fb.net, want)
+        assert PS.route_demands_ecmp(fb.net, demands, 2, device=CPU) == \
+            RS.route_demands_ecmp(fb.net, demands, 2)
+
+
+def _planted_ties():
+    """Source s reaches a, b, c in one hop; each of them reaches x and y (a
+    tie of three parents at depth 2), and y also from z past x: the first
+    discoverer in FIFO x adjacency order must win every tie."""
+    net = PS.FlowNetwork()
+    for u, v in (("s", "c"), ("s", "a"), ("s", "b"), ("b", "y"), ("a", "y"), ("c", "x"),
+                 ("a", "x"), ("b", "x"), ("c", "y"), ("x", "z"), ("y", "z"), ("z", "w"),
+                 ("x", "w")):
+        net.add_link(u, v, 1.0 + len(u + v) % 3)
+    return net
+
+
+def test_planted_ties_break_as_the_seed_bfs():
+    net = _planted_ties()
+    cn = P.CompiledNetwork.from_flow_network(net, device=CPU)
+    rcn = R.CompiledNetwork.from_flow_network(net)
+    srcs = list(range(cn.num_vertices))
+    for g, w, what in zip(P.bfs_forest(cn, srcs), R.bfs_forest(rcn, srcs), ("parent_e", "depth")):
+        _eq(g, w, what)
+    # the seed BFS's own trees: a path's second-to-last hop is its parent
+    for s in net.vertices():
+        paths = RS.shortest_paths_multi(net, s, net.vertices())
+        for t, path in paths.items():
+            if t != s:
+                e = int(P.bfs_forest(cn, [cn.vertex_id[s]])[0][0, cn.vertex_id[t]])
+                assert cn.vertex_of[int(cn.edge_src[e])] == path[-2]
+    demands = {(s, t): 1.0 + i for i, (s, t) in enumerate(
+        (s, t) for s in net.vertices() for t in net.vertices() if s != t)}
+    assert PS.route_demands_ecmp(net, demands, device=CPU) == \
+        dict(route_demands_ecmp_reference(net, demands))
+    vertices = net.vertices()
+    assert PS.alltoall_throughput(net, vertices, INJ, device=CPU) == \
+        RS.alltoall_throughput(net, vertices, INJ)
+
+
+@pytest.mark.parametrize("case", [("ties", ()), ("railx-hyperx", (3, 2, 2.0)),
+                                  ("torus-2d", (4, 2, 2.0)), ("fat-tree-nonblocking", (24, 8.0))],
+                         ids=lambda c: c[0])
+def test_shortest_paths_multi_matches_the_reference(case):
+    """The port's dict BFS gives the reference's path to every destination,
+    from every source."""
+    name, args = case
+    if name == "ties":
+        net = rnet = _planted_ties()
+    else:
+        net, rnet = arch.get(name).build_flow(*args).net, ref_arch.get(name).build_flow(*args).net
+    vertices = net.vertices()
+    assert vertices == rnet.vertices()
+    for s in vertices:
+        assert PS.shortest_paths_multi(net, s, vertices) == \
+            RS.shortest_paths_multi(rnet, s, vertices), s
+
+
+@pytest.mark.parametrize("args", [(2, 1.0, 1), (8, 1024.0, 2, 10.0, 1.0, 3, 2.0),
+                                  (64, 4096.0, 4), (1024, 1.0e6, 6, 7.0, 0.5, 1, 0.5)])
+def test_ring_allreduce_time_cycles_matches_the_reference(args):
+    assert PS.ring_allreduce_time_cycles(*args) == RS.ring_allreduce_time_cycles(*args)
+
+
+def test_unreachable_raises_like_the_reference():
+    net = PS.FlowNetwork()
+    net.add_link("a", "b", 1.0)
+    net.add_link("c", "d", 1.0)
+    for fn, args in ((PS.route_demands_ecmp, (net, {("a", "c"): 1.0})),
+                     (PS.alltoall_throughput, (net, ["a", "b", "c"], 1.0)),
+                     (PS.alltoall_throughput, (net, ["a", "b", "c"], 1.0, 2))):
+        with pytest.raises(ValueError) as want:
+            getattr(RS, fn.__name__)(*args)
+        with pytest.raises(ValueError, match="unreachable") as got:
+            fn(*args, device=CPU)
+        assert str(got.value) == str(want.value)
+
+
+def test_from_arrays_carries_a_reference_network_across():
+    """The reference's arrays (and symmetry) fed to both engines: routing is
+    checked apart from building."""
+    rcn = R.build_compiled_railx_hyperx(6, 3, 2.0)
+    cn = P.CompiledNetwork.from_arrays(rcn.indptr, rcn.nbr, rcn.cap, rcn.edge_src,
+                                       chip_ids=rcn.chip_ids, symmetry=rcn.symmetry, device=CPU)
+    _csr_equal(cn, rcn)
+    _eq(P.alltoall_edge_counts(cn), R._alltoall_edge_counts_impl(rcn, rcn.chips(), 1024))
+    _eq(P.symmetric_alltoall_counts(cn)[1], R.symmetric_alltoall_counts(rcn)[1])
+    star = R.build_compiled_fattree(6, ports=2.0)
+    cn = P.CompiledNetwork.from_arrays(star.indptr, star.nbr, star.cap, star.edge_src,
+                                       chip_ids=star.chip_ids, star_core=star.star_core,
+                                       device=CPU)
+    assert P.symmetric_alltoall_throughput(cn, 2.0) == R.symmetric_alltoall_throughput(star, 2.0)
+
+
+def test_assembly_contract_is_enforced():
+    """A block whose sources are out of order, or whose keys repeat within a
+    vertex's run, fails loudly, as in the reference."""
+    t = lambda *x: torch.tensor(x, dtype=torch.int64)  # noqa: E731
+    caps = [torch.ones(2, dtype=torch.float64)]
+    with pytest.raises(AssertionError, match="not sorted"):
+        P._assemble_csr(3, [t(1, 0)], [t(0, 0)], [t(2, 2)], caps)
+    with pytest.raises(AssertionError, match="strictly increasing"):
+        P._assemble_csr(3, [t(0, 0)], [t(1, 1)], [t(1, 2)], caps)
+
+
+def test_sequential_table_and_utilization_match_the_reference():
+    x = 8.0 / 4095
+    np.testing.assert_array_equal(P.sequential_sum_table(x, 5000), R.sequential_sum_table(x, 5000))
+    rng = np.random.RandomState(1)
+    K = rng.randint(0, 3000, 500).astype(np.int64)
+    cap = rng.choice([1.0, 2.0, 3.0], 500)
+    for seq in (True, False):
+        assert P.utilization_from_counts(torch.as_tensor(K), torch.as_tensor(cap), x, seq) == \
+            R.utilization_from_counts(K, cap, x, seq)
+    assert P.utilization_from_counts(torch.zeros(3, dtype=torch.int64), torch.ones(3), x) == 0.0
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_bfs_level_directions_give_the_same_winners(seed):
+    """The plain ``bfs_level``: the bottom-up and top-down candidate sets
+    reach the same least keys on a random state (both directions of the
+    kernel must, too; the direction is only a matter of work)."""
+    cn = P.build_compiled_railx_hyperx(5, 2, 2.0, device=CPU)
+    rev_indptr, rev_edge, edge_slot, stride = P._reverse_tables(cn)
+    n, B = cn.num_vertices, 4
+    rng = np.random.RandomState(seed)
+    depth = torch.as_tensor(np.where(rng.rand(B * n) < 0.5, -1, 1).astype(np.int32))
+    fkeys = torch.as_tensor(np.sort(rng.choice(np.nonzero(depth.numpy() == 1)[0], 30, False)))
+    rank = torch.full((B * n,), flow_ref.INF, dtype=torch.int64)
+    b = fkeys // n
+    rank[fkeys] = torch.arange(fkeys.numel()) - torch.searchsorted(b, b)
+    ok = torch.as_tensor(rng.rand(cn.num_edges) < 0.8)
+    wins = []
+    for bottom_up in (False, True):
+        win = torch.empty(B * n, dtype=torch.int64)
+        flow_ref.bfs_level_ref(bottom_up, fkeys, rank, depth, cn.indptr, cn.nbr, rev_indptr,
+                               rev_edge, cn.edge_src, edge_slot, ok, win, n, stride)
+        wins.append(win)
+    assert torch.equal(*wins)
+    assert (wins[0] != flow_ref.INF).any()
+
+
+def test_ordered_fold_sums_each_run_left_to_right():
+    w = torch.tensor([0.1, 1e16, 0.2, -1e16, 0.3, 0.7], dtype=torch.float64)
+    off = torch.tensor([0, 4, 4, 6])
+    got = flow_ref.ordered_fold_ref(w, off)
+    assert got.tolist() == [((0.0 + 0.1) + 1e16 + 0.2) + -1e16, 0.0, (0.0 + 0.3) + 0.7]

@@ -190,11 +190,49 @@ def test_every_port_span_is_cataloged_and_none_is_dead():
     reference's names."""
     literals, prefixes = _span_usage()
     catalog = port.known_span_names()
-    assert literals == {"serve.prefill", "serve.decode_step", "roofline.parse"}
+    assert literals == {"serve.prefill", "serve.decode_step", "roofline.parse", *FLOW_SPANS}
     assert not prefixes
     assert literals <= catalog and catalog <= literals
     assert catalog <= ref.known_span_names()
     assert port.KNOWN_SPANS["serve"] == ref.KNOWN_SPANS["serve"]
+    assert port.KNOWN_SPANS["flow"] == tuple(n for n in ref.KNOWN_SPANS["flow"]
+                                             if n.startswith("flow."))
+
+
+FLOW_SPANS = ("flow.csr_assemble", "flow.bfs", "flow.alltoall_counts", "flow.route",
+              "flow.symmetry_sweep", "flow.orbit_gather")
+
+
+def _flow_run():
+    """Both sweeps, a routing pass and a canonical build of the port's flow
+    engine on the CPU."""
+    from repro_torch.core import compiled_flow as cf
+
+    cn = cf.build_compiled_railx_hyperx(4, 2, 2.0, device="cpu")
+    return (cf.alltoall_throughput_compiled(cn, 8.0), cf.symmetric_alltoall_throughput(cn, 8.0),
+            cf.route_demands(cn, {(0, 9): 1.0, (3, 40): 2.0}, 2).tolist())
+
+
+def test_flow_engine_emits_the_references_spans():
+    """Under ``tracing`` the port's flow engine emits every ``flow.*`` span of
+    the reference's catalog but ``goodput.estimate`` (cat ``flow``, the orbit
+    gather nested in the symmetry sweep), in a trace that validates; with a
+    disabled tracer it never touches it and gives the same results."""
+    tracer = port.Tracer(process="flow")
+    with port.tracing(tracer):
+        traced = _flow_run()
+    assert tracer.span_names() == set(FLOW_SPANS)
+    begins = [e for e in tracer.events if e["ph"] == "B"]
+    assert {e["cat"] for e in begins} == {"flow"}
+    marks = [(e["ph"], e["name"]) for e in tracer.events
+             if e["name"] in ("flow.symmetry_sweep", "flow.orbit_gather")]
+    assert marks == [("B", "flow.symmetry_sweep"), ("B", "flow.orbit_gather"),
+                     ("E", "flow.orbit_gather"), ("E", "flow.symmetry_sweep")]
+    totals = tracer.phase_totals()
+    assert totals["flow.csr_assemble"]["count"] == 1 and totals["flow.route"]["count"] == 1
+    assert port.validate_trace(tracer.to_dict())["spans"] == len(begins)
+    with port.tracing(_StrictDisabledTracer()):
+        assert _flow_run() == traced
 
 
 class _StrictDisabledTracer:

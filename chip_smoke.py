@@ -50,6 +50,23 @@ Phases, each printed as it runs; any failure exits non-zero:
            16,384 chips (RailX 64), whose counts must equal the symmetry
            sweep's on every representative edge.  Each sweep's wall time
            is printed beside the card.
+3c. cluster  the MLaaS cluster twin (``repro_torch.cluster``), whose one
+           piece of array work, each placement's flow-model goodput, routes
+           on the card through ``flow_bfs_level`` and ``flow_ordered_fold``:
+           bench_cluster's 128 x 128 day in full mode (flow goodput, circuit
+           validation; flow launch counts set to 0 just before and read just
+           after, both kernels launched), its summary equal to
+           BENCH_cluster.json's recorded row and, with every job record and
+           unrounded goodput, to the same day on the CPU; its wall time,
+           events/s, each goodput miss's wall ms and launches.  Then a
+           qwen3-8b job at its default plan on each of the four fabrics with
+           a ``job_network`` (card == CPU), one goodput miss at
+           ``max_flow_nodes`` 512 (timed, launches counted), the MLaaS twin's two acts
+           (``examples/torch/mlaas_allocation.py``; its asserts, its lines
+           equal to the CPU run's) and bench_serving's mixed day on
+           railx-hyperx, fixed and autoscale, 16 x 16, 24 h, at the H100
+           service model (card fingerprint == CPU's; SLO attainments
+           printed).
 4. model   a small llama-shaped f32 model on the card (flash kernels)
            against the same weights on the CPU (plain path): a forward, two
            train steps (remat on the card), and a checkpoint round trip;
@@ -177,7 +194,8 @@ Phases, each printed as it runs; any failure exits non-zero:
            ``Tracer`` (its trace valid, one serve.decode_step span a decode
            call).
 
-Every serve and train phase sets all launch counts to 0 before it runs and
+Every phase prints its wall time on a ``clock:`` line, and the run its
+total.  Every serve and train phase sets all launch counts to 0 before it runs and
 reads them after; the ``kernels`` line reports each kernel's launches from
 the phase whose path it serves, the Dh-320 kernels (``*_d320``) from
 serve_gemma3 and train_gemma3, the f32 kernels (``*_f32``, timed at
@@ -1706,6 +1724,284 @@ def phase_flow(smi: str) -> list:
                    launches[k], t["err"],
                    t["ms"], t["plain_ms"], t["bound"], t["library_ms"])
             for k, t in timed.items()]
+
+
+# ---------------------------------------------------------------------------
+# The MLaaS cluster twin (``repro_torch.cluster``): its goodput on the card
+# ---------------------------------------------------------------------------
+
+# benchmarks/bench_cluster.py's run_grid(128, True): a 128 x 128 node grid,
+# RailXConfig(m=4, n=4, R=256), best_fit, flow goodput and circuit validation
+# on, a day-long Poisson trace (seed 1234, 12 jobs/h, 2 h mean service) and a
+# node-failure trace (MTBF 5e6 x side / 32 s, MTTR 1800 s).  Its summary as
+# recorded in BENCH_cluster.json ("rows", grid "128x128", mode "full"), every
+# key of the row but the wall time; the day's other two summary keys
+# (mean_queue_delay_s, reconfig_downtime_s) are held card == CPU.
+CLUSTER_SIDE = 128
+CLUSTER_DAY = {"events": 780, "jobs": 304, "finished": 304, "utilization": 0.024,
+               "mean_goodput": 0.838, "reconfig_rounds": 618, "circuits_flipped": 425728,
+               "placement_attempts": 309, "placement_scans": 309,
+               "circuit_cache_hits": 304, "circuit_cache_misses": 5,
+               "goodput_cache_hits": 304, "goodput_cache_misses": 5}
+CLUSTER_FABRICS = ("railx-hyperx", "torus-2d", "torus-3d", "rail-only")
+# benchmarks/bench_serving.py's run_mixed: 16 x 16, seed 102026, two services
+# on diurnal rates sampled every 600 s, a training load of qwen3-8b jobs
+# submitted every 300 s and a switch-heavy fault trace; the horizon is
+# its full day of 12 jobs (a day costs well under a second on the host)
+SERVING_SIDE, SERVING_SEED, SERVING_RATE_INTERVAL_S = 16, 10_2026, 600.0
+SERVING_FAULTS = dict(mtbf_node_s=0.0, mtbf_switch_s=4.0e5, mttr_switch_s=1800.0)
+SERVING_HOURS, SERVING_JOBS = 24.0, 12
+
+
+def cluster_day(side: int, full: bool, device) -> tuple:
+    """bench_cluster's ``run_grid(side, full)`` on the port, its goodput
+    routed on ``device``; -> (scheduler, wall seconds of the event loop)."""
+    import itertools
+
+    from repro_torch.cluster import ClusterScheduler, iter_failure_trace, iter_poisson_trace
+    from repro_torch.core.topology import RailXConfig
+
+    cfg = RailXConfig(m=4, n=4, R=2 * side)
+    sched = ClusterScheduler(cfg, n=side, policy="best_fit",
+                             goodput_model="flow" if full else "none",
+                             validate_circuits=full, device=device)
+    sched.enqueue(itertools.chain(
+        iter_poisson_trace(seed=1234, duration_s=24 * 3600.0, arrival_rate_per_h=12.0,
+                           mean_service_s=2 * 3600.0),
+        iter_failure_trace(n=side, seed=1234, duration_s=24 * 3600.0,
+                           mtbf_node_s=5e6 * side / 32, mttr_s=1800.0),
+    ))
+    t0 = time.perf_counter()
+    sched.run()
+    return sched, time.perf_counter() - t0
+
+
+def serving_services():
+    """bench_serving's two services: qwen3-8b chat (SLO 2 s) and
+    llama3.2-3b edge (SLO 1 s), one replica each at start, up to 6, with
+    their diurnal rate profiles."""
+    from repro_torch.cluster import DiurnalProfile, make_service
+
+    chat = make_service(0, "qwen3-8b", slo_p99_s=2.0, initial_replicas=1, max_replicas=6)
+    edge = make_service(1, "llama3.2-3b", slo_p99_s=1.0, initial_replicas=1, max_replicas=6)
+    profiles = {
+        0: DiurnalProfile(base_rps=20.0),
+        1: DiurnalProfile(base_rps=26.0, harmonics=(
+            (0.5, 86400.0, -math.pi / 4.0),
+            (0.2, 43200.0, math.pi / 2.0),
+        )),
+    }
+    return (chat, edge), profiles
+
+
+def serving_day(fabric: str, autoscale: bool, device, duration_s: float = SERVING_HOURS * 3600.0,
+                jobs: int = SERVING_JOBS, chip: Optional[dict] = None) -> tuple:
+    """bench_serving's ``run_mixed(fabric, autoscale=...)`` on the port, its
+    goodput routed on ``device``; ``chip`` overrides the service model's
+    rates (``ServingConfig``'s ``peak_flops`` / ``hbm_bw`` / ``link_bw``,
+    an H100's by default).  -> (scheduler, fingerprint: the JSON of the
+    summary and the serving summary, as bench_serving's, the serving summary,
+    wall s)."""
+    from repro_torch.cluster import (
+        ClusterScheduler, JobSubmit, ServingConfig, iter_diurnal_trace,
+        iter_fault_domain_trace, make_job,
+    )
+    from repro_torch.core.topology import RailXConfig
+
+    cfg = RailXConfig(m=4, n=4, R=2 * SERVING_SIDE)
+    services, profiles = serving_services()
+    events = []
+    for sid, profile in sorted(profiles.items()):
+        events.extend(iter_diurnal_trace(
+            service_id=sid, seed=SERVING_SEED + sid, duration_s=duration_s,
+            interval_s=SERVING_RATE_INTERVAL_S, profile=profile, burst_prob=0.05))
+    for i in range(jobs):
+        events.append(JobSubmit(time=i * 300.0, job=make_job(
+            i, "qwen3-8b", service_s=(1.0 + (i % 3)) * 3600.0)))
+    events.extend(iter_fault_domain_trace(
+        n=SERVING_SIDE, rails=cfg.r, seed=SERVING_SEED, duration_s=duration_s,
+        emit_horizon_recoveries=True, **SERVING_FAULTS))
+    sched = ClusterScheduler(
+        cfg, n=SERVING_SIDE, policy="best_fit", goodput_model="flow",
+        validate_circuits=False, fabric=fabric, checkpoint_interval_s=900.0,
+        serving=ServingConfig(services=services, autoscale=autoscale,
+                              preempt_training=autoscale,
+                              headroom_nodes=4 if autoscale else 0, **(chip or {})),
+        device=device)
+    t0 = time.perf_counter()
+    m = sched.run(events)
+    wall = time.perf_counter() - t0
+    srv = sched.serving_summary(until=duration_s)
+    return sched, json.dumps({"summary": m.summary(), "serving": srv}, sort_keys=True), srv, wall
+
+
+class _GoodputClock:
+    """Times every goodput miss (``metrics.estimate_goodput``, which the
+    ``GoodputCache`` calls once per new allocation shape) and counts the flow
+    kernels' launches inside it."""
+
+    def __enter__(self):
+        from repro_torch.cluster import metrics
+        from repro_torch.kernels.flow import flow
+
+        self.misses = []
+        inner = self._inner = metrics.estimate_goodput
+
+        def timed(*args, **kw):
+            before = flow.launch_counts()
+            t0 = time.perf_counter()
+            g = inner(*args, **kw)
+            ms = (time.perf_counter() - t0) * 1e3
+            after = flow.launch_counts()
+            self.misses.append((ms, {k: after[k] - before[k] for k in after if after[k] - before[k]}))
+            return g
+
+        metrics.estimate_goodput = timed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.cluster import metrics
+
+        metrics.estimate_goodput = self._inner
+
+
+def _cluster_day_on_card(smi: str) -> dict:
+    """The 128 x 128 day on the card, launch counts set to 0 just before and
+    read just after, then the same day with ``device="cpu"``: the summary
+    equal to BENCH_cluster.json's row and to the CPU's, every job record
+    (unrounded goodput included) and ``mean_goodput()`` equal."""
+    import torch
+
+    from repro_torch.kernels.flow import flow
+
+    torch.cuda.synchronize()
+    flow.reset_launch_counts()
+    with _GoodputClock() as clock:
+        card, wall = cluster_day(CLUSTER_SIDE, True, None)
+    torch.cuda.synchronize()
+    launches = flow.launch_counts()
+    summary = card.metrics.summary()
+    events = summary["events"]
+    print(f"cluster day {CLUSTER_SIDE}x{CLUSTER_SIDE} full on the card: {events} events in "
+          f"{wall:.3f} s wall, {events / wall:.1f} events/s; summary {summary} [{smi}]", flush=True)
+    print(f"cluster day: {len(clock.misses)} goodput misses, wall ms each "
+          + ", ".join(f"{ms:.1f} ({c})" for ms, c in clock.misses)
+          + f"; flow launches on the day {launches} [{smi}]", flush=True)
+    for k in ("flow_bfs_level", "flow_ordered_fold"):
+        if not launches[k]:
+            fail(f"cluster: {k} was not launched on the 128 x 128 day")
+    got = {k: summary[k] for k in CLUSTER_DAY}
+    if got != CLUSTER_DAY:
+        fail(f"cluster: the day's summary {got} != BENCH_cluster.json's {CLUSTER_DAY}")
+    cpu, cpu_wall = cluster_day(CLUSTER_SIDE, True, "cpu")
+    same = (cpu.metrics.summary() == summary and cpu.metrics.records == card.metrics.records
+            and cpu.metrics.mean_goodput() == card.metrics.mean_goodput())
+    print(f"cluster day on the CPU: {cpu_wall:.3f} s wall; summary, every job record and "
+          f"mean_goodput() {card.metrics.mean_goodput()!r} equal to the card's: {same}", flush=True)
+    if not same:
+        fail("cluster: the card's day differs from the CPU's")
+    return {"wall_s": wall, "events": events, "misses": clock.misses, "launches": launches}
+
+
+def _cluster_fabrics(smi: str) -> None:
+    """A qwen3-8b job at its ``default_plan`` on each of the four fabrics
+    with a ``job_network``: its goodput on the card ``==`` on the CPU."""
+    from repro_torch.cluster import estimate_goodput, make_job, plan_job_mapping
+    from repro_torch.core.availability import JobAllocation
+    from repro_torch.core.topology import RailXConfig
+    from repro_torch.kernels.flow import flow
+
+    cfg = RailXConfig(m=4, n=4, R=2 * SERVING_SIDE)
+    job = make_job(0, "qwen3-8b")
+    jm = plan_job_mapping(cfg, job)
+    alloc = JobAllocation(tuple(range(jm.rows_req)), tuple(range(jm.cols_req)))
+    for fabric in CLUSTER_FABRICS:
+        flow.reset_launch_counts()
+        t0 = time.perf_counter()
+        g = estimate_goodput(cfg, job, jm.mapping, alloc, fabric=fabric)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: v for k, v in flow.launch_counts().items() if v}
+        want = estimate_goodput(cfg, job, jm.mapping, alloc, fabric=fabric, device="cpu")
+        print(f"cluster goodput {fabric}: qwen3-8b {jm.rows_req}x{jm.cols_req} nodes, card "
+              f"{g!r} in {ms:.1f} ms wall ({launches}), CPU {want!r} [{smi}]", flush=True)
+        if g != want:
+            fail(f"cluster: {fabric}'s goodput on the card {g!r} != the CPU's {want!r}")
+
+
+def _cluster_capped_miss(smi: str) -> None:
+    """What one goodput miss costs at ``max_flow_nodes`` (512): a 32 x 32
+    node qwen3-8b job (tp 16, dp 32, pp 32) trimmed to 16 x 32 nodes, routed
+    source by source on the card.  Timed and counted, not held: the same
+    routing is held card == CPU on the smaller jobs above."""
+    from repro_torch.cluster import estimate_goodput, make_job, plan_job_mapping
+    from repro_torch.core.availability import JobAllocation
+    from repro_torch.core.mapping import ParallelismPlan
+    from repro_torch.core.topology import RailXConfig
+    from repro_torch.kernels.flow import flow
+
+    cfg = RailXConfig(m=4, n=4, R=64)
+    job = make_job(0, "qwen3-8b", plan=ParallelismPlan(tp=16, cp=1, ep=1, dp=32, pp=32))
+    jm = plan_job_mapping(cfg, job)
+    alloc = JobAllocation(tuple(range(jm.rows_req)), tuple(range(jm.cols_req)))
+    flow.reset_launch_counts()
+    t0 = time.perf_counter()
+    g = estimate_goodput(cfg, job, jm.mapping, alloc)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: v for k, v in flow.launch_counts().items() if v}
+    print(f"cluster goodput miss at max_flow_nodes 512: qwen3-8b {jm.rows_req}x{jm.cols_req} "
+          f"nodes trimmed to 512, railx-hyperx, goodput {g!r}, {ms:.1f} ms wall, "
+          f"launches {launches} [{smi}]", flush=True)
+    if not 0 < g <= 1:
+        fail(f"cluster: the capped miss's goodput {g!r} is out of (0, 1]")
+
+
+def _cluster_example(smi: str) -> None:
+    """The MLaaS twin, both acts, on the card, its own asserts holding, its
+    lines equal to the same run with ``device="cpu"``."""
+    mlaas = example("mlaas_allocation")
+    lines = {}
+    for dev in (None, "cpu"):
+        out = lines[dev] = []
+        t0 = time.perf_counter()
+        try:
+            mlaas.run(dev, out.append)
+        except AssertionError as e:
+            fail(f"cluster: the MLaaS twin's own check failed on {dev or 'cuda'}: {e}")
+        print(f"cluster example mlaas_allocation on {dev or 'the card'}: {len(out)} lines in "
+              f"{time.perf_counter() - t0:.3f} s wall", flush=True)
+    for line in lines[None][-6:]:
+        print(f"cluster example: {line}", flush=True)
+    if lines[None] != lines["cpu"]:
+        fail("cluster: the MLaaS twin's lines on the card differ from the CPU's")
+
+
+def _cluster_serving(smi: str) -> None:
+    """bench_serving's mixed day on railx-hyperx, fixed and autoscale, at
+    the H100 service model: the card's fingerprint ``==`` the CPU's.  The
+    SLO attainments are printed, not held."""
+    for autoscale in (False, True):
+        _, fp, srv, wall = serving_day("railx-hyperx", autoscale, None)
+        _, cpu_fp, _, cpu_wall = serving_day("railx-hyperx", autoscale, "cpu")
+        mode = "autoscale" if autoscale else "fixed"
+        print(f"cluster serving railx-hyperx {mode} {SERVING_SIDE}x{SERVING_SIDE} "
+              f"{SERVING_HOURS:g} h (H100 service model): slo_attainment "
+              f"{srv['slo_attainment']}, p99_queue_delay_s {srv['p99_queue_delay_s']}, "
+              f"scale_ups {srv['scale_ups']}; card {wall:.3f} s, CPU {cpu_wall:.3f} s wall; "
+              f"fingerprints equal: {fp == cpu_fp} [{smi}]", flush=True)
+        if fp != cpu_fp:
+            fail(f"cluster: the {mode} serving day on the card differs from the CPU's")
+
+
+def phase_cluster(smi: str) -> dict:
+    """The MLaaS cluster twin with its goodput on the card: bench_cluster's
+    128 x 128 day, one job on each ``job_network`` fabric, the MLaaS twin,
+    and bench_serving's mixed day, each against the same run on the CPU."""
+    day = _cluster_day_on_card(smi)
+    _cluster_fabrics(smi)
+    _cluster_capped_miss(smi)
+    _cluster_example(smi)
+    _cluster_serving(smi)
+    return day
 
 
 def phase_model() -> None:
@@ -3902,57 +4198,71 @@ def phase_examples(smi: str) -> None:
         fail(f"examples: {spans} serve.decode_step spans for {served['steps']} decode calls")
 
 
+def clocked(fn, *args):
+    """``fn(*args)``, its wall time printed as a ``clock:`` line, so that a
+    run shows where the smoke run's time goes."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"clock: {fn.__name__} {time.perf_counter() - t0:.1f} s wall", flush=True)
+    return out
+
+
 def main() -> None:
     import torch
 
-    smi = phase_env()
-    phase_build()
-    kernels = phase_kernel()
-    flow_kernels = phase_flow(smi)
-    phase_model()
+    t_start = time.perf_counter()
+    smi = clocked(phase_env)
+    clocked(phase_build)
+    kernels = clocked(phase_kernel)
+    flow_kernels = clocked(phase_flow, smi)
+    torch.cuda.empty_cache()
+    clocked(phase_cluster, smi)
+    torch.cuda.empty_cache()
+    clocked(phase_model)
     # each kernel's launches from the phase whose path it serves
-    launches = phase_serve(smi)
+    launches = clocked(phase_serve, smi)
     torch.cuda.empty_cache()
-    launches.update(phase_serve_hybrid(smi))
+    launches.update(clocked(phase_serve_hybrid, smi))
     torch.cuda.empty_cache()
-    launches.update(phase_serve_xlstm(smi))
+    launches.update(clocked(phase_serve_xlstm, smi))
     torch.cuda.empty_cache()
-    phase_serve_moe(smi)
+    clocked(phase_serve_moe, smi)
     torch.cuda.empty_cache()
     served = {}
     for phase in (phase_serve_gemma3, phase_serve_vlm, phase_serve_whisper):
-        served[phase.__name__] = phase(smi)
+        served[phase.__name__] = clocked(phase, smi)
         torch.cuda.empty_cache()
-    train = phase_train(smi)
+    train = clocked(phase_train, smi)
     torch.cuda.empty_cache()
-    phase_dryrun_check(smi, train)
-    train_moe = phase_train_moe(smi)
+    clocked(phase_dryrun_check, smi, train)
+    train_moe = clocked(phase_train_moe, smi)
     torch.cuda.empty_cache()
     with _world_of_one() as mesh:
-        phase_train_dist(smi, train, mesh)
+        clocked(phase_train_dist, smi, train, mesh)
         torch.cuda.empty_cache()
-        phase_train_fsdp(smi, train, mesh)
+        clocked(phase_train_fsdp, smi, train, mesh)
         torch.cuda.empty_cache()
-        phase_train_moe_fsdp(smi, train_moe, mesh)
+        clocked(phase_train_moe_fsdp, smi, train_moe, mesh)
     torch.cuda.empty_cache()
-    train_gemma3 = phase_train_gemma3(smi)
-    one_process = {"whisper-large-v3": phase_train_whisper(smi),
-                   "qwen2-vl-2b": phase_train_vlm(smi)}
+    train_gemma3 = clocked(phase_train_gemma3, smi)
+    one_process = {"whisper-large-v3": clocked(phase_train_whisper, smi),
+                   "qwen2-vl-2b": clocked(phase_train_vlm, smi)}
     torch.cuda.empty_cache()
-    one_process["zamba2-7b"] = phase_train_hybrid(smi)
-    one_process["xlstm-125m"] = phase_train_xlstm(smi)
+    one_process["zamba2-7b"] = clocked(phase_train_hybrid, smi)
+    one_process["xlstm-125m"] = clocked(phase_train_xlstm, smi)
     with _world_of_one() as mesh:
-        phase_train_fsdp_families(smi, one_process, mesh)
+        clocked(phase_train_fsdp_families, smi, one_process, mesh)
     torch.cuda.empty_cache()
     with _world_of_one((1, 1), ("data", "model")) as mesh:
-        phase_serve_sharded_families(smi, mesh)
+        clocked(phase_serve_sharded_families, smi, mesh)
     torch.cuda.empty_cache()
     with _world_of_one((1,), ("pipe",)) as mesh:
-        phase_pipeline(smi, mesh)
+        clocked(phase_pipeline, smi, mesh)
     torch.cuda.empty_cache()
-    train_e2e = phase_train_e2e(smi)
+    train_e2e = clocked(phase_train_e2e, smi)
     torch.cuda.empty_cache()
-    phase_examples(smi)
+    clocked(phase_examples, smi)
+    print(f"clock: all phases {time.perf_counter() - t_start:.1f} s wall", flush=True)
     launches.update({k: train["launches"][k]
                      for k in ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")})
     # the Dh-320 kernels' launches from gemma3-4b's serving and training paths
@@ -3970,7 +4280,6 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
-
 
 if __name__ == "__main__":
     main()

@@ -1,6 +1,5 @@
 """``repro_torch.arch`` — the network-architecture registry (the port's own
-copy of ``repro.arch``; every capability but ``job_network``, which comes
-with the port of ``cluster/``).
+copy of ``repro.arch``, with every capability of the reference's).
 
 Every fabric this repo can reason about is described **once**, by a
 single :class:`~repro_torch.arch.registry.Architecture` registration carrying

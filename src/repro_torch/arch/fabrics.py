@@ -1,10 +1,11 @@
 """Built-in architecture registrations (the Table 2/6 + Fig. 14 fabrics).
 
 The port's own copy of ``repro/arch/fabrics.py``: the same ten
-registrations with every capability but ``job_network``, whose builders
-live in the reference's ``cluster.metrics`` and come with the port of
-``cluster/``.  ``build_compiled`` / ``compiled_fig14`` build the port's
-``CompiledNetwork`` (tensors on ``device``, the card by default).
+registrations with every capability, ``job_network`` on ``railx-hyperx``,
+``torus-2d``, ``torus-3d`` and ``rail-only`` (its builders live in
+``cluster.metrics``, imported lazily: ``cluster`` imports this package).
+``build_compiled`` / ``compiled_fig14`` build the port's ``CompiledNetwork``
+(tensors on ``device``, the card by default).
 
 The flow builders that used to live in ``core.simulator`` are the
 canonical implementations here; ``core.simulator.build_*`` remain as thin
@@ -246,6 +247,30 @@ def _torus2d_allreduce_time(m, p, V, nB, alpha, k=4.0, alpha_int=0.0):
     return ana.t_allreduce_2d_ring(m, p, V, nB, alpha)
 
 
+def _railx_job_network(cfg, mapping, alloc) -> FlowNetwork:
+    from ..cluster.metrics import build_job_network
+
+    return build_job_network(cfg, mapping, alloc)
+
+
+def _torus2d_job_network(cfg, mapping, alloc) -> FlowNetwork:
+    from ..cluster.metrics import build_job_network_torus
+
+    return build_job_network_torus(cfg, mapping, alloc)
+
+
+def _rail_only_job_network(cfg, mapping, alloc) -> FlowNetwork:
+    from ..cluster.metrics import build_job_network_rail_only
+
+    return build_job_network_rail_only(cfg, mapping, alloc)
+
+
+def _torus3d_job_network(cfg, mapping, alloc) -> FlowNetwork:
+    from ..cluster.metrics import build_job_network_torus3d
+
+    return build_job_network_torus3d(cfg, mapping, alloc)
+
+
 # ---------------------------------------------------------------------------
 # Registrations
 # ---------------------------------------------------------------------------
@@ -283,6 +308,7 @@ RAILX_HYPERX = register(Architecture(
     ),
     ring_orders=topo.hyperx_ring_orders,
     build_adj=topo.build_hyperx_2d,
+    job_network=_railx_job_network,
 ))
 
 
@@ -309,6 +335,7 @@ TORUS_2D = register(Architecture(
     ),
     ring_orders=topo.torus_ring_orders,
     build_adj=topo.build_torus_2d,
+    job_network=_torus2d_job_network,
 ))
 
 
@@ -321,6 +348,7 @@ TORUS_3D = register(Architecture(
         CostVariant(order=50, build=lambda p: cost_mod.torus_3d(True, prices=p)),
         CostVariant(order=60, build=lambda p: cost_mod.torus_3d(False, prices=p)),
     ),
+    job_network=_torus3d_job_network,
 ))
 
 
@@ -414,6 +442,7 @@ RAIL_ONLY = register(Architecture(
             order=130, build=lambda p: cost_mod.rail_only_rail_planes(4096, p)
         ),
     ),
+    job_network=_rail_only_job_network,
 ))
 
 

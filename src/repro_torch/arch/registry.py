@@ -38,8 +38,7 @@ worked registration example):
 ``job_network``
     ``job_network(cfg, mapping, alloc) -> FlowNetwork`` — the
     node-granularity flow network of one scheduled job's reconfigured
-    rails (used by ``cluster.metrics.estimate_goodput``).  No fabric of the
-    port declares it yet: it comes with the port of ``cluster/``.
+    rails (used by ``cluster.metrics.estimate_goodput``).
 ``adj``
     ``build_adj(**params) -> AdjGraph`` — node-level adjacency dict
     (``core.topology`` graph utilities).

@@ -1,6 +1,6 @@
-"""Elastic restart planning (the port's own copy of ``repro/launch/elastic.py``
-and of the two helpers it calls from ``repro/core/availability.py``; stdlib
-only).
+"""Elastic restart planning (the port's own copy of ``repro/launch/elastic.py``;
+stdlib only).  Algorithm 2 and its fault classifier come from the port's
+``core/availability.py``.
 
 The production story:
   1. a node fails; its row or column leaves the single-job allocation;
@@ -21,69 +21,11 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Dict, List, Sequence, Set, Tuple
+from typing import Sequence, Tuple
+
+from ..core.availability import _classify, max_single_allocation  # noqa: F401
 
 Coord = Tuple[int, int]
-
-
-def _classify(n: int, faults: Sequence[Coord]) -> Tuple[List[Coord], List[Coord]]:
-    """Split faults into isolated (unique row AND column) and non-isolated
-    (``repro/core/availability.py`` ``_classify``)."""
-    rows: Dict[int, int] = {}
-    cols: Dict[int, int] = {}
-    for r, c in faults:
-        rows[r] = rows.get(r, 0) + 1
-        cols[c] = cols.get(c, 0) + 1
-    isolated, clustered = [], []
-    for r, c in faults:
-        if rows[r] == 1 and cols[c] == 1:
-            isolated.append((r, c))
-        else:
-            clustered.append((r, c))
-    return isolated, clustered
-
-
-def max_single_allocation(n: int, faults: Sequence[Coord]) -> int:
-    """Algorithm 2: the largest single-job allocation (nodes) in an n x n grid
-    with faulted nodes (``repro/core/availability.py``
-    ``max_single_allocation``).
-
-    Every fault must have its row or column disabled.  Isolated faults are
-    interchangeable, so only the 2^|C| choices for the non-isolated faults
-    are enumerated, and the |I| isolated faults are split between rows and
-    columns to balance the remaining rectangle.
-    """
-    faults = list(dict.fromkeys(faults))
-    if not faults:
-        return n * n
-    isolated, clustered = _classify(n, faults)
-    if not clustered:
-        ni = len(isolated)
-        r = ni // 2
-        c = ni - r
-        return (n - max(r, c)) * (n - min(r, c))
-
-    best = 0
-    for choice in itertools.product((0, 1), repeat=len(clustered)):
-        dis_rows: Set[int] = set()
-        dis_cols: Set[int] = set()
-        for (r, c), bit in zip(clustered, choice):
-            if bit == 0:
-                dis_rows.add(r)
-            else:
-                dis_cols.add(c)
-        ri = len(dis_rows)
-        ci = len(dis_cols)
-        # isolated faults whose row or column is already disabled are free
-        rem = [f for f in isolated if f[0] not in dis_rows and f[1] not in dis_cols]
-        ni = len(rem)
-        local_best = 0
-        for rp in range(ni + 1):
-            cp = ni - rp
-            avail = max(0, n - ri - rp) * max(0, n - ci - cp)
-            local_best = max(local_best, avail)
-        best = max(best, local_best)
-    return best
 
 
 @dataclasses.dataclass(frozen=True)

@@ -21,6 +21,27 @@ _REQUIRED = ("name", "ph", "pid", "tid")
 # ``tests/test_torch_obs.py`` checks that every name emitted in
 # ``src/repro_torch`` is here and that no name here is dead.
 KNOWN_SPANS: Dict[str, Tuple[str, ...]] = {
+    # cluster/scheduler.py: one span per scheduler event class (events.Event)
+    "scheduler": (
+        "event.JobSubmit",
+        "event.JobFinish",
+        "event.NodeFail",
+        "event.NodeRecover",
+        "event.SwitchFail",
+        "event.SwitchRecover",
+        "event.LinkFail",
+        "event.LinkRecover",
+        "event.QuarantineRelease",
+        "event.RateUpdate",
+        "event.ReplicaScale",
+        "placement.attempt",
+        "backlog.drain",
+        "preempt.select",
+    ),
+    "serving": (
+        "serving.autoscale",     # autoscaler decision on a rate sample
+        "serving.place",         # replica placement attempt
+    ),
     "serve": (
         "serve.prefill",         # one prefill_fn call (serve_step)
         "serve.decode_step",     # one decode_fn call (serve_step)
@@ -28,9 +49,21 @@ KNOWN_SPANS: Dict[str, Tuple[str, ...]] = {
     "launch": (
         "roofline.parse",        # one traced step's count (launch/roofline.py)
     ),
-    # core/compiled_flow.py (the reference's group also holds
-    # "goodput.estimate", which comes with the port of cluster/)
+    "ocs": (
+        "ocs.apply",
+        "ocs.revert",
+        "ocs.synthesize",
+        "ocs.txn_apply",         # two-phase transactional apply (TxnConfig)
+        "ocs.txn_rollback",      # retry-exhausted txn undoing its patches
+    ),
+    "fault": (
+        "fault.repair",          # in-place degraded re-synthesis succeeded
+        "fault.restore",         # healed rails reprogrammed after a recover
+        "fault.partial_migrate", # dead-line-only move (ladder rung 2)
+    ),
+    # core/compiled_flow.py, and the goodput of a placement (cluster/)
     "flow": (
+        "goodput.estimate",
         "flow.csr_assemble",
         "flow.bfs",
         "flow.alltoall_counts",

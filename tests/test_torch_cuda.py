@@ -771,3 +771,25 @@ def test_flow_wrappers_reject_what_the_kernels_do_not_take(card):
         flow.ordered_fold(w, torch.tensor([0, 2, 4], dtype=torch.int32, device="cuda"))
     with pytest.raises(ValueError, match="CUDA device"):
         flow.ordered_fold(w, torch.tensor([0, 2, 4]))
+
+
+# the cluster twin's goodput (cluster/metrics.py estimate_goodput): its job
+# network routed through the flow kernels on the card, the same float as on
+# the CPU, on each fabric with a job_network
+@pytest.mark.parametrize("fabric", ["railx-hyperx", "torus-2d", "torus-3d", "rail-only"])
+def test_cluster_goodput_on_the_card_matches_the_cpu(card, fabric):
+    from repro_torch.cluster import estimate_goodput, make_job, plan_job_mapping
+    from repro_torch.core.availability import JobAllocation
+    from repro_torch.core.topology import RailXConfig
+    from repro_torch.kernels.flow import flow
+
+    cfg = RailXConfig(m=4, n=4, R=64)
+    for arch in ("qwen3-8b", "paper-llama3-moe", "llama3.2-3b"):
+        job = make_job(0, arch)
+        jm = plan_job_mapping(cfg, job)
+        alloc = JobAllocation(tuple(range(jm.rows_req)), tuple(range(1, 1 + jm.cols_req)))
+        flow.reset_launch_counts()
+        got = estimate_goodput(cfg, job, jm.mapping, alloc, fabric=fabric, device="cuda")
+        counts = flow.launch_counts()
+        assert counts["flow_bfs_level"] and counts["flow_ordered_fold"], counts
+        assert got == estimate_goodput(cfg, job, jm.mapping, alloc, fabric=fabric, device="cpu")

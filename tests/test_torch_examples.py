@@ -314,6 +314,32 @@ def test_quickstart_steps_1_to_3_match_the_reference():
         [(s.name, s.phys, s.scale, s.rails, s.interconnect) for s in res.specs]
 
 
+def test_mlaas_allocation_prints_the_reference_examples_lines():
+    """``examples/torch/mlaas_allocation.py --device cpu`` (both acts, the
+    port's cluster twin) prints the lines of ``examples/mlaas_allocation.py``
+    run here in-process on the reference."""
+    import contextlib
+    import importlib.util
+    import io
+    import subprocess
+
+    spec = importlib.util.spec_from_file_location(
+        "ref_mlaas_allocation", os.path.join(HERE, "..", "examples", "mlaas_allocation.py"))
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    want = io.StringIO()
+    with contextlib.redirect_stdout(want):
+        ref.main()
+        ref.policy_demo()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [SRC] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    got = subprocess.run(
+        [sys.executable, os.path.join(HERE, "..", "examples", "torch", "mlaas_allocation.py"),
+         "--device", "cpu"], capture_output=True, text=True, env=env, timeout=300)
+    assert got.returncode == 0, got.stderr[-2000:]
+    assert got.stdout == want.getvalue()
+
+
 TWINS = sorted(f for f in os.listdir(os.path.join(HERE, "..", "examples", "torch"))
                if f.endswith(".py"))
 

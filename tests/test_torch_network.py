@@ -1,9 +1,8 @@
 """The port's network core (``repro_torch.core``: hamiltonian, topology,
 routing, analytical, cost, mapping; ``repro_torch.arch``: the registry and
 its ten fabrics) against the reference's, at equality: the same cycles,
-tables, routes, plans and registrations.  The one difference allowed is the
-``job_network`` capability, which the port's fabrics do not declare yet (it
-comes with the port of ``cluster/``)."""
+tables, routes, plans and registrations, every capability included
+(``job_network``'s goodput is held in ``tests/test_torch_cluster.py``)."""
 
 import dataclasses
 import itertools
@@ -23,11 +22,6 @@ from repro_torch.core import (  # noqa: E402
     analytical, cost, hamiltonian, mapping, routing, topology,
 )
 from repro_torch.launch.mesh import railx_mesh_from_plan  # noqa: E402
-
-# the capability the port's fabrics leave out, and the fabrics that declare it
-# in the reference
-NOT_YET = "job_network"
-
 
 def plain(x):
     """Dataclasses of either package as dicts, sequences as lists, so that
@@ -265,9 +259,7 @@ def test_registry_names_and_capabilities_match_the_reference():
         [a.fig14_label for a in ref_arch.fig14_archs()]
     for name in arch.names():
         a, r = arch.get(name), ref_arch.get(name)
-        want = tuple(c for c in r.capabilities() if c != NOT_YET)
-        assert a.capabilities() == want, name
-        assert not a.has(NOT_YET)
+        assert a.capabilities() == r.capabilities(), name
         assert (a.description, a.paper, a.fig14_order) == (r.description, r.paper, r.fig14_order)
         assert [v.order for v in a.cost_variants] == [v.order for v in r.cost_variants]
         for v, rv in zip(a.cost_variants, r.cost_variants):
@@ -279,8 +271,9 @@ def test_registry_names_and_capabilities_match_the_reference():
             for f in ("alltoall_per_chip",):
                 if getattr(a.analytical, f) is not None:
                     assert getattr(a.analytical, f)(cfg) == getattr(r.analytical, f)(rcfg)
-        with pytest.raises(KeyError, match=NOT_YET):
-            a.require(NOT_YET)
+        if not r.has("job_network"):
+            with pytest.raises(KeyError, match="job_network"):
+                a.require("job_network")
     with pytest.raises(KeyError, match="unknown architecture"):
         arch.get("no-such-fabric")
 

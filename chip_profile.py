@@ -178,6 +178,25 @@ The same for the scans:
   unmodified sources and timed at the same shapes, two rounds, with each
   build's error against the chunked plain version.
 
+The same for the flow kernels:
+
+* flow_ab DIR: the network core's flow path in the checkout at DIR and in
+  this one, each run a fresh process, in turns (DIR, this, this, DIR, DIR,
+  this): the 16,384-chip exact sweep (RailX 64 m 2, batches of 1,024) timed
+  on the host, then under the profiler (kernel ms, busy share, the flow
+  kernels' ms and the rest, "glue"; host syncs a level from the CUDA
+  runtime's synchronize calls; peak memory above the network's), and one
+  goodput miss at max_flow_nodes 512; the medians of the three runs a side
+  and DIR / this.  The counts and the goodput must agree across all runs.
+
+* flow_ablate DIR: the subtree fold over every call of the scale-32 exact
+  sweep in batches of 256 (chip_smoke.py's timed shape) in one CUDA graph:
+  PR 29's scatter fold of DIR's ``flow.cu`` as it is and with its K[e]
+  atomics, its cnt[parent] atomics or both made plain read-modify-writes
+  (called through its own C signature), then this checkout's level-ordered
+  fold as it is and with its one atomic made plain; with each level's
+  sibling runs and each build's error against the plain fold.
+
 And one look at numbers rather than time:
 
 * xlstm_agreement: why xlstm-125m's bf16 prefill and cache fill agree less
@@ -195,6 +214,7 @@ And one look at numbers rather than time:
                             [serve_whisper] [train_gemma3] [train_e2e]
                             [xlstm_agreement] [flash_ab DIR]
                             [flash_ablate] [scan_ab DIR] [scan_ablate]
+                            [flow] [flow_ab DIR] [flow_ablate DIR]
                                                     # serve and train when none is named
 
 For each profiled phase it prints the host time, the device time summed
@@ -245,8 +265,9 @@ def _device_us(prof) -> tuple:
 # runs ssd_prep_kernel and ssd_scan_kernel, mlstm_fwd the three mlstm_ ones
 PORT_KERNELS = ("flash_fwd", "flash_bwd", "ssd_prep_kernel", "ssd_scan_kernel",
                 "mlstm_state_kernel", "mlstm_combine_kernel", "mlstm_out_kernel",
-                "bfs_top_down_kernel", "bfs_bottom_up_kernel", "fill_kernel", "subtree_kernel",
-                "orbit_kernel", "fold_kernel")
+                "bfs_top_down_kernel", "bfs_claim_kernel", "bfs_claim_dense_kernel",
+                "bfs_bottom_up_kernel", "bfs_tile_sums_kernel", "bfs_scan_tiles_kernel",
+                "bfs_emit_kernel", "subtree_sum_kernel", "orbit_kernel", "fold_kernel")
 
 
 def _report(name: str, prof, host_ms: float, per: int = 1, unit: str = "call") -> None:
@@ -1644,12 +1665,29 @@ MLSTM_ABLATIONS = {
 }
 
 
+# PR 29's subtree fold (``subtree_kernel`` of the flow.cu in the checkout at
+# DIR: one thread a key, one int64 atomicAdd into its parent edge's total K[e]
+# and one into its parent's count) with its atomics made plain read-modify-
+# writes (racy: the counts go wrong, the time is what the atomics cost)
+_K_PLAIN = (r"atomicAdd\(&K\[e\], w\);", "K[e] += w;")
+SCATTER_ABLATIONS = {
+    "K_plain": ("the K[e] atomics (plain read-modify-writes)", [_K_PLAIN]),
+    "cnt_plain": ("the cnt[parent] atomics (plain read-modify-writes)", [
+        (r"atomicAdd\(&cnt\[key - key % n \+ edge_src\[e\]\], w\);",
+         "cnt[key - key % n + edge_src[e]] += w;")]),
+}
+SCATTER_ABLATIONS["both_plain"] = (
+    "both atomics (plain read-modify-writes)",
+    SCATTER_ABLATIONS["K_plain"][1] + SCATTER_ABLATIONS["cnt_plain"][1])
+
+
 def _ablate(smi: str, source: str, ablations: dict, calls: dict, what: str,
             checks: dict = None) -> None:
     """Build ``source`` unmodified and with each of ``ablations``, then time
     each of ``calls`` ({name: fn}) with each build installed, two rounds.
     ``checks`` ({name: fn giving an error}) are read once per build."""
     import ctypes
+    import hashlib
     import re
 
     import torch
@@ -1657,7 +1695,8 @@ def _ablate(smi: str, source: str, ablations: dict, calls: dict, what: str,
     from chip_smoke import _graph_ms
     from repro_torch.kernels import build
 
-    tag = "flash_ablate" if "flash" in source else "scan_ablate"
+    tag = ("flash_ablate" if "flash" in source else "flow_ablate" if "flow" in source
+           else "scan_ablate")
     src = build.KERNELS_DIR / source
     text = src.read_text()
     out_dir = build.BUILD_DIR.parent / "ablate"
@@ -1671,8 +1710,9 @@ def _ablate(smi: str, source: str, ablations: dict, calls: dict, what: str,
                 sys.exit(f"{tag}: {name}: no match for {pattern!r}")
         variants[name] = t
     procs = {}
+    where = hashlib.sha1(str(src).encode()).hexdigest()[:8]  # two checkouts' sources apart
     for name, t in variants.items():
-        stem = f"{src.stem}_{name}"
+        stem = f"{src.stem}_{where}_{name}"
         (out_dir / f"{stem}.cu").write_text(t)
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(src.parent), "-I",
                str(build.COMMON_DIR), "-o",
@@ -1684,7 +1724,7 @@ def _ablate(smi: str, source: str, ablations: dict, calls: dict, what: str,
         log, _ = proc.communicate()
         if proc.returncode != 0:
             sys.exit(f"{tag}: {name} does not build:\n{log[-3000:]}")
-        libs[name] = ctypes.CDLL(str(out_dir / f"{src.stem}_{name}.so"))
+        libs[name] = ctypes.CDLL(str(out_dir / f"{src.stem}_{where}_{name}.so"))
     print(f"{tag}: {what}, device ms (CUDA graph of 20 launches), two rounds [{smi}]",
           flush=True)
     times = {(name, c): [] for name in libs for c in calls}
@@ -1813,6 +1853,231 @@ def scan_ablate(smi: str) -> None:
             {"mlstm_fwd": lambda: mlstm.mlstm_fwd(*x, chunk=64)},
             "mlstm_fwd at xlstm-125m (B=4 S=1024 H=4 D=192 chunk 64, f32)",
             {"mlstm_fwd": lambda: rel(mlstm.mlstm_fwd(*x, chunk=64), want)})
+
+
+FLOW_ABLATE_SCALE, FLOW_ABLATE_BATCH = 32, 256  # chip_smoke.py's timed exact sweep
+
+
+def _scatter_calls(cn, batch: int) -> list:
+    """The exact sweep's folds as PR 29's fold takes them: each batch of
+    ``batch`` sources, each level from the deepest: (keys, epos, cnt just
+    before the call); with each level's mean and longest run of siblings
+    (adjacent keys of one parent)."""
+    import torch
+
+    from repro_torch.core import compiled_flow as cf
+
+    n = cn.num_vertices
+    chips = cn.chips()
+    dest = torch.zeros(n, dtype=torch.int64, device=cn.device)
+    dest[chips] = 1
+    calls, runs = [], {}
+    for lo in range(0, chips.numel(), batch):
+        srcs = chips[lo:lo + batch]
+        f = cf._bfs_levels(cn, srcs)  # each level in the main path's order
+        levels = [(f.queue[a:b], f.epos[a:b]) for a, b in zip(f.bounds[1:-1], f.bounds[2:])]
+        cnt = dest.repeat(srcs.numel())
+        cnt[torch.arange(srcs.numel(), device=cn.device) * n + srcs] = 0
+        for d in range(len(levels), 0, -1):
+            keys, epos = levels[d - 1]
+            parent = keys - keys % n + cn.edge_src[epos].long()
+            starts = torch.ones_like(parent, dtype=torch.bool)
+            starts[1:] = parent[1:] != parent[:-1]
+            bounds = torch.nonzero(torch.cat([starts, starts.new_ones(1)])).flatten()
+            lens = torch.diff(bounds)
+            r = runs.setdefault(d, [0, 0, 0])
+            r[0] += keys.numel()
+            r[1] += lens.numel()
+            r[2] = max(r[2], int(lens.max()))
+            calls.append((keys, epos, cnt.clone()))
+            cnt.index_add_(0, parent, cnt[keys])
+    return calls, {d: (r[0] / r[1], r[2]) for d, r in sorted(runs.items())}
+
+
+# the level-ordered fold of this checkout (subtree_sum_kernel) with its one
+# atomic made a plain read-modify-write (racy across the batch's sources)
+FOLD_ABLATIONS = {"K_plain": ("the K[epos] atomic (a plain read-modify-write)", [
+    (r"atomicAdd\(&K\[qepos\[q\]\], static_cast<unsigned long long>\(c\)\);",
+     "K[qepos[q]] += c;")])}
+
+
+def flow_ablate(smi: str, other: str) -> None:
+    """The subtree fold at the main path's timed shape (the scale-32 RailX
+    exact sweep, batches of 256 sources: every call of it in one CUDA
+    graph): PR 29's scatter fold, in the checkout at ``other``, as it is and
+    with its K[e] atomics, its cnt[parent] atomics or both made plain; then
+    this checkout's level-ordered fold, as it is and with its K atomic
+    made plain."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.core import compiled_flow as cf
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flow import flow
+
+    cn = cf.build_compiled_railx_hyperx(FLOW_ABLATE_SCALE, 2, 2.0)
+    n, E = cn.num_vertices, cn.num_edges
+    calls, runs = _scatter_calls(cn, FLOW_ABLATE_BATCH)
+    print(f"flow_ablate: RailX {FLOW_ABLATE_SCALE} m 2 exact sweep, batches of "
+          f"{FLOW_ABLATE_BATCH}: {len(calls)} fold calls; siblings by depth (mean run, longest): "
+          + ", ".join(f"{d}: {m:.2f}, {x}" for d, (m, x) in runs.items()) + f" [{smi}]",
+          flush=True)
+    want = torch.zeros(E, dtype=torch.int64, device=cn.device)
+    for keys, epos, cnt in calls:
+        want.index_add_(0, epos, cnt[keys])
+    source = str((Path(other).resolve() / "src/repro_torch/kernels/flow/csrc/flow.cu"))
+    work = [(k, e, c.clone()) for k, e, c in calls]
+    K = torch.zeros(E, dtype=torch.int64, device=cn.device)
+
+    def scatter():
+        fn = build._LIBS[source].flow_subtree_accumulate
+        if fn.argtypes is None:
+            p, ll = ctypes.c_void_p, ctypes.c_longlong
+            fn.argtypes, fn.restype = [p, p, ll, p, p, p, ll, p], ctypes.c_int
+        stream = torch.cuda.current_stream().cuda_stream
+        for keys, epos, cnt in work:
+            if fn(keys.data_ptr(), epos.data_ptr(), keys.numel(), cn.edge_src.data_ptr(),
+                  cnt.data_ptr(), K.data_ptr(), n, stream):
+                raise RuntimeError("flow_subtree_accumulate launch failed")
+
+    def rel_err(fn):
+        K.zero_()
+        fn()
+        torch.cuda.synchronize()
+        return ((K - want).abs().max() / want.abs().max()).item()
+
+    _ablate(smi, source, SCATTER_ABLATIONS, {"scatter_fold_sweep": scatter},
+            f"PR 29's flow_subtree_accumulate ({other}), all {len(calls)} calls of the "
+            f"sweep's folds a graph node set; ms per sweep (/ {len(calls)} a call)",
+            {"scatter_fold_sweep": lambda: rel_err(scatter)})
+    del work, calls
+    chips = cn.chips()
+    forests = [cf._bfs_levels(cn, chips[lo:lo + FLOW_ABLATE_BATCH])
+               for lo in range(0, chips.numel(), FLOW_ABLATE_BATCH)]
+    dest = torch.ones(n, dtype=torch.int64, device=cn.device)
+    cnts = [torch.empty(f.bounds[-1], dtype=torch.int64, device=cn.device) for f in forests]
+    levels = sum(len(f.bounds) - 2 for f in forests)
+
+    def fold():
+        for f, cnt in zip(forests, cnts):
+            for d in range(len(f.bounds) - 2, 0, -1):
+                qs, L = f.level(d)
+                flow.subtree_accumulate(f.queue, f.epos, f.child, qs, L, dest, cnt, K, n)
+
+    _ablate(smi, flow.SOURCE, FOLD_ABLATIONS, {"level_fold_sweep": fold},
+            f"this checkout's flow_subtree_accumulate, all {levels} calls of the sweep's folds; "
+            f"ms per sweep (/ {levels} a call)", {"level_fold_sweep": lambda: rel_err(fold)})
+
+
+# Runs in the checkout of the current directory: the exact sweep at 16,384
+# chips (RailX 64 m 2, batches of 1,024) once timed on the host and once
+# under the profiler, then one goodput miss at max_flow_nodes 512; prints one
+# line of JSON.  Uses only calls that the port has had since PR 30.
+_FLOW_AB = r"""
+import json, sys, time, torch
+sys.path.insert(0, "src")
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.core import compiled_flow as cf
+from repro_torch.kernels.flow import flow
+FLOW = ("bfs_", "subtree_", "fill_kernel", "orbit_kernel", "fold_kernel")
+cn = cf.build_compiled_railx_hyperx(64, 2, 2.0)
+cf.alltoall_edge_counts(cn, cn.chips()[:1024])  # the build, the reverse tables, the allocator
+torch.cuda.synchronize()
+base = torch.cuda.memory_allocated()
+torch.cuda.reset_peak_memory_stats()
+flow.reset_launch_counts()
+t0 = time.perf_counter()
+K = cf.alltoall_edge_counts(cn)
+torch.cuda.synchronize()
+host_ms = (time.perf_counter() - t0) * 1e3
+peak = torch.cuda.max_memory_allocated() - base
+levels = flow.launch_counts()["flow_bfs_level"]
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    K2 = cf.alltoall_edge_counts(cn)
+    torch.cuda.synchronize()
+    prof_ms = (time.perf_counter() - t0) * 1e3
+ev = prof.events()
+spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in ev
+               if e.device_type.name == "CUDA")
+kern = sum(b - a for a, b, _ in spans) / 1e3
+flow_ms = sum(b - a for a, b, name in spans if any(f in name for f in FLOW)) / 1e3
+busy, cs, ce = 0.0, None, None
+for a, b, _ in spans:
+    if ce is None or a > ce:
+        busy += 0 if ce is None else ce - cs
+        cs, ce = a, b
+    else:
+        ce = max(ce, b)
+busy = (busy + (ce - cs if ce is not None else 0)) / 1e3
+syncs = sum(1 for e in ev if e.device_type.name == "CPU" and "Synchronize" in e.name)
+pos = torch.arange(K.numel(), device=K.device)
+finger = int(((K * (pos % 1000003)) % 1000000007).sum())
+assert torch.equal(K, K2)
+from repro_torch.cluster import estimate_goodput, make_job, plan_job_mapping
+from repro_torch.core.availability import JobAllocation
+from repro_torch.core.mapping import ParallelismPlan
+from repro_torch.core.topology import RailXConfig
+cfg = RailXConfig(m=4, n=4, R=64)
+job = make_job(0, "qwen3-8b", plan=ParallelismPlan(tp=16, cp=1, ep=1, dp=32, pp=32))
+jm = plan_job_mapping(cfg, job)
+alloc = JobAllocation(tuple(range(jm.rows_req)), tuple(range(jm.cols_req)))
+flow.reset_launch_counts()
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+g = estimate_goodput(cfg, job, jm.mapping, alloc)
+torch.cuda.synchronize()
+miss_ms = (time.perf_counter() - t0) * 1e3
+print(json.dumps({"sweep_host_ms": host_ms, "sweep_profiled_host_ms": prof_ms,
+                  "kernel_ms": kern, "busy_ms": busy, "busy_share": busy / prof_ms,
+                  "flow_kernel_ms": flow_ms, "glue_ms": kern - flow_ms, "levels": levels,
+                  "syncs": syncs, "syncs_per_level": syncs / levels,
+                  "device_ms_per_level": kern / levels, "peak_gib": peak / 2 ** 30,
+                  "miss_ms": miss_ms, "miss_levels": flow.launch_counts()["flow_bfs_level"],
+                  "goodput": g, "counts_fingerprint": finger}))
+"""
+
+FLOW_AB_RUNS = 3  # runs a side; the medians are printed
+
+
+def flow_ab(smi: str, other: str) -> None:
+    """The flow path of the checkout at ``other`` against this one's, each
+    run a fresh process that builds its checkout's kernels, in turns
+    (other, this, this, other, other, this): the 16,384-chip exact sweep's
+    host ms, kernel ms, busy share, torch glue ms (device time outside the
+    flow kernels), host syncs a level and peak memory, and one goodput miss
+    at max_flow_nodes 512; then each metric's median of the runs on each
+    side and other / this.  The counts and the goodput must agree."""
+    import json
+    import statistics
+
+    here = Path(__file__).resolve().parent
+    there = (here / other).resolve()
+    print(f"flow_ab: RailX 64 m 2 exact sweep (16,384 chips, batches of 1,024) and a goodput "
+          f"miss at 512 nodes, {there} against {here}, {FLOW_AB_RUNS} runs a side [{smi}]",
+          flush=True)
+    runs = {"other": [], "this": []}
+    order = ["other", "this", "this", "other"] + ["other", "this"] * (FLOW_AB_RUNS - 2)
+    for label in order:
+        path = there if label == "other" else here
+        res = subprocess.run([sys.executable, "-c", _FLOW_AB], cwd=path, capture_output=True,
+                             text=True)
+        if res.returncode != 0:
+            sys.exit(f"flow_ab: the run in {path} failed:\n{res.stderr[-3000:]}")
+        line = res.stdout.strip().splitlines()[-1]
+        print(f"flow_ab {label} ({path}): {line}", flush=True)
+        runs[label].append(json.loads(line))
+    for key in ("goodput", "counts_fingerprint"):
+        got = {r[key] for side in runs.values() for r in side}
+        if len(got) != 1:
+            sys.exit(f"flow_ab: {key} differs between the runs: {got}")
+    for key in runs["this"][0]:
+        if key in ("goodput", "counts_fingerprint"):
+            continue
+        o, t = (statistics.median(r[key] for r in runs[side]) for side in ("other", "this"))
+        print(f"flow_ab {key}: other {o:.6g}, this {t:.6g} (median of {FLOW_AB_RUNS}), "
+              f"other/this {o / t if t else float('nan'):.3f}", flush=True)
 
 
 # family_cards: zamba2-7b at all 81 layers in f32 (the registry's dtypes)
@@ -2579,8 +2844,9 @@ def main() -> None:
     args = sys.argv[1:] or ["serve", "train"]
     while args:
         name = args.pop(0)
-        if name in ("flash_ab", "scan_ab"):
-            {"flash_ab": flash_ab, "scan_ab": scan_ab}[name](smi, args.pop(0))
+        if name in ("flash_ab", "scan_ab", "flow_ab", "flow_ablate"):
+            {"flash_ab": flash_ab, "scan_ab": scan_ab, "flow_ab": flow_ab,
+             "flow_ablate": flow_ablate}[name](smi, args.pop(0))
             continue
         {"serve": profile_serve, "train": profile_train, "serve_hybrid": profile_serve_hybrid,
          "train_dist": profile_train_dist, "dist_cards": dist_cards,

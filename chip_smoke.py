@@ -35,8 +35,10 @@ Phases, each printed as it runs; any failure exits non-zero:
            ``kernels/flow``): every kernel call of the exact and symmetry
            sweeps on RailX and torus 16 (m 2, 1,024 chips) and of an ECMP
            pass (num_paths 2, ``edge_ok``-masked levels) held against its
-           plain version on the card, call by call (trees and counts equal,
-           loads the same bits), and the whole results against the CPU's;
+           plain version on the card, call by call (every tensor a BFS level
+           writes, the queue, edges, child offsets, depths, ranks, ``win``
+           and the sizes, equal, its scratch left zero; counts equal, loads
+           the same bits), and the whole results against the CPU's;
            each kernel timed call by call beside its plain version at the
            main path's shapes (the 4,096-chip exact sweep in batches of
            256 sources, the 102,400-chip orbit gather, the ECMP fold),
@@ -1353,7 +1355,8 @@ FLOW_CHECK = 16           # kernels against their plain versions: 1,024 chips
 FLOW_ECMP = 8             # the ECMP pass (num_paths=2) on the dict network: 256 chips
 FLOW_TIMED_BATCH = 256    # the scale-32 exact sweep's batch, as the main path runs it
 # name -> the line of src/repro/core/compiled_flow.py where the function whose
-# numpy loop it replaces begins: _bfs_levels, subtree_edge_counts,
+# numpy loop it replaces begins: _bfs_levels (a whole level, its ranking
+# included), subtree_edge_counts (its per-level fold),
 # _symmetric_alltoall_counts_impl, _route_demands_impl
 FLOW_REPLACES = {"flow_bfs_level": 459, "flow_subtree_accumulate": 605,
                  "flow_orbit_gather": 1014, "flow_ordered_fold": 895}
@@ -1365,7 +1368,7 @@ def _sleep_then_time(fn) -> float:
     import torch
 
     torch.cuda.synchronize()
-    torch.cuda._sleep(200_000)
+    torch.cuda._sleep(2_000_000)  # ~1 ms: longer than any wrapper's host path
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     fn()
@@ -1424,61 +1427,71 @@ class _FlowProbe:
         st["plain_ms"] += plain_ms
         st["bytes"] += nbytes
 
-    def bfs_level(self, bottom_up, fkeys, rank, depth, indptr, nbr, rev_indptr, rev_edge,
-                  edge_src, edge_slot, edge_ok, win, n, stride):
+    def bfs_level(self, bottom_up, level, queue, epos, child, qs, F, rank, depth, win, indptr,
+                  nbr, rev_indptr, rev_edge, rev_src, rev_slot, deg, edge_ok, frontier_edges,
+                  scratch, info, n, stride):
         import torch
 
         from repro_torch.kernels.flow import ref
 
-        args = (fkeys, rank, depth, indptr, nbr, rev_indptr, rev_edge, edge_src, edge_slot,
-                edge_ok)
-        ms = _sleep_then_time(lambda: self.orig["bfs_level"](bottom_up, *args, win, n, stride))
-        want = torch.empty_like(win)
-        plain_ms = _sleep_then_time(lambda: ref.bfs_level_ref(bottom_up, *args, want, n, stride))
-        self._same("flow_bfs_level", win, want)
-        size, E = win.numel(), nbr.numel()
-        ok = 0 if edge_ok is None else 1
+        state = (queue, epos, child, rank, depth, win, info)
+        want = [t.clone() for t in state]
+        graph = (indptr, nbr, rev_indptr, rev_edge, rev_src, rev_slot, deg, edge_ok,
+                 frontier_edges)
+        size, E = depth.numel(), nbr.numel()
+        und = torch.nonzero(depth == -1).flatten() % n   # the state before the level
+        u = queue[qs:qs + F] % n
+        D = int((indptr[u + 1] - indptr[u]).sum())
+        I = int((rev_indptr[und + 1] - rev_indptr[und]).sum())
+        ms = _sleep_then_time(lambda: self.orig["bfs_level"](
+            bottom_up, level, queue, epos, child, qs, F, rank, depth, win, *graph, scratch, info,
+            n, stride))
+        q2, e2, c2, r2, d2, w2, i2 = want
+        plain_ms = _sleep_then_time(lambda: ref.bfs_level_ref(
+            bottom_up, level, q2, e2, c2, qs, F, r2, d2, w2, *graph, scratch, i2, n, stride))
+        for got, w in zip(state, want):
+            self._same("flow_bfs_level", got, w)
+        if bool(scratch[-(-size // self.flow.SCAN_TILE):].any()):  # past the tile sums
+            fail("flow_bfs_level left its scratch masks set")
+        Fn, ok = int(info[0]), 0 if edge_ok is None else 1
+        # both directions: the frontier's keys; the new level's keys, edges,
+        # depths and ranks, the frontier's child offsets, info; deg at the new
+        # level's vertices (the direction sums)
+        nbytes = 8 * F + (8 + 8 + 4 + 8) * Fn + 8 * F + 24 + 8 * min(Fn, n)
         if bottom_up:
-            und = torch.nonzero(depth == -1).flatten() % n
-            I = int((rev_indptr[und + 1] - rev_indptr[und]).sum())
-            # depth; rev_indptr at the undiscovered; their in-edges' rev_edge,
-            # edge_src, edge_slot (and edge_ok); rank at the tails; win
-            nbytes = (4 * size + 8 * min(2 * und.numel(), n + 1) + (20 + ok) * min(I, E)
-                      + 8 * min(I, size) + 8 * size)
+            # depth whole; rev_indptr at the undiscovered; their in-edges'
+            # rev_src and rev_slot (and rev_edge, edge_ok); depth at the tails,
+            # rank at the frontier's; indptr at the parents, nbr at the winners
+            nbytes += (4 * size + 8 * min(2 * und.numel(), n + 1) + (8 + 9 * ok) * min(I, E)
+                       + 4 * min(I, size) + 8 * min(I, F) + 8 * min(F, n + 1) + 4 * Fn)
         else:
-            u = fkeys % n
-            D = int((indptr[u + 1] - indptr[u]).sum())
-            # fkeys and their ranks; indptr at the frontier; nbr (and
-            # edge_ok) of its out-edges; depth at their heads; win
-            F = fkeys.numel()
-            nbytes = (16 * F + 8 * min(2 * F, n + 1) + (4 + ok) * min(D, E)
-                      + 4 * min(D, size) + 8 * size)
+            # indptr at the frontier's vertices; nbr (and edge_ok) of its
+            # out-edges, depth at their heads; win at the winners
+            nbytes += (8 * min(2 * F, n + 1) + (4 + ok) * min(D, E) + 4 * min(D, size)
+                       + 8 * Fn)
         self.stats["flow_bfs_level"]["bottom_up" if bottom_up else "top_down"] += 1
         self._add("flow_bfs_level", ms, plain_ms, nbytes)
 
-    def subtree_accumulate(self, keys, epos, edge_src, cnt, K, n):
+    def subtree_accumulate(self, queue, epos, child, qs, L, dest, cnt, K, n):
         import torch
 
         from repro_torch.kernels.flow import ref
 
-        # a key whose count is 0 stops after reading it: the rest is read and
-        # written at the distinct parent edges and parents of the live keys
-        live = cnt[keys] != 0
-        lk, le = keys[live], epos[live]
-        parents = torch.unique(lk - lk % n + edge_src[le].long()).numel()
-        edges = torch.unique(le).numel()
         cnt2, K2 = cnt.clone(), K.clone()
-        ms = _sleep_then_time(lambda: self.orig["subtree_accumulate"](keys, epos, edge_src,
-                                                                      cnt, K, n))
-        plain_ms = _sleep_then_time(lambda: ref.subtree_accumulate_ref(keys, epos, edge_src,
-                                                                      cnt2, K2, n))
+        ms = _sleep_then_time(lambda: self.orig["subtree_accumulate"](
+            queue, epos, child, qs, L, dest, cnt, K, n))
+        plain_ms = _sleep_then_time(lambda: ref.subtree_accumulate_ref(
+            queue, epos, child, qs, L, dest, cnt2, K2, n))
         self._same("flow_subtree_accumulate", cnt, cnt2)
         self._same("flow_subtree_accumulate", K, K2)
-        L = keys.numel()
-        # keys and cnt at the keys; epos of the live keys; edge_src at their
-        # distinct parent edges, K there read and written; cnt at their
-        # distinct parents read and written
-        nbytes = 16 * L + 8 * lk.numel() + (4 + 16) * edges + 16 * parents
+        live = cnt[qs:qs + L] != 0
+        edges = torch.unique(epos[qs:qs + L][live]).numel()
+        C = int(child[qs + L] - child[qs]) if L else 0
+        # the level's keys and child offsets, epos of its live entries; the
+        # children's counts (the level below); dest at its vertices; its
+        # counts written; K read and written at the live entries' edges
+        nbytes = (8 * L + 8 * (L + 1) + 8 * int(live.sum()) + 8 * C + 8 * min(L, n) + 8 * L
+                  + 16 * edges)
         self._add("flow_subtree_accumulate", ms, plain_ms, nbytes)
 
     def orbit_gather(self, C, indptr, re_u, re_slot, sx, sy, scale, m2):

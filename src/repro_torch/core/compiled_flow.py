@@ -38,7 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Hashable, List, Optional, Sequence, Tuple
+from typing import Dict, Hashable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -404,80 +404,119 @@ def _validate_symmetry(cn: CompiledNetwork) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _reverse_tables(cn: CompiledNetwork):
-    """Lazily-built reverse-CSR tables for bottom-up BFS levels:
-    (rev_indptr, rev_edge, edge_slot, slot_stride)."""
+class _RevTables(NamedTuple):
+    rev_indptr: torch.Tensor  # (n + 1,) int64: each vertex's in-edges
+    rev_edge: torch.Tensor    # (E,) int64: their CSR ids, stably by head
+    rev_src: torch.Tensor     # (E,) int32: their tails
+    rev_slot: torch.Tensor    # (E,) int32: their slots in the tails' adjacency
+    deg: torch.Tensor         # (n,) int64: out-degree << 32 | in-degree
+    stride: int               # the largest slot + 2
+
+
+def _reverse_tables(cn: CompiledNetwork) -> _RevTables:
+    """Lazily-built reverse-CSR tables for bottom-up BFS levels, each
+    in-edge's tail and slot gathered into that order, and the degrees the
+    levels' direction test sums."""
     if cn._rev is None:
         n, E = cn.num_vertices, cn.num_edges
         rev_edge = torch.sort(cn.nbr, stable=True).indices
+        in_deg = torch.bincount(cn.nbr, minlength=n)
         rev_indptr = torch.zeros(n + 1, dtype=I64, device=cn.device)
-        torch.cumsum(torch.bincount(cn.nbr, minlength=n), 0, out=rev_indptr[1:])
+        torch.cumsum(in_deg, 0, out=rev_indptr[1:])
         edge_slot = torch.arange(E, dtype=I64, device=cn.device) - cn.indptr[cn.edge_src.to(I64)]
         stride = (int(edge_slot.max()) if E else 0) + 2
-        cn._rev = (rev_indptr, rev_edge, edge_slot, stride)
+        deg = torch.diff(cn.indptr) * 2 ** 32 + in_deg
+        cn._rev = _RevTables(rev_indptr, rev_edge, cn.edge_src[rev_edge].contiguous(),
+                             edge_slot[rev_edge].to(torch.int32), deg, stride)
     return cn._rev
+
+
+@dataclasses.dataclass
+class _Forest:
+    """A batched BFS as ``flow.bfs_level`` leaves it: the keys ``b * n + v``
+    in one queue, the roots then level after level, each level in (source,
+    parent, slot) order (the seed ``deque`` BFS's discovery order), each
+    key's discovering CSR edge beside it, and ``child``: the queue position
+    of each entry's first child, a CSR of the forest over queue positions
+    (a parent's children are adjacent, and the levels follow each other)."""
+
+    queue: torch.Tensor   # (B n,) int64; positions past bounds[-1] unused
+    epos: torch.Tensor    # (B n,) int64; the roots' unset
+    child: torch.Tensor   # (B n + 1,) int64
+    bounds: List[int]     # queue position where each level starts, then the end
+    depth: torch.Tensor   # (B n,) int32, -1 where unreached
+
+    def level(self, d: int) -> Tuple[int, int]:
+        """(first queue position, size) of level ``d``."""
+        return self.bounds[d], self.bounds[d + 1] - self.bounds[d]
 
 
 def _bfs_levels(
     cn: CompiledNetwork,
     srcs: torch.Tensor,
     edge_ok: Optional[torch.Tensor] = None,
-) -> Tuple[List[Tuple[torch.Tensor, torch.Tensor]], torch.Tensor]:
+) -> _Forest:
     """Level-by-level batched BFS core, one ``flow.bfs_level`` a level.
 
-    Returns ``(levels, depth)``: each level is ``(keys, epos)``, the keys
-    ``b * n + v`` discovered at that depth (grouped by source, each
-    source's in discovery order) and the CSR edge that discovered each;
-    ``depth`` (B n,) int32 is -1 where unreached.  Every undiscovered key
-    takes the least ``rank(parent) * stride + slot`` over its eligible
-    in-edges from its source's frontier (rank = position in that frontier,
-    slot = position in the parent's adjacency): the seed ``deque`` BFS's
-    first discoverer in (frontier order × adjacency order), so trees match
-    the reference vertex for vertex, and each new frontier is those winners
-    sorted within each source.  A level runs top-down or bottom-up by the
-    reference's work test (the frontier's out-edges against the
-    undiscovered keys' in-edges); both give the same winners.
+    Every undiscovered key takes the least ``rank(parent) * stride + slot``
+    over its eligible in-edges from the frontier (rank = the parent's
+    position in its level, slot = the edge's position in the parent's
+    adjacency): the seed ``deque`` BFS's first discoverer in (frontier order
+    × adjacency order), so trees match the reference vertex for vertex, and
+    each new level is the winners in that order.  A level runs top-down or
+    bottom-up by the reference's work test (the frontier's out-edges against
+    the undiscovered keys' in-edges); both give the same winners.  The
+    kernel ranks the winners itself and sums the degrees the test needs, so
+    the host reads three integers a level and runs nothing else between the
+    launches.
     """
     n = cn.num_vertices
     B = srcs.numel()
     size = B * n
     dev = cn.device
-    rev_indptr, rev_edge, edge_slot, stride = _reverse_tables(cn)
-    out_deg = torch.diff(cn.indptr)
-    in_deg = torch.diff(rev_indptr)
+    rev = _reverse_tables(cn)
+    rev_indptr, stride = rev.rev_indptr, rev.stride
     depth = torch.full((size,), -1, dtype=torch.int32, device=dev)
     rank = torch.full((size,), INF, dtype=I64, device=dev)
-    win = torch.empty(size, dtype=I64, device=dev)
-    fkeys = torch.arange(B, dtype=I64, device=dev) * n + srcs
-    depth[fkeys] = 0
-    rank[fkeys] = 0
-    foff = torch.arange(B, dtype=I64, device=dev)   # each source's first frontier entry
+    win = torch.full((size,), INF, dtype=I64, device=dev)
+    queue = torch.empty(size, dtype=I64, device=dev)
+    epos = torch.empty(size, dtype=I64, device=dev)
+    child = torch.empty(size + 1, dtype=I64, device=dev)
+    scratch = flow.bfs_scratch(size, stride, dev)
+    info = torch.empty(3, dtype=I64, device=dev)
+    roots = torch.arange(B, dtype=I64, device=dev) * n + srcs
+    queue[:B] = roots
+    depth[roots] = 0
+    rank[roots] = torch.arange(B, dtype=I64, device=dev)
+    out_sum, in_sum = torch.stack([(cn.indptr[srcs + 1] - cn.indptr[srcs]).sum(),
+                                   (rev_indptr[srcs + 1] - rev_indptr[srcs]).sum()]).tolist()
     unvisited = size - B
-    unvis_in = B * cn.num_edges - int(in_deg[srcs].sum())
-    levels: List[Tuple[torch.Tensor, torch.Tensor]] = []
-    while fkeys.numel() and unvisited:
-        bottom_up = unvis_in < int(out_deg[fkeys % n].sum())
-        flow.bfs_level(bottom_up, fkeys, rank, depth, cn.indptr, cn.nbr, rev_indptr, rev_edge,
-                       cn.edge_src, edge_slot, edge_ok, win, n, stride)
-        new = torch.nonzero(win != INF).flatten()
-        if new.numel() == 0:
+    unvis_in = B * cn.num_edges - in_sum
+    bounds = [0, B]
+    while unvisited:
+        qs, F = bounds[-2], bounds[-1] - bounds[-2]
+        flow.bfs_level(unvis_in < out_sum, len(bounds) - 1, queue, epos, child, qs, F, rank,
+                       depth, win, cn.indptr, cn.nbr, rev_indptr, rev.rev_edge, rev.rev_src,
+                       rev.rev_slot, rev.deg, edge_ok, out_sum, scratch, info, n, stride)
+        new, out_sum, in_new = info.tolist()   # the one read a level
+        if not new:
             break
-        wk = win[new]
-        b = new // n
-        order = torch.argsort(b * (n * stride) + wk)   # keys are distinct per source
-        new, wk, b = new[order], wk[order], b[order]
-        parent = fkeys[foff[b] + wk // stride] % n
-        epos = cn.indptr[parent] + wk % stride
-        depth[new] = len(levels) + 1
-        rank[fkeys] = INF
-        counts = torch.bincount(b, minlength=B)
-        foff = torch.cumsum(counts, 0) - counts
-        rank[new] = torch.arange(new.numel(), dtype=I64, device=dev) - foff[b]
-        levels.append((new, epos))
-        fkeys = new
-        unvisited -= new.numel()
-        unvis_in -= int(in_deg[new % n].sum())
-    return levels, depth
+        bounds.append(bounds[-1] + new)
+        unvisited -= new
+        unvis_in -= in_new
+    child[bounds[-2]:] = bounds[-1]   # the last level has no children
+    return _Forest(queue, epos, child, bounds, depth)
+
+
+def _traced_bfs(cn: CompiledNetwork, srcs: torch.Tensor,
+                edge_ok: Optional[torch.Tensor] = None) -> _Forest:
+    """``_bfs_levels``, traced as ``flow.bfs`` when an ambient tracer is
+    active."""
+    trc = get_tracer()
+    if trc.enabled:
+        with trc.span("flow.bfs", cat="flow", sources=srcs.numel(), vertices=cn.num_vertices):
+            return _bfs_levels(cn, srcs, edge_ok=edge_ok)
+    return _bfs_levels(cn, srcs, edge_ok=edge_ok)
 
 
 def bfs_forest(
@@ -495,23 +534,61 @@ def bfs_forest(
     n = cn.num_vertices
     srcs = _tensor(srcs, I64, cn.device)
     B = srcs.numel()
-    trc = get_tracer()
-    if trc.enabled:
-        with trc.span(
-            "flow.bfs", cat="flow", sources=B, vertices=n
-        ):
-            levels, depth = _bfs_levels(cn, srcs, edge_ok=edge_ok)
-    else:
-        levels, depth = _bfs_levels(cn, srcs, edge_ok=edge_ok)
+    f = _traced_bfs(cn, srcs, edge_ok)
     parent_e = torch.full((B * n,), -1, dtype=I64, device=cn.device)
-    for keys, epos in levels:
-        parent_e[keys] = epos
-    return parent_e.view(B, n), depth.view(B, n)
+    end = f.bounds[-1]
+    parent_e[f.queue[B:end]] = f.epos[B:end]
+    return parent_e.view(B, n), f.depth.view(B, n)
 
 
 # ---------------------------------------------------------------------------
 # Load accounting
 # ---------------------------------------------------------------------------
+
+
+def _fold(cn: CompiledNetwork, f: _Forest, dest: torch.Tensor, K: torch.Tensor) -> None:
+    """Add the per-edge path counts of forest ``f`` to ``K``: level by
+    level from the deepest, each entry's count is its destination weight
+    ``dest[v]`` plus its children's counts, and its discovering edge carries
+    that many paths (``flow.subtree_accumulate``; exact int64)."""
+    cnt = torch.empty(f.bounds[-1], dtype=I64, device=cn.device)
+    for d in range(len(f.bounds) - 2, 0, -1):
+        qs, L = f.level(d)
+        flow.subtree_accumulate(f.queue, f.epos, f.child, qs, L, dest, cnt, K, cn.num_vertices)
+
+
+def _forest_of(cn: CompiledNetwork, parent_e: torch.Tensor, depth: torch.Tensor,
+               srcs: torch.Tensor) -> _Forest:
+    """The queue form of a forest given as ``(parent_e, depth)``: each
+    level's keys grouped by their parent's queue position (torch sorts:
+    no BFS runs here)."""
+    B, n = depth.shape
+    dev = cn.device
+    size = B * n
+    dflat = depth.reshape(-1)
+    pe = parent_e.reshape(-1)
+    queue = torch.empty(size, dtype=I64, device=dev)
+    epos = torch.empty(size, dtype=I64, device=dev)
+    child = torch.empty(size + 1, dtype=I64, device=dev)
+    pos = torch.full((size,), -1, dtype=I64, device=dev)
+    roots = torch.arange(B, dtype=I64, device=dev) * n + srcs
+    queue[:B] = roots
+    pos[roots] = torch.arange(B, dtype=I64, device=dev)
+    bounds = [0, B]
+    for lev in range(1, int(depth.max()) + 1):
+        keys = torch.nonzero(dflat == lev).flatten()
+        ppos = pos[keys - keys % n + cn.edge_src[pe[keys]].long()]
+        ppos, order = torch.sort(ppos, stable=True)
+        keys = keys[order]
+        qs, prev = bounds[-1], bounds[-2]
+        queue[qs:qs + keys.numel()] = keys
+        epos[qs:qs + keys.numel()] = pe[keys]
+        pos[keys] = qs + torch.arange(keys.numel(), dtype=I64, device=dev)
+        counts = torch.bincount(ppos - prev, minlength=qs - prev)
+        child[prev:qs] = qs + torch.cumsum(counts, 0) - counts
+        bounds.append(qs + keys.numel())
+    child[bounds[-2]:] = bounds[-1]
+    return _Forest(queue, epos, child, bounds, depth.reshape(-1))
 
 
 def subtree_edge_counts(
@@ -526,24 +603,15 @@ def subtree_edge_counts(
     ``counts[e]`` = number of (source, destination) pairs whose tree path
     crosses edge ``e``; destinations default to every vertex.  Computed
     by bottom-up subtree accumulation, one ``flow.subtree_accumulate`` a
-    depth; exact int64 arithmetic.
+    depth, over the forest put in queue order; exact int64 arithmetic.
     """
-    B, n = depth.shape
+    n = depth.shape[1]
     dev = cn.device
-    if dest_mask is None:
-        cnt = torch.ones((B, n), dtype=I64, device=dev)
-    else:
-        cnt = dest_mask.to(I64).repeat(B, 1)
-    cnt[torch.arange(B, device=dev), _tensor(srcs, I64, dev)] = 0
-    cnt[depth < 0] = 0
-    cnt = cnt.reshape(-1)
-    depth_flat = depth.reshape(-1)
-    pe_flat = parent_e.reshape(-1)
+    f = _forest_of(cn, parent_e, depth, _tensor(srcs, I64, dev))
+    dest = (torch.ones(n, dtype=I64, device=dev) if dest_mask is None
+            else _tensor(dest_mask, I64, dev))
     K = torch.zeros(cn.num_edges, dtype=I64, device=dev)
-    for lev in range(int(depth.max()), 0, -1):
-        at = torch.nonzero(depth_flat == lev).flatten()
-        if at.numel():
-            flow.subtree_accumulate(at, pe_flat[at], cn.edge_src, cnt, K, n)
+    _fold(cn, f, dest, K)
     return K
 
 
@@ -578,8 +646,8 @@ def _alltoall_edge_counts_impl(
     for lo in range(0, chip_ids.numel(), batch):
         srcs = chip_ids[lo:lo + batch]
         B = srcs.numel()
-        levels, depth = _bfs_levels(cn, srcs)
-        unreached = depth.view(B, n)[:, chip_ids] < 0
+        f = _bfs_levels(cn, srcs)
+        unreached = f.depth.view(B, n)[:, chip_ids] < 0
         if bool(unreached.any()):
             b, t = torch.nonzero(unreached)[0].tolist()
             raise ValueError(
@@ -587,10 +655,7 @@ def _alltoall_edge_counts_impl(
             )
         # bottom-up: cnt[key] = destinations in the subtree under key; the
         # discovering edge of key carries exactly cnt[key] paths
-        cnt = dest_mask.repeat(B)
-        cnt[torch.arange(B, dtype=I64, device=dev) * n + srcs] = 0
-        for keys, epos in reversed(levels):
-            flow.subtree_accumulate(keys, epos, cn.edge_src, cnt, K, n)
+        _fold(cn, f, dest_mask, K)
     return K
 
 
@@ -820,13 +885,14 @@ def _symmetric_alltoall_counts_impl(
     re_u = cn.edge_src[re].to(I64)
     re_slot = re - cn.indptr[re_u]
     sx, sy = sym.group_elements(dev)
-    parent_e, depth = bfs_forest(cn, reps)
-    bad = torch.nonzero(depth < 0)
+    f = _traced_bfs(cn, reps)
+    bad = torch.nonzero(f.depth.view(reps.numel(), -1) < 0)
     if bad.numel():
         raise ValueError(
             f"unreachable vertices from source {int(reps[bad[0, 0]])}"
         )
-    C = subtree_edge_counts(cn, parent_e, depth, reps)
+    C = torch.zeros(cn.num_edges, dtype=I64, device=dev)
+    _fold(cn, f, torch.ones(cn.num_vertices, dtype=I64, device=dev), C)
     trc = get_tracer()
     if trc.enabled:
         trc.begin(

@@ -3,8 +3,11 @@
 ``core/compiled_flow.py`` calls these four on the tensors of its
 ``CompiledNetwork`` (see ``csrc/flow.cu`` for what each computes):
 
-* ``bfs_level``: one level of the batched BFS -> ``win`` (B n,);
-* ``subtree_accumulate``: one depth's subtree counts into ``cnt`` and ``K``;
+* ``bfs_level``: one whole level of the batched BFS, ranked: the new level
+  in the BFS queue, its depths, ranks and child offsets, and the sizes the
+  host reads (one read a level);
+* ``subtree_accumulate``: one level's subtree counts, each parent's
+  children summed in level order, into ``cnt`` and ``K``;
 * ``orbit_gather``: the symmetry sweep's sum over the translation group;
 * ``ordered_fold``: per-edge loads, each edge's contributions summed in the
   stream's order (bit-identical to the seed engine's loop).
@@ -35,8 +38,9 @@ LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
-    "flow_bfs_level": [_I, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _P],
-    "flow_subtree_accumulate": [_P, _P, _L, _P, _P, _P, _L, _P],
+    "flow_bfs_level": [_I, _I, _P, _P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _L, _P, _P, _L, _L, _L, _P],
+    "flow_subtree_accumulate": [_P, _P, _P, _L, _L, _P, _P, _P, _L, _P],
     "flow_orbit_gather": [_P, _P, _P, _P, _L, _P, _P, _L, _L, _L, _P, _P],
     "flow_ordered_fold": [_P, _P, _L, _P, _P],
 }
@@ -84,58 +88,106 @@ def _check(name: str, tensors: dict) -> torch.device:
     return dev
 
 
+# frontier entries a tile of flow_bfs_level's scan (flow.cu kTile)
+SCAN_TILE = 1024
+
+
+def mask_words(stride: int) -> int:
+    """64-bit words of one frontier entry's child mask: a bit a slot, and
+    the slots run to ``stride - 2``."""
+    return (stride + 62) // 64
+
+
+def bfs_scratch(size: int, stride: int, device) -> torch.Tensor:
+    """The scratch of ``bfs_level`` for a BFS of ``size`` = B n keys: the
+    tile sums, then ``size`` frontier entries' child masks, zeroed (each
+    level leaves its masks zero again)."""
+    tiles = -(-size // SCAN_TILE)
+    return torch.zeros(tiles + size * mask_words(stride), dtype=torch.int64, device=device)
+
+
 def bfs_level(
     bottom_up: bool,
-    fkeys: torch.Tensor,          # (F,) int64 frontier keys b * n + u
-    rank: torch.Tensor,           # (B n,) int64 rank in its source's frontier, else INF
-    depth: torch.Tensor,          # (B n,) int32, -1 = undiscovered
+    level: int,                   # the new level's depth
+    queue: torch.Tensor,          # (B n,) int64 keys b * n + v, level by level
+    epos: torch.Tensor,           # (B n,) int64 each queued key's discovering edge
+    child: torch.Tensor,          # (B n + 1,) int64 each entry's first child's position
+    qs: int,                      # the frontier is queue[qs, qs + F)
+    F: int,
+    rank: torch.Tensor,           # (B n,) int64 each discovered key's position in its level
+    depth: torch.Tensor,          # (B n,) int32, -1 = undiscovered; the frontier's level - 1
+    win: torch.Tensor,            # (B n,) int64, INF at every undiscovered key
     indptr: torch.Tensor,         # (n + 1,) int64
     nbr: torch.Tensor,            # (E,) int32
     rev_indptr: torch.Tensor,     # (n + 1,) int64
-    rev_edge: torch.Tensor,       # (E,) int64
-    edge_src: torch.Tensor,       # (E,) int32
-    edge_slot: torch.Tensor,      # (E,) int64
+    rev_edge: torch.Tensor,       # (E,) int64 each in-edge's CSR id, reverse-CSR order
+    rev_src: torch.Tensor,        # (E,) int32 its tail
+    rev_slot: torch.Tensor,       # (E,) int32 its slot in the tail's adjacency
+    deg: torch.Tensor,            # (n,) int64 out-degree << 32 | in-degree
     edge_ok: Optional[torch.Tensor],  # (E,) bool or None
-    win: torch.Tensor,            # (B n,) int64, written whole
+    frontier_edges: int,          # the frontier's out-degree sum (picks the claim)
+    scratch: torch.Tensor,        # int64, ``bfs_scratch(B n, stride)``
+    info: torch.Tensor,           # (3,) int64 <- new size, its out- and in-degree sums
     n: int,
     stride: int,
 ) -> None:
-    if win.device.type == "cpu":
-        ref.bfs_level_ref(bottom_up, fkeys, rank, depth, indptr, nbr, rev_indptr, rev_edge,
-                          edge_src, edge_slot, edge_ok, win, n, stride)
+    """One BFS level, written in place: the new level's keys and edges at
+    ``queue[qs + F:]`` / ``epos[qs + F:]`` in (source, parent, slot) order,
+    ``child[qs:qs + F]``, their ``depth`` and ``rank``, and ``info``."""
+    if depth.device.type == "cpu":
+        ref.bfs_level_ref(bottom_up, level, queue, epos, child, qs, F, rank, depth, win, indptr,
+                          nbr, rev_indptr, rev_edge, rev_src, rev_slot, deg, edge_ok,
+                          frontier_edges, scratch, info, n, stride)
         return
     dev = _check("flow_bfs_level", {
-        "fkeys": (fkeys, "int64"), "rank": (rank, "int64"), "depth": (depth, "int32"),
+        "queue": (queue, "int64"), "epos": (epos, "int64"), "child": (child, "int64"),
+        "rank": (rank, "int64"), "depth": (depth, "int32"), "win": (win, "int64"),
         "indptr": (indptr, "int64"), "nbr": (nbr, "int32"), "rev_indptr": (rev_indptr, "int64"),
-        "rev_edge": (rev_edge, "int64"), "edge_src": (edge_src, "int32"),
-        "edge_slot": (edge_slot, "int64"), "edge_ok": (edge_ok, "bool"), "win": (win, "int64")})
-    size = win.numel()
-    if rank.numel() != size or depth.numel() != size or size % n:
-        raise ValueError(f"flow_bfs_level: rank, depth and win must hold B x n = {size} keys")
-    _launch("flow_bfs_level", dev, int(bool(bottom_up)), fkeys.data_ptr(), fkeys.numel(),
-            rank.data_ptr(), depth.data_ptr(), indptr.data_ptr(), nbr.data_ptr(),
-            rev_indptr.data_ptr(), rev_edge.data_ptr(), edge_src.data_ptr(), edge_slot.data_ptr(),
-            None if edge_ok is None else edge_ok.data_ptr(), win.data_ptr(), size, n, stride)
+        "rev_edge": (rev_edge, "int64"), "rev_src": (rev_src, "int32"),
+        "rev_slot": (rev_slot, "int32"), "deg": (deg, "int64"), "edge_ok": (edge_ok, "bool"),
+        "scratch": (scratch, "int64"), "info": (info, "int64")})
+    size = depth.numel()
+    if (size % n or any(t.numel() != size for t in (queue, epos, rank, win))
+            or child.numel() != size + 1):
+        raise ValueError(f"flow_bfs_level: queue, epos, rank, depth and win must hold B x n = "
+                         f"{size} keys, child one more")
+    if not 0 <= qs <= qs + F <= size:
+        raise ValueError(f"flow_bfs_level: frontier [{qs}, {qs + F}) outside the queue")
+    if scratch.numel() < -(-size // SCAN_TILE) + size * mask_words(stride) or info.numel() < 3:
+        raise ValueError("flow_bfs_level: scratch or info too small (see bfs_scratch)")
+    _launch("flow_bfs_level", dev, int(bool(bottom_up)), level, queue.data_ptr(), epos.data_ptr(),
+            child.data_ptr(), qs, F, rank.data_ptr(), depth.data_ptr(), win.data_ptr(),
+            indptr.data_ptr(), nbr.data_ptr(), rev_indptr.data_ptr(), rev_edge.data_ptr(),
+            rev_src.data_ptr(), rev_slot.data_ptr(), deg.data_ptr(),
+            None if edge_ok is None else edge_ok.data_ptr(), frontier_edges, scratch.data_ptr(),
+            info.data_ptr(), size, n, stride)
 
 
 def subtree_accumulate(
-    keys: torch.Tensor,      # (L,) int64: the keys of one depth
-    epos: torch.Tensor,      # (L,) int64: their parent edges
-    edge_src: torch.Tensor,  # (E,) int32
-    cnt: torch.Tensor,       # (B n,) int64, updated in place
-    K: torch.Tensor,         # (E,) int64, updated in place
+    queue: torch.Tensor,     # (B n,) int64, as bfs_level leaves it
+    epos: torch.Tensor,      # (B n,) int64
+    child: torch.Tensor,     # (B n + 1,) int64
+    qs: int,                 # the level is queue[qs, qs + L)
+    L: int,
+    dest: torch.Tensor,      # (n,) int64 each vertex's destination weight
+    cnt: torch.Tensor,       # int64 by queue position: the level below folded; this one written
+    K: torch.Tensor,         # (E,) int64, added to
     n: int,
 ) -> None:
+    """One level's fold: ``cnt[q] = dest[v] + Σ cnt[children of q]`` and
+    ``K[epos[q]] += cnt[q]`` for every entry q of the level."""
     if K.device.type == "cpu":
-        ref.subtree_accumulate_ref(keys, epos, edge_src, cnt, K, n)
+        ref.subtree_accumulate_ref(queue, epos, child, qs, L, dest, cnt, K, n)
         return
     dev = _check("flow_subtree_accumulate", {
-        "keys": (keys, "int64"), "epos": (epos, "int64"), "edge_src": (edge_src, "int32"),
-        "cnt": (cnt, "int64"), "K": (K, "int64")})
-    if keys.shape != epos.shape:
-        raise ValueError("flow_subtree_accumulate: keys and epos must have one shape")
-    _launch("flow_subtree_accumulate", dev, keys.data_ptr(), epos.data_ptr(), keys.numel(),
-            edge_src.data_ptr(), cnt.data_ptr(), K.data_ptr(), n)
+        "queue": (queue, "int64"), "epos": (epos, "int64"), "child": (child, "int64"),
+        "dest": (dest, "int64"), "cnt": (cnt, "int64"), "K": (K, "int64")})
+    if (epos.numel() != queue.numel() or child.numel() != queue.numel() + 1
+            or not 0 <= qs <= qs + L <= min(queue.numel(), cnt.numel()) or dest.numel() != n):
+        raise ValueError("flow_subtree_accumulate: queue, epos, child, cnt or dest of the wrong "
+                         "size for the level")
+    _launch("flow_subtree_accumulate", dev, queue.data_ptr(), epos.data_ptr(), child.data_ptr(),
+            qs, L, dest.data_ptr(), cnt.data_ptr(), K.data_ptr(), n)
 
 
 def orbit_gather(

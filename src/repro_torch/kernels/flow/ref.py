@@ -4,15 +4,22 @@ run them on CPU tensors; ``chip_smoke.py`` holds the kernels against them on
 the card.  Each computes the same function as its kernel, with the same
 arguments (``edge_ok`` ``None`` or a bool tensor):
 
-* ``bfs_level_ref``: ``win`` of one BFS level, the least ``rank(parent) *
-  stride + slot`` over the eligible edges into each undiscovered key, by
+* ``bfs_level_ref``: one whole BFS level.  Each undiscovered key takes the
+  least ``rank(parent) * stride + slot`` over its eligible in-edges, by
   ``scatter_reduce(..., "amin")`` (a minimum, so no order is needed:
   ``index_put_`` with repeated indices would promise no winner);
   ``bottom_up`` enumerates the undiscovered keys' in-edges instead of the
-  frontier's out-edges, the same candidates that reach a minimum;
-* ``subtree_accumulate_ref``: ``index_add_`` of one depth's counts into
-  their parents' counts and their parent edges' totals (int64: exact in
-  any order);
+  frontier's out-edges (the frontier is the keys of depth ``level - 1``),
+  the same candidates that reach a minimum.  The winners sorted by that
+  key are the new level in (source, parent, slot) order; then the queue,
+  ``epos``, ``depth``, ``rank``, the child offsets (``bincount``,
+  ``cumsum``), ``info`` and, top-down, ``win`` at the winners, as the
+  kernel leaves them (``scratch`` and ``frontier_edges`` are the kernel's
+  alone);
+* ``subtree_accumulate_ref``: one level's counts, each entry's destination
+  weight plus its children's counts (a difference of a ``cumsum`` over the
+  level below: int64, exact), added to its parent edge's total by
+  ``index_add_``;
 * ``orbit_gather_ref``: the group sum of ``C`` over translated edges, a
   chunk of the group at a time, in int64;
 * ``ordered_fold_ref``: each edge's run of the stably sorted weights
@@ -41,50 +48,85 @@ def _ranges(starts: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
 
 def bfs_level_ref(
     bottom_up: bool,
-    fkeys: torch.Tensor,
+    level: int,
+    queue: torch.Tensor,
+    epos: torch.Tensor,
+    child: torch.Tensor,
+    qs: int,
+    F: int,
     rank: torch.Tensor,
     depth: torch.Tensor,
+    win: torch.Tensor,
     indptr: torch.Tensor,
     nbr: torch.Tensor,
     rev_indptr: torch.Tensor,
     rev_edge: torch.Tensor,
-    edge_src: torch.Tensor,
-    edge_slot: torch.Tensor,
+    rev_src: torch.Tensor,
+    rev_slot: torch.Tensor,
+    deg: torch.Tensor,
     edge_ok: Optional[torch.Tensor],
-    win: torch.Tensor,
+    frontier_edges: int,
+    scratch: torch.Tensor,
+    info: torch.Tensor,
     n: int,
     stride: int,
 ) -> None:
-    win.fill_(INF)
+    size = depth.numel()
+    fkeys = queue[qs:qs + F]
     if bottom_up:
         und = torch.nonzero(depth == -1).flatten()
         v = und % n
-        deg = rev_indptr[v + 1] - rev_indptr[v]
-        fe = rev_edge[_ranges(rev_indptr[v], deg)]
-        heads = torch.repeat_interleave(und, deg)
-        r = rank[heads - heads % n + edge_src[fe].long()]
-        ok = r != INF
+        ins = rev_indptr[v + 1] - rev_indptr[v]
+        j = _ranges(rev_indptr[v], ins)
+        heads = torch.repeat_interleave(und, ins)
+        tails = heads - heads % n + rev_src[j].long()
+        ok = depth[tails] == level - 1   # the frontier
         if edge_ok is not None:
-            ok &= edge_ok[fe]
-        heads, cand = heads[ok], r[ok] * stride + edge_slot[fe[ok]]
+            ok &= edge_ok[rev_edge[j]]
+        heads, cand = heads[ok], rank[tails[ok]] * stride + rev_slot[j[ok]].long()
     else:
         u = fkeys % n
-        deg = indptr[u + 1] - indptr[u]
-        e = _ranges(indptr[u], deg)
-        tails = torch.repeat_interleave(fkeys, deg)
+        outs = indptr[u + 1] - indptr[u]
+        e = _ranges(indptr[u], outs)
+        tails = torch.repeat_interleave(fkeys, outs)
         heads = tails - tails % n + nbr[e].long()
         ok = depth[heads] == -1
         if edge_ok is not None:
             ok &= edge_ok[e]
-        slot = e - torch.repeat_interleave(indptr[u], deg)
-        heads, cand = heads[ok], rank[tails[ok]] * stride + slot[ok]
-    win.scatter_reduce_(0, heads, cand, "amin")
+        pos = torch.repeat_interleave(torch.arange(F, device=queue.device), outs)
+        slot = e - torch.repeat_interleave(indptr[u], outs)
+        heads, cand = heads[ok], pos[ok] * stride + slot[ok]
+    best = torch.full((size,), INF, dtype=torch.int64, device=queue.device)
+    best.scatter_reduce_(0, heads, cand, "amin")
+    new = torch.nonzero(best != INF).flatten()
+    wk = best[new]
+    order = torch.argsort(wk)  # distinct: a (parent entry, slot) pair names one key
+    new, wk = new[order], wk[order]
+    parent = wk // stride
+    Fn, out = new.numel(), qs + F
+    queue[out:out + Fn] = new
+    epos[out:out + Fn] = indptr[fkeys[parent] % n] + wk % stride
+    if not bottom_up:
+        win[new] = wk
+    depth[new] = level
+    rank[new] = torch.arange(Fn, dtype=torch.int64, device=queue.device)
+    counts = torch.bincount(parent, minlength=F)
+    child[qs:qs + F] = out + torch.cumsum(counts, 0) - counts
+    dv = deg[new % n]
+    info[0] = Fn
+    info[1] = (dv >> 32).sum()
+    info[2] = (dv & 0xFFFFFFFF).sum()
 
 
-def subtree_accumulate_ref(keys, epos, edge_src, cnt, K, n: int) -> None:
-    w = cnt[keys]
-    K.index_add_(0, epos, w)
-    cnt.index_add_(0, keys - keys % n + edge_src[epos].long(), w)
+def subtree_accumulate_ref(queue, epos, child, qs: int, L: int, dest, cnt, K, n: int) -> None:
+    first, last = child[qs:qs + L], child[qs + 1:qs + L + 1]
+    lo = int(child[qs]) if L else 0
+    hi = int(child[qs + L]) if L else 0
+    pre = torch.zeros(hi - lo + 1, dtype=torch.int64, device=cnt.device)
+    torch.cumsum(cnt[lo:hi], 0, out=pre[1:])
+    c = dest[queue[qs:qs + L] % n] + pre[last - lo] - pre[first - lo]
+    cnt[qs:qs + L] = c
+    K.index_add_(0, epos[qs:qs + L], c)
 
 
 G_CHUNK = 2048  # group elements gathered at once, as the reference's loop

@@ -739,28 +739,119 @@ def test_flow_kernels_match_the_plain_versions(card, net):
     assert all(flow.launch_counts().values()), flow.launch_counts()
 
 
+def _flow_level_case(kind):
+    """(network, qs, F, state) on the card for one ``bfs_level`` call of
+    level 2 (the frontier at depth 1, other discovered keys at 0): "random"
+    a random mid-BFS state of RailX 6 (5 sources, a frontier of every third
+    discovered key at queue[7:]); "empty" no frontier; "no_winner" a
+    frontier whose out-edges all lead to discovered keys; "star" a hub with
+    70 out-edges (more than a warp's lanes, two mask words) as the whole
+    frontier of 3 sources."""
+    from repro_torch.core import compiled_flow as cf
+    from repro_torch.core.simulator import FlowNetwork
+    from repro_torch.kernels.flow import ref
+
+    if kind == "star":
+        net = FlowNetwork()
+        for i in range(70):
+            net.add_link("hub", f"x{i}", 1.0)
+            net.add_link(f"x{i}", "hub", 1.0)
+        cn = cf.CompiledNetwork.from_flow_network(net, device="cuda")
+    else:
+        cn = cf.build_compiled_railx_hyperx(6, 2, 2.0, device="cuda")
+    n = cn.num_vertices
+    B = 3 if kind == "star" else 5
+    size, qs = B * n, 0 if kind == "star" else 7
+    g = torch.Generator(device="cuda").manual_seed(1)
+    if kind == "star":
+        depth = torch.full((size,), -1, dtype=torch.int32, device="cuda")
+        fkeys = torch.arange(B, device="cuda") * n + cn.vertex_id["hub"]
+    else:
+        depth = torch.where(torch.rand(size, generator=g, device="cuda") < 0.5, -1, 1).int()
+        if kind == "no_winner":
+            depth.fill_(1)
+        depth[depth == 1] = 0
+        fkeys = torch.nonzero(depth == 0).flatten()[::3].contiguous()
+        if kind == "empty":
+            fkeys = fkeys[:0]
+    depth[fkeys] = 1
+    queue = torch.randint(0, size, (size,), generator=g, device="cuda")
+    queue[qs:qs + fkeys.numel()] = fkeys
+    rank = torch.full((size,), ref.INF, dtype=torch.int64, device="cuda")
+    rank[fkeys] = torch.arange(fkeys.numel(), device="cuda")
+    win = torch.where(depth == -1, ref.INF, torch.randint(0, 99, (size,), generator=g,
+                                                          device="cuda"))
+    state = {"queue": queue, "epos": torch.full((size,), -7, dtype=torch.int64, device="cuda"),
+             "child": torch.full((size + 1,), -7, dtype=torch.int64, device="cuda"),
+             "rank": rank, "depth": depth, "win": win,
+             "info": torch.full((3,), -7, dtype=torch.int64, device="cuda")}
+    return cn, qs, fkeys.numel(), state
+
+
+@pytest.mark.parametrize("kind", ["random", "empty", "no_winner", "star"])
+@pytest.mark.parametrize("claim", ["walk", "dense"])
 @pytest.mark.parametrize("bottom_up", [False, True], ids=["top_down", "bottom_up"])
-def test_flow_bfs_level_both_directions_match_the_plain_version(card, bottom_up):
+def test_flow_bfs_level_both_directions_match_the_plain_version(card, bottom_up, claim, kind):
+    """One whole level on the card against the plain version on the same
+    state: the new level's keys and edges, the child offsets, depths,
+    ranks, ``win``, the size and direction sums, every tensor equal; the
+    scratch left zero.  Top-down claims by walking the frontier's edges or
+    by one pass over the keys (``frontier_edges`` 0 or B n picks it;
+    bottom-up has one claim)."""
     from repro_torch.core import compiled_flow as cf
     from repro_torch.kernels.flow import flow, ref
 
-    cn = cf.build_compiled_railx_hyperx(6, 2, 2.0, device="cuda")
-    rev_indptr, rev_edge, edge_slot, stride = cf._reverse_tables(cn)
-    n, B = cn.num_vertices, 5
-    g = torch.Generator(device="cuda").manual_seed(1)
-    depth = torch.where(torch.rand(B * n, generator=g, device="cuda") < 0.5, -1, 1).int()
-    fkeys = torch.nonzero(depth == 1).flatten()[::3].contiguous()
-    rank = torch.full((B * n,), ref.INF, dtype=torch.int64, device="cuda")
-    b = fkeys // n
-    rank[fkeys] = torch.arange(fkeys.numel(), device="cuda") - torch.searchsorted(b, b)
-    ok = torch.rand(cn.num_edges, generator=g, device="cuda") < 0.8
-    args = (fkeys, rank, depth, cn.indptr, cn.nbr, rev_indptr, rev_edge, cn.edge_src, edge_slot,
-            ok)
-    win, want = torch.empty(B * n, dtype=torch.int64, device="cuda"), None
-    flow.bfs_level(bottom_up, *args, win, n, stride)
-    want = torch.empty_like(win)
-    ref.bfs_level_ref(bottom_up, *args, want, n, stride)
-    assert torch.equal(win, want) and (win != ref.INF).any()
+    cn, qs, F, state = _flow_level_case(kind)
+    rev = cf._reverse_tables(cn)
+    n, stride = cn.num_vertices, rev.stride
+    size = state["depth"].numel()
+    ok = None
+    if kind == "random":
+        ok = torch.rand(cn.num_edges, generator=torch.Generator(device="cuda").manual_seed(2),
+                        device="cuda") < 0.8
+    out = {}
+    for name, fn in (("kernel", flow.bfs_level), ("plain", ref.bfs_level_ref)):
+        st = {k: v.clone() for k, v in state.items()}
+        scratch = flow.bfs_scratch(size, stride, "cuda")
+        fn(bottom_up, 2, st["queue"], st["epos"], st["child"], qs, F, st["rank"], st["depth"],
+           st["win"], cn.indptr, cn.nbr, rev.rev_indptr, rev.rev_edge, rev.rev_src, rev.rev_slot,
+           rev.deg, ok, size if claim == "dense" else 0, scratch, st["info"], n, stride)
+        torch.cuda.synchronize()
+        assert not scratch[-(-size // flow.SCAN_TILE):].any()  # the masks, past the tile sums
+        out[name] = st
+    for k in state:
+        assert torch.equal(out["kernel"][k], out["plain"][k]), k
+    new = int(out["kernel"]["info"][0])
+    if kind in ("empty", "no_winner"):
+        assert new == 0 and out["kernel"]["info"].tolist() == [0, 0, 0]
+    else:
+        assert new > 0
+    if kind == "star":
+        assert new == 3 * 70 and out["kernel"]["child"][:4].tolist() == [3, 73, 143, -7]
+
+
+def test_flow_bfs_of_1024_sources_matches_the_plain_version(card):
+    """A whole batched BFS of 1,024 sources on RailX 32 m 2 (4,096 chips,
+    the exact sweep's batch at 16,384 chips), on the card and through the
+    plain versions on the CPU: queue, edges, child offsets, level bounds,
+    depths and the level-ordered fold's counts equal."""
+    from repro_torch.core import compiled_flow as cf
+
+    nets = {dev: cf.build_compiled_railx_hyperx(32, 2, 2.0, device=dev) for dev in ("cuda", "cpu")}
+    forests, counts = {}, {}
+    for dev, cn in nets.items():
+        f = cf._bfs_levels(cn, cn.chips()[:1024])
+        K = torch.zeros(cn.num_edges, dtype=torch.int64, device=dev)
+        cf._fold(cn, f, torch.ones(cn.num_vertices, dtype=torch.int64, device=dev), K)
+        forests[dev], counts[dev] = f, K.cpu()
+    a, b = forests["cuda"], forests["cpu"]
+    assert a.bounds == b.bounds and len(a.bounds) > 4
+    end = a.bounds[-1]
+    assert torch.equal(a.queue[:end].cpu(), b.queue[:end])
+    assert torch.equal(a.epos[1024:end].cpu(), b.epos[1024:end])
+    assert torch.equal(a.child[:end + 1].cpu(), b.child[:end + 1])
+    assert torch.equal(a.depth.cpu(), b.depth)
+    assert torch.equal(counts["cuda"], counts["cpu"])
 
 
 def test_flow_wrappers_reject_what_the_kernels_do_not_take(card):

@@ -20,6 +20,7 @@ from repro.core.simulator import route_demands_ecmp_reference  # noqa: E402
 from repro_torch import arch  # noqa: E402
 from repro_torch.core import compiled_flow as P  # noqa: E402
 from repro_torch.core import simulator as PS  # noqa: E402
+from repro_torch.kernels.flow import flow  # noqa: E402
 from repro_torch.kernels.flow import ref as flow_ref  # noqa: E402
 
 CPU = "cpu"
@@ -298,29 +299,173 @@ def test_sequential_table_and_utilization_match_the_reference():
     assert P.utilization_from_counts(torch.zeros(3, dtype=torch.int64), torch.ones(3), x) == 0.0
 
 
+def _level_state(cn, B, qs, F, rng):
+    """A random mid-BFS state of B sources before level 3: half the keys
+    discovered, a frontier of F of them at depth 2 (sorted, so grouped by
+    source) at queue[qs:], ranked by position, the rest at depth 1, ``win``
+    INF at the undiscovered keys."""
+    n = cn.num_vertices
+    size = B * n
+    depth = torch.as_tensor(np.where(rng.rand(size) < 0.5, -1, 1).astype(np.int32))
+    fkeys = torch.as_tensor(np.sort(rng.choice(np.nonzero(depth.numpy() == 1)[0], F, False)))
+    depth[fkeys] = 2
+    queue = torch.as_tensor(rng.randint(0, size, size).astype(np.int64))
+    queue[qs:qs + F] = fkeys
+    rank = torch.full((size,), flow_ref.INF, dtype=torch.int64)
+    rank[fkeys] = torch.arange(F)
+    win = torch.where(depth == -1, flow_ref.INF, torch.as_tensor(rng.randint(0, 99, size)))
+    return {"queue": queue, "epos": torch.full((size,), -7, dtype=torch.int64),
+            "child": torch.full((size + 1,), -7, dtype=torch.int64), "rank": rank,
+            "depth": depth, "win": win, "info": torch.full((3,), -7, dtype=torch.int64)}
+
+
+def _run_level(cn, st, bottom_up, level, qs, F, edge_ok):
+    rev = P._reverse_tables(cn)
+    size = st["depth"].numel()
+    flow.bfs_level(bottom_up, level, st["queue"], st["epos"], st["child"], qs, F, st["rank"],
+                   st["depth"], st["win"], cn.indptr, cn.nbr, rev.rev_indptr, rev.rev_edge,
+                   rev.rev_src, rev.rev_slot, rev.deg, edge_ok, 0,
+                   flow.bfs_scratch(size, rev.stride, "cpu"), st["info"], cn.num_vertices,
+                   rev.stride)
+
+
 @pytest.mark.parametrize("seed", range(3))
 def test_bfs_level_directions_give_the_same_winners(seed):
-    """The plain ``bfs_level``: the bottom-up and top-down candidate sets
-    reach the same least keys on a random state (both directions of the
-    kernel must, too; the direction is only a matter of work)."""
+    """The plain ``bfs_level``: from one random state, the bottom-up and
+    top-down levels give the same new level (keys, edges, depths, ranks),
+    the same child offsets and sizes (both directions of the kernel must,
+    too; the direction is only a matter of work); top-down leaves ``win``
+    at the winners, bottom-up leaves it as it was."""
     cn = P.build_compiled_railx_hyperx(5, 2, 2.0, device=CPU)
-    rev_indptr, rev_edge, edge_slot, stride = P._reverse_tables(cn)
-    n, B = cn.num_vertices, 4
+    n, B, qs, F = cn.num_vertices, 4, 5, 30
     rng = np.random.RandomState(seed)
-    depth = torch.as_tensor(np.where(rng.rand(B * n) < 0.5, -1, 1).astype(np.int32))
-    fkeys = torch.as_tensor(np.sort(rng.choice(np.nonzero(depth.numpy() == 1)[0], 30, False)))
-    rank = torch.full((B * n,), flow_ref.INF, dtype=torch.int64)
-    b = fkeys // n
-    rank[fkeys] = torch.arange(fkeys.numel()) - torch.searchsorted(b, b)
+    st = _level_state(cn, B, qs, F, rng)
     ok = torch.as_tensor(rng.rand(cn.num_edges) < 0.8)
-    wins = []
+    out = []
     for bottom_up in (False, True):
-        win = torch.empty(B * n, dtype=torch.int64)
-        flow_ref.bfs_level_ref(bottom_up, fkeys, rank, depth, cn.indptr, cn.nbr, rev_indptr,
-                               rev_edge, cn.edge_src, edge_slot, ok, win, n, stride)
-        wins.append(win)
-    assert torch.equal(*wins)
-    assert (wins[0] != flow_ref.INF).any()
+        got = {k: v.clone() for k, v in st.items()}
+        _run_level(cn, got, bottom_up, 3, qs, F, ok)
+        out.append(got)
+    new = int(out[0]["info"][0])
+    assert new > 0
+    for k in ("queue", "epos", "child", "rank", "depth", "info"):
+        assert torch.equal(out[0][k], out[1][k]), k
+    assert torch.equal(out[1]["win"], st["win"])
+    fresh = out[0]["queue"][qs + F:qs + F + new]
+    assert torch.equal(out[0]["win"][fresh] // P._reverse_tables(cn).stride,
+                       torch.searchsorted(out[0]["child"][qs:qs + F],
+                                          torch.arange(new) + qs + F, right=True) - 1)
+    changed = out[0]["win"] != st["win"]
+    assert torch.equal(torch.nonzero(changed).flatten(), fresh.sort().values)
+
+
+def _levels_forced(cn, srcs, edge_ok, mode):
+    """``_bfs_levels`` with the direction forced (or by the work test),
+    level by level through ``bfs_level``."""
+    n = cn.num_vertices
+    B = len(srcs)
+    size = B * n
+    st = {"queue": torch.empty(size, dtype=torch.int64),
+          "epos": torch.empty(size, dtype=torch.int64),
+          "child": torch.empty(size + 1, dtype=torch.int64),
+          "rank": torch.full((size,), flow_ref.INF, dtype=torch.int64),
+          "depth": torch.full((size,), -1, dtype=torch.int32),
+          "win": torch.full((size,), flow_ref.INF, dtype=torch.int64),
+          "info": torch.empty(3, dtype=torch.int64)}
+    roots = torch.arange(B) * n + torch.as_tensor(srcs)
+    st["queue"][:B] = roots
+    st["depth"][roots] = 0
+    st["rank"][roots] = torch.arange(B)
+    rev_indptr = P._reverse_tables(cn).rev_indptr
+    out_sum = int((cn.indptr[roots % n + 1] - cn.indptr[roots % n]).sum())
+    unvis_in = B * cn.num_edges - int((rev_indptr[roots % n + 1] - rev_indptr[roots % n]).sum())
+    bounds, unvisited = [0, B], size - B
+    while unvisited:
+        bottom_up = {"top_down": False, "bottom_up": True}.get(mode, unvis_in < out_sum)
+        qs, F = bounds[-2], bounds[-1] - bounds[-2]
+        _run_level(cn, st, bottom_up, len(bounds) - 1, qs, F, edge_ok)
+        new, out_sum, in_new = st["info"].tolist()
+        if not new:
+            break
+        bounds.append(bounds[-1] + new)
+        unvisited -= new
+        unvis_in -= in_new
+    st["child"][bounds[-2]:] = bounds[-1]
+    return st, bounds
+
+
+def _star_net(leaves=70):
+    """A hub with ``leaves`` out-edges (two 64-bit mask words, more than a
+    warp's 32 lanes) and a ring through its leaves back to it."""
+    net = PS.FlowNetwork()
+    for i in range(leaves):
+        net.add_link("hub", f"x{i}", 1.0)
+    for i in range(leaves):
+        net.add_link(f"x{i}", f"x{(i + 7) % leaves}", 2.0)
+    net.add_link("x3", "hub", 1.0)
+    return net
+
+
+LEVEL_NETS = {"ties": lambda: _planted_ties(), "star70": lambda: _star_net(),
+              "hyperx5": lambda: arch.get("railx-hyperx").build_flow(3, 2, 2.0).net}
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all_edges", "edge_ok"])
+@pytest.mark.parametrize("mode", ["top_down", "bottom_up", "work_test"])
+@pytest.mark.parametrize("net", list(LEVEL_NETS))
+def test_bfs_levels_match_the_reference_level_by_level(net, mode, masked):
+    """The plain level function, each direction forced and by the work test,
+    against the reference's ``_bfs_levels`` level by level: each level's
+    keys and discovering edges in the seed BFS's order, the depths; the
+    child offsets partition every level among its parents, in order."""
+    flow_net = LEVEL_NETS[net]()
+    cn = P.CompiledNetwork.from_flow_network(flow_net, device=CPU)
+    rcn = R.CompiledNetwork.from_flow_network(flow_net)
+    n = cn.num_vertices
+    srcs = list(range(n))
+    ok = np.random.RandomState(3).rand(cn.num_edges) < 0.75 if masked else None
+    st, bounds = _levels_forced(cn, srcs, None if ok is None else torch.as_tensor(ok), mode)
+    rlevels, visited = R._bfs_levels(rcn, np.asarray(srcs, np.int64), edge_ok=ok)
+    assert len(bounds) - 2 == len(rlevels)
+    depth = np.full(len(srcs) * n, -1, np.int32)
+    depth[np.arange(len(srcs)) * n + np.asarray(srcs)] = 0
+    for d, (keys, epos) in enumerate(rlevels, start=1):
+        a, b = bounds[d], bounds[d + 1]
+        _eq(st["queue"][a:b], keys.astype(np.int64), f"level {d} keys")
+        _eq(st["epos"][a:b], epos, f"level {d} epos")
+        depth[keys] = d
+        # the children of entry q are child[q]..child[q + 1], all of the next
+        # level, and each names q as its parent
+        first = st["child"][bounds[d - 1]:a + 1]
+        assert int(first[0]) == a and int(first[-1]) == b and bool((first.diff() >= 0).all())
+        owner = torch.searchsorted(first, torch.arange(a, b), right=True) - 1 + bounds[d - 1]
+        parent = st["queue"][owner]
+        assert torch.equal(parent % n, cn.edge_src[st["epos"][a:b]].long())
+        assert torch.equal(parent // n, st["queue"][a:b] // n)
+    _eq(st["depth"], depth, "depth")
+    assert np.array_equal(st["depth"].numpy() >= 0, visited)
+    if net == "star70" and not masked:
+        assert int(torch.diff(st["child"][:bounds[-1] + 1]).max()) == 70
+
+
+@pytest.mark.parametrize("case", [CANONICAL[1], CANONICAL[3], CANONICAL[6]], ids=lambda c: c[0])
+def test_level_ordered_fold_matches_the_reference(case):
+    """The level-ordered plain fold over the port's BFS forest, with a
+    destination mask, against the reference's ``subtree_edge_counts`` on
+    its own forest; and the public function on the reference's
+    ``(parent_e, depth)``."""
+    cn, rcn = _pair(case)
+    rng = np.random.RandomState(5)
+    srcs = rng.choice(rcn.chips(), 9, replace=False)
+    dest = (rng.rand(rcn.num_vertices) < 0.6).astype(np.int64)
+    rparent_e, rdepth = R.bfs_forest(rcn, srcs)
+    want = R.subtree_edge_counts(rcn, rparent_e, rdepth, srcs, dest)
+    f = P._bfs_levels(cn, torch.as_tensor(srcs))
+    K = torch.zeros(cn.num_edges, dtype=torch.int64)
+    P._fold(cn, f, torch.as_tensor(dest), K)
+    _eq(K, want, "fold")
+    _eq(P.subtree_edge_counts(cn, torch.as_tensor(rparent_e), torch.as_tensor(rdepth), srcs,
+                              torch.as_tensor(dest)), want, "subtree_edge_counts")
 
 
 def test_ordered_fold_sums_each_run_left_to_right():

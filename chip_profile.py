@@ -185,9 +185,21 @@ The same for the flow kernels:
   this): the 16,384-chip exact sweep (RailX 64 m 2, batches of 1,024) timed
   on the host, then under the profiler (kernel ms, busy share, the flow
   kernels' ms and the rest, "glue"; host syncs a level from the CUDA
-  runtime's synchronize calls; peak memory above the network's), and one
-  goodput miss at max_flow_nodes 512; the medians of the three runs a side
-  and DIR / this.  The counts and the goodput must agree across all runs.
+  runtime's synchronize calls; peak memory above the network's), the
+  102,400-chip symmetry sweep (RailX 160 m 2) on the host and its orbit
+  kernel's ms under the profiler, the ``orbit_gather`` and ``ordered_fold``
+  wrappers alone in a CUDA graph of 20 calls on the inputs the sweep and
+  RailX 8's ECMP pass give them (each tree its own kernels), and one
+  goodput miss at max_flow_nodes 512 (wall ms, BFS levels, forests); the
+  medians of the three runs a side
+  and DIR / this.  The counts, the symmetry counts and the goodput must
+  agree across all runs.
+
+* dadd_chain: the latency of one dependent f64 add (``__dadd_rn``) on the
+  card, from a one-thread chain kernel timed at two lengths (the difference
+  over the difference of adds, so the launch cancels): the serial floor of
+  ``flow_ordered_fold``, whose runs are such chains (``chip_smoke.py``
+  keeps it as ``DADD_NS`` and multiplies it by the longest run).
 
 * flow_ablate DIR: the subtree fold over every call of the scale-32 exact
   sweep in batches of 256 (chip_smoke.py's timed shape) in one CUDA graph:
@@ -214,7 +226,7 @@ And one look at numbers rather than time:
                             [serve_whisper] [train_gemma3] [train_e2e]
                             [xlstm_agreement] [flash_ab DIR]
                             [flash_ablate] [scan_ab DIR] [scan_ablate]
-                            [flow] [flow_ab DIR] [flow_ablate DIR]
+                            [flow] [flow_ab DIR] [flow_ablate DIR] [dadd_chain]
                                                     # serve and train when none is named
 
 For each profiled phase it prints the host time, the device time summed
@@ -1970,10 +1982,75 @@ def flow_ablate(smi: str, other: str) -> None:
             f"ms per sweep (/ {levels} a call)", {"level_fold_sweep": lambda: rel_err(fold)})
 
 
+# One thread adds x to 0.0 n times, each add waiting on the one before
+# (__dadd_rn: no contraction), as flow_ordered_fold chains a run.
+_DADD_CHAIN = r"""
+#include <cuda_runtime.h>
+__global__ void dadd_chain_kernel(double* out, double x, long long n) {
+  double acc = 0.0;
+#pragma unroll 16
+  for (long long i = 0; i < n; ++i) acc = __dadd_rn(acc, x);
+  out[0] = acc;
+}
+extern "C" int dadd_chain(void* out, double x, long long n, void* stream) {
+  dadd_chain_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<double*>(out), x, n);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+DADD_CHAIN_ADDS = (1 << 20, 1 << 22)  # two chain lengths; their difference cancels the launch
+
+
+def dadd_chain(smi: str) -> None:
+    """ns of one dependent f64 add on the current card: the chain kernel
+    (built with the port's nvcc flags into ``build/probe/``) timed with CUDA
+    events at two lengths, median of 5 each; (t2 - t1) / (n2 - n1)."""
+    import ctypes
+    import statistics
+
+    import torch
+
+    from repro_torch.kernels import build
+
+    out_dir = build.BUILD_DIR.parent / "probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src, lib = out_dir / "dadd_chain.cu", out_dir / "dadd_chain.so"
+    src.write_text(_DADD_CHAIN)
+    res = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(src)],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"dadd_chain does not build:\n{res.stdout}{res.stderr}")
+    fn = ctypes.CDLL(str(lib)).dadd_chain
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_double, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty(1, dtype=torch.float64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ms = {}
+    for n in DADD_CHAIN_ADDS:
+        runs = []
+        for _ in range(6):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            if fn(out.data_ptr(), 0.5, n, stream):
+                raise RuntimeError("dadd_chain launch failed")
+            end.record()
+            torch.cuda.synchronize()
+            runs.append(start.elapsed_time(end))
+        ms[n] = statistics.median(runs[1:])
+        if out.item() != 0.5 * n:
+            raise RuntimeError(f"dadd_chain summed {out.item()!r}, not {0.5 * n!r}")
+    (n1, t1), (n2, t2) = sorted(ms.items())
+    ns = (t2 - t1) / (n2 - n1) * 1e6
+    print(f"dadd_chain: one dependent f64 add (__dadd_rn) takes {ns:.4f} ns on the card "
+          f"({DADD_CHAIN_ADDS[0]} and {DADD_CHAIN_ADDS[1]} adds, one thread, the difference of "
+          f"their CUDA-event times over the difference of adds) [{smi}]", flush=True)
+
+
 # Runs in the checkout of the current directory: the exact sweep at 16,384
 # chips (RailX 64 m 2, batches of 1,024) once timed on the host and once
-# under the profiler, then one goodput miss at max_flow_nodes 512; prints one
-# line of JSON.  Uses only calls that the port has had since PR 30.
+# under the profiler, the symmetry sweep at 102,400 chips (RailX 160 m 2)
+# the same way, then one goodput miss at max_flow_nodes 512; prints one line
+# of JSON.  Uses only calls that the port has had since its cluster twin.
 _FLOW_AB = r"""
 import json, sys, time, torch
 sys.path.insert(0, "src")
@@ -2015,6 +2092,57 @@ syncs = sum(1 for e in ev if e.device_type.name == "CPU" and "Synchronize" in e.
 pos = torch.arange(K.numel(), device=K.device)
 finger = int(((K * (pos % 1000003)) % 1000000007).sum())
 assert torch.equal(K, K2)
+del cn
+torch.cuda.empty_cache()
+cn = cf.build_compiled_railx_hyperx(160, 2, 2.0)
+re, Ks = cf.symmetric_alltoall_counts(cn)  # warm: the allocator, the reverse tables
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+re, Ks = cf.symmetric_alltoall_counts(cn)
+torch.cuda.synchronize()
+sym_ms = (time.perf_counter() - t0) * 1e3
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    cf.symmetric_alltoall_counts(cn)
+    torch.cuda.synchronize()
+orbit_ms = sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type.name == "CUDA" and "orbit_kernel" in e.name) / 1e3
+sym_finger = int(((Ks * (re % 1000003)) % 1000000007).sum())
+grab = {}
+orbit_gather, ordered_fold = flow.orbit_gather, flow.ordered_fold
+flow.orbit_gather = lambda *a: (grab.setdefault("orbit", a), orbit_gather(*a))[1]
+flow.ordered_fold = lambda *a: (grab.setdefault("fold", a), ordered_fold(*a))[1]
+cf.symmetric_alltoall_counts(cn)
+from repro_torch.arch import get
+from repro_torch.core.simulator import alltoall_throughput
+fb = get("railx-hyperx").flow_fig14(8, 2, 2.0, 8.0)
+alltoall_throughput(fb.net, fb.chips, 8.0, num_paths=2)
+flow.orbit_gather, flow.ordered_fold = orbit_gather, ordered_fold
+
+def graph_ms(fn, iters=20, replays=5):
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / replays / iters
+
+orbit_graph_ms = graph_ms(lambda: flow.orbit_gather(*grab["orbit"]))
+fold_graph_ms = graph_ms(lambda: flow.ordered_fold(*grab["fold"]))
+del cn, grab
+torch.cuda.empty_cache()
 from repro_torch.cluster import estimate_goodput, make_job, plan_job_mapping
 from repro_torch.core.availability import JobAllocation
 from repro_torch.core.mapping import ParallelismPlan
@@ -2023,6 +2151,9 @@ cfg = RailXConfig(m=4, n=4, R=64)
 job = make_job(0, "qwen3-8b", plan=ParallelismPlan(tp=16, cp=1, ep=1, dp=32, pp=32))
 jm = plan_job_mapping(cfg, job)
 alloc = JobAllocation(tuple(range(jm.rows_req)), tuple(range(jm.cols_req)))
+forests = getattr(cf, "route_forest_counts", None)  # a tree that routes in forests
+if forests:
+    cf.reset_route_forest_counts()
 flow.reset_launch_counts()
 torch.cuda.synchronize()
 t0 = time.perf_counter()
@@ -2034,8 +2165,11 @@ print(json.dumps({"sweep_host_ms": host_ms, "sweep_profiled_host_ms": prof_ms,
                   "flow_kernel_ms": flow_ms, "glue_ms": kern - flow_ms, "levels": levels,
                   "syncs": syncs, "syncs_per_level": syncs / levels,
                   "device_ms_per_level": kern / levels, "peak_gib": peak / 2 ** 30,
+                  "sym_host_ms": sym_ms, "orbit_kernel_ms": orbit_ms,
+                  "orbit_graph_ms": orbit_graph_ms, "fold_graph_ms": fold_graph_ms,
                   "miss_ms": miss_ms, "miss_levels": flow.launch_counts()["flow_bfs_level"],
-                  "goodput": g, "counts_fingerprint": finger}))
+                  **({"miss_forests": forests()["forests"]} if forests else {}), "goodput": g, "counts_fingerprint": finger,
+                  "sym_fingerprint": sym_finger}))
 """
 
 FLOW_AB_RUNS = 3  # runs a side; the medians are printed
@@ -2054,8 +2188,9 @@ def flow_ab(smi: str, other: str) -> None:
 
     here = Path(__file__).resolve().parent
     there = (here / other).resolve()
-    print(f"flow_ab: RailX 64 m 2 exact sweep (16,384 chips, batches of 1,024) and a goodput "
-          f"miss at 512 nodes, {there} against {here}, {FLOW_AB_RUNS} runs a side [{smi}]",
+    print(f"flow_ab: RailX 64 m 2 exact sweep (16,384 chips, batches of 1,024), RailX 160 m 2 "
+          f"symmetry sweep (102,400 chips) and a goodput miss at 512 nodes, {there} against "
+          f"{here}, {FLOW_AB_RUNS} runs a side [{smi}]",
           flush=True)
     runs = {"other": [], "this": []}
     order = ["other", "this", "this", "other"] + ["other", "this"] * (FLOW_AB_RUNS - 2)
@@ -2068,12 +2203,17 @@ def flow_ab(smi: str, other: str) -> None:
         line = res.stdout.strip().splitlines()[-1]
         print(f"flow_ab {label} ({path}): {line}", flush=True)
         runs[label].append(json.loads(line))
-    for key in ("goodput", "counts_fingerprint"):
+    for key in ("goodput", "counts_fingerprint", "sym_fingerprint"):
         got = {r[key] for side in runs.values() for r in side}
         if len(got) != 1:
             sys.exit(f"flow_ab: {key} differs between the runs: {got}")
     for key in runs["this"][0]:
-        if key in ("goodput", "counts_fingerprint"):
+        if key in ("goodput", "counts_fingerprint", "sym_fingerprint"):
+            continue
+        if key not in runs["other"][0]:  # a count the other tree does not keep
+            t = statistics.median(r[key] for r in runs["this"])
+            print(f"flow_ab {key}: this {t:.6g} (median of {FLOW_AB_RUNS}), other not counted",
+                  flush=True)
             continue
         o, t = (statistics.median(r[key] for r in runs[side]) for side in ("other", "this"))
         print(f"flow_ab {key}: other {o:.6g}, this {t:.6g} (median of {FLOW_AB_RUNS}), "
@@ -2859,7 +2999,8 @@ def main() -> None:
          "serve_whisper": lambda smi: profile_serve_family(smi, "whisper-large-v3"),
          "train_gemma3": profile_train_gemma3, "family_cards": family_cards,
          "pipe_cards": pipe_cards, "tp_cards": tp_cards,
-         "moe_axes_cards": moe_axes_cards, "sp_cards": sp_cards, "flow": profile_flow}[name](smi)
+         "moe_axes_cards": moe_axes_cards, "sp_cards": sp_cards, "flow": profile_flow,
+         "dadd_chain": dadd_chain}[name](smi)
 
 
 if __name__ == "__main__":

@@ -41,8 +41,13 @@ Phases, each printed as it runs; any failure exits non-zero:
            the same bits), and the whole results against the CPU's;
            each kernel timed call by call beside its plain version at the
            main path's shapes (the 4,096-chip exact sweep in batches of
-           256 sources, the 102,400-chip orbit gather, the ECMP fold),
-           bound by its bytes at 3.35 TB/s.  Then the main path, launch
+           256 sources, the 102,400-chip orbit gather beside the column
+           sum ``C.view(G, R).sum(0)``, the ECMP fold beside
+           ``torch.bincount``), bound by its bytes at 3.35 TB/s, the fold
+           also by its serial floor (its longest run of dependent f64 adds
+           at the latency ``chip_profile.py dadd_chain`` measured,
+           ``DADD_NS``).  Then
+           the main path, launch
            counts set to 0 before and read after: the Fig. 14 exact points
            from the registry's dict networks (RailX and torus 32, 4,096
            chips) and the symmetry points from its canonical builders
@@ -63,7 +68,8 @@ Phases, each printed as it runs; any failure exits non-zero:
            events/s, each goodput miss's wall ms and launches.  Then a
            qwen3-8b job at its default plan on each of the four fabrics with
            a ``job_network`` (card == CPU), one goodput miss at
-           ``max_flow_nodes`` 512 (timed, launches counted), the MLaaS twin's two acts
+           ``max_flow_nodes`` 512 (its goodput ``==`` the reference's float,
+           timed, its forests and launches counted), the MLaaS twin's two acts
            (``examples/torch/mlaas_allocation.py``; its asserts, its lines
            equal to the CPU run's) and bench_serving's mixed day on
            railx-hyperx, fixed and autoscale, 16 x 16, 24 h, at the H100
@@ -1354,6 +1360,10 @@ FLOW_REACH = 64           # the exact sweep at 16,384 chips, against the symmetr
 FLOW_CHECK = 16           # kernels against their plain versions: 1,024 chips
 FLOW_ECMP = 8             # the ECMP pass (num_paths=2) on the dict network: 256 chips
 FLOW_TIMED_BATCH = 256    # the scale-32 exact sweep's batch, as the main path runs it
+# ns of one dependent f64 add (__dadd_rn), as `python3 chip_profile.py
+# dadd_chain` measured it on an H100 80GB HBM3 at 700 W: the fold's serial
+# floor is its longest run times this
+DADD_NS = 4.1415
 # name -> the line of src/repro/core/compiled_flow.py where the function whose
 # numpy loop it replaces begins: _bfs_levels (a whole level, its ranking
 # included), subtree_edge_counts (its per-level fold),
@@ -1390,7 +1400,8 @@ class _FlowProbe:
 
     def __init__(self):
         self.stats = {f"flow_{k}": {"calls": 0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0.0,
-                                    "err": 0, "library_ms": 0.0, "top_down": 0, "bottom_up": 0}
+                                    "err": 0, "library_ms": None, "top_down": 0, "bottom_up": 0,
+                                    "longest_run": 0}
                       for k in self.NAMES}
 
     def __enter__(self):
@@ -1420,8 +1431,10 @@ class _FlowProbe:
         if not same:
             fail(f"{kname} disagrees with its plain version: max |diff| {err}")
 
-    def _add(self, kname, ms, plain_ms, nbytes) -> None:
+    def _add(self, kname, ms, plain_ms, nbytes, library_ms=None) -> None:
         st = self.stats[kname]
+        if library_ms is not None:
+            st["library_ms"] = (st["library_ms"] or 0.0) + library_ms
         st["calls"] += 1
         st["ms"] += ms
         st["plain_ms"] += plain_ms
@@ -1494,21 +1507,27 @@ class _FlowProbe:
                   + 16 * edges)
         self._add("flow_subtree_accumulate", ms, plain_ms, nbytes)
 
-    def orbit_gather(self, C, indptr, re_u, re_slot, sx, sy, scale, m2):
+    def orbit_gather(self, C, indptr, R, scale, step, m2):
         from repro_torch.kernels.flow import ref
 
         out = []
         ms = _sleep_then_time(lambda: out.append(self.orig["orbit_gather"](
-            C, indptr, re_u, re_slot, sx, sy, scale, m2)))
+            C, indptr, R, scale, step, m2)))
+        operands = ref.orbit_operands(indptr, scale, step, m2)
         want = []
         plain_ms = _sleep_then_time(lambda: want.append(ref.orbit_gather_ref(
-            C, indptr, re_u, re_slot, sx, sy, scale, m2)))
+            C, indptr, *operands, scale, m2)))
         self._same("flow_orbit_gather", out[0], want[0])
-        R, G = re_u.numel(), sx.numel()
-        # re_u, re_slot; sx, sy; indptr at the images; C at the image edges; K
-        nbytes = (16 * R + 16 * G + 8 * min(R * G, indptr.numel())
-                  + 8 * min(R * G, C.numel()) + 8 * R)
-        self._add("flow_orbit_gather", ms, plain_ms, nbytes)
+        G = (scale // step) ** 2
+        library_ms = None
+        if step == 1:  # C is G copies of the R representative slots
+            lib = [C.view(G, R).sum(0)]  # a first call loads torch's kernel: not timed
+            library_ms = _sleep_then_time(lambda: lib.append(C.view(G, R).sum(0)))
+            self._same("flow_orbit_gather", out[0], lib[-1])
+        # C once; indptr at the 2 step vertices that give each residue's
+        # columns; K written
+        nbytes = 8 * C.numel() + 16 * step + 8 * R
+        self._add("flow_orbit_gather", ms, plain_ms, nbytes, library_ms)
         return out[0]
 
     def ordered_fold(self, w_sorted, off):
@@ -1523,9 +1542,12 @@ class _FlowProbe:
         self._same("flow_ordered_fold", out[0], want[0])
         E = off.numel() - 1
         ids = torch.repeat_interleave(torch.arange(E, device=off.device), off[1:] - off[:-1])
+        torch.bincount(ids, weights=w_sorted, minlength=E)  # loads torch's kernel: not timed
         library_ms = _sleep_then_time(lambda: torch.bincount(ids, weights=w_sorted, minlength=E))
-        self.stats["flow_ordered_fold"]["library_ms"] += library_ms
-        self._add("flow_ordered_fold", ms, plain_ms, 8 * w_sorted.numel() + 8 * (E + 1) + 8 * E)
+        st = self.stats["flow_ordered_fold"]
+        st["longest_run"] = max(st["longest_run"], int((off[1:] - off[:-1]).max()) if E else 0)
+        self._add("flow_ordered_fold", ms, plain_ms, 8 * w_sorted.numel() + 8 * (E + 1) + 8 * E,
+                  library_ms)
         return out[0]
 
 
@@ -1596,8 +1618,10 @@ def _flow_timed(smi: str) -> dict:
     path's shapes: the scale-32 RailX exact sweep, every chip a source and a
     destination, in batches of 256 sources (``flow_bfs_level``,
     ``flow_subtree_accumulate``), the scale-160 RailX symmetry sweep
-    (``flow_orbit_gather``: 4 classes, a group of 25,600) and the scale-8
-    ECMP pass of the dict network (``flow_ordered_fold``)."""
+    (``flow_orbit_gather``: 4 classes, a group of 25,600; beside the column
+    sum ``C.view(G, R).sum(0)``) and the scale-8 ECMP pass of the dict
+    network (``flow_ordered_fold``; beside ``torch.bincount``, and its
+    serial floor: the longest run times one dependent f64 add)."""
     import torch
 
     from repro_torch.arch import get
@@ -1629,12 +1653,20 @@ def _flow_timed(smi: str) -> dict:
         if not c:
             fail(f"flow: {kname} was not called at {where}")
         ms, plain_ms, bound = st["ms"] / c, st["plain_ms"] / c, st["bytes"] / c / PEAK_BYTES * 1e3
-        library = st["library_ms"] / c if kname == "flow_ordered_fold" else None
+        library = None if st["library_ms"] is None else st["library_ms"] / c
+        lib_name = {"flow_orbit_gather": "C.view(G, R).sum(0), equal",
+                    "flow_ordered_fold": "torch.bincount"}.get(kname)
+        floor = ""
+        if kname == "flow_ordered_fold":
+            floor_ms = st["longest_run"] * DADD_NS * 1e-6
+            floor = (f"; serial floor {floor_ms:.4f} ms (longest run {st['longest_run']} x "
+                     f"{DADD_NS} ns a dependent f64 add, chip_profile.py dadd_chain), "
+                     f"{floor_ms / ms:.1%} of it")
         print(f"flow kernel {kname} at {where}: {c} calls, kernel {ms:.4f} ms a call (device, "
               f"total {st['ms']:.3f} ms), plain {plain_ms:.4f} ms, library "
-              f"{'none' if library is None else f'{library:.4f} ms (torch.bincount)'}; "
+              f"{'none' if library is None else f'{library:.4f} ms ({lib_name})'}; "
               f"{st['bytes'] / c:.4g} B a call, bound {bound:.4f} ms (bytes at 3.35 TB/s), "
-              f"{bound / ms:.1%} of it; max |diff| {st['err']} [{smi}]", flush=True)
+              f"{bound / ms:.1%} of it{floor}; max |diff| {st['err']} [{smi}]", flush=True)
         out[kname] = {"err": st["err"], "ms": ms, "plain_ms": plain_ms,
                       "bound": (bound, "bytes"), "library_ms": library}
     return out
@@ -1757,6 +1789,9 @@ CLUSTER_DAY = {"events": 780, "jobs": 304, "finished": 304, "utilization": 0.024
                "circuit_cache_hits": 304, "circuit_cache_misses": 5,
                "goodput_cache_hits": 304, "goodput_cache_misses": 5}
 CLUSTER_FABRICS = ("railx-hyperx", "torus-2d", "torus-3d", "rail-only")
+# the reference's estimate_goodput of _cluster_capped_miss's job (its numpy
+# engine on a CPU)
+CLUSTER_MISS = 0.6109131300041653
 # benchmarks/bench_serving.py's run_mixed: 16 x 16, seed 102026, two services
 # on diurnal rates sampled every 600 s, a training load of qwen3-8b jobs
 # submitted every 300 s and a switch-heavy fault trace; the horizon is
@@ -1943,10 +1978,12 @@ def _cluster_fabrics(smi: str) -> None:
 
 def _cluster_capped_miss(smi: str) -> None:
     """What one goodput miss costs at ``max_flow_nodes`` (512): a 32 x 32
-    node qwen3-8b job (tp 16, dp 32, pp 32) trimmed to 16 x 32 nodes, routed
-    source by source on the card.  Timed and counted, not held: the same
-    routing is held card == CPU on the smaller jobs above."""
+    node qwen3-8b job (tp 16, dp 32, pp 32) trimmed to 16 x 32 nodes, all
+    of its sources routed in forests of ``ROUTE_KEYS // n`` sources on the
+    card (one forest here).  Its goodput must equal the reference's float;
+    its wall time, forests and launches are printed."""
     from repro_torch.cluster import estimate_goodput, make_job, plan_job_mapping
+    from repro_torch.core import compiled_flow as cf
     from repro_torch.core.availability import JobAllocation
     from repro_torch.core.mapping import ParallelismPlan
     from repro_torch.core.topology import RailXConfig
@@ -1957,15 +1994,18 @@ def _cluster_capped_miss(smi: str) -> None:
     jm = plan_job_mapping(cfg, job)
     alloc = JobAllocation(tuple(range(jm.rows_req)), tuple(range(jm.cols_req)))
     flow.reset_launch_counts()
+    cf.reset_route_forest_counts()
     t0 = time.perf_counter()
     g = estimate_goodput(cfg, job, jm.mapping, alloc)
     ms = (time.perf_counter() - t0) * 1e3
+    forests = cf.route_forest_counts()
     launches = {k: v for k, v in flow.launch_counts().items() if v}
     print(f"cluster goodput miss at max_flow_nodes 512: qwen3-8b {jm.rows_req}x{jm.cols_req} "
-          f"nodes trimmed to 512, railx-hyperx, goodput {g!r}, {ms:.1f} ms wall, "
+          f"nodes trimmed to 512, railx-hyperx, goodput {g!r} (reference {CLUSTER_MISS!r}), "
+          f"{ms:.1f} ms wall, {forests['forests']} forests of {forests['sources']} sources in all, "
           f"launches {launches} [{smi}]", flush=True)
-    if not 0 < g <= 1:
-        fail(f"cluster: the capped miss's goodput {g!r} is out of (0, 1]")
+    if g != CLUSTER_MISS:
+        fail(f"cluster: the capped miss's goodput {g!r} != the reference's {CLUSTER_MISS!r}")
 
 
 def _cluster_example(smi: str) -> None:

@@ -702,24 +702,38 @@ def utilization_from_counts(
 # ---------------------------------------------------------------------------
 
 
-def _path_edge_matrix(cn, parent_e, sid, tids):
-    """[T, maxdepth] CSR edge ids of each destination's path (reverse
-    order along the path; -1 padding).  Row-major flattening yields the
-    destination-major edge stream the seed loop accumulates in."""
-    cur = tids.clone()
-    cols = []
-    while True:
-        act = cur != sid
-        if not bool(act.any()):
-            break
-        col = torch.full((cur.numel(),), -1, dtype=I64, device=cur.device)
-        pe = parent_e[cur[act]]
-        col[act] = pe
-        cols.append(col)
-        cur[act] = cn.edge_src[pe].to(I64)
-    if not cols:
-        return torch.empty((tids.numel(), 0), dtype=I64, device=tids.device)
-    return torch.stack(cols, dim=1)
+def _path_edges(cn, parent_e, keys, dp, D: int) -> torch.Tensor:
+    """[P, D] CSR edge ids of the tree path to each key ``b * n + t`` of a
+    forest (``parent_e`` flat over its keys), destination back to source
+    (-1 padding past its depth ``dp``, ``D`` the longest): row-major
+    flattening yields the destination-major edge stream the seed loop
+    accumulates in."""
+    n = cn.num_vertices
+    base = keys - keys % n
+    cur = keys.clone()
+    M = torch.full((keys.numel(), D), -1, dtype=I64, device=keys.device)
+    for j in range(D):
+        act = dp > j
+        pe = torch.where(act, parent_e[cur], -1)
+        M[:, j] = pe
+        cur = torch.where(act, base + cn.edge_src[pe.clamp(min=0)].to(I64), cur)
+    return M
+
+
+# keys (sources x vertices) of one forest of ``route_demands`` at num_paths=1:
+# a 1,024-vertex goodput network routes 4,096 sources at once, and a forest
+# over a 16,384-chip network holds 256 of its sources
+ROUTE_KEYS = 1 << 22
+# forests ``route_demands`` has routed at num_paths=1, and their sources
+ROUTE_FORESTS = {"forests": 0, "sources": 0}
+
+
+def route_forest_counts() -> Dict[str, int]:
+    return dict(ROUTE_FORESTS)
+
+
+def reset_route_forest_counts() -> None:
+    ROUTE_FORESTS.update(forests=0, sources=0)
 
 
 def route_demands(
@@ -732,7 +746,10 @@ def route_demands(
 
     The demand-ordered edge stream is folded per edge in its order
     (``flow.ordered_fold``), so every edge sees its contributions in the
-    seed loop's order: bit-identical to the reference.  ``num_paths>=2``
+    seed loop's order: bit-identical to the reference.  ``num_paths=1``
+    routes the sources in forests of ``ROUTE_KEYS // n`` sources (one BFS
+    and one path matrix a forest), which give the per-source trees and
+    the same stream.  ``num_paths>=2``
     adds load-balanced ECMP: each successive BFS pass excludes links
     already used for the same source, and each demand splits evenly over
     the paths found (a destination unreachable without reusing links
@@ -761,40 +778,35 @@ def _route_demands_impl(
             by_src.setdefault(s, []).append((t, v))
     ids_parts: List[torch.Tensor] = []
     w_parts: List[torch.Tensor] = []
-    for sid, lst in by_src.items():
-        tids = torch.tensor([t for t, _ in lst], dtype=I64, device=dev)
-        vals = torch.tensor([v for _, v in lst], dtype=torch.float64, device=dev)
-        if num_paths <= 1:
-            parent_e, depth = bfs_forest(cn, [sid])
-            parent_e, depth = parent_e[0], depth[0]
-            _check_reachable(cn, depth, sid, tids)
-            M = _path_edge_matrix(cn, parent_e, sid, tids)
-            mask = M >= 0
-            ids_parts.append(M[mask])
-            w_parts.append(vals[:, None].expand(M.shape)[mask])
-            continue
-        used = torch.zeros(cn.num_edges, dtype=torch.bool, device=dev)
-        npaths = torch.zeros(tids.numel(), dtype=I64, device=dev)
-        passes: List[Tuple[torch.Tensor, torch.Tensor]] = []
-        for p in range(num_paths):
-            edge_ok = None if p == 0 else ~used
-            parent_e, depth = bfs_forest(cn, [sid], edge_ok=edge_ok)
-            parent_e, depth = parent_e[0], depth[0]
-            if p == 0:
-                _check_reachable(cn, depth, sid, tids)
-            reach = torch.nonzero(depth[tids] >= 0).flatten()
-            if reach.numel() == 0:
-                break
-            M = _path_edge_matrix(cn, parent_e, sid, tids[reach])
-            mask = M >= 0
-            ids = M[mask]
-            didx = reach[:, None].expand(M.shape)[mask]
-            used[ids] = True
-            npaths[reach] += 1
-            passes.append((ids, didx))
-        for ids, didx in passes:
-            ids_parts.append(ids)
-            w_parts.append(vals[didx] / npaths[didx])
+    if num_paths <= 1:
+        _route_forests(cn, by_src, ids_parts, w_parts)
+    else:
+        for sid, lst in by_src.items():
+            tids = torch.tensor([t for t, _ in lst], dtype=I64, device=dev)
+            vals = torch.tensor([v for _, v in lst], dtype=torch.float64, device=dev)
+            used = torch.zeros(cn.num_edges, dtype=torch.bool, device=dev)
+            npaths = torch.zeros(tids.numel(), dtype=I64, device=dev)
+            passes: List[Tuple[torch.Tensor, torch.Tensor]] = []
+            for p in range(num_paths):
+                edge_ok = None if p == 0 else ~used
+                parent_e, depth = bfs_forest(cn, [sid], edge_ok=edge_ok)
+                parent_e, depth = parent_e[0], depth[0]
+                if p == 0:
+                    _check_reachable(cn, depth, sid, tids)
+                reach = torch.nonzero(depth[tids] >= 0).flatten()
+                if reach.numel() == 0:
+                    break
+                dp = depth[tids[reach]]
+                M = _path_edges(cn, parent_e, tids[reach], dp, int(dp.max()))
+                mask = M >= 0
+                ids = M[mask]
+                didx = reach[:, None].expand(M.shape)[mask]
+                used[ids] = True
+                npaths[reach] += 1
+                passes.append((ids, didx))
+            for ids, didx in passes:
+                ids_parts.append(ids)
+                w_parts.append(vals[didx] / npaths[didx])
     if not ids_parts:
         return torch.zeros(cn.num_edges, dtype=torch.float64, device=dev)
     ids = torch.cat(ids_parts)
@@ -802,6 +814,40 @@ def _route_demands_impl(
     off = torch.zeros(cn.num_edges + 1, dtype=I64, device=dev)
     torch.cumsum(torch.bincount(sorted_ids, minlength=cn.num_edges), 0, out=off[1:])
     return flow.ordered_fold(torch.cat(w_parts)[perm], off)
+
+
+def _route_forests(cn, by_src, ids_parts, w_parts) -> None:
+    """Single-path routing of every source in ``by_src`` (its order, each
+    source's destinations in theirs): the sources in chunks of
+    ``ROUTE_KEYS // n``, each chunk one ``bfs_forest`` (the trees are the
+    per-source BFS's), one read of its pairs' reachability and longest
+    path, and one path matrix over all its pairs.  The stream appended is
+    the per-source loop's, pair by pair, edge by edge from the
+    destination back."""
+    n, dev = cn.num_vertices, cn.device
+    srcs = list(by_src)
+    per = max(1, ROUTE_KEYS // n)
+    for lo in range(0, len(srcs), per):
+        chunk = srcs[lo:lo + per]
+        pairs = [(b, t, v) for b, sid in enumerate(chunk) for t, v in by_src[sid]]
+        pb = torch.tensor([p[0] for p in pairs], dtype=I64, device=dev)
+        tids = torch.tensor([p[1] for p in pairs], dtype=I64, device=dev)
+        vals = torch.tensor([p[2] for p in pairs], dtype=torch.float64, device=dev)
+        parent_e, depth = bfs_forest(cn, chunk)
+        ROUTE_FORESTS["forests"] += 1
+        ROUTE_FORESTS["sources"] += len(chunk)
+        keys = pb * n + tids
+        dp = depth.reshape(-1)[keys]
+        bad, D = torch.stack([(dp < 0).any().to(I64), dp.max()]).tolist()
+        if bad:
+            i = int(torch.nonzero(dp < 0)[0])
+            raise ValueError(
+                f"unreachable {_vname(cn, chunk[int(pb[i])])}->{_vname(cn, int(tids[i]))}"
+            )
+        M = _path_edges(cn, parent_e.reshape(-1), keys, dp, D)
+        mask = M >= 0
+        ids_parts.append(M[mask])
+        w_parts.append(vals[:, None].expand(M.shape)[mask])
 
 
 def _check_reachable(cn, depth, sid, tids):
@@ -882,9 +928,6 @@ def _symmetric_alltoall_counts_impl(
     # representative edges: all CSR edges out of the representative block
     bounds = cn.indptr[torch.stack([reps, reps + 1])].tolist()
     re = torch.cat([torch.arange(a, b, dtype=I64, device=dev) for a, b in zip(*bounds)])
-    re_u = cn.edge_src[re].to(I64)
-    re_slot = re - cn.indptr[re_u]
-    sx, sy = sym.group_elements(dev)
     f = _traced_bfs(cn, reps)
     bad = torch.nonzero(f.depth.view(reps.numel(), -1) < 0)
     if bad.numel():
@@ -897,9 +940,9 @@ def _symmetric_alltoall_counts_impl(
     if trc.enabled:
         trc.begin(
             "flow.orbit_gather", cat="flow",
-            group=int(sx.numel()), rep_edges=int(re.numel()),
+            group=(sym.scale // sym.step) ** 2, rep_edges=int(re.numel()),
         )
-    K = flow.orbit_gather(C, cn.indptr, re_u, re_slot, sx, sy, sym.scale, sym.chips_per_node)
+    K = flow.orbit_gather(C, cn.indptr, re.numel(), sym.scale, sym.step, sym.chips_per_node)
     if trc.enabled:
         trc.end("flow.orbit_gather")
     return re, K

@@ -81,16 +81,39 @@
 //                           (`_symmetric_alltoall_counts_impl` :1059-1066):
 //                           K[r] = sum over the translation group of C at the
 //                           edge in the same CSR slot of the translated
-//                           vertex, in int64.  One block per (representative
-//                           edge, slice of the group), a block reduction,
-//                           one atomicAdd a block.
+//                           vertex, in int64 (exact in any order).  The
+//                           orbit of the representative block (X, Y < step)
+//                           tiles the grid and every translate by step keeps
+//                           each vertex's degree and slot order, so C read
+//                           in CSR order is, for each residue x0 = X mod
+//                           step, a (G, P[x0]) matrix: the grid row X = x0 +
+//                           step X' starts at edge per (X' R + B[x0]) (per =
+//                           scale / step, B[x0] = P[0] + ... + P[x0 - 1]), its
+//                           period of step nodes at Y = k step starts P[x0]
+//                           further per k, and column c of it is
+//                           representative edge B[x0] + c.  So K is a column
+//                           sum read once, coalesced, with no gather: a
+//                           block sums a slice of the rows for a tile of
+//                           columns in registers and adds each column to K
+//                           with one atomic.  P and B come from indptr at the
+//                           2 step vertices (x0, 0, 0) and (x0, step, 0).
 //   flow_ordered_fold       the load fold of `route_demands` (:942-946) at
 //                           num_paths=1, which must be bit-identical to the
 //                           seed engine's `load[e] += share` loop.  The
 //                           caller sorts the demand-ordered edge stream by
-//                           edge id with a stable sort; here one thread per
-//                           edge sums its run left to right in float64 from
-//                           0.0 (__dadd_rn: no contraction, no reordering).
+//                           edge id with a stable sort; each edge's run is
+//                           summed left to right in float64 from 0.0
+//                           (__dadd_rn: no contraction, no reordering), so a
+//                           run is one dependent chain and its length is the
+//                           floor.  A block takes the edges whose runs start
+//                           in its span of kFoldSpan stream elements (a warp
+//                           searches `off` 32 ways), stages their runs
+//                           through shared memory in chunks of kFoldChunk
+//                           (cp.async, two buffers: the next chunk lands
+//                           while this one is summed), and each thread
+//                           chains its edge's adds from shared memory; the
+//                           one run that crosses a chunk's end carries its
+//                           partial sum to the next chunk.
 //
 // What bounds them on the H100.  All four move bytes and do next to no
 // arithmetic: a BFS level reads the frontier, the CSR (or reverse CSR), the
@@ -374,45 +397,174 @@ __global__ void subtree_sum_kernel(const long long* __restrict__ queue,
   }
 }
 
-// grid (R, slices): block (r, s) sums C over its slice of the group for
-// representative edge r, then adds its sum to K[r].
+constexpr int kOrbitCols = 4;                         // columns a thread
+constexpr int kOrbitTile = kThreads * kOrbitCols;      // columns a block
+constexpr int kOrbitRows = 4;                          // rows whose loads are in flight together
+constexpr long long kOrbitBlocks = 132LL * 2;          // blocks of a call, over residues and tiles
+
+// grid (tiles x slices, step): block (t + tiles s, x0) sums rows [s rows,
+// (s + 1) rows) of residue x0's (G, P) matrix (row g = X' per + k) at the
+// columns c = t kOrbitTile + threadIdx.x + j kThreads, then adds each to
+// K[B + c].
 __global__ void orbit_kernel(const long long* __restrict__ C,
-                             const long long* __restrict__ indptr,
-                             const long long* __restrict__ re_u,
-                             const long long* __restrict__ re_slot,
-                             const long long* __restrict__ sx,
-                             const long long* __restrict__ sy, long long G, long long scale,
-                             long long m2, unsigned long long* __restrict__ K) {
-  const long long r = blockIdx.x;
-  const long long u = re_u[r];
-  const long long node = u / m2, chip = u % m2;
-  const long long X = node / scale, Y = node % scale;
-  const long long slot = re_slot[r];
-  long long acc = 0;
-  for (long long g = blockIdx.y * (long long)blockDim.x + threadIdx.x; g < G;
-       g += (long long)gridDim.y * blockDim.x) {
-    const long long u2 = (((X + sx[g]) % scale) * scale + (Y + sy[g]) % scale) * m2 + chip;
-    acc += C[indptr[u2] + slot];
+                             const long long* __restrict__ indptr, long long R, long long per,
+                             long long scale, long long step, long long m2, int tiles,
+                             long long rows, unsigned long long* __restrict__ K) {
+  const long long x0 = blockIdx.y;
+  const long long tile = blockIdx.x % tiles, slice = blockIdx.x / tiles;
+  const long long row_v = scale * m2;  // vertices of a grid row X
+  long long B = 0;
+  for (long long x = 0; x < x0; ++x) B += indptr[x * row_v + step * m2] - indptr[x * row_v];
+  long long P = indptr[x0 * row_v + step * m2] - indptr[x0 * row_v];
+  // the caller checks E == G R; were indptr not invariant under the
+  // translations, the columns past R would still be neither read nor written
+  if (P > R - B) P = R - B;
+  const long long c0 = tile * kOrbitTile + threadIdx.x;
+  if (tile * kOrbitTile >= P) return;  // the whole block
+  const long long G = per * per;
+  const long long g0 = slice * rows, g1 = g0 + rows < G ? g0 + rows : G;
+  long long acc[kOrbitCols] = {};
+  long long Xp = g0 / per, k = g0 % per;  // row g0; then counted, not divided
+  const long long* row = C + per * (Xp * R + B) + k * P;
+  for (long long g = g0; g < g1; g += kOrbitRows) {
+    long long x[kOrbitRows][kOrbitCols];
+#pragma unroll
+    for (int i = 0; i < kOrbitRows; ++i) {
+#pragma unroll
+      for (int j = 0; j < kOrbitCols; ++j) {
+        const long long c = c0 + j * kThreads;
+        x[i][j] = g + i < g1 && c < P ? row[c] : 0;
+      }
+      if (++k == per) {  // the next grid row of this residue
+        k = 0;
+        ++Xp;
+        row = C + per * (Xp * R + B);
+      } else {
+        row += P;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kOrbitRows; ++i)
+#pragma unroll
+      for (int j = 0; j < kOrbitCols; ++j) acc[j] += x[i][j];
   }
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
-  __shared__ long long part[kThreads / 32];
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x / 32] = acc;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    long long s = 0;
-    for (int w = 0; w < kThreads / 32; ++w) s += part[w];
-    atomicAdd(&K[r], static_cast<unsigned long long>(s));
+#pragma unroll
+  for (int j = 0; j < kOrbitCols; ++j) {
+    const long long c = c0 + j * kThreads;
+    if (c < P && acc[j] != 0) atomicAdd(&K[B + c], static_cast<unsigned long long>(acc[j]));
   }
 }
 
-__global__ void fold_kernel(const double* __restrict__ w, const long long* __restrict__ off,
-                            long long E, double* __restrict__ load) {
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < E;
-       e += (long long)gridDim.x * blockDim.x) {
-    double acc = 0.0;
-    const long long j1 = off[e + 1];
-    for (long long j = off[e]; j < j1; ++j) acc = __dadd_rn(acc, w[j]);
-    load[e] = acc;
+constexpr int kFoldThreads = 128;
+constexpr long long kFoldSpan = 1024;  // stream elements whose runs a block starts
+constexpr int kFoldChunk = 2048;       // elements a staging buffer (two: 32 KB)
+constexpr int kFoldAhead = 8;          // weights in registers ahead of a run's adds
+
+// The first i in [0, n) with a[i] >= x (a nondecreasing), n if none; every
+// lane of the warp calls it and gets the answer: each round probes 32
+// positions and keeps the stretch between the last one below x and the
+// first one not below it.
+__device__ long long warp_lower_bound(const long long* __restrict__ a, long long n, long long x) {
+  const int lane = threadIdx.x & 31;
+  long long lo = 0, hi = n;  // the answer lies in [lo, hi]
+  while (lo < hi) {
+    const long long step = (hi - lo + 31) / 32;
+    const long long p = lo + (lane + 1) * step - 1;
+    const bool ge = p >= hi || a[p] >= x;
+    const unsigned m = __ballot_sync(0xffffffffu, ge);
+    if (m == 0) return hi;  // every probe below x: the last one is hi - 1
+    const int k = __ffs(m) - 1;
+    const long long pk = lo + (k + 1) * step - 1;
+    lo += k * step;
+    if (pk < hi) hi = pk;
+  }
+  return lo;
+}
+
+__device__ __forceinline__ void stage8(double* dst, const double* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
+}
+
+// Block b folds the edges whose runs start in [b kFoldSpan, (b + 1)
+// kFoldSpan) (the last block also those starting at L: empty runs).  Its
+// chunks are aligned at b kFoldSpan, so the first one is staged while two
+// warps search `off` for the block's edges.
+__global__ void fold_kernel(const double* __restrict__ w, long long L,
+                            const long long* __restrict__ off, long long E,
+                            double* __restrict__ load) {
+  __shared__ double buf[2][kFoldChunk];
+  __shared__ long long range[2];
+  __shared__ double carry[2];  // the crossing run's partial sum, by chunk parity
+  const long long base = static_cast<long long>(blockIdx.x) * kFoldSpan;
+  long long end = L;           // staged up to here: L until the block's span is known
+  auto stage = [&](long long c) {
+    const long long cs = base + c * kFoldChunk;
+    const long long len = end - cs < kFoldChunk ? end - cs : kFoldChunk;
+    for (long long i = threadIdx.x; i < len; i += kFoldThreads) stage8(&buf[c & 1][i], w + cs + i);
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  stage(0);
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {
+    const long long x = base + warp * kFoldSpan;
+    const long long i = warp == 1 && blockIdx.x + 1 == gridDim.x ? E : warp_lower_bound(off, E, x);
+    if ((threadIdx.x & 31) == 0) range[warp] = i;
+  }
+  __syncthreads();
+  const long long e_lo = range[0], e_hi = range[1];
+  if (e_lo >= e_hi) {
+    asm volatile("cp.async.wait_all;\n" ::);
+    return;
+  }
+  const long long e0 = e_lo + threadIdx.x;  // this thread's first edge, its run read ahead
+  const long long f0 = e0 < e_hi ? off[e0] : 0, f1 = e0 < e_hi ? off[e0 + 1] : 0;
+  end = off[e_hi];
+  const long long span = end > base ? end - base : 0;
+  const long long chunks = span > kFoldChunk ? (span + kFoldChunk - 1) / kFoldChunk : 1;
+  for (long long c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) {
+      stage(c + 1);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();
+    const long long cs = base + c * kFoldChunk, ce = cs + kFoldChunk;
+    const double* s = buf[c & 1];
+    for (long long e = e0; e < e_hi; e += kFoldThreads) {
+      const long long r0 = e == e0 ? f0 : off[e], r1 = e == e0 ? f1 : off[e + 1];
+      if (r0 == r1) {
+        if (c == 0) load[e] = 0.0;
+        continue;
+      }
+      if (r1 <= cs || r0 >= ce) continue;
+      double acc = r0 < cs ? carry[c & 1] : 0.0;
+      const int j0 = static_cast<int>((r0 > cs ? r0 : cs) - cs);
+      const int j1 = static_cast<int>((r1 < ce ? r1 : ce) - cs);
+      // the next kFoldAhead weights are read while these are added, so
+      // only the dependent adds set the pace
+      double x[kFoldAhead];
+#pragma unroll
+      for (int k = 0; k < kFoldAhead; ++k) x[k] = j0 + k < j1 ? s[j0 + k] : 0.0;
+      for (int j = j0; j < j1; j += kFoldAhead) {
+        double y[kFoldAhead];
+#pragma unroll
+        for (int k = 0; k < kFoldAhead; ++k)
+          y[k] = j + kFoldAhead + k < j1 ? s[j + kFoldAhead + k] : 0.0;
+#pragma unroll
+        for (int k = 0; k < kFoldAhead; ++k) {
+          if (j + k < j1) acc = __dadd_rn(acc, x[k]);
+          x[k] = y[k];
+        }
+      }
+      if (r1 > ce) {
+        carry[(c + 1) & 1] = acc;
+      } else {
+        load[e] = acc;
+      }
+    }
+    __syncthreads();
   }
 }
 
@@ -504,32 +656,42 @@ extern "C" int flow_subtree_accumulate(const void* queue, const void* qepos, con
   return static_cast<int>(cudaGetLastError());
 }
 
-// C (E,) int64; indptr (n + 1,); re_u, re_slot (R,) int64; sx, sy (G,) int64;
-// K (R,) int64, zeroed by the caller.
-extern "C" int flow_orbit_gather(const void* C, const void* indptr, const void* re_u,
-                                 const void* re_slot, long long R, const void* sx,
-                                 const void* sy, long long G, long long scale, long long m2,
-                                 void* K, void* stream) {
-  if (R == 0 || G == 0) return 0;
-  if (R > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  long long slices = (G + kThreads - 1) / kThreads;
-  if (slices > 64) slices = 64;
-  const dim3 grid(static_cast<unsigned>(R), static_cast<unsigned>(slices));
+// C (E,) int64 over n = scale^2 m2 vertices laid out ((X scale + Y) m2 +
+// chip), invariant under translations by step; indptr (n + 1,) int64; R
+// the representative edges (every CSR edge of the block X, Y < step, in
+// CSR order), so E == (scale / step)^2 R, which the caller checks; K (R,)
+// int64, zeroed by the caller.
+extern "C" int flow_orbit_gather(const void* C, const void* indptr, long long R, long long scale,
+                                 long long step, long long m2, void* K, void* stream) {
+  if (R == 0) return 0;
+  if (step < 1 || scale % step) return static_cast<int>(cudaErrorInvalidValue);
+  const long long per = scale / step, G = per * per;
+  // the widest residue has at most R columns
+  const long long tiles = (R + kOrbitTile - 1) / kOrbitTile;
+  if (tiles * kOrbitBlocks > INT32_MAX || step > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  long long slices = kOrbitBlocks / (step * tiles);
+  if (slices < 1) slices = 1;
+  if (slices > G) slices = G;
+  const long long rows = (G + slices - 1) / slices;
+  slices = (G + rows - 1) / rows;
+  const dim3 grid(static_cast<unsigned>(tiles * slices), static_cast<unsigned>(step));
   orbit_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(C), static_cast<const long long*>(indptr),
-      static_cast<const long long*>(re_u), static_cast<const long long*>(re_slot),
-      static_cast<const long long*>(sx), static_cast<const long long*>(sy), G, scale, m2,
-      static_cast<unsigned long long*>(K));
+      static_cast<const long long*>(C), static_cast<const long long*>(indptr), R, per, scale,
+      step, m2, static_cast<int>(tiles), rows, static_cast<unsigned long long*>(K));
   return static_cast<int>(cudaGetLastError());
 }
 
 // w (L,) float64 sorted stably by edge id; off (E + 1,) int64, the runs'
-// bounds; load (E,) float64, written whole.
-extern "C" int flow_ordered_fold(const void* w, const void* off, long long E, void* load,
-                                 void* stream) {
+// bounds, off[E] == L; load (E,) float64, written whole.
+extern "C" int flow_ordered_fold(const void* w, long long L, const void* off, long long E,
+                                 void* load, void* stream) {
   if (E == 0) return 0;
-  fold_kernel<<<blocks_for(E, kThreads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(w), static_cast<const long long*>(off), E,
+  const long long blocks = L > 0 ? (L + kFoldSpan - 1) / kFoldSpan : 1;
+  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  fold_kernel<<<static_cast<unsigned>(blocks), kFoldThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(w), L, static_cast<const long long*>(off), E,
       static_cast<double*>(load));
   return static_cast<int>(cudaGetLastError());
 }

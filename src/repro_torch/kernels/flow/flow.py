@@ -8,9 +8,11 @@
   host reads (one read a level);
 * ``subtree_accumulate``: one level's subtree counts, each parent's
   children summed in level order, into ``cnt`` and ``K``;
-* ``orbit_gather``: the symmetry sweep's sum over the translation group;
+* ``orbit_gather``: the symmetry sweep's sum over the translation group,
+  read as one column sum of the count table;
 * ``ordered_fold``: per-edge loads, each edge's contributions summed in the
-  stream's order (bit-identical to the seed engine's loop).
+  stream's order (bit-identical to the seed engine's loop), the runs staged
+  through shared memory.
 
 On CUDA tensors each launches its kernel (``csrc/flow.cu``, built on first
 use, see ``kernels/build.py``) on the current stream and counts the call in
@@ -41,8 +43,8 @@ _ARGTYPES = {
     "flow_bfs_level": [_I, _I, _P, _P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _L, _P, _P, _L, _L, _L, _P],
     "flow_subtree_accumulate": [_P, _P, _P, _L, _L, _P, _P, _P, _L, _P],
-    "flow_orbit_gather": [_P, _P, _P, _P, _L, _P, _P, _L, _L, _L, _P, _P],
-    "flow_ordered_fold": [_P, _P, _L, _P, _P],
+    "flow_orbit_gather": [_P, _P, _L, _L, _L, _L, _P, _P],
+    "flow_ordered_fold": [_P, _L, _P, _L, _P, _P],
 }
 
 
@@ -191,35 +193,50 @@ def subtree_accumulate(
 
 
 def orbit_gather(
-    C: torch.Tensor,        # (E,) int64 per-edge counts
-    indptr: torch.Tensor,   # (n + 1,) int64
-    re_u: torch.Tensor,     # (R,) int64 tails of the representative edges
-    re_slot: torch.Tensor,  # (R,) int64 their CSR slots
-    sx: torch.Tensor,       # (G,) int64 the group's translations
-    sy: torch.Tensor,       # (G,) int64
+    C: torch.Tensor,
+    indptr: torch.Tensor,
+    R: int,
     scale: int,
+    step: int,
     m2: int,
 ) -> torch.Tensor:
-    """-> K (R,) int64."""
+    """-> K (R,) int64: the symmetry sweep's count table ``C`` (E,) summed
+    over the translation group, for each of the ``R`` representative edges.
+
+    The network has ``n = scale² m2`` vertices laid out ``((X scale + Y) m2
+    + chip)`` and every translation by ``step`` is a slot-preserving
+    automorphism of it (``CompiledNetwork.symmetry``); the representative
+    edges are every CSR edge out of the block ``X, Y < step`` in CSR order,
+    and ``K[i]`` belongs to the i-th of them.  Each edge lies in one orbit of
+    ``(scale / step)²`` edges, so ``E == (scale / step)² R``, which is
+    checked.  The kernel reads C once in CSR order (see ``csrc/flow.cu``);
+    the plain version gathers the translated edges through
+    ``ref.orbit_operands``."""
+    per = scale // step if step >= 1 else 0
+    n = indptr.numel() - 1
+    if (step < 1 or scale % step or n != scale * scale * m2 or R < 0
+            or C.numel() != per * per * R):
+        raise ValueError(f"flow_orbit_gather: takes E = (scale / step)^2 R edges over scale^2 m2 "
+                         f"vertices, got E = {C.numel()}, R = {R}, scale = {scale}, step = "
+                         f"{step}, {n} vertices, m2 = {m2}")
     if C.device.type == "cpu":
-        return ref.orbit_gather_ref(C, indptr, re_u, re_slot, sx, sy, scale, m2)
-    dev = _check("flow_orbit_gather", {
-        "C": (C, "int64"), "indptr": (indptr, "int64"), "re_u": (re_u, "int64"),
-        "re_slot": (re_slot, "int64"), "sx": (sx, "int64"), "sy": (sy, "int64")})
-    K = torch.zeros(re_u.numel(), dtype=torch.int64, device=dev)
-    _launch("flow_orbit_gather", dev, C.data_ptr(), indptr.data_ptr(), re_u.data_ptr(),
-            re_slot.data_ptr(), re_u.numel(), sx.data_ptr(), sy.data_ptr(), sx.numel(), scale,
-            m2, K.data_ptr())
+        operands = ref.orbit_operands(indptr, scale, step, m2)
+        return ref.orbit_gather_ref(C, indptr, *operands, scale, m2)
+    dev = _check("flow_orbit_gather", {"C": (C, "int64"), "indptr": (indptr, "int64")})
+    K = torch.zeros(R, dtype=torch.int64, device=dev)
+    _launch("flow_orbit_gather", dev, C.data_ptr(), indptr.data_ptr(), R, scale, step, m2,
+            K.data_ptr())
     return K
 
 
 def ordered_fold(w_sorted: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
     """``w_sorted`` (L,) float64, the weights stably sorted by edge id;
-    ``off`` (E + 1,) int64, each edge's run -> load (E,) float64."""
+    ``off`` (E + 1,) int64, each edge's run (``off[E] == L``) -> load (E,)
+    float64."""
     if w_sorted.device.type == "cpu":
         return ref.ordered_fold_ref(w_sorted, off)
     dev = _check("flow_ordered_fold", {"w_sorted": (w_sorted, "float64"), "off": (off, "int64")})
     load = torch.empty(off.numel() - 1, dtype=torch.float64, device=dev)
-    _launch("flow_ordered_fold", dev, w_sorted.data_ptr(), off.data_ptr(), load.numel(),
-            load.data_ptr())
+    _launch("flow_ordered_fold", dev, w_sorted.data_ptr(), w_sorted.numel(), off.data_ptr(),
+            load.numel(), load.data_ptr())
     return load

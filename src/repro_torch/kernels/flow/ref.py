@@ -21,7 +21,8 @@ arguments (``edge_ok`` ``None`` or a bool tensor):
   level below: int64, exact), added to its parent edge's total by
   ``index_add_``;
 * ``orbit_gather_ref``: the group sum of ``C`` over translated edges, a
-  chunk of the group at a time, in int64;
+  chunk of the group at a time, in int64, through the index tensors
+  ``orbit_operands`` builds (the representative edges, the group);
 * ``ordered_fold_ref``: each edge's run of the stably sorted weights
   summed strictly left to right from 0.0, one column of the runs at a
   time (``torch.cumsum`` and ``index_add_`` promise no order).
@@ -130,6 +131,23 @@ def subtree_accumulate_ref(queue, epos, child, qs: int, L: int, dest, cnt, K, n:
 
 
 G_CHUNK = 2048  # group elements gathered at once, as the reference's loop
+
+
+def orbit_operands(indptr, scale: int, step: int, m2: int):
+    """``(re_u, re_slot, sx, sy)``, the gather's index tensors: the source
+    and CSR slot of every edge out of the block ``X, Y < step`` in CSR order,
+    and the translation group's shifts (multiples of ``step``)."""
+    dev = indptr.device
+    blk = torch.arange(step, dtype=torch.int64, device=dev)
+    nodes = (blk[:, None] * scale + blk[None, :]).reshape(-1)
+    reps = (nodes[:, None] * m2 + torch.arange(m2, device=dev)[None, :]).reshape(-1)
+    deg = indptr[reps + 1] - indptr[reps]
+    re_u = torch.repeat_interleave(reps, deg)
+    first = torch.repeat_interleave(torch.cumsum(deg, 0) - deg, deg)
+    re_slot = torch.arange(re_u.numel(), device=dev) - first
+    shifts = torch.arange(0, scale, step, dtype=torch.int64, device=dev)
+    sx, sy = torch.meshgrid(shifts, shifts, indexing="ij")
+    return re_u, re_slot, sx.reshape(-1), sy.reshape(-1)
 
 
 def orbit_gather_ref(C, indptr, re_u, re_slot, sx, sy, scale: int, m2: int) -> torch.Tensor:

@@ -25,7 +25,7 @@ from repro.core import availability as ref_avail, topology as ref_topo  # noqa: 
 from repro.launch import roofline as ref_roofline  # noqa: E402
 from repro.obs import Tracer as RefTracer, tracing as ref_tracing  # noqa: E402
 import repro_torch.cluster as cluster  # noqa: E402
-from repro_torch.core import availability, topology  # noqa: E402
+from repro_torch.core import availability, compiled_flow as cf, topology  # noqa: E402
 from repro_torch.core.mapping import ParallelismPlan  # noqa: E402
 from repro_torch.obs import Tracer, tracing, validate_trace  # noqa: E402
 
@@ -211,6 +211,26 @@ def _policy_runs(C, T, duration_h=8.0, side=16, seed=1234, **kw):
     return out
 
 
+def test_capped_miss_constant_is_the_references_goodput():
+    """``chip_smoke.py``'s capped miss (qwen3-8b at tp 16, dp 32, pp 32 on
+    32 x 32 nodes, trimmed to 512) holds the card to ``CLUSTER_MISS``: the
+    reference's float, which the port gives on the CPU routing its 1,024
+    sources in one forest (ROADMAP Queue 2 item 15)."""
+    from repro.core.mapping import ParallelismPlan as RefPlan
+
+    plan = dict(tp=16, cp=1, ep=1, dp=32, pp=32)
+    cfg, rcfg = topology.RailXConfig(m=4, n=4, R=64), ref_topo.RailXConfig(m=4, n=4, R=64)
+    job = cluster.make_job(0, "qwen3-8b", plan=ParallelismPlan(**plan))
+    rjob = ref_cluster.make_job(0, "qwen3-8b", plan=RefPlan(**plan))
+    jm, rjm = cluster.plan_job_mapping(cfg, job), ref_cluster.plan_job_mapping(rcfg, rjob)
+    rows, cols = tuple(range(jm.rows_req)), tuple(range(jm.cols_req))
+    want = ref_cluster.estimate_goodput(rcfg, rjob, rjm.mapping,
+                                        ref_avail.JobAllocation(rows, cols))
+    assert want == SMOKE.CLUSTER_MISS
+    assert cluster.estimate_goodput(cfg, job, jm.mapping, availability.JobAllocation(rows, cols),
+                                    device="cpu") == want
+
+
 def test_policy_sweep_configs_match_the_reference():
     runs = _policy_runs(cluster, topology, device="cpu")
     refs = _policy_runs(ref_cluster, ref_topo)
@@ -337,10 +357,34 @@ def test_a_traced_run_emits_the_references_spans(tmp_path):
         _chaos(ref_cluster, ref_topo, "switch_heavy")
 
     def events(t):
+        """(phase, name, category, arguments) of every event but the
+        metadata."""
         return [(e["ph"], e["name"], e.get("cat"), e.get("args")) for e in t.events
                 if e["ph"] != "M"]
 
-    assert events(tracer) == events(ref_tracer)
+    def in_forests(evs):
+        """The reference's events with the per-source ``flow.bfs`` spans of
+        each single-path ``flow.route`` grouped as the port routes them, in
+        forests of ``ROUTE_KEYS // n`` sources, one span a forest whose
+        ``sources`` is its size (ROADMAP Queue 2 item 15)."""
+        out, i = [], 0
+        while i < len(evs):
+            out.append(evs[i])
+            i += 1
+            if out[-1][:2] != ("B", "flow.route") or out[-1][3]["num_paths"] > 1:
+                continue
+            spans = []
+            while evs[i][:2] == ("B", "flow.bfs") and evs[i + 1][:2] == ("E", "flow.bfs"):
+                assert evs[i][3]["sources"] == 1
+                spans.append(evs[i:i + 2])
+                i += 2
+            per = max(1, cf.ROUTE_KEYS // spans[0][0][3]["vertices"]) if spans else 1
+            for lo in range(0, len(spans), per):
+                (ph, name, cat, args), end = spans[lo]
+                out += [(ph, name, cat, {**args, "sources": len(spans[lo:lo + per])}), end]
+        return out
+
+    assert events(tracer) == in_forests(events(ref_tracer))
     assert tracer.span_names() == ref_tracer.span_names()
     assert {"goodput.estimate", "placement.attempt", "ocs.txn_apply", "fault.repair",
             "event.SwitchFail"} <= tracer.span_names()

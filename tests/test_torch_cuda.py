@@ -854,6 +854,102 @@ def test_flow_bfs_of_1024_sources_matches_the_plain_version(card):
     assert torch.equal(counts["cuda"], counts["cpu"])
 
 
+# the orbit gather: the sweep's inputs at steps 1, 2 and 3 and on the torus;
+# then synthetic grids whose residues are wider than a block's 1,024 columns
+ORBIT_CASES = [("railx", 5, 2), ("railx", 8, 4), ("railx", 6, 3), ("railx", 12, 3),
+               ("torus", 8, 2), ("wide", 1), ("wide", 2)]
+
+
+def _orbit_inputs(case):
+    """((C, indptr, R, scale, step, m2), (re_u, re_slot, sx, sy)) on the
+    card, C random: the kernel's arguments, and the plain gather's index
+    tensors built here from the representative sources and the group."""
+    from repro_torch.core import compiled_flow as cf
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    if case[0] == "wide":
+        # scale 4, one chip a node; degrees invariant under translations by
+        # step, the representative block's 700-1,300 edges a vertex
+        step, scale = case[1], 4
+        d = {(0, 0): 1500, (0, 1): 900, (1, 0): 1300, (1, 1): 700}
+        degs = torch.tensor([d[(X % step, Y % step)] if step == 2 else 1500
+                             for X in range(scale) for Y in range(scale)], device="cuda")
+        indptr = torch.zeros(scale * scale + 1, dtype=torch.int64, device="cuda")
+        torch.cumsum(degs, 0, out=indptr[1:])
+        reps = torch.tensor([X * scale + Y for X in range(step) for Y in range(step)],
+                            device="cuda")
+        sym = cf.TranslationSymmetry(scale, 1, step)
+    else:
+        build = cf.build_compiled_railx_hyperx if case[0] == "railx" else cf.build_compiled_torus2d
+        cn = build(case[1], case[2], 2.0, device="cuda")
+        indptr, sym, reps = cn.indptr, cn.symmetry, cf.representative_sources(cn)
+    counts = indptr[reps + 1] - indptr[reps]
+    re_u = torch.repeat_interleave(reps, counts)
+    re_slot = torch.arange(re_u.numel(), device="cuda") - torch.repeat_interleave(
+        torch.cumsum(counts, 0) - counts, counts)
+    C = torch.randint(-2 ** 40, 2 ** 40, (int(indptr[-1]),), generator=g, device="cuda")
+    sx, sy = sym.group_elements("cuda")
+    return ((C, indptr, re_u.numel(), sym.scale, sym.step, sym.chips_per_node),
+            (re_u, re_slot, sx, sy))
+
+
+@pytest.mark.parametrize("case", ORBIT_CASES, ids=lambda c: "_".join(map(str, c)))
+def test_flow_orbit_gather_matches_the_plain_version(card, case):
+    """The column-sum kernel against the plain gather on the same inputs,
+    integers equal, twice; the wide cases split a residue's columns over
+    two blocks (and, at step 2, give the residues different widths)."""
+    from repro_torch.kernels.flow import flow, ref
+
+    args, (re_u, re_slot, sx, sy) = _orbit_inputs(case)
+    C, indptr, R, scale, step, m2 = args
+    want = ref.orbit_gather_ref(C, indptr, re_u, re_slot, sx, sy, scale, m2)
+    for _ in range(2):
+        got = flow.orbit_gather(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    if case[0] == "wide":
+        assert want.numel() > 1024 * (2 if case[1] == 2 else 1)
+
+
+def _fold_case(kind):
+    """(w, off) on the card: "mixed" 2,304 runs of 0-5,000 weights (empty
+    runs, runs across the 2,048-element staging buffer and across blocks'
+    spans) with values that cancel (1e16, -1e16 among small ones); "one_run"
+    one run holding the whole stream between empty runs; "empty" every run
+    empty; "single" one edge."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    if kind == "mixed":
+        lens = torch.randint(0, 200, (2304,), generator=g, device="cuda")
+        lens[::97] = 0
+        lens[5::301] = torch.randint(2000, 5000, lens[5::301].shape, generator=g, device="cuda")
+    else:
+        lens = torch.tensor({"one_run": [0, 0, 9000, 0, 0], "empty": [0] * 7,
+                             "single": [3000]}[kind], device="cuda")
+    off = torch.zeros(lens.numel() + 1, dtype=torch.int64, device="cuda")
+    torch.cumsum(lens, 0, out=off[1:])
+    L = int(off[-1])
+    w = torch.rand(L, generator=g, device="cuda", dtype=torch.float64) * 3 - 1
+    big = torch.rand(L, generator=g, device="cuda") < 0.05
+    w[big] = torch.where(torch.rand(L, generator=g, device="cuda")[big] < 0.5, 1e16, -1e16).double()
+    return w, off
+
+
+@pytest.mark.parametrize("kind", ["mixed", "one_run", "empty", "single"])
+def test_flow_ordered_fold_matches_the_plain_version_bit_for_bit(card, kind):
+    """The staged fold against the plain left-to-right fold on the same
+    stream: the same bits for every edge, twice."""
+    from repro_torch.kernels.flow import flow, ref
+
+    w, off = _fold_case(kind)
+    want = ref.ordered_fold_ref(w, off).view(torch.int64)
+    for _ in range(2):
+        got = flow.ordered_fold(w, off)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int64), want)
+    if kind == "one_run":
+        assert got[2].item() == ref.ordered_fold_ref(w.cpu(), off.cpu())[2].item()
+
+
 def test_flow_wrappers_reject_what_the_kernels_do_not_take(card):
     from repro_torch.kernels.flow import flow
 
@@ -862,6 +958,13 @@ def test_flow_wrappers_reject_what_the_kernels_do_not_take(card):
         flow.ordered_fold(w, torch.tensor([0, 2, 4], dtype=torch.int32, device="cuda"))
     with pytest.raises(ValueError, match="CUDA device"):
         flow.ordered_fold(w, torch.tensor([0, 2, 4]))
+    (C, indptr, R, scale, step, m2), _ = _orbit_inputs(("railx", 8, 4))
+    for bad in (dict(R=R - 1), dict(R=R + 1),           # E != (scale / step)^2 R
+                dict(indptr=indptr[:-4]),               # not scale^2 m2 vertices
+                dict(step=3), dict(step=0)):            # step not dividing scale
+        args = dict(C=C, indptr=indptr, R=R, scale=scale, step=step, m2=m2) | bad
+        with pytest.raises(ValueError, match=r"E = \(scale / step\)\^2 R"):
+            flow.orbit_gather(**args)
 
 
 # the cluster twin's goodput (cluster/metrics.py estimate_goodput): its job

@@ -473,3 +473,170 @@ def test_ordered_fold_sums_each_run_left_to_right():
     off = torch.tensor([0, 4, 4, 6])
     got = flow_ref.ordered_fold_ref(w, off)
     assert got.tolist() == [((0.0 + 0.1) + 1e16 + 0.2) + -1e16, 0.0, (0.0 + 0.3) + 0.7]
+
+
+# the orbit gather's kernel reads C once in CSR order as one column sum
+# (kernels/flow/csrc/flow.cu orbit_kernel): at steps 1, 2 and 3 and on the
+# torus, the bin it gives each edge, index_add_-ed over random counts
+ORBIT_NETS = [("hyperx5", (5, 2, 2.0)), ("hyperx8_m4", (8, 4, 2.0)),
+              ("hyperx_m3", (6, 3, 2.0)), ("hyperx12_m3", (12, 3, 2.0)), ("torus8", (8, 2, 2.0))]
+
+
+def _orbit_bins(cn):
+    """Each edge's representative edge as the kernel finds it: residue x0 =
+    X mod step is a (G, P[x0]) matrix whose row X' per + k starts at edge
+    per (X' R + B[x0]) + k P[x0], its column c going to B[x0] + c."""
+    sym = cn.symmetry
+    step, scale, m2 = sym.step, sym.scale, sym.chips_per_node
+    per, row_v, ip = scale // step, scale * m2, cn.indptr
+    P = [int(ip[x * row_v + step * m2] - ip[x * row_v]) for x in range(step)]
+    B = [sum(P[:x]) for x in range(step)]
+    R = sum(P)
+    bins = torch.full((cn.num_edges,), -1, dtype=torch.int64)
+    for x0 in range(step):
+        Xp, k = torch.arange(per)[:, None, None], torch.arange(per)[None, :, None]
+        c = torch.arange(P[x0])[None, None, :]
+        e = (per * (Xp * R + B[x0]) + k * P[x0] + c).flatten()
+        assert (bins[e] == -1).all()   # no edge twice
+        bins[e] = (B[x0] + c).expand(per, per, -1).flatten()
+    assert (bins >= 0).all()           # every edge once
+    return bins, R
+
+
+@pytest.mark.parametrize("net", ORBIT_NETS, ids=lambda c: c[0])
+def test_orbit_kernel_bins_sum_to_the_plain_orbit_gather(net):
+    """ROADMAP Queue 2 item 15: the identity the orbit kernel rests on.  The
+    kernel's bin of every edge, summed over random int64 counts with
+    ``index_add_``, equals ``ref.orbit_gather_ref`` on the symmetry sweep's
+    own inputs (representative edges, the translation group)."""
+    name, args = net
+    build = P.build_compiled_torus2d if name.startswith("torus") else P.build_compiled_railx_hyperx
+    cn = build(*args, device=CPU)
+    sym = cn.symmetry
+    assert sym.step == {"hyperx8_m4": 2, "hyperx_m3": 3, "hyperx12_m3": 3}.get(name, 1)
+    bins, R = _orbit_bins(cn)
+    reps = P.representative_sources(cn)
+    re = torch.cat([torch.arange(int(cn.indptr[r]), int(cn.indptr[r + 1])) for r in reps])
+    re_u = cn.edge_src[re].long()
+    sx, sy = sym.group_elements(CPU)
+    assert re.numel() == R
+    C = torch.from_numpy(np.random.RandomState(11).randint(-2 ** 40, 2 ** 40, cn.num_edges))
+    want = flow_ref.orbit_gather_ref(C, cn.indptr, re_u, re - cn.indptr[re_u], sx, sy,
+                                     sym.scale, sym.chips_per_node)
+    assert torch.equal(torch.zeros(R, dtype=torch.int64).index_add_(0, bins, C), want)
+    if sym.step == 1:   # the library call the kernel is timed against
+        assert torch.equal(C.view(-1, R).sum(0), want)
+
+
+@pytest.mark.parametrize("net", ORBIT_NETS, ids=lambda c: c[0])
+def test_orbit_gather_takes_the_count_of_representative_edges(net):
+    """ROADMAP Queue 2 item 15: ``flow.orbit_gather(C, indptr, R, scale,
+    step, m2)`` needs no index tensors.  The plain version's,
+    ``ref.orbit_operands``, equal the symmetry sweep's representative edges
+    (sources, slots) and the translation group, and the wrapper gives the
+    gather over them."""
+    name, args = net
+    build = P.build_compiled_torus2d if name.startswith("torus") else P.build_compiled_railx_hyperx
+    cn = build(*args, device=CPU)
+    sym = cn.symmetry
+    reps = P.representative_sources(cn)
+    re = torch.cat([torch.arange(int(cn.indptr[r]), int(cn.indptr[r + 1])) for r in reps])
+    re_u = cn.edge_src[re].long()
+    sx, sy = sym.group_elements(CPU)
+    ops = flow_ref.orbit_operands(cn.indptr, sym.scale, sym.step, sym.chips_per_node)
+    for got, want in zip(ops, (re_u, re - cn.indptr[re_u], sx, sy)):
+        assert torch.equal(got, want)
+    C = torch.from_numpy(np.random.RandomState(5).randint(0, 2 ** 40, cn.num_edges))
+    want = flow_ref.orbit_gather_ref(C, cn.indptr, re_u, re - cn.indptr[re_u], sx, sy,
+                                     sym.scale, sym.chips_per_node)
+    got = flow.orbit_gather(C, cn.indptr, re.numel(), sym.scale, sym.step, sym.chips_per_node)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bad", [dict(R=-1), dict(R=1), dict(cut=4), dict(step=3),
+                                 dict(step=0)], ids=["R_short", "R_long", "vertices", "step_3",
+                                                     "step_0"])
+def test_orbit_gather_rejects_what_is_not_a_translation_orbit(bad):
+    """ROADMAP Queue 2 item 15: an ``R`` other than the representative
+    edges (``E != (scale / step)^2 R``), an ``indptr`` of other than
+    ``scale^2 m2`` vertices or a ``step`` that does not divide ``scale``
+    raises, on the CPU as on the card, before anything is read."""
+    cn = P.build_compiled_railx_hyperx(8, 4, 2.0, device=CPU)
+    sym = cn.symmetry
+    R = cn.num_edges // (sym.scale // sym.step) ** 2
+    args = dict(C=torch.zeros(cn.num_edges, dtype=torch.int64),
+                indptr=cn.indptr[:cn.indptr.numel() - bad.get("cut", 0)],
+                R=R + bad.get("R", 0), scale=sym.scale, step=bad.get("step", sym.step),
+                m2=sym.chips_per_node)
+    with pytest.raises(ValueError, match=r"E = \(scale / step\)\^2 R"):
+        flow.orbit_gather(**args)
+
+
+def _mixed_demands(chips, seed, sources):
+    """Demands from ``sources`` chips, inserted in a shuffled order, so that
+    each source's destinations come in an order of their own."""
+    rng = np.random.RandomState(seed)
+    srcs = [int(s) for s in rng.choice(chips, sources, replace=False)]
+    pairs = [(s, int(t)) for s in srcs for t in rng.choice(chips, 9, replace=False) if t != s]
+    return {pairs[i]: float(rng.rand() * 4 + 0.25) for i in rng.permutation(len(pairs))}
+
+
+@pytest.mark.parametrize("per_forest", [None, 3, 1], ids=["one_forest", "forests_of_3",
+                                                           "forests_of_1"])
+@pytest.mark.parametrize("net", ["hyperx5", "torus5", "dict_railx4"])
+def test_route_demands_in_forests_matches_the_reference(net, per_forest, monkeypatch):
+    """ROADMAP Queue 2 item 15: ``route_demands`` at num_paths=1 routes a
+    chunk of sources a forest (``ROUTE_KEYS`` keys; lowered here to force
+    forests of 3 sources and of 1); its loads equal the reference's
+    ``route_demands`` bit for bit, one ``bfs_forest`` a chunk."""
+    if net == "dict_railx4":
+        fnet = arch.get("railx-hyperx").build_flow(4, 2, 2.0).net
+        cn = P.CompiledNetwork.from_flow_network(fnet, device=CPU)
+        rcn = R.CompiledNetwork.from_flow_network(fnet)
+    else:
+        cn, rcn = _pair(next(c for c in CANONICAL if c[0] == net))
+    from repro_torch.obs import Tracer, tracing
+
+    n = cn.num_vertices
+    if per_forest is not None:
+        monkeypatch.setattr(P, "ROUTE_KEYS", per_forest * n)
+    demands = _mixed_demands(rcn.chips(), 7, 8)
+    P.reset_route_forest_counts()
+    tracer = Tracer(process="route")
+    with tracing(tracer):
+        got = P.route_demands(cn, demands)
+    want = R.route_demands(rcn, demands)
+    np.testing.assert_array_equal(got.numpy().view(np.int64), want.view(np.int64))
+    chunks = ([8] if per_forest is None else
+              [per_forest] * (8 // per_forest) + [8 % per_forest] * (8 % per_forest > 0))
+    assert [e["args"]["sources"] for e in tracer.events
+            if e["name"] == "flow.bfs" and e["ph"] == "B"] == chunks
+    assert P.route_forest_counts() == {"forests": len(chunks), "sources": 8}
+
+
+def test_goodput_of_a_job_of_128_sources_matches_the_reference(monkeypatch):
+    """ROADMAP Queue 2 item 15: a whole ``estimate_goodput`` whose miss
+    routes 128 sources (qwen3-8b at tp 16, dp 8, pp 16 on 16 x 8 nodes),
+    in one forest and in forests of 40, equals the reference's float."""
+    import repro.cluster as ref_cluster
+    from repro.core import availability as ref_avail, topology as ref_topo
+    from repro.core.mapping import ParallelismPlan as RefPlan
+    from repro_torch import cluster
+    from repro_torch.core import availability, topology
+    from repro_torch.core.mapping import ParallelismPlan
+
+    plan = dict(tp=16, cp=1, ep=1, dp=8, pp=16)
+    cfg, rcfg = topology.RailXConfig(m=4, n=4, R=64), ref_topo.RailXConfig(m=4, n=4, R=64)
+    job = cluster.make_job(0, "qwen3-8b", plan=ParallelismPlan(**plan))
+    rjob = ref_cluster.make_job(0, "qwen3-8b", plan=RefPlan(**plan))
+    jm, rjm = cluster.plan_job_mapping(cfg, job), ref_cluster.plan_job_mapping(rcfg, rjob)
+    rows, cols = tuple(range(jm.rows_req)), tuple(range(jm.cols_req))
+    want = ref_cluster.estimate_goodput(rcfg, rjob, rjm.mapping,
+                                        ref_avail.JobAllocation(rows, cols), max_flow_nodes=64)
+    for keys, forests in ((P.ROUTE_KEYS, 1), (40 * 128, 4)):  # n = 128: 128 or 40, 40, 40, 8
+        monkeypatch.setattr(P, "ROUTE_KEYS", keys)
+        P.reset_route_forest_counts()
+        got = cluster.estimate_goodput(cfg, job, jm.mapping, availability.JobAllocation(rows, cols),
+                                       max_flow_nodes=64, device="cpu")
+        assert got == want and 0 < want < 1
+        assert P.route_forest_counts() == {"forests": forests, "sources": 128}

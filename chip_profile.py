@@ -121,7 +121,25 @@
   and its gradient's bytes, each pair's peaks with whether the cut's is
   lower (required of the plain attention's pair; the flash pair's is
   printed), step times, collective bytes by op and axes, the flash
-  launches a step.
+  launches a step; then sp_family_cards.
+
+* sp_family_cards (needs 4 cards; ``--chips 4``; the second half of
+  sp_cards): the hybrid, xLSTM and MoE families under the same overrides
+  on (1, 1, 4), each against the same mesh with the sequence whole
+  (``{"heads": None, "kv_heads": None}``), 3 steps a run, bf16, remat:
+  zamba2-7b at full width and 12 layers, 4 x 1024, both modes (its Mamba2
+  layers split over "model", 28 of the 112 heads a card; its shared
+  block's attention plain, head dim 112); xlstm-125m uncut, 4 x 256, both
+  modes (its blocks whole on every card); moonshot-v1-16b-a3b at 4 layers,
+  4 x 1024, ``gspmd_fsdp``, its experts over "model" (16 a card) and flash
+  attention.  The first loss of each cut run against the whole run's (rel
+  1e-3), step times, params + moments held and the peak a card both ways,
+  the kernels' launches a step, bytes by op and axes.  Then zamba2-7b at
+  81 layers, bf16: the sharded prefill of one row of 8,192 tokens cut and
+  whole (the logits' rms difference over the whole's rms, <= 0.05; argmax
+  agreement), and of 16,384 cut (the whole's plain f32 scores would need 3
+  x 34 GB), held and peak GiB, ms, ``ssd_fwd`` launches a prefill; then
+  ``ssd_fwd`` and ``mlstm_fwd`` timed at a card's shapes.
 
 * flow (the ``chip_smoke.py`` flow phase's reach): the network core's
   exact all-to-all sweep of RailX 64 m 2 (16,384 chips, batches of 1,024
@@ -222,6 +240,7 @@ And one look at numbers rather than time:
     python3 chip_profile.py [serve] [train] [serve_hybrid] [train_dist] [dist_cards]
                             [serve_moe] [moe_cards] [elastic_cards] [family_cards]
                             [pipe_cards] [tp_cards] [moe_axes_cards] [sp_cards]
+                            [sp_family_cards]
                             [serve_gemma3] [serve_vlm]
                             [serve_whisper] [train_gemma3] [train_e2e]
                             [xlstm_agreement] [flash_ab DIR]
@@ -2363,7 +2382,7 @@ def family_cards_tp(rank: int, world: int, smi: str) -> None:
         if rank == 0:
             gap = _largest_gap(run["loss"], one["loss"])
             print(f"family_cards {arch} gspmd_fsdp on {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
-                  f" (heads split {plan.heads}, vocab split {plan.head_vocab}): losses "
+                  f" (heads split {plan.heads or plan.ssm}, vocab split {plan.head_vocab}): losses "
                   f"{run['loss']} against one card's {one['loss']}, largest relative gap "
                   f"{gap:.3e} (tol {CARDS_LOSS_REL:g}); grad_norms {run['grad_norm']} against "
                   f"{one['grad_norm']}; per-step ms {[round(t, 2) for t in run['step_ms']]} "
@@ -2483,8 +2502,9 @@ def _cards_dryrun(arch: str, cfg, mesh_shape: tuple, dp_mode: str, tag: str,
 
 
 def _tp_cards_run(rank: int, tag: str, zoo, ocfg, data, mesh, dp_mode: str,
-                  schedule: str, device: str, rules_overrides=None) -> dict:
-    """TP_CARDS_STEPS steps of ``dp_mode`` on ``mesh`` from seed 0 under the
+                  schedule: str, device: str, rules_overrides=None,
+                  steps: int = TP_CARDS_STEPS) -> dict:
+    """``steps`` steps of ``dp_mode`` on ``mesh`` from seed 0 under the
     byte ledger (with ``rules_overrides``): the run, the params + moments
     held a card and the bytes by op and axes."""
     import torch
@@ -2501,12 +2521,12 @@ def _tp_cards_run(rank: int, tag: str, zoo, ocfg, data, mesh, dp_mode: str,
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     with byte_ledger() as ledger:
-        run = _train_run(f"{tag} rank {rank}", step_fn, params, opt, data, TP_CARDS_STEPS)
+        run = _train_run(f"{tag} rank {rank}", step_fn, params, opt, data, steps)
     by = {}
     for r in ledger.records:
         key = f"{r.op}({','.join(r.axes)})"
         by[key] = by.get(key, 0) + r.nbytes
-    run.update(held=held, bytes={k: round(b / TP_CARDS_STEPS / 1e9, 4) for k, b in by.items()},
+    run.update(held=held, bytes={k: round(b / steps / 1e9, 4) for k, b in by.items()},
                blocks=sum(p.numel() for p in params.parameters()))
     del params, opt, step_fn
     torch.cuda.empty_cache()
@@ -2760,6 +2780,220 @@ def sp_cards(smi: str) -> None:
     print(f"sp_cards: {world} ranks, one a card, NCCL [{smi}]", flush=True)
     mp.start_processes(_nccl_rank, args=(world, free_port(), sp_cards_rank, smi, want, dry),
                        nprocs=world, join=True, start_method="spawn")
+    sp_family_cards(smi)
+
+
+# sp_family_cards: the hybrid, xLSTM and MoE families under sequence
+# parallelism over "model" on SP_CARDS_SHAPE, each run against the same mesh
+# with the sequence whole: (tag, arch, layers or None for all, B, S, dp
+# modes, config fields)
+SP_FAMILY_STEPS = 3
+SP_FAMILY_CELLS = (
+    ("zamba2-7b L12", "zamba2-7b", 12, 4, 1024, ("gspmd_fsdp", "manual_hier"), {}),
+    ("xlstm-125m", "xlstm-125m", None, 4, 256, ("gspmd_fsdp", "manual_hier"), {}),
+    ("moonshot-v1-16b-a3b L4", "moonshot-v1-16b-a3b", 4, 4, 1024, ("gspmd_fsdp",),
+     {"moe_ep_axis": "model", "attn_impl": "flash"}),
+)
+# zamba2-7b's 81-layer prefill of one row: cut and whole at the first length,
+# cut alone at the second (the whole's plain attention scores do not fit)
+SP_PREFILL_S = (8192, 16384)
+SP_PREFILL_RMS = 0.05  # the logits' rms difference over the whole prefill's rms
+# the scans at a card's shapes: zamba2-7b's 28 of 112 heads over the gathered
+# 4 x 1024; xlstm-125m's 4 heads (its cells keep the blocks whole) and 1 (a
+# quarter, were they split) over 4 x 256
+SP_SCANS_TIMED = (
+    ("ssd_fwd", "zamba2-7b sp_family_cards, a card of (1, 1, 4)", (4, 1024, 28, 64, 64, 64)),
+    ("mlstm_fwd", "xlstm-125m sp_family_cards, a card (blocks whole)", (4, 256, 4, 192, 64)),
+    ("mlstm_fwd", "xlstm-125m, a quarter of the heads", (4, 256, 1, 192, 64)),
+)
+
+
+def _sp_family_setup(arch: str, layers, B: int, S: int, fields: dict):
+    """``arch`` in bf16 with remat (at ``layers``, with ``fields``), an
+    AdamW config for SP_FAMILY_STEPS and B x S batches of the 4096-token
+    corpus."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.train import optimizer as opt_lib
+
+    cfg = dataclasses.replace(get_config(arch), param_dtype=torch.bfloat16,
+                              compute_dtype=torch.bfloat16, remat=True, **fields)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=SP_FAMILY_STEPS)
+    data = SyntheticLM(DataConfig(vocab=4096, seq_len=S, global_batch=B))
+    return cfg, get_model(cfg), ocfg, data
+
+
+def _family_launches(cfg, steps: int) -> dict:
+    """The kernels' launches in ``steps`` steps of ``cfg`` with remat."""
+    from chip_smoke import _train_launches, n_attentions, scan_launches
+
+    if cfg.family in ("hybrid", "xlstm"):
+        return {**_train_launches(0, steps),
+                **{k: v * steps for k, v in scan_launches(cfg, True).items()}}
+    return _train_launches(n_attentions(cfg), steps)
+
+
+def _gib(n: float) -> str:
+    return f"{n / 2**30:.3f}"
+
+
+def _sp_family_train(rank: int, mesh, smi: str, device: str, failed: list) -> None:
+    """SP_FAMILY_CELLS: each dp mode cut, then whole; the launches held to
+    ``_family_launches``, the first losses to SP_CARDS_LOSS_REL (a miss
+    appended to ``failed``, so that the other cells still run)."""
+    for tag, arch, layers, B, S, modes, fields in SP_FAMILY_CELLS:
+        cfg, zoo, ocfg, data = _sp_family_setup(arch, layers, B, S, fields)
+        want = _family_launches(cfg, SP_FAMILY_STEPS)
+        for mode in modes:
+            runs = {}
+            for cut, overrides in (("cut", SP_CARDS_OVERRIDES), ("whole", SP_WHOLE)):
+                run = _tp_cards_run(rank, f"sp_family_cards {tag} {mode} {cut}", zoo, ocfg, data,
+                                    mesh, mode, "hierarchical", device, overrides,
+                                    SP_FAMILY_STEPS)
+                if run["launches"] != want:
+                    raise RuntimeError(f"sp_family_cards {tag} {mode} {cut} rank {rank}: "
+                                       f"launches {run['launches']}, want {want}")
+                runs[cut] = run
+            if rank != 0:
+                continue
+            a, b = runs["cut"], runs["whole"]
+            gap = abs(a["loss"][0] - b["loss"][0]) / abs(b["loss"][0])
+            verdict = "lower" if a["peak"] < b["peak"] else "NOT lower"
+            print(f"sp_family_cards {tag} {mode} on {dict(zip(mesh.mesh_dim_names, mesh.shape))}, "
+                  f"{B} x {S}, bf16, remat, {run['blocks'] / 1e9:.3f} B params a card cut "
+                  f"({b['blocks'] / 1e9:.3f} whole): losses cut {a['loss']} whole {b['loss']}, "
+                  f"first loss rel {gap:.3e} (tol {SP_CARDS_LOSS_REL:g}); grad_norms cut "
+                  f"{a['grad_norm']} whole {b['grad_norm']}; aux cut {a['aux']} whole "
+                  f"{b['aux']}; steady step ms cut {a['mean_ms']:.2f} whole {b['mean_ms']:.2f} "
+                  f"(per step {[round(t, 2) for t in a['step_ms']]} / "
+                  f"{[round(t, 2) for t in b['step_ms']]}); params + moments held GiB a card "
+                  f"cut {_gib(a['held'])} whole {_gib(b['held'])}; max_memory_allocated GiB cut "
+                  f"{_gib(a['peak'])} whole {_gib(b['peak'])} (the cut's {verdict}, "
+                  f"{a['peak'] / b['peak']:.4f}x); launches a step "
+                  f"{({k: v // SP_FAMILY_STEPS for k, v in a['launches'].items() if v})}; "
+                  f"collective results GB a rank a step cut {a['bytes']} whole {b['bytes']} "
+                  f"[{smi}]", flush=True)
+            if not gap <= SP_CARDS_LOSS_REL:
+                failed.append(f"sp_family_cards {tag} {mode}: first loss off by {gap:.3e}")
+
+
+def _sp_family_prefill(rank: int, mesh, smi: str, device: str, failed: list) -> None:
+    """zamba2-7b at 81 layers, bf16: one row's prefill at each of
+    SP_PREFILL_S, cut and (at the first) whole; a warm-up call, then a timed
+    one with the launch counts and the peak reset before it; the cut's
+    logits against the whole's (a miss appended to ``failed``)."""
+    import torch
+
+    from chip_smoke import launch_counts, reset_launch_counts
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.serve.serve_step import make_serve_step
+
+    cfg = dataclasses.replace(get_config("zamba2-7b"), param_dtype=torch.bfloat16,
+                              compute_dtype=torch.bfloat16)
+    zoo = get_model(cfg)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    params = None
+    for i, S in enumerate(SP_PREFILL_S):
+        tokens = torch.randint(0, cfg.vocab, (1, S), generator=gen)
+        out = {}
+        for cut, overrides in (("cut", SP_CARDS_OVERRIDES), ("whole", SP_WHOLE))[:2 - i]:
+            arts = make_serve_step(zoo, device, mesh=mesh, batch_example={"tokens": tokens},
+                                   rules_overrides=overrides)
+            if params is None:  # the same blocks under both overrides
+                g = torch.Generator(device=device)
+                g.manual_seed(0)
+                params = arts.param_layout.shard(zoo.init(g, device=device))
+                torch.cuda.empty_cache()
+            arts.prefill_fn(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            logits = arts.prefill_fn(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            launches = {k: v for k, v in launch_counts().items() if v}
+            if launches != {"ssd_fwd": cfg.num_layers}:
+                raise RuntimeError(f"sp_family_cards prefill {S} {cut} rank {rank}: launches "
+                                   f"{launches}, want ssd_fwd {cfg.num_layers}")
+            peak = torch.cuda.max_memory_allocated()
+            finite = bool(torch.isfinite(logits).all())
+            out[cut] = logits.float()
+            if rank == 0:
+                print(f"sp_family_cards prefill zamba2-7b L={cfg.num_layers} bf16 1 x {S} {cut} on "
+                      f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}: {ms:.2f} ms (second call), "
+                      f"{S / ms * 1e3:.1f} tokens/s; held {_gib(held)} GiB a card, "
+                      f"max_memory_allocated {_gib(peak)} GiB; logits {tuple(logits.shape)} "
+                      f"finite {finite}; launches {launches} [{smi}]", flush=True)
+            if not finite:
+                failed.append(f"sp_family_cards prefill {S} {cut}: non-finite logits")
+            del logits
+            torch.cuda.empty_cache()
+        if "whole" in out:
+            a, b = out["cut"], out["whole"]
+            rms = float((a - b).square().mean().sqrt() / b.square().mean().sqrt())
+            agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+            if rank == 0:
+                print(f"sp_family_cards prefill 1 x {S}: cut against whole, rms of the difference "
+                      f"over the whole's rms {rms:.3e} (tol {SP_PREFILL_RMS:g}), argmax agreement "
+                      f"{agree:.4f} [{smi}]", flush=True)
+            if not rms <= SP_PREFILL_RMS:
+                failed.append(f"sp_family_cards prefill {S}: cut and whole differ, rms {rms:.3e}")
+        del out
+
+
+def sp_family_cards_rank(rank: int, world: int, smi: str, device: str = "cuda") -> None:
+    """SP_FAMILY_CELLS' training runs, zamba2-7b's prefill and, on rank 0,
+    the scans timed at a card's shapes (SP_SCANS_TIMED)."""
+    import torch
+    import torch.distributed as dist
+
+    from chip_smoke import time_scan
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh(SP_CARDS_SHAPE, ("pod", "data", "model"), device)
+    failed = []
+    _sp_family_train(rank, mesh, smi, device, failed)
+    torch.cuda.empty_cache()
+    _sp_family_prefill(rank, mesh, smi, device, failed)
+    if rank == 0:
+        for kname, where, shape in SP_SCANS_TIMED:
+            time_scan(kname, where, shape)
+        print(f"sp_family_cards: scans timed [{smi}]", flush=True)
+    dist.barrier()
+    if failed:
+        raise RuntimeError("; ".join(failed))
+
+
+def sp_family_cards(smi: str) -> None:
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch.mesh import free_port
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.mlstm import mlstm
+    from repro_torch.kernels.ssd import ssd
+
+    world = torch.cuda.device_count()
+    if world != 4:
+        sys.exit(f"sp_family_cards needs 4 cards, found {world}")
+    t0 = time.perf_counter()
+    build.build_all([fa.SOURCE, fa.BWD_SOURCE, ssd.SOURCE, mlstm.SOURCE])  # once, not a rank each
+    print(f"sp_family_cards: kernels built in {time.perf_counter() - t0:.1f} s; {world} ranks, "
+          f"one a card, NCCL [{smi}]", flush=True)
+    mp.start_processes(_nccl_rank, args=(world, free_port(), sp_family_cards_rank, smi),
+                       nprocs=world, join=True, start_method="spawn")
 
 
 # moe_axes_cards: moonshot-v1-16b-a3b's experts split over "model" on
@@ -2999,7 +3233,8 @@ def main() -> None:
          "serve_whisper": lambda smi: profile_serve_family(smi, "whisper-large-v3"),
          "train_gemma3": profile_train_gemma3, "family_cards": family_cards,
          "pipe_cards": pipe_cards, "tp_cards": tp_cards,
-         "moe_axes_cards": moe_axes_cards, "sp_cards": sp_cards, "flow": profile_flow,
+         "moe_axes_cards": moe_axes_cards, "sp_cards": sp_cards,
+         "sp_family_cards": sp_family_cards, "flow": profile_flow,
          "dadd_chain": dadd_chain}[name](smi)
 
 

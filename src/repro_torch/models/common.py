@@ -23,7 +23,9 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
-from ..collectives.autograd import copy_to, gather, reduce_from, reduce_scatter
+from ..collectives.autograd import (
+    copy_to, gather, gather_whole, reduce_from, reduce_scatter, regroup,
+)
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import NEG_INF, attention_mask
 
@@ -424,6 +426,28 @@ def seq_gather_kv(k: torch.Tensor, v: torch.Tensor,
     if sp is None:
         return k, v
     return gather(k, sp.mesh, sp.axis, 1), gather(v, sp.mesh, sp.axis, 1)
+
+
+def seq_gather(x: torch.Tensor, sp: TP, split: bool) -> torch.Tensor:
+    """Under sequence parallelism over ``sp``: a block that mixes positions
+    (a scan, a recurrence, an MoE layer's routing) takes every rank's (B,
+    S/n, ...) gathered in position order, (B, S, ...).  ``split``: the
+    block runs this rank's heads, so its input gradient is this rank's
+    partial sum, reduce-scattered back (Megatron's sequence-parallel g);
+    otherwise every rank computes the same and keeps the gradient of its
+    own positions."""
+    return (gather if split else gather_whole)(x, sp.mesh, sp.axis, 1)
+
+
+def seq_scatter(y: torch.Tensor, sp: TP, split: bool) -> torch.Tensor:
+    """The output (B, S, ...) of a ``seq_gather`` block back at this rank's
+    positions: ``split``, the heads' partial sums reduce-scattered over
+    ``sp`` (in place of ``row_linear``'s all-reduce); otherwise the rank's
+    block cut out.  The gradient is all-gathered either way, so the block
+    sees the whole sequence's, as it does without the cut."""
+    if split:
+        return reduce_scatter(y, sp.mesh, sp.axis, 1)
+    return regroup(y, sp.mesh, [(1, (), (sp.axis,))])
 
 
 def sdpa(

@@ -24,7 +24,12 @@ group's function (rematerialised with ``cfg.remat``, as the reference's
 ``group_body``); on "model" the Mamba2 layers run a rank's heads
 (``ssm.mamba2(..., tp=)``) when they divide it, and the shared block is the
 transformer's tensor-parallel attention and SwiGLU
-(``transformer._layer_weights``).  A sharded decode runs the Mamba2 state
+(``transformer._layer_weights``).  Under ``seq -> "model"`` (``plan.seq``)
+x and x0 hold the rank's positions: the shared block runs as the dense
+family's sequence-parallel layer (K and V gathered, rope from the rank's
+first position, the weights whole), and each Mamba2 layer gathers the
+positions (``mamba2(..., sp=)``) and runs its heads' scan, or the whole
+block, over the uncut sequence.  A sharded decode runs the Mamba2 state
 step whole on every rank of "model", so every replica of the whole SSM
 state stays equal; the conv state, split over "model" on its channels as in
 the reference, is gathered for the step and each rank keeps its block.
@@ -175,14 +180,16 @@ def _mamba_weights(lp, plan: T.ShardPlan, prefix: str, lead: int, split: bool):
 def _attend(sp, cfg: ModelConfig, a_in, positions, dt: DTypes, plan: Optional[T.ShardPlan],
             kv=None, index=None):
     """The shared block's attention; with ``plan.heads`` on a rank's heads
-    (and its KV heads of ``kv``), ``wo`` row-parallel."""
+    (and its KV heads of ``kv``), ``wo`` row-parallel; with ``plan.seq`` on
+    the rank's positions."""
     acfg = _attn_cfg(cfg)
     split = plan is not None and plan.heads
     if split:
         acfg = T._local_attn(acfg, plan)
         a_in = copy_to(a_in, plan.tp.mesh, plan.tp.axis)
     out, _ = C.attention(sp["attn"], acfg, a_in, positions, dt, kv_cache=kv, cache_index=index,
-                         kv_split=plan.kv_split if plan is not None else None)
+                         kv_split=plan.kv_split if plan is not None else None,
+                         seq=plan.sp if plan is not None else None)
     return reduce_from(out, plan.tp.mesh, plan.tp.axis) if split else out
 
 
@@ -216,10 +223,11 @@ def _group(layers, params, cfg: ModelConfig, x, x0, positions, shared: bool,
     """A group's Mamba2 layers, then the shared block when ``shared``."""
     dt, mcfg = _dt(cfg), _mcfg(cfg)
     tp = plan.tp if plan is not None and plan.ssm else None
+    sp = plan.sp if plan is not None else None
     for lp, prefix, lead in layers:
         if plan is not None:
             lp = _mamba_weights(lp, plan, prefix, lead, tp is not None)
-        out, _ = mamba2(lp["mix"], mcfg, C.rmsnorm(lp["ln"], x), dt, tp=tp)
+        out, _ = mamba2(lp["mix"], mcfg, C.rmsnorm(lp["ln"], x), dt, tp=tp, sp=sp)
         x = x + out
     if shared:
         x = _shared_block(params["shared"], cfg, x, x0, positions, dt, plan=plan)
@@ -228,12 +236,14 @@ def _group(layers, params, cfg: ModelConfig, x, x0, positions, shared: bool,
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             plan: Optional[T.ShardPlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """batch: tokens (B, S) int.  Returns (logits, aux = 0)."""
+    """batch: tokens (B, S) int.  Returns (logits, aux = 0).  With
+    ``plan.seq`` the tokens, x, x0 and the logits hold the rank's block of
+    positions."""
     dt = _dt(cfg)
     x = T.embed_tokens(params, batch["tokens"], dt, plan)
     x0 = x
     B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    positions = (T.first_position(plan, S) + torch.arange(S, device=x.device))[None].expand(B, S)
     remat = cfg.remat and torch.is_grad_enabled()
     for gi, layers in _mamba_layers(params, cfg):
         if remat and gi is not None:  # the reference rematerialises group_body only

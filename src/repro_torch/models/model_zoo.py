@@ -72,9 +72,9 @@ class ModelZoo:
 
     def shard_plan(self, layout, seq=()):
         """A rank's plan on ``layout``; ``seq``, the axes that cut the
-        positions (``sharding.seq_axes``), applies to the families that run
-        sequence parallelism (``transformer.seq_plan``)."""
-        return transformer.seq_plan(self.cfg, self._mod.shard_plan(self.cfg, layout), seq)
+        positions (``sharding.seq_axes``), makes it sequence-parallel
+        (``transformer.seq_plan``)."""
+        return transformer.seq_plan(self._mod.shard_plan(self.cfg, layout), seq)
 
     def param_shapes(self) -> Dict[str, Tuple[int, ...]]:
         """Whole leaf shapes by state-dict key (the params built on the meta

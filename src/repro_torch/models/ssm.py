@@ -21,6 +21,14 @@ over the ranks, and ``out_proj`` is row-parallel; the mLSTM and sLSTM take
 their column blocks of the head projections, their heads' columns of the
 whole gates ``wi`` / ``wf``, and ``out`` row-parallel.  The recurrent forms
 (decode) run whole.
+
+With an ``sp`` (``common.TP``; sequence parallelism over "model", x holding
+the rank's S/n positions) the full-sequence forms gather the positions at
+entry (``common.seq_gather``), so the scan, the causal conv's zero padding
+and the kernels' inputs are those of the uncut sequence, and return the
+rank's positions (``common.seq_scatter``): with ``tp`` the out-projection's
+partial sums are reduce-scattered over the positions in place of the
+all-reduce; without it the block runs whole and each rank keeps its own.
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ from ..kernels.mlstm.ref import NEG, mlstm_step
 from ..kernels.ssd.ops import ssd as ssd_op
 from .common import (
     TP, DTypes, Params, init_linear, init_rmsnorm, linear, linear_specs, rmsnorm, rmsnorm_specs,
-    row_linear, trunc_normal,
+    seq_gather, seq_scatter, trunc_normal,
 )
 
 
@@ -136,22 +144,43 @@ def _pad_seq(a: torch.Tensor, n: int, value: float = 0.0) -> torch.Tensor:
     return F.pad(a, (0, 0) * (a.dim() - 2) + (0, n), value=value)
 
 
+def _enter(x: torch.Tensor, tp: Optional[TP], sp: Optional[TP]) -> torch.Tensor:
+    """x entering a full-sequence block: the positions gathered over ``sp``,
+    else, with ``tp``, the replicated x whose gradient is summed over it."""
+    if sp is not None:
+        return seq_gather(x, sp, tp is not None)
+    return copy_to(x, tp.mesh, tp.axis) if tp is not None else x
+
+
+def _leave(p: Params, y: torch.Tensor, dt: DTypes, tp: Optional[TP],
+           sp: Optional[TP]) -> torch.Tensor:
+    """The out-projection ``p`` of y: row-parallel with ``tp`` (its partial
+    sums all-reduced, or reduce-scattered over the positions with ``sp``);
+    at the rank's positions with ``sp``."""
+    out = linear(p, y, dt)
+    if sp is not None:
+        return seq_scatter(out, sp, tp is not None)
+    return reduce_from(out, tp.mesh, tp.axis) if tp is not None else out
+
+
 def mamba2(
     p: Params, cfg: Mamba2Config, x: torch.Tensor, dt: DTypes,
     state: Optional[Dict[str, torch.Tensor]] = None, tp: Optional[TP] = None,
+    sp: Optional[TP] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Full Mamba2 block.  ``state`` (decode): {"conv": (B, d_conv-1, Dc),
     "ssm": (B, H, P, N)}; x then has one position, as in the reference
     (whose state branch reads position 0 only).  ``tp`` (no ``state``): a
-    rank's heads (see the module docstring)."""
-    Bsz, S, _ = x.shape
+    rank's heads; ``sp`` (no ``state``): x holds the rank's positions (see
+    the module docstring)."""
+    if state is not None and (tp is not None or sp is not None):
+        raise ValueError("the Mamba2 state step runs whole, not split over heads or positions")
     Din, N, H, Pd = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.head_dim
     if tp is not None:
-        if state is not None:
-            raise ValueError("the Mamba2 state step runs whole, not split over heads")
         p = _mamba2_local(p, cfg, tp)
-        x = copy_to(x, tp.mesh, tp.axis)
         Din, H = Din // tp.size, H // tp.size
+    x = _enter(x, tp, sp)
+    Bsz, S, _ = x.shape
     zxbcdt = linear(p["in_proj"], x, dt)
     z, xr, Bc, Cc, dtg = torch.split(zxbcdt, [Din, Din, N, N, H], dim=-1)
     conv_in = torch.cat([xr, Bc, Cc], dim=-1)             # (B, S, Din + 2N)
@@ -196,9 +225,9 @@ def mamba2(
     y = y.reshape(Bsz, S, Din)
     if tp is not None:
         y = _gated_norm(p["norm"]["scale"], y, cfg.d_inner, tp) * F.silu(z)
-        return row_linear(p["out_proj"], y, dt, tp), None
-    y = rmsnorm(p["norm"], y) * F.silu(z)
-    return linear(p["out_proj"], y, dt), new_state
+    else:
+        y = rmsnorm(p["norm"], y) * F.silu(z)
+    return _leave(p["out_proj"], y, dt, tp, sp), new_state
 
 
 def mamba2_init_state(cfg: Mamba2Config, batch: int, dtype, device) -> Dict[str, torch.Tensor]:
@@ -254,35 +283,35 @@ def mlstm_specs(cfg: XLSTMConfig) -> Params:
     }
 
 
-def _heads_local(p: Params, cfg: XLSTMConfig, x: torch.Tensor, tp: Optional[TP]):
+def _heads_local(p: Params, cfg: XLSTMConfig, x: torch.Tensor, tp: Optional[TP],
+                 sp: Optional[TP]):
     """(p, x, heads) as a rank computes an xLSTM block: with ``tp`` the
-    whole gates ``wi`` / ``wf`` cut to its heads' columns and x entering
-    the split region."""
+    whole gates ``wi`` / ``wf`` cut to its heads' columns; x entering the
+    block (``_enter``)."""
+    x = _enter(x, tp, sp)
     if tp is None:
         return p, x, cfg.heads
     H = cfg.heads // tp.size
     cols = slice(tp.rank * H, (tp.rank + 1) * H)
     p = {**p, "wi": {"w": p["wi"]["w"][:, cols]}, "wf": {"w": p["wf"]["w"][:, cols]}}
-    return p, copy_to(x, tp.mesh, tp.axis), H
-
-
-def _out(p: Params, y: torch.Tensor, dt: DTypes, tp: Optional[TP]) -> torch.Tensor:
-    return row_linear(p["out"], y, dt, tp) if tp is not None else linear(p["out"], y, dt)
+    return p, x, H
 
 
 def mlstm(
     p: Params, cfg: XLSTMConfig, x: torch.Tensor, dt: DTypes,
     state: Optional[Dict[str, torch.Tensor]] = None, tp: Optional[TP] = None,
+    sp: Optional[TP] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """mLSTM with exponential gating and matrix memory (xLSTM section 2.3).
     Without ``state``: the chunkwise form over the whole sequence (padded to
     a multiple of the chunk with an input gate of -1e30).  With ``state``
     {"C", "n", "m"}: the recurrence over the S new positions, dividing by
     max(|q.n|, 1) where the chunkwise form divides by max(|q.n|, exp(-m)) (a
-    reference quirk, kept).  ``tp``: a rank's heads (no ``state``)."""
-    if tp is not None and state is not None:
-        raise ValueError("the mLSTM recurrence runs whole, not split over heads")
-    p, x, H = _heads_local(p, cfg, x, tp)
+    reference quirk, kept).  ``tp``: a rank's heads, ``sp``: x holds the
+    rank's positions (no ``state``)."""
+    if state is not None and (tp is not None or sp is not None):
+        raise ValueError("the mLSTM recurrence runs whole, not split over heads or positions")
+    p, x, H = _heads_local(p, cfg, x, tp, sp)
     B, S, _ = x.shape
     Dh = cfg.head_dim
     D = H * Dh
@@ -314,7 +343,7 @@ def mlstm(
     y = rmsnorm(p["norm"], y)
     o = torch.sigmoid(linear(p["wo_gate"], x, dt)).reshape(B, S, H, Dh)
     y = (y * o).reshape(B, S, D)
-    return _out(p, y, dt, tp), new_state
+    return _leave(p["out"], y, dt, tp, sp), new_state
 
 
 def mlstm_init_state(cfg: XLSTMConfig, batch: int, device) -> Dict[str, torch.Tensor]:
@@ -353,14 +382,16 @@ def slstm_specs(cfg: XLSTMConfig) -> Params:
 def slstm(
     p: Params, cfg: XLSTMConfig, x: torch.Tensor, dt: DTypes,
     state: Optional[Dict[str, torch.Tensor]] = None, tp: Optional[TP] = None,
+    sp: Optional[TP] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """sLSTM (xLSTM section 2.2): scalar memory per head dim with
     exponential gating; a sequential loop over time (from zeros without
     ``state``, from it with one; the new state is returned with one).
-    ``tp``: a rank's heads (no ``state``)."""
-    if tp is not None and state is not None:
-        raise ValueError("the sLSTM recurrence runs whole, not split over heads")
-    p, x, H = _heads_local(p, cfg, x, tp)
+    ``tp``: a rank's heads, ``sp``: x holds the rank's positions (no
+    ``state``)."""
+    if state is not None and (tp is not None or sp is not None):
+        raise ValueError("the sLSTM recurrence runs whole, not split over heads or positions")
+    p, x, H = _heads_local(p, cfg, x, tp, sp)
     B, S, _ = x.shape
     Dh = cfg.head_dim
     D = H * Dh
@@ -387,7 +418,7 @@ def slstm(
     y = rmsnorm(p["norm"], y)
     o = torch.sigmoid(linear(p["wo_gate"], x, dt)).reshape(B, S, H, Dh)
     y = (y * o).reshape(B, S, D)
-    out = _out(p, y, dt, tp)
+    out = _leave(p["out"], y, dt, tp, sp)
     new_state = {"c": c, "n": n, "m": m} if state is not None else None
     return out, new_state
 

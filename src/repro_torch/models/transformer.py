@@ -45,14 +45,19 @@ whole.  The layers' aux sum is averaged over the batch axes once
 (``moe.aux_mean``).  Batch rows are the caller's: the step passes each
 rank its rows, and the cache its rows, KV heads and positions.
 
-Under the reference's ``seq -> "model"`` rule (``seq_plan``; the dense and
-vlm families, and whisper, ``SEQ_FAMILIES``) a rank holds its block of S/|model| positions of every
-activation, as the reference's ``("batch", "seq", ...)`` hints resolve:
-the weights are gathered whole (their gradients summed over "model",
-``_seq_weight``), except that the embedding looks its rows up from the
-table's vocab blocks (``common.seq_vocab_embed``) and the logits gather
-their weight inside a checkpoint (``_seq_logits``); attention gathers K and
-V over "model" and its queries start at ``rank * S/|model|``.
+Under the reference's ``seq -> "model"`` rule (``seq_plan``; every family)
+a rank holds its block of S/|model| positions of every activation, as the
+reference's ``("batch", "seq", ...)`` hints resolve: the weights are
+gathered whole (their gradients summed over "model", ``_seq_weight``),
+except that the embedding looks its rows up from the table's vocab blocks
+(``common.seq_vocab_embed``) and the logits gather their weight inside a
+checkpoint (``_seq_logits``); attention gathers K and V over "model" and
+its queries start at ``rank * S/|model|``.  A block that mixes positions
+otherwise (``_SEQ_GATHERED``: the MoE layer here, the hybrid's Mamba2 and
+the xLSTM's mLSTM / sLSTM) gathers the positions over "model"
+(``common.seq_gather``) and runs as it runs without the cut, on the same
+tokens with the same weights, then returns the rank's positions
+(``common.seq_scatter``).
 
 The cache is ``{"k", "v": (L, B, cache_len, Hk, Dh), "index": int}``.
 ``index`` is a host int (the reference keeps a device scalar) so a decode
@@ -207,7 +212,7 @@ class ShardPlan:
     head_vocab: bool     # the logits' vocab split
     dp: Tuple[str, ...]  # the batch axes of size > 1
     ep: Optional[EPGroup] = None  # MoE layers: expert-parallel, or dense over the global batch
-    ssm: bool = False    # the hybrid's Mamba2 heads split (models/hybrid.py)
+    ssm: bool = False    # the recurrent mixers' heads split (hybrid's Mamba2, xLSTM's blocks)
     kv_seq: Tuple[str, ...] = ()  # decode: the axes that cut the cache by position
     seq: Tuple[str, ...] = ()     # train / prefill: the axes that cut the positions
 
@@ -237,19 +242,16 @@ def shard_plan(cfg: ModelConfig, layout: Layout) -> ShardPlan:
     return dataclasses.replace(plan, ep=_ep_group(cfg, layout, plan.tp, plan.dp))
 
 
-# the families whose train and prefill activations follow seq -> "model"
-SEQ_FAMILIES = ("dense", "vlm", "whisper")
-
-
-def seq_plan(cfg: ModelConfig, plan, axes: Sequence[str]):
+def seq_plan(plan, axes: Sequence[str]):
     """``plan`` with the positions cut over ``axes`` (``sharding.seq_axes``),
     as the reference's hints resolve under ``seq -> "model"``: ``seq``
     takes the model axis before ``heads``, ``mlp`` and ``vocab``, so every
-    activation holds the rank's positions and nothing runs head-, MLP- or
-    vocab-parallel; the weights are gathered whole (``_seq_weight``).  The
-    families outside ``SEQ_FAMILIES`` keep ``plan``: their activations stay
-    whole."""
-    if not axes or cfg.family not in SEQ_FAMILIES:
+    activation holds the rank's positions and no attention, MLP or vocab
+    runs split; the weights are gathered whole (``_seq_weight``).  The
+    blocks that gather the positions (``_SEQ_GATHERED``) keep their own
+    parallelism: the recurrent mixers' heads split where the layout splits
+    their weights (``plan.ssm``), the MoE layers' experts (``plan.ep``)."""
+    if not axes:
         return plan
     return dataclasses.replace(plan, heads=False, kv=False, mlp=False, embed_vocab=False,
                                head_vocab=False, seq=tuple(axes))
@@ -369,6 +371,9 @@ def _expert_weight(w: torch.Tensor, spec, plan: ShardPlan, f_dim: int) -> torch.
 
 _ATTN_BLOCKS = ("attn", "self_attn", "cross_attn")
 _MLP_BLOCKS = ("ffn", "mlp")
+# the blocks that gather the positions under sequence parallelism and run
+# as without the cut (``common.seq_gather``)
+_SEQ_GATHERED = ("moe", "mix", "mlstm", "slstm")
 
 
 def _layer_weights(lp, plan: ShardPlan, prefix: str = "layers.", lead: int = 1,
@@ -380,8 +385,9 @@ def _layer_weights(lp, plan: ShardPlan, prefix: str = "layers.", lead: int = 1,
     ``keep(key)`` (default ``_keeps_model``); otherwise it is gathered
     ``partial`` or, when whole, passes ``copy_to``: its gradient is summed
     over the model axis.  The MoE expert leaves keep their blocks
-    (``_expert_weight``).  Under sequence parallelism every leaf is
-    ``_seq_weight``'s."""
+    (``_expert_weight``).  Under sequence parallelism every leaf outside
+    the ``_SEQ_GATHERED`` blocks is ``_seq_weight``'s; those blocks' leaves
+    are as without the cut."""
     if split is None:
         split = {**{b: plan.heads for b in _ATTN_BLOCKS}, **{b: plan.mlp for b in _MLP_BLOCKS}}
     keep = keep or (lambda key: _keeps_model(plan, key))
@@ -392,13 +398,14 @@ def _layer_weights(lp, plan: ShardPlan, prefix: str = "layers.", lead: int = 1,
             out[k] = _layer_weights(v, plan, key + ".", lead, split, keep)
             continue
         spec = plan.layout.specs[key][lead:]  # the stacked dims are gone
-        if plan.seq:
+        block = key.split(".")[1]
+        if plan.seq and block not in _SEQ_GATHERED:
             out[k] = _seq_weight(v, spec, plan)
             continue
         if key in _EXPERT_LEAVES:
             out[k] = _expert_weight(v, spec, plan, 1 if k == "wo" else 2)
             continue
-        in_split = split.get(key.split(".")[1], False)
+        in_split = split.get(block, False)
         kept = in_split and keep(key)
         w = _weight(v, spec, plan, kept, in_split)
         if in_split and not kept and not any(plan.tp.axis in entry_axes(e) for e in spec):
@@ -585,10 +592,18 @@ def _attention_dynwin(p, acfg: C.AttnConfig, x, positions, positions3, is_global
 
 
 def _ffn(lp, cfg: ModelConfig, h, dt, plan: Optional[ShardPlan]):
-    """The MLP or MoE block: (output, aux loss or None)."""
-    if "moe" in lp:
-        return moe_ffn(lp["moe"], _moe_cfg(cfg), h, dt, plan.ep if plan is not None else None)
-    return C.swiglu(lp["ffn"], h, dt, plan.tp if plan is not None and plan.mlp else None), None
+    """The MLP or MoE block: (output, aux loss or None).  Under sequence
+    parallelism the MoE layer routes the tokens of the uncut rows, in
+    their order (rows, then positions), so its capacity and its kept and
+    dropped assignments are those without the cut; every rank of the seq
+    axis computes the same aux, whose gradient is not summed over it."""
+    if "moe" not in lp:
+        return C.swiglu(lp["ffn"], h, dt, plan.tp if plan is not None and plan.mlp else None), None
+    sp = plan.sp if plan is not None else None
+    if sp is not None:
+        h = C.seq_gather(h, sp, False)
+    out, aux = moe_ffn(lp["moe"], _moe_cfg(cfg), h, dt, plan.ep if plan is not None else None)
+    return (C.seq_scatter(out, sp, False) if sp is not None else out), aux
 
 
 def _layer_fwd(lp, cfg: ModelConfig, x, positions, positions3, is_global: bool, dt: DTypes,

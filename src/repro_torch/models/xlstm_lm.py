@@ -13,8 +13,11 @@ API as the dense family (``models/transformer.py``), sharded forms
 included: with a ``ShardPlan`` (``shard_plan``) each layer gathers the
 leaves of the block it runs over "data" inside its function (rematerialised
 with ``cfg.remat``), and on "model" the mLSTM and sLSTM run a rank's heads
-(``ssm.mlstm`` / ``ssm.slstm`` with ``tp``) when they divide it.  The
-embedding and the logits split the vocab as the transformer's.  A sharded
+(``ssm.mlstm`` / ``ssm.slstm`` with ``tp``; ``plan.ssm``) when they divide
+it.  The embedding and the logits split the vocab as the transformer's.
+Under ``seq -> "model"`` (``plan.seq``) the residual stream holds the rank's
+positions between the blocks, and each block gathers them (``sp``) and runs
+on its heads or whole, as the layout has it.  A sharded
 decode runs the recurrences whole on every rank of "model", so every
 replica of the states, whole over "model" in ``cache_specs`` as in the
 reference, stays equal.  The cache is the
@@ -99,29 +102,31 @@ def cache_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def shard_plan(cfg: ModelConfig, layout: Layout) -> T.ShardPlan:
-    """``plan.heads``: the mLSTM and sLSTM heads split over "model" (their
+    """``plan.ssm``: the mLSTM and sLSTM heads split over "model" (their
     head projections' columns and ``out``'s rows split, the heads
     dividing it)."""
     plan = T.tp_plan(cfg, layout, None, None)
-    heads = plan.tp is not None and cfg.heads % plan.tp.size == 0 and all(
+    ssm = plan.tp is not None and cfg.heads % plan.tp.size == 0 and all(
         T.on_model(layout, f"layers.{b}.{k}.w", d)
         for b, leaves in (("mlstm", ("wq", "wk", "wv", "wo_gate")), ("slstm", ("wz", "wo_gate")))
         for k, d in [(leaf, -1) for leaf in leaves] + [("out", -2)])
-    return dataclasses.replace(plan, heads=heads, kv=heads, mlp=False)
+    return dataclasses.replace(plan, mlp=False, ssm=ssm)
 
 
 def _layer(lp, i: int, cfg: ModelConfig, x, is_s: bool, plan: Optional[T.ShardPlan],
            split: bool, state=None):
     """Layer ``i``: pre-norm, then its sLSTM or mLSTM block (on a rank's
-    heads when ``split``); (x, new state)."""
+    heads when ``split``; on the gathered positions under ``plan.seq``);
+    (x, new state)."""
     kind = "slstm" if is_s else "mlstm"
     lp = {"ln": lp["ln"], kind: lp[kind]}
     if plan is not None:
         lp = T._layer_weights(lp, plan, "layers.", 1, {kind: split},
                               lambda key: key.split(".")[-2] in _HEAD_LEAVES)
     tp = plan.tp if split else None
+    sp = plan.sp if plan is not None else None
     out, new = (slstm if is_s else mlstm)(lp[kind], _xcfg(cfg), C.rmsnorm(lp["ln"], x),
-                                          _dt(cfg), state=state, tp=tp)
+                                          _dt(cfg), state=state, tp=tp, sp=sp)
     return x + out, new
 
 
@@ -134,7 +139,7 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             plan: Optional[T.ShardPlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch: tokens (B, S) int.  Returns (logits, aux = 0)."""
     x = T.embed_tokens(params, batch["tokens"], _dt(cfg), plan)
-    split = plan is not None and plan.heads
+    split = plan is not None and plan.ssm
     remat = cfg.remat and torch.is_grad_enabled()
     for i, is_s in enumerate(_is_slstm_flags(cfg)):
         lp = C.layer_slice(params["layers"], i)

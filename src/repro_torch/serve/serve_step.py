@@ -72,7 +72,7 @@ def make_serve_step(zoo: ModelZoo, device: _device.DeviceLike = None, mesh=None,
     and the ranks combine by logsumexp (``common.cache_attend``); ``batch``
     -> None keeps the cache's rows whole.  ``seq -> "model"`` (the
     reference's activation hint) makes the prefill sequence-parallel for
-    the dense, vlm and whisper families (``prefill_plan``): each rank takes
+    every family (``prefill_plan``): each rank takes
     its block of S/|model| positions of every entry, and the logits are
     gathered whole at the end.  Decode and ``encode_fn`` cut no positions."""
     dev = _device.resolve(device)

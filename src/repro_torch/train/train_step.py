@@ -75,13 +75,15 @@ follows it: heads that stay whole run attention whole on every "model"
 rank.  ``seq`` and ``kv_seq`` name no parameter.  ``seq -> "model"`` (set
 by ``attention_overrides`` where the heads do not divide |model|) is the
 reference's activation hint, which the port follows as sequence
-parallelism for the dense, vlm and whisper families in both modes: each
-rank takes its rows and then its block of S/|model| consecutive positions
-of every batch entry (``sharding.rank_batch``; |model| must divide S),
-computes with every weight gathered whole (its gradient summed over
-"model"), gathers K and V over "model" for attention, and sums the loss's
-masked sums over "model" too (``models/transformer.py``).  The hybrid, MoE
-and xLSTM families keep their activations whole under ``seq``.
+parallelism for every family in both modes (the MoE family in
+``gspmd_fsdp`` only): each rank takes its rows and then its block of
+S/|model| consecutive positions of every batch entry
+(``sharding.rank_batch``; |model| must divide S), computes with every
+weight gathered whole (its gradient summed over "model"), gathers K and V
+over "model" for attention, and sums the loss's masked sums over "model"
+too (``models/transformer.py``).  The hybrid's Mamba2, the xLSTM's mLSTM
+and sLSTM and the MoE layers gather the positions over "model" and run as
+without the cut (``common.seq_gather``), then keep the rank's positions.
 
 Params are updated in place, the counterpart of the reference's donated
 buffers.

@@ -1,6 +1,5 @@
 """The port's sequence parallelism over "model" (the reference's ``seq ->
-"model"`` rule) for the dense, vlm and whisper families, against the JAX
-package.
+"model"`` rule) for every family, against the JAX package.
 
 One gloo world of 8 ranks (``torch_dist_worlds.sp``) runs, from the JAX
 inits at ``PRNGKey(0)``, each case of ``SP_CASES``:
@@ -11,12 +10,21 @@ inits at ``PRNGKey(0)``, each case of ``SP_CASES``:
   blocks of 8 positions;
 * qwen2-vl-2b-smoke with ``embeds`` and ``positions3`` on (1, 2, 4);
 * whisper-large-v3-smoke on (1, 2, 4) (the encoder's frames cut too);
+* zamba2-7b-smoke at S 16 on (1, 2, 4): its Mamba2 layers run split, 2 of
+  the 8 heads a rank (``out_proj``'s rows stay on "model");
+* xlstm-125m-smoke at S 16 on (1, 2, 4): its mLSTM and sLSTM run whole on
+  every rank (``heads: None`` keeps their projections whole);
+* moonshot-v1-16b-a3b-smoke at S 16 on (1, 2, 4): experts over "data",
+  their F dim over "model" (``gspmd_fsdp`` only, as the reference);
 
 each under ``{"heads": None, "kv_heads": None, "seq": "model"}`` where the
 rules are not the dry run's: two steps of ``gspmd_fsdp`` and of
 ``manual_hier``, and the sharded prefill.  JAX runs the reference's
 ``make_train_step`` and ``make_serve_step`` with the same meshes and
-overrides in its own process on 8 forced host devices."""
+overrides in its own process on 8 forced host devices; its MoE prefill
+reports each device's expert queues from inside its ``shard_map``
+(``jax.debug.callback``).  zamba2 stays at S 16: the reference's hybrid
+gradients are NaN from S 32 up."""
 
 import os
 import sys
@@ -60,6 +68,7 @@ from repro.parallel.sharding import attention_overrides
 from repro.serve.serve_step import make_serve_step
 from repro.train.optimizer import AdamWConfig, init as opt_init
 from repro.train.train_step import make_train_step
+import repro.models.moe as jmoe
 
 workdir, steps = sys.argv[1], int(sys.argv[2])
 cases = [c.split("@") for c in sys.argv[3].split(",")]
@@ -84,12 +93,23 @@ def overrides(cfg, shape, explicit, kind):
         return attention_overrides(cfg, shape[-1], kind)
     return {"heads": None, "kv_heads": None, "seq": "model"}
 
-for name, arch, shape, explicit in cases:
+real_route, routes = jmoe._route, []
+
+def route(p, cfg, xt, dt, capacity):
+    # the reference's routing, reporting the device's coordinates and its
+    # expert queues (src_token, slot_valid) from inside the shard_map
+    res = real_route(p, cfg, xt, dt, capacity)
+    coord = [jax.lax.axis_index(a) for a in ("pod", "data", "model")]
+    jax.debug.callback(lambda *a: routes.append([np.asarray(v) for v in a]), *coord, res[0],
+                       res[2])
+    return res
+
+for name, arch, shape, explicit, modes in cases:
     shape = tuple(int(c) for c in shape)
     cfg = get_smoke_config(arch)
     zoo = get_model(cfg)
     mesh = make_mesh(shape, ("pod", "data", "model"))
-    for mode in ("gspmd_fsdp", "manual_hier"):
+    for mode in modes.split("+"):
         tag = f"sp.{name}.{mode}"
         arts = make_train_step(zoo, ocfg, mesh, batch(name, 0), dp_mode=mode,
                                schedule="hierarchical",
@@ -109,7 +129,15 @@ for name, arch, shape, explicit in cases:
     arts = make_serve_step(zoo, mesh, prompt,
                            rules_overrides=overrides(cfg, shape, explicit, "prefill"))
     p = jax.device_put(zoo.init(jax.random.PRNGKey(0)), arts.param_sharding)
+    routes.clear()
+    jmoe._route = route
     out[f"sp.{name}.prefill"] = np.asarray(arts.prefill_fn(p, prompt))
+    jax.effects_barrier()
+    jmoe._route = real_route
+    for i, (pod, data, model, src, valid) in enumerate(routes):
+        out[f"sp.{name}.prefill.route{i}.coord"] = np.array([pod, data, model])
+        out[f"sp.{name}.prefill.route{i}.src"] = src
+        out[f"sp.{name}.prefill.route{i}.valid"] = valid
 np.savez(workdir + "/jax.npz", **out)
 """
 
@@ -144,6 +172,7 @@ def runs(tmp_path_factory):
             jax.tree_util.tree_map(np.asarray, jparams), dtype="float32", device="cpu").items()})
     np.savez(work / "params.npz", **init)
     cases = ",".join(f"{name}@{arch}@{''.join(map(str, mesh))}@{'dry' if ov is None else 'sp'}"
+                     f"@{'+'.join(worlds.sp_modes(name))}"
                      for name, (arch, mesh, _, ov) in worlds.SP_CASES.items())
     cmds = {
         "jax": [sys.executable, "-c", textwrap.dedent(JAX_SIDE), str(work),
@@ -156,7 +185,10 @@ def runs(tmp_path_factory):
             "port": [dict(np.load(work / f"sp_{r}.npz")) for r in range(RANKS)]}
 
 
-CASES = [(name, mode) for name in worlds.SP_CASES for mode in worlds.SP_MODES]
+CASES = [(name, mode) for name in worlds.SP_CASES for mode in worlds.sp_modes(name)]
+# the families whose blocks gather the positions, and what they run on
+GATHERED = ("zamba2", "xlstm", "moe")
+GATHERED_CASES = [(name, mode) for name, mode in CASES if name in GATHERED]
 
 
 @pytest.mark.parametrize("name,mode", CASES, ids=[f"{n}-{m}" for n, m in CASES])
@@ -178,9 +210,12 @@ def test_seq_parallel_steps_match_jax(runs, name, mode):
 def _attention_lengths(name):
     """The (queries, keys) of a rank's attention calls: S / |model| query
     rows over all S keys (whisper: also its encoder's frames, S_ENC /
-    |model| over S_ENC, and the cross-attention's S / |model| over S_ENC)."""
+    |model| over S_ENC, and the cross-attention's S / |model| over S_ENC;
+    the xLSTM has no attention)."""
     _, shape, S, _ = worlds.SP_CASES[name]
     m = shape[-1]
+    if name == "xlstm":
+        return set()
     want = {(S // m, S)}
     if name == "whisper":
         want |= {(S_ENC // m, S_ENC), (S // m, S_ENC)}
@@ -207,6 +242,56 @@ def test_seq_parallel_prefill_matches_jax(runs, name):
         assert seen == _attention_lengths(name)
 
 
+def _stream(name):
+    """What a rank's blocks take: the residual stream at S / |model|
+    positions; zamba2's SSD scans over all S positions on 8 / |model| of
+    the 8 Mamba2 heads (the mixers split); the xLSTM's blocks over all S
+    on both heads (whole); the MoE layers on all S positions of the rank's
+    rows."""
+    _, shape, S, _ = worlds.SP_CASES[name]
+    m = shape[-1]
+    inner = {"zamba2": ("scan", S, 8 // m), "xlstm": ("scan", S, 2), "moe": ("moe", S)}[name]
+    return {("block", S // m), inner}
+
+
+@pytest.mark.parametrize("name,mode", GATHERED_CASES, ids=[f"{n}-{m}" for n, m in GATHERED_CASES])
+def test_seq_parallel_blocks_hold_the_ranks_positions_between_them(runs, name, mode):
+    """Between the blocks a rank's residual stream holds S / |model|
+    positions; the blocks that mix positions gather them, and a Mamba2
+    mixer whose layout splits it runs the rank's heads (``plan.ssm``), the
+    xLSTM's, kept whole, all of them."""
+    for port in runs["port"]:
+        assert str(port[f"sp.{name}.{mode}.stream"]) == repr(sorted(_stream(name)))
+        assert bool(port[f"sp.{name}.{mode}.ssm"]) == (name == "zamba2")
+        assert str(port[f"sp.{name}.prefill.stream"]) == repr(sorted(_stream(name)))
+
+
+def _queues(npz, prefix):
+    """The expert queues of a prefill's routing calls, as a sorted list of
+    (src_token, slot_valid) bytes."""
+    n = len({k for k in npz if k.startswith(prefix) and k.endswith(".src")})
+    return sorted((npz[f"{prefix}{i}.src"].astype(np.int64).tobytes(),
+                   npz[f"{prefix}{i}.valid"].astype(bool).tobytes()) for i in range(n))
+
+
+def test_seq_parallel_moe_prefill_routes_as_jax(runs):
+    """The MoE prefill with the positions cut routes every rank's tokens to
+    the reference's expert queues, slot for slot (the kept and the dropped
+    assignments), layer by layer, on the device at the rank's coordinates."""
+    jx = runs["jax"]
+    _, shape, _, _ = worlds.SP_CASES["moe"]
+    prefix = "sp.moe.prefill.route"
+    n = len({k for k in jx if k.startswith(prefix) and k.endswith(".coord")})
+    for rank, port in enumerate(runs["port"]):
+        coord = np.unravel_index(rank, shape)
+        mine = [i for i in range(n) if tuple(jx[f"{prefix}{i}.coord"]) == tuple(coord)]
+        want = sorted((jx[f"{prefix}{i}.src"].astype(np.int64).tobytes(),
+                       jx[f"{prefix}{i}.valid"].astype(bool).tobytes()) for i in mine)
+        got = _queues(port, prefix)
+        assert len(got) == get_smoke_config("moonshot-v1-16b-a3b").num_layers
+        assert got == want
+
+
 def _plan(arch, sizes, overrides):
     zoo = get_model(get_config(arch))
     mesh = _Mesh(sizes)
@@ -215,17 +300,20 @@ def _plan(arch, sizes, overrides):
 
 @pytest.mark.parametrize("arch,cut", [
     ("llama3.2-3b", True), ("gemma3-4b", True), ("qwen2-vl-2b", True),
-    ("whisper-large-v3", True), ("zamba2-7b", False), ("xlstm-125m", False),
-    ("moonshot-v1-16b-a3b", False)])
+    ("whisper-large-v3", True), ("zamba2-7b", True), ("xlstm-125m", True),
+    ("moonshot-v1-16b-a3b", True)])
 def test_seq_plan_cuts_positions_for_the_dense_vlm_and_whisper_families(arch, cut):
-    """Under ``seq -> "model"`` on (16, 16) the dense, vlm and whisper
-    plans cut the positions and run nothing head-, MLP- or vocab-parallel;
-    the hybrid, xLSTM and MoE plans keep their activations whole."""
+    """Under ``seq -> "model"`` on (16, 16) every family's plan cuts the
+    positions and runs no attention, MLP or vocab split over "model"; the
+    hybrid's Mamba2 heads stay split as the layout splits them (7 of
+    zamba2-7b's 112 a rank), the xLSTM's blocks whole (``heads: None``),
+    the MoE layers keep their expert parallelism."""
     plan = _plan(arch, {"data": 16, "model": 16}, worlds.SP_OVERRIDES)
     assert plan.seq == (("model",) if cut else ())
-    if cut:
-        assert not (plan.heads or plan.kv or plan.mlp or plan.embed_vocab or plan.head_vocab)
-        assert plan.sp.axis == "model"
+    assert not (plan.heads or plan.kv or plan.mlp or plan.embed_vocab or plan.head_vocab)
+    assert plan.sp.axis == "model"
+    assert plan.ssm == (arch == "zamba2-7b")
+    assert (plan.ep is not None) == (arch == "moonshot-v1-16b-a3b")
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "gemma3-4b", "qwen2-vl-2b",

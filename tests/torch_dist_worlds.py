@@ -777,9 +777,18 @@ SP_OVERRIDES = {"heads": None, "kv_heads": None, "seq": "model"}
 SP_CASES = {"llama": ("llama3.2-3b", (1, 1, 8), 16, None),
             "gemma3": ("gemma3-4b", (1, 2, 4), 32, SP_OVERRIDES),
             "vlm": ("qwen2-vl-2b", (1, 2, 4), 16, SP_OVERRIDES),
-            "whisper": ("whisper-large-v3", (1, 2, 4), 16, SP_OVERRIDES)}
+            "whisper": ("whisper-large-v3", (1, 2, 4), 16, SP_OVERRIDES),
+            "zamba2": ("zamba2-7b", (1, 2, 4), 16, SP_OVERRIDES),
+            "xlstm": ("xlstm-125m", (1, 2, 4), 16, SP_OVERRIDES),
+            "moe": ("moonshot-v1-16b-a3b", (1, 2, 4), 16, SP_OVERRIDES)}
 SP_MODES = ("gspmd_fsdp", "manual_hier")
 SP_STEPS = 2
+
+
+def sp_modes(name):
+    """The dp modes a case runs: the MoE family ``gspmd_fsdp`` only (the
+    reference refuses ``manual_hier`` for it)."""
+    return SP_MODES[:1] if name == "moe" else SP_MODES
 
 
 def sp_overrides(cfg, shape, ov, kind="train"):
@@ -788,14 +797,31 @@ def sp_overrides(cfg, shape, ov, kind="train"):
     return dict(ov) if ov is not None else attention_overrides(cfg, shape[-1], kind)
 
 
+def queues(slot, num_experts, capacity):
+    """A routing's kept assignments as the reference's ``_route`` returns
+    them: ``src_token`` (E, C), each slot's token (0 where empty), and
+    ``slot_valid`` (E, C), from ``slot`` (T, K), each assignment's slot or
+    E * C (dropped)."""
+    T, K = slot.shape
+    n = num_experts * capacity
+    tokens = torch.arange(T).repeat_interleave(K)
+    src = torch.zeros(n + 1, dtype=torch.int64).index_put((slot.reshape(-1),), tokens)[:-1]
+    valid = torch.zeros(n + 1, dtype=torch.bool).index_put(
+        (slot.reshape(-1),), torch.ones(T * K, dtype=torch.bool))[:-1]
+    return src.reshape(num_experts, capacity), valid.reshape(num_experts, capacity)
+
+
 def sp(rank, world, workdir):
     """Sequence parallelism over "model" for ``SP_CASES`` from the JAX
-    inits in params.npz: ``SP_STEPS`` steps of each ``SP_MODES`` mode
+    inits in params.npz: ``SP_STEPS`` steps of each of ``sp_modes``
     (losses, grad norms, gathered params) and the sharded prefill's whole
     logits; the (query, key) lengths of every plain attention call of a
-    rank (``common.masked_attention``)."""
+    rank (``common.masked_attention``); the positions that each block
+    which mixes them takes and the heads its scan runs (``stream``); the
+    MoE prefill's expert queues (``queues``)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import common as C
+    from repro_torch.models import hybrid, moe, ssm, transformer, xlstm_lm
     from repro_torch.models.common import ParamTree
     from repro_torch.models.model_zoo import get_model
     from repro_torch.serve.serve_step import make_serve_step
@@ -804,39 +830,77 @@ def sp(rank, world, workdir):
 
     inp = np.load(os.path.join(workdir, "inputs.npz"))
     ocfg = opt_lib.AdamWConfig(**OCFG)
-    seen = []
-    plain = C.masked_attention
+    seen, stream, routes = [], [], []
 
-    def recorded(q, k, *args, **kw):
-        seen.append((q.shape[1], k.shape[1]))
-        return plain(q, k, *args, **kw)
+    def wrap(mod, name, record):
+        real = getattr(mod, name)
 
-    C.masked_attention = recorded
+        def recorded(*args, **kw):
+            record(*args, **kw)
+            return real(*args, **kw)
+
+        setattr(mod, name, recorded)
+        return real
+
+    wrap(C, "masked_attention", lambda q, k, *a, **kw: seen.append((q.shape[1], k.shape[1])))
+    # a block's input: the residual stream between the blocks
+    wrap(hybrid, "mamba2", lambda p, c, x, *a, **kw: stream.append(("block", x.shape[1])))
+    for name in ("mlstm", "slstm"):
+        wrap(xlstm_lm, name, lambda p, c, x, *a, **kw: stream.append(("block", x.shape[1])))
+    wrap(transformer, "_ffn", lambda lp, c, h, *a, **kw: stream.append(("block", h.shape[1])))
+    # what the block computes on: the gathered positions and the rank's heads
+    wrap(ssm, "ssd_op", lambda x, *a, **kw: stream.append(("scan", x.shape[1], x.shape[2])))
+    real_heads = ssm._heads_local
+
+    def heads_local(*args):
+        p, x, H = real_heads(*args)
+        stream.append(("scan", x.shape[1], H))
+        return p, x, H
+
+    ssm._heads_local = heads_local
+    wrap(transformer, "moe_ffn", lambda p, c, x, *a, **kw: stream.append(("moe", x.shape[1])))
+    real_route = moe._route
+
+    def route(*args, **kw):
+        r = real_route(*args, **kw)
+        routes.append(queues(r.slot, r.num_experts, r.capacity))
+        return r
+
+    moe._route = route
     out = {}
     for name, (arch, shape, _, ov) in SP_CASES.items():
         cfg = get_smoke_config(arch)
         zoo = get_model(cfg)
         mesh = make_mesh(shape, ("pod", "data", "model"), "cpu")
         batches = [tp_batch(inp, f"sp.{name}", i) for i in range(SP_STEPS)]
-        for mode in SP_MODES:
+        for mode in sp_modes(name):
             tag = f"sp.{name}.{mode}"
             step_fn = make_train_step(zoo, ocfg, device="cpu", mesh=mesh, dp_mode=mode,
                                       rules_overrides=sp_overrides(cfg, shape, ov))
             lay = step_fn.layout
             whole = ParamTree.from_state_dict(_whole_params(workdir, arch), requires_grad=True)
             seen.clear()
+            stream.clear()
             params, _, hist = _steps(step_fn, lay.shard(whole), opt_lib, ocfg, batches)
             out.update({f"{tag}.{k}": v for k, v in hist.items()})
             out[f"{tag}.seq"] = ",".join(step_fn.plan.seq)
-            out[f"{tag}.attn"] = np.array(sorted(set(seen)))
+            out[f"{tag}.ssm"] = step_fn.plan.ssm
+            out[f"{tag}.attn"] = np.array(sorted(set(seen))).reshape(-1, 2)
+            out[f"{tag}.stream"] = repr(sorted(set(stream)))
             out.update({f"{tag}.param.{k}": v for k, v in lay.gather(params).state_dict().items()})
         prompt = {k: v for k, v in batches[0].items() if k != "targets"}
         arts = make_serve_step(zoo, "cpu", mesh=mesh, batch_example=prompt,
                                rules_overrides=sp_overrides(cfg, shape, ov, "prefill"))
         params = arts.param_layout.shard(ParamTree.from_state_dict(_whole_params(workdir, arch)))
         seen.clear()
+        stream.clear()
+        routes.clear()
         out[f"sp.{name}.prefill"] = arts.prefill_fn(params, prompt)
-        out[f"sp.{name}.prefill.attn"] = np.array(sorted(set(seen)))
+        out[f"sp.{name}.prefill.attn"] = np.array(sorted(set(seen))).reshape(-1, 2)
+        out[f"sp.{name}.prefill.stream"] = repr(sorted(set(stream)))
+        for i, (src, valid) in enumerate(routes):
+            out[f"sp.{name}.prefill.route{i}.src"] = src
+            out[f"sp.{name}.prefill.route{i}.valid"] = valid
     _save(workdir, "sp", rank, out)
 
 

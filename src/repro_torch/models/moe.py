@@ -38,11 +38,20 @@ expression, ``round`` half to even included (``capacity``).
 
 Each collective goes through ``collectives.autograd``, so the backward
 issues the transposed collective and the byte ledger records both.
+
+Tracing (``repro_torch.obs``): the routed parts run in ``moe.fwd.route``,
+``moe.fwd.dispatch``, ``moe.fwd.experts`` and ``moe.fwd.combine`` spans and
+the shared SwiGLU in ``moe.fwd.shared``; each routing call adds a
+``moe.routing`` counter (T * K assignments, E * C slots, and the kept
+assignments, reduced from the choices' counts only when the counter is
+read); ``moe_ffn`` puts the layer's backward in a ``moe.bwd`` span, from
+the gradient reaching its output to it leaving its input.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Optional, Tuple
 
@@ -53,6 +62,7 @@ from ..collectives.autograd import (
     all_to_all, copy_to, gather, gather_whole, reduce_from, reduce_scatter, regroup,
 )
 from ..collectives.schedules import all_reduce_axis, axis_size
+from ..obs import NULL_SPAN, get_tracer
 from . import common as C
 from .common import DTypes, Params
 
@@ -167,6 +177,23 @@ def _route(router_w: torch.Tensor, cfg: MoEConfig, xt: torch.Tensor, dt: DTypes,
            logits: Optional[torch.Tensor] = None) -> Routing:
     """Top-k routing of the tokens ``xt`` (T, D) into queues of ``cap``
     slots an expert; from their router ``logits`` (T, E) when given."""
+    trc = get_tracer()
+    with (trc.span("moe.fwd.route", cat="moe") if trc.enabled else NULL_SPAN):
+        r, choices = _route_choices(router_w, cfg, xt, dt, cap, logits)
+    if trc.enabled:
+        trc.counter("moe.routing", assigned=r.slot.numel(), slots=r.num_experts * cap,
+                    kept=functools.partial(_kept, choices, cap))
+    return r
+
+
+def _kept(choices: torch.Tensor, cap: int) -> int:
+    """The assignments a routing kept: sum over experts of min(count, cap)."""
+    return int(torch.clamp(choices, max=cap).sum().item())
+
+
+def _route_choices(router_w: torch.Tensor, cfg: MoEConfig, xt: torch.Tensor, dt: DTypes,
+                   cap: int, logits: Optional[torch.Tensor]) -> Tuple[Routing, torch.Tensor]:
+    """``_route``'s routing and each expert's count of choices (E,)."""
     if logits is None:
         logits = router_logits(router_w, cfg, xt, dt)
     T = logits.shape[0]
@@ -178,8 +205,9 @@ def _route(router_w: torch.Tensor, cfg: MoEConfig, xt: torch.Tensor, dt: DTypes,
 
     me = probs.mean(0)
     # the choices' counts (bincount's, with a shape that needs no host read)
-    ce = torch.zeros(E, dtype=cfg.router_dtype, device=dev).index_add_(
-        0, gate_idx.reshape(-1), torch.ones(T * K, dtype=cfg.router_dtype, device=dev)) / (T * K)
+    choices = torch.zeros(E, dtype=cfg.router_dtype, device=dev).index_add_(
+        0, gate_idx.reshape(-1), torch.ones(T * K, dtype=cfg.router_dtype, device=dev))
+    ce = choices / (T * K)
     aux = cfg.aux_loss_coeff * E * torch.sum(me * ce)
 
     # position-in-expert by a stable sort (the reference's, not a one-hot cumsum)
@@ -191,15 +219,17 @@ def _route(router_w: torch.Tensor, cfg: MoEConfig, xt: torch.Tensor, dt: DTypes,
     pos = torch.empty_like(pos_sorted).index_put_((order,), pos_sorted)
     keep = (pos < cap).reshape(T, K)
     slot = torch.where(keep, (flat_e * cap + pos).reshape(T, K), E * cap)  # dumpster
-    return Routing(slot, gate_vals * keep, aux, gate_idx, E, cap)
+    return Routing(slot, gate_vals * keep, aux, gate_idx, E, cap), choices
 
 
 def _expert_ffn(expert_in: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
                 wo: torch.Tensor) -> torch.Tensor:
     """SwiGLU of each expert's queue: (E, C, D) -> (E, C, D) (the
     reference's einsums, as batched products)."""
-    h = torch.nn.functional.silu(torch.bmm(expert_in, wg)) * torch.bmm(expert_in, wi)
-    return torch.bmm(h, wo)
+    trc = get_tracer()
+    with (trc.span("moe.fwd.experts", cat="moe") if trc.enabled else NULL_SPAN):
+        h = torch.nn.functional.silu(torch.bmm(expert_in, wg)) * torch.bmm(expert_in, wi)
+        return torch.bmm(h, wo)
 
 
 # Dispatch and combine move rows between tokens and expert slots without an
@@ -219,9 +249,11 @@ def _dispatch(xt: torch.Tensor, r: Routing) -> torch.Tensor:
     rows."""
     T, D = xt.shape
     K = r.slot.shape[1]
-    rows = xt[:, None, :].expand(T, K, D).reshape(T * K, D)
-    queues = _scatter_slots(r.slot.reshape(-1), rows, r.num_experts * r.capacity)
-    return queues.reshape(r.num_experts, r.capacity, D)
+    trc = get_tracer()
+    with (trc.span("moe.fwd.dispatch", cat="moe") if trc.enabled else NULL_SPAN):
+        rows = xt[:, None, :].expand(T, K, D).reshape(T * K, D)
+        queues = _scatter_slots(r.slot.reshape(-1), rows, r.num_experts * r.capacity)
+        return queues.reshape(r.num_experts, r.capacity, D)
 
 
 class _Combine(torch.autograd.Function):
@@ -248,7 +280,16 @@ class _Combine(torch.autograd.Function):
 
 def _combine(xt: torch.Tensor, expert_out: torch.Tensor, r: Routing) -> torch.Tensor:
     """Each token's K expert outputs (E, C, D), weighted by their gates."""
-    return _Combine.apply(expert_out.reshape(-1, xt.shape[1]), r.gate.to(xt.dtype), r.slot)
+    trc = get_tracer()
+    with (trc.span("moe.fwd.combine", cat="moe") if trc.enabled else NULL_SPAN):
+        return _Combine.apply(expert_out.reshape(-1, xt.shape[1]), r.gate.to(xt.dtype), r.slot)
+
+
+def _shared(p: Params, xt: torch.Tensor, dt: DTypes) -> torch.Tensor:
+    """The shared experts' SwiGLU of the tokens ``xt`` (T, D)."""
+    trc = get_tracer()
+    with (trc.span("moe.fwd.shared", cat="moe") if trc.enabled else NULL_SPAN):
+        return C.swiglu(p["shared"], xt, dt)
 
 
 # ---------------------------------------------------------------------------
@@ -264,7 +305,7 @@ def moe_ffn_dense(p: Params, cfg: MoEConfig, x: torch.Tensor,
     expert_out = _expert_ffn(_dispatch(xt, r), dt.c(p["wi"]), dt.c(p["wg"]), dt.c(p["wo"]))
     out = _combine(xt, expert_out, r)
     if cfg.num_shared_experts:
-        out = out + C.swiglu(p["shared"], xt, dt)
+        out = out + _shared(p, xt, dt)
     return out.reshape(B, S, D), r.aux.to(torch.float32)
 
 
@@ -328,7 +369,7 @@ def _with_shared(p: Params, cfg: MoEConfig, x: torch.Tensor, out: torch.Tensor,
     if not cfg.num_shared_experts:
         return out
     B, S, D = x.shape
-    return out + C.swiglu(p["shared"], x.reshape(B * S, D), dt).reshape(B, S, D)
+    return out + _shared(p, x.reshape(B * S, D), dt).reshape(B, S, D)
 
 
 def moe_ffn_global(p: Params, cfg: MoEConfig, x: torch.Tensor, dt: DTypes,
@@ -372,11 +413,84 @@ def aux_mean(aux: torch.Tensor, ep: EPGroup) -> torch.Tensor:
     return all_reduce_axis(share.detach(), ep.mesh, ep.batch_axes) + (share - share.detach())
 
 
+class _BwdSpan:
+    """The ``moe.bwd`` span of one layer call's backward, opened once."""
+
+    __slots__ = ("tracer", "opened")
+
+    def __init__(self, tracer):
+        self.tracer = tracer
+        self.opened = False
+
+    def open(self) -> None:
+        self.tracer.begin("moe.bwd", cat="moe")
+        self.opened = True
+
+    def close(self) -> None:
+        if self.opened:
+            self.tracer.end("moe.bwd")
+            self.opened = False
+
+
+class _BwdClose(torch.autograd.Function):
+    """Identity on the layer's input; its backward, once every gradient of
+    the layer has reached the input, closes ``moe.bwd``.  It saves the
+    input (which the router's product keeps anyway) for ``_BwdOpen`` to
+    read: a save at the layer's start, where remat's early stop, which
+    ends the recompute at the layer's last save, sees no new save."""
+
+    @staticmethod
+    def forward(ctx, x, span):
+        ctx.save_for_backward(x)
+        ctx.span = span
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.span.close()
+        return g, None
+
+
+class _BwdOpen(torch.autograd.Function):
+    """Identity on the layer's output; its backward opens ``moe.bwd`` after
+    reading ``_BwdClose``'s saved input (``close``, that node): under remat
+    the read runs the layer's recompute, which so stays outside the span."""
+
+    @staticmethod
+    def forward(ctx, out, close, span):
+        ctx.close = close
+        ctx.span = span
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        _ = ctx.close.saved_tensors  # the read that runs remat's recompute
+        ctx.span.open()
+        return g, None, None
+
+
 def moe_ffn(p: Params, cfg: MoEConfig, x: torch.Tensor, dt: DTypes,
-            ep: Optional[EPGroup] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+            ep: Optional[EPGroup] = None, tracer=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expert-parallel when the rank computes on a mesh with the EP axis
     (``ep``), as the reference does when a mesh is current; dense over the
-    global batch on a mesh without it; dense without a mesh."""
+    global batch on a mesh without it; dense without a mesh.
+
+    While ``tracer`` (default: ``get_tracer()``) is enabled and ``x`` takes
+    a gradient, two identity nodes put the layer's backward in a ``moe.bwd``
+    span.  They save a tensor, so a remat caller passes the tracer it had
+    in the forward, which remat's recompute then sees too: the two must
+    save as many tensors."""
+    trc = get_tracer() if tracer is None else tracer
+    if not (trc.enabled and x.requires_grad and torch.is_grad_enabled()):
+        return _moe_ffn(p, cfg, x, dt, ep)
+    span = _BwdSpan(trc)
+    x = _BwdClose.apply(x, span)
+    out, aux = _moe_ffn(p, cfg, x, dt, ep)
+    return _BwdOpen.apply(out, x.grad_fn, span), aux
+
+
+def _moe_ffn(p: Params, cfg: MoEConfig, x: torch.Tensor, dt: DTypes,
+             ep: Optional[EPGroup]) -> Tuple[torch.Tensor, torch.Tensor]:
     if ep is None:
         return moe_ffn_dense(p, cfg, x, dt)
     if ep.axis is None:

@@ -79,6 +79,7 @@ from ..collectives.autograd import copy_to, gather, gather_whole, regroup
 from ..collectives.schedules import all_gather_axis
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention
+from ..obs import get_tracer
 from ..parallel.sharding import Layout, dp_axes, entry_axes
 from . import common as C
 from .common import DTypes, Params, ParamTree
@@ -591,30 +592,32 @@ def _attention_dynwin(p, acfg: C.AttnConfig, x, positions, positions3, is_global
     return _attn_out(p, out.reshape(B, S, H * Dh), dt, plan)
 
 
-def _ffn(lp, cfg: ModelConfig, h, dt, plan: Optional[ShardPlan]):
+def _ffn(lp, cfg: ModelConfig, h, dt, plan: Optional[ShardPlan], tracer=None):
     """The MLP or MoE block: (output, aux loss or None).  Under sequence
     parallelism the MoE layer routes the tokens of the uncut rows, in
     their order (rows, then positions), so its capacity and its kept and
     dropped assignments are those without the cut; every rank of the seq
-    axis computes the same aux, whose gradient is not summed over it."""
+    axis computes the same aux, whose gradient is not summed over it.
+    ``tracer`` goes to ``moe_ffn``."""
     if "moe" not in lp:
         return C.swiglu(lp["ffn"], h, dt, plan.tp if plan is not None and plan.mlp else None), None
     sp = plan.sp if plan is not None else None
     if sp is not None:
         h = C.seq_gather(h, sp, False)
-    out, aux = moe_ffn(lp["moe"], _moe_cfg(cfg), h, dt, plan.ep if plan is not None else None)
+    out, aux = moe_ffn(lp["moe"], _moe_cfg(cfg), h, dt, plan.ep if plan is not None else None,
+                       tracer)
     return (C.seq_scatter(out, sp, False) if sp is not None else out), aux
 
 
 def _layer_fwd(lp, cfg: ModelConfig, x, positions, positions3, is_global: bool, dt: DTypes,
-               plan: Optional[ShardPlan] = None):
+               plan: Optional[ShardPlan] = None, tracer=None):
     if plan is not None:
         lp = _layer_weights(lp, plan)
     h = C.rmsnorm(lp["ln1"], x)
     x = x + _attention_dynwin(lp["attn"], _attn_cfg(cfg), h, positions, positions3, is_global,
                               dt, cfg.attn_impl, plan)
     h = C.rmsnorm(lp["ln2"], x)
-    out, aux = _ffn(lp, cfg, h, dt, plan)
+    out, aux = _ffn(lp, cfg, h, dt, plan, tracer)
     return x + out, aux
 
 
@@ -637,12 +640,14 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     remat = cfg.remat and torch.is_grad_enabled()
     layers = C.layer_slices(params["layers"], cfg.num_layers)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    # one tracer for the forward and remat's recompute (moe_ffn's span nodes)
+    trc = get_tracer()
     for lp, is_global in zip(layers, _is_global_flags(cfg)):
         if remat:
             x, aux_l = checkpoint(_layer_fwd, lp, cfg, x, positions, positions3, is_global, dt,
-                                  plan, use_reentrant=False)
+                                  plan, trc, use_reentrant=False)
         else:
-            x, aux_l = _layer_fwd(lp, cfg, x, positions, positions3, is_global, dt, plan)
+            x, aux_l = _layer_fwd(lp, cfg, x, positions, positions3, is_global, dt, plan, trc)
         if aux_l is not None:
             aux = aux + aux_l
     if plan is not None and plan.ep is not None:

@@ -19,7 +19,8 @@ _REQUIRED = ("name", "ph", "pid", "tid")
 # validate_trace (unknown names are not an error), but ``known_span_names()``
 # lets tools and tests enumerate what a fully traced run can contain, and
 # ``tests/test_torch_obs.py`` checks that every name emitted in
-# ``src/repro_torch`` is here and that no name here is dead.
+# ``src/repro_torch`` is here or in ``PORT_SPANS`` and that no name in
+# either is dead.
 KNOWN_SPANS: Dict[str, Tuple[str, ...]] = {
     # cluster/scheduler.py: one span per scheduler event class (events.Event)
     "scheduler": (
@@ -74,9 +75,38 @@ KNOWN_SPANS: Dict[str, Tuple[str, ...]] = {
 }
 
 
+# The port's own spans, which the reference has no name for, by layer; kept
+# apart so that ``KNOWN_SPANS`` stays the reference's catalog.  None may take
+# a name of the labels ``portbench/trace.py`` patches round the port's
+# functions (``moe.route``, ``optimizer.apply``, ...): those labels' device
+# time would then be counted twice.
+PORT_SPANS: Dict[str, Tuple[str, ...]] = {
+    # train/train_step.py: step_fn
+    "train": (
+        "train.fwd",             # one microbatch's zoo.loss
+        "train.bwd",             # its loss.backward(), remat's recompute in it
+        "train.grad_sum",        # the f32 microbatch sum: fill, each add, the division
+        "train.grad_reduce",     # a mesh step's gradient collectives and norm
+        "train.optimizer",       # optimizer.apply
+    ),
+    # models/moe.py, on every path (dense, EP, global)
+    "moe": (
+        "moe.fwd.route",         # _route
+        "moe.fwd.dispatch",      # _dispatch
+        "moe.fwd.experts",       # _expert_ffn
+        "moe.fwd.combine",       # _combine
+        "moe.fwd.shared",        # the shared experts' SwiGLU
+        "moe.bwd",               # the layer's backward, remat's recompute outside it
+    ),
+    # (and the counter moe.routing, one a _route call: assigned = T * K,
+    # slots = E * C, kept = sum over experts of min(count, C))
+}
+
 def known_span_names() -> frozenset:
-    """Every span name in :data:`KNOWN_SPANS`, flattened."""
-    return frozenset(n for names in KNOWN_SPANS.values() for n in names)
+    """Every span name in :data:`KNOWN_SPANS` and :data:`PORT_SPANS`,
+    flattened."""
+    return frozenset(n for catalog in (KNOWN_SPANS, PORT_SPANS)
+                     for names in catalog.values() for n in names)
 
 
 def validate_trace(

@@ -17,15 +17,58 @@ disabled cost is one attribute load and a branch per site.
 
 A span times the host: on the card PyTorch returns before the device
 finishes, so a span around a launch measures its dispatch unless the
-caller waits for the device inside it.
+caller waits for the device inside it.  ``Tracer(device=True)`` also
+records a CUDA event pair a span on the current stream, at begin and at
+end; :meth:`Tracer.device_totals` resolves them once, after one
+synchronise, into the stream's time from reaching each span to leaving it.
+
+While a ``torch.profiler`` session records, each span is also a profiler
+range (``torch._C._profiler._RecordFunctionFast``: a ``cpu_op`` event on
+the host timeline, with no device-side twin, unlike ``record_function``'s
+user annotations), and :func:`get_tracer` hands the instrumented sites,
+where no tracer is installed, one process-level ``Tracer(device=True)``
+(:func:`profiled_tracer`).  With neither, a site's cost is
+:func:`get_tracer`'s two checks and its ``if tracer.enabled:``.
 """
 
 from __future__ import annotations
 
 import json
+import sys
 import threading
 import time
-from typing import Callable, Dict, IO, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, IO, List, Optional, Tuple, Union
+
+
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` session records in this process (obs
+    itself never imports torch: without it, none does)."""
+    mod = sys.modules.get("torch.autograd.profiler")
+    return mod is not None and getattr(mod, "_is_profiler_enabled", False)
+
+
+def _profiler_range(name: str):
+    """An open ``cpu_op`` profiler range named ``name``."""
+    from torch._C._profiler import _RecordFunctionFast
+
+    rf = _RecordFunctionFast(name)
+    rf.__enter__()
+    return rf
+
+
+def _cuda_available() -> bool:
+    import torch
+
+    return torch.cuda.is_available()
+
+
+def _cuda_event():
+    """A timing CUDA event recorded on the current stream."""
+    import torch
+
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
 
 
 class _NullSpan:
@@ -120,7 +163,12 @@ class Tracer:
     list is ordered exactly by ``ts`` even under concurrent emission.
     ``registry`` optionally mirrors every closed span into a histogram
     named ``span.<name>`` (microseconds), wiring the trace layer into
-    the metrics registry.
+    the metrics registry.  ``device`` (where CUDA is available) times
+    each span on the current stream as well (:meth:`device_totals`).
+
+    A counter's value may be a callable of no arguments, called when the
+    counters are read (:meth:`counter_totals`, :meth:`to_dict`), so that a
+    count kept on the device is reduced then and not at the site.
     """
 
     enabled = True
@@ -130,10 +178,18 @@ class Tracer:
         process: str = "repro",
         registry=None,
         clock_ns: Optional[Callable[[], int]] = None,
+        device: bool = False,
     ):
         self.process = process
         self.events: List[Dict[str, object]] = []
         self.registry = registry
+        self.device = device and _cuda_available()
+        # (name, begin event, end event) of closed spans not yet resolved;
+        # resolved: name -> [count, device ms]
+        self._pending: List[Tuple[str, Any, Any]] = []
+        self._device_ms: Dict[str, List[float]] = {}
+        # indices into events of counters holding callables
+        self._deferred: List[int] = []
         self._clock_ns = clock_ns or time.perf_counter_ns
         self._t0 = self._clock_ns()
         self._lock = threading.Lock()
@@ -170,9 +226,11 @@ class Tracer:
 
     def begin(self, name: str, cat: str = "repro", **args) -> None:
         tid, stack = self._thread_state()
+        rf = _profiler_range(name) if profiling() else None
+        ev = _cuda_event() if self.device else None
         with self._lock:
             ts = self._ts()
-            stack.append((name, ts))
+            stack.append((name, ts, rf, ev))
             self.events.append({
                 "name": name, "cat": cat, "ph": "B", "ts": ts,
                 "pid": 1, "tid": tid, "args": args,
@@ -183,11 +241,13 @@ class Tracer:
         if not stack or stack[-1][0] != name:
             raise ValueError(
                 f"unmatched span end {name!r} (open: "
-                f"{[n for n, _ in stack]!r})"
+                f"{[entry[0] for entry in stack]!r})"
             )
         with self._lock:
             ts = self._ts()
-            _, t_begin = stack.pop()
+            _, t_begin, rf, ev = stack.pop()
+            if ev is not None:
+                self._pending.append((name, ev, _cuda_event()))
             dur = ts - t_begin
             phase = self._phase.get(name)
             if phase is None:
@@ -201,6 +261,8 @@ class Tracer:
                 "name": name, "ph": "E", "ts": ts,
                 "pid": 1, "tid": tid, "args": args,
             })
+        if rf is not None:
+            rf.__exit__(None, None, None)
 
     def span(self, name: str, cat: str = "repro", **args) -> _Span:
         self.begin(name, cat=cat, **args)
@@ -224,10 +286,22 @@ class Tracer:
     def counter(self, name: str, **values) -> None:
         tid, _ = self._thread_state()
         with self._lock:
+            if any(callable(v) for v in values.values()):
+                self._deferred.append(len(self.events))
             self.events.append({
                 "name": name, "cat": "counter", "ph": "C", "ts": self._ts(),
                 "pid": 1, "tid": tid, "args": values,
             })
+
+    def _resolve(self) -> None:
+        """Call the counters' callable values, once each, in order."""
+        with self._lock:
+            deferred, self._deferred = self._deferred, []
+        for i in deferred:
+            args = self.events[i]["args"]
+            for key, v in args.items():
+                if callable(v):
+                    args[key] = v()
 
     # -- aggregation / output -----------------------------------------------
 
@@ -248,8 +322,40 @@ class Tracer:
             for name, (cnt, total_us) in sorted(self._phase.items())
         }
 
+    def device_totals(self) -> Dict[str, Dict[str, float]]:
+        """Per-span device time: name -> {count, device_ms}, each span the
+        current stream's time from its begin to its end (its kernels and
+        any idle between them).  Synchronises once to resolve the spans
+        closed since the last call; empty without device timing."""
+        with self._lock:
+            pending, self._pending = self._pending, []
+        if pending:
+            import torch
+
+            torch.cuda.synchronize()
+            for name, start, end in pending:
+                acc = self._device_ms.setdefault(name, [0, 0.0])
+                acc[0] += 1
+                acc[1] += start.elapsed_time(end)
+        return {
+            name: {"count": int(cnt), "device_ms": ms}
+            for name, (cnt, ms) in sorted(self._device_ms.items())
+        }
+
+    def counter_totals(self) -> Dict[str, Dict[str, float]]:
+        """Per-counter sums: name -> {value name: sum over its events}."""
+        self._resolve()
+        out: Dict[str, Dict[str, float]] = {}
+        for ev in self.events:
+            if ev["ph"] == "C":
+                sums = out.setdefault(ev["name"], {})
+                for key, v in ev["args"].items():
+                    sums[key] = sums.get(key, 0) + v
+        return out
+
     def to_dict(self) -> Dict[str, object]:
         """The Chrome trace-event JSON object (Perfetto-loadable)."""
+        self._resolve()
         meta: List[Dict[str, object]] = [{
             "name": "process_name", "ph": "M", "pid": 1, "tid": 1, "ts": 0,
             "args": {"name": self.process},
@@ -278,13 +384,34 @@ class Tracer:
 # ---------------------------------------------------------------------------
 
 _current: Union[Tracer, NullTracer] = NULL_TRACER
+_profiled: Optional[Tracer] = None
+_profiled_lock = threading.Lock()
 
 
 def get_tracer() -> Union[Tracer, NullTracer]:
-    """The ambient tracer (``NULL_TRACER`` unless :func:`set_tracer` /
-    :func:`tracing` installed one).  The serving steps of
-    ``serve/serve_step.py`` pick their tracer up from here at each call."""
+    """The ambient tracer: the one :func:`set_tracer` / :func:`tracing`
+    installed; else, while a ``torch.profiler`` records, the process-level
+    ``Tracer(device=True)`` (:func:`profiled_tracer`); else ``NULL_TRACER``.
+    The instrumented sites pick their tracer up from here at each call."""
+    if _current is NULL_TRACER and profiling():
+        return _profiled or _new_profiled()
     return _current
+
+
+def _new_profiled() -> Tracer:
+    global _profiled
+    with _profiled_lock:
+        if _profiled is None:
+            _profiled = Tracer(process="profiler", device=True)
+        return _profiled
+
+
+def profiled_tracer() -> Optional[Tracer]:
+    """The process-level tracer that took the spans and counters emitted
+    while a ``torch.profiler`` recorded and no tracer was installed (None
+    if nothing was): read it after the profiled work, e.g.
+    ``profiled_tracer().device_totals()``."""
+    return _profiled
 
 
 def set_tracer(tracer: Optional[Union[Tracer, NullTracer]]) -> None:

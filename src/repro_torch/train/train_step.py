@@ -87,6 +87,13 @@ without the cut (``common.seq_gather``), then keep the rank's positions.
 
 Params are updated in place, the counterpart of the reference's donated
 buffers.
+
+Tracing (``repro_torch.obs``, on while a tracer is installed or a
+``torch.profiler`` records): each microbatch's ``zoo.loss`` runs in a
+``train.fwd`` span and its ``backward()`` in ``train.bwd``; the f32
+microbatch sum in ``train.grad_sum`` spans (the accumulator's fill, each
+microbatch's add, the division); a mesh step's gradient collectives and
+norm in ``train.grad_reduce``; ``optimizer.apply`` in ``train.optimizer``.
 """
 
 from __future__ import annotations
@@ -104,6 +111,7 @@ from ..collectives.schedules import (
     _pad_to_multiple, all_reduce_axis, axis_size, tree_hierarchical_all_reduce,
 )
 from ..models.model_zoo import ModelZoo
+from ..obs import NULL_SPAN, get_tracer
 from ..parallel.sharding import (
     Layout, cut_positions, entry_axes, param_layout, rank_batch, seq_axes,
 )
@@ -307,36 +315,44 @@ def make_train_step(
             slices = dp.microbatches(batch, microbatches)
         else:
             slices = _split(batch, microbatches)
+        trc = get_tracer()
         params.requires_grad_(True)
         named = dict(params.named_parameters())
         for p in named.values():
             p.grad = None
-        acc = None if microbatches == 1 else {
-            n: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for n, p in named.items()}
+        acc = None
+        if microbatches > 1:
+            with (trc.span("train.grad_sum", cat="train") if trc.enabled else NULL_SPAN):
+                acc = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                       for n, p in named.items()}
         losses = []
         plan = fsdp.plan if fsdp is not None else dp.plan if dp is not None else None
         for mb in slices:
-            loss, metrics = zoo.loss(params, mb, plan)
-            loss.backward()
+            with (trc.span("train.fwd", cat="train") if trc.enabled else NULL_SPAN):
+                loss, metrics = zoo.loss(params, mb, plan)
+            with (trc.span("train.bwd", cat="train") if trc.enabled else NULL_SPAN):
+                loss.backward()
             losses.append(loss.detach())
             if acc is not None:
-                for n, p in named.items():
-                    if p.grad is not None:
-                        acc[n] += p.grad
-                    p.grad = None
+                with (trc.span("train.grad_sum", cat="train") if trc.enabled else NULL_SPAN):
+                    for n, p in named.items():
+                        if p.grad is not None:
+                            acc[n] += p.grad
+                        p.grad = None
         if acc is None:
             grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                      for n, p in named.items()}
         else:
-            grads = {n: g / microbatches for n, g in acc.items()}
+            with (trc.span("train.grad_sum", cat="train") if trc.enabled else NULL_SPAN):
+                grads = {n: g / microbatches for n, g in acc.items()}
         gnorm = None
-        if dp is not None:
-            grads = dp.reduce_grads(grads)
-            gnorm = opt_lib.sharded_global_norm(grads, dp.layout)
-        if fsdp is not None:
-            grads = fsdp.reduce_grads(grads)
-            gnorm = opt_lib.sharded_global_norm(grads, fsdp.layout)
-        params, opt_state, opt_metrics = opt_lib.apply(opt_cfg, opt_state, params, grads, gnorm)
+        if dp is not None or fsdp is not None:
+            with (trc.span("train.grad_reduce", cat="train") if trc.enabled else NULL_SPAN):
+                grads = (dp or fsdp).reduce_grads(grads)
+                gnorm = opt_lib.sharded_global_norm(grads, (dp or fsdp).layout)
+        with (trc.span("train.optimizer", cat="train") if trc.enabled else NULL_SPAN):
+            params, opt_state, opt_metrics = opt_lib.apply(opt_cfg, opt_state, params, grads,
+                                                           gnorm)
         for p in named.values():
             p.grad = None
         out = {"nll": metrics["nll"].detach(), "aux": metrics["aux"].detach(),

@@ -186,8 +186,9 @@ def _span_usage():
 
 
 def test_every_port_span_is_cataloged_and_none_is_dead():
-    """Every span name the port's sources emit is in ``KNOWN_SPANS``, every
-    catalog entry is emitted somewhere, and the catalog is the reference's.
+    """Every span name the port's sources emit is in ``KNOWN_SPANS`` or
+    ``PORT_SPANS``, every catalog entry is emitted somewhere, and
+    ``KNOWN_SPANS`` is the reference's.
     The scheduler's ``event.*`` spans are named from the event's class, so
     the extractor sees their prefix: the catalog holds one a class of
     ``cluster/events.py``."""
@@ -200,6 +201,26 @@ def test_every_port_span_is_cataloged_and_none_is_dead():
     assert {n for n in catalog if n.startswith("event.")} == classes
     assert literals | classes == catalog and not literals & classes
     assert port.KNOWN_SPANS == ref.KNOWN_SPANS
+
+
+def test_the_port_catalog_holds_every_name_the_reference_lacks():
+    """``PORT_SPANS`` holds exactly the names the port's sources emit that
+    the reference's catalog lacks, apart from it; ``known_span_names``
+    covers both; no port span takes a name of the labels
+    ``portbench/trace.py`` patches round the port's functions (their
+    device time would be counted twice)."""
+    sys.path.insert(0, ROOT)
+    try:
+        from portbench.trace import LABELS
+    finally:
+        sys.path.remove(ROOT)
+    literals, _ = _span_usage()
+    ref_names = ref.known_span_names()
+    port_names = frozenset(n for names in port.PORT_SPANS.values() for n in names)
+    assert literals - ref_names == port_names
+    assert not port_names & ref_names
+    assert port.known_span_names() == ref_names | port_names
+    assert not port_names & {label for fns in LABELS.values() for label in fns.values()}
 
 
 FLOW_SPANS = ("flow.csr_assemble", "flow.bfs", "flow.alltoall_counts", "flow.route",

@@ -227,6 +227,21 @@ The same for the flow kernels:
   fold as it is and with its one atomic made plain; with each level's
   sibling runs and each build's error against the plain fold.
 
+And the optimizer:
+
+* adamw: ``kernels/adamw`` at the benchmark cells' tables (moonshot-v1-16b-a3b
+  at 4 layers, portbench/configs: 16 leaves, 3.02 B bf16 params, f32
+  moments; bf16 gradients as in moe-train-1k, f32 ones as in moe-train-8k):
+  ``optimizer.apply`` on the card (the norm, its root, the update), each
+  kernel alone, and the plain chunked code on the same tensors, timed with
+  CUDA events, beside the byte bound (each byte of g read twice, of p, mu
+  and nu read and written once, at 3.35 TB/s); then ``apply`` under
+  ``portbench/trace.py``'s label and profiler (the label's device time
+  against the kernels'); last, as a library yardstick the port never
+  calls, ``torch.optim.AdamW(fused=True)`` with ``clip_grad_norm_(foreach=
+  True)`` on as many f32 params (it takes one dtype for params, gradients
+  and moments).
+
 And one look at numbers rather than time:
 
 * xlstm_agreement: why xlstm-125m's bf16 prefill and cache fill agree less
@@ -246,6 +261,7 @@ And one look at numbers rather than time:
                             [xlstm_agreement] [flash_ab DIR]
                             [flash_ablate] [scan_ab DIR] [scan_ablate]
                             [flow] [flow_ab DIR] [flow_ablate DIR] [dadd_chain]
+                            [adamw]
                                                     # serve and train when none is named
 
 For each profiled phase it prints the host time, the device time summed
@@ -3206,6 +3222,120 @@ def pipe_cards(smi: str) -> None:
                        join=True, start_method="spawn")
 
 
+HBM_BYTES_S = 3.35e12
+
+
+def _adamw_shapes() -> dict:
+    """The benchmark cells' leaves, from the port's model as portbench
+    configures it."""
+    from portbench import bench
+    from portbench.runners import train
+    from repro_torch.models.model_zoo import get_model
+
+    return get_model(train.program_config(bench.find_cell("moe-train-1k"))).param_shapes()
+
+
+def _events_ms(fn, n: int, warmup: int = 2) -> list:
+    """CUDA events round each of ``n`` calls after ``warmup``: ms a call."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    out = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def profile_adamw(smi: str) -> None:
+    import math
+
+    import torch
+
+    from portbench import trace
+    from repro_torch.kernels.adamw import adamw as fused
+    from repro_torch.models.common import ParamTree
+    from repro_torch.train import optimizer as opt_lib
+
+    shapes = _adamw_shapes()
+    n = sum(math.prod(s) for s in shapes.values())
+    cfg = opt_lib.AdamWConfig(lr=3e-4, b2=0.95, weight_decay=0.1, grad_clip=1.0, warmup_steps=2,
+                              total_steps=2000)
+    print(f"adamw: {len(shapes)} leaves, {n} params (bf16), f32 moments [{smi}]", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for cell, g_dtype in (("moe-train-1k", torch.bfloat16), ("moe-train-8k", torch.float32)):
+        g_size = torch.empty((), dtype=g_dtype).element_size()
+        bound_ms = n * (2 * g_size + 2 + 2 + 16) / HBM_BYTES_S * 1e3
+        params = ParamTree.from_state_dict({
+            k: (0.02 * torch.randn(s, generator=gen, device="cuda")).bfloat16()
+            for k, s in shapes.items()})
+        grads = {k: torch.randn(s, generator=gen, device="cuda").to(g_dtype)
+                 for k, s in shapes.items()}
+        state = opt_lib.init(cfg, params)
+        for k in shapes:
+            state.mu[k].normal_(0, 1e-3, generator=gen)
+            state.nu[k].normal_(0, 1e-3, generator=gen).square_()
+        named = {k: p.detach() for k, p in params.named_parameters()}
+        leaves = [fused.Leaf(p, grads[k], state.mu[k], state.nu[k], p.dim() >= 2)
+                  for k, p in named.items()]
+        lr, b1c, b2c = opt_lib.step_scalars(cfg, 5)
+        hyper = opt_lib.kernel_scalars(cfg, lr, b1c, b2c)
+        norm = fused.sum_sq(list(grads.values()), root=True)
+        fused.reset_launch_counts()
+        step = _events_ms(lambda: opt_lib.apply(cfg, state, params, grads), 10)
+        launches = fused.launch_counts()
+        norm_ms = _events_ms(lambda: fused.sum_sq(list(grads.values()), root=True), 10)
+        upd_ms = _events_ms(lambda: fused.update(leaves, norm, hyper), 10)
+
+        def plain():
+            gn = opt_lib._sum_sq_plain(grads.values(), root=True)
+            opt_lib._update_plain(cfg, named, grads, state.mu, state.nu, gn, lr, b1c, b2c)
+
+        plain_ms = _events_ms(plain, 3, warmup=1)
+        best = min(step)
+        print(f"adamw {cell}: apply {best:.3f} ms (median {sorted(step)[len(step) // 2]:.3f}, "
+              f"launches {launches} over 12 calls), norm+root {min(norm_ms):.3f} ms, update "
+              f"{min(upd_ms):.3f} ms; bound {bound_ms:.3f} ms ({n * (2 * g_size + 20) / 1e9:.2f} "
+              f"GB at 3.35 TB/s): {100 * bound_ms / best:.1f} % of it; plain "
+              f"{min(plain_ms):.3f} ms ({min(plain_ms) / best:.2f}x)", flush=True)
+        t = trace.profiled(lambda: (opt_lib.apply(cfg, state, params, grads),
+                                    torch.cuda.synchronize()), 3)
+        kern = {}
+        for name, s0, e0 in t.kernels():
+            kern[name] = kern.get(name, 0.0) + (e0 - s0) / 1e3 / t.steps
+        ours = sum(v for k, v in kern.items() if "adamw_" in k)
+        print(f"adamw {cell} traced: label optimizer.apply {t.label_us.get('optimizer.apply', 0) / 1e3 / t.steps:.3f} "
+              f"ms a call, the adamw kernels {ours:.3f} ms, all kernels {sum(kern.values()):.3f} "
+              f"ms: {sorted(kern.items(), key=lambda kv: -kv[1])[:5]}", flush=True)
+        del params, grads, state, named, leaves, norm, t
+        torch.cuda.empty_cache()
+    # the library yardstick, all f32 (its fused step takes one dtype)
+    ps = [torch.nn.Parameter(0.02 * torch.randn(s, generator=gen, device="cuda"))
+          for s in shapes.values()]
+    for p in ps:
+        p.grad = torch.randn(p.shape, generator=gen, device="cuda")
+    opt = torch.optim.AdamW(ps, lr=3e-4, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1,
+                            fused=True)
+    lib_step = _events_ms(opt.step, 5)
+
+    def lib_clip_step():
+        torch.nn.utils.clip_grad_norm_(ps, 1.0, foreach=True)
+        opt.step()
+
+    lib_both = _events_ms(lib_clip_step, 5)
+    lib_bytes = n * 28 + n * 12  # the step: g 4, p, mu, nu 8 each; the clip: read g, scale it
+    print(f"adamw library: torch.optim.AdamW(fused=True) f32 {min(lib_step):.3f} ms, with "
+          f"clip_grad_norm_(foreach) {min(lib_both):.3f} ms ({lib_bytes / 1e9:.1f} GB: "
+          f"{100 * lib_bytes / HBM_BYTES_S * 1e3 / min(lib_both):.1f} % of 3.35 TB/s)",
+          flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -3235,7 +3365,7 @@ def main() -> None:
          "pipe_cards": pipe_cards, "tp_cards": tp_cards,
          "moe_axes_cards": moe_axes_cards, "sp_cards": sp_cards,
          "sp_family_cards": sp_family_cards, "flow": profile_flow,
-         "dadd_chain": dadd_chain}[name](smi)
+         "dadd_chain": dadd_chain, "adamw": profile_adamw}[name](smi)
 
 
 if __name__ == "__main__":

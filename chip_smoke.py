@@ -30,7 +30,14 @@ Phases, each printed as it runs; any failure exits non-zero:
            also timed at the hybrid and xLSTM training shapes
            (``SCAN_TRAIN_TIMED``: zamba2-7b's 4 x 256 tokens and a rank's
            row of them, xlstm-125m's 4 x 256 and a rank's half of the rows
-           and heads).
+           and heads).  AdamW's three kernels (``kernels/adamw``) at the
+           train phase's table (llama3.2-3b's leaves, bf16 params and
+           gradients, f32 moments): the norm the same bits in two runs and
+           within rel 1e-5 of the plain f32 sum's, each leaf's moments within
+           4 f32 ulps and its params within 1 bf16 ulp of the plain update
+           from the same state and norm; each kernel timed beside its plain
+           version, its byte bound and PyTorch's own (``_foreach_norm``,
+           ``torch.optim.AdamW(fused=True)``).
 3b. flow  the network core (``core/compiled_flow.py``, the four kernels of
            ``kernels/flow``): every kernel call of the exact and symmetry
            sweeps on RailX and torus 16 (m 2, 1,024 chips) and of an ECMP
@@ -126,7 +133,8 @@ Phases, each printed as it runs; any failure exits non-zero:
            remat, flash attention: 8 AdamW steps of 4 x 1024 tokens through
            ``train_loop``; the loss must fall, and the launches of that run
            must be 2L flash_fwd_lse, L flash_bwd_dq and L flash_bwd_dkv per
-           step and no flash_fwd.
+           step and no flash_fwd, and one each of adamw_sum_sq,
+           adamw_norm_finalize and adamw_update per step.
 9b. dryrun_check  the dry run of phase 9's cell (``launch/roofline.py``:
            the same step traced on the meta device): its argument bytes
            must equal phase 9's parameters plus moments, and its reckoned
@@ -208,7 +216,8 @@ reads them after; the ``kernels`` line reports each kernel's launches from
 the phase whose path it serves, the Dh-320 kernels (``*_d320``) from
 serve_gemma3 and train_gemma3, the f32 kernels (``*_f32``, timed at
 railx-100m's training shape, bound at the 3xTF32 rate) from train_e2e, the
-flow kernels (``flow_*``) from phase flow's main path.
+flow kernels (``flow_*``) from phase flow's main path, AdamW's (``adamw_*``)
+from phase train.
 
 Then the ``kernels`` JSON line and, last, the ``ok`` JSON line.  It needs a
 CUDA device and the rest of the repository: without either it fails before
@@ -272,12 +281,13 @@ def phase_env():
 
 def phase_build() -> None:
     from repro_torch.kernels import build
+    from repro_torch.kernels.adamw import adamw
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flow import flow
     from repro_torch.kernels.mlstm import mlstm
     from repro_torch.kernels.ssd import ssd
 
-    sources = [fa.SOURCE, fa.BWD_SOURCE, ssd.SOURCE, mlstm.SOURCE, flow.SOURCE]
+    sources = [fa.SOURCE, fa.BWD_SOURCE, ssd.SOURCE, mlstm.SOURCE, flow.SOURCE, adamw.SOURCE]
     t0 = time.perf_counter()
     build.build_all(sources)
     print(f"build: {len(sources)} source(s) in {time.perf_counter() - t0:.2f} s")
@@ -527,7 +537,144 @@ def phase_kernel() -> list:
     kernels = [*_flash_fwd_kernel(), *_training_kernels(), _ssd_kernel(), _mlstm_kernel()]
     for kname, where, shape in SCAN_TRAIN_TIMED:
         time_scan(kname, where, shape)
-    return kernels
+    return kernels + _adamw_kernels()
+
+
+# AdamW's kernels against the plain update from the same state and norm: f32
+# ulps for the moments, bf16 ulps for the params (the chain's roundings may
+# differ: an add with alpha is one fma in the kernel; PyTorch's CUDA kernels
+# divide by a scalar as a product with its reciprocal, the kernel divides)
+ADAMW_ULPS = {"mu": (4, 24), "nu": (4, 24), "p": (1, 8)}  # (most, significand bits)
+ADAMW_NORM_REL = 1e-5
+
+
+def _adamw_state(i: int, shape, g: bool = False):
+    """Leaf ``i``'s bf16 params and f32 moments as a few steps in (or, with
+    ``g``, its bf16 gradient of unit normals: the norm clips), the same
+    tensors every call."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(1000 * (1 + g) + i)
+    if g:
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    p = (0.02 * torch.randn(shape, generator=gen, device="cuda")).bfloat16()
+    mu = 1e-3 * torch.randn(shape, generator=gen, device="cuda")
+    return p, mu, torch.square(1e-3 * torch.randn(shape, generator=gen, device="cuda"))
+
+
+def _ulps(got, want, before, bits: int) -> float:
+    """The largest |got - want| in units of the last place (of ``bits``
+    significand bits) at the larger of |got|, |want| and the value before
+    the step (an update that nearly cancels a value leaves a result whose
+    own ulp says nothing of the arithmetic)."""
+    import torch
+
+    worst = 0.0
+    for a, b, c in zip(*(t.reshape(-1).split(1 << 25) for t in (got, want, before))):
+        a, b, c = a.double(), b.double(), c.double()
+        _, e = torch.frexp(torch.maximum(torch.maximum(a.abs(), b.abs()), c.abs()))
+        ulp = torch.ldexp(torch.ones_like(a), e - bits).clamp(min=2.0 ** -149)
+        worst = max(worst, float(((a - b).abs() / ulp).max()))
+    return worst
+
+
+def _adamw_kernels() -> list:
+    """AdamW's kernels at the train phase's table against the plain version,
+    then timed; -> the kernels line's adamw_sum_sq, adamw_norm_finalize and
+    adamw_update entries (their launches from phase train)."""
+    import torch
+
+    from repro_torch.kernels.adamw import adamw as fused
+    from repro_torch.train import optimizer as opt_lib
+
+    cfg, zoo, ocfg, _ = _train_setup()
+    shapes = list(zoo.param_shapes().values())
+    n = sum(math.prod(s) for s in shapes)
+    leaves = []
+    for i, s in enumerate(shapes):
+        p, mu, nu = _adamw_state(i, s)
+        leaves.append(fused.Leaf(p, _adamw_state(i, s, g=True), mu, nu, len(s) >= 2))
+    grads = [leaf.g for leaf in leaves]
+    lr, b1c, b2c = opt_lib.step_scalars(ocfg, 5)
+    hyper = opt_lib.kernel_scalars(ocfg, lr, b1c, b2c)
+    norm, again = fused.sum_sq(grads, root=True), fused.sum_sq(grads, root=True)
+    plain_norm = opt_lib._sum_sq_plain(grads, root=True)
+    fused.update(leaves, norm, hyper)
+    torch.cuda.synchronize()
+    norm_err = abs(float(norm) - float(plain_norm))
+    print(f"kernel adamw: {cfg.name}'s {len(shapes)} leaves, {n} params, bf16 params and "
+          f"gradients, f32 moments: norm {float(norm):.6f}, the same bits again "
+          f"{torch.equal(norm, again)}, plain {float(plain_norm):.6f} (rel "
+          f"{norm_err / float(plain_norm):.2e}, tol {ADAMW_NORM_REL:g})", flush=True)
+    if not torch.equal(norm, again) or not norm_err <= ADAMW_NORM_REL * float(plain_norm):
+        fail(f"adamw norm {float(norm)} / {float(again)} against plain {float(plain_norm)}")
+    worst, p_err = dict.fromkeys(ADAMW_ULPS, 0.0), 0.0
+    for i, (s, leaf) in enumerate(zip(shapes, leaves)):
+        p, mu, nu = _adamw_state(i, s)
+        p0, mu0, nu0 = p.clone(), mu.clone(), nu.clone()
+        opt_lib._update_plain(ocfg, {"x": p}, {"x": leaf.g}, {"x": mu}, {"x": nu}, norm, lr,
+                              b1c, b2c)
+        for name, got, want, before in (("mu", leaf.mu, mu, mu0), ("nu", leaf.nu, nu, nu0),
+                                        ("p", leaf.p, p, p0)):
+            worst[name] = max(worst[name], _ulps(got, want, before, ADAMW_ULPS[name][1]))
+        p_err = max(p_err, float((leaf.p.float() - p.float()).abs().max()))
+        del p, mu, nu, p0, mu0, nu0
+    print(f"kernel adamw_update: against the plain update, leaf by leaf: mu {worst['mu']:g}, nu "
+          f"{worst['nu']:g} f32 ulps (tol {ADAMW_ULPS['mu'][0]}), params {worst['p']:g} bf16 ulps "
+          f"(tol {ADAMW_ULPS['p'][0]}), max_abs_err {p_err:.3e}", flush=True)
+    bad = {k: v for k, v in worst.items() if not v <= ADAMW_ULPS[k][0]}
+    if bad:
+        fail(f"adamw_update disagrees with the plain update: {bad} ulps")
+
+    ops, sms = fused._ops(), torch.cuda.get_device_properties(0).multi_processor_count
+    (part, code, blocks), = fused.sum_sq_launches(grads, sms)
+    partials = torch.empty(blocks, dtype=torch.float64, device="cuda")
+    out = torch.empty((), dtype=torch.float32, device="cuda")
+    total = opt_lib._sum_sq_plain(grads)
+    timed = {
+        "adamw_sum_sq": (_time_ms(lambda: ops.sum_sq(part, code, blocks, partials, 0), 10),
+                         _time_ms(lambda: opt_lib._sum_sq_plain(grads), 3, warmup=1),
+                         2 * n + 8 * blocks,
+                         _time_ms(lambda: torch.linalg.vector_norm(
+                             torch.stack(torch._foreach_norm(grads))), 10)),
+        "adamw_norm_finalize": (_graph_ms(lambda: ops.norm_finalize(partials, blocks, out, True)),
+                                _graph_ms(lambda: torch.sqrt(total)), 8 * blocks + 4, None),
+        "adamw_update": (_time_ms(lambda: fused.update(leaves, norm, hyper), 10),
+                         _time_ms(lambda: opt_lib._update_plain(
+                             ocfg, {i: lf.p for i, lf in enumerate(leaves)}, dict(enumerate(grads)),
+                             {i: lf.mu for i, lf in enumerate(leaves)},
+                             {i: lf.nu for i, lf in enumerate(leaves)}, norm, lr, b1c, b2c),
+                             3, warmup=1),
+                         22 * n + 4, None),
+    }
+    del leaves, grads, partials, out, total, norm, again, plain_norm, part
+    torch.cuda.empty_cache()
+    # PyTorch's fused AdamW takes one dtype for params, gradients and
+    # moments: f32 throughout, 28 bytes a parameter against the kernel's 22
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    ps = [torch.nn.Parameter(0.02 * torch.randn(s, generator=gen, device="cuda")) for s in shapes]
+    for p in ps:
+        p.grad = torch.randn(p.shape, generator=gen, device="cuda")
+    opt = torch.optim.AdamW(ps, lr=lr, betas=(ocfg.b1, ocfg.b2), eps=ocfg.eps,
+                            weight_decay=ocfg.weight_decay, fused=True)
+    ms, plain_ms, nbytes, _ = timed["adamw_update"]
+    timed["adamw_update"] = (ms, plain_ms, nbytes, _time_ms(opt.step, 5, warmup=2))
+    del ps, opt
+    torch.cuda.empty_cache()
+
+    entries = []
+    for kname, (ms, plain_ms, nbytes, library_ms) in timed.items():
+        bound = (nbytes / PEAK_BYTES * 1e3, "bytes")
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        print(f"kernel {kname}: {ms:.4f} ms at {cfg.name}'s table ({nbytes / 1e9:.3f} GB); plain "
+              f"{plain_ms:.4f} ms; library {lib}; bound {bound[0]:.4f} ms (bytes at 3.35 TB/s), "
+              f"{bound[0] / ms:.1%} of it", flush=True)
+        err = p_err if kname == "adamw_update" else norm_err
+        # the reference's global_norm (:59) and apply (:66)
+        line = 66 if kname == "adamw_update" else 59
+        entries.append(_entry(kname, "kernels/adamw/csrc/adamw.cu", f"train/optimizer.py:{line}",
+                              None, err, ms, plain_ms, bound, library_ms))
+    return entries
 
 
 def _flash_fwd_kernel() -> list:
@@ -3295,13 +3442,17 @@ def _train_run(tag: str, step_fn, params, opt, data, steps: int) -> dict:
 
     from repro_torch.train.trainer import train_loop
 
+    from repro_torch.kernels.adamw import adamw
+
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    adamw.reset_launch_counts()
     res = train_loop(step_fn, params, opt, data.batches(0), num_steps=steps,
                      log_every=1, log_fn=lambda line: print(f"{tag}: {line}", flush=True))
     torch.cuda.synchronize()
     hist = res.history
-    run = {"launches": launch_counts(), "peak": torch.cuda.max_memory_allocated(),
+    run = {"launches": launch_counts(), "adamw": adamw.launch_counts(),
+           "peak": torch.cuda.max_memory_allocated(),
            "loss": [h["loss"] for h in hist], "grad_norm": [h["grad_norm"] for h in hist],
            "aux": [h["aux"] for h in hist], "step_ms": [1e3 * h["step_time_s"] for h in hist]}
     if len(hist) != steps or not all(math.isfinite(x) for x in run["loss"] + run["grad_norm"]):
@@ -3322,6 +3473,7 @@ def phase_train(smi: str) -> dict:
     returns the run (launches, per-step loss, grad_norm and ms)."""
     import torch
 
+    from repro_torch.kernels.adamw import adamw
     from repro_torch.train.train_step import make_train_step
 
     t0 = time.perf_counter()
@@ -3351,6 +3503,10 @@ def phase_train(smi: str) -> dict:
           flush=True)
     if launches != want:
         fail(f"train launches {launches} differ from {want}")
+    want = dict.fromkeys(adamw.KERNELS, TRAIN_STEPS)
+    print(f"train: AdamW's launches {run['adamw']}; expected {want} (3 a step)", flush=True)
+    if run["adamw"] != want:
+        fail(f"train AdamW launches {run['adamw']} differ from {want}")
 
     mean_ms = run["mean_ms"]
     tokens = TRAIN_B * TRAIN_S
@@ -4318,6 +4474,7 @@ def main() -> None:
     print(f"clock: all phases {time.perf_counter() - t_start:.1f} s wall", flush=True)
     launches.update({k: train["launches"][k]
                      for k in ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")})
+    launches.update(train["adamw"])
     # the Dh-320 kernels' launches from gemma3-4b's serving and training paths
     launches["flash_fwd_d320"] = served["phase_serve_gemma3"]["flash_fwd"]
     launches.update({f"{k}_d320": train_gemma3["launches"][k]

@@ -11,9 +11,10 @@ in a world of torch's ``"fake"`` backend (collectives that move nothing):
   kernels are opaque ops on the meta device: the scans are priced by their
   formulas, ``kernels/bounds.py``, and the flash kernels by the caller, as
   the reference adds their analytic FLOPs);
-* HBM bytes as the inputs plus the outputs of every dispatched aten op that
-  is not a view: in eager mode each op is one kernel, which reads its
-  inputs and writes its outputs once;
+* HBM bytes as the inputs plus the outputs of every dispatched op that is
+  not a view, with what it writes in place and does not return (the AdamW
+  operators' ``Tensor(a!)`` arguments): in eager mode each op is one
+  kernel, which reads its inputs and writes its outputs once;
 * collective bytes by op and mesh axes from ``collectives.byte_ledger``
   (each record the bytes of the result on this rank), split into intra-node
   bytes (over "model", NVLink) and inter-node bytes (over "data" / "pod",
@@ -147,6 +148,19 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _written_in_place(func, args, kwargs, outs) -> list:
+    """The tensors ``func`` writes in place (its schema's ``Tensor(a!)``
+    arguments) that are not among its results ``outs``."""
+    returned = {id(t) for t in outs}
+    written = []
+    for i, a in enumerate(func._schema.arguments):
+        if a.alias_info is None or not a.alias_info.is_write:
+            continue
+        value = args[i] if i < len(args) else kwargs.get(a.name)
+        written += [t for t in _tensors((value,)) if id(t) not in returned]
+    return written
+
+
 def storage_key(t: torch.Tensor) -> int:
     return t.untyped_storage()._cdata
 
@@ -217,7 +231,8 @@ class TraceCounter(TorchDispatchMode):
         outs = _tensors(out if isinstance(out, (list, tuple)) else (out,))
         if not func.is_view and func not in _NO_TRAFFIC:
             ins = _tensors(args) + _tensors(kwargs.values())
-            self.hbm_bytes += sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs)
+            written = outs + _written_in_place(func, args, kwargs, outs)
+            self.hbm_bytes += sum(_nbytes(t) for t in ins + written)
         for t in outs:
             self._track(t)
         return out

@@ -99,7 +99,9 @@ PORT_SPANS: Dict[str, Tuple[str, ...]] = {
         "moe.bwd",               # the layer's backward, remat's recompute outside it
     ),
     # (and the counter moe.routing, one a _route call: assigned = T * K,
-    # slots = E * C, kept = sum over experts of min(count, C))
+    # slots = E * C, kept = sum over experts of min(count, C); and
+    # optimizer.fused, one an optimizer.apply call on the card: leaves,
+    # elements, kernel launches)
 }
 
 def known_span_names() -> frozenset:

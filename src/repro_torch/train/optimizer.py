@@ -16,6 +16,15 @@ largest leaf (28 x 3072 x 8192 at llama3.2-3b: 2.8 GB per f32 copy).
 ``step`` is a host int, so the learning rate is known on the host and a step
 needs no device sync.
 
+On CUDA tensors the norm and the update are the multi-tensor kernels of
+``kernels/adamw`` (three launches a step: the sum of squares, its root, the
+update), which read each byte of g, p, mu and nu once and write p, mu and nu
+once; they compute what the chunked code computes, op for op in f32.  On
+the meta device a dry run traces the same three operators, which launch
+nothing there.  On the CPU the chunked code runs: it is their plain
+version, ``_sum_sq_plain`` and ``_update_plain``.  A call on the card counts
+``optimizer.fused`` (leaves, elements, launches) when a tracer is on.
+
 Sharded (``gspmd_fsdp``): params, grads and moments are a rank's blocks,
 the moments laid out as their params (``state_specs``); the update is
 elementwise, so it runs on the blocks as is, and ``sharded_global_norm``
@@ -30,6 +39,9 @@ from typing import Any, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..kernels.adamw import adamw as fused
+from ..obs import get_tracer
 
 # elements per chunk of the in-place update
 CHUNK = 1 << 25
@@ -82,18 +94,33 @@ def _chunks(t: torch.Tensor) -> List[torch.Tensor]:
     return list(t.split(rows, 0))
 
 
-def _sum_sq(grads: Iterable[torch.Tensor]) -> torch.Tensor:
+def _on_kernels(t: torch.Tensor) -> bool:
+    """Whether a step on ``t`` runs the kernels: on a CUDA device, or on the
+    meta device, where a dry run traces their operators."""
+    return t.device.type in ("cuda", "meta")
+
+
+def _sum_sq(grads: Iterable[torch.Tensor], root: bool = False) -> torch.Tensor:
+    """Σ g² over the leaves in f32 (its square root with ``root``); on CUDA
+    tensors the kernels' (summed in f64), on CPU ones ``_sum_sq_plain``."""
+    grads = list(grads)
+    if any(_on_kernels(g) for g in grads):
+        return fused.sum_sq(grads, root)
+    return _sum_sq_plain(grads, root)
+
+
+def _sum_sq_plain(grads: Iterable[torch.Tensor], root: bool = False) -> torch.Tensor:
     total = None
     for g in grads:
         for c in _chunks(g):
             sq = torch.sum(torch.square(c.to(torch.float32)))
             total = sq if total is None else total + sq
-    return total
+    return torch.sqrt(total) if root else total
 
 
 def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares, in f32 (0-d tensor on the grads' device)."""
-    return torch.sqrt(_sum_sq(grads))
+    return _sum_sq(grads, root=True)
 
 
 def state_specs(param_specs: Dict[str, Any]) -> AdamWState:
@@ -123,6 +150,20 @@ def sharded_global_norm(grads: Dict[str, torch.Tensor], layout) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def step_scalars(cfg: AdamWConfig, step: int) -> Tuple[float, float, float]:
+    """Step ``step``'s learning rate and bias corrections 1 - b^step, in f32."""
+    f = np.float32
+    return (lr_schedule(cfg, step), float(f(1) - f(cfg.b1) ** f(step)),
+            float(f(1) - f(cfg.b2) ** f(step)))
+
+
+def kernel_scalars(cfg: AdamWConfig, lr: float, b1c: float, b2c: float) -> "fused.Hyper":
+    """The update kernel's scalars (rounded to f32 at the launch, as
+    PyTorch rounds the plain version's Python scalars)."""
+    return fused.Hyper(clip=cfg.grad_clip, lr=lr, b1=cfg.b1, b2=cfg.b2, omb1=1 - cfg.b1,
+                       omb2=1 - cfg.b2, b1c=b1c, b2c=b2c, eps=cfg.eps, wd=cfg.weight_decay)
+
+
 def apply(
     cfg: AdamWConfig, state: AdamWState, params: torch.nn.Module, grads: Dict[str, torch.Tensor],
     grad_norm: Optional[torch.Tensor] = None,
@@ -131,18 +172,35 @@ def apply(
     params and the moments are updated in place.  ``grad_norm`` is the
     gradient's global norm when the caller has it (a sharded gradient)."""
     named = dict(params.named_parameters())
-    gnorm = global_norm(grads[n] for n in named) if grad_norm is None else grad_norm
-    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     step = state.step + 1
-    lr = lr_schedule(cfg, step)
-    f = np.float32
-    b1c = float(f(1) - f(cfg.b1) ** f(step))
-    b2c = float(f(1) - f(cfg.b2) ** f(step))
+    lr, b1c, b2c = step_scalars(cfg, step)
+    before = sum(fused.LAUNCHES.values())
+    gnorm = global_norm(grads[n] for n in named) if grad_norm is None else grad_norm
+    if not any(_on_kernels(p) for p in named.values()):
+        _update_plain(cfg, named, grads, state.mu, state.nu, gnorm, lr, b1c, b2c)
+        return params, AdamWState(step, state.mu, state.nu), {"grad_norm": gnorm, "lr": lr}
+    leaves = [fused.Leaf(p, grads[n], state.mu[n], state.nu[n], p.dim() >= 2)
+              for n, p in named.items()]
+    fused.update(leaves, gnorm, kernel_scalars(cfg, lr, b1c, b2c))
+    trc = get_tracer()
+    if trc.enabled:
+        trc.counter("optimizer.fused", leaves=len(leaves),
+                    elements=sum(leaf.p.numel() for leaf in leaves),
+                    launches=sum(fused.LAUNCHES.values()) - before)
+    return params, AdamWState(step, state.mu, state.nu), {"grad_norm": gnorm, "lr": lr}
+
+
+def _update_plain(cfg: AdamWConfig, named: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
+                  mu_all: Dict[str, torch.Tensor], nu_all: Dict[str, torch.Tensor],
+                  gnorm: torch.Tensor, lr: float, b1c: float, b2c: float) -> None:
+    """The update in PyTorch ops, chunk by chunk, in place: the kernels'
+    plain version."""
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     with torch.no_grad():
         for name, p in named.items():
             decay = p.dim() >= 2  # decoupled decay on matrices only
-            for pc, gc, mu, nu in zip(_chunks(p), _chunks(grads[name]), _chunks(state.mu[name]),
-                                      _chunks(state.nu[name])):
+            for pc, gc, mu, nu in zip(_chunks(p), _chunks(grads[name]), _chunks(mu_all[name]),
+                                      _chunks(nu_all[name])):
                 g = gc.to(torch.float32) * scale
                 mu.mul_(cfg.b1).add_(g.to(mu.dtype), alpha=1 - cfg.b1)
                 nu.mul_(cfg.b2).add_(torch.square(g).to(nu.dtype), alpha=1 - cfg.b2)
@@ -154,4 +212,3 @@ def apply(
                 p32.sub_(delta.mul_(lr))
                 if p32 is not pc:
                     pc.copy_(p32)
-    return params, AdamWState(step, state.mu, state.nu), {"grad_norm": gnorm, "lr": lr}
